@@ -5,7 +5,7 @@
 
 1. Builds the CUDA kernels from spatialvla_tpu_torch/csrc (nvcc, sm_90a).
 2. Holds each kernel against its plain PyTorch version on the card, at the
-   shapes the serving path gives it, and times both.
+   shapes the serving and training paths give it, and times both.
 3. Drives the serving path: SpatialVLAPolicy.predict on full-width
    spatialvla_4b() (SigLIP-so400m, ZoeDepth BEiT-L, Gemma2-2B with 26 layers)
    with random weights from a seed, after quantize(bits=8): three requests
@@ -13,22 +13,44 @@
    over that run must all be positive; the actions must be finite, of shape
    (4, 7), from action ids in the action block, and the greedy ids must
    follow the unfused decode path's (first token equal; equal up to the first
-   step whose margin is below 0.5).
-4. Prints the card, the kernels' JSON line, and last {"ok": true, ...}.
+   step whose margin is below 0.5). One more request runs with the
+   flash-attention prefill (use_flash_prefill=True) and is held to the
+   default path's ids under the same rule.
+4. Drives the training path: full-parameter training of full-width
+   spatialvla_4b() (fp32 masters, bf16 compute, remat, flash attention,
+   256-token loss chunks, AdamW with clipping, batch 2 x 320 built by the
+   port's processor) through train_loop for 5 steps. The flash kernels must
+   launch 2 x 26 (forward, with remat) and 26 (dq, dk/dv) times per step;
+   the metrics must be finite; the frozen LM embedding and ZoeDepth must be
+   bit-identical afterwards. Before that, one loss and gradient of the same
+   batch and weights with attn_backend="xla" is held to the flash one
+   (LOSS_BOUND, GRAD_NORM_BOUND). Then spatialvla_tiny(use_vision_zoe=True)
+   must overfit one batch through the kernels (loss down by more than 0.5 in
+   8 steps at lr 5e-3).
+5. Prints the card, the kernels' JSON line, and last {"ok": true, ...}.
 
 Needs CUDA; there is no CPU path. Imports nothing of jax.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 
 MARGIN_BOUND = 0.5  # greedy ids may differ only after a step with a smaller margin
+# flash vs xla attention on one bf16 training step of spatialvla_4b: the two
+# backends round p, the attention output and the gradients to bf16 at other
+# points (about 2^-8 relative each), through 26 layers
+LOSS_BOUND = 1e-2  # |loss_flash - loss_xla| / |loss_xla|
+GRAD_NORM_BOUND = 5e-2  # |gn_flash - gn_xla| / gn_xla
+# flash kernels against their plain versions: max|kernel - plain| / max|plain|
+FLASH_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 
 
 def fail(msg: str):
@@ -97,6 +119,13 @@ class Timer:
         return statistics.median(times)
 
 
+def record_kernel(results, name, shape, err, ms, plain_ms):
+    entry = results.setdefault(name, {"max_abs_err": 0.0, "ms": {}, "plain_ms": {}})
+    entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    if ms is not None:
+        entry["ms"][shape], entry["plain_ms"][shape] = ms, plain_ms
+
+
 def rel_err(a, b):
     a, b = a.float(), b.float()
     d = (a - b).abs().max().item()
@@ -123,9 +152,7 @@ def kernel_phases(torch, timer, results):
         return quant.quantize_int8(randn(K, N, dtype=torch.float32, std=0.02))
 
     def record(name, shape, err, ms, plain_ms):
-        entry = results.setdefault(name, {"max_abs_err": 0.0, "ms": {}, "plain_ms": {}})
-        entry["max_abs_err"] = max(entry["max_abs_err"], err)
-        entry["ms"][shape], entry["plain_ms"][shape] = ms, plain_ms
+        record_kernel(results, name, shape, err, ms, plain_ms)
 
     # q8_matvec: the action head (M = 1, 2304 -> 8194) and the down projection
     # at batch 16 (9216 -> 2304)
@@ -261,6 +288,69 @@ def kernel_phases(torch, timer, results):
     return steps
 
 
+def flash_phases(torch, timer, results):
+    """The flash forward, dq and dk/dv kernels against their plain versions:
+    the training path's shapes (B=2, T=320, 8/4 heads, D=256, softcap 50,
+    prefix 277, one row right-padded; window 4096 on even layers, none on odd
+    ones) in bf16, timed, and checked again in fp32; then T=2048 with window
+    4096, timed."""
+    from spatialvla_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    B, Nq, Nkv, D = 2, 8, 4, 256
+    cases = (  # tag, T, window, prefix, valid, dtype, timed
+        ("T320_window4096", 320, 4096, [277, 277], [320, 301], torch.bfloat16, True),
+        ("T320_global", 320, None, [277, 277], [320, 301], torch.bfloat16, True),
+        ("T320_window4096_fp32", 320, 4096, [277, 277], [320, 301], torch.float32, False),
+        ("T2048_window4096", 2048, 4096, [256, 256], [2048, 1900], torch.bfloat16, True),
+    )
+    for tag, T, window, prefix, valid, dtype, timed in cases:
+        def randn(*shape):
+            return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+        q, do = randn(B, T, Nq, D), randn(B, T, Nq, D)
+        k, v = randn(B, T, Nkv, D), randn(B, T, Nkv, D)
+        lens = [torch.tensor(x, dtype=torch.int32, device="cuda") for x in (prefix, valid, [0, 0])]
+        kw = dict(scale=D ** -0.5, logit_softcap=50.0, window=window, causal=True)
+        if not bool(fa.allowed_rows(*lens, T, T, window=window, causal=True).all()):
+            fail(f"flash {tag}: a query row has no allowed key")
+        out, lse = fa.flash_attention_fwd(q, k, v, *lens, **kw)
+        ref_out, ref_lse = fa.flash_attention_fwd_plain(q, k, v, *lens, **kw)
+        delta = fa.attention_delta(ref_out, do)
+        args = (q, k, v, do, ref_lse, delta, *lens)
+        dq = fa.flash_attention_bwd_dq(*args, **kw)
+        dk, dv = fa.flash_attention_bwd_dkv(*args, **kw)
+        ref_dq = fa.flash_attention_bwd_dq_plain(*args, **kw)
+        ref_dk, ref_dv = fa.flash_attention_bwd_dkv_plain(*args, **kw)
+        torch.cuda.synchronize()
+        tol = FLASH_TOL[str(dtype).split(".")[-1]]
+        errs = {"fwd": rel_err(out, ref_out), "dq": rel_err(dq, ref_dq),
+                "dk": rel_err(dk, ref_dk), "dv": rel_err(dv, ref_dv)}
+        lse_err = (lse - ref_lse).abs().max().item()
+        times = {}
+        if timed:
+            times = {
+                "fwd": (timer(lambda: fa.flash_attention_fwd(q, k, v, *lens, **kw)),
+                        timer(lambda: fa.flash_attention_fwd_plain(q, k, v, *lens, **kw))),
+                "dq": (timer(lambda: fa.flash_attention_bwd_dq(*args, **kw)),
+                       timer(lambda: fa.flash_attention_bwd_dq_plain(*args, **kw))),
+                "dkv": (timer(lambda: fa.flash_attention_bwd_dkv(*args, **kw)),
+                        timer(lambda: fa.flash_attention_bwd_dkv_plain(*args, **kw))),
+            }
+        print(f"flash {tag}: rel err " + " ".join(f"{k} {r:.3e}" for k, (_, r) in errs.items())
+              + f" lse max|d| {lse_err:.3e} (bound {tol}); "
+              + " ".join(f"{k} kernel {t[0]:.4f} ms plain {t[1]:.4f} ms" for k, t in times.items()),
+              flush=True)
+        if not (all(r < tol for _, r in errs.values()) and lse_err < 1e-3):
+            fail(f"flash {tag}: kernel vs plain {errs}, lse {lse_err}")
+        for name, key, err in (("flash_attention_fwd", "fwd", errs["fwd"][0]),
+                               ("flash_attention_bwd_dq", "dq", errs["dq"][0]),
+                               ("flash_attention_bwd_dkv", "dkv", max(errs["dk"][0],
+                                                                      errs["dv"][0]))):
+            ms, pms = times.get(key, (None, None))
+            record_kernel(results, name, f"B{B}_T{T}_D{D}_{tag.split('_', 1)[1]}", err, ms, pms)
+
+
 # ---------------------------------------------------------------------------
 # main path
 # ---------------------------------------------------------------------------
@@ -354,6 +444,28 @@ def main_path(torch, timer, counters):
     if agree != len(outs):
         fail("fused decode path disagrees with the unfused path beyond the margin rule")
 
+    # one request with the flash-attention prefill, held to the default path
+    from spatialvla_tpu_torch.ops import flash_attention as fa
+
+    inputs = policy.processor(images[0], instructions[0])
+    fa.flash_attention_fwd.launches = 0
+    with torch.inference_mode():
+        flash_ids, _ = sv.predict_action(
+            policy.params, cfg,
+            torch.as_tensor(inputs["input_ids"], dtype=torch.long, device="cuda"),
+            pixel_values=torch.as_tensor(inputs["pixel_values"], device="cuda"),
+            intrinsic=torch.as_tensor(inputs["intrinsic"], device="cuda"),
+            use_flash_prefill=True, return_margins=True,
+        )
+    flash_prefill_launches = fa.flash_attention_fwd.launches
+    ok = margin_rule_ok(flash_ids[0].cpu().numpy(), outs[0]["action_ids"], outs[0]["margins"])
+    print(f"flash prefill '{instructions[0]}': ids {flash_ids[0].tolist()} vs default "
+          f"{outs[0]['action_ids'].tolist()}, {flash_prefill_launches} flash forward launches "
+          f"-> {'ok' if ok else 'DIFFER'}", flush=True)
+    if not ok or flash_prefill_launches != cfg.text.num_layers:
+        fail(f"flash prefill: ids differ beyond the margin rule ({ok}) or "
+             f"{flash_prefill_launches} launches != {cfg.text.num_layers}")
+
     # warm latency of the serving entry point
     times = []
     for i in range(10):
@@ -439,7 +551,189 @@ def main_path(torch, timer, counters):
         "quantize_s": t_quant,
         "peak_mem_gib": peak_gib,
         "launches": launches,
+        "flash_prefill_launches": flash_prefill_launches,
     }
+
+
+# ---------------------------------------------------------------------------
+# training path
+# ---------------------------------------------------------------------------
+
+def training_batches(processor, cfg, n, *, batch=2, seq_len=320, seed=11):
+    """n batches from the port's processor: random frames and actions from a
+    seed, an instruction per row, the action suffix, padded to seq_len."""
+    rng = np.random.RandomState(seed)
+    size = cfg.vision.image_size
+    words = ["pick up the red cup", "open the top drawer", "put the spoon in the pot",
+             "move the block to the left of the bowl", "close the microwave"]
+    keys = ("input_ids", "attention_mask", "token_type_ids", "labels", "pixel_values", "intrinsic")
+    out = []
+    for i in range(n):
+        frames = [(rng.rand(size, size, 3) * 255).astype(np.uint8) for _ in range(batch)]
+        acts = rng.uniform(-1, 1, (batch, processor.action_chunk_size, 7))
+        acts[..., 6] = rng.randint(0, 2, acts.shape[:2])
+        enc = processor(frames, [words[(i + j) % len(words)] for j in range(batch)],
+                        suffix_actions=acts, max_length=seq_len)
+        out.append({k: enc[k] for k in keys})
+    return out
+
+
+def train_path(torch, counters, *, cfg=None, device="cuda", n_steps=5, warmup=2, seq_len=320):
+    """Full-parameter training through train_loop (see the module docstring)."""
+    from spatialvla_tpu_torch import spatialvla_4b
+    from spatialvla_tpu_torch.inference import default_processor
+    from spatialvla_tpu_torch.models import spatialvla as sv
+    from spatialvla_tpu_torch.train import (OptimizerConfig, TrainStepConfig, build_decode_luts,
+                                            init_train_state, make_loss_fn, make_optimizer,
+                                            make_train_step, trainable_mask)
+    from spatialvla_tpu_torch.train.optimizer import iter_leaves
+    from spatialvla_tpu_torch.train.train_step import batch_to_tensors
+    from spatialvla_tpu_torch.train.trainer import TrainerConfig, train_loop
+
+    cfg = cfg or spatialvla_4b()
+    processor = default_processor(cfg)
+    batches = training_batches(processor, cfg, n_steps, seq_len=seq_len)
+    t0 = time.perf_counter()
+    params = sv.init_params(cfg, generator=torch.Generator(device=device).manual_seed(0),
+                            device=device, dtype=torch.float32)
+    mask = trainable_mask(params, freeze_llm_embed=cfg.use_spatial_token, freeze_zoe=True)
+    tx = make_optimizer(OptimizerConfig(), params, mask)  # the pretrain CLI's defaults
+    luts = {k: torch.as_tensor(v, device=device)
+            for k, v in build_decode_luts(processor.action_tokenizer).items()}
+    step_cfg = TrainStepConfig(use_remat=True, compute_dtype=torch.bfloat16, attn_backend="flash",
+                               loss_chunk_size=256)
+    state = init_train_state(params, tx)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(p.numel() for _, p in iter_leaves(params))
+    flags = dict(iter_leaves(mask))
+    n_train = sum(p.numel() for path, p in iter_leaves(params) if flags[path])
+    print(f"train: {n_params / 1e9:.3f} B parameters ({n_train / 1e9:.3f} B trainable), "
+          f"init {t_init:.2f} s", flush=True)
+
+    # flash vs xla: loss and gradient norm of the same batch and weights, no update
+    def loss_and_grad_norm(backend):
+        loss_fn = make_loss_fn(cfg, dataclasses.replace(step_cfg, attn_backend=backend), luts=luts)
+        loss, _ = loss_fn(params, batch_to_tensors(batches[0], device))
+        loss.backward()
+        grads = [p.grad for _, p in iter_leaves(params) if p.grad is not None]
+        norm = torch.sqrt(torch.stack([g.float().pow(2).sum() for g in grads]).sum())
+        for _, p in iter_leaves(params):
+            p.grad = None
+        return float(loss.detach()), float(norm)
+
+    (lf, gf), (lx, gx) = loss_and_grad_norm("flash"), loss_and_grad_norm("xla")
+    d_loss, d_gn = abs(lf - lx) / abs(lx), abs(gf - gx) / gx
+    print(f"train flash vs xla (one batch, same weights): loss {lf:.6f} vs {lx:.6f} "
+          f"(rel {d_loss:.3e}, bound {LOSS_BOUND}), grad_norm {gf:.6f} vs {gx:.6f} "
+          f"(rel {d_gn:.3e}, bound {GRAD_NORM_BOUND})", flush=True)
+    if not (d_loss < LOSS_BOUND and d_gn < GRAD_NORM_BOUND):
+        fail(f"train: flash vs xla loss rel {d_loss}, grad_norm rel {d_gn}")
+
+    frozen = {path: p.detach().cpu().clone() for path, p in iter_leaves(params) if not flags[path]}
+    probe = "lm/layers/attn/q"
+    probe_before = params["lm"]["layers"]["attn"]["q"].detach().cpu().clone()
+    step = make_train_step(cfg, tx, step_cfg, luts=luts)
+    times, logged = [], []
+
+    def timed_step(state, batch):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return state, metrics
+
+    for c in counters:
+        c.launches = 0
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as out_dir:
+        state = train_loop(state=state, train_step=timed_step, batches=iter(batches),
+                           config=TrainerConfig(output_dir=out_dir, max_steps=n_steps,
+                                                log_every=1, tensorboard=False),
+                           on_metrics=lambda s, m: logged.append(m))
+    launches = {c.__name__: c.launches for c in counters}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else float("nan")
+
+    L = cfg.text.num_layers
+    want = {"flash_attention_fwd": 2 * L * n_steps, "flash_attention_bwd_dq": L * n_steps,
+            "flash_attention_bwd_dkv": L * n_steps}
+    print(f"train launches over {n_steps} steps: {launches} (want {want})", flush=True)
+    if launches != want:
+        fail(f"train: kernel launches {launches}, want {want}")
+    if len(logged) != n_steps or not all(np.isfinite(v) for m in logged for v in m.values()):
+        fail(f"train: {len(logged)} logged steps, metrics {logged}")
+    for path, before in frozen.items():
+        if not torch.equal(before, dict(iter_leaves(params))[path].detach().cpu()):
+            fail(f"train: frozen leaf {path} changed")
+    if torch.equal(probe_before, params["lm"]["layers"]["attn"]["q"].detach().cpu()):
+        fail(f"train: trainable leaf {probe} did not change")
+    steady = times[warmup:]
+    step_s = statistics.median(steady)
+    tokens = batches[0]["input_ids"].size
+    valid = statistics.mean(float(b["attention_mask"].sum()) for b in batches)
+    print(f"train: step times {[round(t * 1e3, 2) for t in times]} ms; median after {warmup} "
+          f"warm-up steps {step_s * 1e3:.2f} ms, {tokens / step_s:.1f} tokens/s "
+          f"({valid / step_s:.1f} non-pad tokens/s), peak {peak_gib:.2f} GiB; losses "
+          f"{[round(m['loss'], 4) for m in logged]}, grad_norm "
+          f"{[round(m['grad_norm'], 4) for m in logged]}", flush=True)
+    return {
+        "n_params": n_params, "n_trainable": n_train, "init_s": t_init,
+        "step_ms_all": [t * 1e3 for t in times], "step_ms_median": step_s * 1e3,
+        "tokens_per_s": tokens / step_s, "nonpad_tokens_per_s": valid / step_s,
+        "peak_mem_gib": peak_gib, "launches": launches, "metrics": logged,
+        "flash_vs_xla": {"loss": [lf, lx], "grad_norm": [gf, gx], "loss_rel": d_loss,
+                         "grad_norm_rel": d_gn},
+    }
+
+
+def tiny_overfit(torch, counters, device="cuda"):
+    """spatialvla_tiny(use_vision_zoe=True) overfits one batch through the
+    flash kernels, as tests/test_train.py:67-87 asks of the JAX package."""
+    from spatialvla_tpu_torch import spatialvla_tiny
+    from spatialvla_tpu_torch.models import spatialvla as sv
+    from spatialvla_tpu_torch.train import (OptimizerConfig, TrainStepConfig, init_train_state,
+                                            make_optimizer, make_train_step, trainable_mask)
+
+    cfg = spatialvla_tiny(use_vision_zoe=True)
+    rng = np.random.RandomState(0)
+    B, N, begin = 2, cfg.num_image_tokens, cfg.action_token_begin_idx
+    ids = np.concatenate([np.full((B, N), cfg.image_token_index), rng.randint(0, 1000, (B, 4)),
+                          rng.randint(begin, begin + cfg.spatial_token_num, (B, 6))], axis=1)
+    tt = np.zeros(ids.shape, np.int32)
+    tt[:, N + 4:] = 1
+    size = cfg.vision.image_size
+    batch = {"input_ids": ids, "attention_mask": np.ones(ids.shape, np.int32),
+             "token_type_ids": tt, "labels": np.where(tt == 0, -100, ids),
+             "pixel_values": rng.rand(B, size, size, 3).astype(np.float32),
+             "intrinsic": np.array([[60.0, 0, 28], [0, 55.0, 27], [0, 0, 1]],
+                                   np.float32)[None].repeat(B, 0)}
+    params = sv.init_params(cfg, generator=torch.Generator(device=device).manual_seed(0),
+                            device=device, dtype=torch.float32)
+    tx = make_optimizer(OptimizerConfig(learning_rate=5e-3, total_steps=50, schedule="constant",
+                                        warmup_ratio=0.02), params,
+                        trainable_mask(params, freeze_llm_embed=True))
+    step = make_train_step(cfg, tx, TrainStepConfig(use_remat=True, compute_dtype=torch.float32,
+                                                    attn_backend="flash"))
+    state = init_train_state(params, tx)
+    for c in counters:
+        c.launches = 0
+    losses = []
+    for _ in range(8):
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+    launches = {c.__name__: c.launches for c in counters}
+    print(f"tiny overfit (8 steps, lr 5e-3): losses {[round(x, 4) for x in losses]}, "
+          f"launches {launches}", flush=True)
+    if not losses[-1] < losses[0] - 0.5:
+        fail(f"tiny overfit: loss {losses[0]} -> {losses[-1]}, not lower by more than 0.5")
+    if device == "cuda" and not all(n > 0 for n in launches.values()):
+        fail(f"tiny overfit: a flash kernel was not launched ({launches})")
+    return {"losses": losses, "launches": launches}
 
 
 def main() -> int:
@@ -450,6 +744,7 @@ def main() -> int:
     try:
         from spatialvla_tpu_torch.ops import _lib
         from spatialvla_tpu_torch.ops import decode_step as ds
+        from spatialvla_tpu_torch.ops import flash_attention as fa
         from spatialvla_tpu_torch.ops import quant
     except ImportError as e:
         fail(f"cannot import spatialvla_tpu_torch ({e}); run from the repository root")
@@ -468,6 +763,7 @@ def main() -> int:
     timer = Timer(torch)
     results = {}
     steps = kernel_phases(torch, timer, results)
+    flash_phases(torch, timer, results)
 
     counters = [quant.q8_matvec, quant.q8_rmsnorm_matvec, ds.decode_attention,
                 ds.norm_residual, ds.gelu_mul]
@@ -475,29 +771,51 @@ def main() -> int:
     print(f"main path: warm predict median {path['warm_predict_ms_median']:.2f} ms "
           f"({path['actions_per_s']:.2f} actions/s), "
           f"peak {path['peak_mem_gib']:.2f} GiB | {card}", flush=True)
-    print("detail: " + json.dumps({"build_s": build_s, "decode_step_2_layers": steps,
-                                   "main_path": path, "card": card}), flush=True)
+    torch.cuda.empty_cache()
 
-    src = {
-        "q8_matvec": ("spatialvla_tpu_torch/csrc/q8_matvec.cu", "spatialvla_tpu/ops/quant.py:297"),
+    flash = [fa.flash_attention_fwd, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv]
+    train = train_path(torch, flash)
+    torch.cuda.empty_cache()
+    overfit = tiny_overfit(torch, flash)
+    print(f"train path: median step {train['step_ms_median']:.2f} ms, "
+          f"{train['tokens_per_s']:.1f} tokens/s, peak {train['peak_mem_gib']:.2f} GiB | {card}",
+          flush=True)
+    print("detail: " + json.dumps({"build_s": build_s, "decode_step_2_layers": steps,
+                                   "main_path": path, "train_path": train,
+                                   "tiny_overfit": overfit, "kernel_times": results,
+                                   "card": card}), flush=True)
+
+    dec = "spatialvla_tpu/ops/decode_step.py:375"
+    fa_src = "spatialvla_tpu_torch/csrc/flash_attention.cu"
+    src = {  # name: (source, replaces, launches on its path)
+        "q8_matvec": ("spatialvla_tpu_torch/csrc/q8_matvec.cu", "spatialvla_tpu/ops/quant.py:297",
+                      path["launches"]["q8_matvec"]),
         "q8_rmsnorm_matvec": ("spatialvla_tpu_torch/csrc/q8_matvec.cu",
-                              "spatialvla_tpu/ops/quant.py:336"),
-        "decode_attention": ("spatialvla_tpu_torch/csrc/decode.cu",
-                             "spatialvla_tpu/ops/decode_step.py:375"),
-        "norm_residual": ("spatialvla_tpu_torch/csrc/decode.cu",
-                          "spatialvla_tpu/ops/decode_step.py:375"),
-        "gelu_mul": ("spatialvla_tpu_torch/csrc/decode.cu",
-                     "spatialvla_tpu/ops/decode_step.py:375"),
+                              "spatialvla_tpu/ops/quant.py:336",
+                              path["launches"]["q8_rmsnorm_matvec"]),
+        "decode_attention": ("spatialvla_tpu_torch/csrc/decode.cu", dec,
+                             path["launches"]["decode_attention"]),
+        "norm_residual": ("spatialvla_tpu_torch/csrc/decode.cu", dec,
+                          path["launches"]["norm_residual"]),
+        "gelu_mul": ("spatialvla_tpu_torch/csrc/decode.cu", dec, path["launches"]["gelu_mul"]),
+        "flash_attention_fwd": (fa_src, "spatialvla_tpu/ops/flash_attention.py:188",
+                                train["launches"]["flash_attention_fwd"]),
+        "flash_attention_bwd_dq": (fa_src, "spatialvla_tpu/ops/flash_attention.py:340",
+                                   train["launches"]["flash_attention_bwd_dq"]),
+        "flash_attention_bwd_dkv": (fa_src, "spatialvla_tpu/ops/flash_attention.py:390",
+                                    train["launches"]["flash_attention_bwd_dkv"]),
     }
     kernels = []
-    for name, (source, replaces) in src.items():
+    for name, (source, replaces, launches) in src.items():
         r = results[name]
-        first = next(iter(r["ms"]))  # the serving path's own shape comes first
+        first = next(iter(r["ms"]))  # the path's own shape comes first
+        tol = ("max|kernel - plain| / max|plain| < 2e-2 (bf16), < 1e-4 (fp32)"
+               if name.startswith("flash") else "max|kernel - plain| / max|plain| < 1e-2")
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": path["launches"][name], "max_abs_err": r["max_abs_err"],
+            "launches": launches, "max_abs_err": r["max_abs_err"],
             "ms": r["ms"][first], "plain_ms": r["plain_ms"][first], "shape": first,
-            "tolerance": "max|kernel - plain| / max|plain| < 1e-2",
+            "tolerance": tol,
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

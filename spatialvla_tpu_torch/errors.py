@@ -4,7 +4,7 @@
 ROADMAP_ITEMS = {
     "checkpoint": "Queue A item 1, checkpoint loading",
     "serving": "Queue A item 3, serving options",
-    "flash": "Queue A item 4, flash prefill",
+    "parallel": "Queue A item 8, parallelism",
 }
 
 

@@ -1,20 +1,30 @@
 """Gemma2 decoder (port of spatialvla_tpu/models/gemma2.py).
 
 Layers are stacked along a leading axis as in the JAX tree and run as a
-Python loop over the slices (the JAX package scans them). The KV cache is a
-static (L, B, S_max, Nkv, D) buffer; ``forward`` writes the new rows into it
-IN PLACE and returns the same dict (the JAX version returns a new cache).
-Sandwich RMSNorm, attention softcap, query_pre_attn_scalar scaling,
-sqrt(hidden) embedding scale in the activation dtype and fp32 RoPE follow
-the JAX module. Quantized serving trees (fused ``qkv`` / ``gate_up``) take the
-same branches (gemma2.py:111-116, :143-146).
+Python loop over per-layer views (``unstack_layers``: one ``torch.unbind``
+per stacked tensor, whose backward stacks the 26 layer gradients once; the
+JAX package scans them). The KV cache is a static (L, B, S_max, Nkv, D)
+buffer; ``forward`` writes the new rows into it IN PLACE and returns the
+same dict (the JAX version returns a new cache). Sandwich RMSNorm, attention
+softcap, query_pre_attn_scalar scaling, sqrt(hidden) embedding scale in the
+activation dtype and fp32 RoPE follow the JAX module. Quantized serving trees
+(fused ``qkv`` / ``gate_up``) take the same branches (gemma2.py:111-116,
+:143-146).
+
+``forward_flash`` (training) and ``prefill_flash`` (serving prefill) run
+attention through the flash-attention kernels (ops/flash_attention.py).
+With ``use_remat`` each window/global layer pair is recomputed in the
+backward pass (``torch.utils.checkpoint``), as ``jax.checkpoint`` wraps the
+JAX package's pair step.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from ..ops.flash_attention import flash_attention
 from ..ops.quant import qmatmul, qnorm_matmul
 from .attention import multi_head_attention
 from .layers import gelu_tanh, normal_init, rms_norm, softcap, zeros
@@ -69,11 +79,30 @@ def layer_slice(tree, l: int):
     return tree[l]
 
 
+def unstack_layers(tree, L: int) -> List[Params]:
+    """The L per-layer views of a stacked (L, ...) tree, from one
+    ``torch.unbind`` per tensor: its backward stacks the layer gradients
+    once, where indexing each layer would add L full-size gradients."""
+    if isinstance(tree, dict):
+        parts = {k: unstack_layers(v, L) for k, v in tree.items()}
+        return [{k: v[l] for k, v in parts.items()} for l in range(L)]
+    return list(torch.unbind(tree, 0))
+
+
+def remat(fn, use_remat: bool):
+    """fn, recomputed in the backward pass when use_remat (jax.checkpoint)."""
+    if not use_remat:
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
 # ---------------------------------------------------------------------------
 # layer body
 # ---------------------------------------------------------------------------
 
-def _attention_block(lp, cfg, h, norm_w, cos, sin, mask, cache_kv, cache_position):
+def _qkv(lp, cfg, h, norm_w):
+    """q (B, T, Nq, D), k and v (B, T, Nkv, D), before RoPE, from the
+    pre-norm residual, for the plain and the fused-quantized trees."""
     B, T, H = h.shape
     Nq, Nkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     if "qkv" in lp:  # fused quantized serving tree (norm fused into the kernel)
@@ -82,9 +111,13 @@ def _attention_block(lp, cfg, h, norm_w, cos, sin, mask, cache_kv, cache_positio
     else:
         x = rms_norm(norm_w, h, cfg.rms_norm_eps)
         q, k, v = qmatmul(x, lp["q"]), qmatmul(x, lp["k"]), qmatmul(x, lp["v"])
-    q = apply_rope(q.reshape(B, T, Nq, D), cos, sin)
-    k = apply_rope(k.reshape(B, T, Nkv, D), cos, sin)
-    v = v.reshape(B, T, Nkv, D)
+    return q.reshape(B, T, Nq, D), k.reshape(B, T, Nkv, D), v.reshape(B, T, Nkv, D)
+
+
+def _attention_block(lp, cfg, h, norm_w, cos, sin, mask, cache_kv, cache_position):
+    B, T, H = h.shape
+    q, k, v = _qkv(lp, cfg, h, norm_w)
+    q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
 
     if cache_kv is not None:  # write the new rows in place, attend over the cache
         ck, cv = cache_kv
@@ -96,7 +129,7 @@ def _attention_block(lp, cfg, h, norm_w, cos, sin, mask, cache_kv, cache_positio
         q, k, v, mask, scale=cfg.query_pre_attn_scalar ** -0.5,
         logit_softcap=cfg.attn_logit_softcap,
     )
-    return qmatmul(out.reshape(B, T, Nq * D).to(h.dtype), lp["o"])
+    return qmatmul(out.reshape(B, T, -1).to(h.dtype), lp["o"])
 
 
 def _mlp_block(lp, h, norm_w, eps):
@@ -139,9 +172,12 @@ def forward(
     cache: Optional[Params] = None,
     cache_position: Optional[int] = None,  # first cache slot to write
     window_positions: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    use_remat: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Runs the decoder stack; returns (final_norm(h), cache). With a cache,
-    the rows are written into it in place and the same dict is returned."""
+    the rows are written into it in place and the same dict is returned.
+    use_remat recomputes each layer in the backward pass (training, no
+    cache)."""
     B, T, H = inputs_embeds.shape
     dev = inputs_embeds.device
     normalizer = torch.tensor(cfg.hidden_size ** 0.5, dtype=inputs_embeds.dtype, device=dev)
@@ -156,12 +192,92 @@ def forward(
         q_positions, k_positions = window_positions
     mask_global, mask_sliding = make_masks(cfg, base_mask, q_positions, k_positions)
 
-    for l in range(cfg.num_layers):
-        lp = layer_slice(params["layers"], l)
+    if use_remat and cache is not None:
+        raise ValueError("use_remat is for training; it takes no cache")
+    layer = remat(lambda h, lp, mask: _decoder_layer(cfg, h, lp, mask, cos, sin, None, start),
+                  use_remat)
+    for l, lp in enumerate(unstack_layers(params["layers"], cfg.num_layers)):
         mask = mask_sliding if l % 2 == 0 else mask_global  # even layers slide
-        cache_kv = (cache["k"][l], cache["v"][l]) if cache is not None else None
-        h = _decoder_layer(cfg, h, lp, mask, cos, sin, cache_kv, start)
+        if cache is None:
+            h = layer(h, lp, mask)
+        else:
+            h = _decoder_layer(cfg, h, lp, mask, cos, sin, (cache["k"][l], cache["v"][l]), start)
 
+    return rms_norm(params["final_norm"], h, cfg.rms_norm_eps), cache
+
+
+# ---------------------------------------------------------------------------
+# flash-attention forward (training) and serving prefill
+# ---------------------------------------------------------------------------
+
+def _attention_block_flash(lp, cfg, h, norm_w, cos, sin, prefix_lens, valid_lens, window):
+    """Attention through the flash kernels from the pre-norm residual, for
+    the plain (training, gemma2.py:202) and the fused-quantized (serving
+    prefill, :291) trees; returns (attn_out, k, v), k roped."""
+    B, T, H = h.shape
+    q, k, v = _qkv(lp, cfg, h, norm_w)
+    q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    out = flash_attention(q, k, v, prefix_lens, valid_lens, torch.zeros_like(prefix_lens),
+                          cfg.query_pre_attn_scalar ** -0.5, cfg.attn_logit_softcap, window, True)
+    return qmatmul(out.reshape(B, T, -1).to(h.dtype), lp["o"]), k, v
+
+
+def _decoder_layer_flash(cfg, h, lp, cos, sin, prefix_lens, valid_lens, window):
+    """One decoder layer through the flash kernels; returns (h, k, v)."""
+    attn_out, k, v = _attention_block_flash(lp["attn"], cfg, h, lp["input_norm"], cos, sin,
+                                            prefix_lens, valid_lens, window)
+    h = h + rms_norm(lp["post_attn_norm"], attn_out, cfg.rms_norm_eps)
+    mlp_out = _mlp_block(lp["mlp"], h, lp["pre_ffn_norm"], cfg.rms_norm_eps)
+    return h + rms_norm(lp["post_ffn_norm"], mlp_out, cfg.rms_norm_eps), k, v
+
+
+def forward_flash(params: Params, cfg, inputs_embeds: torch.Tensor, position_ids: torch.Tensor,
+                  prefix_lens: torch.Tensor, valid_lens: torch.Tensor, *,
+                  use_remat: bool = False) -> torch.Tensor:
+    """Full-sequence forward through the flash kernels (gemma2.py:247):
+    layer pairs (even layer windowed, odd global), each pair one checkpoint
+    under use_remat. prefix_lens (B,) is the bidirectional-prefix boundary
+    (0 = causal), valid_lens (B,) the right-pad boundary."""
+    L = cfg.num_layers
+    if L % 2:
+        raise ValueError("forward_flash runs window/global layer pairs: num_layers must be even")
+    normalizer = torch.tensor(cfg.hidden_size ** 0.5, dtype=inputs_embeds.dtype,
+                              device=inputs_embeds.device)
+    h = inputs_embeds * normalizer
+    cos, sin = rope_cos_sin(position_ids, cfg.head_dim, cfg.rope_theta)
+    prefix_lens = prefix_lens.to(torch.int32)
+    valid_lens = valid_lens.to(torch.int32)
+
+    def pair(h, lp0, lp1):
+        h = _decoder_layer_flash(cfg, h, lp0, cos, sin, prefix_lens, valid_lens,
+                                 cfg.sliding_window)[0]
+        return _decoder_layer_flash(cfg, h, lp1, cos, sin, prefix_lens, valid_lens, None)[0]
+
+    pair = remat(pair, use_remat)
+    layers = unstack_layers(params["layers"], L)
+    for i in range(0, L, 2):
+        h = pair(h, layers[i], layers[i + 1])
+    return rms_norm(params["final_norm"], h, cfg.rms_norm_eps)
+
+
+def prefill_flash(params: Params, cfg, inputs_embeds: torch.Tensor, position_ids: torch.Tensor,
+                  cache_len: int) -> Tuple[torch.Tensor, Params]:
+    """Serving prefill over an unpadded, fully bidirectional prefix through
+    the flash forward kernel (gemma2.py:331): returns (final-normed hidden,
+    bf16 cache) with the roped k / v rows in cache slots [0, P) and zeros
+    after."""
+    B, P, H = inputs_embeds.shape
+    dev = inputs_embeds.device
+    normalizer = torch.tensor(cfg.hidden_size ** 0.5, dtype=inputs_embeds.dtype, device=dev)
+    h = inputs_embeds * normalizer
+    cos, sin = rope_cos_sin(position_ids, cfg.head_dim, cfg.rope_theta)
+    lens = torch.full((B,), P, dtype=torch.int32, device=dev)
+    cache = init_cache(cfg, B, cache_len, device=dev, dtype=torch.bfloat16)
+    for l, lp in enumerate(unstack_layers(params["layers"], cfg.num_layers)):
+        window = cfg.sliding_window if l % 2 == 0 else None  # even layers slide
+        h, k, v = _decoder_layer_flash(cfg, h, lp, cos, sin, lens, lens, window)
+        cache["k"][l, :, :P] = k.to(torch.bfloat16)
+        cache["v"][l, :, :P] = v.to(torch.bfloat16)
     return rms_norm(params["final_norm"], h, cfg.rms_norm_eps), cache
 
 

@@ -2,7 +2,8 @@
 spatialvla_tpu/models/siglip.py): the patch conv as an unfold (reshape) and
 one matmul, pre-LN blocks with biased q/k/v, gelu-tanh MLP, a final
 post-LayerNorm; the encoder matmuls go through ``qmatmul`` so the int8
-serving tree works unchanged."""
+serving tree works unchanged. ``use_remat`` recomputes each layer in the
+backward pass (the JAX scan step under ``jax.checkpoint``)."""
 from __future__ import annotations
 
 from typing import Any, Dict
@@ -11,7 +12,7 @@ import torch
 
 from ..ops.quant import qmatmul
 from .attention import multi_head_attention
-from .gemma2 import layer_slice
+from .gemma2 import remat, unstack_layers
 from .layers import gelu_tanh, layer_norm, layer_norm_init, normal_init, ones, zeros
 
 Params = Dict[str, Any]
@@ -70,10 +71,12 @@ def _encoder_layer(cfg, h: torch.Tensor, lp: Params) -> torch.Tensor:
     return h + _linear(gelu_tanh(_linear(x2, lp["mlp"]["fc1"])), lp["mlp"]["fc2"])
 
 
-def forward(params: Params, cfg, pixel_values: torch.Tensor) -> torch.Tensor:
+def forward(params: Params, cfg, pixel_values: torch.Tensor, *,
+            use_remat: bool = False) -> torch.Tensor:
     """(B, H, W, 3) NHWC, already SigLIP-normalized -> (B, N, hidden)."""
     h = _patchify(params, cfg, pixel_values)
     h = h + params["pos_embed"].to(h.dtype)[None]
-    for l in range(cfg.num_layers):
-        h = _encoder_layer(cfg, h, layer_slice(params["layers"], l))
+    layer = remat(lambda h, lp: _encoder_layer(cfg, h, lp), use_remat)
+    for lp in unstack_layers(params["layers"], cfg.num_layers):
+        h = layer(h, lp)
     return layer_norm(params["post_ln"], h, cfg.layer_norm_eps)

@@ -1,17 +1,24 @@
-"""SpatialVLA fusion model, serving path (port of spatialvla_tpu/models/spatialvla.py):
+"""SpatialVLA fusion model (port of spatialvla_tpu/models/spatialvla.py):
 SigLIP + ZoeDepth -> Ego3D -> projector image features, the spatial-token
-embedding override, a masked Gemma2 prefill over the prefix, and greedy
-decoding restricted to the action-token block.
+embedding override, the training forward and loss, a masked or flash Gemma2
+prefill over the prefix, and greedy decoding restricted to the action-token
+block.
+
+Training: ``forward`` (spatialvla.py:195) with ``attn_backend`` "xla" (the
+masked forward) or "flash" (``gemma2.forward_flash`` through the
+flash-attention kernels); the ZoeDepth branch runs under ``torch.no_grad``
+(``jax.lax.stop_gradient`` at :139). "ring" and "pipeline" wait for the
+parallelism item of ROADMAP.md.
 
 Decoding keeps the two JAX paths and the JAX rule for choosing between them
 (spatialvla.py:474-481): the fused path (one ``fused_decode_step`` per token,
 ops/decode_step.py) for the fused-quantized tree with B <= 16 and
 S <= sliding window on CUDA tensors, else the unfused loop through
-``gemma2.forward``. Cache writes go in place.
+``gemma2.forward``. Cache writes go in place. ``use_flash_prefill`` (off by
+default, as in JAX) runs the prefill through ``gemma2.prefill_flash``.
 
-Not ported yet (ROADMAP): the flash-attention prefill (``use_flash_prefill``),
-the int8 KV cache (``kv_bits``), training forward/loss, and the split-phase
-serving functions.
+Not ported yet (ROADMAP): the int8 KV cache (``kv_bits``) and the
+split-phase serving functions.
 """
 from __future__ import annotations
 
@@ -56,6 +63,17 @@ def init_params(cfg, *, generator: torch.Generator, device, dtype=torch.float32)
     return params
 
 
+def prefix_lm_mask(attention_mask: torch.Tensor, token_type_ids: torch.Tensor) -> torch.Tensor:
+    """(B, T) pad mask + (B, T) token types (0 = prefix) -> (B, 1, T, T)
+    bool: allowed(q, k) = pad[k] & (k <= q | is_prefix[k]) (spatialvla.py:74)."""
+    T = attention_mask.shape[1]
+    pad = attention_mask.bool()
+    prefix = (token_type_ids == 0) & pad
+    causal = torch.tril(torch.ones((T, T), dtype=torch.bool, device=pad.device))
+    allowed = causal[None] | prefix[:, None, :]
+    return (allowed & pad[:, None, :])[:, None]
+
+
 def bidirectional_prefill_mask(prefix_len: int, cache_len: int, batch: int, device=None):
     """Fully bidirectional over an unpadded prefix; keys limited to written slots."""
     k_ok = torch.arange(cache_len, device=device) < prefix_len
@@ -63,10 +81,13 @@ def bidirectional_prefill_mask(prefix_len: int, cache_len: int, batch: int, devi
 
 
 def get_image_features(params: Params, cfg, pixel_values: torch.Tensor,
-                       intrinsic: Optional[torch.Tensor], *, compute_dtype=None,
+                       intrinsic: Optional[torch.Tensor], *,
+                       depth: Optional[torch.Tensor] = None, use_remat: bool = False,
+                       compute_dtype=None,
                        depth_image_size: Optional[int] = None) -> torch.Tensor:
     """(B, H, W, 3) raw [0, 1] NHWC pixels (or (B, k, H, W, 3)) -> (B, k*N,
-    lm_hidden) projected features, scaled by hidden**-0.5."""
+    lm_hidden) projected features, scaled by hidden**-0.5. ``depth`` (B, H, W)
+    overrides the ZoeDepth estimate; either way no gradient flows into it."""
     if compute_dtype is not None:
         pixel_values = pixel_values.to(compute_dtype)
     multi_obs = pixel_values.dim() == 5
@@ -75,13 +96,17 @@ def get_image_features(params: Params, cfg, pixel_values: torch.Tensor,
         pixel_values = pixel_values.reshape((B * k,) + tuple(pixel_values.shape[2:]))
         if intrinsic is not None:
             intrinsic = intrinsic.repeat_interleave(k, dim=0)
+        if depth is not None:
+            depth = depth.reshape((B * k,) + tuple(depth.shape[2:]))
     feats = siglip_mod.forward(params["vision"], cfg.vision,
-                               (pixel_values - SIGLIP_MEAN) / SIGLIP_STD)
+                               (pixel_values - SIGLIP_MEAN) / SIGLIP_STD, use_remat=use_remat)
     if cfg.use_vision_zoe:
-        depth = zoe_mod.predict_depth(
-            params["zoe"], cfg.zoe, pixel_values,
-            target_hw=tuple(pixel_values.shape[1:3]), image_size=depth_image_size,
-        )
+        with torch.no_grad():  # frozen depth branch (stop_gradient, spatialvla.py:139)
+            if depth is None:
+                depth = zoe_mod.predict_depth(
+                    params["zoe"], cfg.zoe, pixel_values,
+                    target_hw=tuple(pixel_values.shape[1:3]), image_size=depth_image_size,
+                )
         xyz = ego3d_mod.backproject_patch(
             intrinsic, depth, image_size=cfg.vision.image_size,
             patch_size=cfg.vision.patch_size, reso=cfg.ego3d.patch_reso,
@@ -116,6 +141,88 @@ def merge_input_embeddings(params: Params, cfg, input_ids: torch.Tensor,
         )
         embeds = torch.where(is_image[..., None], gathered, embeds)
     return embeds
+
+
+# ---------------------------------------------------------------------------
+# training / full forward
+# ---------------------------------------------------------------------------
+
+def forward(
+    params: Params,
+    cfg,
+    input_ids: torch.Tensor,  # (B, T)
+    *,
+    pixel_values: Optional[torch.Tensor] = None,
+    intrinsic: Optional[torch.Tensor] = None,
+    attention_mask: Optional[torch.Tensor] = None,
+    token_type_ids: Optional[torch.Tensor] = None,
+    labels: Optional[torch.Tensor] = None,
+    depth: Optional[torch.Tensor] = None,
+    use_remat: bool = False,
+    compute_dtype=None,
+    attn_backend: str = "xla",  # "xla" | "flash"
+    with_logits: bool = True,
+) -> Dict[str, torch.Tensor]:
+    """Full forward without a cache (spatialvla.py:195). Returns {'hidden'}
+    and, with_logits, 'logits' (and 'loss' with labels). "flash" derives the
+    bidirectional-prefix length from token_type_ids (the first suffix token,
+    or the valid length) as spatialvla.py:232-239 does."""
+    if attn_backend in ("ring", "pipeline"):
+        raise not_ported(f"attn_backend={attn_backend!r} (sequence / pipeline parallelism)",
+                         "parallel")
+    if attn_backend not in ("xla", "flash"):
+        raise ValueError(f"unknown attn_backend {attn_backend!r}")
+    B, T = input_ids.shape
+    if attention_mask is None:
+        attention_mask = torch.ones((B, T), dtype=torch.int32, device=input_ids.device)
+
+    image_features = None
+    if pixel_values is not None:
+        image_features = get_image_features(
+            params, cfg, pixel_values, intrinsic, depth=depth, use_remat=use_remat,
+            compute_dtype=compute_dtype,
+        )
+    embeds = merge_input_embeddings(params, cfg, input_ids, image_features, dtype=compute_dtype)
+    position_ids = torch.cumsum(attention_mask, dim=1)  # 1-indexed (PaliGemma)
+
+    if attn_backend == "flash":
+        valid_lens = attention_mask.sum(dim=1).to(torch.int32)
+        if token_type_ids is not None:
+            is_suffix = token_type_ids == 1
+            first_suffix = torch.argmax(is_suffix.to(torch.int32), dim=1).to(torch.int32)
+            prefix_lens = torch.where(is_suffix.any(dim=1), first_suffix, valid_lens)
+        else:
+            prefix_lens = torch.zeros((B,), dtype=torch.int32, device=input_ids.device)
+        hidden = gemma2_mod.forward_flash(params["lm"], cfg.text, embeds, position_ids,
+                                          prefix_lens, valid_lens, use_remat=use_remat)
+    else:
+        if token_type_ids is not None:
+            base_mask = prefix_lm_mask(attention_mask, token_type_ids)
+        else:
+            base_mask = gemma2_mod.causal_base_mask(attention_mask)
+        hidden, _ = gemma2_mod.forward(params["lm"], cfg.text, embeds, position_ids, base_mask,
+                                       use_remat=use_remat)
+    out = {"hidden": hidden}
+    if with_logits:
+        logits = gemma2_mod.compute_logits(params["lm"], cfg.text, hidden)
+        out["logits"] = logits
+        if labels is not None:
+            out["loss"] = cross_entropy_loss(logits, labels, attention_mask,
+                                             ignore_index=cfg.ignore_index)
+    return out
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       attention_mask: torch.Tensor, ignore_index: int = -100) -> torch.Tensor:
+    """Next-token CE, mean over valid targets (spatialvla.py:283): shift,
+    drop positions whose shifted attention mask is 0, ignore ignore_index."""
+    shift_labels = labels[:, 1:]
+    valid = (shift_labels != ignore_index) & (attention_mask[:, 1:] != 0)
+    safe = torch.where(valid, shift_labels, torch.zeros_like(shift_labels)).long()
+    logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    nll = torch.where(valid, nll, torch.zeros_like(nll))
+    return nll.sum() / valid.sum().clamp_min(1)
 
 
 # ---------------------------------------------------------------------------
@@ -159,13 +266,15 @@ def generate_greedy(
 
     The masked prefill of spatialvla.py:404-436: bidirectional over an
     unpadded prefix, or pad-aware (mask-cumsum positions, pad keys masked,
-    true positions for the sliding window) with ``attention_mask``. The
+    true positions for the sliding window) with ``attention_mask``; with
+    ``use_flash_prefill`` (unpadded rows only; off by default as in JAX,
+    spatialvla.py:387-391) the prefill runs through the flash kernel. The
     argmax runs over the lm_head rows of ``token_range`` (the action block on
     the serving path); the JAX package's full-vocabulary greedy and its
     ``cache_dtype`` and precomputed-``depth`` options are not ported (the
     KV cache is bf16; depth comes from ZoeDepth)."""
-    if use_flash_prefill:
-        raise not_ported("the flash-attention prefill (use_flash_prefill)", "flash")
+    if use_flash_prefill and attention_mask is not None:
+        raise ValueError("use_flash_prefill assumes unpadded rows (attention_mask=None)")
     if kv_bits:
         raise not_ported("the int8 KV cache (kv_bits)")
     B, P = input_ids.shape
@@ -180,6 +289,14 @@ def generate_greedy(
         )
     embeds = merge_input_embeddings(params, cfg, input_ids, image_features, dtype=compute_dtype)
 
+    if use_flash_prefill:
+        position_ids = torch.arange(1, P + 1, device=dev)[None].expand(B, P)
+        hidden, cache = gemma2_mod.prefill_flash(params["lm"], cfg.text, embeds, position_ids, S)
+        return _decode_after_prefill(
+            params, cfg, cache, hidden, P, S, max_new_tokens, token_range, use_fused_decode,
+            compute_dtype, valid=None, key_valid=None, k_pos_true=None,
+            return_margins=return_margins,
+        )
     cache = gemma2_mod.init_cache(cfg.text, B, S, device=dev, dtype=torch.bfloat16)
     if attention_mask is None:
         position_ids = torch.arange(1, P + 1, device=dev)[None].expand(B, P)

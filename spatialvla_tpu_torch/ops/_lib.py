@@ -25,8 +25,10 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC",
 )
+COMPILE_FLAGS = ("-c", "-Xptxas", "-v")
+LINK_FLAGS = ("-shared",)
 
 DT_F32, DT_BF16 = 0, 1
 
@@ -44,6 +46,14 @@ _SIGNATURES = {
     "norm_residual": (_P, _P, _P, _I, _P, _I, _P, _I, _I, _F, _P),
     # gu, act, M, I, stream
     "gelu_mul": (_P, _P, _I, _I, _P),
+    # q, k, v, prefix, valid, q_offset, out, lse, dtype, B, Tq, Tk, Nq, Nkv, D,
+    # scale, cap, window, causal, stream
+    "flash_fwd": (_P,) * 8 + (_I,) * 7 + (_F, _F, _I, _I, _P),
+    # q, k, v, dout, lse, delta, prefix, valid, q_offset, dq, dtype, B, Tq, Tk,
+    # Nq, Nkv, D, scale, cap, window, causal, stream
+    "flash_bwd_dq": (_P,) * 10 + (_I,) * 7 + (_F, _F, _I, _I, _P),
+    # ... dk, dv instead of dq
+    "flash_bwd_dkv": (_P,) * 11 + (_I,) * 7 + (_F, _F, _I, _I, _P),
 }
 
 
@@ -66,7 +76,7 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + COMPILE_FLAGS + LINK_FLAGS).encode())
     for src in sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -75,30 +85,44 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the kernels if this source hash has no library yet; returns
-    the library's path. The compiler's register/spill report goes to
-    ``_build/<name>.log``."""
+    the library's path. One nvcc per source, all started together, then one
+    link. The compiler's register/spill report goes to ``_build/<name>.log``."""
     path = library_path()
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sources() if p.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    nvcc = _nvcc()
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
     try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-            capture_output=True, text=True,
-        )
-        path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) building {path.name}:\n"
-                + proc.stderr[-8000:]
-            )
+        compiles = []
+        for src in sources():
+            if src.suffix != ".cu":
+                continue
+            obj = work / f"{src.stem}.o"
+            compiles.append((src, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, *COMPILE_FLAGS, "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            ), obj))
+        log, failed = [], []
+        for src, proc, _ in compiles:
+            out = proc.communicate()[0]
+            log.append(f"== {src.name}\n{out}")
+            if proc.returncode != 0:
+                failed.append(f"{src.name} ({proc.returncode}):\n{out[-8000:]}")
+        if not failed:
+            tmp = work / path.name
+            proc = subprocess.run([nvcc, *NVCC_FLAGS, *LINK_FLAGS, "-o", str(tmp),
+                                   *(str(obj) for _, _, obj in compiles)],
+                                  capture_output=True, text=True)
+            log.append(f"== link\n{proc.stdout}{proc.stderr}")
+            if proc.returncode != 0:
+                failed.append(f"link ({proc.returncode}):\n{proc.stderr[-8000:]}")
+        path.with_suffix(".log").write_text("\n".join(log))
+        if failed:
+            raise RuntimeError(f"nvcc failed building {path.name}: " + "\n".join(failed))
         os.replace(tmp, path)  # atomic: concurrent builders never see a partial file
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+        shutil.rmtree(work, ignore_errors=True)
     return path
 
 

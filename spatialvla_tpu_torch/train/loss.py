@@ -1,0 +1,62 @@
+"""Sequence-chunked cross-entropy and action metrics (port of
+spatialvla_tpu/train/loss.py).
+
+The 265k-token vocabulary makes full-sequence logits the training step's
+largest activation (B x T x V fp32). Each chunk of ``chunk_size`` positions
+projects hidden -> logits, reduces to (loss sum, argmax) and is recomputed in
+the backward pass (``torch.utils.checkpoint``, as ``jax.checkpoint`` at
+loss.py:70), so at most one chunk's logits exist at a time. The last chunk
+is shorter where the JAX package pads it with ignored labels; the sums are
+the same."""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from ..models.layers import softcap
+from ..ops.quant import qmatmul
+from .metrics import metrics_from_predictions
+
+
+def chunked_loss_and_metrics(
+    lm_params: Dict,
+    cfg,
+    hidden: torch.Tensor,  # (B, T, H) final-normed decoder output
+    labels: torch.Tensor,  # (B, T)
+    attention_mask: torch.Tensor,  # (B, T)
+    *,
+    begin_idx: int,
+    luts: Optional[Dict] = None,
+    chunk_size: int = 256,
+    ignore_index: int = -100,
+    n_translation: int = 4096,
+    n_rotation: int = 4096,
+    n_gripper: int = 2,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    head = lm_params["lm_head"] if "lm_head" in lm_params else lm_params["embed"].t()
+    targets = labels[:, 1:]
+    valid = (targets != ignore_index) & (attention_mask[:, 1:] != 0)
+
+    def chunk_stats(h, lab, ok):
+        logits = softcap(qmatmul(h, head).float(), cfg.final_logit_softcap)
+        logp = torch.log_softmax(logits, dim=-1)
+        safe = torch.where(ok, lab, torch.zeros_like(lab)).long()
+        nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+        return torch.where(ok, nll, torch.zeros_like(nll)).sum(), torch.argmax(logits, dim=-1)
+
+    loss_sum, preds = hidden.new_zeros((), dtype=torch.float32), []
+    S = hidden.shape[1] - 1
+    for c0 in range(0, S, chunk_size):
+        c1 = min(c0 + chunk_size, S)
+        part, p = checkpoint(chunk_stats, hidden[:, c0:c1], targets[:, c0:c1], valid[:, c0:c1],
+                             use_reentrant=False)
+        loss_sum = loss_sum + part
+        preds.append(p)
+    loss = loss_sum / valid.sum().clamp_min(1)
+    metrics = {"loss": loss}
+    metrics.update(metrics_from_predictions(
+        torch.cat(preds, dim=1), targets, valid, begin_idx=begin_idx,
+        n_translation=n_translation, n_rotation=n_rotation, n_gripper=n_gripper, luts=luts))
+    return loss, metrics

@@ -1,0 +1,225 @@
+"""Pretraining entry point of the port (port of
+spatialvla_tpu/train/pretrain.py): RLDS mixture pipeline (the JAX package's
+jax-free data layer) -> processor / action tokenizer -> SpatialVLA with
+random weights from ``--seed`` -> the train step on one device ->
+metrics.
+
+    python -m spatialvla_tpu_torch.train.pretrain \\
+        --data_root_dir /data/oxe --mixture bridge \\
+        --output_dir out/pretrain --max_steps 100000
+
+Not ported yet (ROADMAP.md): ``--init_checkpoint`` and checkpoint saving
+(the checkpoint item), meshes larger than one device, multi-host launch
+flags and the "ring" / "pipeline" backends (the parallelism item).
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+
+import torch
+
+from ..errors import not_ported
+
+
+def build_argparser():
+    """The JAX CLI's flags (pretrain.py:26) but the checkpoint-saving and
+    pipeline-microbatch ones, plus ``--device``."""
+    import argparse
+
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--data_root_dir", type=str, required=True)
+    p.add_argument("--mixture", type=str, default="bridge")
+    p.add_argument("--shuffle_buffer_size", type=int, default=8192)
+    p.add_argument("--obs_backward_steps", type=int, default=0)
+    p.add_argument("--obs_backward_delta", type=int, default=1)
+    p.add_argument("--action_forward_steps", type=int, default=3)
+    p.add_argument("--image_size", type=int, default=224)
+    p.add_argument("--seq_len", type=int, default=320)
+    p.add_argument("--no_augment", action="store_true")
+    p.add_argument("--camera_views", type=str, default="primary")
+    p.add_argument("--load_depth", action="store_true")
+    p.add_argument("--model_preset", type=str, default="spatialvla_4b",
+                   choices=["spatialvla_4b", "spatialvla_tiny"])
+    p.add_argument("--init_checkpoint", type=str, default=None)
+    p.add_argument("--action_config", type=str, default=None)
+    p.add_argument("--gs_params", type=str, default=None)
+    p.add_argument("--intrinsics", type=str, default=None)
+    p.add_argument("--tokenizer_path", type=str, default=None)
+    p.add_argument("--prompt_template", type=str, default=None)
+    p.add_argument("--min_sigma", type=float, default=0.0)
+    p.add_argument("--freeze_vision_tower", action="store_true")
+    p.add_argument("--no_freeze_llm_embed", action="store_true")
+    p.add_argument("--no_vision_zoe", action="store_true")
+    p.add_argument("--flash_attn", dest="attn_backend", action="store_const",
+                   const="flash", default="flash")
+    p.add_argument("--attn_backend", type=str, choices=["xla", "flash", "ring", "pipeline"])
+    p.add_argument("--per_device_batch_size", type=int, default=2)
+    p.add_argument("--grad_accum", type=int, default=1)
+    p.add_argument("--learning_rate", type=float, default=2e-5)
+    p.add_argument("--warmup_ratio", type=float, default=0.005)
+    p.add_argument("--weight_decay", type=float, default=0.0)
+    p.add_argument("--max_steps", type=int, default=100_000)
+    p.add_argument("--no_remat", action="store_true")
+    p.add_argument("--loss_chunk_size", type=int, default=256,
+                   help="sequence-chunked CE (0 = full logits)")
+    p.add_argument("--mesh_data", type=int, default=1)
+    p.add_argument("--mesh_fsdp", type=int, default=-1,
+                   help="-1 (all devices) and 1 both mean the one device here")
+    p.add_argument("--mesh_model", type=int, default=1)
+    p.add_argument("--mesh_sp", type=int, default=1)
+    p.add_argument("--mesh_pp", type=int, default=1)
+    p.add_argument("--loader_workers", type=int, default=1)
+    p.add_argument("--output_dir", type=str, required=True)
+    p.add_argument("--logging_steps", type=int, default=500)
+    p.add_argument("--profile_steps", type=int, nargs=2, default=None)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--coordinator_address", type=str, default=None)
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
+    p.add_argument("--device", type=str, default=None,
+                   help="torch device (default: cuda when available, else cpu)")
+    return p
+
+
+def _check_ported(args):
+    meshes = {"--mesh_data": args.mesh_data, "--mesh_fsdp": args.mesh_fsdp,
+              "--mesh_model": args.mesh_model, "--mesh_sp": args.mesh_sp,
+              "--mesh_pp": args.mesh_pp}
+    big = [f"{k} {v}" for k, v in meshes.items() if v not in (-1, 1)]
+    if big or args.attn_backend in ("ring", "pipeline"):
+        raise not_ported(f"multi-device training ({', '.join(big) or args.attn_backend})",
+                         "parallel")
+    if args.coordinator_address or args.num_processes or args.process_id is not None:
+        raise not_ported("multi-host launch flags", "parallel")
+    if args.init_checkpoint:
+        raise not_ported("--init_checkpoint", "checkpoint")
+
+
+def build_everything(args):
+    from spatialvla_tpu.action import DEFAULT_NUM_BINS, SpatialActionTokenizer
+    from spatialvla_tpu.config import spatialvla_4b, spatialvla_tiny
+    from spatialvla_tpu.data import (FrameTransformConfig, InterleavedRLDSDataset,
+                                     TrajTransformConfig, VLABatcher)
+    from spatialvla_tpu.data.statistics import save_dataset_statistics
+    from spatialvla_tpu.processor.text_tokenizer import load_text_tokenizer
+
+    from ..models import spatialvla
+    from ..processor import SpatialVLAProcessor
+    from . import (OptimizerConfig, TrainStepConfig, build_decode_luts, init_train_state,
+                   make_optimizer, make_train_step, trainable_mask)
+    from .optimizer import iter_leaves
+
+    _check_ported(args)
+    device = torch.device(args.device or ("cuda" if torch.cuda.is_available() else "cpu"))
+    cfg = spatialvla_4b() if args.model_preset == "spatialvla_4b" else spatialvla_tiny()
+    if args.no_vision_zoe:
+        cfg = dataclasses.replace(cfg, use_vision_zoe=False, zoe=None)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = spatialvla.init_params(cfg, generator=gen, device=device, dtype=torch.float32)
+
+    ds = InterleavedRLDSDataset(
+        args.mixture, args.data_root_dir,
+        traj_config=TrajTransformConfig(backward_window_size=args.obs_backward_steps,
+                                        backward_delta=args.obs_backward_delta,
+                                        forward_window_size=args.action_forward_steps),
+        frame_config=FrameTransformConfig(resize_size=(args.image_size, args.image_size),
+                                          augment=not args.no_augment),
+        shuffle_buffer_size=args.shuffle_buffer_size, seed=args.seed, shard_by_rank=(0, 1),
+        load_camera_views=tuple(args.camera_views.split(",")), load_depth=args.load_depth,
+    )
+    gs_params = json.load(open(args.gs_params)) if args.gs_params else None
+    action_config = (json.load(open(args.action_config)) if args.action_config
+                     else {"num_bins": DEFAULT_NUM_BINS, "use_spherical": True})
+    intrinsic_config = json.load(open(args.intrinsics)) if args.intrinsics else None
+    action_tokenizer = SpatialActionTokenizer(
+        num_bins=action_config["num_bins"], gs_params=gs_params,
+        use_spherical=action_config.get("use_spherical", True), min_sigma=args.min_sigma,
+        token_begin_idx=cfg.action_token_begin_idx,
+    )
+    if args.tokenizer_path is None:
+        print("WARNING: no --tokenizer_path given; using the byte-level test tokenizer. The "
+              "trained model's text interface will NOT be compatible with reference "
+              "(PaliGemma2) checkpoints.")
+    processor = SpatialVLAProcessor(
+        load_text_tokenizer(args.tokenizer_path), action_tokenizer=action_tokenizer,
+        image_token_id=cfg.image_token_index, action_token_begin_idx=cfg.action_token_begin_idx,
+        image_seq_length=cfg.num_image_tokens, image_size=args.image_size,
+        statistics=ds.statistics, intrinsic_config=intrinsic_config,
+        action_config=action_config, action_chunk_size=args.action_forward_steps + 1,
+        min_sigma=args.min_sigma,
+    )
+
+    mask = trainable_mask(params,
+                          freeze_llm_embed=not args.no_freeze_llm_embed and cfg.use_spatial_token,
+                          freeze_vision=args.freeze_vision_tower, freeze_zoe=True)
+    tx = make_optimizer(OptimizerConfig(learning_rate=args.learning_rate,
+                                        warmup_ratio=args.warmup_ratio,
+                                        total_steps=args.max_steps,
+                                        weight_decay=args.weight_decay), params, mask)
+    flags = dict(iter_leaves(mask))
+    total, trainable = 0, {}
+    for path, p in iter_leaves(params):
+        total += p.numel()
+        if flags[path]:
+            top = path.split("/")[0]
+            trainable[top] = trainable.get(top, 0) + p.numel()
+    print(f"params: {total / 1e6:.1f}M total; trainable by module: "
+          + ", ".join(f"{k}={v / 1e6:.1f}M" for k, v in trainable.items()))
+    luts = {k: torch.as_tensor(v, device=device)
+            for k, v in build_decode_luts(action_tokenizer).items()}
+    step = make_train_step(cfg, tx, TrainStepConfig(
+        use_remat=not args.no_remat, compute_dtype=torch.bfloat16, micro_steps=args.grad_accum,
+        attn_backend=args.attn_backend or "flash", loss_chunk_size=args.loss_chunk_size,
+    ), luts=luts)
+    state = init_train_state(params, tx)
+    batcher = VLABatcher(processor, batch_size=args.per_device_batch_size * args.grad_accum,
+                         seq_len=args.seq_len, prompt_template=args.prompt_template)
+
+    def batches():
+        if args.loader_workers > 1:
+            from spatialvla_tpu.data.mploader import ProcessShardedFrameLoader
+
+            frames = ProcessShardedFrameLoader(dict(
+                mixture=args.mixture, data_dir=args.data_root_dir, traj_config=ds.traj_config,
+                frame_config=ds.frame_config, shuffle_buffer_size=args.shuffle_buffer_size,
+                seed=args.seed, shard_by_rank=(0, 1), statistics_override=ds.statistics,
+                load_camera_views=tuple(args.camera_views.split(",")),
+                load_depth=args.load_depth,
+            ), num_workers=args.loader_workers).frames()
+        else:
+            frames = ds.frames()
+        for batch in batcher.batches(frames):
+            batch.pop("actions", None)
+            if args.grad_accum > 1:
+                batch = {k: v.reshape((args.grad_accum, -1) + v.shape[1:])
+                         for k, v in batch.items()}
+            yield batch
+
+    os.makedirs(args.output_dir, exist_ok=True)
+    processor.save(args.output_dir)
+    save_dataset_statistics(ds.statistics, f"{args.output_dir}/ds_stats.json")
+    with open(f"{args.output_dir}/config.json", "w") as f:
+        f.write(cfg.to_json())
+    return dict(cfg=cfg, state=state, step=step, batches=batches(), processor=processor,
+                dataset=ds, device=device)
+
+
+def main(argv=None):
+    from .trainer import TrainerConfig, train_loop
+
+    args = build_argparser().parse_args(argv)
+    parts = build_everything(args)
+    config = TrainerConfig(
+        output_dir=args.output_dir, max_steps=args.max_steps, log_every=args.logging_steps,
+        profile_steps=tuple(args.profile_steps) if args.profile_steps else None,
+    )
+    print("note: checkpoints are not written yet (ROADMAP.md, "
+          "Queue A item 1, checkpoint loading)", flush=True)
+    return train_loop(state=parts["state"], train_step=parts["step"], batches=parts["batches"],
+                      config=config)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,122 @@
+"""The step loop around the train step (port of
+spatialvla_tpu/train/trainer.py): host batches -> train_step -> metrics
+(JSONL, stdout and TensorBoard scalar events), with a ``torch.profiler``
+trace over an optional step window. Checkpoints are not ported yet
+(ROADMAP.md): passing a ``checkpoint_manager`` raises."""
+from __future__ import annotations
+
+import dataclasses
+import importlib.util
+import json
+import os
+import time
+from pathlib import Path
+from typing import Any, Callable, Dict, Iterator, Optional
+
+import torch
+
+from ..errors import not_ported
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    output_dir: str = "output"
+    max_steps: int = 1000
+    log_every: int = 50
+    profile_steps: Optional[tuple] = None  # (start, stop) step window
+    tensorboard: bool = True  # also write events.out.tfevents scalars
+
+
+def _summary_writer_class():
+    """The JAX package's jax-free TensorBoard writer (train/tb_writer.py),
+    loaded from its file: importing it as spatialvla_tpu.train.tb_writer would
+    run spatialvla_tpu/train/__init__.py, which imports optax and jax."""
+    import spatialvla_tpu
+
+    path = Path(spatialvla_tpu.__file__).parent / "train" / "tb_writer.py"
+    spec = importlib.util.spec_from_file_location("spatialvla_tpu.train.tb_writer", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.SummaryWriter
+
+
+class MetricsLogger:
+    """metrics.jsonl + a stdout line per logged step + (optionally)
+    TensorBoard scalar events under <output_dir>/tb."""
+
+    def __init__(self, output_dir: str, *, tensorboard: bool = False):
+        os.makedirs(output_dir, exist_ok=True)
+        self.path = os.path.join(output_dir, "metrics.jsonl")
+        self._f = open(self.path, "a")
+        self._tb = _summary_writer_class()(os.path.join(output_dir, "tb")) if tensorboard else None
+
+    def log(self, step: int, metrics: Dict[str, Any]):
+        row = {"step": int(step)}
+        for k, v in metrics.items():
+            try:
+                row[k] = float(v)
+            except (TypeError, ValueError):
+                continue
+        self._f.write(json.dumps(row) + "\n")
+        self._f.flush()
+        if self._tb is not None:
+            self._tb.add_scalars(row["step"], {k: v for k, v in row.items() if k != "step"})
+            self._tb.flush()
+        parts = " ".join(f"{k}={v:.4f}" for k, v in row.items() if k != "step")
+        print(f"[step {row['step']}] {parts}", flush=True)
+
+    def close(self):
+        self._f.close()
+        if self._tb is not None:
+            self._tb.close()
+
+
+def train_loop(*, state, train_step: Callable, batches: Iterator[Dict[str, Any]],
+               config: TrainerConfig, checkpoint_manager=None,
+               on_metrics: Optional[Callable] = None):
+    """Runs the loop; returns the final state.
+
+    step signature: train_step(state, batch) -> (state, metrics). Metrics
+    are read back to the host (a device sync) only on logged steps: every
+    ``log_every`` steps and the first; ``on_metrics(step, metrics)`` then
+    sees them too."""
+    if checkpoint_manager is not None:
+        raise not_ported("checkpoints in the training loop (checkpoint_manager)", "checkpoint")
+    logger = MetricsLogger(config.output_dir, tensorboard=config.tensorboard)
+    start_step = int(state["step"])
+    t_last, step_last = time.perf_counter(), start_step
+    profiler = None
+    for step in range(start_step, config.max_steps):
+        window = config.profile_steps
+        if window and profiler is None and window[0] <= step < window[1]:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            profiler = torch.profiler.profile(activities=activities)
+            profiler.__enter__()
+        batch = next(batches, None)
+        if batch is None:
+            break
+        state, metrics = train_step(state, batch)
+        if profiler is not None and step + 1 >= window[1]:
+            profiler = _stop_profiler(profiler, config.output_dir)
+        if (step + 1) % config.log_every == 0 or step == start_step:
+            metrics = {k: float(v) for k, v in metrics.items()}  # sync
+            now = time.perf_counter()
+            n_steps = step + 1 - step_last
+            metrics["steps_per_sec"] = n_steps / (now - t_last) if step > start_step else 0.0
+            t_last, step_last = now, step + 1
+            logger.log(step + 1, metrics)
+            if on_metrics is not None:
+                on_metrics(step + 1, metrics)
+    if profiler is not None:  # the loop ended inside the window
+        _stop_profiler(profiler, config.output_dir)
+    logger.close()
+    return state
+
+
+def _stop_profiler(profiler, output_dir: str):
+    profiler.__exit__(None, None, None)
+    os.makedirs(os.path.join(output_dir, "traces"), exist_ok=True)
+    profiler.export_chrome_trace(os.path.join(output_dir, "traces", "trace.json"))
+    return None

@@ -202,3 +202,92 @@ def test_tiny_predict_goes_through_the_kernels():
         if margins[t] < 0.5:
             break
         assert ids[t] == ref[t]
+
+
+# ---------------------------------------------------------------------------
+# flash attention (training path): forward, dq and dk/dv kernels
+# ---------------------------------------------------------------------------
+
+from spatialvla_tpu_torch.ops import flash_attention as fa  # noqa: E402
+
+# name: (B, Tq, Tk, Nq, Nkv, softcap, window, prefix, valid, q_offset)
+FLASH_CASES = {
+    "causal_gqa_softcap": (2, 64, 64, 8, 4, 50.0, None, [0, 0], [64, 64], [0, 0]),
+    "prefix_padding": (2, 96, 96, 8, 4, 50.0, None, [40, 77], [96, 81], [0, 0]),
+    "window": (2, 96, 96, 4, 1, None, 17, [0, 0], [96, 96], [0, 0]),
+    "window_prefix": (2, 96, 96, 8, 2, 30.0, 24, [50, 3], [90, 96], [0, 0]),
+    "ragged": (2, 77, 77, 6, 3, 50.0, 33, [13, 0], [77, 70], [0, 0]),
+    "q_offset": (2, 37, 101, 8, 4, 50.0, 40, [5, 0], [101, 90], [64, 50]),
+    # the training path: prefix 277 of 320, one row right-padded
+    "path_global": (2, 320, 320, 8, 4, 50.0, None, [277, 277], [320, 301], [0, 0]),
+    "path_window": (2, 320, 320, 8, 4, 50.0, 4096, [277, 277], [320, 301], [0, 0]),
+}
+# fp32: summation order only; bf16: plus the rounding of p relative to the
+# running max (kernel) or the final max (plain) and the bf16 outputs
+FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _flash_inputs(name, D, dtype, seed=0):
+    B, Tq, Tk, Nq, Nkv, cap, window, prefix, valid, qoff = FLASH_CASES[name]
+    g = _gen(seed)
+    q, do = _randn(g, B, Tq, Nq, D, dtype=dtype), _randn(g, B, Tq, Nq, D, dtype=dtype)
+    k, v = _randn(g, B, Tk, Nkv, D, dtype=dtype), _randn(g, B, Tk, Nkv, D, dtype=dtype)
+    lens = [torch.tensor(x, dtype=torch.int32, device=DEV) for x in (prefix, valid, qoff)]
+    kw = dict(scale=D ** -0.5, logit_softcap=cap, window=window, causal=True)
+    rows = fa.allowed_rows(*lens, Tq, Tk, window=window, causal=True)
+    assert rows.all()
+    return (q, k, v, do), lens, kw
+
+
+@pytest.mark.parametrize("name", list(FLASH_CASES))
+@pytest.mark.parametrize("D", [32, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernels(name, D, dtype):
+    (q, k, v, do), lens, kw = _flash_inputs(name, D, dtype)
+    counters = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+    before = [c.launches for c in counters]
+    out, lse = fa.flash_attention_fwd(q, k, v, *lens, **kw)
+    ref_out, ref_lse = fa.flash_attention_fwd_plain(q, k, v, *lens, **kw)
+    assert out.dtype == dtype and out.shape == q.shape and lse.shape == ref_lse.shape
+    tol = FLASH_TOL[dtype]
+    assert _rel(out, ref_out) < tol
+    assert (lse - ref_lse).abs().max().item() < 1e-3
+    # the backward kernels from the plain forward's LSE, so each is held alone
+    delta = fa.attention_delta(ref_out, do)
+    args = (q, k, v, do, ref_lse, delta, *lens)
+    dq = fa.flash_attention_bwd_dq(*args, **kw)
+    dk, dv = fa.flash_attention_bwd_dkv(*args, **kw)
+    assert [c.launches for c in counters] == [b + 1 for b in before]
+    assert _rel(dq, fa.flash_attention_bwd_dq_plain(*args, **kw)) < tol
+    ref_dk, ref_dv = fa.flash_attention_bwd_dkv_plain(*args, **kw)
+    assert dk.dtype == dtype and dk.shape == k.shape
+    assert _rel(dk, ref_dk) < tol
+    assert _rel(dv, ref_dv) < tol
+
+
+def test_flash_attention_autograd_on_the_card():
+    """The autograd Function launches the forward once and each backward
+    kernel once, and its gradients follow autograd through the reference."""
+    (q, k, v, do), lens, kw = _flash_inputs("prefix_padding", 64, torch.float32, seed=1)
+    grads = []
+    for fn in (
+        lambda q, k, v: fa.flash_attention(q, k, v, *lens, kw["scale"], kw["logit_softcap"],
+                                           kw["window"], True),
+        lambda q, k, v: fa.attention_reference(q, k, v, *lens, **kw),
+    ):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*leaves)
+        out.backward(do)
+        grads.append([out.detach()] + [t.grad for t in leaves])
+    for a, b in zip(*grads):
+        assert _rel(a, b) < 1e-4
+
+
+def test_flash_attention_rejects_unsupported_shapes():
+    z = lambda *s: torch.zeros(s, device=DEV)  # noqa: E731
+    lens = [torch.zeros(1, dtype=torch.int32, device=DEV)] * 3
+    with pytest.raises(ValueError, match="multiple of 16"):
+        fa.flash_attention_fwd(z(1, 4, 2, 24), z(1, 4, 1, 24), z(1, 4, 1, 24), *lens, scale=1.0)
+    with pytest.raises(TypeError, match="int32"):
+        fa.flash_attention_fwd(z(1, 4, 2, 32), z(1, 4, 1, 32), z(1, 4, 1, 32),
+                               *[t.long() for t in lens], scale=1.0)

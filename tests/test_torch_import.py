@@ -1,5 +1,5 @@
-"""The port never loads jax, and its image step needs no PIL for frames that
-already have the model's size.
+"""The port never loads jax or optax, and its image step needs no PIL for
+frames that already have the model's size.
 
 A fresh interpreter (this test process has jax loaded) imports every module
 of spatialvla_tpu_torch with PIL blocked, runs a tiny predict, and reports
@@ -38,6 +38,7 @@ except ValueError as e:
 print(json.dumps({
     "modules": mods,
     "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))),
+    "optax": sorted(m for m in sys.modules if m == "optax" or m.startswith("optax.")),
     "actions_shape": list(np.asarray(out["actions"]).shape),
     "finite": bool(np.isfinite(out["actions"]).all()),
     "ids": np.asarray(out["action_ids"]).tolist(),
@@ -56,9 +57,11 @@ def child():
 
 
 def test_port_imports_no_jax(child):
-    assert "spatialvla_tpu_torch.ops.decode_step" in child["modules"]
-    assert "spatialvla_tpu_torch.models.zoe" in child["modules"]
+    for m in ("ops.decode_step", "ops.flash_attention", "models.zoe", "train.train_step",
+              "train.optimizer", "train.trainer", "train.pretrain"):
+        assert f"spatialvla_tpu_torch.{m}" in child["modules"]
     assert child["jax"] == []
+    assert child["optax"] == []
 
 
 def test_tiny_predict_without_pil(child):

@@ -7,7 +7,10 @@ numpy-seeded weights and inputs, on spatialvla_tiny(use_vision_zoe=True):
 * the window widened so the fused decode path applies: the port's fused
   path, forced on the CPU (the kernels' plain versions), against JAX
   predict_action under the same rule;
-* SpatialVLAPolicy.predict / predict_batch against the JAX policy.
+* SpatialVLAPolicy.predict / predict_batch against the JAX policy;
+* the flash-attention prefill (use_flash_prefill=True): fp32 ids identical
+  to JAX's flash prefill and to the port's masked prefill; on the int8 tree
+  in bf16, JAX's ids under the margin rule.
 
 Margin rule (bf16): the first token must match exactly, and ids must be
 equal up to the first step whose JAX argmax margin (top1 - top2 logit) is
@@ -221,10 +224,31 @@ def test_policy_predict_int8_margin_rule(params):
     (lambda p: p.quantize(bits=4), "item 3"),
     (lambda p: p.quantize(mlp_bits=4), "item 3"),
     (lambda p: p.quantize(group_size=128), "item 3"),
-    (lambda p: tsv.predict_action(p.params, CFG, torch.zeros((1, 4), dtype=torch.long),
-                                  use_flash_prefill=True), "item 4"),
+    (lambda p: tsv.forward(p.params, CFG, torch.zeros((1, 4), dtype=torch.long),
+                           attn_backend="ring"), "item 8"),
 ])
 def test_unported_surfaces_name_their_roadmap_item(call, item):
     policy = SpatialVLAPolicy({}, CFG, default_processor(CFG), device="cpu")
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md, Queue A {item}"):
         call(policy)
+
+
+def test_flash_prefill_matches_jax_and_the_masked_prefill(params, serving):
+    ids, px, K, _ = _inputs(2, seed=4)
+    tp = from_numpy_tree(params)
+    ids_j, _ = jsv.predict_action(
+        params, CFG, jnp.asarray(ids), pixel_values=jnp.asarray(px), intrinsic=jnp.asarray(K),
+        compute_dtype=jnp.float32, use_flash_prefill=True, return_margins=True)
+    ids_flash, _ = _port_predict(tp, CFG, ids, px, K, None, torch.float32, use_flash_prefill=True)
+    ids_masked, _ = _port_predict(tp, CFG, ids, px, K, None, torch.float32)
+    np.testing.assert_array_equal(ids_flash.numpy(), np.asarray(ids_j))
+    np.testing.assert_array_equal(ids_flash.numpy(), ids_masked.numpy())
+    jq, tq = serving
+    ids_j, m_j = jsv.predict_action(
+        jq, CFG, jnp.asarray(ids), pixel_values=jnp.asarray(px), intrinsic=jnp.asarray(K),
+        compute_dtype=jnp.bfloat16, use_flash_prefill=True, return_margins=True)
+    ids_t, _ = _port_predict(tq, CFG, ids, px, K, None, torch.bfloat16, use_flash_prefill=True)
+    assert_margin_rule(ids_t, ids_j, m_j)
+    with pytest.raises(ValueError, match="unpadded"):
+        _port_predict(tp, CFG, ids, px, K, np.ones(ids.shape, np.int32), torch.float32,
+                      use_flash_prefill=True)
