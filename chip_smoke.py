@@ -5,8 +5,19 @@
 
 1. Builds the CUDA kernels from spatialvla_tpu_torch/csrc (nvcc, sm_90a).
 2. Holds each kernel against its plain PyTorch version on the card, at the
-   shapes the serving and training paths give it, and times both.
-3. Drives the serving path: SpatialVLAPolicy.predict on full-width
+   shapes the serving and training paths give it, and times both, beside
+   the least time the card could take (bytes over 3.35 TB/s or operations
+   over 989 TFLOP/s) and one PyTorch call computing the same function where
+   there is one (torch._weight_int8pack_mm, torch._weight_int4pack_mm): the
+   int8 and int4 matvecs (per channel and in 128-column groups, 1, 16 and
+   277 rows; 16- and 24-column groups checked untimed), the bf16- and
+   int8-cache decode attention, norm_residual, gelu_mul, a 2-layer decode
+   step, the flash kernels.
+3. The decode-step matrix of bench.py:111-160 at full width (26 layers,
+   M = 16, S = 332, per-row positions): {int8, int4, int4-g128, int8+mlp4}
+   x {bf16, int8} KV cache, the fused step against the masked forward on the
+   same tree (relative drift below 0.05 / 0.08).
+4. Drives the serving path: SpatialVLAPolicy.predict on full-width
    spatialvla_4b() (SigLIP-so400m, ZoeDepth BEiT-L, Gemma2-2B with 26 layers)
    with random weights from a seed, after quantize(bits=8): three requests
    and one right-padded predict_batch of two rows. The kernels' launch counts
@@ -16,7 +27,14 @@
    step whose margin is below 0.5). One more request runs with the
    flash-attention prefill (use_flash_prefill=True) and is held to the
    default path's ids under the same rule.
-4. Drives the training path: full-parameter training of full-width
+5. The same entry point after quantize(bits=4), quantize(bits=8, mlp_bits=4,
+   kv_bits=8) (plus a 16-row predict_batch) and quantize(bits=4,
+   group_size=128, vision_bits=4): a warm-up and five timed requests each,
+   the launches of one request (the int4 kernels in the prefill and every
+   decode step, the int8-cache attention 26 x 11 times), and two requests'
+   ids under the margin rule against the unfused path and the served path
+   with the q4 wrappers' plain versions, or the bf16 cache.
+6. Drives the training path: full-parameter training of full-width
    spatialvla_4b() (fp32 masters, bf16 compute, remat, flash attention,
    256-token loss chunks, AdamW with clipping, batch 2 x 320 built by the
    port's processor) through train_loop for 5 steps. The flash kernels must
@@ -27,12 +45,13 @@
    (LOSS_BOUND, GRAD_NORM_BOUND). Then spatialvla_tiny(use_vision_zoe=True)
    must overfit one batch through the kernels (loss down by more than 0.5 in
    8 steps at lr 5e-3).
-5. Prints the card, the kernels' JSON line, and last {"ok": true, ...}.
+7. Prints the card, the kernels' JSON line, and last {"ok": true, ...}.
 
 Needs CUDA; there is no CPU path. Imports nothing of jax.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -119,11 +138,89 @@ class Timer:
         return statistics.median(times)
 
 
-def record_kernel(results, name, shape, err, ms, plain_ms):
-    entry = results.setdefault(name, {"max_abs_err": 0.0, "ms": {}, "plain_ms": {}})
+# the H100 SXM's published peaks (NVIDIA data sheet): HBM3 bytes/s and dense
+# bf16 tensor-core operations/s; the bound of a call is the larger of its
+# bytes (each input read once, each output written once) and its operations
+# over these rates
+HBM_BYTES_PER_S = 3.35e12
+BF16_OPS_PER_S = 989e12
+
+
+def bound(nbytes: float, ops: float):
+    """(least ms the card could take, "bytes" or "operations")."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def record_kernel(results, name, shape, err, ms, plain_ms, *, nbytes=None, ops=None,
+                  library_ms=None):
+    """One timed (or, with ms None, only checked) shape of a kernel; the
+    first timed shape of each kernel is its main path's shape."""
+    entry = results.setdefault(name, {"max_abs_err": 0.0, "ms": {}, "plain_ms": {},
+                                      "bound": {}, "library_ms": {}})
     entry["max_abs_err"] = max(entry["max_abs_err"], err)
     if ms is not None:
         entry["ms"][shape], entry["plain_ms"][shape] = ms, plain_ms
+        entry["bound"][shape] = bound(nbytes, ops)
+        entry["library_ms"][shape] = library_ms
+
+
+def nbytes_of(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def library_int8pack(torch, timer, x, qt, scale):
+    """torch._weight_int8pack_mm (x bf16 @ int8 (N, K)^T * bf16 per-channel
+    scale): the one PyTorch call that computes q8_matvec's function, where
+    this build has its CUDA kernel. Returns (ms, rel err vs the plain
+    version) or (None, the reason)."""
+    s16 = scale.to(torch.bfloat16)
+    x16 = x.to(torch.bfloat16)
+    try:
+        y = torch._weight_int8pack_mm(x16, qt, s16)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError, AttributeError) as e:
+        return None, f"torch._weight_int8pack_mm unavailable on CUDA here: {str(e)[:120]}"
+    from spatialvla_tpu_torch.ops import quant
+
+    _, r = rel_err(y, quant.q8_matvec_plain(x, qt, scale))
+    return timer(lambda: torch._weight_int8pack_mm(x16, qt, s16)), f"rel err {r:.2e} vs plain"
+
+
+def library_int4pack(torch, timer, x, qt, scale):
+    """torch._weight_int4pack_mm (x bf16 @ ((c - 8) * scale + zero)^T, c the
+    biased 4-bit codes, bf16 scales and zeros per group of 32-256 columns):
+    q4_matvec's function with zero = 0, once the weight is repacked to its
+    layout outside the timer (adjacent columns per byte, high nibble first,
+    then _convert_weight_to_int4pack's tiles). Per-channel scales repeat over
+    256-column groups; 128-column groups map one to one. N is padded to a
+    multiple of 8 with zero channels, as its tiles need. Returns (ms, a note
+    with the rel err vs the plain version and the padding) or (None, the
+    reason)."""
+    from spatialvla_tpu_torch.ops import quant
+
+    N, K = qt.shape[0], 2 * qt.shape[1]
+    w32 = qt.to(torch.int32)
+    codes = torch.cat([w32 & 15, w32 >> 4], dim=-1)  # (N, K) biased, column order
+    gsize = K // scale.shape[1] if scale.dim() == 2 else (256 if K % 256 == 0 else 128)
+    s = scale.float() if scale.dim() == 2 else scale.float()[:, None].expand(N, K // gsize)
+    pad = -N % 8
+    codes = torch.nn.functional.pad(codes, (0, 0, 0, pad))
+    s = torch.nn.functional.pad(s, (0, 0, 0, pad))
+    packed = ((codes[:, ::2] << 4) | codes[:, 1::2]).to(torch.uint8)
+    sz = torch.stack([s.t(), torch.zeros_like(s.t())], dim=-1).to(torch.bfloat16).contiguous()
+    x16 = x.to(torch.bfloat16)
+    try:
+        wp = torch._convert_weight_to_int4pack(packed.contiguous(), 8)
+        y = torch._weight_int4pack_mm(x16, wp, gsize, sz)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError, AttributeError, TypeError) as e:
+        return None, f"torch._weight_int4pack_mm unavailable on CUDA here: {str(e)[:160]}"
+    _, r = rel_err(y[:, :N], quant.q4_matvec_plain(x, qt, scale))
+    note = f"rel err {r:.2e} vs plain, {gsize}-column groups"
+    if pad:
+        note += f", N padded {N} -> {N + pad}"
+    return timer(lambda: torch._weight_int4pack_mm(x16, wp, gsize, sz)), note
 
 
 def rel_err(a, b):
@@ -136,7 +233,7 @@ def rel_err(a, b):
 # kernel phases
 # ---------------------------------------------------------------------------
 
-def kernel_phases(torch, timer, results):
+def kernel_phases(torch, timer, results, notes):
     from spatialvla_tpu_torch import Gemma2Config
     from spatialvla_tpu_torch.models import gemma2
     from spatialvla_tpu_torch.ops import decode_step as ds
@@ -148,26 +245,34 @@ def kernel_phases(torch, timer, results):
     def randn(*shape, dtype=torch.bfloat16, std=1.0):
         return (torch.randn(shape, generator=g, device=dev) * std).to(dtype)
 
-    def qweight(N, K):
-        return quant.quantize_int8(randn(K, N, dtype=torch.float32, std=0.02))
+    def qweight(N, K, bits=8, group_size=None):
+        w = randn(K, N, dtype=torch.float32, std=0.02)
+        return quant.quantize_int8(w) if bits == 8 else quant.quantize_int4(w, group_size)
 
-    def record(name, shape, err, ms, plain_ms):
-        record_kernel(results, name, shape, err, ms, plain_ms)
+    def record(name, shape, err, ms, plain_ms, nbytes, ops, library_ms=None):
+        record_kernel(results, name, shape, err, ms, plain_ms, nbytes=nbytes, ops=ops,
+                      library_ms=library_ms)
+
+    def check(name, shape, r, bound_rel=1e-2):
+        if not r < bound_rel:
+            fail(f"{name} {shape}: rel err {r} >= {bound_rel}")
 
     # q8_matvec: the action head (M = 1, 2304 -> 8194) and the down projection
     # at batch 16 (9216 -> 2304)
-    for M, K, N, x_dtype in ((1, 2304, 8194, torch.bfloat16), (16, 9216, 2304, torch.bfloat16)):
-        x, w = randn(M, K, dtype=x_dtype), qweight(N, K)
+    for M, K, N in ((1, 2304, 8194), (16, 9216, 2304)):
+        x, w = randn(M, K), qweight(N, K)
         y = quant.q8_matvec(x, w["qt"], w["scale"])
         ref = quant.q8_matvec_plain(x, w["qt"], w["scale"])
         d, r = rel_err(y, ref)
         ms = timer(lambda: quant.q8_matvec(x, w["qt"], w["scale"]))
         pms = timer(lambda: quant.q8_matvec_plain(x, w["qt"], w["scale"]))
-        print(f"q8_matvec M={M} {K}->{N}: max|d|={d:.3e} rel={r:.3e} "
-              f"kernel {ms:.4f} ms plain {pms:.4f} ms", flush=True)
-        if not r < 1e-2:
-            fail(f"q8_matvec M={M} {K}->{N}: rel err {r} >= 1e-2")
-        record("q8_matvec", f"M{M}_{K}x{N}", d, ms, pms)
+        lib, note = library_int8pack(torch, timer, x, w["qt"], w["scale"])
+        notes.setdefault("q8_matvec", note)
+        print(f"q8_matvec M={M} {K}->{N}: max|d|={d:.3e} rel={r:.3e} kernel {ms:.4f} ms "
+              f"plain {pms:.4f} ms library {lib} ms ({note})", flush=True)
+        check("q8_matvec", f"M={M}", r)
+        record("q8_matvec", f"M{M}_{K}x{N}", d, ms, pms, nbytes_of(x, w["qt"], w["scale"], y),
+               2 * M * N * K, lib)
 
     # q8_rmsnorm_matvec: input norm + qkv (2304 -> 4096) and pre-FFN norm +
     # gate|up (2304 -> 18432), on the fp32 residual stream
@@ -182,36 +287,100 @@ def kernel_phases(torch, timer, results):
             pms = timer(lambda: quant.q8_rmsnorm_matvec_plain(x, nw, w["qt"], w["scale"]))
             print(f"q8_rmsnorm_matvec M={M} {K}->{N}: max|d|={d:.3e} rel={r:.3e} "
                   f"kernel {ms:.4f} ms plain {pms:.4f} ms", flush=True)
-            if not r < 1e-2:
-                fail(f"q8_rmsnorm_matvec M={M} {K}->{N}: rel err {r} >= 1e-2")
-            record("q8_rmsnorm_matvec", f"M{M}_{K}x{N}", d, ms, pms)
+            check("q8_rmsnorm_matvec", f"M={M} N={N}", r)
+            record("q8_rmsnorm_matvec", f"M{M}_{K}x{N}", d, ms, pms,
+                   nbytes_of(x, nw, w["qt"], w["scale"], y), 2 * M * N * K + 4 * M * K)
+    notes["q8_rmsnorm_matvec"] = "no single PyTorch call fuses the RMSNorm with the matmul"
 
-    # decode_attention at the serving path's shapes: batch 1 at S = 278
-    # (prefix 266 + 12), and 2 rows at per-row positions (predict_batch)
+    # q4_matvec / q4_rmsnorm_matvec, per channel and in 128-column groups: the
+    # action head (M = 1), the decode projections at M = 1 and 16 (qkv and
+    # gate|up with their norms, down without), the 277-row prefill (qkv);
+    # groups of other widths (any that quantize_int4 makes) checked untimed:
+    # 16 columns (one per 16-code chunk), 24 (crossing chunks and K steps)
+    q4_cases = (  # name, M, K, N
+        ("q4_matvec", 1, 2304, 8194), ("q4_rmsnorm_matvec", 1, 2304, 4096),
+        ("q4_rmsnorm_matvec", 1, 2304, 18432), ("q4_matvec", 1, 9216, 2304),
+        ("q4_rmsnorm_matvec", 16, 2304, 4096), ("q4_rmsnorm_matvec", 16, 2304, 18432),
+        ("q4_matvec", 16, 9216, 2304), ("q4_rmsnorm_matvec", 277, 2304, 4096),
+        ("q4_matvec", 277, 2304, 4096),
+    )
+    for group_size in (None, 128, 16, 24):
+        tag = f"g{group_size}" if group_size else "pc"
+        for name, M, K, N in q4_cases:
+            norm = name == "q4_rmsnorm_matvec"
+            x = randn(M, K, dtype=torch.float32 if norm else torch.bfloat16)
+            nw, w = randn(K, std=0.1), qweight(N, K, 4, group_size)
+            args = (x, nw, w["qt"], w["scale"]) if norm else (x, w["qt"], w["scale"])
+            kern = quant.q4_rmsnorm_matvec if norm else quant.q4_matvec
+            plain = quant.q4_rmsnorm_matvec_plain if norm else quant.q4_matvec_plain
+            y = kern(*args)
+            d, r = rel_err(y, plain(*args))
+            check(name, f"{tag} M={M} {K}->{N}", r, 2e-2)
+            if group_size not in (None, 128):
+                print(f"{name} {tag} M={M} {K}->{N}: max|d|={d:.3e} rel={r:.3e}", flush=True)
+                record_kernel(results, name, f"{tag}_M{M}_{K}x{N}", d, None, None)
+                continue
+            ms = timer(lambda: kern(*args))
+            pms = timer(lambda: plain(*args))
+            # the library's int4 matmul; for the RMSNorm variant only its
+            # matmul part (on the plain normed x), which is not the same function
+            xl = quant._rms_bf16(x, nw, 1e-6) if norm else x
+            lib, note = library_int4pack(torch, timer, xl, w["qt"], w["scale"])
+            print(f"{name} {tag} M={M} {K}->{N}: max|d|={d:.3e} rel={r:.3e} kernel {ms:.4f} ms "
+                  f"plain {pms:.4f} ms library{' matmul alone' if norm else ''} {lib} ms "
+                  f"({note})", flush=True)
+            record(name, f"{tag}_M{M}_{K}x{N}", d, ms, pms, nbytes_of(*args, y),
+                   2 * M * N * K + (4 * M * K if norm else 0), None if norm else lib)
+            if not norm:
+                notes.setdefault(name, f"torch._weight_int4pack_mm: {note}")
+    notes["q4_rmsnorm_matvec"] = ("no single PyTorch call fuses the RMSNorm with the matmul "
+                                  "(the log gives _weight_int4pack_mm's matmul alone)")
+
+    # decode_attention (bf16 cache) and decode_attention_kv8 (int8 codes with
+    # per-slot scales) at the serving path's shapes: batch 1 at S = 278
+    # (prefix 266 + 12), 2 rows at per-row positions (predict_batch), and
+    # 16 rows at S = 332
     Nq, Nkv, D = 8, 4, 256
     for M, S, pos in ((1, 278, [270]), (2, 278, [266, 259]), (16, 332, list(range(300, 316)))):
         qkv = randn(M, (Nq + 2 * Nkv) * D)
         ck, cv = randn(M, Nkv, S, D, std=0.3), randn(M, Nkv, S, D, std=0.3)
         position = torch.tensor(pos, dtype=torch.int32, device=dev)
         cos, sin = ds.rope_tables(position + 1, D, 10000.0)
-        outs = {}
-        for tag, fn in (("kernel", ds.decode_attention), ("plain", ds.decode_attention_plain)):
-            bufs = dict(attn_out=torch.empty(M, Nq * D, dtype=torch.bfloat16, device=dev),
-                        k_new=torch.empty(M, Nkv, D, dtype=torch.bfloat16, device=dev),
-                        v_new=torch.empty(M, Nkv, D, dtype=torch.bfloat16, device=dev))
-            call = lambda fn=fn, bufs=bufs: fn(  # noqa: E731
-                qkv, cos, sin, ck, cv, position, num_heads=Nq, q_scale=D ** -0.5, cap=50.0, **bufs)
-            call()
-            outs[tag] = (bufs, timer(call))
-        (kb, ms), (pb, pms) = outs["kernel"], outs["plain"]
-        d, r = rel_err(kb["attn_out"], pb["attn_out"])
-        dk, _ = rel_err(kb["k_new"], pb["k_new"])
-        dv, _ = rel_err(kb["v_new"], pb["v_new"])
-        print(f"decode_attention M={M} S={S}: attn max|d|={d:.3e} rel={r:.3e} "
-              f"k_new {dk:.3e} v_new {dv:.3e} kernel {ms:.4f} ms plain {pms:.4f} ms", flush=True)
-        if not (r < 1e-2 and dk < 2e-2 and dv == 0.0):
-            fail(f"decode_attention M={M}: rel {r}, k_new {dk}, v_new {dv}")
-        record("decode_attention", f"M{M}_S{S}", max(d, dk, dv), ms, pms)
+        ck8, ks = quant.quantize_kv(ck)
+        cv8, vs = quant.quantize_kv(cv)
+        flat = lambda sc: sc.permute(1, 0, 2).reshape(Nkv, 1, M * S).contiguous()  # noqa: E731
+        kv8 = dict(ks=flat(ks), vs=flat(vs))
+        valid = sum(pos)
+        for name, kern, cache, extra, elem in (
+                ("decode_attention", ds.decode_attention, (ck, cv), {}, 2),
+                ("decode_attention_kv8", ds.decode_attention_kv8, (ck8, cv8), kv8, 1)):
+            outs = {}
+            for tag, fn in (("kernel", kern), ("plain", ds.decode_attention_plain)):
+                bufs = dict(attn_out=torch.empty(M, Nq * D, dtype=torch.bfloat16, device=dev),
+                            k_new=torch.empty(M, Nkv, D, dtype=torch.bfloat16, device=dev),
+                            v_new=torch.empty(M, Nkv, D, dtype=torch.bfloat16, device=dev))
+                call = lambda fn=fn, bufs=bufs: fn(  # noqa: E731
+                    qkv, cos, sin, *cache, position, num_heads=Nq, q_scale=D ** -0.5, cap=50.0,
+                    **extra, **bufs)
+                call()
+                outs[tag] = (bufs, timer(call))
+            (kb, ms), (pb, pms) = outs["kernel"], outs["plain"]
+            d, r = rel_err(kb["attn_out"], pb["attn_out"])
+            dk, _ = rel_err(kb["k_new"], pb["k_new"])
+            dv, _ = rel_err(kb["v_new"], pb["v_new"])
+            print(f"{name} M={M} S={S}: attn max|d|={d:.3e} rel={r:.3e} k_new {dk:.3e} "
+                  f"v_new {dv:.3e} kernel {ms:.4f} ms plain {pms:.4f} ms", flush=True)
+            if not (r < 1e-2 and dk < 2e-2 and dv == 0.0):
+                fail(f"{name} M={M}: rel {r}, k_new {dk}, v_new {dv}")
+            # bytes: qkv, RoPE tables, positions, the valid cache rows (and
+            # their scales), the outputs; operations: q.k and p.v over the
+            # valid slots and the new token's own
+            nb = (nbytes_of(qkv, cos, sin, position, *kb.values())
+                  + 2 * valid * Nkv * D * elem + (2 * valid * Nkv * 4 if extra else 0))
+            record(name, f"M{M}_S{S}", max(d, dk, dv), ms, pms, nb,
+                   4 * (valid + M) * Nq * D)
+    notes["decode_attention"] = notes["decode_attention_kv8"] = (
+        "F.scaled_dot_product_attention has no logit softcap (Gemma2's tanh cap 50)")
 
     # norm_residual (with the final norm, as on the last layer) and gelu_mul
     H, I = 2304, 9216
@@ -234,7 +403,9 @@ def kernel_phases(torch, timer, results):
               f"kernel {ms:.4f} ms plain {pms:.4f} ms (each incl. a {M}x{H} copy)", flush=True)
         if not (r1 < 1e-2 and r2 < 1e-2):
             fail(f"norm_residual M={M}: rel {r1}, {r2}")
-        record("norm_residual", f"M{M}_H{H}", max(d1, d2), ms, pms)
+        # h read and written, upd, both norm weights, the final output
+        record("norm_residual", f"M{M}_H{H}", max(d1, d2), ms, pms,
+               nbytes_of(h0, h0, upd, w, fw, res["kernel"][1]), 12 * M * H)
 
         gu = randn(M, 2 * I)
         ka = torch.empty(M, I, dtype=torch.bfloat16, device=dev)
@@ -246,9 +417,10 @@ def kernel_phases(torch, timer, results):
         pms = timer(lambda: ds.gelu_mul_plain(gu, out=pa))
         print(f"gelu_mul M={M} I={I}: max|d|={d:.3e} rel={r:.3e} "
               f"kernel {ms:.4f} ms plain {pms:.4f} ms", flush=True)
-        if not r < 1e-2:
-            fail(f"gelu_mul M={M}: rel {r}")
-        record("gelu_mul", f"M{M}_I{I}", d, ms, pms)
+        check("gelu_mul", f"M={M}", r)
+        record("gelu_mul", f"M{M}_I{I}", d, ms, pms, nbytes_of(gu, ka), 12 * M * I)
+    notes["norm_residual"] = "no single PyTorch call: RMSNorm, bf16 roundings and the residual add"
+    notes["gelu_mul"] = "no single PyTorch call: gelu(tanh) of one half times the other"
 
     # the whole decode step on a 2-layer cross-section of the flagship width
     tcfg = Gemma2Config(vocab_size=2048, hidden_size=2304, intermediate_size=9216,
@@ -288,7 +460,7 @@ def kernel_phases(torch, timer, results):
     return steps
 
 
-def flash_phases(torch, timer, results):
+def flash_phases(torch, timer, results, notes):
     """The flash forward, dq and dk/dv kernels against their plain versions:
     the training path's shapes (B=2, T=320, 8/4 heads, D=256, softcap 50,
     prefix 277, one row right-padded; window 4096 on even layers, none on odd
@@ -343,12 +515,22 @@ def flash_phases(torch, timer, results):
               flush=True)
         if not (all(r < tol for _, r in errs.values()) and lse_err < 1e-3):
             fail(f"flash {tag}: kernel vs plain {errs}, lse {lse_err}")
+        # operations over the allowed (q, k) pairs of this mask, every q head:
+        # fwd q.k and p.v; dq adds dO.v and dS.k; dk/dv q.k, dO.v, p.dO, dS.q
+        pairs = int(fa.attention_mask(*lens, T, T, window=window, causal=True).sum()) * Nq
+        io = {"fwd": (nbytes_of(q, k, v, *lens, out, lse), 4 * D * pairs),
+              "dq": (nbytes_of(*args, dq), 6 * D * pairs),
+              "dkv": (nbytes_of(*args, dk, dv), 8 * D * pairs)}
         for name, key, err in (("flash_attention_fwd", "fwd", errs["fwd"][0]),
                                ("flash_attention_bwd_dq", "dq", errs["dq"][0]),
                                ("flash_attention_bwd_dkv", "dkv", max(errs["dk"][0],
                                                                       errs["dv"][0]))):
             ms, pms = times.get(key, (None, None))
-            record_kernel(results, name, f"B{B}_T{T}_D{D}_{tag.split('_', 1)[1]}", err, ms, pms)
+            record_kernel(results, name, f"B{B}_T{T}_D{D}_{tag.split('_', 1)[1]}", err, ms, pms,
+                          nbytes=io[key][0], ops=io[key][1])
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        notes[name] = ("F.scaled_dot_product_attention has no logit softcap (Gemma2's tanh "
+                       "cap 50) and no backward entry point of its own")
 
 
 # ---------------------------------------------------------------------------
@@ -556,6 +738,231 @@ def main_path(torch, timer, counters):
 
 
 # ---------------------------------------------------------------------------
+# the other weight and KV-cache formats: the decode-step matrix and three
+# serving configurations
+# ---------------------------------------------------------------------------
+
+WEIGHT_FORMATS = (  # bench.py:111-116
+    ("int8", dict(bits=8)),
+    ("int4", dict(bits=4)),
+    ("int4-g128", dict(bits=4, group_size=128)),
+    ("int8+mlp4", dict(bits=8, mlp_bits=4)),
+)
+DRIFT_BOUND = {"bf16kv": 0.05, "kv8": 0.08}  # bench.py:139-142
+
+
+def decode_step_matrix(torch):
+    """The decode-step matrix of bench.py:111-160 at full width: Gemma2-2B's
+    26 layers (random weights from a seed, a 2048-row vocabulary), M = 16
+    rows at per-row positions 300..315 of a 332-slot cache. Each weight
+    format x {bf16, int8} KV cache: the port's fused_decode_step (the
+    kernels) against the port's masked gemma2.forward on the same quantized
+    tree and the bf16 cache; relative drift max|h_fused - h_masked| /
+    max|h_masked| below DRIFT_BOUND. Also the device time of each step."""
+    from spatialvla_tpu_torch import spatialvla_4b
+    from spatialvla_tpu_torch.models import gemma2
+    from spatialvla_tpu_torch.ops import decode_step as ds
+    from spatialvla_tpu_torch.ops import quant
+
+    tcfg = dataclasses.replace(spatialvla_4b().text, vocab_size=2048)
+    L, H, Nkv, D = tcfg.num_layers, tcfg.hidden_size, tcfg.num_kv_heads, tcfg.head_dim
+    M, S = 16, 332
+    g = torch.Generator(device="cuda").manual_seed(11)
+    timer = Timer(torch, n=5)
+
+    def randn(*shape, std=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * std).to(torch.bfloat16)
+
+    out = {}
+    with torch.inference_mode():
+        base = gemma2.init_params(tcfg, generator=g, device="cuda", dtype=torch.bfloat16)
+        emb = randn(M, H, std=0.3)
+        ck, cv = randn(L, M, Nkv, S, D, std=0.3), randn(L, M, Nkv, S, D, std=0.3)
+        pos = torch.arange(300, 300 + M, dtype=torch.int32, device="cuda")
+        # the masked forward writes the new token at the last slot and attends
+        # to the row's valid slots [0, pos) and to that slot
+        k_idx = torch.arange(S, device="cuda")
+        mask = ((k_idx[None] < pos[:, None]) | (k_idx[None] == S - 1))[:, None, None, :]
+        x = emb * torch.tensor(H ** 0.5, dtype=torch.bfloat16, device="cuda")
+        ck8, ks = quant.quantize_kv(ck)
+        cv8, vs = quant.quantize_kv(cv)
+        caches = {"bf16kv": (ck, cv, {}),
+                  "kv8": (ck8, cv8, dict(cache_k_scale=ds.flatten_kv_scales(ks),
+                                         cache_v_scale=ds.flatten_kv_scales(vs)))}
+        for name, qkw in WEIGHT_FORMATS:
+            qp = quant.quantize_lm_params(base, **qkw)
+            ref_cache = {"k": ck.permute(0, 1, 3, 2, 4).contiguous(),
+                         "v": cv.permute(0, 1, 3, 2, 4).contiguous()}
+            hx, _ = gemma2.forward(qp, tcfg, emb[:, None], (pos + 1)[:, None].long(), mask,
+                                   cache=ref_cache, cache_position=S - 1)
+            hx = hx[:, 0].float()
+            del ref_cache
+            for kv_name, (kc, vc, kw) in caches.items():
+                step = lambda: ds.fused_decode_step(qp, tcfg, x, kc, vc, pos, pos + 1, **kw)  # noqa: E731
+                hf = step()[0].float()
+                drift = ((hf - hx).abs().max() / (hx.abs().max() + 1e-6)).item()
+                ms = timer(step)
+                tol = DRIFT_BOUND[kv_name]
+                print(f"decode-step matrix {name}+{kv_name} (26 layers, M={M}, S={S}): rel drift "
+                      f"{drift:.4f} (bound {tol}), fused step {ms:.3f} ms", flush=True)
+                if not drift < tol:
+                    fail(f"decode-step matrix {name}+{kv_name}: drift {drift} >= {tol}")
+                out[f"{name}+{kv_name}"] = {"rel_drift": drift, "step_ms": ms}
+            del qp
+    torch.cuda.empty_cache()
+    return out
+
+
+# the references a configuration's ids are held to: (label, predict_action
+# options, whether the q4 wrappers run their plain versions)
+UNFUSED = ("unfused decode", dict(use_fused_decode=False), False)
+PLAIN_Q4 = ("q4 plain versions", {}, True)
+SERVING_CONFIGS = (  # name, quantize options, references
+    ("a:int4", dict(bits=4), (UNFUSED, PLAIN_Q4)),
+    ("b:int8+mlp4+kv8", dict(bits=8, mlp_bits=4, kv_bits=8),
+     (("bf16 KV cache", dict(kv_bits=None), False),)),
+    ("c:int4-g128+vision4", dict(bits=4, group_size=128, vision_bits=4), (UNFUSED, PLAIN_Q4)),
+)
+
+
+@contextlib.contextmanager
+def plain_q4(torch):
+    """The q4 wrappers replaced by their plain versions on any device, so a
+    reference run launches no int4 kernel (the dispatch in quant.matvec /
+    quant.rmsnorm_matvec looks the wrappers up at each call)."""
+    from spatialvla_tpu_torch.ops import quant
+
+    saved = quant.q4_matvec, quant.q4_rmsnorm_matvec
+
+    def q4_matvec(x, qt, scale, *, out_dtype=torch.bfloat16, out=None):
+        y = quant.q4_matvec_plain(x, qt, scale, out_dtype=out_dtype)
+        return y if out is None else out.copy_(y)
+
+    def q4_rmsnorm_matvec(x, norm_w, qt, scale, *, eps=1e-6, out_dtype=torch.bfloat16, out=None):
+        y = quant.q4_rmsnorm_matvec_plain(x, norm_w, qt, scale, eps=eps, out_dtype=out_dtype)
+        return y if out is None else out.copy_(y)
+
+    quant.q4_matvec, quant.q4_rmsnorm_matvec = q4_matvec, q4_rmsnorm_matvec
+    try:
+        yield
+    finally:
+        quant.q4_matvec, quant.q4_rmsnorm_matvec = saved
+
+
+def serving_configs(torch, counters):
+    """spatialvla_4b at full width (random weights from seed 0) after each of
+    SERVING_CONFIGS: one warm-up and five timed SpatialVLAPolicy.predict
+    requests (median), and for (b) one predict_batch of 16 rows with mixed
+    instruction lengths. The launches of one request show which kernels
+    carried it: q4_rmsnorm_matvec once per int4 norm + projection of every
+    layer in the prefill and in each of the 11 decode steps, and
+    decode_attention_kv8 once per layer and step with kv_bits=8. Two
+    requests' ids are held to references on the same tree under the margin
+    rule: for (a) and (c) the unfused decode path (which also runs the int4
+    kernels) and the served path with the q4 wrappers' plain versions (which
+    runs none), for (b) the bf16 KV cache. Each policy is freed before the
+    next starts."""
+    from spatialvla_tpu_torch import SpatialVLAPolicy, spatialvla_4b
+    from spatialvla_tpu_torch.models import spatialvla as sv
+
+    cfg = spatialvla_4b()
+    L, steps = cfg.text.num_layers, 11
+    begin, n_act = cfg.action_token_begin_idx, cfg.spatial_token_num
+    rng = np.random.RandomState(9)
+    size = cfg.vision.image_size
+    images = [(rng.rand(size, size, 3) * 255).astype(np.uint8) for _ in range(3)]
+    instructions = ["pick up the red cup", "open the top drawer",
+                    "put the spoon into the pot on the left burner"]
+    words = "move the green block to the left of the bowl and then close the drawer".split()
+    batch_texts = [" ".join(words[: 1 + i % len(words)]) for i in range(16)]
+
+    def ids_ok(ids):
+        ids = np.asarray(ids)
+        return bool(((ids >= begin) & (ids < begin + n_act)).all())
+
+    out = {}
+    for name, qkw, refs in SERVING_CONFIGS:
+        t0 = time.perf_counter()
+        policy = SpatialVLAPolicy.init_random(cfg, "cuda:0", seed=0).quantize(**qkw)
+        torch.cuda.synchronize()
+        t_setup = time.perf_counter() - t0
+        for c in counters:
+            c.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        first = policy.predict(images[0], instructions[0])  # warm-up, counted alone
+        torch.cuda.synchronize()
+        per_request = {c.__name__: c.launches for c in counters}
+        outs, times = [first], []
+        for i in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs.append(policy.predict(images[i % 3], instructions[i % 3]))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        batch = None
+        if qkw.get("kv_bits"):
+            batch = policy.predict_batch([images[i % 3] for i in range(16)], batch_texts)
+            torch.cuda.synchronize()
+        launches = {c.__name__: c.launches for c in counters}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        warm = statistics.median(times)
+        print(f"serving {name}: quantize({', '.join(f'{k}={v}' for k, v in qkw.items())}), "
+              f"set-up {t_setup:.2f} s; warm predict median {warm:.2f} ms over "
+              f"{[round(t, 2) for t in times]}, peak {peak:.2f} GiB; launches per request "
+              f"{per_request}", flush=True)
+
+        for o in outs:
+            a = np.asarray(o["actions"])
+            if a.shape != (4, 7) or not np.isfinite(a).all() or not ids_ok(o["action_ids"]):
+                fail(f"serving {name}: actions {a.shape}, ids {o['action_ids']}")
+        if batch is not None:
+            ba = np.asarray(batch["actions"])
+            if ba.shape != (16, 4, 7) or not np.isfinite(ba).all() or not ids_ok(batch["action_ids"]):
+                fail(f"serving {name}: predict_batch actions {ba.shape}")
+        n_norm = 1 if qkw.get("mlp_bits") == 4 else 2  # int4 norm + projections per layer
+        want = {"q4_rmsnorm_matvec": n_norm * L * (1 + steps)}
+        if qkw.get("kv_bits"):
+            want.update(decode_attention_kv8=L * steps, decode_attention=0)
+        ran = ["q4_matvec", "q4_rmsnorm_matvec", "norm_residual", "gelu_mul",
+               "decode_attention_kv8" if qkw.get("kv_bits") else "decode_attention"]
+        if qkw.get("bits") == 8:
+            ran += ["q8_matvec", "q8_rmsnorm_matvec"]
+        if any(per_request[k] != v for k, v in want.items()) or any(per_request[k] <= 0
+                                                                     for k in ran):
+            fail(f"serving {name}: launches per request {per_request}, want {want} and "
+                 f"every one of {ran} launched")
+
+        agree = []
+        for label, ref_kw, plain in refs:
+            for img, instr, o in zip(images[:2], instructions[:2], outs[1:3]):
+                inputs = policy.processor(img, instr)
+                ctx = plain_q4(torch) if plain else contextlib.nullcontext()
+                with torch.inference_mode(), ctx:
+                    ref_ids, ref_m = sv.predict_action(
+                        policy.params, cfg,
+                        torch.as_tensor(inputs["input_ids"], dtype=torch.long, device="cuda"),
+                        pixel_values=torch.as_tensor(inputs["pixel_values"], device="cuda"),
+                        intrinsic=torch.as_tensor(inputs["intrinsic"], device="cuda"),
+                        return_margins=True, **ref_kw)
+                ok = margin_rule_ok(o["action_ids"], ref_ids[0].cpu().numpy(),
+                                    ref_m[0].cpu().numpy())
+                print(f"serving {name} vs {label} '{instr}': ids {o['action_ids'].tolist()} vs "
+                      f"{ref_ids[0].tolist()}, reference margins "
+                      f"{np.round(ref_m[0].cpu().numpy(), 3).tolist()} -> "
+                      f"{'ok' if ok else 'DIFFER'}", flush=True)
+                agree.append(ok)
+        if not all(agree):
+            fail(f"serving {name}: ids differ from the reference beyond the margin rule")
+        out[name] = {"quantize": qkw, "setup_s": t_setup, "warm_predict_ms_median": warm,
+                     "warm_predict_ms_all": times, "actions_per_s": 4 / (warm / 1e3),
+                     "peak_mem_gib": peak, "launches_per_request": per_request,
+                     "launches": launches}
+        del policy, first, outs, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # training path
 # ---------------------------------------------------------------------------
 
@@ -736,6 +1143,22 @@ def tiny_overfit(torch, counters, device="cuda"):
     return {"losses": losses, "launches": launches}
 
 
+KERNEL_SOURCES = {  # name: (source, the TPU kernel it replaces)
+    "q8_matvec": ("q8_matvec.cu", "spatialvla_tpu/ops/quant.py:297"),
+    "q8_rmsnorm_matvec": ("q8_matvec.cu", "spatialvla_tpu/ops/quant.py:336"),
+    "q4_matvec": ("q4_matvec.cu", "spatialvla_tpu/ops/quant.py:297"),
+    "q4_rmsnorm_matvec": ("q4_matvec.cu", "spatialvla_tpu/ops/quant.py:336"),
+    "decode_attention": ("decode.cu", "spatialvla_tpu/ops/decode_step.py:375"),
+    "decode_attention_kv8": ("decode.cu", "spatialvla_tpu/ops/decode_step.py:375"),
+    "norm_residual": ("decode.cu", "spatialvla_tpu/ops/decode_step.py:375"),
+    "gelu_mul": ("decode.cu", "spatialvla_tpu/ops/decode_step.py:375"),
+    "flash_attention_fwd": ("flash_attention.cu", "spatialvla_tpu/ops/flash_attention.py:188"),
+    "flash_attention_bwd_dq": ("flash_attention.cu", "spatialvla_tpu/ops/flash_attention.py:340"),
+    "flash_attention_bwd_dkv": ("flash_attention.cu",
+                                "spatialvla_tpu/ops/flash_attention.py:390"),
+}
+
+
 def main() -> int:
     import torch
 
@@ -761,17 +1184,21 @@ def main() -> int:
     print(f"kernel build: {build_s:.2f} s -> {lib_path.name}", flush=True)
 
     timer = Timer(torch)
-    results = {}
-    steps = kernel_phases(torch, timer, results)
-    flash_phases(torch, timer, results)
+    results, notes = {}, {}
+    steps = kernel_phases(torch, timer, results, notes)
+    flash_phases(torch, timer, results, notes)
+    matrix = decode_step_matrix(torch)
 
-    counters = [quant.q8_matvec, quant.q8_rmsnorm_matvec, ds.decode_attention,
-                ds.norm_residual, ds.gelu_mul]
-    path = main_path(torch, timer, counters)
+    serving_counters = [quant.q8_matvec, quant.q8_rmsnorm_matvec, quant.q4_matvec,
+                        quant.q4_rmsnorm_matvec, ds.decode_attention, ds.decode_attention_kv8,
+                        ds.norm_residual, ds.gelu_mul]
+    path = main_path(torch, timer, [quant.q8_matvec, quant.q8_rmsnorm_matvec,
+                                    ds.decode_attention, ds.norm_residual, ds.gelu_mul])
     print(f"main path: warm predict median {path['warm_predict_ms_median']:.2f} ms "
           f"({path['actions_per_s']:.2f} actions/s), "
           f"peak {path['peak_mem_gib']:.2f} GiB | {card}", flush=True)
     torch.cuda.empty_cache()
+    serving = serving_configs(torch, serving_counters)
 
     flash = [fa.flash_attention_fwd, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv]
     train = train_path(torch, flash)
@@ -781,41 +1208,36 @@ def main() -> int:
           f"{train['tokens_per_s']:.1f} tokens/s, peak {train['peak_mem_gib']:.2f} GiB | {card}",
           flush=True)
     print("detail: " + json.dumps({"build_s": build_s, "decode_step_2_layers": steps,
-                                   "main_path": path, "train_path": train,
+                                   "decode_step_matrix": matrix, "main_path": path,
+                                   "serving_configs": serving, "train_path": train,
                                    "tiny_overfit": overfit, "kernel_times": results,
                                    "card": card}), flush=True)
 
-    dec = "spatialvla_tpu/ops/decode_step.py:375"
-    fa_src = "spatialvla_tpu_torch/csrc/flash_attention.cu"
-    src = {  # name: (source, replaces, launches on its path)
-        "q8_matvec": ("spatialvla_tpu_torch/csrc/q8_matvec.cu", "spatialvla_tpu/ops/quant.py:297",
-                      path["launches"]["q8_matvec"]),
-        "q8_rmsnorm_matvec": ("spatialvla_tpu_torch/csrc/q8_matvec.cu",
-                              "spatialvla_tpu/ops/quant.py:336",
-                              path["launches"]["q8_rmsnorm_matvec"]),
-        "decode_attention": ("spatialvla_tpu_torch/csrc/decode.cu", dec,
-                             path["launches"]["decode_attention"]),
-        "norm_residual": ("spatialvla_tpu_torch/csrc/decode.cu", dec,
-                          path["launches"]["norm_residual"]),
-        "gelu_mul": ("spatialvla_tpu_torch/csrc/decode.cu", dec, path["launches"]["gelu_mul"]),
-        "flash_attention_fwd": (fa_src, "spatialvla_tpu/ops/flash_attention.py:188",
-                                train["launches"]["flash_attention_fwd"]),
-        "flash_attention_bwd_dq": (fa_src, "spatialvla_tpu/ops/flash_attention.py:340",
-                                   train["launches"]["flash_attention_bwd_dq"]),
-        "flash_attention_bwd_dkv": (fa_src, "spatialvla_tpu/ops/flash_attention.py:390",
-                                    train["launches"]["flash_attention_bwd_dkv"]),
-    }
+    # launches on each kernel's path: the int8 serving path (q8, bf16-cache
+    # attention, norm_residual, gelu_mul), the serving configurations (q4,
+    # int8-cache attention), the training path (flash)
+    def launches(name):
+        if name.startswith("flash"):
+            return train["launches"][name], "train_path (5 steps)"
+        if name.startswith("q4") or name.endswith("kv8"):
+            return (sum(c["launches"][name] for c in serving.values()),
+                    "serving_configs (a), (b), (c): 6 requests each, + a 16-row batch in (b)")
+        return path["launches"][name], "main_path (3 requests + a 2-row batch)"
+
     kernels = []
-    for name, (source, replaces, launches) in src.items():
+    for name, (source, replaces) in KERNEL_SOURCES.items():
         r = results[name]
         first = next(iter(r["ms"]))  # the path's own shape comes first
         tol = ("max|kernel - plain| / max|plain| < 2e-2 (bf16), < 1e-4 (fp32)"
-               if name.startswith("flash") else "max|kernel - plain| / max|plain| < 1e-2")
+               if name.startswith(("flash", "q4")) else "max|kernel - plain| / max|plain| < 1e-2")
+        n, run = launches(name)
+        bound_ms, bound_by = r["bound"][first]
         kernels.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches, "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"][first], "plain_ms": r["plain_ms"][first], "shape": first,
-            "tolerance": tol,
+            "name": name, "route": "cuda", "source": f"spatialvla_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": n, "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"][first], "plain_ms": r["plain_ms"][first], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": r["library_ms"][first], "shape": first,
+            "tolerance": tol, "launches_on": run, "library_note": notes.get(name),
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -2,12 +2,14 @@
 NVIDIA H100 (Hopper, sm_90a).
 
 Layers:
-    config, action, processor   shared with spatialvla_tpu (they import no jax);
-                                the processor's image step is replaced by a
-                                jax-free one (processor/image.py)
+    config, action, processor   the port's own copies of the JAX package's
+                                jax-free modules; the processor's image step
+                                is jax-free (processor/image.py)
+    data, train                 the RLDS data layer (copied) and the trainer
     convert.bridge              numpy pytree <-> nested dict of tensors
     models                      SigLIP, ZoeDepth, Ego3D, Gemma2, the fusion model
-    ops                         int8 matvec and decode-step kernels (csrc/*.cu)
+    ops                         quantized matvec, decode-step and flash kernels
+                                (csrc/*.cu)
     inference                   SpatialVLAPolicy
 
 Importing this package never loads jax.
@@ -15,8 +17,8 @@ Importing this package never loads jax.
 
 __version__ = "0.1.0"
 
-from spatialvla_tpu import action, config
-from spatialvla_tpu.config import (
+from . import action, config
+from .config import (
     Ego3DConfig,
     Gemma2Config,
     SiglipVisionConfig,

@@ -4,7 +4,8 @@ nested dicts of tensors.
 Keys, stacked (L, ...) layer tensors and the (K, N) matmul layout stay as
 they are, so one tree feeds both packages (the tests make weights with the
 JAX initializers and hand the same numbers to both). Quantized leaves
-``{"qt", "scale"}`` keep their dtypes (int8 codes, f32 scales).
+``{"qt", "scale"}`` keep their dtypes and shapes (int8 codes, or uint8
+packed int4 nibbles; f32 per-channel (N,) or grouped (N, G) scales).
 """
 from __future__ import annotations
 

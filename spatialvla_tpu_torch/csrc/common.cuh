@@ -33,6 +33,33 @@ __device__ __forceinline__ void store_any(void* p, int dtype, long i, float v) {
   }
 }
 
+// 16 consecutive activations starting at element `off` (16-byte aligned)
+__device__ __forceinline__ void load_x16(const void* x, int dtype, long off, float* v) {
+  if (dtype == DT_F32) {
+    const float4* p = reinterpret_cast<const float4*>(reinterpret_cast<const float*>(x) + off);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float4 f = __ldg(p + i);
+      v[4 * i] = f.x;
+      v[4 * i + 1] = f.y;
+      v[4 * i + 2] = f.z;
+      v[4 * i + 3] = f.w;
+    }
+  } else {
+    const uint4* p = reinterpret_cast<const uint4*>(reinterpret_cast<const bf16*>(x) + off);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      uint4 u = __ldg(p + i);
+      const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {  // little endian: element 2j is the low half
+        v[8 * i + 2 * j] = __uint_as_float(w[j] << 16);
+        v[8 * i + 2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+      }
+    }
+  }
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

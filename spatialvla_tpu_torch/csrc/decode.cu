@@ -1,7 +1,8 @@
 // The per-layer stages of one greedy decode step that are not matvecs:
 // attention over the KV cache (with RoPE, the new token's self-logit and the
 // tanh softcap), the post-norm + residual update, and the gated-GELU
-// activation. Together with q8_matvec / q8_rmsnorm_matvec they replace the
+// activation. Together with the int8 and int4 matvecs (q8_matvec.cu,
+// q4_matvec.cu) they replace the
 // whole-LM Pallas kernel spatialvla_tpu/ops/decode_step.py:fused_decode_step
 // (_decode_kernel), launched per layer from a Python loop
 // (spatialvla_tpu_torch/ops/decode_step.py).
@@ -16,32 +17,48 @@ namespace {
 
 constexpr int kMaxG = 8;  // query heads per kv head
 
-// What bounds it: reading the bf16 cache rows of one (row, kv head), about
-// 2 * S * D * 2 bytes (285 KB at S = 278, D = 256). One block per
-// (row m, kv head h) keeps the G query heads of the group in shared memory
-// so each K and V row is read once for all of them; warps sweep the key
-// slots for the logits, and each thread owns one of the D output lanes for
-// p @ V so the V rows are read coalesced. At batch 1 that is only Nkv = 4
-// blocks, so the cache read runs on 4 SMs; splitting the key range across
-// blocks (flash-decoding) is left for later work.
+// What bounds it: reading the cache rows of one (row, kv head), about
+// 2 * S * D * 2 bytes in bf16 (285 KB at S = 278, D = 256), half that in
+// int8. One block per (row m, kv head h) keeps the G query heads of the group
+// in shared memory so each K and V row is read once for all of them; warps
+// sweep the key slots for the logits, and each thread owns one of the D
+// output lanes for p @ V so the V rows are read coalesced. At batch 1 that is
+// only Nkv = 4 blocks, so the cache read runs on 4 SMs; splitting the key
+// range across blocks (flash-decoding) is left for later work.
+//
+// KV = int8_t is the int8 cache of kv_bits=8 (decode_step.py:276-293,
+// 313-316): the codes enter the dots exactly, the per-slot K scale
+// multiplies each logit before the softcap, the per-slot V scale multiplies
+// each probability before its bf16 rounding, and the new token's own k and v
+// stay unquantized. ks / vs are this layer's scales in the flat
+// (Nkv, 1, M * S) layout (decode_step.py:91-103): slot (m, t) of kv head h
+// at h * M * S + m * S + t.
+__device__ __forceinline__ float kv_value(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float kv_value(int8_t v) { return static_cast<float>(v); }
+
+template <typename KV>
 __global__ void decode_attention_kernel(
     const bf16* __restrict__ qkv,    // (M, (Nq + 2 Nkv) D) bf16 qkv projection
     const float* __restrict__ cos_t, // (M, D) fp32 RoPE tables
     const float* __restrict__ sin_t,
-    const bf16* __restrict__ ck,     // (M, Nkv, S, D) this layer's cache
-    const bf16* __restrict__ cv,
+    const KV* __restrict__ ck,       // (M, Nkv, S, D) this layer's cache
+    const KV* __restrict__ cv,
+    const float* __restrict__ ks,    // (Nkv, 1, M S) per-slot scales (int8 cache only)
+    const float* __restrict__ vs,
     const int* __restrict__ position,  // (M,) valid cache slots [0, position)
     bf16* __restrict__ attn_out,     // (M, Nq D)
     bf16* __restrict__ k_new,        // (M, Nkv, D)
     bf16* __restrict__ v_new,
     int Nq, int Nkv, int D, int S, float q_scale, float cap) {
   extern __shared__ float smem[];
+  constexpr bool kQuant = sizeof(KV) == 1;
   const int G = Nq / Nkv;
   float* q16 = smem;             // (G, D) roped, scaled, bf16-rounded queries
   float* prob = q16 + G * D;     // (G, S) logits -> exp -> bf16 probabilities
   float* red = prob + G * S;     // 32 floats of reduction scratch
 
   const int m = blockIdx.x / Nkv, h = blockIdx.x % Nkv;
+  const long scale0 = ((long)h * gridDim.x / Nkv + m) * S;  // slot (m, 0) in the flat scales
   const int d = threadIdx.x, half = D >> 1;
   const int lane = d & 31, warp = d >> 5, nwarps = blockDim.x >> 5;
   const bf16* row = qkv + (long)m * (Nq + 2 * Nkv) * D;
@@ -79,14 +96,14 @@ __global__ void decode_attention_kernel(
   }
 
   // logits over the valid cache slots: one warp per slot, all G heads
-  const bf16* K = ck + ((long)m * Nkv + h) * S * D;
+  const KV* K = ck + ((long)m * Nkv + h) * S * D;
   for (int t = warp; t < pos; t += nwarps) {
-    const bf16* kr = K + (long)t * D;
+    const KV* kr = K + (long)t * D;
     float acc[kMaxG];
 #pragma unroll
     for (int g = 0; g < kMaxG; ++g) acc[g] = 0.f;
     for (int e = lane; e < D; e += 32) {
-      const float kv = __bfloat162float(kr[e]);
+      const float kv = kv_value(kr[e]);
 #pragma unroll
       for (int g = 0; g < kMaxG; ++g) {
         if (g < G) acc[g] = fmaf(q16[g * D + e], kv, acc[g]);
@@ -95,7 +112,8 @@ __global__ void decode_attention_kernel(
 #pragma unroll
     for (int g = 0; g < kMaxG; ++g) {
       if (g < G) {
-        const float v = warp_sum(acc[g]);
+        float v = warp_sum(acc[g]);
+        if (kQuant) v *= ks[scale0 + t];
         if (lane == 0) prob[g * S + t] = cap > 0.f ? tanhf(v / cap) * cap : v;
       }
     }
@@ -118,18 +136,21 @@ __global__ void decode_attention_kernel(
       }
       e_self[g] = expf(self_l[g] - mx);
       denom[g] = block_sum(se, red) + e_self[g];
-      for (int t = d; t < pos; t += blockDim.x) prob[g * S + t] = bf16r(prob[g * S + t] / denom[g]);
+      for (int t = d; t < pos; t += blockDim.x) {
+        const float p = prob[g * S + t] / denom[g];
+        prob[g * S + t] = bf16r(kQuant ? p * vs[scale0 + t] : p);
+      }
     }
   }
   __syncthreads();
 
   // p @ V with bf16 probabilities, fp32 accumulation, plus the self term
-  const bf16* V = cv + ((long)m * Nkv + h) * S * D;
+  const KV* V = cv + ((long)m * Nkv + h) * S * D;
   float o[kMaxG];
 #pragma unroll
   for (int g = 0; g < kMaxG; ++g) o[g] = 0.f;
   for (int t = 0; t < pos; ++t) {
-    const float vv = __bfloat162float(V[(long)t * D + d]);
+    const float vv = kv_value(V[(long)t * D + d]);
 #pragma unroll
     for (int g = 0; g < kMaxG; ++g) {
       if (g < G) o[g] = fmaf(prob[g * S + t], vv, o[g]);
@@ -193,12 +214,11 @@ __global__ void gelu_mul_kernel(const bf16* __restrict__ gu, bf16* __restrict__ 
   act[i] = __float2bfloat16(a * u);
 }
 
-}  // namespace
-
-extern "C" int decode_attention(const void* qkv, const float* cos_t, const float* sin_t,
-                                const void* ck, const void* cv, const int* position,
-                                void* attn_out, void* k_new, void* v_new, int M, int Nq,
-                                int Nkv, int D, int S, float q_scale, float cap, void* stream) {
+template <typename KV>
+int launch_attention(const void* qkv, const float* cos_t, const float* sin_t, const void* ck,
+                     const void* cv, const float* ks, const float* vs, const int* position,
+                     void* attn_out, void* k_new, void* v_new, int M, int Nq, int Nkv, int D,
+                     int S, float q_scale, float cap, void* stream) {
   if (M < 1 || Nkv < 1 || Nq % Nkv != 0 || Nq / Nkv > kMaxG || D % 32 != 0 || D > 1024 ||
       D % 2 != 0 || S < 1)
     return cudaErrorInvalidValue;
@@ -206,14 +226,34 @@ extern "C" int decode_attention(const void* qkv, const float* cos_t, const float
   const size_t smem = (static_cast<size_t>(G) * D + static_cast<size_t>(G) * S + 32) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        decode_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        decode_attention_kernel<KV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  decode_attention_kernel<<<M * Nkv, D, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(qkv), cos_t, sin_t, static_cast<const bf16*>(ck),
-      static_cast<const bf16*>(cv), position, static_cast<bf16*>(attn_out),
+  decode_attention_kernel<KV><<<M * Nkv, D, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(qkv), cos_t, sin_t, static_cast<const KV*>(ck),
+      static_cast<const KV*>(cv), ks, vs, position, static_cast<bf16*>(attn_out),
       static_cast<bf16*>(k_new), static_cast<bf16*>(v_new), Nq, Nkv, D, S, q_scale, cap);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int decode_attention(const void* qkv, const float* cos_t, const float* sin_t,
+                                const void* ck, const void* cv, const int* position,
+                                void* attn_out, void* k_new, void* v_new, int M, int Nq,
+                                int Nkv, int D, int S, float q_scale, float cap, void* stream) {
+  return launch_attention<bf16>(qkv, cos_t, sin_t, ck, cv, nullptr, nullptr, position, attn_out,
+                                k_new, v_new, M, Nq, Nkv, D, S, q_scale, cap, stream);
+}
+
+extern "C" int decode_attention_kv8(const void* qkv, const float* cos_t, const float* sin_t,
+                                    const void* ck, const void* cv, const float* ks,
+                                    const float* vs, const int* position, void* attn_out,
+                                    void* k_new, void* v_new, int M, int Nq, int Nkv, int D, int S,
+                                    float q_scale, float cap, void* stream) {
+  return launch_attention<int8_t>(qkv, cos_t, sin_t, ck, cv, ks, vs, position, attn_out, k_new,
+                                  v_new, M, Nq, Nkv, D, S, q_scale, cap, stream);
 }
 
 extern "C" int norm_residual(float* h, const void* upd, const void* w, int w_dtype,

@@ -25,33 +25,6 @@ namespace {
 constexpr int kWarps = 8;  // output channels per block
 constexpr int kMaxM = 16;  // rows of x a launch may carry
 
-// 16 consecutive activations starting at element `off` (16-byte aligned)
-__device__ __forceinline__ void load_x16(const void* x, int dtype, long off, float* v) {
-  if (dtype == DT_F32) {
-    const float4* p = reinterpret_cast<const float4*>(reinterpret_cast<const float*>(x) + off);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float4 f = __ldg(p + i);
-      v[4 * i] = f.x;
-      v[4 * i + 1] = f.y;
-      v[4 * i + 2] = f.z;
-      v[4 * i + 3] = f.w;
-    }
-  } else {
-    const uint4* p = reinterpret_cast<const uint4*>(reinterpret_cast<const bf16*>(x) + off);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      uint4 u = __ldg(p + i);
-      const unsigned w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {  // little endian: element 2j is the low half
-        v[8 * i + 2 * j] = __uint_as_float(w[j] << 16);
-        v[8 * i + 2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
-      }
-    }
-  }
-}
-
 // 16 int8 codes -> fp32 (exact)
 __device__ __forceinline__ void unpack_i8x16(int4 q, float* f) {
   const int w[4] = {q.x, q.y, q.z, q.w};

@@ -6,10 +6,12 @@
     out["actions"]  # (chunk, 7)
 
 The parameters are the JAX tree's nested dict of tensors (same keys and
-shapes; convert/bridge.py moves trees between the packages). Loading a real
-checkpoint (``load``, ``from_hf_checkpoint``), ``shard``,
-``save_serving`` / ``load_serving`` and the int4 / mlp_bits / group_size /
-kv_bits serving options are not ported yet (ROADMAP.md).
+shapes; convert/bridge.py moves trees between the packages). ``quantize``
+takes every serving format of the JAX package: int8 or int4 LM (per channel
+or ``group_size``), ``mlp_bits=4`` for an int4 MLP under an int8 attention
+and head, int8 or int4 vision front, and ``kv_bits=8`` for an int8 KV cache.
+Loading a real checkpoint (``load``, ``from_hf_checkpoint``), ``shard`` and
+``save_serving`` / ``load_serving`` are not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -18,8 +20,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from spatialvla_tpu.config import SpatialVLAConfig
-
+from .config import SpatialVLAConfig
 from .convert.bridge import map_tree
 from .errors import not_ported
 from .models import spatialvla
@@ -49,6 +50,7 @@ class SpatialVLAPolicy:
         self.device = torch.device(device)
         self.params = map_tree(lambda t: t.to(self.device), params)
         self.depth_image_size: Optional[int] = None  # set by quantize()
+        self.kv_bits: Optional[int] = None  # set by quantize()
         self.quant_desc: Optional[Dict] = None  # set by quantize()
 
     @classmethod
@@ -91,27 +93,36 @@ class SpatialVLAPolicy:
                  depth_image_size: Optional[int] = None, kv_bits: Optional[int] = None,
                  mlp_bits: Optional[int] = None,
                  group_size: Optional[int] = None) -> "SpatialVLAPolicy":
-        """Serving form (inference.py:94 with its defaults): int8 weight-only
-        LM with fused qkv / gate_up, int8 vision front, and the precomputed
-        ZoeDepth relative-position bias. In place; returns self. Each tensor
-        is quantized on its own so the fp32 temporaries stay small."""
-        if bits not in (None, 8) or vision_bits not in (None, 8):
-            raise not_ported("int4 weights (bits=4 / vision_bits=4)")
-        if mlp_bits is not None:
-            raise not_ported("mlp_bits")
-        if group_size is not None:
-            raise not_ported("group_size")
-        if kv_bits is not None:
-            raise not_ported("the int8 KV cache (kv_bits=8)")
+        """Serving form (inference.py:94 with its defaults): weight-only int8
+        (bits=8) or packed-int4 (bits=4, per channel or ``group_size``) LM
+        with fused qkv / gate_up (bits=None keeps it bf16); ``mlp_bits``
+        overrides the MLP's precision (bits=8, mlp_bits=4 is the mixed tree);
+        an int8 or int4 vision front (vision_bits, per channel; None keeps
+        it bf16); the precomputed ZoeDepth relative-position bias; and
+        ``kv_bits=8`` for an int8 KV cache on the fused decode path. In
+        place; returns self. Each tensor is quantized on its own so the fp32
+        temporaries stay small."""
         prior = self.quant_desc or {}
-        if (bits and prior.get("bits")) or (vision_bits and prior.get("vision_bits")):
-            raise ValueError(f"already quantized ({self.quant_desc}); re-quantizing would corrupt it")
+        # per-subtree re-pack guard: only the subtree already packed blocks a
+        # second pass over it (a knob-only call never trips it)
+        if bits and prior.get("bits"):
+            raise ValueError(f"LM is already quantized ({self.quant_desc}); re-quantizing a "
+                             "packed tree would corrupt it")
+        if vision_bits and prior.get("vision_bits"):
+            raise ValueError(f"vision front is already quantized ({self.quant_desc}); "
+                             "re-quantizing a packed tree would corrupt it")
+        if mlp_bits and not bits:
+            raise ValueError("mlp_bits requires bits (the attention/head precision): a bf16 LM "
+                             "with an int4 MLP is not a supported tree")
+        if kv_bits not in (None, 8):
+            raise ValueError(f"kv_bits={kv_bits}: only 8 (or None) is supported")
         params = dict(self.params)
         with torch.inference_mode():
             if bits:
-                params["lm"] = quantize_lm_params(params["lm"])
+                params["lm"] = quantize_lm_params(params["lm"], bits=bits, mlp_bits=mlp_bits,
+                                                  group_size=group_size)
             if vision_bits:
-                params = quantize_vision_params(params)
+                params = quantize_vision_params(params, bits=vision_bits)
             if "zoe" in params and "rel_pos_table" in params["zoe"]["backbone"]["layers"]:
                 from .models.zoe import precompute_rel_bias
 
@@ -119,9 +130,14 @@ class SpatialVLAPolicy:
                                                     image_size=depth_image_size)
         self.params = params
         self.depth_image_size = depth_image_size
+        self.kv_bits = kv_bits
         if bits or vision_bits:
-            self.quant_desc = {"bits": bits or prior.get("bits"),
-                               "vision_bits": vision_bits or prior.get("vision_bits")}
+            self.quant_desc = {
+                "bits": bits or prior.get("bits"),
+                "vision_bits": vision_bits or prior.get("vision_bits"),
+                "mlp_bits": mlp_bits if bits else prior.get("mlp_bits"),
+                "group_size": group_size if bits else prior.get("group_size"),
+            }
         return self
 
     # ------------------------------------------------------------------
@@ -137,6 +153,7 @@ class SpatialVLAPolicy:
                 action_chunk_size=self.processor.action_chunk_size,
                 compute_dtype=self.compute_dtype,
                 depth_image_size=self.depth_image_size,
+                kv_bits=self.kv_bits,
                 return_margins=return_margins,
             )
 

@@ -14,11 +14,11 @@ Decoding keeps the two JAX paths and the JAX rule for choosing between them
 (spatialvla.py:474-481): the fused path (one ``fused_decode_step`` per token,
 ops/decode_step.py) for the fused-quantized tree with B <= 16 and
 S <= sliding window on CUDA tensors, else the unfused loop through
-``gemma2.forward``. Cache writes go in place. ``use_flash_prefill`` (off by
-default, as in JAX) runs the prefill through ``gemma2.prefill_flash``.
+``gemma2.forward``. Cache writes go in place. ``kv_bits=8`` serves the fused
+path from an int8 KV cache with per-slot scales. ``use_flash_prefill`` (off
+by default, as in JAX) runs the prefill through ``gemma2.prefill_flash``.
 
-Not ported yet (ROADMAP): the int8 KV cache (``kv_bits``) and the
-split-phase serving functions.
+Not ported yet (ROADMAP): the split-phase serving functions.
 """
 from __future__ import annotations
 
@@ -272,11 +272,10 @@ def generate_greedy(
     argmax runs over the lm_head rows of ``token_range`` (the action block on
     the serving path); the JAX package's full-vocabulary greedy and its
     ``cache_dtype`` and precomputed-``depth`` options are not ported (the
-    KV cache is bf16; depth comes from ZoeDepth)."""
+    prefill cache is bf16, ``kv_bits=8`` quantizes it for the fused decode;
+    depth comes from ZoeDepth)."""
     if use_flash_prefill and attention_mask is not None:
         raise ValueError("use_flash_prefill assumes unpadded rows (attention_mask=None)")
-    if kv_bits:
-        raise not_ported("the int8 KV cache (kv_bits)")
     B, P = input_ids.shape
     S = P + max_new_tokens
     dev = input_ids.device
@@ -294,7 +293,7 @@ def generate_greedy(
         hidden, cache = gemma2_mod.prefill_flash(params["lm"], cfg.text, embeds, position_ids, S)
         return _decode_after_prefill(
             params, cfg, cache, hidden, P, S, max_new_tokens, token_range, use_fused_decode,
-            compute_dtype, valid=None, key_valid=None, k_pos_true=None,
+            compute_dtype, valid=None, key_valid=None, k_pos_true=None, kv_bits=kv_bits,
             return_margins=return_margins,
         )
     cache = gemma2_mod.init_cache(cfg.text, B, S, device=dev, dtype=torch.bfloat16)
@@ -317,7 +316,7 @@ def generate_greedy(
     )
     return _decode_after_prefill(
         params, cfg, cache, hidden, P, S, max_new_tokens, token_range, use_fused_decode,
-        compute_dtype, valid=valid, key_valid=key_valid, k_pos_true=k_pos_true,
+        compute_dtype, valid=valid, key_valid=key_valid, k_pos_true=k_pos_true, kv_bits=kv_bits,
         return_margins=return_margins,
     )
 
@@ -329,7 +328,7 @@ def _stack_steps(toks, margs, return_margins):
 
 def _decode_after_prefill(params, cfg, cache, hidden, P, S, max_new_tokens, token_range,
                           use_fused_decode, compute_dtype, *, valid, key_valid, k_pos_true,
-                          return_margins=False):
+                          kv_bits=None, return_margins=False):
     """The greedy decode loop after the prefill (spatialvla.py:439)."""
     B = hidden.shape[0]
     use_fused = (
@@ -343,8 +342,11 @@ def _decode_after_prefill(params, cfg, cache, hidden, P, S, max_new_tokens, toke
     if use_fused:
         return _generate_greedy_fused(
             params, cfg, cache, hidden, P, max_new_tokens, token_range,
-            compute_dtype=compute_dtype, valid=valid, return_margins=return_margins,
+            compute_dtype=compute_dtype, valid=valid, kv_bits=kv_bits,
+            return_margins=return_margins,
         )
+    if kv_bits:
+        raise ValueError("kv_bits requires the fused decode path (use_fused_decode)")
 
     begin, size = token_range
     head = _slice_head(params["lm"], begin, size)
@@ -392,13 +394,28 @@ def _scatter_rows(c, new, slots):
     return c
 
 
+def _scatter_scale(sc, new, slots, S):
+    """In-place per-row KV-scale write into the flat layout (spatialvla.py:563):
+    sc (L, Nkv, 1, B*S), new (L, B, Nkv), slots (B,) or an int -- row m's
+    scale lands at flattened key column m*S + slots[m]."""
+    B = new.shape[1]
+    cols = torch.arange(B, device=sc.device) * S + torch.as_tensor(
+        slots, device=sc.device).long().expand(B)
+    sc[:, :, 0, cols] = new.float().transpose(1, 2)
+    return sc
+
+
 def _generate_greedy_fused(params, cfg, cache, prefill_hidden, P, max_new_tokens, token_range,
-                           *, compute_dtype=None, valid=None, return_margins=False):
-    """Decode loop over ``fused_decode_step`` (spatialvla.py:576), bf16 KV.
+                           *, compute_dtype=None, valid=None, kv_bits=None, return_margins=False):
+    """Decode loop over ``fused_decode_step`` (spatialvla.py:576).
 
     Unpadded rows share the scalar cache position P + t; right-padded rows
-    decode at their own slots valid[m] + t, overwriting the pad slots."""
-    from ..ops.decode_step import fused_decode_step
+    decode at their own slots valid[m] + t, overwriting the pad slots. With
+    kv_bits=8 the prefill cache is quantized (``quantize_kv``), its scales
+    carried in the flat layout, and each step's new rows are quantized
+    before they are written."""
+    from ..ops.decode_step import flatten_kv_scales, fused_decode_step
+    from ..ops.quant import quantize_kv
 
     tcfg = cfg.text
     B = prefill_hidden.shape[0]
@@ -412,6 +429,15 @@ def _generate_greedy_fused(params, cfg, cache, prefill_hidden, P, max_new_tokens
     # serving cache layout (L, B, Nkv, S, D): one permuted copy, then written in place
     ck = cache["k"].permute(0, 1, 3, 2, 4).contiguous()
     cv = cache["v"].permute(0, 1, 3, 2, 4).contiguous()
+    if kv_bits == 8:  # int8 cache + per-slot scales in the flat layout
+        ck, kscale = quantize_kv(ck)
+        cv, vscale = quantize_kv(cv)
+        kscale, vscale = flatten_kv_scales(kscale), flatten_kv_scales(vscale)
+    elif kv_bits:
+        raise ValueError(f"kv_bits={kv_bits}: only 8 (or None) is supported")
+    else:
+        kscale = vscale = None
+    S = ck.shape[3]
     if valid is None:
         last_hidden = prefill_hidden[:, -1]
     else:
@@ -427,7 +453,13 @@ def _generate_greedy_fused(params, cfg, cache, prefill_hidden, P, max_new_tokens
         embeds = merge_input_embeddings(params, cfg, tok[:, None], None, dtype=compute_dtype)
         x = embeds[:, 0] * normalizer
         slot = P + t if valid is None else (valid + t).to(torch.int32)
-        hidden, k_new, v_new = fused_decode_step(params["lm"], tcfg, x, ck, cv, slot, slot + 1)
+        hidden, k_new, v_new = fused_decode_step(params["lm"], tcfg, x, ck, cv, slot, slot + 1,
+                                                 cache_k_scale=kscale, cache_v_scale=vscale)
+        if kv_bits == 8:  # quantize the new rows before writing them
+            k_new, ks_new = quantize_kv(k_new)
+            v_new, vs_new = quantize_kv(v_new)
+            _scatter_scale(kscale, ks_new, slot, S)
+            _scatter_scale(vscale, vs_new, slot, S)
         if valid is None:
             ck[:, :, :, slot] = k_new
             cv[:, :, :, slot] = v_new

@@ -1,5 +1,6 @@
-"""One greedy decode position through every Gemma2 layer, on the int8
-serving tree with a bf16 KV cache.
+"""One greedy decode position through every Gemma2 layer, on any fused
+serving tree (int8, int4, grouped int4, int8 + int4 MLP) with a bf16 or an
+int8 KV cache.
 
 Port of the Pallas kernel ``spatialvla_tpu/ops/decode_step.py:fused_decode_step``
 (``_decode_kernel``). The TPU runs the whole stack as one kernel whose grid
@@ -7,24 +8,29 @@ walks (layer, phase); Hopper blocks run in no order and keep nothing between
 launches, so here each layer is a fixed sequence of hand-written kernels
 launched from a Python loop over the stacked layer tensors:
 
-    q8_rmsnorm_matvec   input norm + fused qkv          (csrc/q8_matvec.cu)
+    rmsnorm_matvec      input norm + fused qkv          (csrc/q8_matvec.cu, q4_matvec.cu)
     decode_attention    RoPE, cache + self logits, softcap, softmax, p @ V
-    q8_matvec           o projection
+                        (decode_attention_kv8 on an int8 cache)
+    matvec              o projection
     norm_residual       post-attention norm + residual  (csrc/decode.cu)
-    q8_rmsnorm_matvec   pre-FFN norm + fused gate|up
+    rmsnorm_matvec      pre-FFN norm + fused gate|up
     gelu_mul            gelu_tanh(gate) * up
-    q8_matvec           down projection
+    matvec              down projection
     norm_residual       post-FFN norm + residual (+ the final norm, last layer)
 
+Each projection takes the kernel of its own format (``_matvec_block``,
+decode_step.py:120-168): q8_* for int8 weights, q4_* for packed int4, per
+channel or grouped, so ``mlp_bits=4`` runs int8 attention and an int4 MLP.
 The loop only allocates buffers and launches kernels; no step of the layer
 math is a torch op. The residual stream stays in one fp32 (M, H) buffer,
 updated in place. The bf16 rounding points are those of decode_step.py:220-372.
 The per-row RoPE cos/sin tables are built here, as the JAX wrapper builds
 them outside its kernel (decode_step.py:461-467).
 
-What bounds a step: streaming the int8 LM, 26 layers x 77.9 MB = 2.02 GB on
-the flagship, plus the bf16 cache (about 30 MB at S = 278). A persistent
-kernel or a CUDA graph over the 8 x 26 launches is left for later work.
+What bounds a step: streaming the weights, 26 layers x 77.9 MB = 2.02 GB in
+int8 on the flagship (about half in int4), plus the cache (about 30 MB in
+bf16 at S = 278, half in int8). A persistent kernel or a CUDA graph over the
+8 x 26 launches is left for later work.
 
 ``fused_decode_step_plain`` runs the same loop with every kernel's plain
 PyTorch version; it is the reference the kernels are held to on the card.
@@ -36,9 +42,8 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-from ..errors import not_ported
 from . import _lib
-from .quant import q8_matvec, q8_matvec_plain, q8_rmsnorm_matvec, q8_rmsnorm_matvec_plain
+from .quant import matvec, matvec_plain, rmsnorm_matvec, rmsnorm_matvec_plain
 
 Params = Dict[str, Any]
 
@@ -58,12 +63,14 @@ def _softcap(x, cap):
 
 
 def decode_attention_plain(qkv, cos, sin, ck, cv, position, *, num_heads, q_scale, cap,
-                           attn_out, k_new, v_new):
-    """Plain version of the decode_attention kernel for one layer.
+                           attn_out, k_new, v_new, ks=None, vs=None):
+    """Plain version of the decode_attention kernels for one layer.
 
     qkv (M, (Nq + 2 Nkv) D) bf16; cos/sin (M, D) f32; ck/cv (M, Nkv, S, D)
-    bf16; position (M,) int32 (row m attends to cache slots [0, position[m])
-    plus itself). Writes attn_out (M, Nq D), k_new / v_new (M, Nkv, D)."""
+    bf16, or int8 codes with this layer's per-slot scales ks / vs in the flat
+    (Nkv, 1, M S) layout (decode_attention_kv8); position (M,) int32 (row m
+    attends to cache slots [0, position[m]) plus itself). Writes attn_out
+    (M, Nq D), k_new / v_new (M, Nkv, D), unquantized."""
     M, Nkv, S, D = ck.shape
     Nq = num_heads
     G = Nq // Nkv
@@ -76,7 +83,10 @@ def decode_attention_plain(qkv, cos, sin, ck, cv, position, *, num_heads, q_scal
     q = _rope(f[:, :NqD].reshape(M, Nq, D), c, s) * q_scale
     q16 = q.to(torch.bfloat16).float().reshape(M, Nkv, G, D)
     k16 = k.to(torch.bfloat16).float()
-    logits = _softcap(torch.einsum("mhgd,mhsd->mhgs", q16, ck.float()), cap)
+    logits = torch.einsum("mhgd,mhsd->mhgs", q16, ck.float())
+    if ks is not None:  # per-slot K scales fold into the logits (decode_step.py:289-293)
+        logits = logits * _slot_scales(ks, M, S)
+    logits = _softcap(logits, cap)
     self_l = _softcap((q16 * k16[:, :, None, :]).sum(-1), cap)  # (M, Nkv, G)
     valid = torch.arange(S, device=ck.device)[None, :] < position.to(ck.device)[:, None]
     logits = torch.where(valid[:, None, None, :], logits, torch.full_like(logits, -1e30))
@@ -84,39 +94,58 @@ def decode_attention_plain(qkv, cos, sin, ck, cv, position, *, num_heads, q_scal
     e = torch.exp(logits - mx[..., None])
     e_self = torch.exp(self_l - mx)
     denom = e.sum(-1) + e_self
-    p16 = (e / denom[..., None]).to(torch.bfloat16).float()
-    out = torch.einsum("mhgs,mhsd->mhgd", p16, cv.float())
+    probs = e / denom[..., None]
+    if vs is not None:  # per-slot V scales fold into the probabilities (:313-316)
+        probs = probs * _slot_scales(vs, M, S)
+    out = torch.einsum("mhgs,mhsd->mhgd", probs.to(torch.bfloat16).float(), cv.float())
     out = out + (e_self / denom).to(torch.bfloat16).float()[..., None] * v[:, :, None, :]
     attn_out.copy_(out.reshape(M, NqD))
     k_new.copy_(k)
     v_new.copy_(v)
 
 
+def _slot_scales(sc, M, S):
+    """Flat (Nkv, 1, M S) per-slot scales -> (M, Nkv, 1, S)."""
+    return sc.float().reshape(sc.shape[0], M, S).permute(1, 0, 2)[:, :, None, :]
+
+
+def _check_attention(name, qkv, cos, sin, ck, cv, position, num_heads, attn_out, k_new, v_new,
+                     cache_dtype, scales=()):
+    _lib.check_cuda(name, qkv, cos, sin, ck, cv, position, attn_out, k_new, v_new, *scales)
+    M, Nkv, S, D = ck.shape
+    for t in (qkv, attn_out, k_new, v_new):
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{name}: qkv and the outputs must be bf16, got {t.dtype}")
+    if ck.dtype != cache_dtype or cv.dtype != cache_dtype:
+        raise TypeError(f"{name}: the cache must be {cache_dtype}, got {ck.dtype} / {cv.dtype}")
+    if cos.dtype != torch.float32 or sin.dtype != torch.float32 or position.dtype != torch.int32:
+        raise TypeError(f"{name}: cos/sin must be float32 and position int32")
+    shapes = ((qkv, (M, (num_heads + 2 * Nkv) * D)), (cos, (M, D)), (sin, (M, D)),
+              (cv, (M, Nkv, S, D)), (position, (M,)), (attn_out, (M, num_heads * D)),
+              (k_new, (M, Nkv, D)), (v_new, (M, Nkv, D)))
+    shapes += tuple((t, (Nkv, 1, M * S)) for t in scales)
+    if any(tuple(t.shape) != s for t, s in shapes):
+        raise ValueError(f"{name}: operand shapes do not match the cache "
+                         f"(M, Nkv, S, D) = {(M, Nkv, S, D)} and {num_heads} query heads")
+    if any(t.dtype != torch.float32 for t in scales):
+        raise TypeError(f"{name}: the per-slot scales must be float32")
+    if D % 32 or D > 1024 or num_heads % Nkv or num_heads // Nkv > 8:
+        raise ValueError(f"{name}: the kernel takes head_dim a multiple of 32 up to "
+                         f"1024 and at most 8 query heads per kv head, got D={D}, "
+                         f"{num_heads}/{Nkv} heads")
+    return M, Nkv, S, D
+
+
 def decode_attention(qkv, cos, sin, ck, cv, position, *, num_heads, q_scale, cap,
                      attn_out, k_new, v_new):
-    """Kernel wrapper; see decode_attention_plain for the contract."""
+    """Kernel wrapper, bf16 cache; see decode_attention_plain for the contract."""
     if qkv.device.type == "cpu":
         return decode_attention_plain(
             qkv, cos, sin, ck, cv, position, num_heads=num_heads, q_scale=q_scale,
             cap=cap, attn_out=attn_out, k_new=k_new, v_new=v_new,
         )
-    _lib.check_cuda("decode_attention", qkv, cos, sin, ck, cv, position, attn_out, k_new, v_new)
-    M, Nkv, S, D = ck.shape
-    for t in (qkv, ck, cv, attn_out, k_new, v_new):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"decode_attention: bf16 operands only, got {t.dtype}")
-    if cos.dtype != torch.float32 or sin.dtype != torch.float32 or position.dtype != torch.int32:
-        raise TypeError("decode_attention: cos/sin must be float32 and position int32")
-    shapes = ((qkv, (M, (num_heads + 2 * Nkv) * D)), (cos, (M, D)), (sin, (M, D)),
-              (cv, (M, Nkv, S, D)), (position, (M,)), (attn_out, (M, num_heads * D)),
-              (k_new, (M, Nkv, D)), (v_new, (M, Nkv, D)))
-    if any(tuple(t.shape) != s for t, s in shapes):
-        raise ValueError("decode_attention: operand shapes do not match the cache "
-                         f"(M, Nkv, S, D) = {(M, Nkv, S, D)} and {num_heads} query heads")
-    if D % 32 or D > 1024 or num_heads % Nkv or num_heads // Nkv > 8:
-        raise ValueError(f"decode_attention: the kernel takes head_dim a multiple of 32 up to "
-                         f"1024 and at most 8 query heads per kv head, got D={D}, "
-                         f"{num_heads}/{Nkv} heads")
+    M, Nkv, S, D = _check_attention("decode_attention", qkv, cos, sin, ck, cv, position,
+                                    num_heads, attn_out, k_new, v_new, torch.bfloat16)
     _lib.launch(
         "decode_attention", qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(), ck.data_ptr(),
         cv.data_ptr(), position.data_ptr(), attn_out.data_ptr(), k_new.data_ptr(),
@@ -126,6 +155,29 @@ def decode_attention(qkv, cos, sin, ck, cv, position, *, num_heads, q_scale, cap
 
 
 decode_attention.launches = 0
+
+
+def decode_attention_kv8(qkv, cos, sin, ck, cv, position, *, ks, vs, num_heads, q_scale, cap,
+                         attn_out, k_new, v_new):
+    """Kernel wrapper, int8 cache ck / cv (M, Nkv, S, D) with this layer's
+    per-slot scales ks / vs (Nkv, 1, M S) f32; see decode_attention_plain."""
+    if qkv.device.type == "cpu":
+        return decode_attention_plain(
+            qkv, cos, sin, ck, cv, position, num_heads=num_heads, q_scale=q_scale,
+            cap=cap, attn_out=attn_out, k_new=k_new, v_new=v_new, ks=ks, vs=vs,
+        )
+    M, Nkv, S, D = _check_attention("decode_attention_kv8", qkv, cos, sin, ck, cv, position,
+                                    num_heads, attn_out, k_new, v_new, torch.int8, (ks, vs))
+    _lib.launch(
+        "decode_attention_kv8", qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(), ck.data_ptr(),
+        cv.data_ptr(), ks.data_ptr(), vs.data_ptr(), position.data_ptr(), attn_out.data_ptr(),
+        k_new.data_ptr(), v_new.data_ptr(), M, num_heads, Nkv, D, S, float(q_scale),
+        float(cap or 0.0),
+    )
+    decode_attention_kv8.launches += 1
+
+
+decode_attention_kv8.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -204,25 +256,31 @@ gelu_mul.launches = 0
 # the step
 # ---------------------------------------------------------------------------
 
+def _attention_kernel(qkv, cos, sin, ck, cv, position, *, ks, vs, **kw):
+    """decode_attention on a bf16 cache, decode_attention_kv8 on an int8 one."""
+    if ks is None:
+        return decode_attention(qkv, cos, sin, ck, cv, position, **kw)
+    return decode_attention_kv8(qkv, cos, sin, ck, cv, position, ks=ks, vs=vs, **kw)
+
+
 KERNELS = SimpleNamespace(
-    rmsnorm_matvec=q8_rmsnorm_matvec, matvec=q8_matvec, attention=decode_attention,
+    rmsnorm_matvec=rmsnorm_matvec, matvec=matvec, attention=_attention_kernel,
     norm_residual=norm_residual, gelu_mul=gelu_mul,
 )
-
-
-def _rmsnorm_matvec_plain(x, norm_w, qt, scale, *, eps, out_dtype, out):
-    out.copy_(q8_rmsnorm_matvec_plain(x, norm_w, qt, scale, eps=eps, out_dtype=out_dtype))
-
-
-def _matvec_plain(x, qt, scale, *, out_dtype, out):
-    out.copy_(q8_matvec_plain(x, qt, scale, out_dtype=out_dtype))
-
-
 PLAIN = SimpleNamespace(
-    rmsnorm_matvec=_rmsnorm_matvec_plain, matvec=_matvec_plain,
+    rmsnorm_matvec=rmsnorm_matvec_plain, matvec=matvec_plain,
     attention=decode_attention_plain, norm_residual=norm_residual_plain,
     gelu_mul=gelu_mul_plain,
 )
+
+
+def flatten_kv_scales(sc: torch.Tensor) -> torch.Tensor:
+    """(L, M, Nkv, S) per-slot KV scales -> the flat (L, Nkv, 1, M*S) layout
+    (decode_step.py:91-103): column j of a (layer, kv head) row is cache slot
+    (m = j // S, s = j % S). Persistent callers keep their scales in this
+    layout and write each step's new scales into it directly."""
+    L, M, Nkv, S = sc.shape
+    return sc.float().permute(0, 2, 1, 3).reshape(L, Nkv, 1, M * S).contiguous()
 
 
 def rope_tables(rope_position: torch.Tensor, head_dim: int, theta: float):
@@ -236,15 +294,34 @@ def rope_tables(rope_position: torch.Tensor, head_dim: int, theta: float):
     return torch.cos(emb).contiguous(), torch.sin(emb).contiguous()
 
 
-def _step(ops, lm_params: Params, cfg, x, cache_k, cache_v, position, rope_position):
+def _kv_scales(cfg, M, S, cache_k, cache_k_scale, cache_v_scale):
+    """The flat (L, Nkv, 1, M*S) f32 scales of an int8 cache, from either
+    layout (decode_step.py:411-435); (None, None) for a bf16 cache."""
+    if cache_k.dtype != torch.int8:
+        return None, None
+    if cache_k_scale is None or cache_v_scale is None:
+        raise ValueError("int8 KV cache requires per-slot cache_k_scale/cache_v_scale")
+    L, Nkv = cfg.num_layers, cfg.num_kv_heads
+    flat_shape = (L, Nkv, 1, M * S)
+    if tuple(cache_k_scale.shape) == flat_shape and tuple(cache_v_scale.shape) == flat_shape:
+        return cache_k_scale.float().contiguous(), cache_v_scale.float().contiguous()
+    for sc in (cache_k_scale, cache_v_scale):
+        if tuple(sc.shape) != (L, M, Nkv, S):
+            raise ValueError(f"cache_k_scale: expected {(L, M, Nkv, S)} or {flat_shape}, "
+                             f"got {tuple(sc.shape)}")
+    return flatten_kv_scales(cache_k_scale), flatten_kv_scales(cache_v_scale)
+
+
+def _step(ops, lm_params: Params, cfg, x, cache_k, cache_v, position, rope_position,
+          cache_k_scale, cache_v_scale):
     layers = lm_params["layers"]
     qkv, o = layers["attn"]["qkv"], layers["attn"]["o"]
     gu, dn = layers["mlp"]["gate_up"], layers["mlp"]["down"]
     for w in (qkv, o, gu, dn):
-        if w["qt"].dtype != torch.int8 or w["scale"].dim() != 2:
-            raise not_ported("the decode step on int4, grouped or mlp_bits trees")
-    if cache_k.dtype != torch.bfloat16:
-        raise not_ported("the decode step on an int8 KV cache (kv_bits=8)")
+        if w["qt"].dtype not in (torch.int8, torch.uint8):
+            raise TypeError(f"decode step: weights must be int8 or packed int4, got {w['qt'].dtype}")
+    if cache_k.dtype not in (torch.bfloat16, torch.int8):
+        raise TypeError(f"decode step: the KV cache must be bf16 or int8, got {cache_k.dtype}")
     L, M = cfg.num_layers, x.shape[0]
     H, I = cfg.hidden_size, cfg.intermediate_size
     Nq, Nkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -254,6 +331,7 @@ def _step(ops, lm_params: Params, cfg, x, cache_k, cache_v, position, rope_posit
             "serving cache exceeds the sliding window; the decode step treats "
             "window and global layers identically"
         )
+    ks, vs = _kv_scales(cfg, M, S, cache_k, cache_k_scale, cache_v_scale)
     dev = x.device
     position = torch.as_tensor(position, dtype=torch.int32, device=dev).reshape(-1).expand(M).contiguous()
     rope_position = torch.as_tensor(rope_position, dtype=torch.int32, device=dev).reshape(-1).expand(M)
@@ -275,9 +353,10 @@ def _step(ops, lm_params: Params, cfg, x, cache_k, cache_v, position, rope_posit
     for l in range(L):
         ops.rmsnorm_matvec(h, layers["input_norm"][l], qkv["qt"][l], qkv["scale"][l],
                            eps=eps, out_dtype=bf, out=qkv_buf)
-        ops.attention(qkv_buf, cos, sin, cache_k[l], cache_v[l], position, num_heads=Nq,
-                      q_scale=q_scale, cap=cfg.attn_logit_softcap, attn_out=attn_buf,
-                      k_new=k_new[l], v_new=v_new[l])
+        ops.attention(qkv_buf, cos, sin, cache_k[l], cache_v[l], position,
+                      ks=None if ks is None else ks[l], vs=None if vs is None else vs[l],
+                      num_heads=Nq, q_scale=q_scale, cap=cfg.attn_logit_softcap,
+                      attn_out=attn_buf, k_new=k_new[l], v_new=v_new[l])
         ops.matvec(attn_buf, o["qt"][l], o["scale"][l], out_dtype=bf, out=o_buf)
         ops.norm_residual(h, o_buf, layers["post_attn_norm"][l], eps=eps)
         ops.rmsnorm_matvec(h, layers["pre_ffn_norm"][l], gu["qt"][l], gu["scale"][l],
@@ -293,18 +372,24 @@ def _step(ops, lm_params: Params, cfg, x, cache_k, cache_v, position, rope_posit
 
 def fused_decode_step(
     lm_params: Params, cfg, x: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
-    position, rope_position,
+    position, rope_position, *, cache_k_scale=None, cache_v_scale=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Same signature and results as the JAX ``fused_decode_step``.
 
-    x (M, H) embeddings * sqrt(H); cache_k / cache_v (L, M, Nkv, S, D) bf16
-    in serving layout, valid slots [0, position); position / rope_position
-    int scalars or (M,) per-row vectors. Returns (hidden (M, H) bf16
-    final-normed, k_new, v_new (L, M, Nkv, D) bf16); the caller writes
-    k_new / v_new into the cache at ``position``."""
-    return _step(KERNELS, lm_params, cfg, x, cache_k, cache_v, position, rope_position)
+    x (M, H) embeddings * sqrt(H); cache_k / cache_v (L, M, Nkv, S, D) in
+    serving layout, bf16, or int8 codes with per-slot f32 ``cache_*_scale``
+    in (L, M, Nkv, S) or the flat (L, Nkv, 1, M*S) layout
+    (``flatten_kv_scales``); valid slots [0, position); position /
+    rope_position int scalars or (M,) per-row vectors. Returns (hidden (M, H)
+    bf16 final-normed, k_new, v_new (L, M, Nkv, D) bf16, unquantized); the
+    caller writes k_new / v_new (quantized, for an int8 cache) into the cache
+    at ``position``."""
+    return _step(KERNELS, lm_params, cfg, x, cache_k, cache_v, position, rope_position,
+                 cache_k_scale, cache_v_scale)
 
 
-def fused_decode_step_plain(lm_params, cfg, x, cache_k, cache_v, position, rope_position):
+def fused_decode_step_plain(lm_params, cfg, x, cache_k, cache_v, position, rope_position, *,
+                            cache_k_scale=None, cache_v_scale=None):
     """fused_decode_step with every kernel replaced by its plain version."""
-    return _step(PLAIN, lm_params, cfg, x, cache_k, cache_v, position, rope_position)
+    return _step(PLAIN, lm_params, cfg, x, cache_k, cache_v, position, rope_position,
+                 cache_k_scale, cache_v_scale)

@@ -1,25 +1,37 @@
-"""Weight-only int8 quantization for serving, and its few-row matvec kernels.
+"""Weight-only int8 / int4 quantization for serving, and its matvec kernels.
 
-Port of ``spatialvla_tpu/ops/quant.py``: the same ``{"qt": int8 (..., N, K),
-"scale": f32 (..., N)}`` leaves (the weight stored transposed so an output
-channel is one contiguous row), bit-identical codes and scales, and the same
-dispatch in ``qmatmul`` / ``qnorm_matmul``: at most ``QKERNEL_MAX_M`` rows on
-the card go to the hand-written kernel, everything else dequantizes to the
+Port of ``spatialvla_tpu/ops/quant.py``: the same leaves, bit-identical codes
+and scales, and the same dispatch in ``qmatmul`` / ``qnorm_matmul``.
+
+Formats (``{"qt", "scale"}``, the weight stored transposed so an output
+channel is one contiguous row):
+  * int8: ``qt`` int8 (..., N, K), ``scale`` f32 (..., N) per channel;
+  * int4: ``qt`` uint8 (..., N, K/2), column j packed with column j + K/2
+    offset-binary (low nibble = code_j + 8, high nibble = code_{j+K/2} + 8),
+    ``scale`` f32 (..., N) per channel or (..., N, G) grouped along K.
+
+Rows up to ``_qkernel_max_m`` (16 for int8, 512 for int4, as quant.py:262-267)
+on the card go to a hand-written kernel; everything else dequantizes to the
 activation dtype and runs one plain matmul (the branch the JAX package leaves
 to XLA).
 
-Kernels (``csrc/q8_matvec.cu``):
-  * ``q8_matvec`` replaces the Pallas ``int8_matmul`` (quant.py:297);
-  * ``q8_rmsnorm_matvec`` replaces ``int8_rmsnorm_matmul`` (quant.py:336).
+Kernels:
+  * ``q8_matvec`` / ``q8_rmsnorm_matvec`` (``csrc/q8_matvec.cu``) replace the
+    int8 branch of the Pallas ``int8_matmul`` (quant.py:297) and
+    ``int8_rmsnorm_matmul`` (quant.py:336);
+  * ``q4_matvec`` / ``q4_rmsnorm_matvec`` (``csrc/q4_matvec.cu``) replace
+    their int4 branches, per channel and grouped (``_q_dot_scaled``
+    quant.py:205-243, ``grouped_int4_dot`` :163).
 Each wrapper runs its plain PyTorch version (``*_plain``) only for CPU
 tensors, launches the kernel for CUDA tensors, and counts its launches in
 ``<wrapper>.launches``.
 
-Not ported yet (ROADMAP): int4 / grouped-int4 formats, ``mlp_bits``, the
-int8 KV cache (``quantize_kv``) and LoRA-factored weights.
+Not ported yet (ROADMAP): LoRA-factored weights in ``qmatmul`` and the
+unfused quantized LM tree (``fuse=False``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional
 
 import torch
@@ -29,11 +41,20 @@ from . import _lib
 
 QuantW = Dict[str, Any]
 
-# Rows above this take the dequantize + matmul path. The value is the JAX
-# package's int8 threshold (quant.py:262), tuned on a TPU; it has not been
-# re-derived on the H100 yet (ROADMAP).
-QKERNEL_MAX_M = 16
+# Rows above these take the dequantize + matmul path. The values are the JAX
+# package's per-format thresholds (quant.py:262-263), tuned on a TPU; they
+# have not been re-derived on the H100 yet (ROADMAP).
+QKERNEL_MAX_M = 16  # int8 qt
+QKERNEL_MAX_M_INT4 = 512  # packed-int4 qt (uint8 nibbles)
 
+
+def _qkernel_max_m(qt) -> int:
+    return QKERNEL_MAX_M_INT4 if qt.dtype == torch.uint8 else QKERNEL_MAX_M
+
+
+# ---------------------------------------------------------------------------
+# formats (quant.py:34-146)
+# ---------------------------------------------------------------------------
 
 def quantize_int8(w: torch.Tensor) -> QuantW:
     """(..., K, N) float -> symmetric per-N-channel int8, stored (..., N, K).
@@ -47,17 +68,79 @@ def quantize_int8(w: torch.Tensor) -> QuantW:
     return {"qt": q.transpose(-1, -2).contiguous(), "scale": scale[..., 0, :]}
 
 
+def quantize_kv(x: torch.Tensor):
+    """KV-cache int8 (quant.py:43): symmetric per-slot quantization over the
+    head dim. (..., D) float -> (codes int8 (..., D), scale f32 (...))."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1), min=1e-12) / 127.0
+    codes = torch.round(xf / scale[..., None]).to(torch.int8)
+    return codes, scale
+
+
+def quantize_int4(w: torch.Tensor, group_size: Optional[int] = None) -> QuantW:
+    """(..., K, N) float -> symmetric int4 (levels [-8, 7]) stored (..., N, K/2)
+    uint8 (quant.py:59). group_size: None = one scale per output channel;
+    otherwise scales per group of K, (..., N, G), clamped to K/2 so the two
+    packed halves stay group-aligned."""
+    wf = w.float()
+    K = wf.shape[-2]
+    if K % 2:
+        raise ValueError(f"int4 packing needs an even contraction dim, got {K}")
+    if group_size is not None:
+        group_size = min(group_size, K // 2)
+        if not (group_size > 0 and K % group_size == 0 and (K // 2) % group_size == 0):
+            raise ValueError(f"group_size {group_size} does not tile K={K} and its halves")
+        G = K // group_size
+        wg = wf.reshape(*wf.shape[:-2], G, group_size, wf.shape[-1])
+        scale_g = wg.abs().amax(dim=-2, keepdim=True) / 7.0  # (..., G, 1, N)
+        q = torch.clamp(torch.round(wg / torch.clamp(scale_g, min=1e-12)), -8, 7)
+        q = q.reshape(wf.shape).to(torch.int32)
+        scale = scale_g[..., 0, :].transpose(-1, -2).contiguous()  # (..., N, G)
+    else:
+        scale = wf.abs().amax(dim=-2, keepdim=True) / 7.0  # (..., 1, N)
+        q = torch.clamp(torch.round(wf / torch.clamp(scale, min=1e-12)), -8, 7).to(torch.int32)
+        scale = scale[..., 0, :]
+    qt = q.transpose(-1, -2)  # (..., N, K)
+    lo = qt[..., : K // 2] + 8
+    hi = qt[..., K // 2 :] + 8
+    return {"qt": (lo | (hi << 4)).to(torch.uint8).contiguous(), "scale": scale}
+
+
+def unpack_int4(qt: torch.Tensor) -> torch.Tensor:
+    """(..., N, K/2) uint8 -> (..., N, K) int32 codes in [-8, 7]."""
+    w32 = qt.to(torch.int32)
+    return torch.cat([(w32 & 15) - 8, ((w32 >> 4) & 15) - 8], dim=-1)
+
+
 def is_quantized(w) -> bool:
     return isinstance(w, dict) and "qt" in w and "scale" in w
 
 
+def is_int4(w) -> bool:
+    return is_quantized(w) and w["qt"].dtype == torch.uint8
+
+
+def is_grouped(w) -> bool:
+    """Group-wise scales: (..., N, G), the rank of qt, instead of (..., N)."""
+    return is_quantized(w) and w["scale"].dim() == w["qt"].dim()
+
+
+def grouped_dequant_t(qt_codes: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    """codes (..., N, K) x scale (..., N, G) -> (..., N, K) in ``dtype``
+    (quant.py:124): (N, G, K/G) * scale[..., None]."""
+    N, K = qt_codes.shape[-2:]
+    G = scale.shape[-1]
+    lead = qt_codes.shape[:-2]
+    q3 = qt_codes.to(dtype).reshape(*lead, N, G, K // G)
+    return (q3 * scale[..., None].to(dtype)).reshape(*lead, N, K)
+
+
 def dequantize(qw: QuantW, dtype=torch.float32) -> torch.Tensor:
-    """-> (..., K, N) float."""
-    if qw["qt"].dtype != torch.int8:
-        raise not_ported("dequantizing packed int4 weights")
-    if qw["scale"].dim() == qw["qt"].dim():
-        raise not_ported("grouped-scale weights")
-    q = qw["qt"].transpose(-1, -2).float()
+    """-> (..., K, N) float, every format (quant.py:138)."""
+    qt = unpack_int4(qw["qt"]) if is_int4(qw) else qw["qt"]
+    if is_grouped(qw):
+        return grouped_dequant_t(qt, qw["scale"], torch.float32).transpose(-1, -2).to(dtype)
+    q = qt.transpose(-1, -2).float()
     return (q * qw["scale"][..., None, :]).to(dtype)
 
 
@@ -114,13 +197,16 @@ q8_matvec.launches = 0
 # kernel 2: Gemma rms_norm(x) fused in front of kernel 1
 # ---------------------------------------------------------------------------
 
-def q8_rmsnorm_matvec_plain(x, norm_w, qt, scale, *, eps=1e-6, out_dtype=torch.bfloat16):
-    """Plain version: fp32 ``x * rsqrt(mean(x^2) + eps) * (1 + w)`` rounded to
-    bf16, then q8_matvec_plain."""
+def _rms_bf16(x, norm_w, eps):
+    """fp32 ``x * rsqrt(mean(x^2) + eps) * (1 + w)`` rounded to bf16 (as fp32)."""
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
-    xn = xf * torch.rsqrt(var + eps) * (1.0 + norm_w.float())
-    return q8_matvec_plain(xn, qt, scale, out_dtype=out_dtype)
+    return (xf * torch.rsqrt(var + eps) * (1.0 + norm_w.float())).to(torch.bfloat16).float()
+
+
+def q8_rmsnorm_matvec_plain(x, norm_w, qt, scale, *, eps=1e-6, out_dtype=torch.bfloat16):
+    """Plain version: the bf16-rounded Gemma RMSNorm, then q8_matvec_plain."""
+    return q8_matvec_plain(_rms_bf16(x, norm_w, eps), qt, scale, out_dtype=out_dtype)
 
 
 def q8_rmsnorm_matvec(x, norm_w, qt, scale, *, eps=1e-6, out_dtype=torch.bfloat16, out=None):
@@ -131,9 +217,7 @@ def q8_rmsnorm_matvec(x, norm_w, qt, scale, *, eps=1e-6, out_dtype=torch.bfloat1
     if out is None:
         out = torch.empty((x.shape[0], qt.shape[0]), dtype=out_dtype, device=x.device)
     M, N, K = _check_matvec("q8_rmsnorm_matvec", x, qt, scale, out)
-    _lib.check_cuda("q8_rmsnorm_matvec", x, norm_w)
-    if tuple(norm_w.shape) != (K,):
-        raise ValueError(f"q8_rmsnorm_matvec: norm_w must be ({K},), got {tuple(norm_w.shape)}")
+    _check_norm_w("q8_rmsnorm_matvec", x, norm_w, K)
     _lib.launch(
         "q8_rmsnorm_matvec", x.data_ptr(), _lib.dtype_code(x), norm_w.data_ptr(),
         _lib.dtype_code(norm_w), float(eps), qt.data_ptr(), scale.data_ptr(),
@@ -146,32 +230,155 @@ def q8_rmsnorm_matvec(x, norm_w, qt, scale, *, eps=1e-6, out_dtype=torch.bfloat1
 q8_rmsnorm_matvec.launches = 0
 
 
+def _check_norm_w(name, x, norm_w, K):
+    _lib.check_cuda(name, x, norm_w)
+    if tuple(norm_w.shape) != (K,):
+        raise ValueError(f"{name}: norm_w must be ({K},), got {tuple(norm_w.shape)}")
+
+
 # ---------------------------------------------------------------------------
-# dispatch (quant.py:395-436)
+# kernels 1 and 2, int4: x (M, K) @ packed-int4 (N, K/2)^T, per-channel
+# (N,) or grouped (N, G) scales
 # ---------------------------------------------------------------------------
 
-def _check_int8(w):
-    if w["qt"].dtype != torch.int8:
-        raise not_ported("int4 weights (bits=4)")
-    if w["scale"].dim() == w["qt"].dim():
-        raise not_ported("grouped int4 scales (group_size)")
+def _q4_dot_plain(xb, qt, scale):
+    """(M, K) fp32 holding bf16 values @ packed int4 -> (M, N) fp32, as
+    ``_q_dot_scaled`` computes it (quant.py:221-238): dots on the biased
+    nibble codes, then the +8 bias taken out as 8 * sum(x) (per channel) or
+    8 * (group sums @ scales) (grouped, ``grouped_int4_dot``)."""
+    w = qt.to(torch.int32)
+    codes = torch.cat([(w & 15), (w >> 4)], dim=-1).float()  # (N, K) biased, column order
+    if scale.dim() == 2:  # grouped: one partial dot per group, scaled
+        M, K = xb.shape
+        N, G = scale.shape
+        x3 = xb.reshape(M, G, K // G)
+        parts = torch.einsum("mgk,ngk->mng", x3, codes.reshape(N, G, K // G))
+        acc = (parts * scale.float()[None]).sum(-1)
+        return acc - 8.0 * (x3.sum(-1) @ scale.float().t())
+    acc = xb @ codes.t()
+    return (acc - 8.0 * xb.sum(-1, keepdim=True)) * scale.float()
+
+
+def q4_matvec_plain(x, qt, scale, *, out_dtype=torch.bfloat16):
+    """Plain version of the q4_matvec kernel: bf16-rounded activations, fp32
+    sums."""
+    return _q4_dot_plain(x.to(torch.bfloat16).float(), qt, scale).to(out_dtype)
+
+
+def q4_rmsnorm_matvec_plain(x, norm_w, qt, scale, *, eps=1e-6, out_dtype=torch.bfloat16):
+    """Plain version: the bf16-rounded Gemma RMSNorm, then q4_matvec_plain."""
+    return _q4_dot_plain(_rms_bf16(x, norm_w, eps), qt, scale).to(out_dtype)
+
+
+def _check_q4(name, x, qt, scale, out):
+    """Shapes the q4 kernels take; returns (M, N, K, G), G = 0 per channel."""
+    _lib.check_cuda(name, x, qt, scale, out)
+    M, K = x.shape
+    if qt.dtype != torch.uint8 or qt.dim() != 2 or 2 * qt.shape[1] != K:
+        raise ValueError(f"{name}: qt must be uint8 (N, {K // 2}), got {qt.dtype} {tuple(qt.shape)}")
+    N = qt.shape[0]
+    grouped = scale.dim() == 2
+    G = scale.shape[-1] if grouped else 0
+    if scale.dtype != torch.float32 or tuple(scale.shape) != ((N, G) if grouped else (N,)):
+        raise ValueError(f"{name}: scale must be float32 ({N},) or ({N}, G), got "
+                         f"{scale.dtype} {tuple(scale.shape)}")
+    if grouped and (G < 2 or G % 2 or K % G):
+        raise ValueError(f"{name}: {G} groups over K={K}; both halves of K must hold "
+                         "whole groups (an even G that divides K, as quantize_int4 makes)")
+    if tuple(out.shape) != (M, N):
+        raise ValueError(f"{name}: out must be ({M}, {N}), got {tuple(out.shape)}")
+    if not 1 <= M <= QKERNEL_MAX_M_INT4:
+        raise ValueError(f"{name}: {M} rows; the kernel takes 1..{QKERNEL_MAX_M_INT4}")
+    return M, N, K, G
+
+
+def q4_matvec(x, qt, scale, *, out_dtype=torch.bfloat16, out=None):
+    """x (M, K) f32/bf16 @ dequant(qt (N, K/2) packed int4, scale (N,) or
+    (N, G)) -> (M, N), 1 <= M <= 512."""
+    if x.device.type == "cpu":
+        y = q4_matvec_plain(x, qt, scale, out_dtype=out_dtype)
+        return y if out is None else out.copy_(y)
+    if out is None:
+        out = torch.empty((x.shape[0], qt.shape[0]), dtype=out_dtype, device=x.device)
+    M, N, K, G = _check_q4("q4_matvec", x, qt, scale, out)
+    _lib.launch(
+        "q4_matvec", x.data_ptr(), _lib.dtype_code(x), qt.data_ptr(), scale.data_ptr(), G,
+        out.data_ptr(), _lib.dtype_code(out), M, N, K,
+    )
+    q4_matvec.launches += 1
+    return out
+
+
+q4_matvec.launches = 0
+
+
+def q4_rmsnorm_matvec(x, norm_w, qt, scale, *, eps=1e-6, out_dtype=torch.bfloat16, out=None):
+    """rms_norm(x; norm_w) @ dequant(packed int4) in one kernel; x is NOT normed."""
+    if x.device.type == "cpu":
+        y = q4_rmsnorm_matvec_plain(x, norm_w, qt, scale, eps=eps, out_dtype=out_dtype)
+        return y if out is None else out.copy_(y)
+    if out is None:
+        out = torch.empty((x.shape[0], qt.shape[0]), dtype=out_dtype, device=x.device)
+    M, N, K, G = _check_q4("q4_rmsnorm_matvec", x, qt, scale, out)
+    _check_norm_w("q4_rmsnorm_matvec", x, norm_w, K)
+    _lib.launch(
+        "q4_rmsnorm_matvec", x.data_ptr(), _lib.dtype_code(x), norm_w.data_ptr(),
+        _lib.dtype_code(norm_w), float(eps), qt.data_ptr(), scale.data_ptr(), G,
+        out.data_ptr(), _lib.dtype_code(out), M, N, K,
+    )
+    q4_rmsnorm_matvec.launches += 1
+    return out
+
+
+q4_rmsnorm_matvec.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# dispatch on the weight format (quant.py:395-436)
+# ---------------------------------------------------------------------------
+
+def matvec(x, qt, scale, *, out_dtype=torch.bfloat16, out=None):
+    """The int8 or int4 kernel wrapper, by the dtype of ``qt``."""
+    fn = q4_matvec if qt.dtype == torch.uint8 else q8_matvec
+    return fn(x, qt, scale, out_dtype=out_dtype, out=out)
+
+
+def rmsnorm_matvec(x, norm_w, qt, scale, *, eps=1e-6, out_dtype=torch.bfloat16, out=None):
+    fn = q4_rmsnorm_matvec if qt.dtype == torch.uint8 else q8_rmsnorm_matvec
+    return fn(x, norm_w, qt, scale, eps=eps, out_dtype=out_dtype, out=out)
+
+
+def matvec_plain(x, qt, scale, *, out_dtype=torch.bfloat16, out=None):
+    """The plain version of ``matvec``'s kernel, on any device."""
+    fn = q4_matvec_plain if qt.dtype == torch.uint8 else q8_matvec_plain
+    y = fn(x, qt, scale, out_dtype=out_dtype)
+    return y if out is None else out.copy_(y)
+
+
+def rmsnorm_matvec_plain(x, norm_w, qt, scale, *, eps=1e-6, out_dtype=torch.bfloat16, out=None):
+    fn = q4_rmsnorm_matvec_plain if qt.dtype == torch.uint8 else q8_rmsnorm_matvec_plain
+    y = fn(x, norm_w, qt, scale, eps=eps, out_dtype=out_dtype)
+    return y if out is None else out.copy_(y)
 
 
 def qmatmul(x: torch.Tensor, w) -> torch.Tensor:
-    """x (..., K) @ w, where w is a plain (K, N) tensor or an int8 QuantW.
-    The kernel takes CUDA tensors of at most QKERNEL_MAX_M rows (the JAX
-    package takes its kernel off-CPU)."""
+    """x (..., K) @ w, where w is a plain (K, N) tensor or a QuantW of any
+    format. The kernels take CUDA tensors of at most ``_qkernel_max_m`` rows
+    (the JAX package takes its kernel off-CPU)."""
     if isinstance(w, dict) and "a" in w and "b" in w:
         raise not_ported("LoRA-factored weights")
     if not is_quantized(w):
         return x @ w.to(x.dtype)
-    _check_int8(w)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    if x.is_cuda and x2.shape[0] <= QKERNEL_MAX_M:
-        y = q8_matvec(x2.contiguous(), w["qt"], w["scale"], out_dtype=x.dtype)
+    if x.is_cuda and x2.shape[0] <= _qkernel_max_m(w["qt"]):
+        y = matvec(x2.contiguous(), w["qt"], w["scale"], out_dtype=x.dtype)
     else:  # transient dequant in the activation dtype + one plain matmul
-        wd = w["qt"].to(x.dtype) * w["scale"].to(x.dtype)[:, None]
+        qt = unpack_int4(w["qt"]) if is_int4(w) else w["qt"]
+        if is_grouped(w):
+            wd = grouped_dequant_t(qt, w["scale"], x.dtype)
+        else:
+            wd = qt.to(x.dtype) * w["scale"].to(x.dtype)[:, None]
         y = x2 @ wd.t()
     return y.reshape(*lead, y.shape[-1])
 
@@ -182,11 +389,10 @@ def qnorm_matmul(x, norm_w, w, *, eps: float = 1e-6):
     from ..models.layers import rms_norm
 
     if is_quantized(w) and x.is_cuda:
-        _check_int8(w)
         x2 = x.reshape(-1, x.shape[-1])
-        if x2.shape[0] <= QKERNEL_MAX_M:
-            y = q8_rmsnorm_matvec(x2.contiguous(), norm_w, w["qt"], w["scale"], eps=eps,
-                                  out_dtype=x.dtype)
+        if x2.shape[0] <= _qkernel_max_m(w["qt"]):
+            y = rmsnorm_matvec(x2.contiguous(), norm_w, w["qt"], w["scale"], eps=eps,
+                               out_dtype=x.dtype)
             return y.reshape(*x.shape[:-1], y.shape[-1])
     return qmatmul(rms_norm(norm_w, x, eps), w)
 
@@ -195,24 +401,30 @@ def qnorm_matmul(x, norm_w, w, *, eps: float = 1e-6):
 # parameter-tree quantization (quant.py:443, :510)
 # ---------------------------------------------------------------------------
 
+def _format(bits: int, group_size: Optional[int]):
+    if bits == 4:
+        return functools.partial(quantize_int4, group_size=group_size)
+    return quantize_int8
+
+
 def _stack(parts) -> QuantW:
     return {"qt": torch.stack([p["qt"] for p in parts]),
             "scale": torch.stack([p["scale"] for p in parts])}
 
 
-def _quantize_stacked(w: torch.Tensor) -> QuantW:
-    """quantize_int8 one layer of a stacked (L, K, N) tensor at a time, so
-    the fp32 temporaries stay one layer's size (the flagship's gate|up is
-    2.2 GB in bf16)."""
+def _quantize_stacked(w: torch.Tensor, quantize=quantize_int8) -> QuantW:
+    """quantize one layer of a stacked (L, K, N) tensor at a time, so the
+    fp32 temporaries stay one layer's size (the flagship's gate|up is 2.2 GB
+    in bf16)."""
     if w.dim() == 2:
-        return quantize_int8(w)
-    return _stack([quantize_int8(w[i]) for i in range(w.shape[0])])
+        return quantize(w)
+    return _stack([quantize(w[i]) for i in range(w.shape[0])])
 
 
-def _quantize_head(w: torch.Tensor, chunk: int = 16384) -> QuantW:
-    """(K, V) head -> int8 in column chunks (per-channel scales are
+def _quantize_head(w: torch.Tensor, quantize, chunk: int = 16384) -> QuantW:
+    """(K, V) head in column chunks (per-channel and per-group scales are
     independent per column, so chunking changes no bit)."""
-    parts = [quantize_int8(w[:, i : i + chunk]) for i in range(0, w.shape[1], chunk)]
+    parts = [quantize(w[:, i : i + chunk]) for i in range(0, w.shape[1], chunk)]
     return {"qt": torch.cat([p["qt"] for p in parts]),
             "scale": torch.cat([p["scale"] for p in parts])}
 
@@ -221,53 +433,54 @@ def quantize_lm_params(
     lm_params: Dict[str, Any], *, fuse: bool = True, bits: int = 8,
     group_size: Optional[int] = None, mlp_bits: Optional[int] = None,
 ) -> Dict[str, Any]:
-    """int8 Gemma2 weight matrices with fused q|k|v and gate|up (the serving
-    tree of quant.py:443 with its defaults). Embedding and norms stay."""
-    if bits != 8:
-        raise not_ported(f"bits={bits} LM quantization")
-    if mlp_bits is not None:
-        raise not_ported("mlp_bits")
-    if group_size is not None:
-        raise not_ported("group_size")
+    """The serving tree of quant.py:443 with fused q|k|v and gate|up: int8
+    (bits=8) or packed int4 (bits=4, per channel or with ``group_size``)
+    weight matrices; ``mlp_bits`` overrides the MLP's precision (bits=8,
+    mlp_bits=4 is the mixed tree). Embedding and norms stay."""
+    if bits not in (4, 8):
+        raise ValueError(f"bits={bits}: weight quantization supports 8 or 4")
+    if mlp_bits is not None and mlp_bits not in (4, 8):
+        raise ValueError(f"mlp_bits={mlp_bits}: supports 8 or 4 (or None)")
     if not fuse:
         raise not_ported("the unfused quantized LM tree (fuse=False)")
+    quantize = _format(bits, group_size)
+    quantize_mlp = _format(mlp_bits if mlp_bits is not None else bits, group_size)
     out = dict(lm_params)
     attn = lm_params["layers"]["attn"]
     mlp = lm_params["layers"]["mlp"]
     layers = dict(lm_params["layers"])
     L = attn["q"].shape[0]
     cat = lambda *ws: [torch.cat([w[i] for w in ws], dim=-1) for i in range(L)]  # noqa: E731
-    layers["attn"] = {"qkv": _stack([quantize_int8(w) for w in cat(attn["q"], attn["k"], attn["v"])]),
-                      "o": _quantize_stacked(attn["o"])}
-    layers["mlp"] = {"gate_up": _stack([quantize_int8(w) for w in cat(mlp["gate"], mlp["up"])]),
-                     "down": _quantize_stacked(mlp["down"])}
+    layers["attn"] = {"qkv": _stack([quantize(w) for w in cat(attn["q"], attn["k"], attn["v"])]),
+                      "o": _quantize_stacked(attn["o"], quantize)}
+    layers["mlp"] = {"gate_up": _stack([quantize_mlp(w) for w in cat(mlp["gate"], mlp["up"])]),
+                     "down": _quantize_stacked(mlp["down"], quantize_mlp)}
     out["layers"] = layers
     if "lm_head" in lm_params:
-        out["lm_head"] = _quantize_head(lm_params["lm_head"])
+        out["lm_head"] = _quantize_head(lm_params["lm_head"], quantize)
     return out
 
 
-def _quantize_wb(p: Dict[str, Any]) -> Dict[str, Any]:
+def _quantize_wb(p: Dict[str, Any], quantize) -> Dict[str, Any]:
     out = dict(p)
-    out["w"] = _quantize_stacked(p["w"])
+    out["w"] = _quantize_stacked(p["w"], quantize)
     return out
 
 
 def quantize_vision_params(
     params: Dict[str, Any], *, bits: int = 8, group_size: Optional[int] = None
 ) -> Dict[str, Any]:
-    """int8 SigLIP encoder matmuls, ZoeDepth BEiT-backbone matmuls and the
-    projector (quant.py:510); everything else stays."""
-    if bits != 8:
-        raise not_ported(f"bits={bits} vision quantization")
-    if group_size is not None:
-        raise not_ported("group_size")
+    """int8 or int4 SigLIP encoder matmuls, ZoeDepth BEiT-backbone matmuls and
+    the projector (quant.py:510); everything else stays."""
+    if bits not in (4, 8):
+        raise ValueError(f"bits={bits}: weight quantization supports 8 or 4")
+    quantize = _format(bits, group_size)
     out = dict(params)
     if "vision" in params:
         vis = dict(params["vision"])
         layers = dict(vis["layers"])
-        layers["attn"] = {k: _quantize_wb(v) for k, v in layers["attn"].items()}
-        layers["mlp"] = {k: _quantize_wb(v) for k, v in layers["mlp"].items()}
+        layers["attn"] = {k: _quantize_wb(v, quantize) for k, v in layers["attn"].items()}
+        layers["mlp"] = {k: _quantize_wb(v, quantize) for k, v in layers["mlp"].items()}
         vis["layers"] = layers
         out["vision"] = vis
     if "zoe" in params:
@@ -275,10 +488,10 @@ def quantize_vision_params(
         backbone = dict(zoe["backbone"])
         layers = dict(backbone["layers"])
         for name in ("q", "k", "v", "proj", "fc1", "fc2"):
-            layers[name] = _quantize_wb(layers[name])
+            layers[name] = _quantize_wb(layers[name], quantize)
         backbone["layers"] = layers
         zoe["backbone"] = backbone
         out["zoe"] = zoe
     if "projector" in params:
-        out["projector"] = _quantize_wb(params["projector"])
+        out["projector"] = _quantize_wb(params["projector"], quantize)
     return out

@@ -1,83 +1,20 @@
-"""Processor for the port: the JAX package's SpatialVLAProcessor (which
-imports no jax) with only the image step replaced by a jax-free one."""
-from __future__ import annotations
+"""Processor for the port: its own copy of the JAX package's
+SpatialVLAProcessor (processor.py, text_tokenizer.py), whose image step is
+the jax-free one of image.py."""
+from .image import preprocess_image, preprocess_images, preprocess_images_u8, resize_image_u8
+from .processor import IGNORE_INDEX, SpatialVLAProcessor, scale_intrinsics
+from .text_tokenizer import ByteTokenizer, HFTokenizerAdapter, TextTokenizer, load_text_tokenizer
 
-from typing import Dict, Optional, Sequence, Union
-
-import numpy as np
-
-from spatialvla_tpu.processor import IGNORE_INDEX, ByteTokenizer
-from spatialvla_tpu.processor import SpatialVLAProcessor as _BaseProcessor
-
-from .image import resize_image_u8
-
-__all__ = ["ByteTokenizer", "IGNORE_INDEX", "SpatialVLAProcessor", "resize_image_u8"]
-
-
-class SpatialVLAProcessor(_BaseProcessor):
-    """Builds model inputs as the base processor does
-    (spatialvla_tpu/processor/processor.py:134-217): the same ids, masks,
-    token types, labels and intrinsics. Only the image step differs: frames
-    are resized by processor/image.py, which never reaches jax."""
-
-    def __call__(
-        self,
-        images,
-        text: Union[str, Sequence[str]],
-        *,
-        unnorm_key: Optional[str] = None,
-        suffix_actions: Optional[np.ndarray] = None,
-        max_length: Optional[int] = None,
-        return_labels: Optional[bool] = None,
-    ) -> Dict[str, np.ndarray]:
-        if isinstance(text, str):
-            text, images = [text], [images]
-        B = len(text)
-        suffix_ids = None
-        if suffix_actions is not None:
-            acts = np.asarray(suffix_actions)
-            if acts.ndim == 2:
-                acts = acts[None].repeat(B, 0)
-            suffix_ids = [
-                self.action_tokenizer.encode_to_global_ids(a).reshape(-1).tolist()
-                + [self.text_tokenizer.eos_id]
-                for a in acts
-            ]
-        if return_labels is None:
-            return_labels = suffix_ids is not None
-
-        n_images = [len(im) if isinstance(im, (list, tuple)) else 1 for im in images]
-        rows = [
-            (self.build_prompt_ids(t, n_images=n_images[i]),
-             suffix_ids[i] if suffix_ids is not None else [])
-            for i, t in enumerate(text)
-        ]
-        T = max_length if max_length is not None else max(len(p) + len(s) for p, s in rows)
-        input_ids = np.full((B, T), self.text_tokenizer.pad_id, dtype=np.int32)
-        attention_mask = np.zeros((B, T), dtype=np.int32)
-        token_type_ids = np.zeros((B, T), dtype=np.int32)
-        for i, (p, s) in enumerate(rows):
-            n = min(len(p) + len(s), T)
-            input_ids[i, :n] = (p + s)[:n]
-            attention_mask[i, :n] = 1
-            token_type_ids[i, min(len(p), T) : n] = 1
-
-        out = {
-            "input_ids": input_ids,
-            "attention_mask": attention_mask,
-            "token_type_ids": token_type_ids,
-            "intrinsic": np.broadcast_to(self.intrinsic_for(unnorm_key), (B, 3, 3)).copy(),
-        }
-        if any(n > 1 for n in n_images):
-            if len(set(n_images)) != 1:
-                raise ValueError("mixed observation counts in one batch")
-            u8 = np.stack([np.stack([resize_image_u8(i, self.image_size) for i in im])
-                           for im in images])  # (B, k, H, W, 3)
-        else:
-            flat = [im[0] if isinstance(im, (list, tuple)) else im for im in images]
-            u8 = np.stack([resize_image_u8(im, self.image_size) for im in flat])
-            out["pixel_values_u8"] = u8
-        out["pixel_values"] = u8.astype(np.float32) / 255.0
-        if return_labels:
-            out["labels"] = np.where(token_type_ids == 0, IGNORE_INDEX, input_ids)
-        return out
+__all__ = [
+    "ByteTokenizer",
+    "HFTokenizerAdapter",
+    "IGNORE_INDEX",
+    "SpatialVLAProcessor",
+    "TextTokenizer",
+    "load_text_tokenizer",
+    "preprocess_image",
+    "preprocess_images",
+    "preprocess_images_u8",
+    "resize_image_u8",
+    "scale_intrinsics",
+]

@@ -4,7 +4,8 @@ The JAX package's processor resizes with PIL and, where PIL is missing,
 falls back to ``jax.image`` (spatialvla_tpu/processor/image.py:45-51). The
 port must not load jax, so here: PIL when it is importable; otherwise an
 image that already is (size, size, 3) uint8 maps exactly to u8 / 255 (what
-PIL's resize to the same size returns); anything else raises.
+PIL's resize to the same size returns); anything else raises. The port's
+copy of processor.py takes its image step from here.
 """
 from __future__ import annotations
 
@@ -30,3 +31,19 @@ def resize_image_u8(image, size: int = 224) -> np.ndarray:
         f"({size}, {size}, 3) uint8, which needs PIL (pillow); without PIL, pass "
         "(size, size, 3) uint8 frames"
     )
+
+
+def preprocess_image(image, size: int = 224) -> np.ndarray:
+    """PIL image / (H, W, 3) array -> (size, size, 3) float32 in [0, 1]."""
+    return resize_image_u8(image, size).astype(np.float32) / 255.0
+
+
+def preprocess_images(images, size: int = 224) -> np.ndarray:
+    """List of images -> (B, size, size, 3) float32 batch."""
+    return np.stack([preprocess_image(im, size) for im in images])
+
+
+def preprocess_images_u8(images, size: int = 224) -> np.ndarray:
+    """List of images -> (B, size, size, 3) uint8 batch whose /255 is
+    preprocess_images; never None (there is no off-grid fallback here)."""
+    return np.stack([resize_image_u8(im, size) for im in images])

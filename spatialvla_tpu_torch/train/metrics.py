@@ -9,7 +9,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from spatialvla_tpu.action import SpatialActionTokenizer
+from ..action import SpatialActionTokenizer
 
 
 def build_decode_luts(tok: SpatialActionTokenizer) -> Dict[str, np.ndarray]:

@@ -1,6 +1,6 @@
 """Pretraining entry point of the port (port of
-spatialvla_tpu/train/pretrain.py): RLDS mixture pipeline (the JAX package's
-jax-free data layer) -> processor / action tokenizer -> SpatialVLA with
+spatialvla_tpu/train/pretrain.py): RLDS mixture pipeline (the port's copy of
+the JAX package's jax-free data layer) -> processor / action tokenizer -> SpatialVLA with
 random weights from ``--seed`` -> the train step on one device ->
 metrics.
 
@@ -98,15 +98,12 @@ def _check_ported(args):
 
 
 def build_everything(args):
-    from spatialvla_tpu.action import DEFAULT_NUM_BINS, SpatialActionTokenizer
-    from spatialvla_tpu.config import spatialvla_4b, spatialvla_tiny
-    from spatialvla_tpu.data import (FrameTransformConfig, InterleavedRLDSDataset,
-                                     TrajTransformConfig, VLABatcher)
-    from spatialvla_tpu.data.statistics import save_dataset_statistics
-    from spatialvla_tpu.processor.text_tokenizer import load_text_tokenizer
-
+    from ..action import DEFAULT_NUM_BINS, SpatialActionTokenizer
+    from ..config import spatialvla_4b, spatialvla_tiny
+    from ..data import FrameTransformConfig, InterleavedRLDSDataset, TrajTransformConfig, VLABatcher
+    from ..data.statistics import save_dataset_statistics
     from ..models import spatialvla
-    from ..processor import SpatialVLAProcessor
+    from ..processor import SpatialVLAProcessor, load_text_tokenizer
     from . import (OptimizerConfig, TrainStepConfig, build_decode_luts, init_train_state,
                    make_optimizer, make_train_step, trainable_mask)
     from .optimizer import iter_leaves
@@ -179,7 +176,7 @@ def build_everything(args):
 
     def batches():
         if args.loader_workers > 1:
-            from spatialvla_tpu.data.mploader import ProcessShardedFrameLoader
+            from ..data.mploader import ProcessShardedFrameLoader
 
             frames = ProcessShardedFrameLoader(dict(
                 mixture=args.mixture, data_dir=args.data_root_dir, traj_config=ds.traj_config,

@@ -6,16 +6,15 @@ trace over an optional step window. Checkpoints are not ported yet
 from __future__ import annotations
 
 import dataclasses
-import importlib.util
 import json
 import os
 import time
-from pathlib import Path
 from typing import Any, Callable, Dict, Iterator, Optional
 
 import torch
 
 from ..errors import not_ported
+from .tb_writer import SummaryWriter
 
 
 @dataclasses.dataclass
@@ -27,19 +26,6 @@ class TrainerConfig:
     tensorboard: bool = True  # also write events.out.tfevents scalars
 
 
-def _summary_writer_class():
-    """The JAX package's jax-free TensorBoard writer (train/tb_writer.py),
-    loaded from its file: importing it as spatialvla_tpu.train.tb_writer would
-    run spatialvla_tpu/train/__init__.py, which imports optax and jax."""
-    import spatialvla_tpu
-
-    path = Path(spatialvla_tpu.__file__).parent / "train" / "tb_writer.py"
-    spec = importlib.util.spec_from_file_location("spatialvla_tpu.train.tb_writer", path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module.SummaryWriter
-
-
 class MetricsLogger:
     """metrics.jsonl + a stdout line per logged step + (optionally)
     TensorBoard scalar events under <output_dir>/tb."""
@@ -48,7 +34,7 @@ class MetricsLogger:
         os.makedirs(output_dir, exist_ok=True)
         self.path = os.path.join(output_dir, "metrics.jsonl")
         self._f = open(self.path, "a")
-        self._tb = _summary_writer_class()(os.path.join(output_dir, "tb")) if tensorboard else None
+        self._tb = SummaryWriter(os.path.join(output_dir, "tb")) if tensorboard else None
 
     def log(self, step: int, metrics: Dict[str, Any]):
         row = {"step": int(step)}

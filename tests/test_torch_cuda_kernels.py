@@ -77,6 +77,77 @@ def test_q8_rmsnorm_matvec(M, N, x_dtype, norm_dtype):
     assert _rel(got, ref) < 1e-2
 
 
+# (K, N): the head, the down projection, SigLIP's fc2 (K/2 = 2152 bytes, not a
+# multiple of 16: the tiled kernel at any M; no 128-column groups), a tiny shape
+Q4_SHAPES = [(2304, 8194), (9216, 2304), (4304, 1152), (64, 40)]
+
+
+def _q4_weight(g, K, N, group_size):
+    return quant.quantize_int4(_randn(g, K, N, dtype=torch.float32, std=0.02),
+                               group_size=group_size)
+
+
+@pytest.mark.parametrize("M", [1, 5, 16, 17, 277, 512])
+@pytest.mark.parametrize("K,N,group_size", [(K, N, gs) for K, N in Q4_SHAPES for gs in (None, 128)
+                                            if not gs or K % min(gs, K // 2) == 0])
+def test_q4_matvec(M, K, N, group_size):
+    g = _gen(10)
+    x = _randn(g, M, K)
+    w = _q4_weight(g, K, N, group_size)
+    before = quant.q4_matvec.launches
+    got = quant.q4_matvec(x, w["qt"], w["scale"])
+    assert quant.q4_matvec.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+    assert _rel(got, quant.q4_matvec_plain(x, w["qt"], w["scale"])) < 1e-2
+
+
+@pytest.mark.parametrize("M", [1, 16, 277])
+@pytest.mark.parametrize("N", [4096, 18432])
+@pytest.mark.parametrize("group_size", [None, 128])
+def test_q4_rmsnorm_matvec(M, N, group_size):
+    g = _gen(11)
+    K = 2304
+    x = _randn(g, M, K, dtype=torch.float32)
+    nw = _randn(g, K, std=0.1)
+    w = _q4_weight(g, K, N, group_size)
+    got = quant.q4_rmsnorm_matvec(x, nw, w["qt"], w["scale"], out_dtype=torch.float32)
+    ref = quant.q4_rmsnorm_matvec_plain(x, nw, w["qt"], w["scale"], out_dtype=torch.float32)
+    assert _rel(got, ref) < 1e-2
+
+
+# groups of any width quantize_int4 makes: narrower than a 16-code chunk (1,
+# 8), crossing chunk and 32-byte step boundaries (24, 48), and SigLIP's fc2
+# (K/2 = 2152 bytes) in 8-column groups on the tiled kernel
+@pytest.mark.parametrize("M", [1, 16, 277])
+@pytest.mark.parametrize("K,N,group_size", [(64, 40, 1), (64, 40, 8), (96, 40, 24),
+                                            (2304, 4096, 16), (2304, 4096, 24),
+                                            (2304, 4096, 48), (4304, 1152, 8)])
+def test_q4_any_group_width(M, K, N, group_size):
+    g = _gen(13)
+    w = _q4_weight(g, K, N, group_size)
+    assert w["scale"].shape == (N, K // group_size)
+    x = _randn(g, M, K, dtype=torch.float32)
+    nw = _randn(g, K, std=0.1)
+    got = quant.q4_matvec(x, w["qt"], w["scale"], out_dtype=torch.float32)
+    ref = quant.q4_matvec_plain(x, w["qt"], w["scale"], out_dtype=torch.float32)
+    assert _rel(got, ref) < 1e-3
+    got = quant.q4_rmsnorm_matvec(x, nw, w["qt"], w["scale"], out_dtype=torch.float32)
+    ref = quant.q4_rmsnorm_matvec_plain(x, nw, w["qt"], w["scale"], out_dtype=torch.float32)
+    assert _rel(got, ref) < 1e-3
+
+
+def test_q4_rejects_unsupported_groups():
+    """A scale of G groups must tile both halves of K (an even G dividing K):
+    any other (N, G) is not a quantize_int4 format."""
+    g = _gen(12)
+    w = _q4_weight(g, 64, 40, 16)
+    x = _randn(g, 1, 64)
+    for scale in (w["scale"][:, :3].contiguous(), w["scale"][:, :1].contiguous(),
+                  torch.ones(40, 6, device=DEV)):  # G = 3, 1, 6 (6 does not divide 64)
+        with pytest.raises(ValueError, match="whole groups"):
+            quant.q4_matvec(x, w["qt"], scale)
+
+
 def test_action_head_slice_is_a_view():
     """The action block of the int8 head goes to the kernel without a copy."""
     g = _gen(2)
@@ -108,6 +179,38 @@ def test_decode_attention(M, S, positions):
                     v_new=torch.empty(M, Nkv, D, dtype=torch.bfloat16, device=DEV))
         fn(qkv, cos, sin, ck, cv, pos, num_heads=Nq, q_scale=D ** -0.5, cap=50.0, **bufs)
         outs.append(bufs)
+    kern, plain = outs
+    assert _rel(kern["attn_out"], plain["attn_out"]) < 1e-2
+    assert _rel(kern["k_new"], plain["k_new"]) < 1e-2
+    assert torch.equal(kern["v_new"], plain["v_new"])
+
+
+@pytest.mark.parametrize("M,S,positions", [
+    (1, 278, [270]),
+    (2, 278, [266, 259]),
+    (3, 64, [0, 1, 64]),
+    (16, 332, list(range(300, 316))),
+])
+def test_decode_attention_kv8(M, S, positions):
+    g = _gen(13)
+    Nq, Nkv, D = 8, 4, 256
+    qkv = _randn(g, M, (Nq + 2 * Nkv) * D)
+    ck, ks = quant.quantize_kv(_randn(g, M, Nkv, S, D, std=0.3))
+    cv, vs = quant.quantize_kv(_randn(g, M, Nkv, S, D, std=0.3))
+    flat = lambda sc: sc.permute(1, 0, 2).reshape(Nkv, 1, M * S).contiguous()  # noqa: E731
+    ks, vs = flat(ks), flat(vs)
+    pos = torch.tensor(positions, dtype=torch.int32, device=DEV)
+    cos, sin = ds.rope_tables(pos + 1, D, 10000.0)
+    outs = []
+    before = ds.decode_attention_kv8.launches
+    for fn in (ds.decode_attention_kv8, ds.decode_attention_plain):
+        bufs = dict(attn_out=torch.empty(M, Nq * D, dtype=torch.bfloat16, device=DEV),
+                    k_new=torch.empty(M, Nkv, D, dtype=torch.bfloat16, device=DEV),
+                    v_new=torch.empty(M, Nkv, D, dtype=torch.bfloat16, device=DEV))
+        fn(qkv, cos, sin, ck, cv, pos, ks=ks, vs=vs, num_heads=Nq, q_scale=D ** -0.5, cap=50.0,
+           **bufs)
+        outs.append(bufs)
+    assert ds.decode_attention_kv8.launches == before + 1
     kern, plain = outs
     assert _rel(kern["attn_out"], plain["attn_out"]) < 1e-2
     assert _rel(kern["k_new"], plain["k_new"]) < 1e-2
@@ -149,9 +252,16 @@ def test_norm_residual_and_gelu_mul(M, final):
     assert _rel(ka, pa) < 1e-2
 
 
+FORMATS = {"int8": dict(bits=8), "int4": dict(bits=4), "int4-g128": dict(bits=4, group_size=128),
+           "int8+mlp4": dict(bits=8, mlp_bits=4)}
+
+
 @pytest.mark.parametrize("M,S", [(1, 32), (3, 48)])
-def test_fused_decode_step(M, S):
-    """Two layers at the flagship's width, per-row positions."""
+@pytest.mark.parametrize("fmt", list(FORMATS))
+@pytest.mark.parametrize("kv8", [False, True], ids=["bf16kv", "kv8"])
+def test_fused_decode_step(M, S, fmt, kv8):
+    """Two layers at the flagship's width, per-row positions, every weight
+    and cache format."""
     g = _gen(5)
     cfg = Gemma2Config(vocab_size=512, hidden_size=2304, intermediate_size=9216, num_layers=2,
                        num_heads=8, num_kv_heads=4, head_dim=256, sliding_window=4096,
@@ -160,30 +270,46 @@ def test_fused_decode_step(M, S):
         lm = gemma2.init_params(cfg, generator=g, device=DEV, dtype=torch.bfloat16)
         for k in ("input_norm", "post_attn_norm", "pre_ffn_norm", "post_ffn_norm"):
             lm["layers"][k] = _randn(g, 2, 2304, std=0.1)
-        lm = quant.quantize_lm_params(lm)
+        lm = quant.quantize_lm_params(lm, **FORMATS[fmt])
         x = _randn(g, M, 2304, std=0.3 * 2304 ** 0.5)
         ck, cv = _randn(g, 2, M, 4, S, 256, std=0.3), _randn(g, 2, M, 4, S, 256, std=0.3)
+        kw = {}
+        if kv8:
+            ck, ks = quant.quantize_kv(ck)
+            cv, vs = quant.quantize_kv(cv)
+            kw = dict(cache_k_scale=ks, cache_v_scale=vs)
         pos = torch.arange(S - M, S, dtype=torch.int32, device=DEV)
-        got = ds.fused_decode_step(lm, cfg, x, ck, cv, pos, pos + 1)
-        ref = ds.fused_decode_step_plain(lm, cfg, x, ck, cv, pos, pos + 1)
+        got = ds.fused_decode_step(lm, cfg, x, ck, cv, pos, pos + 1, **kw)
+        ref = ds.fused_decode_step_plain(lm, cfg, x, ck, cv, pos, pos + 1, **kw)
     for a, b in zip(got, ref):
         assert a.dtype == torch.bfloat16 and a.shape == b.shape
         assert _rel(a, b) < 0.02
 
 
-def test_tiny_predict_goes_through_the_kernels():
+QUANTIZE = {
+    "int8": (dict(bits=8), (quant.q8_matvec, quant.q8_rmsnorm_matvec, ds.decode_attention)),
+    "int4": (dict(bits=4), (quant.q4_matvec, quant.q4_rmsnorm_matvec, ds.decode_attention)),
+    "int8+mlp4+kv8": (dict(bits=8, mlp_bits=4, kv_bits=8),
+                      (quant.q8_matvec, quant.q4_matvec, quant.q8_rmsnorm_matvec,
+                       quant.q4_rmsnorm_matvec, ds.decode_attention_kv8)),
+}
+
+
+@pytest.mark.parametrize("fmt", list(QUANTIZE))
+def test_tiny_predict_goes_through_the_kernels(fmt):
     """The serving entry point on the card: the fused decode path launches
-    every kernel, and its greedy ids follow the unfused path's (first token
-    equal; equal up to the first step whose margin is below 0.5)."""
+    the kernels of the tree's formats, and its greedy ids follow the unfused
+    path's (first token equal; equal up to the first step whose margin is
+    below 0.5); with kv_bits=8 the reference is the bf16 cache."""
     cfg = spatialvla_tiny(use_vision_zoe=True)
     # head_dim 32 for the attention kernel; a window that holds the whole cache
     cfg = dataclasses.replace(cfg, text=dataclasses.replace(
         cfg.text, head_dim=32, query_pre_attn_scalar=32.0, sliding_window=512))
-    policy = SpatialVLAPolicy.init_random(cfg, DEV, seed=0).quantize(bits=8)
+    qkw, kernels = QUANTIZE[fmt]
+    policy = SpatialVLAPolicy.init_random(cfg, DEV, seed=0).quantize(**qkw)
     size = cfg.vision.image_size
     frame = (np.random.RandomState(0).rand(size, size, 3) * 255).astype(np.uint8)
-    counters = (quant.q8_matvec, quant.q8_rmsnorm_matvec, ds.decode_attention,
-                ds.norm_residual, ds.gelu_mul)
+    counters = kernels + (ds.norm_residual, ds.gelu_mul)
     before = [c.launches for c in counters]
     out = policy.predict(frame, "pick up the cup", return_margins=True)
     assert all(c.launches > b for c, b in zip(counters, before))

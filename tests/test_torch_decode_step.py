@@ -1,9 +1,11 @@
 """The port's decode step (its kernels' plain versions, as the wrappers run
 them on the CPU) against the Pallas fused_decode_step in interpret mode, on
-the config of tests/test_decode_step.py with the int8 serving tree: batch 1
-and 3 at one position, and 3 rows at per-row positions. Tolerances are
-those of tests/test_decode_step.py (hidden atol 0.06 / rtol 0.02, new k/v
-atol 0.02)."""
+the config of tests/test_decode_step.py: the int8, int4, int8 + int4 MLP and
+grouped-int4 serving trees, each with a bf16 and an int8 KV cache, batch 1
+and 3 at one position, and 3 rows at per-row positions; and a chained
+3-step decode on the int8 cache that must emit JAX's greedy ids. Tolerances
+are those of tests/test_decode_step.py (hidden atol 0.06 / rtol 0.02, new
+k/v atol 0.02)."""
 import numpy as np
 import pytest
 
@@ -14,9 +16,13 @@ import torch
 from spatialvla_tpu.config import Gemma2Config
 from spatialvla_tpu.models import gemma2 as j_gemma2
 from spatialvla_tpu.ops.decode_step import fused_decode_step as j_fused_decode_step
+from spatialvla_tpu.ops.quant import qmatmul as j_qmatmul
+from spatialvla_tpu.ops.quant import quantize_kv as j_quantize_kv
 from spatialvla_tpu.ops.quant import quantize_lm_params as j_quantize_lm_params
 from spatialvla_tpu_torch.convert import from_numpy_tree
+from spatialvla_tpu_torch.models.spatialvla import _scatter_scale
 from spatialvla_tpu_torch.ops import decode_step as t_ds
+from spatialvla_tpu_torch.ops import quant as t_quant
 
 torch.set_num_threads(2)
 
@@ -27,15 +33,28 @@ CFG = Gemma2Config(
 )
 
 
+FORMATS = {"int8": dict(bits=8), "int4": dict(bits=4), "int8+mlp4": dict(bits=8, mlp_bits=4),
+           "int4-g16": dict(bits=4, group_size=16)}
+
+
 @pytest.fixture(scope="module")
-def qparams():
+def base_params():
     params = j_gemma2.init_params(jax.random.PRNGKey(0), CFG, dtype=jnp.float32)
     for i, k in enumerate(["input_norm", "post_attn_norm", "pre_ffn_norm", "post_ffn_norm"]):
         params["layers"][k] = 0.1 * jax.random.normal(
             jax.random.PRNGKey(i + 1), params["layers"][k].shape)
     params["final_norm"] = 0.1 * jax.random.normal(jax.random.PRNGKey(9), (CFG.hidden_size,))
-    q = j_quantize_lm_params(params, fuse=True)
+    return params
+
+
+def _trees(params, fmt):
+    q = j_quantize_lm_params(params, fuse=True, **FORMATS[fmt])
     return q, from_numpy_tree(jax.tree_util.tree_map(np.asarray, q))
+
+
+@pytest.fixture(scope="module")
+def qparams(base_params):
+    return _trees(base_params, "int8")
 
 
 def _serving_cache(qp, B, P, Smax, seed):
@@ -66,36 +85,121 @@ def _compare(port, ref):
     assert h_t.dtype == k_t.dtype == v_t.dtype == torch.bfloat16
 
 
+def _kv8(ck, cv):
+    """The int8 cache of both packages: JAX's codes and scales, and the same
+    numbers as tensors (codes int8, scales f32 in the (L, M, Nkv, S) layout)."""
+    (ck8, ks), (cv8, vs) = j_quantize_kv(ck), j_quantize_kv(cv)
+    jkw = dict(cache_k_scale=ks, cache_v_scale=vs)
+    t = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
+    return (ck8, cv8, jkw), (t(ck8), t(cv8), dict(cache_k_scale=t(ks), cache_v_scale=t(vs)))
+
+
+def _run_both(jq, tq, x, ck, cv, pos, kv8):
+    """JAX's Pallas step (interpret mode) and the port's step on the same
+    cache, bf16 or int8."""
+    jpos = jnp.asarray(pos, jnp.int32)
+    tpos = torch.as_tensor(np.asarray(pos), dtype=torch.int32)
+    if kv8:
+        (jck, jcv, jkw), (tck, tcv, tkw) = _kv8(ck, cv)
+    else:
+        jck, jcv, jkw = ck, cv, {}
+        tck, tcv, tkw = _torch(ck), _torch(cv), {}
+    ref = j_fused_decode_step(jq, CFG, x, jck, jcv, jpos, jpos + 1, interpret=True, **jkw)
+    port = t_ds.fused_decode_step(tq, CFG, _torch(x), tck, tcv, tpos, tpos + 1, **tkw)
+    return port, ref, (tq, _torch(x), tck, tcv, tpos, tkw)
+
+
 @pytest.mark.parametrize("B", [1, 3])
-def test_decode_step_matches_pallas(qparams, B):
-    jq, tq = qparams
+@pytest.mark.parametrize("fmt", list(FORMATS))
+@pytest.mark.parametrize("kv8", [False, True], ids=["bf16kv", "kv8"])
+def test_decode_step_matches_pallas(base_params, B, fmt, kv8):
+    jq, tq = _trees(base_params, fmt)
     P, Smax = 6, 16
     x, ck, cv = _serving_cache(jq, B, P, Smax, seed=B)
-    ref = j_fused_decode_step(jq, CFG, x, ck, cv, jnp.int32(P), jnp.int32(P + 1), interpret=True)
-    port = t_ds.fused_decode_step(tq, CFG, _torch(x), _torch(ck), _torch(cv), P, P + 1)
+    port, ref, (tq, tx, tck, tcv, tpos, tkw) = _run_both(jq, tq, x, ck, cv, [P] * B, kv8)
     _compare(port, ref)
     # the wrappers on CPU tensors are the plain versions: same bits
-    plain = t_ds.fused_decode_step_plain(tq, CFG, _torch(x), _torch(ck), _torch(cv), P, P + 1)
+    plain = t_ds.fused_decode_step_plain(tq, CFG, tx, tck, tcv, tpos, tpos + 1, **tkw)
     for a, b in zip(port, plain):
         assert torch.equal(a, b)
 
 
-def test_decode_step_per_row_positions(qparams):
-    jq, tq = qparams
+@pytest.mark.parametrize("fmt", list(FORMATS))
+@pytest.mark.parametrize("kv8", [False, True], ids=["bf16kv", "kv8"])
+def test_decode_step_per_row_positions(base_params, fmt, kv8):
+    jq, tq = _trees(base_params, fmt)
     lens, Smax = [6, 4, 5], 16
     rows = [_serving_cache(jq, 1, p, Smax, seed=20 + i) for i, p in enumerate(lens)]
     x, ck, cv = (jnp.concatenate([r[i] for r in rows], axis=i and 1) for i in range(3))
-    pos = jnp.asarray(lens, jnp.int32)
-    ref = j_fused_decode_step(jq, CFG, x, ck, cv, pos, pos + 1, interpret=True)
-    tpos = torch.tensor(lens, dtype=torch.int32)
-    port = t_ds.fused_decode_step(tq, CFG, _torch(x), _torch(ck), _torch(cv), tpos, tpos + 1)
+    port, ref, _ = _run_both(jq, tq, x, ck, cv, lens, kv8)
     _compare(port, ref)
 
 
 def test_decode_step_rejects_unported_formats(qparams):
+    """The int8 cache is ported: its scales in the (L, M, Nkv, S) layout and
+    in the flat (L, Nkv, 1, M*S) layout give the same step, and a cache
+    without scales, or scales of another shape, is refused."""
     _, tq = qparams
-    x = torch.zeros(1, CFG.hidden_size)
-    cache = torch.zeros(CFG.num_layers, 1, CFG.num_kv_heads, 8, CFG.head_dim, dtype=torch.int8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    M, S = 2, 8
+    rng = np.random.RandomState(4)
+    x = torch.from_numpy(rng.randn(M, CFG.hidden_size).astype(np.float32)).to(torch.bfloat16)
+    cache = torch.from_numpy(rng.randint(-127, 128, (CFG.num_layers, M, CFG.num_kv_heads, S,
+                                                     CFG.head_dim)).astype(np.int8))
+    sc = torch.from_numpy(rng.rand(CFG.num_layers, M, CFG.num_kv_heads, S).astype(np.float32))
+    a = t_ds.fused_decode_step(tq, CFG, x, cache, cache, 3, 4, cache_k_scale=sc, cache_v_scale=sc)
+    flat = t_ds.flatten_kv_scales(sc)
+    assert flat.shape == (CFG.num_layers, CFG.num_kv_heads, 1, M * S)
+    b = t_ds.fused_decode_step(tq, CFG, x, cache, cache, 3, 4, cache_k_scale=flat,
+                               cache_v_scale=flat)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+    with pytest.raises(ValueError, match="per-slot"):
         t_ds.fused_decode_step(tq, CFG, x, cache, cache, 2, 3)
+    with pytest.raises(ValueError, match="expected"):
+        t_ds.fused_decode_step(tq, CFG, x, cache, cache, 2, 3, cache_k_scale=sc[:, :1],
+                               cache_v_scale=sc[:, :1])
+
+
+def test_chained_int8_kv_decode_matches_jax_ids(qparams):
+    """Three chained steps on the int8 cache (quantized prefill cache, each
+    step's new rows quantized and written with their scales), as
+    tests/test_decode_step.py:271-330 runs JAX's: the same greedy ids."""
+    jq, tq = qparams
+    B, P, Smax = 1, 5, 16
+    x, ck, cv = _serving_cache(jq, B, P, Smax, seed=3)
+    head, emb = jq["lm_head"], jq["embed"]
+    normalizer = jnp.asarray(CFG.hidden_size ** 0.5, dtype=jnp.bfloat16)
+
+    (jck, jcv, jkw), (tck, tcv, tkw) = _kv8(ck, cv)
+    jks, jvs = jkw["cache_k_scale"], jkw["cache_v_scale"]
+    tks, tvs = (t_ds.flatten_kv_scales(tkw[k]) for k in ("cache_k_scale", "cache_v_scale"))
+    tok_j = tok_t = jnp.argmax(j_qmatmul(x / normalizer, head), axis=-1)
+    toks_j, toks_t = [int(tok_j[0])], [int(tok_t[0])]
+    theads = from_numpy_tree(jax.tree_util.tree_map(np.asarray, {"h": head}))["h"]
+    for t in range(3):
+        e = jnp.take(emb, tok_j, axis=0).astype(jnp.bfloat16)
+        h_j, k_new, v_new = j_fused_decode_step(jq, CFG, e * normalizer, jck, jcv,
+                                                jnp.int32(P + t), jnp.int32(P + t + 1),
+                                                cache_k_scale=jks, cache_v_scale=jvs,
+                                                interpret=True)
+        k8, ks_new = j_quantize_kv(k_new)
+        v8, vs_new = j_quantize_kv(v_new)
+        jck = jax.lax.dynamic_update_slice(jck, k8[:, :, :, None, :], (0, 0, 0, P + t, 0))
+        jcv = jax.lax.dynamic_update_slice(jcv, v8[:, :, :, None, :], (0, 0, 0, P + t, 0))
+        jks = jax.lax.dynamic_update_slice(jks, ks_new[:, :, :, None], (0, 0, 0, P + t))
+        jvs = jax.lax.dynamic_update_slice(jvs, vs_new[:, :, :, None], (0, 0, 0, P + t))
+        tok_j = jnp.argmax(j_qmatmul(h_j, head), axis=-1)
+        toks_j.append(int(tok_j[0]))
+
+        te = _torch(jnp.take(emb, jnp.asarray(toks_t[-1:]), axis=0)) * _torch(normalizer)
+        h_t, k_t, v_t = t_ds.fused_decode_step(tq, CFG, te, tck, tcv, P + t, P + t + 1,
+                                               cache_k_scale=tks, cache_v_scale=tvs)
+        k8t, ks_t = t_quant.quantize_kv(k_t)
+        v8t, vs_t = t_quant.quantize_kv(v_t)
+        tck[:, :, :, P + t] = k8t
+        tcv[:, :, :, P + t] = v8t
+        _scatter_scale(tks, ks_t, P + t, Smax)
+        _scatter_scale(tvs, vs_t, P + t, Smax)
+        toks_t.append(int(torch.argmax(t_quant.qmatmul(h_t, theads), dim=-1)[0]))
+    assert toks_t == toks_j
 

@@ -1,13 +1,17 @@
-"""The port never loads jax or optax, and its image step needs no PIL for
-frames that already have the model's size.
+"""The port never loads jax, optax or the JAX package (spatialvla_tpu), and
+its image step needs no PIL for frames that already have the model's size.
 
 A fresh interpreter (this test process has jax loaded) imports every module
-of spatialvla_tpu_torch with PIL blocked, runs a tiny predict, and reports
-which jax modules are loaded."""
+of spatialvla_tpu_torch with PIL blocked, runs a tiny predict with the int8
+tree and one with the mixed tree on an int8 KV cache, imports the pretrain
+CLI, and reports which jax, optax and spatialvla_tpu modules are loaded. No
+``import`` or ``from`` in the port or chip_smoke.py names the JAX package."""
+import ast
 import json
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -24,12 +28,22 @@ for m in mods:
     importlib.import_module(m)
 import torch
 torch.set_num_threads(2)
+import dataclasses
 from spatialvla_tpu_torch import SpatialVLAPolicy, spatialvla_tiny
+from spatialvla_tpu_torch.train import pretrain
 cfg = spatialvla_tiny(use_vision_zoe=True)
 policy = SpatialVLAPolicy.init_random(cfg, "cpu", seed=0).quantize(bits=8)
 size = cfg.vision.image_size
 frame = (np.random.RandomState(0).rand(size, size, 3) * 255).astype(np.uint8)
 out = policy.predict(frame, "pick up the cup")
+# the int8 KV cache needs the fused path, which the CPU takes only when asked,
+# and a window that holds the whole cache
+import functools
+from spatialvla_tpu_torch.models import spatialvla as sv
+sv.predict_action = functools.partial(sv.predict_action, use_fused_decode=True)
+wide = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, sliding_window=512))
+kv8 = SpatialVLAPolicy.init_random(wide, "cpu", seed=0).quantize(bits=8, mlp_bits=4, kv_bits=8)
+out_kv8 = kv8.predict(frame, "pick up the cup")
 try:
     policy.processor(frame[:-1], "resized frames need PIL")
     needs_pil = None
@@ -39,9 +53,11 @@ print(json.dumps({
     "modules": mods,
     "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))),
     "optax": sorted(m for m in sys.modules if m == "optax" or m.startswith("optax.")),
-    "actions_shape": list(np.asarray(out["actions"]).shape),
-    "finite": bool(np.isfinite(out["actions"]).all()),
-    "ids": np.asarray(out["action_ids"]).tolist(),
+    "spatialvla_tpu": sorted(m for m in sys.modules
+                             if m == "spatialvla_tpu" or m.startswith("spatialvla_tpu.")),
+    "actions_shape": [list(np.asarray(o["actions"]).shape) for o in (out, out_kv8)],
+    "finite": bool(all(np.isfinite(o["actions"]).all() for o in (out, out_kv8))),
+    "ids": [np.asarray(o["action_ids"]).tolist() for o in (out, out_kv8)],
     "needs_pil": needs_pil,
 }))
 """
@@ -58,17 +74,35 @@ def child():
 
 def test_port_imports_no_jax(child):
     for m in ("ops.decode_step", "ops.flash_attention", "models.zoe", "train.train_step",
-              "train.optimizer", "train.trainer", "train.pretrain"):
+              "train.optimizer", "train.trainer", "train.pretrain", "train.tb_writer", "config",
+              "action.tokenizer", "processor.processor", "data.pipeline", "data.native"):
         assert f"spatialvla_tpu_torch.{m}" in child["modules"]
     assert child["jax"] == []
     assert child["optax"] == []
+    assert child["spatialvla_tpu"] == []
+
+
+def _imported_names(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_no_import_names_the_jax_package():
+    files = sorted(Path(ROOT, "spatialvla_tpu_torch").rglob("*.py")) + [Path(ROOT, "chip_smoke.py")]
+    assert len(files) > 40
+    bad = [(str(f.relative_to(ROOT)), name) for f in files for name in _imported_names(f)
+           if name == "spatialvla_tpu" or name.startswith("spatialvla_tpu.")]
+    assert bad == []
 
 
 def test_tiny_predict_without_pil(child):
     from spatialvla_tpu.config import spatialvla_tiny
 
     cfg = spatialvla_tiny(use_vision_zoe=True)
-    assert child["actions_shape"] == [4, 7] and child["finite"]
+    assert child["actions_shape"] == [[4, 7], [4, 7]] and child["finite"]
     ids = np.asarray(child["ids"])
     begin = cfg.action_token_begin_idx
     assert ((ids >= begin) & (ids < begin + cfg.spatial_token_num)).all()

@@ -1,9 +1,11 @@
-"""The port's int8 quantization and its matvec kernels' plain versions
-against the JAX package on the CPU: codes and scales bit-identical, the
-plain q8_matvec / q8_rmsnorm_matvec against the Pallas kernels run in
-interpret mode (fp32 out, atol 1e-4 * max|ref|), and the dequantize-matmul
-branch of qmatmul against JAX's XLA branch. The kernels themselves are
-held to these plain versions on an NVIDIA GPU by test_torch_cuda_kernels.py."""
+"""The port's int8 / int4 quantization and its matvec kernels' plain
+versions against the JAX package on the CPU: codes and scales bit-identical
+(int8, int4 per channel and grouped, the LM and vision trees in every format,
+the int8 KV cache), the plain q8_* / q4_* matvecs against the Pallas kernels
+run in interpret mode (fp32 out, atol 1e-4 * max|ref|), and the
+dequantize-matmul branch of qmatmul against JAX's XLA branch. The kernels
+themselves are held to these plain versions on an NVIDIA GPU by
+test_torch_cuda_kernels.py."""
 import numpy as np
 import pytest
 
@@ -68,20 +70,76 @@ def test_quantize_vision_params_bit_identical():
 @pytest.mark.parametrize("unported", [dict(bits=4), dict(mlp_bits=4), dict(group_size=128),
                                       dict(fuse=False)])
 def test_unported_lm_formats_raise(unported):
+    """Only the unfused tree is still unported; the int4, mixed and grouped
+    options give JAX's tree bit for bit (group_size=128 with bits=8 leaves
+    the int8 tree as it is, as in JAX)."""
     cfg = Gemma2Config(vocab_size=64, hidden_size=16, intermediate_size=32, num_layers=2,
                        num_heads=2, num_kv_heads=1, head_dim=8)
-    params = from_numpy_tree(jax.tree_util.tree_map(
-        np.asarray, j_gemma2.init_params(jax.random.PRNGKey(0), cfg)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tq.quantize_lm_params(params, **unported)
+    params = jax.tree_util.tree_map(np.asarray, j_gemma2.init_params(jax.random.PRNGKey(0), cfg))
+    if "fuse" in unported:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tq.quantize_lm_params(from_numpy_tree(params), **unported)
+        return
+    port = tq.quantize_lm_params(from_numpy_tree(params), **unported)
+    _assert_tree_equal(port, jq.quantize_lm_params(params, fuse=True, **unported))
 
 
-def _operands(M, K, N, x_dtype, seed=0):
+@pytest.mark.parametrize("shape", [(64, 48), (3, 96, 40), (2304, 7)])
+@pytest.mark.parametrize("group_size", [None, 16, 128])
+def test_quantize_int4_bit_identical(shape, group_size):
+    w = np.random.RandomState(3).randn(*shape).astype(np.float32) * 0.05
+    w[..., 0] = 0.0  # an all-zero channel takes the 1e-12 floor
+    jref = jq.quantize_int4(jnp.asarray(w), group_size=group_size)
+    port = tq.quantize_int4(torch.from_numpy(w), group_size=group_size)
+    assert port["qt"].dtype == torch.uint8 and port["scale"].dtype == torch.float32
+    np.testing.assert_array_equal(port["qt"].numpy(), np.asarray(jref["qt"]))
+    np.testing.assert_array_equal(port["scale"].numpy(), np.asarray(jref["scale"]))
+    np.testing.assert_array_equal(tq.unpack_int4(port["qt"]).numpy(),
+                                  np.asarray(jq.unpack_int4(jref["qt"])))
+    np.testing.assert_array_equal(tq.dequantize(port).numpy(), np.asarray(jq.dequantize(jref)))
+    assert tq.is_int4(port) and tq.is_grouped(port) == (group_size is not None)
+
+
+@pytest.mark.parametrize("fmt", [dict(bits=4), dict(bits=4, group_size=16),
+                                 dict(bits=8, mlp_bits=4), dict(bits=4, mlp_bits=8)],
+                         ids=["int4", "int4-g16", "int8+mlp4", "int4+mlp8"])
+def test_quantize_lm_params_formats_bit_identical(fmt):
+    cfg = Gemma2Config(vocab_size=300, hidden_size=32, intermediate_size=64, num_layers=3,
+                       num_heads=4, num_kv_heads=2, head_dim=8)
+    params = jax.tree_util.tree_map(
+        np.asarray, j_gemma2.init_params(jax.random.PRNGKey(2), cfg, dtype=jnp.bfloat16))
+    port = tq.quantize_lm_params(from_numpy_tree(params, dtype=torch.bfloat16), **fmt)
+    _assert_tree_equal(port, jq.quantize_lm_params(params, fuse=True, **fmt))
+
+
+def test_quantize_vision_params_int4_bit_identical():
+    cfg = spatialvla_tiny(use_vision_zoe=True)
+    params = jax.tree_util.tree_map(
+        np.asarray, j_spatialvla.init_params(jax.random.PRNGKey(4), cfg))
+    del params["lm"]
+    port = tq.quantize_vision_params(from_numpy_tree(params), bits=4)
+    _assert_tree_equal(port, jq.quantize_vision_params(params, bits=4))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantize_kv_bit_identical(dtype):
+    x = np.random.RandomState(5).randn(2, 3, 2, 7, 16).astype(np.float32)
+    x[0, 0, 0, 0] = 0.0  # an all-zero slot takes the 1e-12 floor
+    jx = jnp.asarray(x).astype(dtype)
+    codes_j, scale_j = jq.quantize_kv(jx)
+    codes_t, scale_t = tq.quantize_kv(
+        torch.from_numpy(np.array(jx.astype(jnp.float32))).to(getattr(torch, dtype)))
+    assert codes_t.dtype == torch.int8 and scale_t.dtype == torch.float32
+    np.testing.assert_array_equal(codes_t.numpy(), np.asarray(codes_j))
+    np.testing.assert_array_equal(scale_t.numpy(), np.asarray(scale_j))
+
+
+def _operands(M, K, N, x_dtype, seed=0, quantize=jq.quantize_int8):
     rng = np.random.RandomState(seed)
     x = rng.randn(M, K).astype(np.float32)
     if x_dtype == "bfloat16":
         x = np.asarray(jnp.asarray(x).astype(jnp.bfloat16).astype(jnp.float32))
-    w = jq.quantize_int8(jnp.asarray(rng.randn(K, N).astype(np.float32) * 0.05))
+    w = quantize(jnp.asarray(rng.randn(K, N).astype(np.float32) * 0.05))
     norm_w = (0.2 * rng.randn(K)).astype(np.float32)
     jx = jnp.asarray(x).astype(x_dtype)
     tx = torch.from_numpy(x).to(getattr(torch, x_dtype))
@@ -110,10 +168,37 @@ def test_q8_rmsnorm_matvec_plain_matches_pallas(M, x_dtype):
     np.testing.assert_allclose(got, ref, atol=1e-4 * np.abs(ref).max(), rtol=0)
 
 
+INT4 = {"per_channel": jq.quantize_int4,
+        "g32": lambda w: jq.quantize_int4(w, group_size=32)}
+
+
+@pytest.mark.parametrize("M", [1, 5, 16, 40])
+@pytest.mark.parametrize("fmt", list(INT4))
+def test_q4_matvec_plain_matches_pallas(M, fmt):
+    jx, tx, w, tw, _ = _operands(M, 256, 384, "float32", seed=6, quantize=INT4[fmt])
+    ref = np.asarray(jq.int8_matmul(jx, w["qt"], w["scale"], out_dtype=jnp.float32,
+                                    interpret=True))
+    got = tq.q4_matvec(tx, tw["qt"], tw["scale"], out_dtype=torch.float32).numpy()
+    np.testing.assert_allclose(got, ref, atol=1e-4 * np.abs(ref).max(), rtol=0)
+
+
+@pytest.mark.parametrize("M", [1, 5, 16, 40])
+@pytest.mark.parametrize("fmt", list(INT4))
+def test_q4_rmsnorm_matvec_plain_matches_pallas(M, fmt):
+    jx, tx, w, tw, norm_w = _operands(M, 256, 384, "bfloat16", seed=7, quantize=INT4[fmt])
+    ref = np.asarray(jq.int8_rmsnorm_matmul(jx, jnp.asarray(norm_w), w["qt"], w["scale"],
+                                            out_dtype=jnp.float32, interpret=True))
+    got = tq.q4_rmsnorm_matvec(tx, torch.from_numpy(norm_w), tw["qt"], tw["scale"],
+                               out_dtype=torch.float32).numpy()
+    np.testing.assert_allclose(got, ref, atol=1e-4 * np.abs(ref).max(), rtol=0)
+
+
 @pytest.mark.parametrize("M", [3, 40])
-def test_qmatmul_dequant_branch_matches_xla(M):
+@pytest.mark.parametrize("fmt", ["int8", "per_channel", "g32"])
+def test_qmatmul_dequant_branch_matches_xla(M, fmt):
     """On the CPU both packages take the dequantize + matmul branch."""
-    jx, tx, w, tw, norm_w = _operands(M, 64, 96, "bfloat16", seed=2)
+    quantize = jq.quantize_int8 if fmt == "int8" else INT4[fmt]
+    jx, tx, w, tw, norm_w = _operands(M, 64, 96, "bfloat16", seed=2, quantize=quantize)
     got = tq.qmatmul(tx, tw).float().numpy()
     ref = np.asarray(jq.qmatmul(jx, w).astype(jnp.float32))
     np.testing.assert_allclose(got, ref, atol=1e-2 * np.abs(ref).max(), rtol=0)
@@ -132,5 +217,12 @@ def test_wrappers_raise_off_cpu_and_cuda():
     with pytest.raises(RuntimeError, match="no kernel"):
         tq.q8_rmsnorm_matvec(meta(tx), meta(torch.from_numpy(norm_w)), meta(tw["qt"]),
                              meta(tw["scale"]))
+    _, tx, _, t4, norm_w = _operands(1, 64, 32, "float32", quantize=jq.quantize_int4)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        tq.q4_matvec(meta(tx), meta(t4["qt"]), meta(t4["scale"]))
+    with pytest.raises(RuntimeError, match="no kernel"):
+        tq.q4_rmsnorm_matvec(meta(tx), meta(torch.from_numpy(norm_w)), meta(t4["qt"]),
+                             meta(t4["scale"]))
     assert tq.q8_matvec.launches == 0 and tq.q8_rmsnorm_matvec.launches == 0
+    assert tq.q4_matvec.launches == 0 and tq.q4_rmsnorm_matvec.launches == 0
 

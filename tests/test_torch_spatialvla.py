@@ -7,7 +7,11 @@ numpy-seeded weights and inputs, on spatialvla_tiny(use_vision_zoe=True):
 * the window widened so the fused decode path applies: the port's fused
   path, forced on the CPU (the kernels' plain versions), against JAX
   predict_action under the same rule;
-* SpatialVLAPolicy.predict / predict_batch against the JAX policy;
+* SpatialVLAPolicy.predict / predict_batch against the JAX policy, after
+  quantize(bits=8), quantize(bits=4) and quantize(bits=8, mlp_bits=4,
+  kv_bits=8) (both packages' fused loops forced on the CPU, JAX's Pallas
+  step in interpret mode);
+* quantize's int4, mixed and grouped trees bit-identical to JAX's;
 * the flash-attention prefill (use_flash_prefill=True): fp32 ids identical
   to JAX's flash prefill and to the port's masked prefill; on the int8 tree
   in bf16, JAX's ids under the margin rule.
@@ -18,6 +22,7 @@ below 0.5, where a rounding difference may flip a near tie. The lm_head is
 scaled up so that random-weight logits are not flat and the rule checks
 more than the first token."""
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -29,12 +34,13 @@ import torch
 from spatialvla_tpu.config import spatialvla_tiny
 from spatialvla_tpu.inference import SpatialVLAPolicy as JaxPolicy
 from spatialvla_tpu.models import spatialvla as jsv
+from spatialvla_tpu.ops import decode_step as j_decode_step
 from spatialvla_tpu.models.zoe import precompute_rel_bias as j_precompute_rel_bias
 from spatialvla_tpu.ops.quant import quantize_lm_params as j_qlm
 from spatialvla_tpu.ops.quant import quantize_vision_params as j_qvis
 from spatialvla_tpu.processor import SpatialVLAProcessor as JaxProcessor
 from spatialvla_tpu_torch import SpatialVLAPolicy
-from spatialvla_tpu_torch.convert import from_numpy_tree
+from spatialvla_tpu_torch.convert import from_numpy_tree, to_numpy_tree
 from spatialvla_tpu_torch.inference import default_processor
 from spatialvla_tpu_torch.models import spatialvla as tsv
 from spatialvla_tpu_torch.models.zoe import precompute_rel_bias as t_precompute_rel_bias
@@ -163,22 +169,24 @@ def test_fused_path_forced_on_cpu(serving, padded):
     assert_margin_rule(ids_t, ids_j, m_j)
 
 
-def _policies(params, quantize):
-    j_proc = JaxProcessor(image_token_id=CFG.image_token_index,
-                          action_token_begin_idx=CFG.action_token_begin_idx,
-                          image_seq_length=CFG.num_image_tokens, image_size=CFG.vision.image_size,
-                          statistics=default_processor(CFG).statistics)
+def _policies(params, quantize, cfg=CFG, **qkw):
+    """The JAX and the port's policy on the same weights; with ``quantize``
+    both in bf16 after quantize(**qkw) (default bits=8)."""
+    j_proc = JaxProcessor(image_token_id=cfg.image_token_index,
+                          action_token_begin_idx=cfg.action_token_begin_idx,
+                          image_seq_length=cfg.num_image_tokens, image_size=cfg.vision.image_size,
+                          statistics=default_processor(cfg).statistics)
     dtype = jnp.bfloat16 if quantize else jnp.float32
-    jp = JaxPolicy(params, CFG, j_proc, compute_dtype=dtype)
-    tp = SpatialVLAPolicy(from_numpy_tree(params), CFG, default_processor(CFG), device="cpu",
+    jp = JaxPolicy(params, cfg, j_proc, compute_dtype=dtype)
+    tp = SpatialVLAPolicy(from_numpy_tree(params), cfg, default_processor(cfg), device="cpu",
                           compute_dtype=torch.bfloat16 if quantize else torch.float32)
     if quantize:
         jp.params = jax.tree_util.tree_map(
             lambda a: a.astype(jnp.bfloat16) if jnp.issubdtype(a.dtype, jnp.floating) else a,
             jax.tree_util.tree_map(jnp.asarray, params))
-        jp.quantize(bits=8)
+        jp.quantize(**(qkw or dict(bits=8)))
         tp.params = from_numpy_tree(params, dtype=torch.bfloat16)
-        tp.quantize(bits=8)
+        tp.quantize(**(qkw or dict(bits=8)))
     return jp, tp
 
 
@@ -211,8 +219,41 @@ def test_policy_predict_int8_margin_rule(params):
         # the actions of every leading 3-token step with equal ids are equal
         np.testing.assert_array_equal(a["actions"][: n_same // 3], b["actions"][: n_same // 3])
         assert a["actions"].shape == (4, 7) and np.isfinite(a["actions"]).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tp.quantize(bits=None, kv_bits=8)
+    # kv_bits=8 needs the fused decode path, which neither package takes on
+    # the CPU by default (nor with this window, 8 < S): both refuse alike
+    for p in (jp, tp):
+        p.quantize(bits=None, vision_bits=None, kv_bits=8)
+        with pytest.raises(ValueError, match="fused decode path"):
+            p.predict(_frames(1, 5)[0], "pick up the cup")
+
+
+@pytest.fixture
+def fused_on_cpu(monkeypatch):
+    """Both policies on the CPU through their fused decode loops (each takes
+    the fused path only on its accelerator by default): JAX's Pallas step in
+    interpret mode, the port's kernels' plain versions."""
+    monkeypatch.setattr(j_decode_step, "fused_decode_step",
+                        functools.partial(j_decode_step.fused_decode_step, interpret=True))
+    for mod in (jsv, tsv):
+        monkeypatch.setattr(mod, "predict_action",
+                            functools.partial(mod.predict_action, use_fused_decode=True))
+
+
+@pytest.mark.parametrize("qkw", [dict(bits=4), dict(bits=8, mlp_bits=4, kv_bits=8)],
+                         ids=["int4", "int8+mlp4+kv8"])
+def test_policy_predict_int4_and_kv8_margin_rule(params, qkw, request):
+    """quantize(bits=4) (the unfused decode on the CPU in both packages) and
+    quantize(bits=8, mlp_bits=4, kv_bits=8) (the fused loop on the int8
+    cache: the port's plain versions against JAX's Pallas step)."""
+    if qkw.get("kv_bits"):
+        request.getfixturevalue("fused_on_cpu")
+    jp, tp = _policies(params, quantize=True, cfg=CFG_WIDE, **qkw)
+    assert tp.kv_bits == qkw.get("kv_bits") and tp.quant_desc == jp.quant_desc
+    for img, text in zip(_frames(2, 6), ["pick up the cup", "open the drawer"]):
+        a = tp.predict(img, text, return_margins=True)
+        b = jp.predict(img, text, return_margins=True)
+        assert_margin_rule(a["action_ids"][None], b["action_ids"][None], b["margins"][None])
+        assert a["actions"].shape == (4, 7) and np.isfinite(a["actions"]).all()
 
 
 @pytest.mark.parametrize("call, item", [
@@ -221,13 +262,40 @@ def test_policy_predict_int8_margin_rule(params):
     (lambda p: SpatialVLAPolicy.load_serving("dir"), "item 3"),
     (lambda p: p.save_serving("dir"), "item 3"),
     (lambda p: p.shard(), "item 3"),
-    (lambda p: p.quantize(bits=4), "item 3"),
-    (lambda p: p.quantize(mlp_bits=4), "item 3"),
-    (lambda p: p.quantize(group_size=128), "item 3"),
+    (lambda p: p.quantize(bits=4), None),
+    (lambda p: p.quantize(mlp_bits=4), None),
+    (lambda p: p.quantize(bits=4, group_size=128, vision_bits=4), None),
     (lambda p: tsv.forward(p.params, CFG, torch.zeros((1, 4), dtype=torch.long),
                            attn_backend="ring"), "item 8"),
 ])
-def test_unported_surfaces_name_their_roadmap_item(call, item):
+def test_unported_surfaces_name_their_roadmap_item(call, item, params):
+    """Each surface still to port names its ROADMAP item; the quantize
+    options ported since (item None) give the trees of JAX's quantize
+    functions bit for bit (run eagerly: under jit XLA may turn the scale
+    divisions into reciprocal products, one ulp away) and JAX's quant_desc."""
+    if item is None:
+        class Record:
+            def quantize(self, bits=8, **kw):
+                self.kw = dict(bits=bits, **kw)
+
+        call(rec := Record())
+        jp, tp = _policies(params, quantize=False)
+        call(jp)
+        call(tp)
+        assert tp.quant_desc == jp.quant_desc
+        kw = rec.kw
+        want = j_qvis(dict(params), bits=kw.get("vision_bits", 8))
+        want["lm"] = j_qlm(params["lm"], fuse=True, bits=kw["bits"], mlp_bits=kw.get("mlp_bits"),
+                           group_size=kw.get("group_size"))
+        for key in ("lm", "vision", "projector"):
+            flat_j, def_j = jax.tree_util.tree_flatten(
+                jax.tree_util.tree_map(np.asarray, want[key]))
+            flat_t, def_t = jax.tree_util.tree_flatten(to_numpy_tree(tp.params[key]))
+            assert def_j == def_t
+            for a, b in zip(flat_t, flat_j):
+                assert a.dtype == b.dtype
+                np.testing.assert_array_equal(a, b)
+        return
     policy = SpatialVLAPolicy({}, CFG, default_processor(CFG), device="cpu")
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md, Queue A {item}"):
         call(policy)
