@@ -11,8 +11,8 @@
    there is one (torch._weight_int8pack_mm, torch._weight_int4pack_mm): the
    int8 and int4 matvecs (per channel and in 128-column groups, 1, 16 and
    277 rows; 16- and 24-column groups checked untimed), the bf16- and
-   int8-cache decode attention, norm_residual, gelu_mul, a 2-layer decode
-   step, the flash kernels.
+   int8-cache decode attention (also on a 4096-slot cache), norm_residual,
+   gelu_mul, a 2-layer decode step, the flash kernels.
 3. The decode-step matrix of bench.py:111-160 at full width (26 layers,
    M = 16, S = 332, per-row positions): {int8, int4, int4-g128, int8+mlp4}
    x {bf16, int8} KV cache, the fused step against the masked forward on the
@@ -53,6 +53,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import statistics
 import subprocess
@@ -257,9 +258,10 @@ def kernel_phases(torch, timer, results, notes):
         if not r < bound_rel:
             fail(f"{name} {shape}: rel err {r} >= {bound_rel}")
 
-    # q8_matvec: the action head (M = 1, 2304 -> 8194) and the down projection
-    # at batch 16 (9216 -> 2304)
-    for M, K, N in ((1, 2304, 8194), (16, 9216, 2304)):
+    # q8_matvec: the action head (M = 1, 2304 -> 8194), the down projection
+    # at batch 16 (9216 -> 2304), and the decode step's o (2048 -> 2304) and
+    # down (9216 -> 2304) projections at batch 1
+    for M, K, N in ((1, 2304, 8194), (16, 9216, 2304), (1, 2048, 2304), (1, 9216, 2304)):
         x, w = randn(M, K), qweight(N, K)
         y = quant.q8_matvec(x, w["qt"], w["scale"])
         ref = quant.q8_matvec_plain(x, w["qt"], w["scale"])
@@ -339,9 +341,12 @@ def kernel_phases(torch, timer, results, notes):
     # decode_attention (bf16 cache) and decode_attention_kv8 (int8 codes with
     # per-slot scales) at the serving path's shapes: batch 1 at S = 278
     # (prefix 266 + 12), 2 rows at per-row positions (predict_batch), and
-    # 16 rows at S = 332
+    # 16 rows at S = 332; then batch 1 on a 4096-slot cache (the sliding
+    # window, the longest the decode step takes). The kernels get their
+    # scratch as the decode step gives it, allocated once
     Nq, Nkv, D = 8, 4, 256
-    for M, S, pos in ((1, 278, [270]), (2, 278, [266, 259]), (16, 332, list(range(300, 316)))):
+    for M, S, pos in ((1, 278, [270]), (2, 278, [266, 259]), (16, 332, list(range(300, 316))),
+                      (1, 4096, [4000])):
         qkv = randn(M, (Nq + 2 * Nkv) * D)
         ck, cv = randn(M, Nkv, S, D, std=0.3), randn(M, Nkv, S, D, std=0.3)
         position = torch.tensor(pos, dtype=torch.int32, device=dev)
@@ -351,11 +356,13 @@ def kernel_phases(torch, timer, results, notes):
         flat = lambda sc: sc.permute(1, 0, 2).reshape(Nkv, 1, M * S).contiguous()  # noqa: E731
         kv8 = dict(ks=flat(ks), vs=flat(vs))
         valid = sum(pos)
+        scratch = ds.attention_scratch(M, Nkv, S, D, Nq, dev)
         for name, kern, cache, extra, elem in (
                 ("decode_attention", ds.decode_attention, (ck, cv), {}, 2),
                 ("decode_attention_kv8", ds.decode_attention_kv8, (ck8, cv8), kv8, 1)):
             outs = {}
-            for tag, fn in (("kernel", kern), ("plain", ds.decode_attention_plain)):
+            for tag, fn in (("kernel", functools.partial(kern, scratch=scratch)),
+                            ("plain", ds.decode_attention_plain)):
                 bufs = dict(attn_out=torch.empty(M, Nq * D, dtype=torch.bfloat16, device=dev),
                             k_new=torch.empty(M, Nkv, D, dtype=torch.bfloat16, device=dev),
                             v_new=torch.empty(M, Nkv, D, dtype=torch.bfloat16, device=dev))

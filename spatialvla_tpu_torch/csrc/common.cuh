@@ -84,14 +84,3 @@ __device__ __forceinline__ float block_sum(float v, float* scratch) {
   float t = lane < nwarps ? scratch[lane] : 0.f;
   return warp_sum(t);
 }
-
-__device__ __forceinline__ float block_max(float v, float* scratch) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  v = warp_max(v);
-  __syncthreads();
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  float t = lane < nwarps ? scratch[lane] : -INFINITY;
-  return warp_max(t);
-}

@@ -44,11 +44,12 @@ _SIGNATURES = {
     "q4_matvec": (_P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _P),
     # x, x_dtype, norm_w, norm_dtype, eps, qt, scale, G, out, out_dtype, M, N, K, stream
     "q4_rmsnorm_matvec": (_P, _I, _P, _I, _F, _P, _P, _I, _P, _I, _I, _I, _I, _P),
-    # qkv, cos, sin, ck, cv, position, attn, k_new, v_new, M, Nq, Nkv, D, S, q_scale, cap, stream
-    "decode_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
-    # qkv, cos, sin, ck, cv, ks, vs, position, attn, k_new, v_new, M, Nq, Nkv, D, S, q_scale,
-    # cap, stream
-    "decode_attention_kv8": (_P,) * 11 + (_I,) * 5 + (_F, _F, _P),
+    # qkv, cos, sin, ck, cv, position, attn, k_new, v_new, part, tickets, M, Nq, Nkv, D, S,
+    # chunk, q_scale, cap, stream
+    "decode_attention": (_P,) * 11 + (_I,) * 6 + (_F, _F, _P),
+    # qkv, cos, sin, ck, cv, ks, vs, position, attn, k_new, v_new, part, tickets, M, Nq, Nkv,
+    # D, S, chunk, q_scale, cap, stream
+    "decode_attention_kv8": (_P,) * 13 + (_I,) * 6 + (_F, _F, _P),
     # h, upd, w, w_dtype, final_w, final_dtype, out, M, H, eps, stream
     "norm_residual": (_P, _P, _P, _I, _P, _I, _P, _I, _I, _F, _P),
     # gu, act, M, I, stream

@@ -9,8 +9,9 @@ launches, so here each layer is a fixed sequence of hand-written kernels
 launched from a Python loop over the stacked layer tensors:
 
     rmsnorm_matvec      input norm + fused qkv          (csrc/q8_matvec.cu, q4_matvec.cu)
-    decode_attention    RoPE, cache + self logits, softcap, softmax, p @ V
-                        (decode_attention_kv8 on an int8 cache)
+    decode_attention    RoPE, cache + self logits, softcap, softmax, p @ V,
+                        the cache split across blocks and merged in the
+                        same launch (decode_attention_kv8 on an int8 cache)
     matvec              o projection
     norm_residual       post-attention norm + residual  (csrc/decode.cu)
     rmsnorm_matvec      pre-FFN norm + fused gate|up
@@ -21,8 +22,9 @@ launched from a Python loop over the stacked layer tensors:
 Each projection takes the kernel of its own format (``_matvec_block``,
 decode_step.py:120-168): q8_* for int8 weights, q4_* for packed int4, per
 channel or grouped, so ``mlp_bits=4`` runs int8 attention and an int4 MLP.
-The loop only allocates buffers and launches kernels; no step of the layer
-math is a torch op. The residual stream stays in one fp32 (M, H) buffer,
+The loop only launches kernels; no step of the layer math is a torch op,
+and the buffers, the attention kernels' scratch among them, are allocated
+once per step before it. The residual stream stays in one fp32 (M, H) buffer,
 updated in place. The bf16 rounding points are those of decode_step.py:220-372.
 The per-row RoPE cos/sin tables are built here, as the JAX wrapper builds
 them outside its kernel (decode_step.py:461-467).
@@ -133,12 +135,59 @@ def _check_attention(name, qkv, cos, sin, ck, cv, position, num_heads, attn_out,
         raise ValueError(f"{name}: the kernel takes head_dim a multiple of 32 up to "
                          f"1024 and at most 8 query heads per kv head, got D={D}, "
                          f"{num_heads}/{Nkv} heads")
+    if ck.data_ptr() % 16 or cv.data_ptr() % 16:
+        raise ValueError(f"{name}: the cache must start 16-byte aligned (the kernel reads "
+                         "16-byte vectors)")
     return M, Nkv, S, D
 
 
+def attention_chunk(M, Nkv, S):
+    """Cache slots per block of the split attention kernels (csrc/decode.cu),
+    from the shapes alone (a CUDA graph may replay the launch at other
+    positions): 32, doubled while a (row, kv head) would have more than 64
+    chunks (the merge keeps their statistics in shared memory) or the grid
+    more than 512 blocks. 36 blocks at batch 1 on the serving path's S = 278,
+    384 at 16 rows and S = 332, 256 at batch 1 and S = 4096."""
+    C = 32
+    while C < 1024 and (-(-S // C) > 64 or M * Nkv * -(-S // C) > 512):
+        C *= 2
+    if -(-S // C) > 64:
+        raise ValueError(f"decode attention: the kernels take caches of up to 65536 slots, got {S}")
+    return C
+
+
+def _scratch_layout(M, Nkv, S, D, num_heads, C):
+    """(tickets, partial floats) of the attention scratch at chunk C; the
+    partials start 16-byte aligned."""
+    G = num_heads // Nkv
+    return -(-M * Nkv // 4) * 4, M * Nkv * -(-S // C) * G * (D + 2)
+
+
+def attention_scratch(M, Nkv, S, D, num_heads, device):
+    """Zeroed fp32 scratch of the decode_attention kernels for an (M, Nkv, S,
+    D) cache: M * Nkv tickets, which each launch leaves zero, then each
+    chunk's partial max, sum and p @ V. One scratch serves every layer of a
+    step: launches on one stream run in order."""
+    n_tickets, n_part = _scratch_layout(M, Nkv, S, D, num_heads, attention_chunk(M, Nkv, S))
+    return torch.zeros(n_tickets + n_part, dtype=torch.float32, device=device)
+
+
+def _scratch_ptrs(name, scratch, M, Nkv, S, D, num_heads, C, device):
+    """(partials, tickets) pointers, allocating the scratch when not given."""
+    n_tickets, n_part = _scratch_layout(M, Nkv, S, D, num_heads, C)
+    if scratch is None:
+        scratch = attention_scratch(M, Nkv, S, D, num_heads, device)
+    elif (scratch.dtype != torch.float32 or scratch.device != device
+          or not scratch.is_contiguous() or scratch.numel() < n_tickets + n_part):
+        raise ValueError(f"{name}: scratch must be attention_scratch{(M, Nkv, S, D, num_heads)}")
+    return scratch.data_ptr() + 4 * n_tickets, scratch.data_ptr()
+
+
 def decode_attention(qkv, cos, sin, ck, cv, position, *, num_heads, q_scale, cap,
-                     attn_out, k_new, v_new):
-    """Kernel wrapper, bf16 cache; see decode_attention_plain for the contract."""
+                     attn_out, k_new, v_new, scratch=None):
+    """Kernel wrapper, bf16 cache; see decode_attention_plain for the contract.
+    ``scratch``: an ``attention_scratch`` of this shape, allocated here when
+    not given (the decode step allocates one per step)."""
     if qkv.device.type == "cpu":
         return decode_attention_plain(
             qkv, cos, sin, ck, cv, position, num_heads=num_heads, q_scale=q_scale,
@@ -146,10 +195,14 @@ def decode_attention(qkv, cos, sin, ck, cv, position, *, num_heads, q_scale, cap
         )
     M, Nkv, S, D = _check_attention("decode_attention", qkv, cos, sin, ck, cv, position,
                                     num_heads, attn_out, k_new, v_new, torch.bfloat16)
+    C = attention_chunk(M, Nkv, S)
+    part, tickets = _scratch_ptrs("decode_attention", scratch, M, Nkv, S, D, num_heads, C,
+                                  qkv.device)
     _lib.launch(
         "decode_attention", qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(), ck.data_ptr(),
         cv.data_ptr(), position.data_ptr(), attn_out.data_ptr(), k_new.data_ptr(),
-        v_new.data_ptr(), M, num_heads, Nkv, D, S, float(q_scale), float(cap or 0.0),
+        v_new.data_ptr(), part, tickets, M, num_heads, Nkv, D, S, C, float(q_scale),
+        float(cap or 0.0),
     )
     decode_attention.launches += 1
 
@@ -158,9 +211,10 @@ decode_attention.launches = 0
 
 
 def decode_attention_kv8(qkv, cos, sin, ck, cv, position, *, ks, vs, num_heads, q_scale, cap,
-                         attn_out, k_new, v_new):
+                         attn_out, k_new, v_new, scratch=None):
     """Kernel wrapper, int8 cache ck / cv (M, Nkv, S, D) with this layer's
-    per-slot scales ks / vs (Nkv, 1, M S) f32; see decode_attention_plain."""
+    per-slot scales ks / vs (Nkv, 1, M S) f32; see decode_attention_plain
+    and, for ``scratch``, decode_attention."""
     if qkv.device.type == "cpu":
         return decode_attention_plain(
             qkv, cos, sin, ck, cv, position, num_heads=num_heads, q_scale=q_scale,
@@ -168,11 +222,14 @@ def decode_attention_kv8(qkv, cos, sin, ck, cv, position, *, ks, vs, num_heads, 
         )
     M, Nkv, S, D = _check_attention("decode_attention_kv8", qkv, cos, sin, ck, cv, position,
                                     num_heads, attn_out, k_new, v_new, torch.int8, (ks, vs))
+    C = attention_chunk(M, Nkv, S)
+    part, tickets = _scratch_ptrs("decode_attention_kv8", scratch, M, Nkv, S, D, num_heads, C,
+                                  qkv.device)
     _lib.launch(
         "decode_attention_kv8", qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(), ck.data_ptr(),
         cv.data_ptr(), ks.data_ptr(), vs.data_ptr(), position.data_ptr(), attn_out.data_ptr(),
-        k_new.data_ptr(), v_new.data_ptr(), M, num_heads, Nkv, D, S, float(q_scale),
-        float(cap or 0.0),
+        k_new.data_ptr(), v_new.data_ptr(), part, tickets, M, num_heads, Nkv, D, S, C,
+        float(q_scale), float(cap or 0.0),
     )
     decode_attention_kv8.launches += 1
 
@@ -263,13 +320,18 @@ def _attention_kernel(qkv, cos, sin, ck, cv, position, *, ks, vs, **kw):
     return decode_attention_kv8(qkv, cos, sin, ck, cv, position, ks=ks, vs=vs, **kw)
 
 
+def _attention_plain(*args, scratch, **kw):
+    """decode_attention_plain, which needs no scratch."""
+    return decode_attention_plain(*args, **kw)
+
+
 KERNELS = SimpleNamespace(
     rmsnorm_matvec=rmsnorm_matvec, matvec=matvec, attention=_attention_kernel,
     norm_residual=norm_residual, gelu_mul=gelu_mul,
 )
 PLAIN = SimpleNamespace(
     rmsnorm_matvec=rmsnorm_matvec_plain, matvec=matvec_plain,
-    attention=decode_attention_plain, norm_residual=norm_residual_plain,
+    attention=_attention_plain, norm_residual=norm_residual_plain,
     gelu_mul=gelu_mul_plain,
 )
 
@@ -348,6 +410,7 @@ def _step(ops, lm_params: Params, cfg, x, cache_k, cache_v, position, rope_posit
     hidden = torch.empty((M, H), dtype=bf, device=dev)
     k_new = torch.empty((L, M, Nkv, D), dtype=bf, device=dev)
     v_new = torch.empty((L, M, Nkv, D), dtype=bf, device=dev)
+    scratch = attention_scratch(M, Nkv, S, D, Nq, dev) if dev.type == "cuda" else None
     eps = cfg.rms_norm_eps
     q_scale = cfg.query_pre_attn_scalar ** -0.5
     for l in range(L):
@@ -356,7 +419,7 @@ def _step(ops, lm_params: Params, cfg, x, cache_k, cache_v, position, rope_posit
         ops.attention(qkv_buf, cos, sin, cache_k[l], cache_v[l], position,
                       ks=None if ks is None else ks[l], vs=None if vs is None else vs[l],
                       num_heads=Nq, q_scale=q_scale, cap=cfg.attn_logit_softcap,
-                      attn_out=attn_buf, k_new=k_new[l], v_new=v_new[l])
+                      attn_out=attn_buf, k_new=k_new[l], v_new=v_new[l], scratch=scratch)
         ops.matvec(attn_buf, o["qt"][l], o["scale"][l], out_dtype=bf, out=o_buf)
         ops.norm_residual(h, o_buf, layers["post_attn_norm"][l], eps=eps)
         ops.rmsnorm_matvec(h, layers["pre_ffn_norm"][l], gu["qt"][l], gu["scale"][l],

@@ -213,7 +213,7 @@ def main(argv=None):
         profile_steps=tuple(args.profile_steps) if args.profile_steps else None,
     )
     print("note: checkpoints are not written yet (ROADMAP.md, "
-          "Queue A item 1, checkpoint loading)", flush=True)
+          "Queue A item 2, checkpoint loading)", flush=True)
     return train_loop(state=parts["state"], train_step=parts["step"], batches=parts["batches"],
                       config=config)
 

@@ -159,62 +159,80 @@ def test_action_head_slice_is_a_view():
     assert _rel(got, quant.q8_matvec_plain(x, head["qt"], head["scale"])) < 1e-2
 
 
-@pytest.mark.parametrize("M,S,positions", [
-    (1, 278, [270]),         # batch 1 at the serving path's cache length
-    (2, 278, [266, 259]),    # right-padded rows at their own positions
-    (3, 64, [0, 1, 64]),     # an empty cache, one slot, every slot
-    (16, 332, list(range(300, 316))),
-])
-def test_decode_attention(M, S, positions):
-    g = _gen(3)
-    Nq, Nkv, D = 8, 4, 256
+# (M, S, positions, D, Nq, Nkv): the serving path's shapes (batch 1, the
+# padded batch of 2, the 16-row matrix), an empty / one-slot / full cache,
+# positions on chunk boundaries (attention_chunk: 32 slots at (2, 96), 64 at
+# 16 rows and S = 332 or at S = 4096, 512 at 16 rows and S = 4096), an S
+# that is not a multiple of the chunk, 16 rows at spread positions, the
+# longest cache the step allows (its sliding window), the tiny configs'
+# head_dim, and 1, 4 and 8 query heads per kv head (the kernel's
+# register-array instances)
+ATTN_CASES = [
+    (1, 278, [270], 256, 8, 4),
+    (2, 278, [266, 259], 256, 8, 4),
+    (3, 64, [0, 1, 64], 256, 8, 4),
+    (16, 332, list(range(300, 316)), 256, 8, 4),
+    (2, 96, [32, 64], 256, 8, 4),
+    (2, 100, [0, 100], 256, 8, 4),
+    (16, 332, [0, 1, 31, 32, 33, 63, 64, 65, 100, 127, 128, 200, 255, 256, 300, 332], 256, 8, 4),
+    (1, 4096, [4000], 256, 8, 4),
+    (2, 4096, [4096, 33], 256, 8, 4),
+    (16, 4096, [0, 1, 511, 512, 513, 1024, 2047, 2048, 3000, 3583, 3584, 3585, 4000, 4095, 4096,
+                64], 256, 8, 4),
+    (3, 50, [0, 17, 50], 32, 4, 2),
+    (2, 200, [150, 7], 128, 4, 4),
+    (2, 200, [150, 7], 64, 16, 4),
+    (1, 278, [270], 256, 8, 1),
+]
+
+
+def _check_attention_kernel(kern, M, S, positions, D, Nq, Nkv, kv8, seed):
+    """The kernel against decode_attention_plain; one launch a call; two
+    launches on one scratch (whose tickets each launch leaves zero) and one
+    on a scratch the wrapper allocates give bit-identical outputs."""
+    g = _gen(seed)
     qkv = _randn(g, M, (Nq + 2 * Nkv) * D)
     ck, cv = _randn(g, M, Nkv, S, D, std=0.3), _randn(g, M, Nkv, S, D, std=0.3)
+    extra = {}
+    if kv8:
+        (ck, ks), (cv, vs) = quant.quantize_kv(ck), quant.quantize_kv(cv)
+        flat = lambda sc: sc.permute(1, 0, 2).reshape(Nkv, 1, M * S).contiguous()  # noqa: E731
+        extra = dict(ks=flat(ks), vs=flat(vs))
     pos = torch.tensor(positions, dtype=torch.int32, device=DEV)
     cos, sin = ds.rope_tables(pos + 1, D, 10000.0)
-    outs = []
-    for fn in (ds.decode_attention, ds.decode_attention_plain):
+
+    def run(fn, **kw):
         bufs = dict(attn_out=torch.empty(M, Nq * D, dtype=torch.bfloat16, device=DEV),
                     k_new=torch.empty(M, Nkv, D, dtype=torch.bfloat16, device=DEV),
                     v_new=torch.empty(M, Nkv, D, dtype=torch.bfloat16, device=DEV))
-        fn(qkv, cos, sin, ck, cv, pos, num_heads=Nq, q_scale=D ** -0.5, cap=50.0, **bufs)
-        outs.append(bufs)
-    kern, plain = outs
-    assert _rel(kern["attn_out"], plain["attn_out"]) < 1e-2
-    assert _rel(kern["k_new"], plain["k_new"]) < 1e-2
-    assert torch.equal(kern["v_new"], plain["v_new"])
-
-
-@pytest.mark.parametrize("M,S,positions", [
-    (1, 278, [270]),
-    (2, 278, [266, 259]),
-    (3, 64, [0, 1, 64]),
-    (16, 332, list(range(300, 316))),
-])
-def test_decode_attention_kv8(M, S, positions):
-    g = _gen(13)
-    Nq, Nkv, D = 8, 4, 256
-    qkv = _randn(g, M, (Nq + 2 * Nkv) * D)
-    ck, ks = quant.quantize_kv(_randn(g, M, Nkv, S, D, std=0.3))
-    cv, vs = quant.quantize_kv(_randn(g, M, Nkv, S, D, std=0.3))
-    flat = lambda sc: sc.permute(1, 0, 2).reshape(Nkv, 1, M * S).contiguous()  # noqa: E731
-    ks, vs = flat(ks), flat(vs)
-    pos = torch.tensor(positions, dtype=torch.int32, device=DEV)
-    cos, sin = ds.rope_tables(pos + 1, D, 10000.0)
-    outs = []
-    before = ds.decode_attention_kv8.launches
-    for fn in (ds.decode_attention_kv8, ds.decode_attention_plain):
-        bufs = dict(attn_out=torch.empty(M, Nq * D, dtype=torch.bfloat16, device=DEV),
-                    k_new=torch.empty(M, Nkv, D, dtype=torch.bfloat16, device=DEV),
-                    v_new=torch.empty(M, Nkv, D, dtype=torch.bfloat16, device=DEV))
-        fn(qkv, cos, sin, ck, cv, pos, ks=ks, vs=vs, num_heads=Nq, q_scale=D ** -0.5, cap=50.0,
+        fn(qkv, cos, sin, ck, cv, pos, num_heads=Nq, q_scale=D ** -0.5, cap=50.0, **extra, **kw,
            **bufs)
-        outs.append(bufs)
-    assert ds.decode_attention_kv8.launches == before + 1
-    kern, plain = outs
-    assert _rel(kern["attn_out"], plain["attn_out"]) < 1e-2
-    assert _rel(kern["k_new"], plain["k_new"]) < 1e-2
-    assert torch.equal(kern["v_new"], plain["v_new"])
+        return bufs
+
+    scratch = ds.attention_scratch(M, Nkv, S, D, Nq, DEV)
+    before = kern.launches
+    first = run(kern, scratch=scratch)
+    assert kern.launches == before + 1
+    again = [run(kern, scratch=scratch), run(kern)]
+    assert kern.launches == before + 3
+    plain = run(ds.decode_attention_plain)
+    torch.cuda.synchronize()
+    for other in again:
+        for k in first:
+            assert torch.equal(first[k], other[k]), k
+    assert _rel(first["attn_out"], plain["attn_out"]) < 1e-2
+    assert _rel(first["k_new"], plain["k_new"]) < 1e-2
+    assert torch.equal(first["v_new"], plain["v_new"])
+
+
+@pytest.mark.parametrize("M,S,positions,D,Nq,Nkv", ATTN_CASES)
+def test_decode_attention(M, S, positions, D, Nq, Nkv):
+    _check_attention_kernel(ds.decode_attention, M, S, positions, D, Nq, Nkv, False, 3)
+
+
+@pytest.mark.parametrize("M,S,positions,D,Nq,Nkv", ATTN_CASES)
+def test_decode_attention_kv8(M, S, positions, D, Nq, Nkv):
+    _check_attention_kernel(ds.decode_attention_kv8, M, S, positions, D, Nq, Nkv, True, 13)
 
 
 def test_decode_attention_rejects_unsupported_head_dim():

@@ -203,3 +203,87 @@ def test_chained_int8_kv_decode_matches_jax_ids(qparams):
         toks_t.append(int(torch.argmax(t_quant.qmatmul(h_t, theads), dim=-1)[0]))
     assert toks_t == toks_j
 
+
+
+def _split_attention(qkv, cos, sin, ck, cv, position, *, num_heads, q_scale, cap, chunk,
+                     ks=None, vs=None):
+    """The chunk-and-merge arithmetic of csrc/decode.cu:decode_attention_kernel
+    in torch: per chunk of `chunk` slots a local max, a local sum and a
+    partial p @ V with p = bf16(exp(l - local max) [* V scale]); the merge
+    rescales each partial by exp(local max - global max) in chunk order and
+    adds the self term. Returns attn_out (M, Nq D) bf16."""
+    M, Nkv, S, D = ck.shape
+    G, NqD, NkvD = num_heads // Nkv, num_heads * D, Nkv * D
+    bf = lambda t: t.to(torch.bfloat16).float()  # noqa: E731
+    f = qkv.float()
+    c, s = bf(cos)[:, None, :], bf(sin)[:, None, :]
+    k = t_ds._rope(f[:, NqD: NqD + NkvD].reshape(M, Nkv, D), c, s)
+    v = f[:, NqD + NkvD:].reshape(M, Nkv, D)
+    q16 = bf(t_ds._rope(f[:, :NqD].reshape(M, num_heads, D), c, s) * q_scale).reshape(M, Nkv, G, D)
+    logits = torch.einsum("mhgd,mhsd->mhgs", q16, ck.float())
+    if ks is not None:
+        logits = logits * t_ds._slot_scales(ks, M, S)
+    logits = t_ds._softcap(logits, cap)
+    self_l = t_ds._softcap((q16 * bf(k)[:, :, None, :]).sum(-1), cap)  # (M, Nkv, G)
+    vsc = None if vs is None else t_ds._slot_scales(vs, M, S)
+    out = torch.empty(M, Nkv, G, D)
+    for m in range(M):
+        pos = int(position[m])
+        parts = []  # (local max, local sum, partial p @ V) per live chunk
+        for t0 in range(0, max(pos, 1), chunk):
+            t1 = min(t0 + chunk, pos)
+            if t1 <= t0:  # chunk 0 of an empty cache
+                parts.append((torch.full((Nkv, G), -float("inf")), torch.zeros(Nkv, G),
+                              torch.zeros(Nkv, G, D)))
+                continue
+            lg = logits[m, :, :, t0:t1]
+            mx = lg.amax(-1)
+            e = torch.exp(lg - mx[..., None])
+            p = bf(e if vsc is None else e * vsc[m, :, :, t0:t1])
+            parts.append((mx, e.sum(-1), torch.einsum("hgs,hsd->hgd", p, cv[m, :, t0:t1].float())))
+        gmx = self_l[m]
+        for mx, _, _ in parts:
+            gmx = torch.maximum(gmx, mx)
+        den = torch.zeros(Nkv, G)
+        acc = torch.zeros(Nkv, G, D)
+        for mx, se, o in parts:
+            w = torch.exp(mx - gmx)
+            den = den + se * w
+            acc = acc + w[..., None] * o
+        e_self = torch.exp(self_l[m] - gmx)
+        den = den + e_self
+        out[m] = acc / den[..., None] + bf(e_self / den)[..., None] * v[m][:, None, :]
+    return out.reshape(M, NqD).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("kv8", [False, True], ids=["bf16kv", "kv8"])
+@pytest.mark.parametrize("M,S,positions", [
+    (1, 278, [270]),                      # the serving path at batch 1
+    (2, 278, [266, 259]),                 # predict_batch's per-row positions
+    (3, 100, [0, 64, 100]),               # empty, on a chunk boundary, every slot
+    (16, 332, list(range(300, 316))),     # the decode-step matrix
+])
+def test_split_attention_merge_holds_to_plain(M, S, positions, kv8):
+    """The split kernel's merge algebra and its rounding point (bf16 p
+    relative to each chunk's max, times the V scale on the int8 cache) hold
+    to decode_attention_plain within the kernels' bound, 1e-2 of max|plain|,
+    at the chunk size the kernel uses; the flagship's heads (8 / 4, D = 256)."""
+    Nq, Nkv, D = 8, 4, 256
+    rng = np.random.RandomState(7 + M)
+    qkv = torch.from_numpy(rng.randn(M, (Nq + 2 * Nkv) * D).astype(np.float32)).to(torch.bfloat16)
+    ck, cv = (torch.from_numpy(0.3 * rng.randn(M, Nkv, S, D).astype(np.float32)).to(torch.bfloat16)
+              for _ in range(2))
+    position = torch.tensor(positions, dtype=torch.int32)
+    cos, sin = t_ds.rope_tables(position + 1, D, 10000.0)
+    kw = dict(num_heads=Nq, q_scale=D ** -0.5, cap=50.0)
+    if kv8:
+        flat = lambda sc: sc.permute(1, 0, 2).reshape(Nkv, 1, M * S).contiguous()  # noqa: E731
+        (ck, ks), (cv, vs) = t_quant.quantize_kv(ck), t_quant.quantize_kv(cv)
+        kw.update(ks=flat(ks), vs=flat(vs))
+    bufs = dict(attn_out=torch.empty(M, Nq * D, dtype=torch.bfloat16),
+                k_new=torch.empty(M, Nkv, D, dtype=torch.bfloat16),
+                v_new=torch.empty(M, Nkv, D, dtype=torch.bfloat16))
+    t_ds.decode_attention_plain(qkv, cos, sin, ck, cv, position, **kw, **bufs)
+    split = _split_attention(qkv, cos, sin, ck, cv, position, chunk=t_ds.attention_chunk(M, Nkv, S), **kw)
+    ref = bufs["attn_out"].float()
+    assert ((split.float() - ref).abs().max() / ref.abs().max()).item() < 1e-2

@@ -1,5 +1,5 @@
 """The port never loads jax, optax or the JAX package (spatialvla_tpu), and
-its image step needs no PIL for frames that already have the model's size.
+its image step needs no PIL: without it, frames of any size are resized.
 
 A fresh interpreter (this test process has jax loaded) imports every module
 of spatialvla_tpu_torch with PIL blocked, runs a tiny predict with the int8
@@ -44,11 +44,7 @@ sv.predict_action = functools.partial(sv.predict_action, use_fused_decode=True)
 wide = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, sliding_window=512))
 kv8 = SpatialVLAPolicy.init_random(wide, "cpu", seed=0).quantize(bits=8, mlp_bits=4, kv_bits=8)
 out_kv8 = kv8.predict(frame, "pick up the cup")
-try:
-    policy.processor(frame[:-1], "resized frames need PIL")
-    needs_pil = None
-except ValueError as e:
-    needs_pil = str(e)
+resized = policy.processor(frame[:-1], "a frame that needs resizing")
 print(json.dumps({
     "modules": mods,
     "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))),
@@ -58,7 +54,10 @@ print(json.dumps({
     "actions_shape": [list(np.asarray(o["actions"]).shape) for o in (out, out_kv8)],
     "finite": bool(all(np.isfinite(o["actions"]).all() for o in (out, out_kv8))),
     "ids": [np.asarray(o["action_ids"]).tolist() for o in (out, out_kv8)],
-    "needs_pil": needs_pil,
+    "resized_shape": list(resized["pixel_values"].shape),
+    "resized_finite": bool(np.isfinite(resized["pixel_values"]).all()),
+    "resized_keys": sorted(resized),
+    "image_size": size,
 }))
 """
 
@@ -106,7 +105,12 @@ def test_tiny_predict_without_pil(child):
     ids = np.asarray(child["ids"])
     begin = cfg.action_token_begin_idx
     assert ((ids >= begin) & (ids < begin + cfg.spatial_token_num)).all()
-    assert child["needs_pil"] is not None and "PIL" in child["needs_pil"]
+    # without PIL a frame of another size is resized (the bicubic path, off
+    # the u8 grid, so without the exact-u8 transport form)
+    size = child["image_size"]
+    assert child["resized_shape"] == [1, size, size, 3] and child["resized_finite"]
+    assert "pixel_values" in child["resized_keys"]
+    assert "pixel_values_u8" not in child["resized_keys"]
 
 
 @pytest.mark.parametrize("texts", [["pick up the cup"], ["a", "move the red block left"]])

@@ -257,8 +257,8 @@ def test_policy_predict_int4_and_kv8_margin_rule(params, qkw, request):
 
 
 @pytest.mark.parametrize("call, item", [
-    (lambda p: SpatialVLAPolicy.from_hf_checkpoint("ckpt"), "item 1"),
-    (lambda p: SpatialVLAPolicy.load("ckpt"), "item 1"),
+    (lambda p: SpatialVLAPolicy.from_hf_checkpoint("ckpt"), "item 2"),
+    (lambda p: SpatialVLAPolicy.load("ckpt"), "item 2"),
     (lambda p: SpatialVLAPolicy.load_serving("dir"), "item 3"),
     (lambda p: p.save_serving("dir"), "item 3"),
     (lambda p: p.shard(), "item 3"),
