@@ -8,9 +8,10 @@
    shapes the serving and training paths give it, and times both, beside
    the least time the card could take (bytes over 3.35 TB/s or operations
    over 989 TFLOP/s) and one PyTorch call computing the same function where
-   there is one (torch._weight_int8pack_mm, torch._weight_int4pack_mm): the
-   int8 and int4 matvecs (per channel and in 128-column groups, 1, 16 and
-   277 rows; 16- and 24-column groups checked untimed), the bf16- and
+   there is one (torch._weight_int8pack_mm, torch._weight_int4pack_mm; for
+   the RMSNorm variants their matmul alone, in the log): the int8 and int4
+   matvecs (per channel and in 128-column groups, 1, 16 and 277 rows; 16-
+   and 24-column groups checked untimed), the bf16- and
    int8-cache decode attention (also on a 4096-slot cache), norm_residual,
    gelu_mul, a 2-layer decode step, the flash kernels.
 3. The decode-step matrix of bench.py:111-160 at full width (26 layers,
@@ -259,9 +260,10 @@ def kernel_phases(torch, timer, results, notes):
             fail(f"{name} {shape}: rel err {r} >= {bound_rel}")
 
     # q8_matvec: the action head (M = 1, 2304 -> 8194), the down projection
-    # at batch 16 (9216 -> 2304), and the decode step's o (2048 -> 2304) and
-    # down (9216 -> 2304) projections at batch 1
-    for M, K, N in ((1, 2304, 8194), (16, 9216, 2304), (1, 2048, 2304), (1, 9216, 2304)):
+    # at batch 16 (9216 -> 2304), the decode step's o (2048 -> 2304) and
+    # down (9216 -> 2304) projections at batch 1, and o at batch 16
+    for M, K, N in ((1, 2304, 8194), (16, 9216, 2304), (1, 2048, 2304), (1, 9216, 2304),
+                    (16, 2048, 2304)):
         x, w = randn(M, K), qweight(N, K)
         y = quant.q8_matvec(x, w["qt"], w["scale"])
         ref = quant.q8_matvec_plain(x, w["qt"], w["scale"])
@@ -277,7 +279,8 @@ def kernel_phases(torch, timer, results, notes):
                2 * M * N * K, lib)
 
     # q8_rmsnorm_matvec: input norm + qkv (2304 -> 4096) and pre-FFN norm +
-    # gate|up (2304 -> 18432), on the fp32 residual stream
+    # gate|up (2304 -> 18432), on the fp32 residual stream; beside it the
+    # library's int8 matmul alone on the plain normed x (not the same function)
     for M in (1, 16):
         for N in (4096, 18432):
             K = 2304
@@ -287,12 +290,16 @@ def kernel_phases(torch, timer, results, notes):
             d, r = rel_err(y, ref)
             ms = timer(lambda: quant.q8_rmsnorm_matvec(x, nw, w["qt"], w["scale"]))
             pms = timer(lambda: quant.q8_rmsnorm_matvec_plain(x, nw, w["qt"], w["scale"]))
+            lib, note = library_int8pack(torch, timer, quant._rms_bf16(x, nw, 1e-6), w["qt"],
+                                         w["scale"])
             print(f"q8_rmsnorm_matvec M={M} {K}->{N}: max|d|={d:.3e} rel={r:.3e} "
-                  f"kernel {ms:.4f} ms plain {pms:.4f} ms", flush=True)
+                  f"kernel {ms:.4f} ms plain {pms:.4f} ms library matmul alone {lib} ms "
+                  f"({note})", flush=True)
             check("q8_rmsnorm_matvec", f"M={M} N={N}", r)
             record("q8_rmsnorm_matvec", f"M{M}_{K}x{N}", d, ms, pms,
                    nbytes_of(x, nw, w["qt"], w["scale"], y), 2 * M * N * K + 4 * M * K)
-    notes["q8_rmsnorm_matvec"] = "no single PyTorch call fuses the RMSNorm with the matmul"
+    notes["q8_rmsnorm_matvec"] = ("no single PyTorch call fuses the RMSNorm with the matmul "
+                                  "(the log gives _weight_int8pack_mm's matmul alone)")
 
     # q4_matvec / q4_rmsnorm_matvec, per channel and in 128-column groups: the
     # action head (M = 1), the decode projections at M = 1 and 16 (qkv and

@@ -78,8 +78,9 @@ def build_argparser():
     p.add_argument("--coordinator_address", type=str, default=None)
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
-    p.add_argument("--device", type=str, default=None,
-                   help="torch device (default: cuda when available, else cpu)")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device (default: cuda; without a card this raises, and "
+                        "the CPU is used only with --device cpu)")
     return p
 
 
@@ -109,7 +110,10 @@ def build_everything(args):
     from .optimizer import iter_leaves
 
     _check_ported(args)
-    device = torch.device(args.device or ("cuda" if torch.cuda.is_available() else "cpu"))
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {args.device}: no CUDA device is available; pass "
+                           "--device cpu to train on the CPU")
     cfg = spatialvla_4b() if args.model_preset == "spatialvla_4b" else spatialvla_tiny()
     if args.no_vision_zoe:
         cfg = dataclasses.replace(cfg, use_vision_zoe=False, zoe=None)

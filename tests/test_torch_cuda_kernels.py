@@ -47,8 +47,14 @@ def _rel(got, ref):
     return ((got - ref).abs().max() / ref.abs().max().clamp_min(1e-12)).item()
 
 
-@pytest.mark.parametrize("M", [1, 2, 5, 16])
-@pytest.mark.parametrize("K,N", [(2304, 8194), (9216, 2304), (64, 40)])
+# every rows instance of the int8 kernels (1, 2, 4, 8, 16) and both of its
+# edges; N that no tile of channels divides; K = 9216, which at 16 rows is
+# staged in chunks; K = 2320, a multiple of 16 but of no chunk
+Q8_ROWS = [1, 2, 3, 4, 5, 8, 9, 16]
+
+
+@pytest.mark.parametrize("M", Q8_ROWS)
+@pytest.mark.parametrize("K,N", [(2304, 8194), (9216, 2304), (2320, 4100), (64, 40)])
 @pytest.mark.parametrize("x_dtype,out_dtype", [(torch.bfloat16, torch.bfloat16),
                                                (torch.float32, torch.float32)])
 def test_q8_matvec(M, K, N, x_dtype, out_dtype):
@@ -62,19 +68,72 @@ def test_q8_matvec(M, K, N, x_dtype, out_dtype):
     assert _rel(got, quant.q8_matvec_plain(x, w["qt"], w["scale"], out_dtype=out_dtype)) < 1e-2
 
 
-@pytest.mark.parametrize("M", [1, 3, 16])
-@pytest.mark.parametrize("N", [4096, 18432])
+@pytest.mark.parametrize("M", Q8_ROWS)
+@pytest.mark.parametrize("K,N", [(2304, 18432), (9216, 40), (2320, 4100)])
 @pytest.mark.parametrize("x_dtype,norm_dtype", [(torch.float32, torch.bfloat16),
                                                 (torch.bfloat16, torch.float32)])
-def test_q8_rmsnorm_matvec(M, N, x_dtype, norm_dtype):
+def test_q8_rmsnorm_matvec(M, K, N, x_dtype, norm_dtype):
     g = _gen(1)
-    K = 2304
     x = _randn(g, M, K, dtype=x_dtype)
     nw = _randn(g, K, dtype=norm_dtype, std=0.1)
     w = quant.quantize_int8(_randn(g, K, N, dtype=torch.float32, std=0.02))
+    before = quant.q8_rmsnorm_matvec.launches
     got = quant.q8_rmsnorm_matvec(x, nw, w["qt"], w["scale"])
+    assert quant.q8_rmsnorm_matvec.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N)
     ref = quant.q8_rmsnorm_matvec_plain(x, nw, w["qt"], w["scale"])
     assert _rel(got, ref) < 1e-2
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 2304, 18432), (16, 9216, 2304), (5, 2320, 4100)])
+def test_q8_kernels_are_deterministic(M, K, N):
+    """Two launches give identical bits (no atomics; the K split's partial
+    sums are added in a fixed order), one count a call."""
+    g = _gen(6)
+    x = _randn(g, M, K, dtype=torch.float32)
+    nw = _randn(g, K, std=0.1)
+    w = quant.quantize_int8(_randn(g, K, N, dtype=torch.float32, std=0.02))
+    for kern, args in ((quant.q8_matvec, (x, w["qt"], w["scale"])),
+                       (quant.q8_rmsnorm_matvec, (x, nw, w["qt"], w["scale"]))):
+        before = kern.launches
+        first, again = kern(*args), kern(*args)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 2
+        assert torch.equal(first, again)
+
+
+def test_q8_first_launch_inside_a_cuda_graph():
+    """A process whose first int8 launch is captured into a CUDA graph: the
+    kernel stages x in chunks of at most 48 KB there (the larger shared-memory
+    opt-in is never made during a capture) and agrees with the plain version
+    on replay."""
+    import os
+    import subprocess
+    import sys
+    import textwrap
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = textwrap.dedent("""
+        import torch
+        from spatialvla_tpu_torch.ops import _lib, quant
+        _lib.library()
+        g = torch.Generator(device="cuda").manual_seed(0)
+        x = torch.randn(16, 9216, generator=g, device="cuda")
+        nw = (torch.randn(9216, generator=g, device="cuda") * 0.1).to(torch.bfloat16)
+        w = quant.quantize_int8(torch.randn(9216, 2304, generator=g, device="cuda") * 0.02)
+        out = torch.empty(16, 2304, dtype=torch.bfloat16, device="cuda")
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            quant.q8_rmsnorm_matvec(x, nw, w["qt"], w["scale"], out=out)
+        graph.replay()
+        ref = quant.q8_rmsnorm_matvec_plain(x, nw, w["qt"], w["scale"])
+        rel = ((out.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+        print(rel)
+        assert rel < 1e-2, rel
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
 
 
 # (K, N): the head, the down projection, SigLIP's fc2 (K/2 = 2152 bytes, not a

@@ -262,6 +262,26 @@ def test_pretrain_main_on_the_fixture(data_dir, tmp_path):
     assert any(f.startswith("events.out.tfevents") for f in os.listdir(os.path.join(out, "tb")))
 
 
+def test_pretrain_without_a_card_raises_unless_asked_for_the_cpu(data_dir, tmp_path,
+                                                                 monkeypatch):
+    from spatialvla_tpu_torch.models import spatialvla as port_model
+    from spatialvla_tpu_torch.train import pretrain
+
+    def no_model(*args, **kwargs):
+        raise AssertionError("a model was built although no device was usable")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(port_model, "init_params", no_model)
+    args = pretrain.build_argparser().parse_args([
+        "--data_root_dir", data_dir, "--output_dir", str(tmp_path / "o"),
+        "--model_preset", "spatialvla_tiny",
+    ])
+    assert args.device == "cuda"
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        pretrain.build_everything(args)
+    assert not (tmp_path / "o").exists()
+
+
 @pytest.mark.parametrize("argv, item", [
     (["--mesh_fsdp", "2"], "item 8"),
     (["--attn_backend", "ring"], "item 8"),
