@@ -17,7 +17,8 @@
 3. The decode-step matrix of bench.py:111-160 at full width (26 layers,
    M = 16, S = 332, per-row positions): {int8, int4, int4-g128, int8+mlp4}
    x {bf16, int8} KV cache, the fused step against the masked forward on the
-   same tree (relative drift below 0.05 / 0.08).
+   same tree (relative drift below 0.05 / 0.08); and the int8, int4 and
+   int8+mlp4 steps at batch 1 (S = 289, bf16 cache).
 4. Drives the serving path: SpatialVLAPolicy.predict on full-width
    spatialvla_4b() (SigLIP-so400m, ZoeDepth BEiT-L, Gemma2-2B with 26 layers)
    with random weights from a seed, after quantize(bits=8): three requests
@@ -303,19 +304,23 @@ def kernel_phases(torch, timer, results, notes):
 
     # q4_matvec / q4_rmsnorm_matvec, per channel and in 128-column groups: the
     # action head (M = 1), the decode projections at M = 1 and 16 (qkv and
-    # gate|up with their norms, down without), the 277-row prefill (qkv);
-    # groups of other widths (any that quantize_int4 makes) checked untimed:
-    # 16 columns (one per 16-code chunk), 24 (crossing chunks and K steps)
+    # gate|up with their norms, down and o without), the 277-row prefill
+    # (qkv); groups of other widths (any that quantize_int4 makes) checked
+    # untimed: 16 columns (one per 16-code chunk), 24 (crossing chunks and K
+    # steps; not for o, whose K = 2048 no 24-column group tiles)
     q4_cases = (  # name, M, K, N
         ("q4_matvec", 1, 2304, 8194), ("q4_rmsnorm_matvec", 1, 2304, 4096),
         ("q4_rmsnorm_matvec", 1, 2304, 18432), ("q4_matvec", 1, 9216, 2304),
-        ("q4_rmsnorm_matvec", 16, 2304, 4096), ("q4_rmsnorm_matvec", 16, 2304, 18432),
-        ("q4_matvec", 16, 9216, 2304), ("q4_rmsnorm_matvec", 277, 2304, 4096),
+        ("q4_matvec", 1, 2048, 2304), ("q4_rmsnorm_matvec", 16, 2304, 4096),
+        ("q4_rmsnorm_matvec", 16, 2304, 18432), ("q4_matvec", 16, 9216, 2304),
+        ("q4_matvec", 16, 2048, 2304), ("q4_rmsnorm_matvec", 277, 2304, 4096),
         ("q4_matvec", 277, 2304, 4096),
     )
     for group_size in (None, 128, 16, 24):
         tag = f"g{group_size}" if group_size else "pc"
         for name, M, K, N in q4_cases:
+            if group_size and K % group_size:
+                continue
             norm = name == "q4_rmsnorm_matvec"
             x = randn(M, K, dtype=torch.float32 if norm else torch.bfloat16)
             nw, w = randn(K, std=0.1), qweight(N, K, 4, group_size)
@@ -772,7 +777,10 @@ def decode_step_matrix(torch):
     format x {bf16, int8} KV cache: the port's fused_decode_step (the
     kernels) against the port's masked gemma2.forward on the same quantized
     tree and the bf16 cache; relative drift max|h_fused - h_masked| /
-    max|h_masked| below DRIFT_BOUND. Also the device time of each step."""
+    max|h_masked| below DRIFT_BOUND. Also the device time of each step, and
+    for int8, int4 and int8+mlp4 the step at batch 1 (row 0 at position 277
+    of a 289-slot bf16 cache, the serving path's request), held the same
+    way."""
     from spatialvla_tpu_torch import spatialvla_4b
     from spatialvla_tpu_torch.models import gemma2
     from spatialvla_tpu_torch.ops import decode_step as ds
@@ -803,8 +811,26 @@ def decode_step_matrix(torch):
         caches = {"bf16kv": (ck, cv, {}),
                   "kv8": (ck8, cv8, dict(cache_k_scale=ds.flatten_kv_scales(ks),
                                          cache_v_scale=ds.flatten_kv_scales(vs)))}
+        S1, pos1 = 289, torch.tensor([277], dtype=torch.int32, device="cuda")
+        ck1, cv1 = ck[:, :1, :, :S1].contiguous(), cv[:, :1, :, :S1].contiguous()
+        mask1 = ((k_idx[None, :S1] < pos1[:, None]) | (k_idx[None, :S1] == S1 - 1))[:, None, None]
         for name, qkw in WEIGHT_FORMATS:
             qp = quant.quantize_lm_params(base, **qkw)
+            if name != "int4-g128":  # batch 1, the formats of the per-channel matvecs
+                hx, _ = gemma2.forward(qp, tcfg, emb[:1, None], (pos1 + 1)[:, None].long(), mask1,
+                                       cache={"k": ck1.permute(0, 1, 3, 2, 4).contiguous(),
+                                              "v": cv1.permute(0, 1, 3, 2, 4).contiguous()},
+                                       cache_position=S1 - 1)
+                step = lambda: ds.fused_decode_step(qp, tcfg, x[:1], ck1, cv1, pos1, pos1 + 1)  # noqa: E731
+                hf = step()[0].float()
+                hx = hx[:, 0].float()
+                drift = ((hf - hx).abs().max() / (hx.abs().max() + 1e-6)).item()
+                ms = timer(step)
+                print(f"decode step {name}+bf16kv (26 layers, M=1, S={S1}): rel drift {drift:.4f} "
+                      f"(bound {DRIFT_BOUND['bf16kv']}), fused step {ms:.3f} ms", flush=True)
+                if not drift < DRIFT_BOUND["bf16kv"]:
+                    fail(f"decode step {name} M=1: drift {drift} >= {DRIFT_BOUND['bf16kv']}")
+                out[f"{name}+bf16kv_M1_S{S1}"] = {"rel_drift": drift, "step_ms": ms}
             ref_cache = {"k": ck.permute(0, 1, 3, 2, 4).contiguous(),
                          "v": cv.permute(0, 1, 3, 2, 4).contiguous()}
             hx, _ = gemma2.forward(qp, tcfg, emb[:, None], (pos + 1)[:, None].long(), mask,
@@ -1157,7 +1183,7 @@ def tiny_overfit(torch, counters, device="cuda"):
     return {"losses": losses, "launches": launches}
 
 
-KERNEL_SOURCES = {  # name: (source, the TPU kernel it replaces)
+KERNEL_SOURCES = {  # name: (source of its C entry point, the TPU kernel it replaces)
     "q8_matvec": ("q8_matvec.cu", "spatialvla_tpu/ops/quant.py:297"),
     "q8_rmsnorm_matvec": ("q8_matvec.cu", "spatialvla_tpu/ops/quant.py:336"),
     "q4_matvec": ("q4_matvec.cu", "spatialvla_tpu/ops/quant.py:297"),
@@ -1246,8 +1272,12 @@ def main() -> int:
                if name.startswith(("flash", "q4")) else "max|kernel - plain| / max|plain| < 1e-2")
         n, run = launches(name)
         bound_ms, bound_by = r["bound"][first]
+        # the q4 entry points send per-channel calls of M <= 16 to the int4
+        # instance of q8_matvec.cu's kernel
+        sources = [source] + (["q8_matvec.cu"] if name.startswith("q4") else [])
         kernels.append({
             "name": name, "route": "cuda", "source": f"spatialvla_tpu_torch/csrc/{source}",
+            "kernel_sources": [f"spatialvla_tpu_torch/csrc/{s}" for s in sources],
             "replaces": replaces, "launches": n, "max_abs_err": r["max_abs_err"],
             "ms": r["ms"][first], "plain_ms": r["plain_ms"][first], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": r["library_ms"][first], "shape": first,

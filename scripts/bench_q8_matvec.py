@@ -1,19 +1,21 @@
 #!/usr/bin/env python3
-"""Time and check the int8 matvec kernels (q8_matvec, q8_rmsnorm_matvec) on
-an NVIDIA GPU: the short loop for working on csrc/q8_matvec.cu.
+"""Time and check the few-row matvec kernels of csrc/q8_matvec.cu on an
+NVIDIA GPU: int8 (q8_matvec, q8_rmsnorm_matvec) and the per-channel packed
+int4 instance that q4_matvec / q4_rmsnorm_matvec take at M <= 16. The short
+loop for working on that file.
 
     python3 scripts/bench_q8_matvec.py
 
-Builds the kernel library, prints each q8_matvec_kernel instance's
-registers and spills from nvcc's report (``_build/*.log``), checks every
-rows instance (M = 1..16) and a ragged N against the plain versions, checks
-that two launches give identical bits, then times the q8 shapes of
-chip_smoke.kernel_phases (the head, o, down, qkv and gate|up; M = 1 and 16)
-and the o projection at M = 1, 2 and 16 with chip_smoke's CUDA-graph timer
-(L2 flushed before each run): the kernel, its plain version and
-torch._weight_int8pack_mm (for the RMSNorm variant on the normed x, the
-matmul alone). Max relative error to plain must stay below 1e-2. Needs CUDA
-and nvcc.
+Builds the kernel library, prints each qmatvec_kernel instance's registers
+and spills from nvcc's report (``_build/*.log``), checks every rows
+instance (M = 1..16), ragged N and chunked K of both formats against the
+plain versions, checks that two launches give identical bits, then times
+the decode shapes (the head, o, down, qkv and gate|up; M = 1 and 16, and
+the int8 o at M = 2) with chip_smoke's CUDA-graph timer (L2 flushed before
+each run): the kernel, its plain version and torch._weight_int8pack_mm /
+_weight_int4pack_mm (for the RMSNorm variants on the normed x, the matmul
+alone). Max relative error to plain must stay below 1e-2. Needs CUDA and
+nvcc.
 """
 from __future__ import annotations
 
@@ -26,24 +28,33 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 TOL = 1e-2
-# (name, M, K, N): chip_smoke's q8 shapes, then the o projection at M = 1, 2, 16
+# (name, M, K, N): chip_smoke's q8 shapes, the o projection at M = 1, 2, 16,
+# then the per-channel q4 decode shapes (head, o, down, qkv, gate|up) at
+# M = 1 and 16
 SHAPES = (
     ("q8_matvec", 1, 2304, 8194), ("q8_matvec", 16, 9216, 2304), ("q8_matvec", 1, 2048, 2304),
     ("q8_matvec", 1, 9216, 2304), ("q8_matvec", 2, 2048, 2304), ("q8_matvec", 16, 2048, 2304),
     ("q8_rmsnorm_matvec", 1, 2304, 4096), ("q8_rmsnorm_matvec", 1, 2304, 18432),
     ("q8_rmsnorm_matvec", 16, 2304, 4096), ("q8_rmsnorm_matvec", 16, 2304, 18432),
-)
+) + tuple((name, M, K, N) for M in (1, 16) for name, K, N in (
+    ("q4_matvec", 2304, 8194), ("q4_matvec", 2048, 2304), ("q4_matvec", 9216, 2304),
+    ("q4_rmsnorm_matvec", 2304, 4096), ("q4_rmsnorm_matvec", 2304, 18432)))
+# (K, N) checked at every M = 1..16: ragged N, K staged in chunks at 8 and
+# 16 rows (9216), and K of no chunk or lane multiple (2320 int8; 2336 int4,
+# 73 packed units)
+CHECKS = {8: ((2304, 40), (9216, 100), (2320, 4100)), 4: ((2304, 40), (9216, 100), (2336, 4100))}
 
 
 def register_report(log: Path) -> list:
     """(instance, registers, spill stores, spill loads) of each
-    q8_matvec_kernel<MR, kNorm> in nvcc's -Xptxas -v output."""
+    qmatvec_kernel<MR, kNorm, kInt4> in nvcc's -Xptxas -v output."""
     rows, current = [], None
     for line in log.read_text().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"q8_matvec_kernelILi(\d+)ELb([01])E", m.group(1))
-            current = f"MR={k.group(1)} norm={k.group(2)}" if k else None
+            k = re.search(r"qmatvec_kernelILi(\d+)ELb([01])ELb([01])E", m.group(1))
+            current = (f"{'int4' if k.group(3) == '1' else 'int8'} MR={k.group(1)} "
+                       f"norm={k.group(2)}" if k else None)
             spills = None
             continue
         if current is None:
@@ -72,54 +83,58 @@ def main() -> int:
     lib = _lib.build()
     _lib.library()
     for inst, regs, st, ld in register_report(lib.with_suffix(".log")):
-        print(f"q8_matvec_kernel {inst}: {regs} registers, spill stores {st} B, loads {ld} B")
+        print(f"qmatvec_kernel {inst}: {regs} registers, spill stores {st} B, loads {ld} B")
 
     g = torch.Generator(device="cuda").manual_seed(1)
 
     def randn(*shape, dtype=torch.bfloat16, std=1.0):
         return (torch.randn(shape, generator=g, device="cuda") * std).to(dtype)
 
-    def qweight(N, K):
-        return quant.quantize_int8(randn(K, N, dtype=torch.float32, std=0.02))
+    def qweight(N, K, bits=8):
+        w = randn(K, N, dtype=torch.float32, std=0.02)
+        return quant.quantize_int8(w) if bits == 8 else quant.quantize_int4(w)
 
     # every rows instance and its edges, ragged N, chunked K, both x types
-    worst = 0.0
-    for M in range(1, 17):
-        for K, N in ((2304, 40), (9216, 100), (2320, 4100)):
-            w = qweight(N, K)
-            for x_dtype in (torch.float32, torch.bfloat16):
-                x, nw = randn(M, K, dtype=x_dtype), randn(K, std=0.1)
-                r1 = chip_smoke.rel_err(quant.q8_matvec(x, w["qt"], w["scale"]),
-                                        quant.q8_matvec_plain(x, w["qt"], w["scale"]))[1]
-                r2 = chip_smoke.rel_err(quant.q8_rmsnorm_matvec(x, nw, w["qt"], w["scale"]),
-                                        quant.q8_rmsnorm_matvec_plain(x, nw, w["qt"],
-                                                                      w["scale"]))[1]
-                worst = max(worst, r1, r2)
-                if not (r1 < TOL and r2 < TOL):
-                    print(f"FAIL M={M} K={K} N={N} x {x_dtype}: rel {r1:.3e} / {r2:.3e}")
-                    return 1
-    print(f"check: M=1..16 x (K, N) in (2304, 40), (9216, 100), (2320, 4100) x fp32/bf16 x: "
-          f"max rel {worst:.3e} (bound {TOL})", flush=True)
-    x, w = randn(16, 9216, dtype=torch.float32), qweight(2304, 9216)
-    a = quant.q8_matvec(x, w["qt"], w["scale"])
-    b = quant.q8_matvec(x, w["qt"], w["scale"])
-    torch.cuda.synchronize()
-    if not torch.equal(a, b):
-        print("FAIL: two launches differ")
-        return 1
+    for bits, shapes in CHECKS.items():
+        mv, nmv = (quant.q8_matvec, quant.q8_rmsnorm_matvec) if bits == 8 else \
+            (quant.q4_matvec, quant.q4_rmsnorm_matvec)
+        worst = 0.0
+        for M in range(1, 17):
+            for K, N in shapes:
+                w = qweight(N, K, bits)
+                for x_dtype in (torch.float32, torch.bfloat16):
+                    x, nw = randn(M, K, dtype=x_dtype), randn(K, std=0.1)
+                    args = (x, w["qt"], w["scale"])
+                    r1 = chip_smoke.rel_err(mv(*args), quant.matvec_plain(*args))[1]
+                    r2 = chip_smoke.rel_err(nmv(x, nw, *args[1:]),
+                                            quant.rmsnorm_matvec_plain(x, nw, *args[1:]))[1]
+                    worst = max(worst, r1, r2)
+                    if not (r1 < TOL and r2 < TOL):
+                        print(f"FAIL int{bits} M={M} K={K} N={N} x {x_dtype}: "
+                              f"rel {r1:.3e} / {r2:.3e}")
+                        return 1
+        print(f"check int{bits}: M=1..16 x (K, N) in {shapes} x fp32/bf16 x: max rel {worst:.3e} "
+              f"(bound {TOL})", flush=True)
+        x, w = randn(16, 9216, dtype=torch.float32), qweight(2304, 9216, bits)
+        a, b = mv(x, w["qt"], w["scale"]), mv(x, w["qt"], w["scale"])
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            print(f"FAIL int{bits}: two launches differ")
+            return 1
 
     timer = chip_smoke.Timer(torch)
     for name, M, K, N in SHAPES:
-        norm = name == "q8_rmsnorm_matvec"
+        norm, bits = "rmsnorm" in name, 4 if name.startswith("q4") else 8
         x, nw, w = randn(M, K, dtype=torch.float32 if norm else torch.bfloat16), randn(K, std=0.1), \
-            qweight(N, K)
+            qweight(N, K, bits)
         args = (x, nw, w["qt"], w["scale"]) if norm else (x, w["qt"], w["scale"])
         kern = getattr(quant, name)
         plain = getattr(quant, name + "_plain")
         d, r = chip_smoke.rel_err(kern(*args), plain(*args))
         ms, pms = timer(lambda: kern(*args)), timer(lambda: plain(*args))
         xl = quant._rms_bf16(x, nw, 1e-6) if norm else x
-        lib, _ = chip_smoke.library_int8pack(torch, timer, xl, w["qt"], w["scale"])
+        library = chip_smoke.library_int8pack if bits == 8 else chip_smoke.library_int4pack
+        lib, _ = library(torch, timer, xl, w["qt"], w["scale"])
         nbytes = chip_smoke.nbytes_of(*args) + M * N * 2
         bound, by = chip_smoke.bound(nbytes, 2 * M * N * K)
         print(f"{name} M={M} {K}->{N}: kernel {ms:.4f} ms plain {pms:.4f} ms library "

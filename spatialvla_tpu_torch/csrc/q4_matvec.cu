@@ -13,7 +13,9 @@
 // biased nibble codes (exact in fp32):
 //   per channel: y[m, n] = (sum_k x'[m, k] c[n, k] - 8 sum_k x'[m, k]) * s[n]
 //   grouped:     y[m, n] = sum_j s[n, j] sum_{k in j} x' c - 8 sum_j s[n, j] sum_{k in j} x'
-// with fp32 sums, as the TPU kernel takes the +8 bias out of its bf16 dots.
+// with fp32 sums, as the TPU kernel takes the +8 bias out of its bf16 dots;
+// per channel at M <= 16, q8_matvec.cu sums x'[m, k] (c[n, k] - 8) instead
+// (the same function in another fp32 order, with less cancellation).
 // Groups may have any width that quantize_int4 makes (K/G columns, G even).
 // Where they are a multiple of 16 columns (32 for the tiled kernel) a
 // 16-code chunk (a K step) lies in one group and is scaled once; otherwise
@@ -21,9 +23,13 @@
 //
 // What bounds it on the H100:
 //   * M <= 16 (decode matvecs, the action head): weight bytes, N K / 2 per
-//     call (a 26-layer int4 decode step streams about 1 GB). As q8_matvec:
-//     one warp per output channel, each packed byte read once with 16-byte
-//     loads coalesced across the warp, applied to all M rows from registers.
+//     call (a 26-layer int4 decode step streams about 1 GB). Per channel
+//     (x and qt 16-byte aligned, K a multiple of 32): the int4 instance of
+//     q8_matvec.cu's kernel (q4_channel_matvec: x staged once per block in
+//     shared memory, 4 channels a warp, signed codes by a byte permute).
+//     Grouped: one warp per output channel, each packed byte read once with
+//     16-byte loads coalesced across the warp, applied to all M rows from
+//     registers.
 //   * 16 < M <= 512 (the 277-row prefill, SigLIP's 256 rows): operations,
 //     2 M N K, far above the ~295 operations per byte where the tensor cores
 //     would become the limit. A 64 x 64 output tile per block walks K in
@@ -34,6 +40,11 @@
 //     runs on the fp32 FMA units, not the tensor cores: mma / wgmma tiles
 //     are left for later work.
 #include "common.cuh"
+
+// q8_matvec.cu: the packed-int4, per-channel instances of its few-row kernel
+int q4_channel_matvec(const void* x, int x_dtype, const void* norm_w, int norm_dtype, float eps,
+                      const uint8_t* qt, const float* scale, void* out, int out_dtype, int M,
+                      int N, int K, cudaStream_t stream);
 
 namespace {
 
@@ -54,15 +65,14 @@ __device__ __forceinline__ void unpack_half16(uint4 u, int half, float* c) {
   }
 }
 
-// kGroups: 0 per channel; 1 grouped, each 16-code chunk inside one group
-// (groups of a multiple of 16 columns); 2 grouped, any width
+// kGroups: 1 each 16-code chunk inside one group (groups of a multiple of
+// 16 columns); 2 any width
 template <bool kNorm, int kGroups>
 __global__ void __launch_bounds__(kWarps * 32)
 q4_small_kernel(const void* __restrict__ x, int x_dtype, const void* __restrict__ norm_w,
                 int norm_dtype, float eps, const uint8_t* __restrict__ qt,
                 const float* __restrict__ scale, int G, void* __restrict__ out, int out_dtype,
                 int M, int N, int K) {
-  constexpr bool kGrouped = kGroups != 0;
   __shared__ float s_rinv[kSmallM];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int Kh = K >> 1;
@@ -86,7 +96,7 @@ q4_small_kernel(const void* __restrict__ x, int x_dtype, const void* __restrict_
   for (int m = 0; m < kSmallM; ++m) acc[m] = bsum[m] = 0.f;
 
   const uint4* wrow = reinterpret_cast<const uint4*>(qt + (long)n * Kh);
-  const int g = kGrouped ? K / G : K;  // columns per group
+  const int g = K / G;  // columns per group
   for (int c = lane; c < (Kh >> 4); c += 32) {
     const uint4 u = __ldg(wrow + c);
 #pragma unroll
@@ -153,13 +163,12 @@ q4_small_kernel(const void* __restrict__ x, int x_dtype, const void* __restrict_
       }
     }
   }
-  const float sc = kGrouped ? 1.f : scale[n];
 #pragma unroll
   for (int m = 0; m < kSmallM; ++m) {
     if (m < M) {
       const float a = warp_sum(acc[m]);
       const float b = warp_sum(bsum[m]);
-      if (lane == m) store_any(out, out_dtype, (long)m * N + n, (a - 8.f * b) * sc);
+      if (lane == m) store_any(out, out_dtype, (long)m * N + n, a - 8.f * b);
     }
   }
 }
@@ -354,12 +363,13 @@ int launch_kind(const void* x, int x_dtype, const void* norm_w, int norm_dtype, 
   const int Kh = K / 2;
   const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(qt) % 16 == 0 && Kh % 16 == 0;
+  if (M <= kSmallM && aligned && !kGrouped) {
+    return q4_channel_matvec(x, x_dtype, kNorm ? norm_w : nullptr, norm_dtype, eps, qt, scale,
+                             out, out_dtype, M, N, K, stream);
+  }
   if (M <= kSmallM && aligned) {
     const dim3 grid((N + kWarps - 1) / kWarps), block(kWarps * 32);
-    if (!kGrouped) {
-      q4_small_kernel<kNorm, 0><<<grid, block, 0, stream>>>(
-          x, x_dtype, norm_w, norm_dtype, eps, qt, scale, G, out, out_dtype, M, N, K);
-    } else if ((K / G) % 16 == 0) {
+    if ((K / G) % 16 == 0) {
       q4_small_kernel<kNorm, 1><<<grid, block, 0, stream>>>(
           x, x_dtype, norm_w, norm_dtype, eps, qt, scale, G, out, out_dtype, M, N, K);
     } else {

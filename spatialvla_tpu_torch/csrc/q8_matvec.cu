@@ -1,13 +1,29 @@
-// Weight-only int8 matvec for few rows, optionally with the Gemma RMSNorm
-// fused in front: y[m, n] = scale[n] * sum_k bf16(x'[m, k]) * qt[n, k].
+// Weight-only matvec for few rows with per-channel scales, int8 or packed
+// int4 weights, optionally with the Gemma RMSNorm fused in front:
+// y[m, n] = scale[n] * sum_k bf16(x'[m, k]) * code[n, k].
 //
 // Replaces the Pallas kernels spatialvla_tpu/ops/quant.py:int8_matmul
-// (_q8_kernel / _q_dot_scaled, int8 per-channel branch) and
-// quant.py:int8_rmsnorm_matmul (_q8_norm_kernel).
+// (_q8_kernel / _q_dot_scaled, the int8 branch and the int4 per-channel
+// branch :221-238) and quant.py:int8_rmsnorm_matmul (_q8_norm_kernel), at
+// M <= 16. The int8 entry points are q8_matvec / q8_rmsnorm_matvec below;
+// q4_matvec.cu sends its per-channel, aligned calls of M <= 16 to
+// q4_channel_matvec (kInt4), and keeps its grouped and many-row kernels.
 //
-// What bounds it on the H100: weight bytes at one row (gate|up streams
-// 42.5 MB a call), and at 16 rows the fp32 FMAs on the CUDA cores (16 per
-// weight byte, 680 M for gate|up). The design:
+// Weight formats (one 16-byte load, a "unit", of an output channel's row):
+//  * int8, qt (N, K): unit u holds the codes of columns 16u..16u+15;
+//  * packed int4, qt (N, K/2) uint8: byte k holds column k in its low nibble
+//    and column K/2 + k in its high nibble, each as code + 8. Unit u holds
+//    32 codes: its low nibbles meet x unit u (columns 16u..), its high
+//    nibbles x unit u + K/32 (columns K/2 + 16u..); word q of the load
+//    meets quarter q of both.
+// A code becomes fp32 by a byte permute and one subtraction, both exact:
+// 0x4B0000xx is 2^23 + xx, with xx = code + 128 (int8 XOR 0x80) or code + 8
+// (a nibble masked out of the word). So the int4 sums are of x * (c - 8)
+// directly, with no second sum of x for the +8 bias.
+//
+// What bounds it on the H100: weight bytes at one row (int8 gate|up streams
+// 42.5 MB a call, int4 21.2 MB), and at 16 rows the fp32 FMAs on the CUDA
+// cores (16 per int8 weight byte, 32 per packed int4 byte). The design:
 //  * Rows are a template size MR in {1, 2, 4, 8, 16}, the smallest that
 //    holds M; spare rows are zero in shared memory, so the row loop has no
 //    guards. Each lane keeps MR x 4 fp32 sums.
@@ -16,18 +32,23 @@
 //    loads), then writes the normed rows rounded to bf16 (bf16 x without the
 //    norm: a cp.async copy) into shared memory, laid out [row][quarter of a
 //    16-column unit][unit] so that the lanes of a warp read consecutive
-//    8-byte words. The weight loop does no norm or rounding work.
+//    8-byte words. The weight loop does no norm or rounding work. (int4 at
+//    one row, K <= 4096: the norm pass and the staging share one round of
+//    loads: about 1 us less a launch on the H100.)
 //  * Blocks are persistent: a grid of at most the resident block slots walks
 //    over tiles of output channels, and when all of K fits (up to 108 KB of
 //    dynamic shared memory; 48 KB until the opt-in, which is never made
 //    during a CUDA-graph capture) x is staged once for all of a block's
-//    tiles. Otherwise (M = 16, K = 9216) each tile stages K in chunks.
+//    tiles. Otherwise (M = 16, K = 9216; int4 also M = 8, K = 9216) each
+//    tile stages K in chunks of weight units; an int4 chunk [c0, c0 + cn)
+//    stages both x ranges it meets, [c0, c0 + cn) and K/32 + [c0, c0 + cn).
 //  * Each warp owns 4 output channels of a tile; each lane streams 16-byte
 //    weight loads of all 4, one unit ahead of the one it computes (the first
 //    unit of the next tile is loaded before the current tile's reduction),
 //    and feeds every bf16 x value it reads from shared memory into 4
-//    channels' FMAs. int8 -> fp32 is a byte permute and one subtraction
-//    (exact), not an int-to-float conversion.
+//    channels' FMAs. A code -> fp32 is a byte permute and one subtraction
+//    (above; int4 adds a shift and a mask per 4 codes), not an int-to-float
+//    conversion.
 //  * Small N: the block's 8 warps split K 2-8 ways where that gives the
 //    busiest lane fewer unit steps; partial sums meet in shared memory and
 //    are added in warp order. Lanes reduce with a butterfly that halves the
@@ -46,7 +67,7 @@ constexpr int kC = 4;              // output channels per warp
 constexpr int kXBytesMax = 110592;  // staged bf16 x per block (108 KB: two blocks an SM)
 constexpr int kSmemPerSM = 233472;  // 228 KB of shared memory on an H100 SM
 
-// 16 int8 codes, streamed once: no L1 allocation
+// one weight unit (16 bytes), streamed once: no L1 allocation
 __device__ __forceinline__ int4 ld_stream(const int4* p) {
   int4 r;
   asm("ld.global.nc.L1::no_allocate.v4.s32 {%0, %1, %2, %3}, [%4];"
@@ -55,10 +76,18 @@ __device__ __forceinline__ int4 ld_stream(const int4* p) {
   return r;
 }
 
-// byte j of a word whose int8 codes were biased by XOR 0x80, as fp32:
-// 0x4B0000xx is 2^23 + xx, and xx = code + 128
-__device__ __forceinline__ float i8f(unsigned biased, int j) {
-  return __int_as_float(__byte_perm(biased, 0x4B000000u, 0x7540 + j)) - 8388736.f;
+// The 4 codes of word `w` of a weight unit as fp32, half h (int4: 0 the low
+// nibbles, 1 the high ones): each byte, made unsigned (int8: XOR 0x80, code
+// + 128; int4: the nibble, code + 8), goes into the low byte of 0x4B000000
+// (2^23 + byte) and the bias 2^23 + 128 or 2^23 + 8 comes off
+template <bool kInt4>
+__device__ __forceinline__ void codes4(unsigned w, int h, float (&f)[4]) {
+  const unsigned b = kInt4 ? (w >> (4 * h)) & 0x0F0F0F0Fu : w ^ 0x80808080u;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    f[j] = __int_as_float(__byte_perm(b, 0x4B000000u, 0x7540 + j)) -
+           (kInt4 ? 8388616.f : 8388736.f);
+  }
 }
 
 __device__ __forceinline__ unsigned word(const int4& w, int q) {
@@ -94,28 +123,28 @@ __device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<const unsigned*>(&p);
 }
 
-// acc[m][c] += sum over the 16 columns of unit u of x[m] * w[c]
-template <int MR>
+// acc[m][c] += sum over the columns of weight unit u of x[m] * w[c]: staged
+// x unit u, and for int4 also the one at u + hi (the high nibbles' columns)
+template <int MR, bool kInt4>
 __device__ __forceinline__ void fma_unit(float (&acc)[MR][kC], const int4 (&w)[kC],
-                                         const uint2* xs, int stride, int u) {
+                                         const uint2* xs, int stride, int u, int hi) {
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    float wf[kC][4];
+  for (int h = 0; h < (kInt4 ? 2 : 1); ++h) {
 #pragma unroll
-    for (int c = 0; c < kC; ++c) {
-      const unsigned b = word(w[c], q) ^ 0x80808080u;
+    for (int q = 0; q < 4; ++q) {
+      float wf[kC][4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) wf[c][j] = i8f(b, j);
-    }
+      for (int c = 0; c < kC; ++c) codes4<kInt4>(word(w[c], q), h, wf[c]);
 #pragma unroll
-    for (int m = 0; m < MR; ++m) {
-      const uint2 xv = xs[(m * 4 + q) * stride + u];
-      const float xf[4] = {__uint_as_float(xv.x << 16), __uint_as_float(xv.x & 0xffff0000u),
-                           __uint_as_float(xv.y << 16), __uint_as_float(xv.y & 0xffff0000u)};
+      for (int m = 0; m < MR; ++m) {
+        const uint2 xv = xs[(m * 4 + q) * stride + u + h * hi];
+        const float xf[4] = {__uint_as_float(xv.x << 16), __uint_as_float(xv.x & 0xffff0000u),
+                             __uint_as_float(xv.y << 16), __uint_as_float(xv.y & 0xffff0000u)};
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < 4; ++j) {
 #pragma unroll
-        for (int c = 0; c < kC; ++c) acc[m][c] = fmaf(xf[j], wf[c][j], acc[m][c]);
+          for (int c = 0; c < kC; ++c) acc[m][c] = fmaf(xf[j], wf[c][j], acc[m][c]);
+        }
       }
     }
   }
@@ -145,25 +174,32 @@ __device__ __forceinline__ int reduce_scatter(float (&v)[V], int lane) {
   }
 }
 
-template <int MR, bool kNorm>
+// kInt4: packed int4 weights (N, K/2); otherwise int8 (N, K)
+template <int MR, bool kNorm, bool kInt4>
 __global__ void __launch_bounds__(kThreads, 2)
-q8_matvec_kernel(const void* __restrict__ x, int x_dtype,
-                 const void* __restrict__ norm_w, int norm_dtype, float eps,
-                 const int8_t* __restrict__ qt, const float* __restrict__ scale,
-                 void* __restrict__ out, int out_dtype, int M, int N, int K, int warps_k,
-                 int xs_units) {
-  extern __shared__ __align__(16) uint2 xs[];  // [m][quarter][unit] of 4 bf16
+qmatvec_kernel(const void* __restrict__ x, int x_dtype,
+               const void* __restrict__ norm_w, int norm_dtype, float eps,
+               const int8_t* __restrict__ qt, const float* __restrict__ scale,
+               void* __restrict__ out, int out_dtype, int M, int N, int K, int warps_k,
+               int xs_units) {
+  // [m][quarter][position] of 4 bf16; int4 keeps a chunk's high-nibble x
+  // units `cu` positions after its low ones
+  extern __shared__ __align__(16) uint2 xs[];
   __shared__ float red[kWarps][MR * kC];
   __shared__ float s_part[kThreads / 16];
   __shared__ float s_rinv[MR];
 
+  constexpr int H = kInt4 ? 2 : 1;  // x units a weight unit meets
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wk = warp & (warps_k - 1), wn = warp / warps_k, warps_n = kWarps / warps_k;
   const int tiles = (N + kC * warps_n - 1) / (kC * warps_n);
-  const int U = K >> 4;
+  // weight units a row; int8 shifts and int4 divides, the forms each was
+  // measured with (MR = 16 sits at 128 registers, and ptxas spills on less)
+  const int U = kInt4 ? K / 32 : K >> 4;
   const int step = 32 * warps_k;  // units between a lane's consecutive units
-  // units of K staged at a time: all of K, or a multiple of `step`
+  // weight units staged at a time: all of them, or a multiple of `step`
   const int cu = U <= xs_units ? U : xs_units / step * step;
+  const int xstride = H * cu;     // staged x units a (row, quarter)
   const int u0 = lane + 32 * wk;  // this lane's first unit of a chunk
 
   const int4* wrow[kC];
@@ -171,7 +207,7 @@ q8_matvec_kernel(const void* __restrict__ x, int x_dtype,
 #pragma unroll
     for (int c = 0; c < kC; ++c) {
       const int n = min((tile * warps_n + wn) * kC + c, N - 1);
-      wrow[c] = reinterpret_cast<const int4*>(qt + static_cast<long>(n) * K);
+      wrow[c] = reinterpret_cast<const int4*>(qt + static_cast<long>(n) * (K / H));
     }
   };
   // the weights of this lane's first unit of a tile, loaded ahead of it
@@ -186,7 +222,49 @@ q8_matvec_kernel(const void* __restrict__ x, int x_dtype,
   rows_of(tile);
   prefetch();
 
-  if (kNorm) {  // fp32 inverse RMS of every row: T threads a row, 4 values a load
+  // int4, one row, all of x staged (the decode step's RMSNorm matvecs): the
+  // columns thread t stages, 4 (t + 256 p), are the ones its norm pass
+  // reads, so x and the gains are loaded once, in one round, and kept in
+  // registers between the two passes (the same arithmetic and order)
+  constexpr int kP = 4;  // pieces a thread: K <= 4096
+  const bool fused = kNorm && kInt4 && MR == 1 && cu == U && K <= 4 * kThreads * kP;
+  if (fused) {
+    float v[kP][4], gain[kP][4];
+    float ss = 0.f;
+#pragma unroll
+    for (int p = 0; p < kP; ++p) {
+      const int k = 4 * (threadIdx.x + kThreads * p);
+      if (k < K) {
+        load_x4(x, x_dtype, k, v[p]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) gain[p][j] = 1.f + load_any(norm_w, norm_dtype, k + j);
+        ss += v[p][0] * v[p][0] + v[p][1] * v[p][1] + v[p][2] * v[p][2] + v[p][3] * v[p][3];
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+    if (lane == 0) s_part[warp] = ss;
+    __syncthreads();
+    float total = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) total += s_part[w];
+    const float ri = rsqrtf(total / static_cast<float>(K) + eps);
+#pragma unroll
+    for (int p = 0; p < kP; ++p) {
+      const int g = threadIdx.x + kThreads * p;  // as `stage` numbers its pieces
+      if (4 * g < K) {
+        const int h = g >= 4 * U, r = g - h * 4 * U;
+        float o[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) o[j] = (v[p][j] * ri) * gain[p][j];
+        xs[(r & 3) * xstride + h * cu + (r >> 2)] =
+            make_uint2(pack_bf16x2(o[0], o[1]), pack_bf16x2(o[2], o[3]));
+      }
+    }
+    __syncthreads();
+  }
+
+  if (kNorm && !fused) {  // fp32 inverse RMS of every row: T threads a row, 4 values a load
     constexpr int T = kThreads / MR, G = T < 32 ? T : 32;
     const int m = threadIdx.x / T, t = threadIdx.x % T;
     float ss = 0.f;
@@ -211,13 +289,16 @@ q8_matvec_kernel(const void* __restrict__ x, int x_dtype,
     __syncthreads();
   }
 
-  // x[:, c0 * 16 : (c0 + cn) * 16], normed and rounded to bf16, into xs
+  // the x units that weight units [c0, c0 + cn) meet, normed and rounded to
+  // bf16, into xs: x[:, c0 * 16 : (c0 + cn) * 16] at positions [0, cn), and
+  // for int4 also x[:, K/2 + c0 * 16 : K/2 + (c0 + cn) * 16] at cu + [0, cn)
   const auto stage = [&](int c0, int cn) {
 #pragma unroll 4
-    for (int g = threadIdx.x; g < MR * 4 * cn; g += kThreads) {
-      const int m = g / (4 * cn), r = g - m * 4 * cn, u = r >> 2, q = r & 3;
-      const int col = (c0 + u) * 16 + q * 4;
-      uint2* dst = xs + (m * 4 + q) * cu + u;
+    for (int g = threadIdx.x; g < MR * 4 * H * cn; g += kThreads) {
+      const int m = g / (4 * H * cn), r0 = g - m * 4 * H * cn;
+      const int h = kInt4 && r0 >= 4 * cn, r = r0 - h * 4 * cn, u = r >> 2, q = r & 3;
+      const int col = (h * U + c0 + u) * 16 + q * 4;
+      uint2* dst = xs + (m * 4 + q) * xstride + h * cu + u;
       if (!kNorm && x_dtype == DT_BF16 && m < M) {  // a copy: bf16 holds x exactly
         cp_async8(dst, reinterpret_cast<const bf16*>(x) + static_cast<long>(m) * K + col);
         continue;
@@ -236,7 +317,7 @@ q8_matvec_kernel(const void* __restrict__ x, int x_dtype,
     if (!kNorm) asm volatile("cp.async.wait_all;" ::: "memory");
     __syncthreads();
   };
-  if (cu == U) stage(0, U);  // x fits: staged once for every tile of the block
+  if (cu == U && !fused) stage(0, U);  // x fits: staged once for every tile of the block
 
   float acc[MR][kC];
   // this lane's units of the chunk from unit c0; `w` holds the first one's
@@ -249,7 +330,7 @@ q8_matvec_kernel(const void* __restrict__ x, int x_dtype,
       for (int c = 0; c < kC; ++c) {
         next[c] = more ? ld_stream(wrow[c] + c0 + u + step) : make_int4(0, 0, 0, 0);
       }
-      fma_unit<MR>(acc, w, xs, cu, u);
+      fma_unit<MR, kInt4>(acc, w, xs, xstride, u, cu);
 #pragma unroll
       for (int c = 0; c < kC; ++c) w[c] = next[c];
     }
@@ -315,11 +396,11 @@ int sm_count() {
   return cached[dev];
 }
 
-template <int MR, bool kNorm>
+template <int MR, bool kNorm, bool kInt4>
 int launch_rows(const void* x, int x_dtype, const void* norm_w, int norm_dtype, float eps,
                 const int8_t* qt, const float* scale, void* out, int out_dtype, int M, int N,
                 int K, cudaStream_t stream) {
-  const auto kernel = q8_matvec_kernel<MR, kNorm>;
+  const auto kernel = qmatvec_kernel<MR, kNorm, kInt4>;
   static cudaFuncAttributes attr;
   static bool have_attr = false, opted_in = false;
   if (!have_attr) {
@@ -341,9 +422,10 @@ int launch_rows(const void* x, int x_dtype, const void* norm_w, int norm_dtype, 
     }
   }
   const int limit = opted_in ? kXBytesMax : (48 << 10) - static_cast<int>(attr.sharedSizeBytes);
-  const int U = K / 16;
-  const int xs_units = min(U, limit / (MR * 32));
-  const int xs_bytes = xs_units * MR * 32;
+  constexpr int H = kInt4 ? 2 : 1;
+  const int U = K / (16 * H);  // weight units a row
+  const int xs_units = min(U, limit / (MR * 32 * H));  // 32 x bytes a row a unit
+  const int xs_bytes = xs_units * MR * 32 * H;
   // resident blocks per SM, from registers (256 a warp at a time) and
   // shared memory (1 KB reserved a block)
   const int warp_regs = (attr.numRegs * 32 + 255) / 256 * 256;
@@ -367,34 +449,47 @@ int launch_rows(const void* x, int x_dtype, const void* norm_w, int norm_dtype, 
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kNorm>
+template <bool kNorm, bool kInt4>
 int launch(const void* x, int x_dtype, const void* norm_w, int norm_dtype, float eps,
            const int8_t* qt, const float* scale, void* out, int out_dtype,
-           int M, int N, int K, void* stream) {
-  if (M < 1 || M > 16 || N < 1 || K < 16 || K % 16 != 0) return cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define Q8_ROWS(MR)                                                                          \
-  return launch_rows<MR, kNorm>(x, x_dtype, norm_w, norm_dtype, eps, qt, scale, out, out_dtype, \
-                                M, N, K, s)
-  if (M == 1) Q8_ROWS(1);
-  if (M == 2) Q8_ROWS(2);
-  if (M <= 4) Q8_ROWS(4);
-  if (M <= 8) Q8_ROWS(8);
-  Q8_ROWS(16);
-#undef Q8_ROWS
+           int M, int N, int K, cudaStream_t s) {
+  const int unit = kInt4 ? 32 : 16;  // columns of a weight unit
+  if (M < 1 || M > 16 || N < 1 || K < unit || K % unit != 0) return cudaErrorInvalidValue;
+#define QMV_ROWS(MR)                                                                         \
+  return launch_rows<MR, kNorm, kInt4>(x, x_dtype, norm_w, norm_dtype, eps, qt, scale, out, \
+                                       out_dtype, M, N, K, s)
+  if (M == 1) QMV_ROWS(1);
+  if (M == 2) QMV_ROWS(2);
+  if (M <= 4) QMV_ROWS(4);
+  if (M <= 8) QMV_ROWS(8);
+  QMV_ROWS(16);
+#undef QMV_ROWS
 }
 
 }  // namespace
 
+// The packed-int4, per-channel instances, for q4_matvec.cu: x (M <= 16, K),
+// qt (N, K/2) with K a multiple of 32, x and qt 16-byte aligned; norm_w
+// null for no RMSNorm. Returns cudaGetLastError().
+int q4_channel_matvec(const void* x, int x_dtype, const void* norm_w, int norm_dtype, float eps,
+                      const uint8_t* qt, const float* scale, void* out, int out_dtype, int M,
+                      int N, int K, cudaStream_t stream) {
+  const int8_t* q = reinterpret_cast<const int8_t*>(qt);
+  return norm_w ? launch<true, true>(x, x_dtype, norm_w, norm_dtype, eps, q, scale, out,
+                                     out_dtype, M, N, K, stream)
+                : launch<false, true>(x, x_dtype, nullptr, DT_F32, 0.f, q, scale, out, out_dtype,
+                                      M, N, K, stream);
+}
+
 extern "C" int q8_matvec(const void* x, int x_dtype, const int8_t* qt, const float* scale,
                          void* out, int out_dtype, int M, int N, int K, void* stream) {
-  return launch<false>(x, x_dtype, nullptr, DT_F32, 0.f, qt, scale, out, out_dtype, M, N, K,
-                       stream);
+  return launch<false, false>(x, x_dtype, nullptr, DT_F32, 0.f, qt, scale, out, out_dtype, M, N,
+                              K, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int q8_rmsnorm_matvec(const void* x, int x_dtype, const void* norm_w, int norm_dtype,
                                  float eps, const int8_t* qt, const float* scale, void* out,
                                  int out_dtype, int M, int N, int K, void* stream) {
-  return launch<true>(x, x_dtype, norm_w, norm_dtype, eps, qt, scale, out, out_dtype, M, N, K,
-                      stream);
+  return launch<true, false>(x, x_dtype, norm_w, norm_dtype, eps, qt, scale, out, out_dtype, M, N,
+                             K, static_cast<cudaStream_t>(stream));
 }

@@ -21,7 +21,8 @@ Kernels:
     ``int8_rmsnorm_matmul`` (quant.py:336);
   * ``q4_matvec`` / ``q4_rmsnorm_matvec`` (``csrc/q4_matvec.cu``) replace
     their int4 branches, per channel and grouped (``_q_dot_scaled``
-    quant.py:205-243, ``grouped_int4_dot`` :163).
+    quant.py:205-243, ``grouped_int4_dot`` :163); per channel at M <= 16
+    they launch the int4 instance of ``csrc/q8_matvec.cu``'s kernel.
 Each wrapper runs its plain PyTorch version (``*_plain``) only for CPU
 tensors, launches the kernel for CUDA tensors, and counts its launches in
 ``<wrapper>.launches``.

@@ -85,16 +85,16 @@ def test_q8_rmsnorm_matvec(M, K, N, x_dtype, norm_dtype):
     assert _rel(got, ref) < 1e-2
 
 
-@pytest.mark.parametrize("M,K,N", [(1, 2304, 18432), (16, 9216, 2304), (5, 2320, 4100)])
-def test_q8_kernels_are_deterministic(M, K, N):
-    """Two launches give identical bits (no atomics; the K split's partial
-    sums are added in a fixed order), one count a call."""
-    g = _gen(6)
+def _check_deterministic(M, K, N, quantize, kernels, seed):
+    """Two launches of each kernel give identical bits (no atomics; the K
+    split's partial sums are added in a fixed order), one count a call."""
+    g = _gen(seed)
     x = _randn(g, M, K, dtype=torch.float32)
     nw = _randn(g, K, std=0.1)
-    w = quant.quantize_int8(_randn(g, K, N, dtype=torch.float32, std=0.02))
-    for kern, args in ((quant.q8_matvec, (x, w["qt"], w["scale"])),
-                       (quant.q8_rmsnorm_matvec, (x, nw, w["qt"], w["scale"]))):
+    w = quantize(_randn(g, K, N, dtype=torch.float32, std=0.02))
+    matvec, norm_matvec = kernels
+    for kern, args in ((matvec, (x, w["qt"], w["scale"])),
+                       (norm_matvec, (x, nw, w["qt"], w["scale"]))):
         before = kern.launches
         first, again = kern(*args), kern(*args)
         torch.cuda.synchronize()
@@ -102,31 +102,43 @@ def test_q8_kernels_are_deterministic(M, K, N):
         assert torch.equal(first, again)
 
 
-def test_q8_first_launch_inside_a_cuda_graph():
-    """A process whose first int8 launch is captured into a CUDA graph: the
-    kernel stages x in chunks of at most 48 KB there (the larger shared-memory
-    opt-in is never made during a capture) and agrees with the plain version
-    on replay."""
+@pytest.mark.parametrize("M,K,N", [(1, 2304, 18432), (16, 9216, 2304), (5, 2320, 4100)])
+def test_q8_kernels_are_deterministic(M, K, N):
+    _check_deterministic(M, K, N, quant.quantize_int8,
+                         (quant.q8_matvec, quant.q8_rmsnorm_matvec), 6)
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 2304, 18432), (16, 9216, 2304), (5, 2336, 4100)])
+def test_q4_channel_kernels_are_deterministic(M, K, N):
+    _check_deterministic(M, K, N, quant.quantize_int4,
+                         (quant.q4_matvec, quant.q4_rmsnorm_matvec), 7)
+
+
+def _first_launch_in_graph(quantize, kernel, K):
+    """A process whose first launch of `kernel` (an RMSNorm matvec wrapper of
+    ops.quant, 16 rows) is captured into a CUDA graph: the kernel stages x in
+    chunks of at most 48 KB there (the larger shared-memory opt-in is never
+    made during a capture) and agrees with the plain version on replay."""
     import os
     import subprocess
     import sys
     import textwrap
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    code = textwrap.dedent("""
+    code = textwrap.dedent(f"""
         import torch
         from spatialvla_tpu_torch.ops import _lib, quant
         _lib.library()
         g = torch.Generator(device="cuda").manual_seed(0)
-        x = torch.randn(16, 9216, generator=g, device="cuda")
-        nw = (torch.randn(9216, generator=g, device="cuda") * 0.1).to(torch.bfloat16)
-        w = quant.quantize_int8(torch.randn(9216, 2304, generator=g, device="cuda") * 0.02)
+        x = torch.randn(16, {K}, generator=g, device="cuda")
+        nw = (torch.randn({K}, generator=g, device="cuda") * 0.1).to(torch.bfloat16)
+        w = quant.{quantize}(torch.randn({K}, 2304, generator=g, device="cuda") * 0.02)
         out = torch.empty(16, 2304, dtype=torch.bfloat16, device="cuda")
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            quant.q8_rmsnorm_matvec(x, nw, w["qt"], w["scale"], out=out)
+            quant.{kernel}(x, nw, w["qt"], w["scale"], out=out)
         graph.replay()
-        ref = quant.q8_rmsnorm_matvec_plain(x, nw, w["qt"], w["scale"])
+        ref = quant.{kernel}_plain(x, nw, w["qt"], w["scale"])
         rel = ((out.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
         print(rel)
         assert rel < 1e-2, rel
@@ -134,6 +146,17 @@ def test_q8_first_launch_inside_a_cuda_graph():
     proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True,
                           timeout=600)
     assert proc.returncode == 0, proc.stderr[-4000:]
+
+
+def test_q8_first_launch_inside_a_cuda_graph():
+    _first_launch_in_graph("quantize_int8", "q8_rmsnorm_matvec", 9216)
+
+
+def test_q4_first_launch_inside_a_cuda_graph():
+    """int4 per channel at K = 2304: all of x (72 KB at 16 rows) fits once
+    the opt-in is made; inside the capture both x ranges go in 48 KB chunks
+    (32, 32 and 8 packed units)."""
+    _first_launch_in_graph("quantize_int4", "q4_rmsnorm_matvec", 2304)
 
 
 # (K, N): the head, the down projection, SigLIP's fc2 (K/2 = 2152 bytes, not a
@@ -158,6 +181,31 @@ def test_q4_matvec(M, K, N, group_size):
     assert quant.q4_matvec.launches == before + 1
     assert got.dtype == torch.bfloat16 and got.shape == (M, N)
     assert _rel(got, quant.q4_matvec_plain(x, w["qt"], w["scale"])) < 1e-2
+
+
+# per channel at M <= 16, the int4 instance of csrc/q8_matvec.cu's kernel:
+# every rows instance and both of its edges; K = 9216, whose two x ranges
+# are staged in chunks at 8 and 16 rows; K = 2336, 73 packed units, which
+# no chunk or lane count divides; N of the head, a tiny one and one that no
+# tile of channels divides; bf16 x (copied into shared memory) and fp32 x,
+# each with the other type of norm weight
+@pytest.mark.parametrize("M", Q8_ROWS)
+@pytest.mark.parametrize("K,N,x_dtype", [(2304, 8194, torch.bfloat16), (9216, 40, torch.bfloat16),
+                                         (9216, 40, torch.float32), (2336, 4100, torch.bfloat16),
+                                         (2336, 4100, torch.float32)])
+def test_q4_channel_rows(M, K, N, x_dtype):
+    g = _gen(14)
+    x = _randn(g, M, K, dtype=x_dtype)
+    nw = _randn(g, K, dtype=torch.float32 if x_dtype == torch.bfloat16 else torch.bfloat16, std=0.1)
+    w = _q4_weight(g, K, N, None)
+    for kern, plain, args in (
+            (quant.q4_matvec, quant.q4_matvec_plain, (x, w["qt"], w["scale"])),
+            (quant.q4_rmsnorm_matvec, quant.q4_rmsnorm_matvec_plain, (x, nw, w["qt"], w["scale"]))):
+        before = kern.launches
+        got = kern(*args, out_dtype=x_dtype)
+        assert kern.launches == before + 1
+        assert got.dtype == x_dtype and got.shape == (M, N)
+        assert _rel(got, plain(*args, out_dtype=x_dtype)) < 1e-2
 
 
 @pytest.mark.parametrize("M", [1, 16, 277])

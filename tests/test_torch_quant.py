@@ -226,3 +226,49 @@ def test_wrappers_raise_off_cpu_and_cuda():
     assert tq.q8_matvec.launches == 0 and tq.q8_rmsnorm_matvec.launches == 0
     assert tq.q4_matvec.launches == 0 and tq.q4_rmsnorm_matvec.launches == 0
 
+
+
+def _signed_int4_codes(qt: np.ndarray) -> np.ndarray:
+    """The int4 unpack of the few-row kernel (``csrc/q8_matvec.cu:codes4``)
+    in numpy: each little-endian 32-bit word of packed bytes masked to its
+    low nibbles (or, shifted right by 4, its high ones); the byte permute
+    ``__byte_perm(b, 0x4B000000, 0x7540 + j)`` as views (byte j of the word
+    into byte 0 of 0x4B000000), read as fp32, 2^23 + nibble, and 2^23 + 8
+    taken off. (N, K/2) uint8 -> (N, K) fp32 codes, column order."""
+    N, Kh = qt.shape
+    words = np.ascontiguousarray(qt).view("<u4")  # (N, Kh / 4)
+    halves = []
+    for h in (0, 1):
+        b = (words >> np.uint32(4 * h)) & np.uint32(0x0F0F0F0F)
+        perm = np.zeros(b.shape + (4, 4), np.uint8)  # [word][j][byte of the result]
+        perm[..., 0] = b.view(np.uint8).reshape(b.shape + (4,))
+        perm[..., 3] = 0x4B
+        f = perm.view("<f4")[..., 0]  # 2^23 + nibble j of each word, exact
+        halves.append((f - np.float32(8388616.0)).reshape(N, Kh))
+    return np.concatenate(halves, axis=-1)
+
+
+def test_int4_byte_permute_gives_signed_codes():
+    """Over every byte value and both nibbles, the mask + 0x4B000000 magic
+    unpack gives unpack_int4's codes c - 8 exactly, in column order."""
+    every = np.arange(256, dtype=np.uint8)
+    qt = np.stack([every, every[::-1], np.roll(every, 77)])  # (3, 256): K = 512
+    got = _signed_int4_codes(qt)
+    want = tq.unpack_int4(torch.from_numpy(qt)).numpy()
+    assert got.dtype == np.float32 and got.shape == want.shape == (3, 512)
+    np.testing.assert_array_equal(got, want.astype(np.float32))
+
+
+@pytest.mark.parametrize("M", [1, 16])
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+def test_q4_signed_code_sums_match_pallas(M, x_dtype):
+    """sum_k bf16(x) * (c - 8), times the per-channel scale (the few-row
+    kernel's int4 function, in another fp32 order than the TPU kernel's
+    (sum x c - 8 sum x) * s) against int8_matmul in interpret mode, as
+    test_q4_matvec_plain_matches_pallas holds the plain version."""
+    jx, tx, w, tw, _ = _operands(M, 2304, 256, x_dtype, seed=8, quantize=jq.quantize_int4)
+    ref = np.asarray(jq.int8_matmul(jx, w["qt"], w["scale"], out_dtype=jnp.float32,
+                                    interpret=True))
+    codes = torch.from_numpy(_signed_int4_codes(tw["qt"].numpy()))
+    got = ((tx.to(torch.bfloat16).float() @ codes.t()) * tw["scale"]).numpy()
+    np.testing.assert_allclose(got, ref, atol=1e-4 * np.abs(ref).max(), rtol=0)
