@@ -11,14 +11,15 @@
    there is one (torch._weight_int8pack_mm, torch._weight_int4pack_mm; for
    the RMSNorm variants their matmul alone, in the log): the int8 and int4
    matvecs (per channel and in 128-column groups, 1, 16 and 277 rows; 16-
-   and 24-column groups checked untimed), the bf16- and
+   and 24-column groups checked untimed; each int4 call's kernel printed and
+   held to its route, and its fp32 output to plain within 5e-3), the bf16- and
    int8-cache decode attention (also on a 4096-slot cache), norm_residual,
    gelu_mul, a 2-layer decode step, the flash kernels.
 3. The decode-step matrix of bench.py:111-160 at full width (26 layers,
    M = 16, S = 332, per-row positions): {int8, int4, int4-g128, int8+mlp4}
    x {bf16, int8} KV cache, the fused step against the masked forward on the
-   same tree (relative drift below 0.05 / 0.08); and the int8, int4 and
-   int8+mlp4 steps at batch 1 (S = 289, bf16 cache).
+   same tree (relative drift below 0.05 / 0.08); and the step of every
+   format at batch 1 (S = 289, bf16 cache).
 4. Drives the serving path: SpatialVLAPolicy.predict on full-width
    spatialvla_4b() (SigLIP-so400m, ZoeDepth BEiT-L, Gemma2-2B with 26 layers)
    with random weights from a seed, after quantize(bits=8): three requests
@@ -73,6 +74,9 @@ LOSS_BOUND = 1e-2  # |loss_flash - loss_xla| / |loss_xla|
 GRAD_NORM_BOUND = 5e-2  # |gn_flash - gn_xla| / gn_xla
 # flash kernels against their plain versions: max|kernel - plain| / max|plain|
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# int4 matvecs with fp32 outputs against their plain versions: the same
+# function in another fp32 summation order
+Q4_FP32_TOL = 5e-3
 
 
 def fail(msg: str):
@@ -306,8 +310,13 @@ def kernel_phases(torch, timer, results, notes):
     # action head (M = 1), the decode projections at M = 1 and 16 (qkv and
     # gate|up with their norms, down and o without), the 277-row prefill
     # (qkv); groups of other widths (any that quantize_int4 makes) checked
-    # untimed: 16 columns (one per 16-code chunk), 24 (crossing chunks and K
-    # steps; not for o, whose K = 2048 no 24-column group tiles)
+    # untimed: 16 columns (one scale a half unit), 24 (crossing chunks and K
+    # steps; not for o, whose K = 2048 no 24-column group tiles). Each call
+    # must take its kernel (q4_route): the few-row kernel of q8_matvec.cu at
+    # M <= 16 per channel or in groups of a multiple of 16 columns,
+    # q4_small_kernel for other groups, the tiled kernel above 16 rows; its
+    # fp32 output within Q4_FP32_TOL of plain (the bf16 output may round a
+    # value a unit apart, up to 2^-7 of max|plain|: 2e-2)
     q4_cases = (  # name, M, K, N
         ("q4_matvec", 1, 2304, 8194), ("q4_rmsnorm_matvec", 1, 2304, 4096),
         ("q4_rmsnorm_matvec", 1, 2304, 18432), ("q4_matvec", 1, 9216, 2304),
@@ -330,9 +339,20 @@ def kernel_phases(torch, timer, results, notes):
             y = kern(*args)
             d, r = rel_err(y, plain(*args))
             check(name, f"{tag} M={M} {K}->{N}", r, 2e-2)
+            _, r32 = rel_err(kern(*args, out_dtype=torch.float32),
+                             plain(*args, out_dtype=torch.float32))
+            check(name, f"{tag} M={M} {K}->{N} fp32 out", r32, Q4_FP32_TOL)
+            route = quant.q4_route(x, w["qt"], w["scale"])
+            want = ("tiled" if M > 16 else
+                    "rows" if not group_size or group_size % 16 == 0 else "small")
+            if route != want:
+                fail(f"{name} {tag} M={M} {K}->{N}: took the {route} kernel, not {want}")
+            shape = f"{tag}_M{M}_{K}x{N}"
             if group_size not in (None, 128):
-                print(f"{name} {tag} M={M} {K}->{N}: max|d|={d:.3e} rel={r:.3e}", flush=True)
-                record_kernel(results, name, f"{tag}_M{M}_{K}x{N}", d, None, None)
+                print(f"{name} {tag} M={M} {K}->{N} ({route} kernel): max|d|={d:.3e} rel={r:.3e} "
+                      f"fp32 out rel={r32:.3e}", flush=True)
+                record_kernel(results, name, shape, d, None, None)
+                results[name].setdefault("kernel_taken", {})[shape] = route
                 continue
             ms = timer(lambda: kern(*args))
             pms = timer(lambda: plain(*args))
@@ -340,11 +360,12 @@ def kernel_phases(torch, timer, results, notes):
             # matmul part (on the plain normed x), which is not the same function
             xl = quant._rms_bf16(x, nw, 1e-6) if norm else x
             lib, note = library_int4pack(torch, timer, xl, w["qt"], w["scale"])
-            print(f"{name} {tag} M={M} {K}->{N}: max|d|={d:.3e} rel={r:.3e} kernel {ms:.4f} ms "
-                  f"plain {pms:.4f} ms library{' matmul alone' if norm else ''} {lib} ms "
-                  f"({note})", flush=True)
-            record(name, f"{tag}_M{M}_{K}x{N}", d, ms, pms, nbytes_of(*args, y),
+            print(f"{name} {tag} M={M} {K}->{N} ({route} kernel): max|d|={d:.3e} rel={r:.3e} "
+                  f"fp32 out rel={r32:.3e} kernel {ms:.4f} ms plain {pms:.4f} ms "
+                  f"library{' matmul alone' if norm else ''} {lib} ms ({note})", flush=True)
+            record(name, shape, d, ms, pms, nbytes_of(*args, y),
                    2 * M * N * K + (4 * M * K if norm else 0), None if norm else lib)
+            results[name].setdefault("kernel_taken", {})[shape] = route
             if not norm:
                 notes.setdefault(name, f"torch._weight_int4pack_mm: {note}")
     notes["q4_rmsnorm_matvec"] = ("no single PyTorch call fuses the RMSNorm with the matmul "
@@ -778,9 +799,8 @@ def decode_step_matrix(torch):
     kernels) against the port's masked gemma2.forward on the same quantized
     tree and the bf16 cache; relative drift max|h_fused - h_masked| /
     max|h_masked| below DRIFT_BOUND. Also the device time of each step, and
-    for int8, int4 and int8+mlp4 the step at batch 1 (row 0 at position 277
-    of a 289-slot bf16 cache, the serving path's request), held the same
-    way."""
+    for every format the step at batch 1 (row 0 at position 277 of a
+    289-slot bf16 cache, the serving path's request), held the same way."""
     from spatialvla_tpu_torch import spatialvla_4b
     from spatialvla_tpu_torch.models import gemma2
     from spatialvla_tpu_torch.ops import decode_step as ds
@@ -816,21 +836,21 @@ def decode_step_matrix(torch):
         mask1 = ((k_idx[None, :S1] < pos1[:, None]) | (k_idx[None, :S1] == S1 - 1))[:, None, None]
         for name, qkw in WEIGHT_FORMATS:
             qp = quant.quantize_lm_params(base, **qkw)
-            if name != "int4-g128":  # batch 1, the formats of the per-channel matvecs
-                hx, _ = gemma2.forward(qp, tcfg, emb[:1, None], (pos1 + 1)[:, None].long(), mask1,
-                                       cache={"k": ck1.permute(0, 1, 3, 2, 4).contiguous(),
-                                              "v": cv1.permute(0, 1, 3, 2, 4).contiguous()},
-                                       cache_position=S1 - 1)
-                step = lambda: ds.fused_decode_step(qp, tcfg, x[:1], ck1, cv1, pos1, pos1 + 1)  # noqa: E731
-                hf = step()[0].float()
-                hx = hx[:, 0].float()
-                drift = ((hf - hx).abs().max() / (hx.abs().max() + 1e-6)).item()
-                ms = timer(step)
-                print(f"decode step {name}+bf16kv (26 layers, M=1, S={S1}): rel drift {drift:.4f} "
-                      f"(bound {DRIFT_BOUND['bf16kv']}), fused step {ms:.3f} ms", flush=True)
-                if not drift < DRIFT_BOUND["bf16kv"]:
-                    fail(f"decode step {name} M=1: drift {drift} >= {DRIFT_BOUND['bf16kv']}")
-                out[f"{name}+bf16kv_M1_S{S1}"] = {"rel_drift": drift, "step_ms": ms}
+            # batch 1
+            hx, _ = gemma2.forward(qp, tcfg, emb[:1, None], (pos1 + 1)[:, None].long(), mask1,
+                                   cache={"k": ck1.permute(0, 1, 3, 2, 4).contiguous(),
+                                          "v": cv1.permute(0, 1, 3, 2, 4).contiguous()},
+                                   cache_position=S1 - 1)
+            step = lambda: ds.fused_decode_step(qp, tcfg, x[:1], ck1, cv1, pos1, pos1 + 1)  # noqa: E731
+            hf = step()[0].float()
+            hx = hx[:, 0].float()
+            drift = ((hf - hx).abs().max() / (hx.abs().max() + 1e-6)).item()
+            ms = timer(step)
+            print(f"decode step {name}+bf16kv (26 layers, M=1, S={S1}): rel drift {drift:.4f} "
+                  f"(bound {DRIFT_BOUND['bf16kv']}), fused step {ms:.3f} ms", flush=True)
+            if not drift < DRIFT_BOUND["bf16kv"]:
+                fail(f"decode step {name} M=1: drift {drift} >= {DRIFT_BOUND['bf16kv']}")
+            out[f"{name}+bf16kv_M1_S{S1}"] = {"rel_drift": drift, "step_ms": ms}
             ref_cache = {"k": ck.permute(0, 1, 3, 2, 4).contiguous(),
                          "v": cv.permute(0, 1, 3, 2, 4).contiguous()}
             hx, _ = gemma2.forward(qp, tcfg, emb[:, None], (pos + 1)[:, None].long(), mask,
@@ -1269,11 +1289,14 @@ def main() -> int:
         r = results[name]
         first = next(iter(r["ms"]))  # the path's own shape comes first
         tol = ("max|kernel - plain| / max|plain| < 2e-2 (bf16), < 1e-4 (fp32)"
-               if name.startswith(("flash", "q4")) else "max|kernel - plain| / max|plain| < 1e-2")
+               if name.startswith("flash") else
+               f"max|kernel - plain| / max|plain| < 2e-2 (bf16 out), < {Q4_FP32_TOL} (fp32 out)"
+               if name.startswith("q4") else "max|kernel - plain| / max|plain| < 1e-2")
         n, run = launches(name)
         bound_ms, bound_by = r["bound"][first]
-        # the q4 entry points send per-channel calls of M <= 16 to the int4
-        # instance of q8_matvec.cu's kernel
+        # the q4 entry points send calls of M <= 16, per channel or in groups
+        # of a multiple of 16 columns, to the int4 instances of q8_matvec.cu's
+        # kernel
         sources = [source] + (["q8_matvec.cu"] if name.startswith("q4") else [])
         kernels.append({
             "name": name, "route": "cuda", "source": f"spatialvla_tpu_torch/csrc/{source}",

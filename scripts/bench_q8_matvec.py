@@ -1,21 +1,22 @@
 #!/usr/bin/env python3
 """Time and check the few-row matvec kernels of csrc/q8_matvec.cu on an
-NVIDIA GPU: int8 (q8_matvec, q8_rmsnorm_matvec) and the per-channel packed
-int4 instance that q4_matvec / q4_rmsnorm_matvec take at M <= 16. The short
-loop for working on that file.
+NVIDIA GPU: int8 (q8_matvec, q8_rmsnorm_matvec) and the packed int4
+instances, per channel and grouped, that q4_matvec / q4_rmsnorm_matvec take
+at M <= 16. The short loop for working on that file.
 
     python3 scripts/bench_q8_matvec.py
 
 Builds the kernel library, prints each qmatvec_kernel instance's registers
 and spills from nvcc's report (``_build/*.log``), checks every rows
-instance (M = 1..16), ragged N and chunked K of both formats against the
-plain versions, checks that two launches give identical bits, then times
-the decode shapes (the head, o, down, qkv and gate|up; M = 1 and 16, and
-the int8 o at M = 2) with chip_smoke's CUDA-graph timer (L2 flushed before
-each run): the kernel, its plain version and torch._weight_int8pack_mm /
-_weight_int4pack_mm (for the RMSNorm variants on the normed x, the matmul
-alone). Max relative error to plain must stay below 1e-2. Needs CUDA and
-nvcc.
+instance (M = 1..16), ragged N and chunked K of int8, int4 per channel and
+int4 in groups of 128 and 16 columns against the plain versions, checks
+that two launches give identical bits, then times the decode shapes (the
+head, o, down, qkv and gate|up; M = 1 and 16, and the int8 o at M = 2) of
+int8, int4 and int4-g128 side by side with chip_smoke's CUDA-graph timer
+(L2 flushed before each run): the kernel, its plain version and
+torch._weight_int8pack_mm / _weight_int4pack_mm (for the RMSNorm variants
+on the normed x, the matmul alone). Max relative error to plain must stay
+below 1e-2 (bf16 out). Needs CUDA and nvcc.
 """
 from __future__ import annotations
 
@@ -28,33 +29,41 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 TOL = 1e-2
-# (name, M, K, N): chip_smoke's q8 shapes, the o projection at M = 1, 2, 16,
-# then the per-channel q4 decode shapes (head, o, down, qkv, gate|up) at
-# M = 1 and 16
+# (format, name, M, K, N): chip_smoke's q8 shapes, the o projection at M =
+# 1, 2, 16, then the q4 decode shapes (head, o, down, qkv, gate|up) at M = 1
+# and 16, per channel and in 128-column groups
 SHAPES = (
-    ("q8_matvec", 1, 2304, 8194), ("q8_matvec", 16, 9216, 2304), ("q8_matvec", 1, 2048, 2304),
-    ("q8_matvec", 1, 9216, 2304), ("q8_matvec", 2, 2048, 2304), ("q8_matvec", 16, 2048, 2304),
-    ("q8_rmsnorm_matvec", 1, 2304, 4096), ("q8_rmsnorm_matvec", 1, 2304, 18432),
-    ("q8_rmsnorm_matvec", 16, 2304, 4096), ("q8_rmsnorm_matvec", 16, 2304, 18432),
-) + tuple((name, M, K, N) for M in (1, 16) for name, K, N in (
-    ("q4_matvec", 2304, 8194), ("q4_matvec", 2048, 2304), ("q4_matvec", 9216, 2304),
-    ("q4_rmsnorm_matvec", 2304, 4096), ("q4_rmsnorm_matvec", 2304, 18432)))
-# (K, N) checked at every M = 1..16: ragged N, K staged in chunks at 8 and
-# 16 rows (9216), and K of no chunk or lane multiple (2320 int8; 2336 int4,
-# 73 packed units)
-CHECKS = {8: ((2304, 40), (9216, 100), (2320, 4100)), 4: ((2304, 40), (9216, 100), (2336, 4100))}
+    ("int8", "q8_matvec", 1, 2304, 8194), ("int8", "q8_matvec", 16, 9216, 2304),
+    ("int8", "q8_matvec", 1, 2048, 2304), ("int8", "q8_matvec", 1, 9216, 2304),
+    ("int8", "q8_matvec", 2, 2048, 2304), ("int8", "q8_matvec", 16, 2048, 2304),
+    ("int8", "q8_rmsnorm_matvec", 1, 2304, 4096), ("int8", "q8_rmsnorm_matvec", 1, 2304, 18432),
+    ("int8", "q8_rmsnorm_matvec", 16, 2304, 4096), ("int8", "q8_rmsnorm_matvec", 16, 2304, 18432),
+) + tuple((fmt, name, M, K, N) for fmt in ("int4", "int4-g128") for M in (1, 16)
+          for name, K, N in (("q4_matvec", 2304, 8194), ("q4_matvec", 2048, 2304),
+                             ("q4_matvec", 9216, 2304), ("q4_rmsnorm_matvec", 2304, 4096),
+                             ("q4_rmsnorm_matvec", 2304, 18432)))
+# format: (quantize, the (K, N) checked at every M = 1..16): ragged N, K
+# staged in chunks at 8 and 16 rows (9216), K of no chunk or lane multiple
+# (2320 int8; 2336 int4, 73 packed units), K = 2048 in 16 groups
+FORMATS = {
+    "int8": (None, ((2304, 40), (9216, 100), (2320, 4100))),
+    "int4": (None, ((2304, 40), (9216, 100), (2336, 4100))),
+    "int4-g128": (128, ((2304, 40), (9216, 100), (2048, 4100))),
+    "int4-g16": (16, ((2304, 40), (9216, 100))),
+}
 
 
 def register_report(log: Path) -> list:
     """(instance, registers, spill stores, spill loads) of each
-    qmatvec_kernel<MR, kNorm, kInt4> in nvcc's -Xptxas -v output."""
+    qmatvec_kernel<MR, kNorm, kInt4, kGrouped> in nvcc's -Xptxas -v output."""
     rows, current = [], None
     for line in log.read_text().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"qmatvec_kernelILi(\d+)ELb([01])ELb([01])E", m.group(1))
-            current = (f"{'int4' if k.group(3) == '1' else 'int8'} MR={k.group(1)} "
-                       f"norm={k.group(2)}" if k else None)
+            k = re.search(r"qmatvec_kernelILi(\d+)ELb([01])ELb([01])ELb([01])E", m.group(1))
+            fmt = None if not k else ("int8" if k.group(3) == "0" else
+                                      "int4-grouped" if k.group(4) == "1" else "int4")
+            current = f"{fmt} MR={k.group(1)} norm={k.group(2)}" if k else None
             spills = None
             continue
         if current is None:
@@ -90,18 +99,20 @@ def main() -> int:
     def randn(*shape, dtype=torch.bfloat16, std=1.0):
         return (torch.randn(shape, generator=g, device="cuda") * std).to(dtype)
 
-    def qweight(N, K, bits=8):
+    def qweight(N, K, fmt):
         w = randn(K, N, dtype=torch.float32, std=0.02)
-        return quant.quantize_int8(w) if bits == 8 else quant.quantize_int4(w)
+        if fmt == "int8":
+            return quant.quantize_int8(w)
+        return quant.quantize_int4(w, FORMATS[fmt][0])
 
     # every rows instance and its edges, ragged N, chunked K, both x types
-    for bits, shapes in CHECKS.items():
-        mv, nmv = (quant.q8_matvec, quant.q8_rmsnorm_matvec) if bits == 8 else \
+    for fmt, (_, shapes) in FORMATS.items():
+        mv, nmv = (quant.q8_matvec, quant.q8_rmsnorm_matvec) if fmt == "int8" else \
             (quant.q4_matvec, quant.q4_rmsnorm_matvec)
         worst = 0.0
         for M in range(1, 17):
             for K, N in shapes:
-                w = qweight(N, K, bits)
+                w = qweight(N, K, fmt)
                 for x_dtype in (torch.float32, torch.bfloat16):
                     x, nw = randn(M, K, dtype=x_dtype), randn(K, std=0.1)
                     args = (x, w["qt"], w["scale"])
@@ -110,34 +121,37 @@ def main() -> int:
                                             quant.rmsnorm_matvec_plain(x, nw, *args[1:]))[1]
                     worst = max(worst, r1, r2)
                     if not (r1 < TOL and r2 < TOL):
-                        print(f"FAIL int{bits} M={M} K={K} N={N} x {x_dtype}: "
+                        print(f"FAIL {fmt} M={M} K={K} N={N} x {x_dtype}: "
                               f"rel {r1:.3e} / {r2:.3e}")
                         return 1
-        print(f"check int{bits}: M=1..16 x (K, N) in {shapes} x fp32/bf16 x: max rel {worst:.3e} "
+                    if fmt != "int8" and quant.q4_route(x, w["qt"], w["scale"]) != "rows":
+                        print(f"FAIL {fmt} M={M} K={K}: not the few-row kernel")
+                        return 1
+        print(f"check {fmt}: M=1..16 x (K, N) in {shapes} x fp32/bf16 x: max rel {worst:.3e} "
               f"(bound {TOL})", flush=True)
-        x, w = randn(16, 9216, dtype=torch.float32), qweight(2304, 9216, bits)
+        x, w = randn(16, 9216, dtype=torch.float32), qweight(2304, 9216, fmt)
         a, b = mv(x, w["qt"], w["scale"]), mv(x, w["qt"], w["scale"])
         torch.cuda.synchronize()
         if not torch.equal(a, b):
-            print(f"FAIL int{bits}: two launches differ")
+            print(f"FAIL {fmt}: two launches differ")
             return 1
 
     timer = chip_smoke.Timer(torch)
-    for name, M, K, N in SHAPES:
-        norm, bits = "rmsnorm" in name, 4 if name.startswith("q4") else 8
+    for fmt, name, M, K, N in SHAPES:
+        norm = "rmsnorm" in name
         x, nw, w = randn(M, K, dtype=torch.float32 if norm else torch.bfloat16), randn(K, std=0.1), \
-            qweight(N, K, bits)
+            qweight(N, K, fmt)
         args = (x, nw, w["qt"], w["scale"]) if norm else (x, w["qt"], w["scale"])
         kern = getattr(quant, name)
         plain = getattr(quant, name + "_plain")
         d, r = chip_smoke.rel_err(kern(*args), plain(*args))
         ms, pms = timer(lambda: kern(*args)), timer(lambda: plain(*args))
         xl = quant._rms_bf16(x, nw, 1e-6) if norm else x
-        library = chip_smoke.library_int8pack if bits == 8 else chip_smoke.library_int4pack
+        library = chip_smoke.library_int8pack if fmt == "int8" else chip_smoke.library_int4pack
         lib, _ = library(torch, timer, xl, w["qt"], w["scale"])
         nbytes = chip_smoke.nbytes_of(*args) + M * N * 2
         bound, by = chip_smoke.bound(nbytes, 2 * M * N * K)
-        print(f"{name} M={M} {K}->{N}: kernel {ms:.4f} ms plain {pms:.4f} ms library "
+        print(f"{name} {fmt} M={M} {K}->{N}: kernel {ms:.4f} ms plain {pms:.4f} ms library "
               f"{'(matmul alone) ' if norm else ''}{lib} ms bound {bound:.4f} ms ({by}) "
               f"rel err {r:.3e}", flush=True)
         if not r < TOL:

@@ -17,19 +17,23 @@
 // per channel at M <= 16, q8_matvec.cu sums x'[m, k] (c[n, k] - 8) instead
 // (the same function in another fp32 order, with less cancellation).
 // Groups may have any width that quantize_int4 makes (K/G columns, G even).
-// Where they are a multiple of 16 columns (32 for the tiled kernel) a
-// 16-code chunk (a K step) lies in one group and is scaled once; otherwise
-// a template instance closes a partial dot at each group's last column.
+// Where they are a multiple of 32 columns, the tiled kernel's K step lies
+// in one group and is scaled once; otherwise a template instance closes a
+// partial dot at each group's last column.
 //
 // What bounds it on the H100:
 //   * M <= 16 (decode matvecs, the action head): weight bytes, N K / 2 per
-//     call (a 26-layer int4 decode step streams about 1 GB). Per channel
-//     (x and qt 16-byte aligned, K a multiple of 32): the int4 instance of
-//     q8_matvec.cu's kernel (q4_channel_matvec: x staged once per block in
-//     shared memory, 4 channels a warp, signed codes by a byte permute).
-//     Grouped: one warp per output channel, each packed byte read once with
-//     16-byte loads coalesced across the warp, applied to all M rows from
-//     registers.
+//     call (a 26-layer int4 decode step streams about 1 GB). With x and qt
+//     16-byte aligned, K a multiple of 32, and per channel or in groups of
+//     a multiple of 16 columns (route_of): the int4 instances of
+//     q8_matvec.cu's kernel (q4_rows_matvec: x staged once per block in
+//     shared memory, 4 channels a warp, signed codes by a byte permute;
+//     grouped, one scale per 16-column half of a 16-byte weight unit, so
+//     y = sum_j s[n, j] sum_{k in j} x' (c - 8) in another fp32 order).
+//     Aligned, in groups of another width: q4_small_kernel, one warp per
+//     output channel, each packed byte read once with 16-byte loads
+//     coalesced across the warp, applied to all M rows from registers,
+//     closing a partial dot at each group's last column.
 //   * 16 < M <= 512 (the 277-row prefill, SigLIP's 256 rows): operations,
 //     2 M N K, far above the ~295 operations per byte where the tensor cores
 //     would become the limit. A 64 x 64 output tile per block walks K in
@@ -41,10 +45,11 @@
 //     are left for later work.
 #include "common.cuh"
 
-// q8_matvec.cu: the packed-int4, per-channel instances of its few-row kernel
-int q4_channel_matvec(const void* x, int x_dtype, const void* norm_w, int norm_dtype, float eps,
-                      const uint8_t* qt, const float* scale, void* out, int out_dtype, int M,
-                      int N, int K, cudaStream_t stream);
+// q8_matvec.cu: the packed-int4 instances of its few-row kernel, per
+// channel (G = 0) or in groups of a multiple of 16 columns
+int q4_rows_matvec(const void* x, int x_dtype, const void* norm_w, int norm_dtype, float eps,
+                   const uint8_t* qt, const float* scale, int G, void* out, int out_dtype, int M,
+                   int N, int K, cudaStream_t stream);
 
 namespace {
 
@@ -65,9 +70,9 @@ __device__ __forceinline__ void unpack_half16(uint4 u, int half, float* c) {
   }
 }
 
-// kGroups: 1 each 16-code chunk inside one group (groups of a multiple of
-// 16 columns); 2 any width
-template <bool kNorm, int kGroups>
+// Groups of any width (route_of sends those of a multiple of 16 columns to
+// q4_rows_matvec)
+template <bool kNorm>
 __global__ void __launch_bounds__(kWarps * 32)
 q4_small_kernel(const void* __restrict__ x, int x_dtype, const void* __restrict__ norm_w,
                 int norm_dtype, float eps, const uint8_t* __restrict__ qt,
@@ -104,25 +109,22 @@ q4_small_kernel(const void* __restrict__ x, int x_dtype, const void* __restrict_
       const int col0 = half * Kh + c * 16;  // first unpacked column of these 16 codes
       float cw[16];
       unpack_half16(u, half, cw);
-      // s scales the 16 columns when they lie in one group; otherwise (kGroups
-      // 2: groups narrower than 16 columns or not aligned to 16) bit j of
-      // `ends` marks the last column of a group in the chunk and sj[j] its scale
+      // s scales the 16 columns when they lie in one group; otherwise (groups
+      // narrower than 16 columns or not aligned to 16) bit j of `ends` marks
+      // the last column of a group in the chunk and sj[j] its scale
       float s = 1.f, sj[16];
       unsigned ends = 0u;
-      if (kGroups == 1) s = __ldg(scale + (long)n * G + col0 / g);
-      if (kGroups == 2) {
-        int gi = col0 / g, left = g - (col0 - gi * g);  // columns of col0's group from col0 on
-        if (left >= 16) {
-          s = __ldg(scale + (long)n * G + gi);
-        } else {
+      int gi = col0 / g, left = g - (col0 - gi * g);  // columns of col0's group from col0 on
+      if (left >= 16) {
+        s = __ldg(scale + (long)n * G + gi);
+      } else {
 #pragma unroll
-          for (int j = 0; j < 16; ++j) {
-            if (--left == 0 || j == 15) {
-              ends |= 1u << j;
-              sj[j] = __ldg(scale + (long)n * G + gi);
-              ++gi;
-              left = g;
-            }
+        for (int j = 0; j < 16; ++j) {
+          if (--left == 0 || j == 15) {
+            ends |= 1u << j;
+            sj[j] = __ldg(scale + (long)n * G + gi);
+            ++gi;
+            left = g;
           }
         }
       }
@@ -137,7 +139,7 @@ q4_small_kernel(const void* __restrict__ x, int x_dtype, const void* __restrict_
           float v[16];
           load_x16(x, x_dtype, (long)m * K + col0, v);
           float d = 0.f, xs = 0.f;
-          if (kGroups != 2 || ends == 0u) {  // one scale for the 16 columns
+          if (ends == 0u) {  // one scale for the 16 columns
 #pragma unroll
             for (int j = 0; j < 16; ++j) {
               const float xv = kNorm ? bf16r((v[j] * s_rinv[m]) * gain[j]) : bf16r(v[j]);
@@ -356,26 +358,32 @@ q4_tile_kernel(const void* __restrict__ x, int x_dtype, const void* __restrict__
   }
 }
 
+// Which kernel a call takes: the few-row kernel of q8_matvec.cu (M <= 16,
+// x and qt 16-byte aligned, K a multiple of 32, per channel or in groups
+// of a multiple of 16 columns), q4_small_kernel (the other aligned grouped
+// calls of M <= 16), or the tiled kernel (the rest)
+enum Route { kRows = 0, kSmall = 1, kTiled = 2 };
+
+Route route_of(const void* x, const void* qt, int M, int K, int G) {
+  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(qt) % 16 == 0 && (K / 2) % 16 == 0;
+  if (M > kSmallM || !aligned) return kTiled;
+  return G == 0 || (K / G) % 16 == 0 ? kRows : kSmall;
+}
+
 template <bool kNorm, bool kGrouped>
 int launch_kind(const void* x, int x_dtype, const void* norm_w, int norm_dtype, float eps,
                 const uint8_t* qt, const float* scale, int G, void* out, int out_dtype,
                 int M, int N, int K, cudaStream_t stream) {
-  const int Kh = K / 2;
-  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                       reinterpret_cast<uintptr_t>(qt) % 16 == 0 && Kh % 16 == 0;
-  if (M <= kSmallM && aligned && !kGrouped) {
-    return q4_channel_matvec(x, x_dtype, kNorm ? norm_w : nullptr, norm_dtype, eps, qt, scale,
-                             out, out_dtype, M, N, K, stream);
+  const Route route = route_of(x, qt, M, K, G);
+  if (route == kRows) {
+    return q4_rows_matvec(x, x_dtype, kNorm ? norm_w : nullptr, norm_dtype, eps, qt, scale, G,
+                          out, out_dtype, M, N, K, stream);
   }
-  if (M <= kSmallM && aligned) {
+  if (route == kSmall) {
     const dim3 grid((N + kWarps - 1) / kWarps), block(kWarps * 32);
-    if ((K / G) % 16 == 0) {
-      q4_small_kernel<kNorm, 1><<<grid, block, 0, stream>>>(
-          x, x_dtype, norm_w, norm_dtype, eps, qt, scale, G, out, out_dtype, M, N, K);
-    } else {
-      q4_small_kernel<kNorm, 2><<<grid, block, 0, stream>>>(
-          x, x_dtype, norm_w, norm_dtype, eps, qt, scale, G, out, out_dtype, M, N, K);
-    }
+    q4_small_kernel<kNorm><<<grid, block, 0, stream>>>(
+        x, x_dtype, norm_w, norm_dtype, eps, qt, scale, G, out, out_dtype, M, N, K);
   } else {
     const dim3 grid((N + kTN - 1) / kTN, (M + kTM - 1) / kTM);
     if (!kGrouped) {
@@ -409,6 +417,12 @@ int launch(const void* x, int x_dtype, const void* norm_w, int norm_dtype, float
 }
 
 }  // namespace
+
+// The kernel (Route) that q4_matvec / q4_rmsnorm_matvec launch for these
+// operands; launches nothing
+extern "C" int q4_route(const void* x, const void* qt, int M, int K, int G) {
+  return route_of(x, qt, M, K, G);
+}
 
 extern "C" int q4_matvec(const void* x, int x_dtype, const uint8_t* qt, const float* scale, int G,
                          void* out, int out_dtype, int M, int N, int K, void* stream) {

@@ -1,13 +1,18 @@
-// Weight-only matvec for few rows with per-channel scales, int8 or packed
-// int4 weights, optionally with the Gemma RMSNorm fused in front:
-// y[m, n] = scale[n] * sum_k bf16(x'[m, k]) * code[n, k].
+// Weight-only matvec for few rows, int8 or packed int4 weights with
+// per-channel scales, or packed int4 with a scale per group of columns,
+// optionally with the Gemma RMSNorm fused in front:
+//   per channel: y[m, n] = scale[n] * sum_k bf16(x'[m, k]) * code[n, k];
+//   grouped:     y[m, n] = sum_k scale[n, k / g] * bf16(x'[m, k]) * code[n, k]
+// with g = K / G columns a group.
 //
 // Replaces the Pallas kernels spatialvla_tpu/ops/quant.py:int8_matmul
-// (_q8_kernel / _q_dot_scaled, the int8 branch and the int4 per-channel
-// branch :221-238) and quant.py:int8_rmsnorm_matmul (_q8_norm_kernel), at
-// M <= 16. The int8 entry points are q8_matvec / q8_rmsnorm_matvec below;
-// q4_matvec.cu sends its per-channel, aligned calls of M <= 16 to
-// q4_channel_matvec (kInt4), and keeps its grouped and many-row kernels.
+// (_q8_kernel / _q_dot_scaled: the int8 branch, the int4 per-channel branch
+// :221-238 and grouped_int4_dot :163) and quant.py:int8_rmsnorm_matmul
+// (_q8_norm_kernel), at M <= 16. The int8 entry points are q8_matvec /
+// q8_rmsnorm_matvec below; q4_matvec.cu sends its aligned calls of M <= 16,
+// per channel or in groups of a multiple of 16 columns, to q4_rows_matvec
+// (kInt4, kGrouped), and keeps its many-row kernel and one for groups of
+// other widths.
 //
 // Weight formats (one 16-byte load, a "unit", of an output channel's row):
 //  * int8, qt (N, K): unit u holds the codes of columns 16u..16u+15;
@@ -20,6 +25,25 @@
 // 0x4B0000xx is 2^23 + xx, with xx = code + 128 (int8 XOR 0x80) or code + 8
 // (a nibble masked out of the word). So the int4 sums are of x * (c - 8)
 // directly, with no second sum of x for the +8 bias.
+//
+// Grouped int4 (the grouped instance): with g a multiple of 16, the 16 low
+// columns of unit u lie in group j(u) = 16u / g and its 16 high columns in
+// group G/2 + j(u) (K/2 is G/2 whole groups), so each half of each unit has
+// one scale:
+//   y[m, n] = sum_u ( s[n, j(u)] * sum_low x'(c - 8) + s[n, G/2 + j(u)] * sum_high x'(c - 8) )
+// in fp32, and no per-channel multiply at the end. j uses the absolute unit
+// (chunks start at c0), as a shift where g / 16 is a power of two. Below
+// kScaleCodesFromRows rows a lane keeps each half's sums apart and adds
+// them scaled (2 MR x 4 FMAs a unit on top of 32 MR x 4, MR x 4 more
+// registers), with the unit's 8 scales loaded one unit ahead with its
+// weights; from there on each code is scaled after the permute (32 x 4
+// FMULs a unit, no more sums), a half's 4 scales loaded as the half starts
+// (the FMAs of other warps cover the wait). From 8 rows on a grouped block
+// has an SM to itself and up to 255 registers: in 128 (two blocks an SM)
+// the 16-row instance spilled 556 B and ran 15-20% slower at 8 and 16 rows.
+// 8 lanes share a 128-column group, so the scales are cached loads; a
+// channel's scale row comes from the warp's first channel, clamped to N - 1
+// like its weight row.
 //
 // What bounds it on the H100: weight bytes at one row (int8 gate|up streams
 // 42.5 MB a call, int4 21.2 MB), and at 16 rows the fp32 FMAs on the CUDA
@@ -54,8 +78,9 @@
 //    are added in warp order. Lanes reduce with a butterfly that halves the
 //    values each step (62 shuffles for 64 sums, not 320).
 //  * The same summation order on every launch (no atomics): two launches
-//    give identical bits. The per-channel scale multiplies the fp32 sum,
-//    which is rounded once to the output type.
+//    give identical bits. The per-channel scale multiplies the fp32 sum
+//    (the grouped scales were applied per half unit), which is rounded once
+//    to the output type.
 // Tensor cores (mma.sync / wgmma at M >= 8) are left for later work.
 #include "common.cuh"
 
@@ -66,6 +91,8 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kC = 4;              // output channels per warp
 constexpr int kXBytesMax = 110592;  // staged bf16 x per block (108 KB: two blocks an SM)
 constexpr int kSmemPerSM = 233472;  // 228 KB of shared memory on an H100 SM
+// grouped int4: rows from which the codes are scaled, not the half-unit sums
+constexpr int kScaleCodesFromRows = 8;
 
 // one weight unit (16 bytes), streamed once: no L1 allocation
 __device__ __forceinline__ int4 ld_stream(const int4* p) {
@@ -123,29 +150,57 @@ __device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<const unsigned*>(&p);
 }
 
-// acc[m][c] += sum over the columns of weight unit u of x[m] * w[c]: staged
-// x unit u, and for int4 also the one at u + hi (the high nibbles' columns)
-template <int MR, bool kInt4>
-__device__ __forceinline__ void fma_unit(float (&acc)[MR][kC], const int4 (&w)[kC],
-                                         const uint2* xs, int stride, int u, int hi) {
+// acc[m][c] += sum over the columns of half h of weight unit u of x[m] *
+// w[c] (int8: h = 0, the whole unit; int4: 0 the low nibbles, 1 the high
+// ones), with staged x unit xu. Grouped int4: s[c] scales channel c's half,
+// applied to the half's sums (kScale 1) or to its codes (kScale 2); kScale
+// 0 per channel
+template <int MR, bool kInt4, int kScale>
+__device__ __forceinline__ void fma_half(float (&acc)[MR][kC], const int4 (&w)[kC],
+                                         const float (&s)[kC], const uint2* xs, int stride,
+                                         int xu, int h) {
+  float part[MR][kC];  // kScale 1: this half's sums
+  if constexpr (kScale == 1) {
 #pragma unroll
-  for (int h = 0; h < (kInt4 ? 2 : 1); ++h) {
+    for (int m = 0; m < MR; ++m) {
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      float wf[kC][4];
+      for (int c = 0; c < kC; ++c) part[m][c] = 0.f;
+    }
+  }
 #pragma unroll
-      for (int c = 0; c < kC; ++c) codes4<kInt4>(word(w[c], q), h, wf[c]);
+  for (int q = 0; q < 4; ++q) {
+    float wf[kC][4];
 #pragma unroll
-      for (int m = 0; m < MR; ++m) {
-        const uint2 xv = xs[(m * 4 + q) * stride + u + h * hi];
-        const float xf[4] = {__uint_as_float(xv.x << 16), __uint_as_float(xv.x & 0xffff0000u),
-                             __uint_as_float(xv.y << 16), __uint_as_float(xv.y & 0xffff0000u)};
+    for (int c = 0; c < kC; ++c) {
+      codes4<kInt4>(word(w[c], q), h, wf[c]);
+      if constexpr (kScale == 2) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < 4; ++j) wf[c][j] *= s[c];
+      }
+    }
 #pragma unroll
-          for (int c = 0; c < kC; ++c) acc[m][c] = fmaf(xf[j], wf[c][j], acc[m][c]);
+    for (int m = 0; m < MR; ++m) {
+      const uint2 xv = xs[(m * 4 + q) * stride + xu];
+      const float xf[4] = {__uint_as_float(xv.x << 16), __uint_as_float(xv.x & 0xffff0000u),
+                           __uint_as_float(xv.y << 16), __uint_as_float(xv.y & 0xffff0000u)};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int c = 0; c < kC; ++c) {
+          if constexpr (kScale == 1) {
+            part[m][c] = fmaf(xf[j], wf[c][j], part[m][c]);
+          } else {
+            acc[m][c] = fmaf(xf[j], wf[c][j], acc[m][c]);
+          }
         }
       }
+    }
+  }
+  if constexpr (kScale == 1) {
+#pragma unroll
+    for (int m = 0; m < MR; ++m) {
+#pragma unroll
+      for (int c = 0; c < kC; ++c) acc[m][c] = fmaf(s[c], part[m][c], acc[m][c]);
     }
   }
 }
@@ -174,12 +229,13 @@ __device__ __forceinline__ int reduce_scatter(float (&v)[V], int lane) {
   }
 }
 
-// kInt4: packed int4 weights (N, K/2); otherwise int8 (N, K)
-template <int MR, bool kNorm, bool kInt4>
-__global__ void __launch_bounds__(kThreads, 2)
+// kInt4: packed int4 weights (N, K/2); otherwise int8 (N, K). kGrouped
+// (int4 only): scale (N, G), groups of a multiple of 16 columns; otherwise (N,)
+template <int MR, bool kNorm, bool kInt4, bool kGrouped>
+__global__ void __launch_bounds__(kThreads, kGrouped && MR >= 8 ? 1 : 2)
 qmatvec_kernel(const void* __restrict__ x, int x_dtype,
                const void* __restrict__ norm_w, int norm_dtype, float eps,
-               const int8_t* __restrict__ qt, const float* __restrict__ scale,
+               const int8_t* __restrict__ qt, const float* __restrict__ scale, int G,
                void* __restrict__ out, int out_dtype, int M, int N, int K, int warps_k,
                int xs_units) {
   // [m][quarter][position] of 4 bf16; int4 keeps a chunk's high-nibble x
@@ -201,22 +257,44 @@ qmatvec_kernel(const void* __restrict__ x, int x_dtype,
   const int cu = U <= xs_units ? U : xs_units / step * step;
   const int xstride = H * cu;     // staged x units a (row, quarter)
   const int u0 = lane + 32 * wk;  // this lane's first unit of a chunk
+  // grouped: how the half units take their scales (fma_half), and the
+  // weight units a group, gu = g / 16, as a shift where a power of two
+  constexpr int kScale = !kGrouped ? 0 : MR < kScaleCodesFromRows ? 1 : 2;
+  const int gu = kGrouped ? K / G / 16 : 1;
+  const int gshift = (gu & (gu - 1)) ? -1 : __ffs(gu) - 1;
 
   const int4* wrow[kC];
+  int n0 = 0;  // the warp's first channel of the tile (grouped: its scales)
   const auto rows_of = [&](int tile) {
+    n0 = (tile * warps_n + wn) * kC;
 #pragma unroll
     for (int c = 0; c < kC; ++c) {
-      const int n = min((tile * warps_n + wn) * kC + c, N - 1);
+      const int n = min(n0 + c, N - 1);
       wrow[c] = reinterpret_cast<const int4*>(qt + static_cast<long>(n) * (K / H));
     }
   };
-  // the weights of this lane's first unit of a tile, loaded ahead of it
+  // grouped: channel c's scales of half h of absolute weight unit ua (zero
+  // where !ok), group ua / gu of the low columns and G/2 + ua / gu of the
+  // high; a channel past N reads row N - 1, as its weights do
+  const auto scales_of = [&](int ua, int h, bool ok, float (&s)[kC]) {
+    const int j = h * (G / 2) + (gshift >= 0 ? ua >> gshift : ua / gu);
+#pragma unroll
+    for (int c = 0; c < kC; ++c) s[c] = ok ? __ldg(scale + min(n0 + c, N - 1) * G + j) : 0.f;
+  };
+  const auto unit_scales = [&](int ua, bool ok, float (&s)[2][kC]) {  // both halves
+    scales_of(ua, 0, ok, s[0]);
+    scales_of(ua, 1, ok, s[1]);
+  };
+  // the weights (and, kScale 1, the scales) of this lane's first unit of a
+  // tile, loaded ahead of it
   int4 pre[kC];
+  float psc[2][kC];
   const auto prefetch = [&]() {
 #pragma unroll
     for (int c = 0; c < kC; ++c) {
       pre[c] = u0 < cu ? ld_stream(wrow[c] + u0) : make_int4(0, 0, 0, 0);
     }
+    if (kScale == 1) unit_scales(u0, u0 < cu, psc);
   };
   int tile = blockIdx.x;  // the grid holds at most `tiles` blocks
   rows_of(tile);
@@ -321,18 +399,29 @@ qmatvec_kernel(const void* __restrict__ x, int x_dtype,
 
   float acc[MR][kC];
   // this lane's units of the chunk from unit c0; `w` holds the first one's
-  // weights, and each unit's loads are issued before the one before is used
-  const auto stream_units = [&](int c0, int cn, int4 (&w)[kC]) {
+  // weights (and `s`, kScale 1, its scales), and each unit's loads are
+  // issued before the one before is used. kScale 2 loads a half's scales
+  // as the half starts, into s[0]
+  const auto stream_units = [&](int c0, int cn, int4 (&w)[kC], float (&s)[2][kC]) {
     for (int u = u0; u < cn; u += step) {
       int4 next[kC];
+      float nsc[2][kC];
       const bool more = u + step < cn;
 #pragma unroll
       for (int c = 0; c < kC; ++c) {
         next[c] = more ? ld_stream(wrow[c] + c0 + u + step) : make_int4(0, 0, 0, 0);
       }
-      fma_unit<MR, kInt4>(acc, w, xs, xstride, u, cu);
+      if (kScale == 1) unit_scales(c0 + u + step, more, nsc);
 #pragma unroll
-      for (int c = 0; c < kC; ++c) w[c] = next[c];
+      for (int h = 0; h < H; ++h) {
+        if (kScale == 2) scales_of(c0 + u, h, true, s[0]);
+        fma_half<MR, kInt4, kScale>(acc, w, s[kScale == 1 ? h : 0], xs, xstride, u + h * cu, h);
+      }
+#pragma unroll
+      for (int c = 0; c < kC; ++c) {
+        w[c] = next[c];
+        if (kScale == 1) s[0][c] = nsc[0][c], s[1][c] = nsc[1][c];
+      }
     }
   };
 
@@ -343,16 +432,17 @@ qmatvec_kernel(const void* __restrict__ x, int x_dtype,
       for (int c = 0; c < kC; ++c) acc[m][c] = 0.f;
     }
     if (cu < U) stage(0, cu);
-    stream_units(0, cu, pre);
+    stream_units(0, cu, pre, psc);
     for (int c0 = cu; c0 < U; c0 += cu) {
       const int cn = min(cu, U - c0);
 #pragma unroll
       for (int c = 0; c < kC; ++c) {
         pre[c] = u0 < cn ? ld_stream(wrow[c] + c0 + u0) : make_int4(0, 0, 0, 0);
       }
+      if (kScale == 1) unit_scales(c0 + u0, u0 < cn, psc);
       __syncthreads();  // every warp is done with the previous chunk
       stage(c0, cn);
-      stream_units(c0, cn, pre);
+      stream_units(c0, cn, pre, psc);
     }
     if (tile + gridDim.x < tiles) {  // the next tile's first weights, in flight meanwhile
       rows_of(tile + gridDim.x);
@@ -370,14 +460,15 @@ qmatvec_kernel(const void* __restrict__ x, int x_dtype,
 #pragma unroll
     for (int i = 0; i < kHeld; ++i) red[warp][base + i] = sums[i];
     __syncthreads();
-    // the K-split warps' partials, added in warp order; scaled; rounded once
+    // the K-split warps' partials, added in warp order; scaled per channel
+    // (grouped: already scaled); rounded once
     for (int t = threadIdx.x; t < warps_n * MR * kC; t += kThreads) {
       const int g = t / (MR * kC), i = t - g * MR * kC, m = i / kC, c = i - m * kC;
       const int n = (tile * warps_n + g) * kC + c;
       if (m < M && n < N) {
         float s = 0.f;
         for (int w = 0; w < warps_k; ++w) s += red[g * warps_k + w][i];
-        store_any(out, out_dtype, static_cast<long>(m) * N + n, s * scale[n]);
+        store_any(out, out_dtype, static_cast<long>(m) * N + n, kGrouped ? s : s * scale[n]);
       }
     }
     __syncthreads();  // red and xs are free for the next tile
@@ -396,11 +487,11 @@ int sm_count() {
   return cached[dev];
 }
 
-template <int MR, bool kNorm, bool kInt4>
+template <int MR, bool kNorm, bool kInt4, bool kGrouped>
 int launch_rows(const void* x, int x_dtype, const void* norm_w, int norm_dtype, float eps,
-                const int8_t* qt, const float* scale, void* out, int out_dtype, int M, int N,
-                int K, cudaStream_t stream) {
-  const auto kernel = qmatvec_kernel<MR, kNorm, kInt4>;
+                const int8_t* qt, const float* scale, int G, void* out, int out_dtype, int M,
+                int N, int K, cudaStream_t stream) {
+  const auto kernel = qmatvec_kernel<MR, kNorm, kInt4, kGrouped>;
   static cudaFuncAttributes attr;
   static bool have_attr = false, opted_in = false;
   if (!have_attr) {
@@ -445,19 +536,23 @@ int launch_rows(const void* x, int x_dtype, const void* norm_w, int norm_dtype, 
   }
   const int tiles = (N + kC * (kWarps / warps_k) - 1) / (kC * (kWarps / warps_k));
   kernel<<<min(tiles, slots), kThreads, xs_bytes, stream>>>(
-      x, x_dtype, norm_w, norm_dtype, eps, qt, scale, out, out_dtype, M, N, K, warps_k, xs_units);
+      x, x_dtype, norm_w, norm_dtype, eps, qt, scale, G, out, out_dtype, M, N, K, warps_k,
+      xs_units);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kNorm, bool kInt4>
+template <bool kNorm, bool kInt4, bool kGrouped>
 int launch(const void* x, int x_dtype, const void* norm_w, int norm_dtype, float eps,
-           const int8_t* qt, const float* scale, void* out, int out_dtype,
+           const int8_t* qt, const float* scale, int G, void* out, int out_dtype,
            int M, int N, int K, cudaStream_t s) {
   const int unit = kInt4 ? 32 : 16;  // columns of a weight unit
   if (M < 1 || M > 16 || N < 1 || K < unit || K % unit != 0) return cudaErrorInvalidValue;
-#define QMV_ROWS(MR)                                                                         \
-  return launch_rows<MR, kNorm, kInt4>(x, x_dtype, norm_w, norm_dtype, eps, qt, scale, out, \
-                                       out_dtype, M, N, K, s)
+  // grouped: G groups, both halves of K whole groups of a multiple of 16 columns
+  if (kGrouped && (G < 2 || G % 2 != 0 || K % G != 0 || (K / G) % 16 != 0))
+    return cudaErrorInvalidValue;
+#define QMV_ROWS(MR)                                                                     \
+  return launch_rows<MR, kNorm, kInt4, kGrouped>(x, x_dtype, norm_w, norm_dtype, eps, qt, \
+                                                 scale, G, out, out_dtype, M, N, K, s)
   if (M == 1) QMV_ROWS(1);
   if (M == 2) QMV_ROWS(2);
   if (M <= 4) QMV_ROWS(4);
@@ -468,28 +563,35 @@ int launch(const void* x, int x_dtype, const void* norm_w, int norm_dtype, float
 
 }  // namespace
 
-// The packed-int4, per-channel instances, for q4_matvec.cu: x (M <= 16, K),
-// qt (N, K/2) with K a multiple of 32, x and qt 16-byte aligned; norm_w
-// null for no RMSNorm. Returns cudaGetLastError().
-int q4_channel_matvec(const void* x, int x_dtype, const void* norm_w, int norm_dtype, float eps,
-                      const uint8_t* qt, const float* scale, void* out, int out_dtype, int M,
-                      int N, int K, cudaStream_t stream) {
+// The packed-int4 instances, for q4_matvec.cu: x (M <= 16, K), qt (N, K/2)
+// with K a multiple of 32, x and qt 16-byte aligned; scale (N,) with G = 0,
+// or (N, G) in groups of a multiple of 16 columns; norm_w null for no
+// RMSNorm. Returns cudaGetLastError().
+int q4_rows_matvec(const void* x, int x_dtype, const void* norm_w, int norm_dtype, float eps,
+                   const uint8_t* qt, const float* scale, int G, void* out, int out_dtype, int M,
+                   int N, int K, cudaStream_t stream) {
   const int8_t* q = reinterpret_cast<const int8_t*>(qt);
-  return norm_w ? launch<true, true>(x, x_dtype, norm_w, norm_dtype, eps, q, scale, out,
-                                     out_dtype, M, N, K, stream)
-                : launch<false, true>(x, x_dtype, nullptr, DT_F32, 0.f, q, scale, out, out_dtype,
-                                      M, N, K, stream);
+  if (G != 0) {
+    return norm_w ? launch<true, true, true>(x, x_dtype, norm_w, norm_dtype, eps, q, scale, G,
+                                             out, out_dtype, M, N, K, stream)
+                  : launch<false, true, true>(x, x_dtype, nullptr, DT_F32, 0.f, q, scale, G, out,
+                                              out_dtype, M, N, K, stream);
+  }
+  return norm_w ? launch<true, true, false>(x, x_dtype, norm_w, norm_dtype, eps, q, scale, 0, out,
+                                            out_dtype, M, N, K, stream)
+                : launch<false, true, false>(x, x_dtype, nullptr, DT_F32, 0.f, q, scale, 0, out,
+                                             out_dtype, M, N, K, stream);
 }
 
 extern "C" int q8_matvec(const void* x, int x_dtype, const int8_t* qt, const float* scale,
                          void* out, int out_dtype, int M, int N, int K, void* stream) {
-  return launch<false, false>(x, x_dtype, nullptr, DT_F32, 0.f, qt, scale, out, out_dtype, M, N,
-                              K, static_cast<cudaStream_t>(stream));
+  return launch<false, false, false>(x, x_dtype, nullptr, DT_F32, 0.f, qt, scale, 0, out,
+                                     out_dtype, M, N, K, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int q8_rmsnorm_matvec(const void* x, int x_dtype, const void* norm_w, int norm_dtype,
                                  float eps, const int8_t* qt, const float* scale, void* out,
                                  int out_dtype, int M, int N, int K, void* stream) {
-  return launch<true, false>(x, x_dtype, norm_w, norm_dtype, eps, qt, scale, out, out_dtype, M, N,
-                             K, static_cast<cudaStream_t>(stream));
+  return launch<true, false, false>(x, x_dtype, norm_w, norm_dtype, eps, qt, scale, 0, out,
+                                    out_dtype, M, N, K, static_cast<cudaStream_t>(stream));
 }

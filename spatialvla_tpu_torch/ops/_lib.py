@@ -44,6 +44,8 @@ _SIGNATURES = {
     "q4_matvec": (_P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _P),
     # x, x_dtype, norm_w, norm_dtype, eps, qt, scale, G, out, out_dtype, M, N, K, stream
     "q4_rmsnorm_matvec": (_P, _I, _P, _I, _F, _P, _P, _I, _P, _I, _I, _I, _I, _P),
+    # x, qt, M, K, G: which kernel the two above launch (no stream, no launch)
+    "q4_route": (_P, _P, _I, _I, _I),
     # qkv, cos, sin, ck, cv, position, attn, k_new, v_new, part, tickets, M, Nq, Nkv, D, S,
     # chunk, q_scale, cap, stream
     "decode_attention": (_P,) * 11 + (_I,) * 6 + (_F, _F, _P),

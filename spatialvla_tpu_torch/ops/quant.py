@@ -21,8 +21,10 @@ Kernels:
     ``int8_rmsnorm_matmul`` (quant.py:336);
   * ``q4_matvec`` / ``q4_rmsnorm_matvec`` (``csrc/q4_matvec.cu``) replace
     their int4 branches, per channel and grouped (``_q_dot_scaled``
-    quant.py:205-243, ``grouped_int4_dot`` :163); per channel at M <= 16
-    they launch the int4 instance of ``csrc/q8_matvec.cu``'s kernel.
+    quant.py:205-243, ``grouped_int4_dot`` :163); at M <= 16, per channel or
+    in groups of a multiple of 16 columns, they launch the int4 instances of
+    ``csrc/q8_matvec.cu``'s kernel (``q4_route`` says which kernel a call
+    takes).
 Each wrapper runs its plain PyTorch version (``*_plain``) only for CPU
 tensors, launches the kernel for CUDA tensors, and counts its launches in
 ``<wrapper>.launches``.
@@ -332,6 +334,21 @@ def q4_rmsnorm_matvec(x, norm_w, qt, scale, *, eps=1e-6, out_dtype=torch.bfloat1
 
 
 q4_rmsnorm_matvec.launches = 0
+
+Q4_ROUTES = ("rows", "small", "tiled")
+
+
+def q4_route(x, qt, scale) -> str:
+    """The kernel that ``q4_matvec`` / ``q4_rmsnorm_matvec`` launch for
+    these CUDA operands, as ``csrc/q4_matvec.cu:route_of`` decides: "rows"
+    (the few-row kernel of ``csrc/q8_matvec.cu``: M <= 16, x and qt 16-byte
+    aligned, per channel or in groups of a multiple of 16 columns), "small"
+    (``q4_small_kernel``: the other aligned grouped calls of M <= 16) or
+    "tiled". Launches nothing."""
+    _lib.check_cuda("q4_route", x, qt, scale)
+    G = scale.shape[-1] if scale.dim() == 2 else 0
+    return Q4_ROUTES[_lib.library().q4_route(x.data_ptr(), qt.data_ptr(), x.shape[0],
+                                             x.shape[1], G)]
 
 
 # ---------------------------------------------------------------------------

@@ -8,8 +8,9 @@ the repository's conftest (which imports jax) is skipped:
 
 Without a GPU every test skips. Tolerance: max|kernel - plain| / max|plain|
 below 1e-2 for each kernel (the kernels round where the plain versions do;
-what differs is the fp32 summation order), below 0.02 for a whole decode
-step (the JAX package's bound for the fused step at batch 1).
+what differs is the fp32 summation order), below 5e-3 for the grouped int4
+matvecs with fp32 outputs, below 0.02 for a whole decode step (the JAX
+package's bound for the fused step at batch 1).
 """
 import dataclasses
 
@@ -114,11 +115,12 @@ def test_q4_channel_kernels_are_deterministic(M, K, N):
                          (quant.q4_matvec, quant.q4_rmsnorm_matvec), 7)
 
 
-def _first_launch_in_graph(quantize, kernel, K):
+def _first_launch_in_graph(quantize, kernel, K, options="", out="bfloat16", tol=1e-2):
     """A process whose first launch of `kernel` (an RMSNorm matvec wrapper of
-    ops.quant, 16 rows) is captured into a CUDA graph: the kernel stages x in
-    chunks of at most 48 KB there (the larger shared-memory opt-in is never
-    made during a capture) and agrees with the plain version on replay."""
+    ops.quant, 16 rows; `options` for the quantize call, `out` the output
+    type) is captured into a CUDA graph: the kernel stages x in chunks of at
+    most 48 KB there (the larger shared-memory opt-in is never made during a
+    capture) and agrees with the plain version on replay."""
     import os
     import subprocess
     import sys
@@ -132,16 +134,16 @@ def _first_launch_in_graph(quantize, kernel, K):
         g = torch.Generator(device="cuda").manual_seed(0)
         x = torch.randn(16, {K}, generator=g, device="cuda")
         nw = (torch.randn({K}, generator=g, device="cuda") * 0.1).to(torch.bfloat16)
-        w = quant.{quantize}(torch.randn({K}, 2304, generator=g, device="cuda") * 0.02)
-        out = torch.empty(16, 2304, dtype=torch.bfloat16, device="cuda")
+        w = quant.{quantize}(torch.randn({K}, 2304, generator=g, device="cuda") * 0.02{options})
+        out = torch.empty(16, 2304, dtype=torch.{out}, device="cuda")
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             quant.{kernel}(x, nw, w["qt"], w["scale"], out=out)
         graph.replay()
-        ref = quant.{kernel}_plain(x, nw, w["qt"], w["scale"])
+        ref = quant.{kernel}_plain(x, nw, w["qt"], w["scale"], out_dtype=torch.{out})
         rel = ((out.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
         print(rel)
-        assert rel < 1e-2, rel
+        assert rel < {tol}, rel
     """)
     proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True,
                           timeout=600)
@@ -157,6 +159,14 @@ def test_q4_first_launch_inside_a_cuda_graph():
     the opt-in is made; inside the capture both x ranges go in 48 KB chunks
     (32, 32 and 8 packed units)."""
     _first_launch_in_graph("quantize_int4", "q4_rmsnorm_matvec", 2304)
+
+
+def test_q4_grouped_first_launch_inside_a_cuda_graph():
+    """int4 in 128-column groups at K = 2304, the grouped instance: inside
+    the capture x is staged in chunks, and each chunk's scales are those of
+    its absolute units."""
+    _first_launch_in_graph("quantize_int4", "q4_rmsnorm_matvec", 2304, ", group_size=128",
+                           out="float32", tol=5e-3)
 
 
 # (K, N): the head, the down projection, SigLIP's fc2 (K/2 = 2152 bytes, not a
@@ -206,6 +216,76 @@ def test_q4_channel_rows(M, K, N, x_dtype):
         assert kern.launches == before + 1
         assert got.dtype == x_dtype and got.shape == (M, N)
         assert _rel(got, plain(*args, out_dtype=x_dtype)) < 1e-2
+
+
+def _check_q4_both(M, K, N, group_size, x_dtype, seed, route="rows", tol=5e-3):
+    """q4_matvec and q4_rmsnorm_matvec on one grouped weight, x of `x_dtype`
+    (the norm weight of the other type): one launch each, through `route`,
+    within `tol` of the plain versions (max-rel). The outputs are fp32, so
+    what differs is the summation order alone (a bf16 output may round one
+    value a unit apart: up to 2^-7 of max|plain|)."""
+    g = _gen(seed)
+    x = _randn(g, M, K, dtype=x_dtype)
+    nw = _randn(g, K, dtype=torch.float32 if x_dtype == torch.bfloat16 else torch.bfloat16, std=0.1)
+    w = _q4_weight(g, K, N, group_size)
+    assert w["scale"].shape == (N, K // group_size)
+    assert quant.q4_route(x, w["qt"], w["scale"]) == route
+    for kern, plain, args in (
+            (quant.q4_matvec, quant.q4_matvec_plain, (x, w["qt"], w["scale"])),
+            (quant.q4_rmsnorm_matvec, quant.q4_rmsnorm_matvec_plain, (x, nw, w["qt"], w["scale"]))):
+        before = kern.launches
+        got = kern(*args, out_dtype=torch.float32)
+        assert kern.launches == before + 1
+        assert got.dtype == torch.float32 and got.shape == (M, N)
+        assert _rel(got, plain(*args, out_dtype=torch.float32)) < tol
+
+
+# grouped at M <= 16, the grouped instance of csrc/q8_matvec.cu's kernel:
+# every rows instance (1, 2, 4, 8, 16) and an edge (3); groups of 16, 32 and
+# 128 columns (1, 2 and 8 units a group); K = 2048 (o, 16 groups of 128);
+# N of the head, a tiny one and one that no tile of channels divides; bf16
+# x (copied into shared memory) and fp32 x
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 8, 16])
+@pytest.mark.parametrize("group_size", [16, 32, 128])
+@pytest.mark.parametrize("K,N,x_dtype", [(2304, 8194, torch.bfloat16), (2304, 40, torch.float32),
+                                         (2048, 4100, torch.bfloat16), (2048, 4100, torch.float32)])
+def test_q4_grouped_rows(M, group_size, K, N, x_dtype):
+    _check_q4_both(M, K, N, group_size, x_dtype, 15)
+
+
+# K = 9216 (down), whose two x ranges are staged in chunks at 8 and 16
+# rows, so a unit's group comes from its absolute index; 48-column groups
+# (3 units a group: a division, not a shift), also at K = 2304 and one row
+@pytest.mark.parametrize("M,K", [(8, 9216), (16, 9216), (1, 2304), (16, 2304)])
+@pytest.mark.parametrize("group_size", [16, 48, 128])
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+def test_q4_grouped_chunked_k(M, K, group_size, x_dtype):
+    _check_q4_both(M, K, 2304 if M == 16 else 100, group_size, x_dtype, 16)
+
+
+# the other routes: groups of 8 and 24 columns (not a multiple of 16) take
+# q4_small_kernel at M <= 16; a misaligned x takes the tiled kernel
+@pytest.mark.parametrize("M", [1, 16])
+@pytest.mark.parametrize("K,N,group_size", [(2304, 4096, 8), (2304, 4096, 24), (96, 40, 24)])
+def test_q4_other_group_widths_take_the_small_kernel(M, K, N, group_size):
+    _check_q4_both(M, K, N, group_size, torch.float32, 17, route="small")
+
+
+@pytest.mark.parametrize("group_size", [None, 128])
+def test_q4_misaligned_x_takes_the_tiled_kernel(group_size):
+    g = _gen(18)
+    K, N = 2304, 4096
+    x = _randn(g, 4 * K + 1)[1:].view(4, K)  # contiguous, 2 bytes past 16-byte alignment
+    w = _q4_weight(g, K, N, group_size)
+    assert quant.q4_route(x, w["qt"], w["scale"]) == "tiled"
+    got = quant.q4_matvec(x, w["qt"], w["scale"], out_dtype=torch.float32)
+    assert _rel(got, quant.q4_matvec_plain(x, w["qt"], w["scale"], out_dtype=torch.float32)) < 5e-3
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 2304, 18432), (16, 9216, 2304), (5, 2048, 4100)])
+def test_q4_grouped_kernels_are_deterministic(M, K, N):
+    _check_deterministic(M, K, N, lambda w: quant.quantize_int4(w, group_size=128),
+                         (quant.q4_matvec, quant.q4_rmsnorm_matvec), 8)
 
 
 @pytest.mark.parametrize("M", [1, 16, 277])

@@ -6,6 +6,8 @@ run in interpret mode (fp32 out, atol 1e-4 * max|ref|), and the
 dequantize-matmul branch of qmatmul against JAX's XLA branch. The kernels
 themselves are held to these plain versions on an NVIDIA GPU by
 test_torch_cuda_kernels.py."""
+import functools
+
 import numpy as np
 import pytest
 
@@ -271,4 +273,50 @@ def test_q4_signed_code_sums_match_pallas(M, x_dtype):
                                     interpret=True))
     codes = torch.from_numpy(_signed_int4_codes(tw["qt"].numpy()))
     got = ((tx.to(torch.bfloat16).float() @ codes.t()) * tw["scale"]).numpy()
+    np.testing.assert_allclose(got, ref, atol=1e-4 * np.abs(ref).max(), rtol=0)
+
+
+def _grouped_half_unit_sums(xb, qt, scale, order):
+    """The grouped instance of the few-row kernel (``csrc/q8_matvec.cu``,
+    kGrouped) in numpy: signed codes c - 8 from the byte permute, one scale
+    per 16-column half of a packed weight unit (s[n, 16 b // g] for columns
+    16 b .. 16 b + 15), fp32 throughout. "partial": each half's sum of
+    x * (c - 8) times its scale, then the halves added (fewer than
+    kScaleCodesFromRows rows); "scaled_codes": each code times its half's
+    scale, then one sum (from kScaleCodesFromRows rows on). xb (M, K) holds
+    the bf16 values the kernel stages; -> (M, N) fp32."""
+    codes = _signed_int4_codes(qt)  # (N, K)
+    N, K = codes.shape
+    g = K // scale.shape[1]
+    s_half = np.repeat(scale.astype(np.float32), g // 16, axis=1)  # (N, K / 16)
+    xh = xb.astype(np.float32).reshape(xb.shape[0], K // 16, 16)
+    ch = codes.reshape(N, K // 16, 16)
+    if order == "partial":
+        part = np.einsum("mbk,nbk->mnb", xh, ch)
+        return (part * s_half[None]).sum(-1, dtype=np.float32)
+    return np.einsum("mbk,nbk->mn", xh, ch * s_half[:, :, None])
+
+
+@pytest.mark.parametrize("M", [1, 16])
+@pytest.mark.parametrize("group_size", [16, 128])
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("order", ["partial", "scaled_codes"])
+def test_q4_grouped_half_unit_sums_match_pallas(M, group_size, x_dtype, order):
+    """The grouped instance's function, one scale per half unit on signed
+    codes (in another fp32 order than the TPU kernel's biased partial dots
+    per group minus 8 (x sums @ s)), against int8_matmul and
+    int8_rmsnorm_matmul in interpret mode, with either way of applying the
+    scales."""
+    quantize = functools.partial(jq.quantize_int4, group_size=group_size)
+    jx, tx, w, tw, norm_w = _operands(M, 1024, 128, x_dtype, seed=9, quantize=quantize)
+    assert w["scale"].shape == (128, 1024 // group_size)
+    qt, scale = tw["qt"].numpy(), tw["scale"].numpy()
+    ref = np.asarray(jq.int8_matmul(jx, w["qt"], w["scale"], out_dtype=jnp.float32,
+                                    interpret=True))
+    got = _grouped_half_unit_sums(tx.to(torch.bfloat16).float().numpy(), qt, scale, order)
+    np.testing.assert_allclose(got, ref, atol=1e-4 * np.abs(ref).max(), rtol=0)
+    ref = np.asarray(jq.int8_rmsnorm_matmul(jx, jnp.asarray(norm_w), w["qt"], w["scale"],
+                                            out_dtype=jnp.float32, interpret=True))
+    xn = tq._rms_bf16(tx, torch.from_numpy(norm_w), 1e-6).numpy()
+    got = _grouped_half_unit_sums(xn, qt, scale, order)
     np.testing.assert_allclose(got, ref, atol=1e-4 * np.abs(ref).max(), rtol=0)
