@@ -10,9 +10,12 @@
    over 989 TFLOP/s) and one PyTorch call computing the same function where
    there is one (torch._weight_int8pack_mm, torch._weight_int4pack_mm; for
    the RMSNorm variants their matmul alone, in the log): the int8 and int4
-   matvecs (per channel and in 128-column groups, 1, 16 and 277 rows; 16-
-   and 24-column groups checked untimed; each int4 call's kernel printed and
-   held to its route, and its fp32 output to plain within 5e-3), the bf16- and
+   matvecs (per channel and in 128-column groups, 1 and 16 rows; int4 also
+   the prefill's projections at 277 rows, SigLIP's and the projector's at
+   256, qkv at 512 and 17, beside the FMA tiles that took those rows before
+   the tensor-core kernel; 16- and 24-column groups checked untimed; each
+   int4 call's kernel printed and held to its route, its fp32 output to
+   plain within 5e-3 and its bf16 output within 2e-2), the bf16- and
    int8-cache decode attention (also on a 4096-slot cache), norm_residual,
    gelu_mul, a 2-layer decode step, the flash kernels.
 3. The decode-step matrix of bench.py:111-160 at full width (26 layers,
@@ -34,9 +37,12 @@
    kv_bits=8) (plus a 16-row predict_batch) and quantize(bits=4,
    group_size=128, vision_bits=4): a warm-up and five timed requests each,
    the launches of one request (the int4 kernels in the prefill and every
-   decode step, the int8-cache attention 26 x 11 times), and two requests'
-   ids under the margin rule against the unfused path and the served path
-   with the q4 wrappers' plain versions, or the bf16 cache.
+   decode step, the int8-cache attention 26 x 11 times, and how many int4
+   calls took the tensor-core kernel: none fails), the device time of the
+   vision front and the prefill (CUDA events) with the tensor-core kernel
+   and with the FMA tiles in its place, and two requests' ids under the
+   margin rule against the unfused path and the served path with the q4
+   wrappers' plain versions, or the bf16 cache.
 6. Drives the training path: full-parameter training of full-width
    spatialvla_4b() (fp32 masters, bf16 compute, remat, flash attention,
    256-token loss chunks, AdamW with clipping, batch 2 x 320 built by the
@@ -230,6 +236,23 @@ def library_int4pack(torch, timer, x, qt, scale):
     return timer(lambda: torch._weight_int4pack_mm(x16, wp, gsize, sz)), note
 
 
+def q4_tiled_fma(torch, x, norm_w, qt, scale, *, out_dtype=None, eps=1e-6):
+    """The fp32 FMA tiles of csrc/q4_matvec.cu (q4_tiled_fma: what the q4
+    wrappers launched above 16 rows before the tensor-core kernel) on these
+    CUDA operands; norm_w None for no RMSNorm. -> (M, N) in out_dtype (bf16
+    by default). Counts no launch: a yardstick, not the main path."""
+    from spatialvla_tpu_torch.ops import _lib
+
+    out = torch.empty(x.shape[0], qt.shape[0], dtype=out_dtype or torch.bfloat16,
+                      device=x.device)
+    _lib.launch("q4_tiled_fma", x.data_ptr(), _lib.dtype_code(x),
+                0 if norm_w is None else norm_w.data_ptr(),
+                0 if norm_w is None else _lib.dtype_code(norm_w), float(eps), qt.data_ptr(),
+                scale.data_ptr(), scale.shape[1] if scale.dim() == 2 else 0, out.data_ptr(),
+                _lib.dtype_code(out), x.shape[0], qt.shape[0], 2 * qt.shape[1])
+    return out
+
+
 def rel_err(a, b):
     a, b = a.float(), b.float()
     d = (a - b).abs().max().item()
@@ -308,27 +331,38 @@ def kernel_phases(torch, timer, results, notes):
 
     # q4_matvec / q4_rmsnorm_matvec, per channel and in 128-column groups: the
     # action head (M = 1), the decode projections at M = 1 and 16 (qkv and
-    # gate|up with their norms, down and o without), the 277-row prefill
-    # (qkv); groups of other widths (any that quantize_int4 makes) checked
-    # untimed: 16 columns (one scale a half unit), 24 (crossing chunks and K
-    # steps; not for o, whose K = 2048 no 24-column group tiles). Each call
-    # must take its kernel (q4_route): the few-row kernel of q8_matvec.cu at
-    # M <= 16 per channel or in groups of a multiple of 16 columns,
-    # q4_small_kernel for other groups, the tiled kernel above 16 rows; its
-    # fp32 output within Q4_FP32_TOL of plain (the bf16 output may round a
-    # value a unit apart, up to 2^-7 of max|plain|: 2e-2)
-    q4_cases = (  # name, M, K, N
-        ("q4_matvec", 1, 2304, 8194), ("q4_rmsnorm_matvec", 1, 2304, 4096),
-        ("q4_rmsnorm_matvec", 1, 2304, 18432), ("q4_matvec", 1, 9216, 2304),
-        ("q4_matvec", 1, 2048, 2304), ("q4_rmsnorm_matvec", 16, 2304, 4096),
-        ("q4_rmsnorm_matvec", 16, 2304, 18432), ("q4_matvec", 16, 9216, 2304),
-        ("q4_matvec", 16, 2048, 2304), ("q4_rmsnorm_matvec", 277, 2304, 4096),
-        ("q4_matvec", 277, 2304, 4096),
+    # gate|up with their norms, down and o without); the int4 prefill's
+    # projections at 277 rows (qkv, gate|up, o, down, and qkv without its
+    # norm); SigLIP-so400m's and the projector's at 256 rows, per channel as
+    # quantize_vision_params makes them (q/k/v/o 1152->1152, fc1 1152->4304,
+    # fc2 4304->1152, projector 1152->2304); qkv at 512 and 17 rows. Groups of
+    # other widths (any that quantize_int4 makes) checked untimed: 16 columns
+    # (one scale a half unit), 24 (not a multiple of 16; not for o, whose K =
+    # 2048 no 24-column group tiles). Each call must take its kernel
+    # (q4_route): the few-row kernel of q8_matvec.cu at M <= 16 per channel or
+    # in groups of a multiple of 16 columns, q4_small_kernel for other groups;
+    # above 16 rows the tensor-core kernel, or the FMA tiles for groups of
+    # other widths. Its fp32 output within Q4_FP32_TOL of plain (the bf16
+    # output may round a value a unit apart, up to 2^-7 of max|plain|: 2e-2).
+    # Above 16 rows the FMA tiles (q4_tiled_fma), which took those calls
+    # before the tensor-core kernel, are timed beside it
+    LM, VISION = (None, 128, 16, 24), (None,)
+    q4_cases = (  # name, M, K, N, scale formats (group size, None per channel)
+        ("q4_matvec", 1, 2304, 8194, LM), ("q4_rmsnorm_matvec", 1, 2304, 4096, LM),
+        ("q4_rmsnorm_matvec", 1, 2304, 18432, LM), ("q4_matvec", 1, 9216, 2304, LM),
+        ("q4_matvec", 1, 2048, 2304, LM), ("q4_rmsnorm_matvec", 16, 2304, 4096, LM),
+        ("q4_rmsnorm_matvec", 16, 2304, 18432, LM), ("q4_matvec", 16, 9216, 2304, LM),
+        ("q4_matvec", 16, 2048, 2304, LM), ("q4_rmsnorm_matvec", 277, 2304, 4096, LM),
+        ("q4_rmsnorm_matvec", 277, 2304, 18432, LM), ("q4_matvec", 277, 2048, 2304, LM),
+        ("q4_matvec", 277, 9216, 2304, LM), ("q4_matvec", 277, 2304, 4096, LM),
+        ("q4_matvec", 256, 1152, 1152, VISION), ("q4_matvec", 256, 1152, 4304, VISION),
+        ("q4_matvec", 256, 4304, 1152, VISION), ("q4_matvec", 256, 1152, 2304, VISION),
+        ("q4_rmsnorm_matvec", 512, 2304, 4096, LM), ("q4_rmsnorm_matvec", 17, 2304, 4096, LM),
     )
-    for group_size in (None, 128, 16, 24):
+    for group_size in LM:
         tag = f"g{group_size}" if group_size else "pc"
-        for name, M, K, N in q4_cases:
-            if group_size and K % group_size:
+        for name, M, K, N, formats in q4_cases:
+            if group_size not in formats or (group_size and K % group_size):
                 continue
             norm = name == "q4_rmsnorm_matvec"
             x = randn(M, K, dtype=torch.float32 if norm else torch.bfloat16)
@@ -343,30 +377,37 @@ def kernel_phases(torch, timer, results, notes):
                              plain(*args, out_dtype=torch.float32))
             check(name, f"{tag} M={M} {K}->{N} fp32 out", r32, Q4_FP32_TOL)
             route = quant.q4_route(x, w["qt"], w["scale"])
-            want = ("tiled" if M > 16 else
-                    "rows" if not group_size or group_size % 16 == 0 else "small")
+            by16 = not group_size or group_size % 16 == 0
+            want = ("tiled" if by16 else "tiled_fma") if M > 16 else ("rows" if by16 else "small")
             if route != want:
                 fail(f"{name} {tag} M={M} {K}->{N}: took the {route} kernel, not {want}")
             shape = f"{tag}_M{M}_{K}x{N}"
+            record_kernel(results, name, shape, d, None, None)
+            results[name].setdefault("kernel_taken", {})[shape] = route
             if group_size not in (None, 128):
                 print(f"{name} {tag} M={M} {K}->{N} ({route} kernel): max|d|={d:.3e} rel={r:.3e} "
                       f"fp32 out rel={r32:.3e}", flush=True)
-                record_kernel(results, name, shape, d, None, None)
-                results[name].setdefault("kernel_taken", {})[shape] = route
                 continue
             ms = timer(lambda: kern(*args))
             pms = timer(lambda: plain(*args))
+            fma = ""
+            if M > 16:
+                fma_ms = timer(lambda: q4_tiled_fma(torch, x, nw if norm else None, w["qt"],
+                                                    w["scale"]))
+                results[name].setdefault("fma_tiles_ms", {})[shape] = fma_ms
+                fma = f" FMA tiles {fma_ms:.4f} ms ({fma_ms / ms:.2f}x)"
             # the library's int4 matmul; for the RMSNorm variant only its
             # matmul part (on the plain normed x), which is not the same function
             xl = quant._rms_bf16(x, nw, 1e-6) if norm else x
             lib, note = library_int4pack(torch, timer, xl, w["qt"], w["scale"])
             print(f"{name} {tag} M={M} {K}->{N} ({route} kernel): max|d|={d:.3e} rel={r:.3e} "
-                  f"fp32 out rel={r32:.3e} kernel {ms:.4f} ms plain {pms:.4f} ms "
+                  f"fp32 out rel={r32:.3e} kernel {ms:.4f} ms{fma} plain {pms:.4f} ms "
                   f"library{' matmul alone' if norm else ''} {lib} ms ({note})", flush=True)
             record(name, shape, d, ms, pms, nbytes_of(*args, y),
                    2 * M * N * K + (4 * M * K if norm else 0), None if norm else lib)
-            results[name].setdefault("kernel_taken", {})[shape] = route
-            if not norm:
+            if norm:
+                results[name].setdefault("library_matmul_alone_ms", {})[shape] = lib
+            else:
                 notes.setdefault(name, f"torch._weight_int4pack_mm: {note}")
     notes["q4_rmsnorm_matvec"] = ("no single PyTorch call fuses the RMSNorm with the matmul "
                                   "(the log gives _weight_int4pack_mm's matmul alone)")
@@ -591,6 +632,48 @@ def margin_rule_ok(ids, ref_ids, ref_margins) -> bool:
     return True
 
 
+def event_ms(torch, fn) -> float:
+    """Device time of one run of fn between two CUDA events; the gaps where
+    the card waits for the host are in it."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
+def request_stages(torch, policy, cfg, image, instruction):
+    """The vision front and the LM prefill of one request as callables (call
+    under inference_mode), with the request's merged embeddings and prefix
+    length: (vision, prefill, embeds, P). prefill() -> (hidden, cache) on a
+    fresh cache of P + 12 slots."""
+    from spatialvla_tpu_torch.models import gemma2
+    from spatialvla_tpu_torch.models import spatialvla as sv
+
+    inputs = policy.processor(image, instruction)
+    ids = torch.as_tensor(inputs["input_ids"], dtype=torch.long, device="cuda")
+    px = torch.as_tensor(inputs["pixel_values"], device="cuda")
+    K = torch.as_tensor(inputs["intrinsic"], device="cuda")
+    lm, tcfg = policy.params["lm"], cfg.text
+    P = ids.shape[1]
+
+    def vision():
+        return sv.get_image_features(policy.params, cfg, px, K, compute_dtype=torch.bfloat16)
+
+    embeds = sv.merge_input_embeddings(policy.params, cfg, ids, vision(), dtype=torch.bfloat16)
+
+    def prefill():
+        cache = gemma2.init_cache(tcfg, 1, P + 12, device="cuda")
+        pos = torch.arange(1, P + 1, device="cuda")[None]
+        mask = sv.bidirectional_prefill_mask(P, P + 12, 1, device="cuda")
+        return gemma2.forward(lm, tcfg, embeds, pos, mask, cache=cache, cache_position=0)
+
+    return vision, prefill, embeds, P
+
+
 def main_path(torch, timer, counters):
     from spatialvla_tpu_torch import SpatialVLAPolicy, spatialvla_4b
     from spatialvla_tpu_torch.models import spatialvla as sv
@@ -701,17 +784,10 @@ def main_path(torch, timer, counters):
     # where the time goes in one request: the vision front and the LM prefill
     # (host clock around synchronized stages), one full decode step and one
     # action-head matvec (CUDA events)
-    from spatialvla_tpu_torch.models import gemma2
     from spatialvla_tpu_torch.ops import decode_step as ds
     from spatialvla_tpu_torch.ops.quant import qmatmul
 
-    inputs = policy.processor(images[0], instructions[0])
-    ids = torch.as_tensor(inputs["input_ids"], dtype=torch.long, device="cuda")
-    px = torch.as_tensor(inputs["pixel_values"], device="cuda")
-    K = torch.as_tensor(inputs["intrinsic"], device="cuda")
     lm, tcfg = policy.params["lm"], cfg.text
-    P = ids.shape[1]
-    S = P + 12
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -720,16 +796,10 @@ def main_path(torch, timer, counters):
         torch.cuda.synchronize()
         return r, (time.perf_counter() - t0) * 1e3
 
-    def prefill():
-        cache = gemma2.init_cache(tcfg, 1, S, device="cuda")
-        pos = torch.arange(1, P + 1, device="cuda")[None]
-        mask = sv.bidirectional_prefill_mask(P, S, 1, device="cuda")
-        return gemma2.forward(lm, tcfg, embeds, pos, mask, cache=cache, cache_position=0)
-
     with torch.inference_mode():
-        feats, t_vis = timed(lambda: sv.get_image_features(
-            policy.params, cfg, px, K, compute_dtype=torch.bfloat16))
-        embeds = sv.merge_input_embeddings(policy.params, cfg, ids, feats, dtype=torch.bfloat16)
+        vision, prefill, embeds, P = request_stages(torch, policy, cfg, images[0], instructions[0])
+        S = P + 12
+        _, t_vis = timed(vision)
         (hidden, cache), t_prefill = timed(prefill)
         ck = cache["k"].permute(0, 1, 3, 2, 4).contiguous()
         cv = cache["v"].permute(0, 1, 3, 2, 4).contiguous()
@@ -909,14 +979,46 @@ def plain_q4(torch):
         quant.q4_matvec, quant.q4_rmsnorm_matvec = saved
 
 
+@contextlib.contextmanager
+def fma_tiles(torch):
+    """The q4 wrappers with the FMA tiles (q4_tiled_fma) on every call that
+    takes the tensor-core route, so that a run shows what it took before
+    that kernel; the other calls launch their kernels as before."""
+    from spatialvla_tpu_torch.ops import quant
+
+    saved = quant.q4_matvec, quant.q4_rmsnorm_matvec
+
+    def q4_matvec(x, qt, scale, *, out_dtype=torch.bfloat16, out=None):
+        if quant.q4_route(x, qt, scale) != "tiled":
+            return saved[0](x, qt, scale, out_dtype=out_dtype, out=out)
+        y = q4_tiled_fma(torch, x, None, qt, scale, out_dtype=out_dtype)
+        return y if out is None else out.copy_(y)
+
+    def q4_rmsnorm_matvec(x, norm_w, qt, scale, *, eps=1e-6, out_dtype=torch.bfloat16, out=None):
+        if quant.q4_route(x, qt, scale) != "tiled":
+            return saved[1](x, norm_w, qt, scale, eps=eps, out_dtype=out_dtype, out=out)
+        y = q4_tiled_fma(torch, x, norm_w, qt, scale, out_dtype=out_dtype, eps=eps)
+        return y if out is None else out.copy_(y)
+
+    quant.q4_matvec, quant.q4_rmsnorm_matvec = q4_matvec, q4_rmsnorm_matvec
+    try:
+        yield
+    finally:
+        quant.q4_matvec, quant.q4_rmsnorm_matvec = saved
+
+
 def serving_configs(torch, counters):
     """spatialvla_4b at full width (random weights from seed 0) after each of
     SERVING_CONFIGS: one warm-up and five timed SpatialVLAPolicy.predict
     requests (median), and for (b) one predict_batch of 16 rows with mixed
     instruction lengths. The launches of one request show which kernels
     carried it: q4_rmsnorm_matvec once per int4 norm + projection of every
-    layer in the prefill and in each of the 11 decode steps, and
-    decode_attention_kv8 once per layer and step with kv_bits=8. Two
+    layer in the prefill and in each of the 11 decode steps,
+    decode_attention_kv8 once per layer and step with kv_bits=8, and the
+    int4 calls on the tensor-core route (the prefill's, SigLIP's and the
+    projector's; none fails). Then the device time of one request's vision
+    front and prefill, with the tensor-core kernel and with the FMA tiles in
+    its place (CUDA events, in turn, median of 5). Two
     requests' ids are held to references on the same tree under the margin
     rule: for (a) and (c) the unfused decode path (which also runs the int4
     kernels) and the served path with the q4 wrappers' plain versions (which
@@ -924,6 +1026,7 @@ def serving_configs(torch, counters):
     next starts."""
     from spatialvla_tpu_torch import SpatialVLAPolicy, spatialvla_4b
     from spatialvla_tpu_torch.models import spatialvla as sv
+    from spatialvla_tpu_torch.ops import quant
 
     cfg = spatialvla_4b()
     L, steps = cfg.text.num_layers, 11
@@ -948,10 +1051,12 @@ def serving_configs(torch, counters):
         t_setup = time.perf_counter() - t0
         for c in counters:
             c.launches = 0
+        quant.q4_matvec.tiled_launches = quant.q4_rmsnorm_matvec.tiled_launches = 0
         torch.cuda.reset_peak_memory_stats()
         first = policy.predict(images[0], instructions[0])  # warm-up, counted alone
         torch.cuda.synchronize()
         per_request = {c.__name__: c.launches for c in counters}
+        tiled = quant.q4_matvec.tiled_launches + quant.q4_rmsnorm_matvec.tiled_launches
         outs, times = [first], []
         for i in range(5):
             torch.cuda.synchronize()
@@ -964,6 +1069,8 @@ def serving_configs(torch, counters):
             batch = policy.predict_batch([images[i % 3] for i in range(16)], batch_texts)
             torch.cuda.synchronize()
         launches = {c.__name__: c.launches for c in counters}
+        tiled_run = {c.__name__: c.tiled_launches
+                     for c in (quant.q4_matvec, quant.q4_rmsnorm_matvec)}
         peak = torch.cuda.max_memory_allocated() / 2**30
         warm = statistics.median(times)
         print(f"serving {name}: quantize({', '.join(f'{k}={v}' for k, v in qkw.items())}), "
@@ -991,6 +1098,36 @@ def serving_configs(torch, counters):
                                                                      for k in ran):
             fail(f"serving {name}: launches per request {per_request}, want {want} and "
                  f"every one of {ran} launched")
+        # the tensor-core route in one request: the int4 projections of the
+        # 277-row prefill (4 a layer, 2 with mlp_bits=4), and with
+        # vision_bits=4 SigLIP's six a layer at 256 rows and the projector
+        want_tiled = (4 if qkw.get("bits") == 4 else 2) * L + (
+            6 * cfg.vision.num_layers + 1 if qkw.get("vision_bits") == 4 else 0)
+        print(f"serving {name}: {tiled} launches of the tensor-core int4 kernel per request "
+              f"(expected {want_tiled})", flush=True)
+        if tiled == 0:
+            fail(f"serving {name}: no launch of the tensor-core int4 kernel in a request")
+        # device time of the vision front and the prefill (CUDA events), and
+        # the same with the FMA tiles in place of the tensor-core kernel: 5
+        # runs of each in turn after a warm-up, medians (the host's speed
+        # moves these, so the two are taken side by side)
+        runs = {k: [] for k in ("vision_front_ms", "prefill_ms", "vision_front_fma_tiles_ms",
+                                "prefill_fma_tiles_ms")}
+        with torch.inference_mode():
+            vision, prefill, _, P = request_stages(torch, policy, cfg, images[0],
+                                                   instructions[0])
+            for i in range(6):
+                for tag, ctx in (("", contextlib.nullcontext()), ("_fma_tiles", fma_tiles(torch))):
+                    with ctx:
+                        tv, tp = event_ms(torch, vision), event_ms(torch, prefill)
+                    if i:  # the first round warms up
+                        runs["vision_front" + tag + "_ms"].append(tv)
+                        runs["prefill" + tag + "_ms"].append(tp)
+        stages = {k: statistics.median(v) for k, v in runs.items()}
+        print(f"serving {name} (P={P}, CUDA events, median of 5): vision front "
+              f"{stages['vision_front_ms']:.2f} ms (FMA tiles "
+              f"{stages['vision_front_fma_tiles_ms']:.2f}), prefill {stages['prefill_ms']:.2f} ms "
+              f"(FMA tiles {stages['prefill_fma_tiles_ms']:.2f}) | {card_line()}", flush=True)
 
         agree = []
         for label, ref_kw, plain in refs:
@@ -1016,7 +1153,8 @@ def serving_configs(torch, counters):
         out[name] = {"quantize": qkw, "setup_s": t_setup, "warm_predict_ms_median": warm,
                      "warm_predict_ms_all": times, "actions_per_s": 4 / (warm / 1e3),
                      "peak_mem_gib": peak, "launches_per_request": per_request,
-                     "launches": launches}
+                     "launches": launches, "tiled_launches_per_request": tiled,
+                     "tiled_launches": tiled_run, **stages, "stage_runs_ms": runs}
         del policy, first, outs, batch
         torch.cuda.empty_cache()
     return out
@@ -1276,35 +1414,45 @@ def main() -> int:
     # launches on each kernel's path: the int8 serving path (q8, bf16-cache
     # attention, norm_residual, gelu_mul), the serving configurations (q4,
     # int8-cache attention), the training path (flash)
-    def launches(name):
+    def launches(name, tiled=False):
         if name.startswith("flash"):
             return train["launches"][name], "train_path (5 steps)"
         if name.startswith("q4") or name.endswith("kv8"):
-            return (sum(c["launches"][name] for c in serving.values()),
-                    "serving_configs (a), (b), (c): 6 requests each, + a 16-row batch in (b)")
+            key = "tiled_launches" if tiled else "launches"
+            return (sum(c[key][name] for c in serving.values()),
+                    "serving_configs (a), (b), (c): 6 requests each, + a 16-row batch in (b)"
+                    + (", on the tensor-core route" if tiled else ""))
         return path["launches"][name], "main_path (3 requests + a 2-row batch)"
 
+    # the q4 wrappers' tensor-core route above 16 rows gets an entry of its
+    # own, at its first timed shape (the 277-row prefill's)
+    entries = [(name, name, False) for name in KERNEL_SOURCES]
+    entries[4:4] = [(name + "_tiled", name, True) for name in ("q4_matvec", "q4_rmsnorm_matvec")]
     kernels = []
-    for name, (source, replaces) in KERNEL_SOURCES.items():
+    for label, name, tiled in entries:
+        source, replaces = KERNEL_SOURCES[name]
         r = results[name]
         first = next(iter(r["ms"]))  # the path's own shape comes first
+        if tiled:
+            first = next(k for k in r["ms"] if int(k.split("_M")[1].split("_")[0]) > 16)
         tol = ("max|kernel - plain| / max|plain| < 2e-2 (bf16), < 1e-4 (fp32)"
                if name.startswith("flash") else
                f"max|kernel - plain| / max|plain| < 2e-2 (bf16 out), < {Q4_FP32_TOL} (fp32 out)"
                if name.startswith("q4") else "max|kernel - plain| / max|plain| < 1e-2")
-        n, run = launches(name)
+        n, run = launches(name, tiled)
         bound_ms, bound_by = r["bound"][first]
         # the q4 entry points send calls of M <= 16, per channel or in groups
         # of a multiple of 16 columns, to the int4 instances of q8_matvec.cu's
         # kernel
-        sources = [source] + (["q8_matvec.cu"] if name.startswith("q4") else [])
+        sources = [source] + (["q8_matvec.cu"] if name.startswith("q4") and not tiled else [])
         kernels.append({
-            "name": name, "route": "cuda", "source": f"spatialvla_tpu_torch/csrc/{source}",
+            "name": label, "route": "cuda", "source": f"spatialvla_tpu_torch/csrc/{source}",
             "kernel_sources": [f"spatialvla_tpu_torch/csrc/{s}" for s in sources],
             "replaces": replaces, "launches": n, "max_abs_err": r["max_abs_err"],
             "ms": r["ms"][first], "plain_ms": r["plain_ms"][first], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": r["library_ms"][first], "shape": first,
             "tolerance": tol, "launches_on": run, "library_note": notes.get(name),
+            **({"fma_tiles_ms": r["fma_tiles_ms"][first]} if tiled else {}),
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

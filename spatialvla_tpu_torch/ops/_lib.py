@@ -40,10 +40,15 @@ _SIGNATURES = {
     "q8_matvec": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _P),
     # x, x_dtype, norm_w, norm_dtype, eps, qt, scale, out, out_dtype, M, N, K, stream
     "q8_rmsnorm_matvec": (_P, _I, _P, _I, _F, _P, _P, _P, _I, _I, _I, _I, _P),
-    # x, x_dtype, qt, scale, G, out, out_dtype, M, N, K, stream
-    "q4_matvec": (_P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _P),
-    # x, x_dtype, norm_w, norm_dtype, eps, qt, scale, G, out, out_dtype, M, N, K, stream
-    "q4_rmsnorm_matvec": (_P, _I, _P, _I, _F, _P, _P, _I, _P, _I, _I, _I, _I, _P),
+    # x, x_dtype, qt, scale, G, work (q4_work_bytes), out, out_dtype, M, N, K, stream
+    "q4_matvec": (_P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P),
+    # x, x_dtype, norm_w, norm_dtype, eps, qt, scale, G, work, out, out_dtype, M, N, K, stream
+    "q4_rmsnorm_matvec": (_P, _I, _P, _I, _F, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P),
+    # x, qt, M, N, K, G: the bytes of the work buffer the two above need (no launch)
+    "q4_work_bytes": (_P, _P, _I, _I, _I, _I),
+    # the FMA tiles at any M: x, x_dtype, norm_w (null: no norm), norm_dtype, eps, qt,
+    # scale, G, out, out_dtype, M, N, K, stream
+    "q4_tiled_fma": (_P, _I, _P, _I, _F, _P, _P, _I, _P, _I, _I, _I, _I, _P),
     # x, qt, M, K, G: which kernel the two above launch (no stream, no launch)
     "q4_route": (_P, _P, _I, _I, _I),
     # qkv, cos, sin, ck, cv, position, attn, k_new, v_new, part, tickets, M, Nq, Nkv, D, S,

@@ -23,11 +23,13 @@ Kernels:
     their int4 branches, per channel and grouped (``_q_dot_scaled``
     quant.py:205-243, ``grouped_int4_dot`` :163); at M <= 16, per channel or
     in groups of a multiple of 16 columns, they launch the int4 instances of
-    ``csrc/q8_matvec.cu``'s kernel (``q4_route`` says which kernel a call
+    ``csrc/q8_matvec.cu``'s kernel, above 16 rows the bf16 tensor-core
+    kernel of ``csrc/q4_matvec.cu`` (``q4_route`` says which kernel a call
     takes).
 Each wrapper runs its plain PyTorch version (``*_plain``) only for CPU
 tensors, launches the kernel for CUDA tensors, and counts its launches in
-``<wrapper>.launches``.
+``<wrapper>.launches`` (the q4 wrappers those on the tensor-core route also
+in ``<wrapper>.tiled_launches``).
 
 Not ported yet (ROADMAP): LoRA-factored weights in ``qmatmul`` and the
 unfused quantized LM tree (``fuse=False``).
@@ -295,6 +297,22 @@ def _check_q4(name, x, qt, scale, out):
     return M, N, K, G
 
 
+def _q4_work(x, qt, M, N, K, G):
+    """The work buffer of the tensor-core route of ``csrc/q4_matvec.cu`` (x'
+    staged as bf16, and the partial sums of a K split), as
+    ``q4_work_bytes`` sizes it; None where the call takes another kernel.
+    The aligned calls of M <= 16 (the decode steps) never take that route
+    and skip the query."""
+    if M <= 16 and not (x.data_ptr() % 16 or qt.data_ptr() % 16 or (K // 2) % 16):
+        return None
+    nbytes = _lib.library().q4_work_bytes(x.data_ptr(), qt.data_ptr(), M, N, K, G)
+    return torch.empty(nbytes, dtype=torch.uint8, device=x.device) if nbytes else None
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
 def q4_matvec(x, qt, scale, *, out_dtype=torch.bfloat16, out=None):
     """x (M, K) f32/bf16 @ dequant(qt (N, K/2) packed int4, scale (N,) or
     (N, G)) -> (M, N), 1 <= M <= 512."""
@@ -304,19 +322,23 @@ def q4_matvec(x, qt, scale, *, out_dtype=torch.bfloat16, out=None):
     if out is None:
         out = torch.empty((x.shape[0], qt.shape[0]), dtype=out_dtype, device=x.device)
     M, N, K, G = _check_q4("q4_matvec", x, qt, scale, out)
+    work = _q4_work(x, qt, M, N, K, G)
     _lib.launch(
         "q4_matvec", x.data_ptr(), _lib.dtype_code(x), qt.data_ptr(), scale.data_ptr(), G,
-        out.data_ptr(), _lib.dtype_code(out), M, N, K,
+        _ptr(work), out.data_ptr(), _lib.dtype_code(out), M, N, K,
     )
     q4_matvec.launches += 1
+    q4_matvec.tiled_launches += work is not None
     return out
 
 
 q4_matvec.launches = 0
+q4_matvec.tiled_launches = 0  # of them, on the tensor-core route
 
 
 def q4_rmsnorm_matvec(x, norm_w, qt, scale, *, eps=1e-6, out_dtype=torch.bfloat16, out=None):
-    """rms_norm(x; norm_w) @ dequant(packed int4) in one kernel; x is NOT normed."""
+    """rms_norm(x; norm_w) @ dequant(packed int4), the norm fused into the
+    kernel; x is NOT normed."""
     if x.device.type == "cpu":
         y = q4_rmsnorm_matvec_plain(x, norm_w, qt, scale, eps=eps, out_dtype=out_dtype)
         return y if out is None else out.copy_(y)
@@ -324,18 +346,21 @@ def q4_rmsnorm_matvec(x, norm_w, qt, scale, *, eps=1e-6, out_dtype=torch.bfloat1
         out = torch.empty((x.shape[0], qt.shape[0]), dtype=out_dtype, device=x.device)
     M, N, K, G = _check_q4("q4_rmsnorm_matvec", x, qt, scale, out)
     _check_norm_w("q4_rmsnorm_matvec", x, norm_w, K)
+    work = _q4_work(x, qt, M, N, K, G)
     _lib.launch(
         "q4_rmsnorm_matvec", x.data_ptr(), _lib.dtype_code(x), norm_w.data_ptr(),
         _lib.dtype_code(norm_w), float(eps), qt.data_ptr(), scale.data_ptr(), G,
-        out.data_ptr(), _lib.dtype_code(out), M, N, K,
+        _ptr(work), out.data_ptr(), _lib.dtype_code(out), M, N, K,
     )
     q4_rmsnorm_matvec.launches += 1
+    q4_rmsnorm_matvec.tiled_launches += work is not None
     return out
 
 
 q4_rmsnorm_matvec.launches = 0
+q4_rmsnorm_matvec.tiled_launches = 0
 
-Q4_ROUTES = ("rows", "small", "tiled")
+Q4_ROUTES = ("rows", "small", "tiled", "tiled_fma")
 
 
 def q4_route(x, qt, scale) -> str:
@@ -343,8 +368,11 @@ def q4_route(x, qt, scale) -> str:
     these CUDA operands, as ``csrc/q4_matvec.cu:route_of`` decides: "rows"
     (the few-row kernel of ``csrc/q8_matvec.cu``: M <= 16, x and qt 16-byte
     aligned, per channel or in groups of a multiple of 16 columns), "small"
-    (``q4_small_kernel``: the other aligned grouped calls of M <= 16) or
-    "tiled". Launches nothing."""
+    (``q4_small_kernel``: the other aligned grouped calls of M <= 16),
+    "tiled" (the bf16 tensor-core kernel: the other calls, per channel or in
+    groups of a multiple of 16 columns) or "tiled_fma" (``q4_tile_kernel``
+    on the fp32 FMA units: the rest, groups of other widths). Launches
+    nothing."""
     _lib.check_cuda("q4_route", x, qt, scale)
     G = scale.shape[-1] if scale.dim() == 2 else 0
     return Q4_ROUTES[_lib.library().q4_route(x.data_ptr(), qt.data_ptr(), x.shape[0],
@@ -391,14 +419,20 @@ def qmatmul(x: torch.Tensor, w) -> torch.Tensor:
     x2 = x.reshape(-1, x.shape[-1])
     if x.is_cuda and x2.shape[0] <= _qkernel_max_m(w["qt"]):
         y = matvec(x2.contiguous(), w["qt"], w["scale"], out_dtype=x.dtype)
-    else:  # transient dequant in the activation dtype + one plain matmul
-        qt = unpack_int4(w["qt"]) if is_int4(w) else w["qt"]
-        if is_grouped(w):
-            wd = grouped_dequant_t(qt, w["scale"], x.dtype)
-        else:
-            wd = qt.to(x.dtype) * w["scale"].to(x.dtype)[:, None]
-        y = x2 @ wd.t()
+    else:
+        y = dequant_matmul(x2, w)
     return y.reshape(*lead, y.shape[-1])
+
+
+def dequant_matmul(x2: torch.Tensor, w: QuantW) -> torch.Tensor:
+    """x2 (M, K) @ a QuantW: a transient dequant in the activation dtype and
+    one plain matmul (``qmatmul``'s path above the kernels' rows)."""
+    qt = unpack_int4(w["qt"]) if is_int4(w) else w["qt"]
+    if is_grouped(w):
+        wd = grouped_dequant_t(qt, w["scale"], x2.dtype)
+    else:
+        wd = qt.to(x2.dtype) * w["scale"].to(x2.dtype)[:, None]
+    return x2 @ wd.t()
 
 
 def qnorm_matmul(x, norm_w, w, *, eps: float = 1e-6):

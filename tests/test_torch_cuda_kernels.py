@@ -9,8 +9,8 @@ the repository's conftest (which imports jax) is skipped:
 Without a GPU every test skips. Tolerance: max|kernel - plain| / max|plain|
 below 1e-2 for each kernel (the kernels round where the plain versions do;
 what differs is the fp32 summation order), below 5e-3 for the grouped int4
-matvecs with fp32 outputs, below 0.02 for a whole decode step (the JAX
-package's bound for the fused step at batch 1).
+matvecs and the int4 tensor-core route with fp32 outputs, below 0.02 for a
+whole decode step (the JAX package's bound for the fused step at batch 1).
 """
 import dataclasses
 
@@ -109,18 +109,20 @@ def test_q8_kernels_are_deterministic(M, K, N):
                          (quant.q8_matvec, quant.q8_rmsnorm_matvec), 6)
 
 
-@pytest.mark.parametrize("M,K,N", [(1, 2304, 18432), (16, 9216, 2304), (5, 2336, 4100)])
+@pytest.mark.parametrize("M,K,N", [(1, 2304, 18432), (16, 9216, 2304), (5, 2336, 4100),
+                                   (277, 2304, 18432), (256, 4304, 1152)])
 def test_q4_channel_kernels_are_deterministic(M, K, N):
     _check_deterministic(M, K, N, quant.quantize_int4,
                          (quant.q4_matvec, quant.q4_rmsnorm_matvec), 7)
 
 
-def _first_launch_in_graph(quantize, kernel, K, options="", out="bfloat16", tol=1e-2):
+def _first_launch_in_graph(quantize, kernel, K, options="", out="bfloat16", tol=1e-2, rows=16):
     """A process whose first launch of `kernel` (an RMSNorm matvec wrapper of
-    ops.quant, 16 rows; `options` for the quantize call, `out` the output
-    type) is captured into a CUDA graph: the kernel stages x in chunks of at
-    most 48 KB there (the larger shared-memory opt-in is never made during a
-    capture) and agrees with the plain version on replay."""
+    ops.quant, `rows` rows; `options` for the quantize call, `out` the output
+    type) is captured into a CUDA graph: at 16 rows the kernel stages x in
+    chunks of at most 48 KB there (the larger shared-memory opt-in is never
+    made during a capture); above, the int4 wrappers allocate their staging
+    buffer inside the capture. The replay agrees with the plain version."""
     import os
     import subprocess
     import sys
@@ -132,10 +134,10 @@ def _first_launch_in_graph(quantize, kernel, K, options="", out="bfloat16", tol=
         from spatialvla_tpu_torch.ops import _lib, quant
         _lib.library()
         g = torch.Generator(device="cuda").manual_seed(0)
-        x = torch.randn(16, {K}, generator=g, device="cuda")
+        x = torch.randn({rows}, {K}, generator=g, device="cuda")
         nw = (torch.randn({K}, generator=g, device="cuda") * 0.1).to(torch.bfloat16)
         w = quant.{quantize}(torch.randn({K}, 2304, generator=g, device="cuda") * 0.02{options})
-        out = torch.empty(16, 2304, dtype=torch.{out}, device="cuda")
+        out = torch.empty({rows}, 2304, dtype=torch.{out}, device="cuda")
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             quant.{kernel}(x, nw, w["qt"], w["scale"], out=out)
@@ -167,6 +169,15 @@ def test_q4_grouped_first_launch_inside_a_cuda_graph():
     its absolute units."""
     _first_launch_in_graph("quantize_int4", "q4_rmsnorm_matvec", 2304, ", group_size=128",
                            out="float32", tol=5e-3)
+
+
+@pytest.mark.parametrize("options", ["", ", group_size=128"])
+def test_q4_tiled_first_launch_inside_a_cuda_graph(options):
+    """The tensor-core route at 277 rows, per channel and in 128-column
+    groups, first launched inside a capture (its x' staging buffer comes
+    from the graph's pool)."""
+    _first_launch_in_graph("quantize_int4", "q4_rmsnorm_matvec", 2304, options, out="float32",
+                           tol=5e-3, rows=277)
 
 
 # (K, N): the head, the down projection, SigLIP's fc2 (K/2 = 2152 bytes, not a
@@ -264,25 +275,88 @@ def test_q4_grouped_chunked_k(M, K, group_size, x_dtype):
 
 
 # the other routes: groups of 8 and 24 columns (not a multiple of 16) take
-# q4_small_kernel at M <= 16; a misaligned x takes the tiled kernel
+# q4_small_kernel at M <= 16 and the FMA tiles above; a misaligned x takes
+# the tensor-core kernel, or the FMA tiles in groups of 24 columns
 @pytest.mark.parametrize("M", [1, 16])
 @pytest.mark.parametrize("K,N,group_size", [(2304, 4096, 8), (2304, 4096, 24), (96, 40, 24)])
 def test_q4_other_group_widths_take_the_small_kernel(M, K, N, group_size):
     _check_q4_both(M, K, N, group_size, torch.float32, 17, route="small")
 
 
-@pytest.mark.parametrize("group_size", [None, 128])
-def test_q4_misaligned_x_takes_the_tiled_kernel(group_size):
+@pytest.mark.parametrize("M", [17, 277])
+@pytest.mark.parametrize("K,N,group_size", [(2304, 4096, 8), (2304, 4096, 24), (96, 40, 24)])
+def test_q4_other_group_widths_take_the_fma_tiles(M, K, N, group_size):
+    _check_q4_both(M, K, N, group_size, torch.float32, 19, route="tiled_fma")
+
+
+@pytest.mark.parametrize("group_size,route", [(None, "tiled"), (128, "tiled"), (24, "tiled_fma")])
+def test_q4_misaligned_x_takes_the_tiled_kernel(group_size, route):
     g = _gen(18)
     K, N = 2304, 4096
     x = _randn(g, 4 * K + 1)[1:].view(4, K)  # contiguous, 2 bytes past 16-byte alignment
     w = _q4_weight(g, K, N, group_size)
-    assert quant.q4_route(x, w["qt"], w["scale"]) == "tiled"
+    assert quant.q4_route(x, w["qt"], w["scale"]) == route
     got = quant.q4_matvec(x, w["qt"], w["scale"], out_dtype=torch.float32)
     assert _rel(got, quant.q4_matvec_plain(x, w["qt"], w["scale"], out_dtype=torch.float32)) < 5e-3
 
 
-@pytest.mark.parametrize("M,K,N", [(1, 2304, 18432), (16, 9216, 2304), (5, 2048, 4100)])
+# the tensor-core route (M > 16, per channel or in groups of a multiple of 16
+# columns): rows of one m16 fragment past a tile (17), of a ragged tile (31,
+# 255, 277: 21 rows in the last 64-row tile), whole tiles (64, 256, 512);
+# the prefill's qkv, gate|up and down, SigLIP's fc2 (K/2 = 2152 bytes, 8-byte
+# loads) and a ragged shape (K/2 = 1160, N = 4100); both wrappers, bf16 x
+# and out and fp32 x and out (fp32 out within 5e-3 of plain: the summation
+# order alone; bf16 out one rounding more)
+Q4_TILED_SHAPES = [(2304, 4096), (2304, 18432), (9216, 2304), (4304, 1152), (2320, 4100)]
+
+
+@pytest.mark.parametrize("M", [17, 31, 64, 255, 256, 277, 512])
+@pytest.mark.parametrize("K,N,group_size", [(K, N, gs) for K, N in Q4_TILED_SHAPES
+                                            for gs in (None, 16, 32, 128)
+                                            if not gs or (K // 2) % gs == 0])
+def test_q4_tiled(M, K, N, group_size):
+    g = _gen(20)
+    w = _q4_weight(g, K, N, group_size)
+    nw = _randn(g, K, std=0.1)
+    for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 5e-3)):
+        x = _randn(g, M, K, dtype=dtype)
+        assert quant.q4_route(x, w["qt"], w["scale"]) == "tiled"
+        for kern, plain, args in (
+                (quant.q4_matvec, quant.q4_matvec_plain, (x, w["qt"], w["scale"])),
+                (quant.q4_rmsnorm_matvec, quant.q4_rmsnorm_matvec_plain,
+                 (x, nw, w["qt"], w["scale"]))):
+            before = kern.launches
+            got = kern(*args, out_dtype=dtype)
+            assert kern.launches == before + 1
+            assert got.dtype == dtype and got.shape == (M, N)
+            assert _rel(got, plain(*args, out_dtype=dtype)) < tol
+
+
+# misaligned views on the tensor-core route: x 2 or 4 bytes past 16-byte
+# alignment, qt 1 byte (byte loads) or 8 bytes (8-byte loads) past it
+@pytest.mark.parametrize("M", [4, 277])
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("qt_offset", [0, 1, 8])
+@pytest.mark.parametrize("group_size", [None, 128])
+def test_q4_tiled_misaligned_views(M, x_dtype, qt_offset, group_size):
+    g = _gen(21)
+    K, N = 2304, 4096
+    x = _randn(g, M * K + 1, dtype=x_dtype)[1:].view(M, K)
+    nw = _randn(g, K, std=0.1)
+    w = _q4_weight(g, K, N, group_size)
+    flat = torch.empty(N * K // 2 + qt_offset, dtype=torch.uint8, device=DEV)
+    qt = flat[qt_offset:].view(N, K // 2)
+    qt.copy_(w["qt"])
+    assert quant.q4_route(x, qt, w["scale"]) == "tiled"
+    for kern, plain, args in ((quant.q4_matvec, quant.q4_matvec_plain, (x, qt, w["scale"])),
+                              (quant.q4_rmsnorm_matvec, quant.q4_rmsnorm_matvec_plain,
+                               (x, nw, qt, w["scale"]))):
+        got = kern(*args, out_dtype=torch.float32)
+        assert _rel(got, plain(*args, out_dtype=torch.float32)) < 5e-3
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 2304, 18432), (16, 9216, 2304), (5, 2048, 4100),
+                                   (277, 2304, 18432), (277, 9216, 2304)])
 def test_q4_grouped_kernels_are_deterministic(M, K, N):
     _check_deterministic(M, K, N, lambda w: quant.quantize_int4(w, group_size=128),
                          (quant.q4_matvec, quant.q4_rmsnorm_matvec), 8)

@@ -320,3 +320,112 @@ def test_q4_grouped_half_unit_sums_match_pallas(M, group_size, x_dtype, order):
     xn = tq._rms_bf16(tx, torch.from_numpy(norm_w), 1e-6).numpy()
     got = _grouped_half_unit_sums(xn, qt, scale, order)
     np.testing.assert_allclose(got, ref, atol=1e-4 * np.abs(ref).max(), rtol=0)
+
+
+def _codes2(v: np.ndarray) -> np.ndarray:
+    """``codes2`` of the tensor-core kernel (``csrc/q4_matvec.cu``) in numpy
+    and torch: the nibbles at bits 0-3 and 16-19 of each uint32 masked and
+    ORed into 0x4300 (the bf16 value 128 + c), then 136 taken off in bf16.
+    (...) uint32 -> (..., 2) fp32: the low and the high 16-bit lane."""
+    r = (v.astype(np.uint32) & np.uint32(0x000F000F)) | np.uint32(0x43004300)
+    lanes = torch.from_numpy(np.ascontiguousarray(r).view("<i2").copy()).view(torch.bfloat16)
+    out = lanes - torch.tensor(136.0, dtype=torch.bfloat16)
+    assert out.dtype == torch.bfloat16
+    return out.float().numpy().reshape(v.shape + (2,))
+
+
+def test_int4_bf16_magic_gives_signed_codes():
+    """Over every byte value, at every byte of a 32-bit word, and both
+    nibbles: the 0x4300 OR and the bf16 subtraction of 136 give c - 8
+    exactly; a word's bytes (0, 2) feed one bf16x2 and, shifted by 8, bytes
+    (1, 3) the other; shifted by 4 (12), the high nibbles."""
+    every = np.arange(256, dtype=np.uint32)
+    for pos in range(4):
+        words = every << np.uint32(8 * pos)
+        for h in (0, 1):
+            for shift, lane_of in ((0, {0: 0, 2: 1}), (8, {1: 0, 3: 1})):
+                got = _codes2(words >> np.uint32(4 * h + shift))
+                want = ((every >> np.uint32(4 * h)) & np.uint32(15)).astype(np.float32) - 8
+                for p, lane in lane_of.items():
+                    np.testing.assert_array_equal(got[:, lane], want if p == pos else -8.0)
+
+
+def _q4_mma_emulation(xb: torch.Tensor, qt: np.ndarray, scale: np.ndarray,
+                      splits: int = 1) -> np.ndarray:
+    """The tensor-core kernel (``csrc/q4_matvec.cu:q4_mma_kernel``) in torch,
+    lane by lane: x' columns of each 16-column step placed as ``kcol`` says; a
+    lane t's codes from the 32-bit word of bytes 4t..4t+3 (``_codes2`` of the
+    word and of the word >> 8, >> 4 and >> 12 for the high nibbles) at k =
+    2t, 2t + 1 and 2t + 8, 2t + 9; one fp32 product a 16-column step
+    (computed in fp64, rounded once). The steps alternate low and high
+    half; grouped, each half has one open partial, added times its group's
+    scale as the group closes (j and G/2 + j together). K is split in
+    `splits` ranges of whole 32-column stages and groups, each summed apart
+    (``q4_split_sum`` adds them in order); per channel the scale multiplies
+    the total. xb (M, K) holds the bf16 values of x'; -> (M, N) fp32."""
+    M, K = xb.shape
+    N, Kh = qt.shape
+    assert Kh % 32 == 0
+    words = np.ascontiguousarray(qt).view("<u4").reshape(N, Kh // 16, 4)  # [n][step][t]
+    kcol = [4 * ((l & 7) >> 1) + (l >> 3) + 2 * (l & 1) for l in range(16)]
+    assert sorted(kcol) == list(range(16))
+
+    def step(h, s):  # the product of 16-column step s of half h, fp32
+        a = xb[:, [h * Kh + 16 * s + c for c in kcol]].double()
+        b = np.zeros((N, 16), np.float32)
+        for t in range(4):
+            v = words[:, s, t] >> np.uint32(4 * h)
+            b[:, [2 * t, 2 * t + 1]] = _codes2(v)
+            b[:, [2 * t + 8, 2 * t + 9]] = _codes2(v >> np.uint32(8))
+        return (a @ torch.from_numpy(b).double().t()).float()
+
+    grouped = scale.ndim == 2
+    G = scale.shape[1] if grouped else 0
+    g = K // G if grouped else Kh
+    n_steps = Kh // 16
+    per = n_steps // splits  # 16-column steps a split
+    assert per * splits == n_steps and per % 2 == 0 and (not grouped or (16 * per) % g == 0)
+    total = torch.zeros(M, N)
+    for z in range(splits):
+        acc = torch.zeros(M, N)
+        part = [torch.zeros(M, N), torch.zeros(M, N)]
+        for s in range(z * per, (z + 1) * per):
+            for h in (0, 1):
+                if grouped:
+                    part[h] += step(h, s)
+                else:
+                    acc += step(h, s)
+            if grouped and (16 * (s + 1)) % g == 0:  # groups j and G/2 + j close
+                for h in (0, 1):
+                    acc += torch.from_numpy(scale[:, h * (G // 2) + 16 * s // g]) * part[h]
+                    part[h] = torch.zeros(M, N)
+        total += acc
+    return (total if grouped else total * torch.from_numpy(scale)).numpy()
+
+
+@pytest.mark.parametrize("fmt", [None, 16, 128], ids=["per_channel", "g16", "g128"])
+@pytest.mark.parametrize("fn,x_dtype", [("matmul", "float32"), ("matmul", "bfloat16"),
+                                        ("rmsnorm_matmul", "bfloat16")])
+@pytest.mark.parametrize("splits", [1, 2])
+def test_q4_mma_order_matches_pallas(fmt, fn, x_dtype, splits):
+    """The tensor-core kernel's function and order at 40 rows (signed-code
+    products a 16-column step; per channel scaled at the end, grouped one
+    partial a group, scaled as it closes; K whole or split in two, as the
+    kernel splits it where its grid is small) against int8_matmul and
+    int8_rmsnorm_matmul in interpret mode (fp32 out, atol 1e-4 max|ref|).
+    The norm takes bf16 x, as test_q4_rmsnorm_matvec_plain_matches_pallas
+    holds the plain version (from fp32 x, the two packages' RMSNorms round a
+    few x' values to neighbouring bf16 values)."""
+    quantize = functools.partial(jq.quantize_int4, group_size=fmt)
+    jx, tx, w, tw, norm_w = _operands(40, 512, 96, x_dtype, seed=10, quantize=quantize)
+    qt, scale = tw["qt"].numpy(), tw["scale"].numpy()
+    if fn == "matmul":
+        ref = jq.int8_matmul(jx, w["qt"], w["scale"], out_dtype=jnp.float32, interpret=True)
+        xb = tx.to(torch.bfloat16).float()
+    else:
+        ref = jq.int8_rmsnorm_matmul(jx, jnp.asarray(norm_w), w["qt"], w["scale"],
+                                     out_dtype=jnp.float32, interpret=True)
+        xb = tq._rms_bf16(tx, torch.from_numpy(norm_w), 1e-6)
+    ref = np.asarray(ref)
+    got = _q4_mma_emulation(xb, qt, scale, splits)
+    np.testing.assert_allclose(got, ref, atol=1e-4 * np.abs(ref).max(), rtol=0)
