@@ -5,6 +5,7 @@ instances, per channel and grouped, that q4_matvec / q4_rmsnorm_matvec take
 at M <= 16. The short loop for working on that file.
 
     python3 scripts/bench_q8_matvec.py
+    python3 scripts/bench_q8_matvec.py --residual
 
 Builds the kernel library, prints each qmatvec_kernel instance's registers
 and spills from nvcc's report (``_build/*.log``), checks every rows
@@ -16,7 +17,14 @@ int8, int4 and int4-g128 side by side with chip_smoke's CUDA-graph timer
 (L2 flushed before each run): the kernel, its plain version and
 torch._weight_int8pack_mm / _weight_int4pack_mm (for the RMSNorm variants
 on the normed x, the matmul alone). Max relative error to plain must stay
-below 1e-2 (bf16 out). Needs CUDA and nvcc.
+below 1e-2 (bf16 out). ``--residual`` instead times the residual kernels
+(q8_residual_rmsnorm_matvec, q4_residual_rmsnorm_matvec: norm_residual
+folded into the RMSNorm matvec) at every rows instance (M = 1, 2, 4, 8,
+16) of qkv (2304 -> 4096) and gate|up (2304 -> 18432) in int8, int4 and
+int4-g128, beside the pair of launches they replace (norm_residual +
+the RMSNorm matvec, in one graph) and the RMSNorm matvec alone, in turns
+(pair, kernel, kernel, pair), each checked against the plain version.
+Needs CUDA and nvcc.
 """
 from __future__ import annotations
 
@@ -55,15 +63,18 @@ FORMATS = {
 
 def register_report(log: Path) -> list:
     """(instance, registers, spill stores, spill loads) of each
-    qmatvec_kernel<MR, kNorm, kInt4, kGrouped> in nvcc's -Xptxas -v output."""
+    qmatvec_kernel<MR, kNorm, kInt4, kGrouped, kResid> in nvcc's -Xptxas -v
+    output ("resid": the residual instances)."""
     rows, current = [], None
     for line in log.read_text().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"qmatvec_kernelILi(\d+)ELb([01])ELb([01])ELb([01])E", m.group(1))
+            k = re.search(r"qmatvec_kernelILi(\d+)ELb([01])ELb([01])ELb([01])E(?:Lb([01])E)?",
+                          m.group(1))
             fmt = None if not k else ("int8" if k.group(3) == "0" else
                                       "int4-grouped" if k.group(4) == "1" else "int4")
-            current = f"{fmt} MR={k.group(1)} norm={k.group(2)}" if k else None
+            current = (f"{fmt} MR={k.group(1)} norm={k.group(2)}"
+                       + (" resid" if k.group(5) == "1" else "") if k else None)
             spills = None
             continue
         if current is None:
@@ -76,6 +87,41 @@ def register_report(log: Path) -> list:
             rows.append((current, int(r.group(1))) + (spills or (None, None)))
             current = None
     return rows
+
+
+def residual_rows(torch, timer, randn, qweight) -> int:
+    """The residual kernels beside the pair they replace (see the module
+    docstring); returns 1 on a failed check."""
+    import chip_smoke
+    from spatialvla_tpu_torch.ops import decode_step as ds
+    from spatialvla_tpu_torch.ops import quant
+
+    for fmt in ("int8", "int4", "int4-g128"):
+        for N in (4096, 18432):
+            for M in (1, 2, 4, 8, 16):
+                K = 2304
+                h_in, upd = randn(M, K, dtype=torch.float32, std=8.0), randn(M, K)
+                post, nw, w = randn(K, std=0.1), randn(K, std=0.1), qweight(N, K, fmt)
+                args = (h_in, upd, post, nw, w["qt"], w["scale"])
+                h_out, h_ref = torch.empty_like(h_in), torch.empty_like(h_in)
+                r = chip_smoke.rel_err(quant.residual_rmsnorm_matvec(*args, h_out=h_out),
+                                       quant.residual_rmsnorm_matvec_plain(*args, h_out=h_ref))[1]
+                rh = chip_smoke.rel_err(h_out, h_ref)[1]
+                if not (r < 2e-2 and rh < 1e-2):
+                    print(f"FAIL residual {fmt} M={M} N={N}: rel {r:.3e}, h_out {rh:.3e}")
+                    return 1
+                hh = h_in.clone()
+                kern = lambda: quant.residual_rmsnorm_matvec(*args, h_out=h_out)  # noqa: E731
+                pair = lambda: (ds.norm_residual(hh, upd, post, eps=1e-6),  # noqa: E731
+                                quant.rmsnorm_matvec(hh, nw, w["qt"], w["scale"]))
+                alone = lambda: quant.rmsnorm_matvec(hh, nw, w["qt"], w["scale"])  # noqa: E731
+                p1, k1, k2, p2 = timer(pair), timer(kern), timer(kern), timer(pair)
+                a = timer(alone)
+                print(f"residual {fmt} M={M} 2304->{N}: kernel {min(k1, k2):.4f} ms "
+                      f"({k1:.4f}, {k2:.4f}), norm_residual + rmsnorm_matvec {min(p1, p2):.4f} ms "
+                      f"({p1:.4f}, {p2:.4f}), rmsnorm_matvec alone {a:.4f} ms; rel {r:.2e}, "
+                      f"h_out {rh:.2e}", flush=True)
+    return 0
 
 
 def main() -> int:
@@ -104,6 +150,11 @@ def main() -> int:
         if fmt == "int8":
             return quant.quantize_int8(w)
         return quant.quantize_int4(w, FORMATS[fmt][0])
+
+    if sys.argv[1:] == ["--residual"]:
+        rc = residual_rows(torch, chip_smoke.Timer(torch), randn, qweight)
+        print(f"card: {card}")
+        return rc
 
     # every rows instance and its edges, ragged N, chunked K, both x types
     for fmt, (_, shapes) in FORMATS.items():

@@ -44,7 +44,7 @@ BLOCKS = "kGrouped && MR >= 8 ? 1 : 2"  # qmatvec_kernel's blocks an SM (__launc
 FMA_CALL = "        fma_half<MR, kInt4, kScale>(acc, w, s[kScale == 1 ? h : 0], xs, xstride, u + h * cu, h);"
 VARIANTS = {  # name: ([(text in q8_matvec.cu, its replacement)], formats it is timed at)
     "kernel": ([], (PC, G128)),
-    "two-pass norm": ([("const bool fused = kNorm && kInt4 && MR == 1 && cu == U && K <= 4 * kThreads * kP;",
+    "two-pass norm": ([("const bool fused = kNorm && (kInt4 || kResid) && MR == 1 && cu == U && K <= 4 * kThreads * kP;",
                         "const bool fused = false;")], (PC,)),
     "3 blocks an SM at MR <= 2": ([(BLOCKS, "kGrouped && MR >= 8 ? 1 : (kInt4 && MR <= 2) ? 3 : 2")], (PC,)),
     "loads only": ([(FMA_CALL, "        if (kInt4) acc[0][0] += __int_as_float((w[0].x ^ w[1].y ^ w[2].z ^ "

@@ -78,6 +78,12 @@
 int q4_rows_matvec(const void* x, int x_dtype, const void* norm_w, int norm_dtype, float eps,
                    const uint8_t* qt, const float* scale, int G, void* out, int out_dtype, int M,
                    int N, int K, cudaStream_t stream);
+// ... and its residual variant (the decode step's residual update fused in
+// front of the RMSNorm)
+int q4_rows_residual_matvec(const float* h_in, const bf16* upd, const void* post_w, int post_dtype,
+                            const void* norm_w, int norm_dtype, float eps, const uint8_t* qt,
+                            const float* scale, int G, float* h_out, void* out, int out_dtype,
+                            int M, int N, int K, cudaStream_t stream);
 
 namespace {
 
@@ -864,6 +870,24 @@ extern "C" int q4_rmsnorm_matvec(const void* x, int x_dtype, const void* norm_w,
                                  void* stream) {
   return launch<true>(x, x_dtype, norm_w, norm_dtype, eps, qt, scale, G, work, out, out_dtype, M,
                       N, K, stream);
+}
+
+// h_out = bf16(bf16(h_in) + bf16(rms(upd) * (1 + post_w))), then out = the
+// q4_rmsnorm_matvec of h_out with norm_w, in one launch of the few-row
+// kernel (q8_matvec.cu's header). Only on the "rows" route (M <= 16, x and
+// qt 16-byte aligned, per channel or in groups of a multiple of 16 columns);
+// other operands are refused with cudaErrorInvalidValue, and the caller
+// runs norm_residual and q4_rmsnorm_matvec instead (quant.residual_route)
+extern "C" int q4_residual_rmsnorm_matvec(const float* h_in, const bf16* upd, const void* post_w,
+                                          int post_dtype, const void* norm_w, int norm_dtype,
+                                          float eps, const uint8_t* qt, const float* scale, int G,
+                                          float* h_out, void* out, int out_dtype, int M, int N,
+                                          int K, void* stream) {
+  if (!valid_shape(M, N, K, G) || route_of(h_in, qt, M, K, G) != kRows)
+    return cudaErrorInvalidValue;
+  return q4_rows_residual_matvec(h_in, upd, post_w, post_dtype, norm_w, norm_dtype, eps, qt, scale,
+                                 G, h_out, out, out_dtype, M, N, K,
+                                 static_cast<cudaStream_t>(stream));
 }
 
 // The FMA tiles (q4_tile_kernel) for any scales, norm_w null for no norm:

@@ -1,6 +1,7 @@
 // Weight-only matvec for few rows, int8 or packed int4 weights with
 // per-channel scales, or packed int4 with a scale per group of columns,
-// optionally with the Gemma RMSNorm fused in front:
+// optionally with the Gemma RMSNorm fused in front, and optionally with the
+// decode step's residual update fused in front of that:
 //   per channel: y[m, n] = scale[n] * sum_k bf16(x'[m, k]) * code[n, k];
 //   grouped:     y[m, n] = sum_k scale[n, k / g] * bf16(x'[m, k]) * code[n, k]
 // with g = K / G columns a group.
@@ -13,6 +14,31 @@
 // per channel or in groups of a multiple of 16 columns, to q4_rows_matvec
 // (kInt4, kGrouped), and keeps its many-row kernel and one for groups of
 // other widths.
+//
+// The residual variant (kResid; q8_residual_rmsnorm_matvec below and
+// q4_matvec.cu's q4_residual_rmsnorm_matvec) replaces the JAX decode kernel's
+// phases that update the residual stream and norm it for the next
+// projection (spatialvla_tpu/ops/decode_step.py: _post_attn, which adds the
+// post-attention norm of o and applies the pre-FFN norm; _post_ffn with the
+// next layer's _input_norm). From the fp32 residual h_in (M, K), the
+// sublayer's bf16 output upd (M, K) and the two norm weights it computes
+//   h_out = bf16(bf16(h_in) + bf16(rms(upd) * (1 + post_w)))   (fp32, M x K)
+//   y     = matvec(bf16(rms(h_out) * (1 + norm_w)))
+// with the rounding points of norm_residual (decode.cu) followed by the
+// RMSNorm matvec, in one launch instead of two. The TPU keeps the residual
+// row in VMEM between the phases; here every block reads the row's h_in and
+// upd (about 14 KB a row at K = 2304, from L2 after the first block) and
+// computes rms(upd), h_out and rms(h_out) itself, in the fixed order of the
+// norm pass below, so every block stages the same x'; block 0 alone writes
+// h_out, which must not overlap h_in (other blocks are still reading it).
+// h_out is bf16-exact, so where all of K is staged the norm pass writes it
+// into shared memory as it goes and the staging norms it in place there
+// (no third pass over global memory); at one row int8 too takes the
+// one-round register path of the int4 instance. What bounds it is the
+// weight stream, as for the RMSNorm matvec, plus a prologue of two passes
+// over all M rows in every block: on the H100 that beats norm_residual +
+// the RMSNorm matvec up to 4 rows and loses from 8 on, where the decode
+// step keeps the pair (decode_step.py:RESIDUAL_FOLD_MAX_M).
 //
 // Weight formats (one 16-byte load, a "unit", of an output channel's row):
 //  * int8, qt (N, K): unit u holds the codes of columns 16u..16u+15;
@@ -229,21 +255,33 @@ __device__ __forceinline__ int reduce_scatter(float (&v)[V], int lane) {
   }
 }
 
+// The residual variant's other operands (kResid): x is then h_in, fp32
+struct Resid {
+  const bf16* upd;     // (M, K) the sublayer's output
+  const void* post_w;  // (K,) its post-norm weight, f32 or bf16
+  int post_dtype;
+  float* h_out;        // (M, K) the updated residual, written by block 0
+};
+
 // kInt4: packed int4 weights (N, K/2); otherwise int8 (N, K). kGrouped
-// (int4 only): scale (N, G), groups of a multiple of 16 columns; otherwise (N,)
-template <int MR, bool kNorm, bool kInt4, bool kGrouped>
+// (int4 only): scale (N, G), groups of a multiple of 16 columns; otherwise
+// (N,). kResid (kNorm only): x' is the RMSNorm of the residual update of x
+// (the header), h_out its fp32 result
+template <int MR, bool kNorm, bool kInt4, bool kGrouped, bool kResid>
 __global__ void __launch_bounds__(kThreads, kGrouped && MR >= 8 ? 1 : 2)
 qmatvec_kernel(const void* __restrict__ x, int x_dtype,
                const void* __restrict__ norm_w, int norm_dtype, float eps,
                const int8_t* __restrict__ qt, const float* __restrict__ scale, int G,
                void* __restrict__ out, int out_dtype, int M, int N, int K, int warps_k,
-               int xs_units) {
+               int xs_units, Resid rs) {
+  static_assert(kNorm || !kResid, "the residual variant norms its result");
   // [m][quarter][position] of 4 bf16; int4 keeps a chunk's high-nibble x
   // units `cu` positions after its low ones
   extern __shared__ __align__(16) uint2 xs[];
   __shared__ float red[kWarps][MR * kC];
   __shared__ float s_part[kThreads / 16];
   __shared__ float s_rinv[MR];
+  __shared__ float s_rupd[kResid ? MR : 1];  // kResid: each row's inverse RMS of upd
 
   constexpr int H = kInt4 ? 2 : 1;  // x units a weight unit meets
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -300,25 +338,25 @@ qmatvec_kernel(const void* __restrict__ x, int x_dtype,
   rows_of(tile);
   prefetch();
 
-  // int4, one row, all of x staged (the decode step's RMSNorm matvecs): the
-  // columns thread t stages, 4 (t + 256 p), are the ones its norm pass
-  // reads, so x and the gains are loaded once, in one round, and kept in
-  // registers between the two passes (the same arithmetic and order)
-  constexpr int kP = 4;  // pieces a thread: K <= 4096
-  const bool fused = kNorm && kInt4 && MR == 1 && cu == U && K <= 4 * kThreads * kP;
-  if (fused) {
-    float v[kP][4], gain[kP][4];
-    float ss = 0.f;
+  // kResid: 4 columns from `col` of row m of h' = bf16(bf16(h_in) +
+  // bf16(rms(upd) * (1 + post_w))), ru the row's inverse RMS of upd (the
+  // arithmetic of norm_residual_kernel, decode.cu)
+  const auto resid4 = [&](int m, int col, float ru, float (&v)[4]) {
+    float u[4];
+    load_x4(x, DT_F32, static_cast<long>(m) * K + col, v);
+    load_x4(rs.upd, DT_BF16, static_cast<long>(m) * K + col, u);
 #pragma unroll
-    for (int p = 0; p < kP; ++p) {
-      const int k = 4 * (threadIdx.x + kThreads * p);
-      if (k < K) {
-        load_x4(x, x_dtype, k, v[p]);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) gain[p][j] = 1.f + load_any(norm_w, norm_dtype, k + j);
-        ss += v[p][0] * v[p][0] + v[p][1] * v[p][1] + v[p][2] * v[p][2] + v[p][3] * v[p][3];
-      }
+    for (int j = 0; j < 4; ++j) {
+      v[j] = bf16r(bf16r(v[j]) + bf16r((u[j] * ru) * (1.f + load_any(rs.post_w, rs.post_dtype,
+                                                                      col + j))));
     }
+  };
+  const auto store4 = [&](int m, int col, const float (&v)[4]) {  // h_out, block 0 only
+    *reinterpret_cast<float4*>(rs.h_out + static_cast<long>(m) * K + col) =
+        make_float4(v[0], v[1], v[2], v[3]);
+  };
+  // the sum of `ss` over the block, in warp order (the same on every block)
+  const auto block_total = [&](float ss) {
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
     if (lane == 0) s_part[warp] = ss;
@@ -326,7 +364,60 @@ qmatvec_kernel(const void* __restrict__ x, int x_dtype,
     float total = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) total += s_part[w];
-    const float ri = rsqrtf(total / static_cast<float>(K) + eps);
+    __syncthreads();  // s_part is free again
+    return total;
+  };
+
+  // int4 (and the residual variant), one row, all of x staged (the decode
+  // step's RMSNorm matvecs): the columns thread t stages, 4 (t + 256 p), are
+  // the ones its norm pass reads, so x and the gains are loaded once, in one
+  // round, and kept in registers between the passes (the same arithmetic
+  // and order)
+  constexpr int kP = 4;  // pieces a thread: K <= 4096
+  const bool fused = kNorm && (kInt4 || kResid) && MR == 1 && cu == U && K <= 4 * kThreads * kP;
+  if (fused) {
+    float v[kP][4], gain[kP][4];
+    float ss = 0.f;
+    if (kResid) {  // rms(upd) first; h' = the residual update, in registers
+      float u[kP][4];
+#pragma unroll
+      for (int p = 0; p < kP; ++p) {
+        const int k = 4 * (threadIdx.x + kThreads * p);
+        if (k < K) {
+          load_x4(rs.upd, DT_BF16, k, u[p]);
+          load_x4(x, DT_F32, k, v[p]);
+          ss += u[p][0] * u[p][0] + u[p][1] * u[p][1] + u[p][2] * u[p][2] + u[p][3] * u[p][3];
+        }
+      }
+      const float ru = rsqrtf(block_total(ss) / static_cast<float>(K) + eps);
+      ss = 0.f;
+#pragma unroll
+      for (int p = 0; p < kP; ++p) {
+        const int k = 4 * (threadIdx.x + kThreads * p);
+        if (k < K) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            v[p][j] = bf16r(bf16r(v[p][j]) +
+                            bf16r((u[p][j] * ru) * (1.f + load_any(rs.post_w, rs.post_dtype, k + j))));
+            gain[p][j] = 1.f + load_any(norm_w, norm_dtype, k + j);
+          }
+          if (blockIdx.x == 0) store4(0, k, v[p]);
+          ss += v[p][0] * v[p][0] + v[p][1] * v[p][1] + v[p][2] * v[p][2] + v[p][3] * v[p][3];
+        }
+      }
+    } else {
+#pragma unroll
+      for (int p = 0; p < kP; ++p) {
+        const int k = 4 * (threadIdx.x + kThreads * p);
+        if (k < K) {
+          load_x4(x, x_dtype, k, v[p]);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) gain[p][j] = 1.f + load_any(norm_w, norm_dtype, k + j);
+          ss += v[p][0] * v[p][0] + v[p][1] * v[p][1] + v[p][2] * v[p][2] + v[p][3] * v[p][3];
+        }
+      }
+    }
+    const float ri = rsqrtf(block_total(ss) / static_cast<float>(K) + eps);
 #pragma unroll
     for (int p = 0; p < kP; ++p) {
       const int g = threadIdx.x + kThreads * p;  // as `stage` numbers its pieces
@@ -345,26 +436,44 @@ qmatvec_kernel(const void* __restrict__ x, int x_dtype,
   if (kNorm && !fused) {  // fp32 inverse RMS of every row: T threads a row, 4 values a load
     constexpr int T = kThreads / MR, G = T < 32 ? T : 32;
     const int m = threadIdx.x / T, t = threadIdx.x % T;
-    float ss = 0.f;
-    if (m < M) {
+    // pass 0: of x (kResid: of h', which block 0 writes to h_out); pass 1
+    // (kResid, first): of upd
+    const auto row_rinv = [&](int pass, float* dst) {
+      float ss = 0.f;
+      if (m < M) {
 #pragma unroll 4
-      for (int k = t * 4; k < K; k += T * 4) {
-        float v[4];
-        load_x4(x, x_dtype, static_cast<long>(m) * K + k, v);
-        ss += v[0] * v[0] + v[1] * v[1] + v[2] * v[2] + v[3] * v[3];
+        for (int k = t * 4; k < K; k += T * 4) {
+          float v[4];
+          if (kResid && pass == 1) {
+            load_x4(rs.upd, DT_BF16, static_cast<long>(m) * K + k, v);
+          } else if (kResid) {
+            resid4(m, k, s_rupd[m], v);
+            if (blockIdx.x == 0) store4(m, k, v);
+            if (cu == U) {  // h' is bf16-exact: staged as it is, normed in place below
+              const int half = kInt4 ? K / 2 : K, h = k >= half, kk = k - h * half;
+              xs[(m * 4 + ((kk >> 2) & 3)) * xstride + h * cu + (kk >> 4)] =
+                  make_uint2(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]));
+            }
+          } else {
+            load_x4(x, x_dtype, static_cast<long>(m) * K + k, v);
+          }
+          ss += v[0] * v[0] + v[1] * v[1] + v[2] * v[2] + v[3] * v[3];
+        }
       }
-    }
 #pragma unroll
-    for (int o = G / 2; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
-    if (threadIdx.x % G == 0) s_part[threadIdx.x / G] = ss;
-    __syncthreads();
-    if (threadIdx.x < M) {
-      float s = 0.f;
+      for (int o = G / 2; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+      if (threadIdx.x % G == 0) s_part[threadIdx.x / G] = ss;
+      __syncthreads();
+      if (threadIdx.x < M) {
+        float s = 0.f;
 #pragma unroll
-      for (int p = 0; p < T / G; ++p) s += s_part[threadIdx.x * (T / G) + p];
-      s_rinv[threadIdx.x] = rsqrtf(s / static_cast<float>(K) + eps);
-    }
-    __syncthreads();
+        for (int p = 0; p < T / G; ++p) s += s_part[threadIdx.x * (T / G) + p];
+        dst[threadIdx.x] = rsqrtf(s / static_cast<float>(K) + eps);
+      }
+      __syncthreads();
+    };
+    if (kResid) row_rinv(1, s_rupd);
+    row_rinv(0, s_rinv);
   }
 
   // the x units that weight units [c0, c0 + cn) meet, normed and rounded to
@@ -382,7 +491,11 @@ qmatvec_kernel(const void* __restrict__ x, int x_dtype,
         continue;
       }
       float v[4] = {0.f, 0.f, 0.f, 0.f};  // rows from M to MR stay zero
-      if (m < M) load_x4(x, x_dtype, static_cast<long>(m) * K + col, v);
+      if (kResid && m < M) {
+        resid4(m, col, s_rupd[m], v);
+      } else if (m < M) {
+        load_x4(x, x_dtype, static_cast<long>(m) * K + col, v);
+      }
       if (kNorm && m < M) {
         const float ri = s_rinv[m];
 #pragma unroll
@@ -395,7 +508,27 @@ qmatvec_kernel(const void* __restrict__ x, int x_dtype,
     if (!kNorm) asm volatile("cp.async.wait_all;" ::: "memory");
     __syncthreads();
   };
-  if (cu == U && !fused) stage(0, U);  // x fits: staged once for every tile of the block
+  if (kResid && cu == U && !fused) {  // h' staged by the norm pass: norm it in place
+    for (int g = threadIdx.x; g < MR * 4 * H * U; g += kThreads) {
+      const int m = g / (4 * H * U), r0 = g - m * 4 * H * U;
+      const int h = kInt4 && r0 >= 4 * U, r = r0 - h * 4 * U, u = r >> 2, q = r & 3;
+      const int col = (h * U + u) * 16 + q * 4;
+      uint2* dst = xs + (m * 4 + q) * xstride + h * cu + u;
+      float v[4] = {0.f, 0.f, 0.f, 0.f};  // rows from M to MR stay zero
+      if (m < M) {
+        const uint2 b = *dst;
+        const float ri = s_rinv[m];
+        v[0] = __uint_as_float(b.x << 16), v[1] = __uint_as_float(b.x & 0xffff0000u);
+        v[2] = __uint_as_float(b.y << 16), v[3] = __uint_as_float(b.y & 0xffff0000u);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) v[j] = (v[j] * ri) * (1.f + load_any(norm_w, norm_dtype, col + j));
+      }
+      *dst = make_uint2(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]));
+    }
+    __syncthreads();
+  } else if (cu == U && !fused) {
+    stage(0, U);  // x fits: staged once for every tile of the block
+  }
 
   float acc[MR][kC];
   // this lane's units of the chunk from unit c0; `w` holds the first one's
@@ -487,11 +620,11 @@ int sm_count() {
   return cached[dev];
 }
 
-template <int MR, bool kNorm, bool kInt4, bool kGrouped>
+template <int MR, bool kNorm, bool kInt4, bool kGrouped, bool kResid>
 int launch_rows(const void* x, int x_dtype, const void* norm_w, int norm_dtype, float eps,
                 const int8_t* qt, const float* scale, int G, void* out, int out_dtype, int M,
-                int N, int K, cudaStream_t stream) {
-  const auto kernel = qmatvec_kernel<MR, kNorm, kInt4, kGrouped>;
+                int N, int K, Resid rs, cudaStream_t stream) {
+  const auto kernel = qmatvec_kernel<MR, kNorm, kInt4, kGrouped, kResid>;
   static cudaFuncAttributes attr;
   static bool have_attr = false, opted_in = false;
   if (!have_attr) {
@@ -537,28 +670,47 @@ int launch_rows(const void* x, int x_dtype, const void* norm_w, int norm_dtype, 
   const int tiles = (N + kC * (kWarps / warps_k) - 1) / (kC * (kWarps / warps_k));
   kernel<<<min(tiles, slots), kThreads, xs_bytes, stream>>>(
       x, x_dtype, norm_w, norm_dtype, eps, qt, scale, G, out, out_dtype, M, N, K, warps_k,
-      xs_units);
+      xs_units, rs);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kNorm, bool kInt4, bool kGrouped>
+template <bool kNorm, bool kInt4, bool kGrouped, bool kResid = false>
 int launch(const void* x, int x_dtype, const void* norm_w, int norm_dtype, float eps,
            const int8_t* qt, const float* scale, int G, void* out, int out_dtype,
-           int M, int N, int K, cudaStream_t s) {
+           int M, int N, int K, cudaStream_t s, Resid rs = Resid{}) {
   const int unit = kInt4 ? 32 : 16;  // columns of a weight unit
   if (M < 1 || M > 16 || N < 1 || K < unit || K % unit != 0) return cudaErrorInvalidValue;
   // grouped: G groups, both halves of K whole groups of a multiple of 16 columns
   if (kGrouped && (G < 2 || G % 2 != 0 || K % G != 0 || (K / G) % 16 != 0))
     return cudaErrorInvalidValue;
-#define QMV_ROWS(MR)                                                                     \
-  return launch_rows<MR, kNorm, kInt4, kGrouped>(x, x_dtype, norm_w, norm_dtype, eps, qt, \
-                                                 scale, G, out, out_dtype, M, N, K, s)
+#define QMV_ROWS(MR)                                                                    \
+  return launch_rows<MR, kNorm, kInt4, kGrouped, kResid>(x, x_dtype, norm_w, norm_dtype, \
+                                                         eps, qt, scale, G, out, out_dtype, \
+                                                         M, N, K, rs, s)
   if (M == 1) QMV_ROWS(1);
   if (M == 2) QMV_ROWS(2);
   if (M <= 4) QMV_ROWS(4);
   if (M <= 8) QMV_ROWS(8);
   QMV_ROWS(16);
 #undef QMV_ROWS
+}
+
+// The residual variant: h_in (M, K) and h_out f32, upd bf16, all 16-byte
+// aligned; h_out must not overlap h_in (other blocks still read h_in while
+// block 0 writes h_out)
+template <bool kInt4, bool kGrouped>
+int launch_resid(const float* h_in, const bf16* upd, const void* post_w, int post_dtype,
+                 const void* norm_w, int norm_dtype, float eps, const int8_t* qt,
+                 const float* scale, int G, float* h_out, void* out, int out_dtype, int M, int N,
+                 int K, cudaStream_t s) {
+  const auto addr = [](const void* p) { return reinterpret_cast<uintptr_t>(p); };
+  const uintptr_t bytes = static_cast<uintptr_t>(M > 0 ? M : 0) * (K > 0 ? K : 0) * 4;
+  if (!h_in || !upd || !post_w || !norm_w || !h_out || addr(h_in) % 16 || addr(upd) % 16 ||
+      addr(h_out) % 16 || (addr(h_in) < addr(h_out) + bytes && addr(h_out) < addr(h_in) + bytes))
+    return cudaErrorInvalidValue;
+  return launch<true, kInt4, kGrouped, true>(h_in, DT_F32, norm_w, norm_dtype, eps, qt, scale, G,
+                                             out, out_dtype, M, N, K, s,
+                                             Resid{upd, post_w, post_dtype, h_out});
 }
 
 }  // namespace
@@ -583,6 +735,20 @@ int q4_rows_matvec(const void* x, int x_dtype, const void* norm_w, int norm_dtyp
                                              out_dtype, M, N, K, stream);
 }
 
+// The packed-int4 residual variant, for q4_matvec.cu (its aligned calls of
+// M <= 16, per channel or in groups of a multiple of 16 columns)
+int q4_rows_residual_matvec(const float* h_in, const bf16* upd, const void* post_w, int post_dtype,
+                            const void* norm_w, int norm_dtype, float eps, const uint8_t* qt,
+                            const float* scale, int G, float* h_out, void* out, int out_dtype,
+                            int M, int N, int K, cudaStream_t stream) {
+  const int8_t* q = reinterpret_cast<const int8_t*>(qt);
+  return G != 0 ? launch_resid<true, true>(h_in, upd, post_w, post_dtype, norm_w, norm_dtype, eps,
+                                           q, scale, G, h_out, out, out_dtype, M, N, K, stream)
+                : launch_resid<true, false>(h_in, upd, post_w, post_dtype, norm_w, norm_dtype,
+                                            eps, q, scale, 0, h_out, out, out_dtype, M, N, K,
+                                            stream);
+}
+
 extern "C" int q8_matvec(const void* x, int x_dtype, const int8_t* qt, const float* scale,
                          void* out, int out_dtype, int M, int N, int K, void* stream) {
   return launch<false, false, false>(x, x_dtype, nullptr, DT_F32, 0.f, qt, scale, 0, out,
@@ -594,4 +760,16 @@ extern "C" int q8_rmsnorm_matvec(const void* x, int x_dtype, const void* norm_w,
                                  int out_dtype, int M, int N, int K, void* stream) {
   return launch<true, false, false>(x, x_dtype, norm_w, norm_dtype, eps, qt, scale, 0, out,
                                     out_dtype, M, N, K, static_cast<cudaStream_t>(stream));
+}
+
+// h_out = bf16(bf16(h_in) + bf16(rms(upd) * (1 + post_w))), then
+// out = the q8_rmsnorm_matvec of h_out with norm_w (the header)
+extern "C" int q8_residual_rmsnorm_matvec(const float* h_in, const bf16* upd, const void* post_w,
+                                          int post_dtype, const void* norm_w, int norm_dtype,
+                                          float eps, const int8_t* qt, const float* scale,
+                                          float* h_out, void* out, int out_dtype, int M, int N,
+                                          int K, void* stream) {
+  return launch_resid<false, false>(h_in, upd, post_w, post_dtype, norm_w, norm_dtype, eps, qt,
+                                    scale, 0, h_out, out, out_dtype, M, N, K,
+                                    static_cast<cudaStream_t>(stream));
 }

@@ -12,6 +12,12 @@ or ``group_size``), ``mlp_bits=4`` for an int4 MLP under an int8 attention
 and head, int8 or int4 vision front, and ``kv_bits=8`` for an int8 KV cache.
 Loading a real checkpoint (``load``, ``from_hf_checkpoint``), ``shard`` and
 ``save_serving`` / ``load_serving`` are not ported yet (ROADMAP.md).
+
+On the card the fused decode loop runs as a CUDA graph per request shape
+(``models/spatialvla.py:GreedyLoop``), captured at the first request of that
+shape and replayed after; the policy keeps them (``decode_graphs``) and
+drops them whenever it replaces its parameters (``quantize``, ``to``).
+``policy.use_cuda_graph = False`` serves through the eager loop instead.
 """
 from __future__ import annotations
 
@@ -52,6 +58,10 @@ class SpatialVLAPolicy:
         self.depth_image_size: Optional[int] = None  # set by quantize()
         self.kv_bits: Optional[int] = None  # set by quantize()
         self.quant_desc: Optional[Dict] = None  # set by quantize()
+        # the fused decode loop's CUDA graphs, captured for self.params; None:
+        # on for CUDA tensors (predict_action's use_cuda_graph)
+        self.decode_graphs = spatialvla.DecodeGraphs()
+        self.use_cuda_graph: Optional[bool] = None
 
     @classmethod
     def init_random(cls, config: SpatialVLAConfig, device, seed: int) -> "SpatialVLAPolicy":
@@ -65,8 +75,10 @@ class SpatialVLAPolicy:
         return cls(params, config, default_processor(config), device=device)
 
     def to(self, device) -> "SpatialVLAPolicy":
-        """Move every parameter to ``device``; returns self."""
+        """Move every parameter to ``device``; returns self. The decode
+        graphs of the old tree are dropped."""
         self.device = torch.device(device)
+        self.decode_graphs.clear()
         self.params = map_tree(lambda t: t.to(self.device), self.params)
         return self
 
@@ -101,7 +113,8 @@ class SpatialVLAPolicy:
         it bf16); the precomputed ZoeDepth relative-position bias; and
         ``kv_bits=8`` for an int8 KV cache on the fused decode path. In
         place; returns self. Each tensor is quantized on its own so the fp32
-        temporaries stay small."""
+        temporaries stay small. The decode graphs of the old tree are
+        dropped."""
         prior = self.quant_desc or {}
         # per-subtree re-pack guard: only the subtree already packed blocks a
         # second pass over it (a knob-only call never trips it)
@@ -116,6 +129,7 @@ class SpatialVLAPolicy:
                              "with an int4 MLP is not a supported tree")
         if kv_bits not in (None, 8):
             raise ValueError(f"kv_bits={kv_bits}: only 8 (or None) is supported")
+        self.decode_graphs.clear()
         params = dict(self.params)
         with torch.inference_mode():
             if bits:
@@ -155,6 +169,8 @@ class SpatialVLAPolicy:
                 depth_image_size=self.depth_image_size,
                 kv_bits=self.kv_bits,
                 return_margins=return_margins,
+                use_cuda_graph=self.use_cuda_graph,
+                decode_graphs=self.decode_graphs,
             )
 
     def predict(self, image, instruction: str, *, unnorm_key: Optional[str] = None,

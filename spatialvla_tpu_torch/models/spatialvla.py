@@ -14,14 +14,19 @@ Decoding keeps the two JAX paths and the JAX rule for choosing between them
 (spatialvla.py:474-481): the fused path (one ``fused_decode_step`` per token,
 ops/decode_step.py) for the fused-quantized tree with B <= 16 and
 S <= sliding window on CUDA tensors, else the unfused loop through
-``gemma2.forward``. Cache writes go in place. ``kv_bits=8`` serves the fused
-path from an int8 KV cache with per-slot scales. ``use_flash_prefill`` (off
-by default, as in JAX) runs the prefill through ``gemma2.prefill_flash``.
+``gemma2.forward``. Cache writes go in place. Where JAX compiles the fused
+loop's ``scan`` into one program per shape, the port replays it as one CUDA
+graph per shape (``GreedyLoop``, ``DecodeGraphs``; ``use_cuda_graph``).
+``kv_bits=8`` serves the fused path from an int8 KV cache with per-slot
+scales. ``use_flash_prefill`` (off by default, as in JAX) runs the prefill
+through ``gemma2.prefill_flash``.
 
 Not ported yet (ROADMAP): the split-phase serving functions.
 """
 from __future__ import annotations
 
+import time
+from collections import OrderedDict
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -261,6 +266,8 @@ def generate_greedy(
     depth_image_size: Optional[int] = None,
     kv_bits: Optional[int] = None,
     return_margins: bool = False,
+    use_cuda_graph: Optional[bool] = None,
+    decode_graphs: Optional["DecodeGraphs"] = None,
 ):
     """(B, max_new_tokens) greedy ids (with return_margins: (ids, margins)).
 
@@ -273,7 +280,10 @@ def generate_greedy(
     the serving path); the JAX package's full-vocabulary greedy and its
     ``cache_dtype`` and precomputed-``depth`` options are not ported (the
     prefill cache is bf16, ``kv_bits=8`` quantizes it for the fused decode;
-    depth comes from ZoeDepth)."""
+    depth comes from ZoeDepth). On the fused decode path ``use_cuda_graph``
+    (None: on for CUDA tensors) replays the loop after the first token as one
+    CUDA graph, kept in ``decode_graphs`` (``_generate_greedy_fused``)."""
+    graph_kw = dict(use_cuda_graph=use_cuda_graph, decode_graphs=decode_graphs)
     if use_flash_prefill and attention_mask is not None:
         raise ValueError("use_flash_prefill assumes unpadded rows (attention_mask=None)")
     B, P = input_ids.shape
@@ -294,7 +304,7 @@ def generate_greedy(
         return _decode_after_prefill(
             params, cfg, cache, hidden, P, S, max_new_tokens, token_range, use_fused_decode,
             compute_dtype, valid=None, key_valid=None, k_pos_true=None, kv_bits=kv_bits,
-            return_margins=return_margins,
+            return_margins=return_margins, **graph_kw,
         )
     cache = gemma2_mod.init_cache(cfg.text, B, S, device=dev, dtype=torch.bfloat16)
     if attention_mask is None:
@@ -317,7 +327,7 @@ def generate_greedy(
     return _decode_after_prefill(
         params, cfg, cache, hidden, P, S, max_new_tokens, token_range, use_fused_decode,
         compute_dtype, valid=valid, key_valid=key_valid, k_pos_true=k_pos_true, kv_bits=kv_bits,
-        return_margins=return_margins,
+        return_margins=return_margins, **graph_kw,
     )
 
 
@@ -328,7 +338,8 @@ def _stack_steps(toks, margs, return_margins):
 
 def _decode_after_prefill(params, cfg, cache, hidden, P, S, max_new_tokens, token_range,
                           use_fused_decode, compute_dtype, *, valid, key_valid, k_pos_true,
-                          kv_bits=None, return_margins=False):
+                          kv_bits=None, return_margins=False, use_cuda_graph=None,
+                          decode_graphs=None):
     """The greedy decode loop after the prefill (spatialvla.py:439)."""
     B = hidden.shape[0]
     use_fused = (
@@ -343,7 +354,8 @@ def _decode_after_prefill(params, cfg, cache, hidden, P, S, max_new_tokens, toke
         return _generate_greedy_fused(
             params, cfg, cache, hidden, P, max_new_tokens, token_range,
             compute_dtype=compute_dtype, valid=valid, kv_bits=kv_bits,
-            return_margins=return_margins,
+            return_margins=return_margins, use_cuda_graph=use_cuda_graph,
+            decode_graphs=decode_graphs,
         )
     if kv_bits:
         raise ValueError("kv_bits requires the fused decode path (use_fused_decode)")
@@ -397,27 +409,225 @@ def _scatter_rows(c, new, slots):
 def _scatter_scale(sc, new, slots, S):
     """In-place per-row KV-scale write into the flat layout (spatialvla.py:563):
     sc (L, Nkv, 1, B*S), new (L, B, Nkv), slots (B,) or an int -- row m's
-    scale lands at flattened key column m*S + slots[m]."""
+    scale lands at flattened key column m*S + slots[m]. The columns are
+    computed on sc's device (no host-to-device copy, so a CUDA graph can
+    capture the write)."""
     B = new.shape[1]
-    cols = torch.arange(B, device=sc.device) * S + torch.as_tensor(
-        slots, device=sc.device).long().expand(B)
+    cols = torch.arange(B, device=sc.device) * S
+    cols = cols + (slots if isinstance(slots, int) else slots.to(sc.device).long())
     sc[:, :, 0, cols] = new.float().transpose(1, 2)
     return sc
 
 
+def _fused_token(params, cfg, tok, ck, cv, kscale, vscale, slot, position, *, kv_bits,
+                 normalizer, next_from, compute_dtype, buffers=None):
+    """One step of the fused greedy loop (spatialvla.py:659-688): embed tok
+    (B,) with the spatial-token override, run ``fused_decode_step`` at
+    ``position`` (an int or (B,) int32 on the card), write the new K / V rows
+    (quantized, with their scales, for an int8 cache) into the cache at
+    ``slot`` in place, and return the next token and its argmax margin.
+    ``slot``: an int (the unpadded rows' shared slot) or the (B,) per-row
+    slots; ``buffers``: the step's ``step_buffers``."""
+    from ..ops.decode_step import fused_decode_step
+    from ..ops.quant import quantize_kv
+
+    embeds = merge_input_embeddings(params, cfg, tok[:, None], None, dtype=compute_dtype)
+    x = embeds[:, 0] * normalizer
+    hidden, k_new, v_new = fused_decode_step(params["lm"], cfg.text, x, ck, cv, position,
+                                             position + 1, cache_k_scale=kscale,
+                                             cache_v_scale=vscale, buffers=buffers)
+    if kv_bits == 8:  # quantize the new rows before writing them
+        S = ck.shape[3]
+        k_new, ks_new = quantize_kv(k_new)
+        v_new, vs_new = quantize_kv(v_new)
+        _scatter_scale(kscale, ks_new, slot, S)
+        _scatter_scale(vscale, vs_new, slot, S)
+    if isinstance(slot, int):
+        ck[:, :, :, slot] = k_new
+        cv[:, :, :, slot] = v_new
+    else:
+        _scatter_rows(ck, k_new, slot)
+        _scatter_rows(cv, v_new, slot)
+    return next_from(hidden.to(normalizer.dtype))
+
+
+def _kernel_counters():
+    """(wrapper, attribute) of every launch count the decode loop can move:
+    the kernel wrappers' ``.launches`` and the q4 wrappers' ``.tiled_launches``
+    (a function patched in a wrapper's place that counts nothing is left out)."""
+    from ..ops import decode_step as ds
+    from ..ops import quant
+
+    wrappers = (quant.q8_matvec, quant.q8_rmsnorm_matvec, quant.q8_residual_rmsnorm_matvec,
+                quant.q4_matvec, quant.q4_rmsnorm_matvec, quant.q4_residual_rmsnorm_matvec,
+                ds.decode_attention, ds.decode_attention_kv8, ds.norm_residual, ds.gelu_mul)
+    return [(w, a) for w in wrappers for a in ("launches", "tiled_launches") if hasattr(w, a)]
+
+
+class GreedyLoop:
+    """Steps 1 .. n-1 of the fused greedy loop on buffers of its own, for one
+    shape: B rows, prefix P, an S-slot cache, n = S - P tokens, a bf16 or
+    int8 cache, unpadded or right-padded rows. ``load`` copies a request's
+    prefill cache (permuted to the serving layout, quantized for kv_bits=8),
+    first token and, for padded rows, valid lengths into those buffers;
+    ``run`` decodes through them and returns (ids, margins), each (B, n-1).
+    Every step's buffers (``step_buffers``, the attention scratch among
+    them) are allocated once, here.
+
+    On the card ``capture`` records ``run`` into one CUDA graph (after one
+    warm-up run on a side stream, which also makes the kernels' shared-memory
+    opt-in outside the capture) and ``replay`` replays it: one launch from
+    the host for the whole loop, where an eager loop enqueues 157 kernels and
+    a dozen torch ops a step. A graph holds the addresses of the weights it
+    was captured with; ``DecodeGraphs`` ties it to one tree. The unpadded
+    rows' cache slot P + t is a Python int, baked into the graph (P is part
+    of the shape key); the attention kernels take the position from a
+    device tensor. The wrappers' launch counts move during the capture but
+    nothing runs then: the capture's counts are taken back and credited on
+    every replay instead."""
+
+    def __init__(self, params, cfg, *, B, P, S, kv_bits, padded, token_range, compute_dtype,
+                 dtype, device):
+        from ..ops.decode_step import step_buffers
+
+        tcfg = cfg.text
+        L, Nkv, D = tcfg.num_layers, tcfg.num_kv_heads, tcfg.head_dim
+        self.params, self.cfg, self.P, self.n = params, cfg, P, S - P
+        self.kv_bits, self.compute_dtype = kv_bits, compute_dtype
+        cache_dtype = torch.int8 if kv_bits == 8 else torch.bfloat16
+        self.ck, self.cv = (torch.empty((L, B, Nkv, S, D), dtype=cache_dtype, device=device)
+                            for _ in range(2))
+        self.kscale = self.vscale = None
+        if kv_bits == 8:
+            self.kscale, self.vscale = (torch.empty((L, Nkv, 1, B * S), dtype=torch.float32,
+                                                    device=device) for _ in range(2))
+        self.tok = torch.empty((B,), dtype=torch.long, device=device)
+        self.valid = torch.empty((B,), dtype=torch.int32, device=device) if padded else None
+        # the unpadded rows' positions P .. P + n - 2, one step's on the card
+        self.positions = torch.arange(P, S - 1, dtype=torch.int32, device=device)[:, None]
+        self.normalizer = torch.tensor(tcfg.hidden_size ** 0.5, dtype=dtype, device=device)
+        self.buffers = step_buffers(tcfg, B, S, device)
+        self.begin, self.head = token_range[0], _slice_head(params["lm"], *token_range)
+        self.graph, self.out, self.credits, self.capture_ms = None, None, {}, None
+
+    def next_from(self, h):
+        logits = qmatmul(h, self.head)
+        return torch.argmax(logits, dim=-1) + self.begin, _argmax_margin(logits)
+
+    def load(self, cache, tok, valid):
+        from ..ops.decode_step import flatten_kv_scales
+        from ..ops.quant import quantize_kv
+
+        k, v = (cache[n].permute(0, 1, 3, 2, 4) for n in ("k", "v"))
+        if self.kv_bits == 8:
+            (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+            self.kscale.copy_(flatten_kv_scales(ks))
+            self.vscale.copy_(flatten_kv_scales(vs))
+        self.ck.copy_(k)
+        self.cv.copy_(v)
+        self.tok.copy_(tok)
+        if self.valid is not None:
+            self.valid.copy_(valid)
+
+    def run(self):
+        tok, toks, margs = self.tok, [], []
+        for t in range(self.n - 1):
+            if self.valid is None:
+                slot, position = self.P + t, self.positions[t]
+            else:
+                slot = position = (self.valid + t).to(torch.int32)
+            tok, marg = _fused_token(self.params, self.cfg, tok, self.ck, self.cv, self.kscale,
+                                     self.vscale, slot, position, kv_bits=self.kv_bits,
+                                     normalizer=self.normalizer, next_from=self.next_from,
+                                     compute_dtype=self.compute_dtype, buffers=self.buffers)
+            toks.append(tok)
+            margs.append(marg)
+        return torch.stack(toks, dim=1), torch.stack(margs, dim=1)
+
+    def capture(self):
+        """Warm up once on a side stream, then capture ``run`` into a CUDA
+        graph; the buffers hold a loaded request. A failed capture raises."""
+        t0 = time.perf_counter()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            self.run()
+        torch.cuda.current_stream().wait_stream(side)
+        before = {c: getattr(*c) for c in _kernel_counters()}
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = self.run()
+        torch.cuda.synchronize()
+        self.credits = {c: getattr(*c) - n for c, n in before.items() if getattr(*c) != n}
+        for (fn, attr), n in self.credits.items():  # nothing ran during the capture
+            setattr(fn, attr, getattr(fn, attr) - n)
+        self.graph, self.out = graph, out
+        self.capture_ms = (time.perf_counter() - t0) * 1e3
+
+    def replay(self):
+        self.graph.replay()
+        for (fn, attr), n in self.credits.items():
+            setattr(fn, attr, getattr(fn, attr) + n)
+        return self.out[0].clone(), self.out[1].clone()
+
+
+class DecodeGraphs:
+    """The captured greedy loops (``GreedyLoop``) of one parameter tree, one
+    per shape key (B, P, S, kv_bits, padded, token range, compute dtype), as
+    JAX's jit compiles one program per shape; at most ``limit``, the least
+    recently used dropped first. A graph holds the addresses of the weights
+    it was captured with, so a lookup with another tree (another ``params``
+    or ``params["lm"]`` object) drops every graph first, and
+    ``SpatialVLAPolicy.quantize`` / ``.to`` call ``clear`` when they replace
+    the tree. ``SpatialVLAPolicy`` keeps one and passes it to
+    ``predict_action``."""
+
+    def __init__(self, limit: int = 8):
+        self.limit = limit
+        self.loops: "OrderedDict[tuple, GreedyLoop]" = OrderedDict()  # oldest use first
+        self._tree = None
+
+    def __len__(self) -> int:
+        return len(self.loops)
+
+    def clear(self) -> None:
+        self.loops.clear()
+        self._tree = None
+
+    def get(self, params, key, build) -> GreedyLoop:
+        """The loop of ``key`` for this tree; ``build()`` makes (and
+        captures) one where there is none."""
+        if self._tree is None or self._tree[0] is not params or self._tree[1] is not params["lm"]:
+            self.clear()
+            self._tree = (params, params["lm"])
+        loop = self.loops.pop(key, None) or build()
+        self.loops[key] = loop
+        while len(self.loops) > self.limit:
+            self.loops.popitem(last=False)
+        return loop
+
+
 def _generate_greedy_fused(params, cfg, cache, prefill_hidden, P, max_new_tokens, token_range,
-                           *, compute_dtype=None, valid=None, kv_bits=None, return_margins=False):
+                           *, compute_dtype=None, valid=None, kv_bits=None, return_margins=False,
+                           use_cuda_graph=None, decode_graphs=None):
     """Decode loop over ``fused_decode_step`` (spatialvla.py:576).
 
     Unpadded rows share the scalar cache position P + t; right-padded rows
     decode at their own slots valid[m] + t, overwriting the pad slots. With
     kv_bits=8 the prefill cache is quantized (``quantize_kv``), its scales
     carried in the flat layout, and each step's new rows are quantized
-    before they are written."""
-    from ..ops.decode_step import flatten_kv_scales, fused_decode_step
+    before they are written.
+
+    ``use_cuda_graph`` (None: on for CUDA tensors): the steps after the
+    first token run in a ``GreedyLoop``, on buffers of their own, as one
+    CUDA graph on the card (taken from ``decode_graphs``, or captured for
+    this call where none is given), eagerly on the CPU. False: the eager
+    loop, one ``fused_decode_step`` enqueued after another."""
+    from ..ops.decode_step import flatten_kv_scales
     from ..ops.quant import quantize_kv
 
-    tcfg = cfg.text
+    if kv_bits not in (None, 8):
+        raise ValueError(f"kv_bits={kv_bits}: only 8 (or None) is supported")
     B = prefill_hidden.shape[0]
     begin, size = token_range
     head = _slice_head(params["lm"], begin, size)
@@ -426,18 +636,6 @@ def _generate_greedy_fused(params, cfg, cache, prefill_hidden, P, max_new_tokens
         logits = qmatmul(h, head)
         return torch.argmax(logits, dim=-1) + begin, _argmax_margin(logits)
 
-    # serving cache layout (L, B, Nkv, S, D): one permuted copy, then written in place
-    ck = cache["k"].permute(0, 1, 3, 2, 4).contiguous()
-    cv = cache["v"].permute(0, 1, 3, 2, 4).contiguous()
-    if kv_bits == 8:  # int8 cache + per-slot scales in the flat layout
-        ck, kscale = quantize_kv(ck)
-        cv, vscale = quantize_kv(cv)
-        kscale, vscale = flatten_kv_scales(kscale), flatten_kv_scales(vscale)
-    elif kv_bits:
-        raise ValueError(f"kv_bits={kv_bits}: only 8 (or None) is supported")
-    else:
-        kscale = vscale = None
-    S = ck.shape[3]
     if valid is None:
         last_hidden = prefill_hidden[:, -1]
     else:
@@ -447,26 +645,48 @@ def _generate_greedy_fused(params, cfg, cache, prefill_hidden, P, max_new_tokens
         )[:, 0]
     dtype = compute_dtype or prefill_hidden.dtype
     tok, marg = next_from(last_hidden.to(dtype))
-    toks, margs = [tok], [marg]
-    normalizer = torch.tensor(tcfg.hidden_size ** 0.5, dtype=dtype, device=prefill_hidden.device)
-    for t in range(max_new_tokens - 1):
-        embeds = merge_input_embeddings(params, cfg, tok[:, None], None, dtype=compute_dtype)
-        x = embeds[:, 0] * normalizer
-        slot = P + t if valid is None else (valid + t).to(torch.int32)
-        hidden, k_new, v_new = fused_decode_step(params["lm"], tcfg, x, ck, cv, slot, slot + 1,
-                                                 cache_k_scale=kscale, cache_v_scale=vscale)
-        if kv_bits == 8:  # quantize the new rows before writing them
-            k_new, ks_new = quantize_kv(k_new)
-            v_new, vs_new = quantize_kv(v_new)
-            _scatter_scale(kscale, ks_new, slot, S)
-            _scatter_scale(vscale, vs_new, slot, S)
-        if valid is None:
-            ck[:, :, :, slot] = k_new
-            cv[:, :, :, slot] = v_new
+    S = cache["k"].shape[2]
+    if use_cuda_graph is None:
+        use_cuda_graph = prefill_hidden.is_cuda
+    if use_cuda_graph and max_new_tokens > 1:
+        dev = prefill_hidden.device
+        shape = dict(B=B, P=P, S=S, kv_bits=kv_bits, padded=valid is not None,
+                     token_range=tuple(token_range), compute_dtype=compute_dtype, dtype=dtype)
+
+        def build():
+            return GreedyLoop(params, cfg, device=dev, **shape)
+
+        if dev.type != "cuda":  # the same loop, eagerly
+            loop = build()
+            loop.load(cache, tok, valid)
+            toks, margs = loop.run()
         else:
-            _scatter_rows(ck, k_new, slot)
-            _scatter_rows(cv, v_new, slot)
-        tok, marg = next_from(hidden.to(dtype))
+            loop = (build() if decode_graphs is None
+                    else decode_graphs.get(params, tuple(shape.values()), build))
+            loop.load(cache, tok, valid)
+            if loop.graph is None:
+                loop.capture()
+                loop.load(cache, tok, valid)  # the warm-up wrote into the buffers
+            toks, margs = loop.replay()
+        ids = torch.cat([tok[:, None], toks], dim=1)
+        return (ids, torch.cat([marg[:, None], margs], dim=1)) if return_margins else ids
+
+    # serving cache layout (L, B, Nkv, S, D): one permuted copy, then written in place
+    ck = cache["k"].permute(0, 1, 3, 2, 4).contiguous()
+    cv = cache["v"].permute(0, 1, 3, 2, 4).contiguous()
+    kscale = vscale = None
+    if kv_bits == 8:  # int8 cache + per-slot scales in the flat layout
+        ck, kscale = quantize_kv(ck)
+        cv, vscale = quantize_kv(cv)
+        kscale, vscale = flatten_kv_scales(kscale), flatten_kv_scales(vscale)
+    toks, margs = [tok], [marg]
+    normalizer = torch.tensor(cfg.text.hidden_size ** 0.5, dtype=dtype,
+                              device=prefill_hidden.device)
+    for t in range(max_new_tokens - 1):
+        slot = P + t if valid is None else (valid + t).to(torch.int32)
+        tok, marg = _fused_token(params, cfg, tok, ck, cv, kscale, vscale, slot, slot,
+                                 kv_bits=kv_bits, normalizer=normalizer, next_from=next_from,
+                                 compute_dtype=compute_dtype)
         toks.append(tok)
         margs.append(marg)
     return _stack_steps(toks, margs, return_margins)
@@ -487,6 +707,8 @@ def predict_action(
     depth_image_size: Optional[int] = None,
     kv_bits: Optional[int] = None,
     return_margins: bool = False,
+    use_cuda_graph: Optional[bool] = None,
+    decode_graphs: Optional[DecodeGraphs] = None,
 ):
     """Greedy-decode exactly 3 * chunk spatial action token ids."""
     return generate_greedy(
@@ -496,4 +718,5 @@ def predict_action(
         max_new_tokens=3 * action_chunk_size, compute_dtype=compute_dtype,
         use_fused_decode=use_fused_decode, use_flash_prefill=use_flash_prefill,
         depth_image_size=depth_image_size, kv_bits=kv_bits, return_margins=return_margins,
+        use_cuda_graph=use_cuda_graph, decode_graphs=decode_graphs,
     )

@@ -51,6 +51,12 @@ _SIGNATURES = {
     "q4_tiled_fma": (_P, _I, _P, _I, _F, _P, _P, _I, _P, _I, _I, _I, _I, _P),
     # x, qt, M, K, G: which kernel the two above launch (no stream, no launch)
     "q4_route": (_P, _P, _I, _I, _I),
+    # h_in, upd, post_w, post_dtype, norm_w, norm_dtype, eps, qt, scale, h_out, out,
+    # out_dtype, M, N, K, stream
+    "q8_residual_rmsnorm_matvec": (_P, _P, _P, _I, _P, _I, _F, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # the same with qt packed int4 and G (0 per channel) after scale
+    "q4_residual_rmsnorm_matvec": (_P, _P, _P, _I, _P, _I, _F, _P, _P, _I, _P, _P, _I, _I, _I, _I,
+                                   _P),
     # qkv, cos, sin, ck, cv, position, attn, k_new, v_new, part, tickets, M, Nq, Nkv, D, S,
     # chunk, q_scale, cap, stream
     "decode_attention": (_P,) * 11 + (_I,) * 6 + (_F, _F, _P),

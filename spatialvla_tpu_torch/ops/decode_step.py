@@ -6,48 +6,77 @@ Port of the Pallas kernel ``spatialvla_tpu/ops/decode_step.py:fused_decode_step`
 (``_decode_kernel``). The TPU runs the whole stack as one kernel whose grid
 walks (layer, phase); Hopper blocks run in no order and keep nothing between
 launches, so here each layer is a fixed sequence of hand-written kernels
-launched from a Python loop over the stacked layer tensors:
+launched from a Python loop over the stacked layer tensors, 6 a layer and
+one at the end (157 for Gemma2-2B's 26 layers) at up to
+``RESIDUAL_FOLD_MAX_M`` rows:
 
-    rmsnorm_matvec      input norm + fused qkv          (csrc/q8_matvec.cu, q4_matvec.cu)
+    residual_rmsnorm_matvec  the previous layer's post-FFN norm + residual
+                             (JAX _post_ffn), then the input norm + fused qkv
+                             (_input_norm; layer 0: rmsnorm_matvec of x)
+                             (csrc/q8_matvec.cu, q4_matvec.cu)
     decode_attention    RoPE, cache + self logits, softcap, softmax, p @ V,
                         the cache split across blocks and merged in the
                         same launch (decode_attention_kv8 on an int8 cache)
+                        (csrc/decode.cu)
     matvec              o projection
-    norm_residual       post-attention norm + residual  (csrc/decode.cu)
-    rmsnorm_matvec      pre-FFN norm + fused gate|up
+    residual_rmsnorm_matvec  post-attention norm + residual, then the
+                             pre-FFN norm + fused gate|up (_post_attn)
     gelu_mul            gelu_tanh(gate) * up
     matvec              down projection
-    norm_residual       post-FFN norm + residual (+ the final norm, last layer)
+    norm_residual       (after the last layer) its post-FFN norm + residual
+                        and the final norm
+
+Above ``RESIDUAL_FOLD_MAX_M`` rows, and for a weight that the residual
+kernels do not take (``quant.residual_route``: misaligned, int4 groups of a
+width that is not a multiple of 16 columns), ``norm_residual`` +
+``rmsnorm_matvec`` run in their place (8 launches a layer), chosen by shape
+before the first launch.
 
 Each projection takes the kernel of its own format (``_matvec_block``,
 decode_step.py:120-168): q8_* for int8 weights, q4_* for packed int4, per
 channel or grouped, so ``mlp_bits=4`` runs int8 attention and an int4 MLP.
 The loop only launches kernels; no step of the layer math is a torch op,
 and the buffers, the attention kernels' scratch among them, are allocated
-once per step before it. The residual stream stays in one fp32 (M, H) buffer,
-updated in place. The bf16 rounding points are those of decode_step.py:220-372.
+once per step before it (``step_buffers``; the decode loop's CUDA graph
+passes its own). The residual stream alternates between two fp32 (M, H)
+buffers: a residual kernel reads one and writes the other, which its other
+blocks must not see half-written. The bf16 rounding points are those of
+decode_step.py:220-372.
 The per-row RoPE cos/sin tables are built here, as the JAX wrapper builds
 them outside its kernel (decode_step.py:461-467).
 
 What bounds a step: streaming the weights, 26 layers x 77.9 MB = 2.02 GB in
 int8 on the flagship (about half in int4), plus the cache (about 30 MB in
-bf16 at S = 278, half in int8). A persistent kernel or a CUDA graph over the
-8 x 26 launches is left for later work.
+bf16 at S = 278, half in int8). The launches are many and short: the host
+takes longer to enqueue them than the card to run them, unless they are
+replayed as a CUDA graph (``models/spatialvla.py`` captures the whole
+greedy loop, step after step, into one). A persistent kernel is left for
+later work.
 
 ``fused_decode_step_plain`` runs the same loop with every kernel's plain
 PyTorch version; it is the reference the kernels are held to on the card.
 """
 from __future__ import annotations
 
+import functools
 from types import SimpleNamespace
 from typing import Any, Dict, Tuple
 
 import torch
 
 from . import _lib
-from .quant import matvec, matvec_plain, rmsnorm_matvec, rmsnorm_matvec_plain
+from .quant import (matvec, matvec_plain, residual_rmsnorm_matvec, residual_rmsnorm_matvec_plain,
+                    residual_route, rmsnorm_matvec, rmsnorm_matvec_plain)
 
 Params = Dict[str, Any]
+
+# Rows up to which the step folds the residual update into the next RMSNorm
+# matvec. Every block of the residual kernels passes over all M rows of h and
+# upd before its weight stream, so the fold's cost grows with M: on an H100
+# (scripts/bench_q8_matvec.py --residual) it beats norm_residual + the
+# RMSNorm matvec at 1, 2 and 4 rows and loses from 8 rows on (int8 qkv at 16
+# rows 0.0587 ms against 0.0399), so above this the step keeps the pair.
+RESIDUAL_FOLD_MAX_M = 4
 
 
 # ---------------------------------------------------------------------------
@@ -326,13 +355,14 @@ def _attention_plain(*args, scratch, **kw):
 
 
 KERNELS = SimpleNamespace(
-    rmsnorm_matvec=rmsnorm_matvec, matvec=matvec, attention=_attention_kernel,
+    rmsnorm_matvec=rmsnorm_matvec, residual_rmsnorm_matvec=residual_rmsnorm_matvec,
+    residual_route=residual_route, matvec=matvec, attention=_attention_kernel,
     norm_residual=norm_residual, gelu_mul=gelu_mul,
 )
 PLAIN = SimpleNamespace(
-    rmsnorm_matvec=rmsnorm_matvec_plain, matvec=matvec_plain,
-    attention=_attention_plain, norm_residual=norm_residual_plain,
-    gelu_mul=gelu_mul_plain,
+    rmsnorm_matvec=rmsnorm_matvec_plain, residual_rmsnorm_matvec=residual_rmsnorm_matvec_plain,
+    residual_route=residual_route, matvec=matvec_plain, attention=_attention_plain,
+    norm_residual=norm_residual_plain, gelu_mul=gelu_mul_plain,
 )
 
 
@@ -374,8 +404,29 @@ def _kv_scales(cfg, M, S, cache_k, cache_k_scale, cache_v_scale):
     return flatten_kv_scales(cache_k_scale), flatten_kv_scales(cache_v_scale)
 
 
+def step_buffers(cfg, M: int, S: int, device) -> SimpleNamespace:
+    """The buffers of one step at M rows and an S-slot cache: the two fp32
+    residual buffers the step alternates between (a residual kernel reads
+    one and writes the other), the projections' and attention's outputs, the
+    final hidden state, the new K / V rows, and (on the card) the attention
+    scratch. ``fused_decode_step`` allocates them per call unless given; the
+    decode loop's CUDA graph allocates them once."""
+    L, H, I = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
+    Nq, Nkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    empty = functools.partial(torch.empty, dtype=torch.bfloat16, device=device)
+    return SimpleNamespace(
+        h=(torch.empty((M, H), dtype=torch.float32, device=device),
+           torch.empty((M, H), dtype=torch.float32, device=device)),
+        qkv=empty((M, (Nq + 2 * Nkv) * D)), attn=empty((M, Nq * D)), o=empty((M, H)),
+        gu=empty((M, 2 * I)), act=empty((M, I)), dn=empty((M, H)), hidden=empty((M, H)),
+        k_new=empty((L, M, Nkv, D)), v_new=empty((L, M, Nkv, D)),
+        scratch=(attention_scratch(M, Nkv, S, D, Nq, device)
+                 if torch.device(device).type == "cuda" else None),
+    )
+
+
 def _step(ops, lm_params: Params, cfg, x, cache_k, cache_v, position, rope_position,
-          cache_k_scale, cache_v_scale):
+          cache_k_scale, cache_v_scale, bufs=None):
     layers = lm_params["layers"]
     qkv, o = layers["attn"]["qkv"], layers["attn"]["o"]
     gu, dn = layers["mlp"]["gate_up"], layers["mlp"]["down"]
@@ -385,8 +436,7 @@ def _step(ops, lm_params: Params, cfg, x, cache_k, cache_v, position, rope_posit
     if cache_k.dtype not in (torch.bfloat16, torch.int8):
         raise TypeError(f"decode step: the KV cache must be bf16 or int8, got {cache_k.dtype}")
     L, M = cfg.num_layers, x.shape[0]
-    H, I = cfg.hidden_size, cfg.intermediate_size
-    Nq, Nkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    Nq, D = cfg.num_heads, cfg.head_dim
     S = cache_k.shape[3]
     if S > cfg.sliding_window:
         raise ValueError(
@@ -400,42 +450,55 @@ def _step(ops, lm_params: Params, cfg, x, cache_k, cache_v, position, rope_posit
     cos, sin = rope_tables(rope_position, D, cfg.rope_theta)
 
     bf = torch.bfloat16
-    h = x.float().contiguous()  # residual stream, updated in place
-    qkv_buf = torch.empty((M, (Nq + 2 * Nkv) * D), dtype=bf, device=dev)
-    attn_buf = torch.empty((M, Nq * D), dtype=bf, device=dev)
-    o_buf = torch.empty((M, H), dtype=bf, device=dev)
-    gu_buf = torch.empty((M, 2 * I), dtype=bf, device=dev)
-    act_buf = torch.empty((M, I), dtype=bf, device=dev)
-    dn_buf = torch.empty((M, H), dtype=bf, device=dev)
-    hidden = torch.empty((M, H), dtype=bf, device=dev)
-    k_new = torch.empty((L, M, Nkv, D), dtype=bf, device=dev)
-    v_new = torch.empty((L, M, Nkv, D), dtype=bf, device=dev)
-    scratch = attention_scratch(M, Nkv, S, D, Nq, dev) if dev.type == "cuda" else None
+    b = step_buffers(cfg, M, S, dev) if bufs is None else bufs
+    h, spare = b.h  # the residual stream; a residual kernel writes its update into `spare`
+    h.copy_(x)
+    # the weights whose RMSNorm matvec takes the residual update in front
+    # (one launch instead of norm_residual + rmsnorm_matvec): a route by
+    # rows, shape and alignment, chosen before any launch
+    few = M <= RESIDUAL_FOLD_MAX_M
+    fold = {"qkv": few and ops.residual_route(h, qkv["qt"][0], qkv["scale"][0]),
+            "gu": few and ops.residual_route(h, gu["qt"][0], gu["scale"][0])}
     eps = cfg.rms_norm_eps
     q_scale = cfg.query_pre_attn_scalar ** -0.5
+
+    def norm_matvec(upd, post_w, norm_w, name, w, l, out):
+        """out <- the RMSNorm matvec (norm_w, layer l of w) of h after h's
+        residual update by upd with post_w (no update: upd None)."""
+        nonlocal h, spare
+        if upd is not None and fold[name]:
+            ops.residual_rmsnorm_matvec(h, upd, post_w, norm_w, w["qt"][l], w["scale"][l],
+                                        eps=eps, h_out=spare, out_dtype=bf, out=out)
+            h, spare = spare, h
+            return
+        if upd is not None:
+            ops.norm_residual(h, upd, post_w, eps=eps)
+        ops.rmsnorm_matvec(h, norm_w, w["qt"][l], w["scale"][l], eps=eps, out_dtype=bf, out=out)
+
     for l in range(L):
-        ops.rmsnorm_matvec(h, layers["input_norm"][l], qkv["qt"][l], qkv["scale"][l],
-                           eps=eps, out_dtype=bf, out=qkv_buf)
-        ops.attention(qkv_buf, cos, sin, cache_k[l], cache_v[l], position,
+        # layer l - 1's post-FFN residual update and layer l's input norm
+        # (JAX: _post_ffn, then _input_norm); layer 0 norms x itself
+        norm_matvec(b.dn if l else None, layers["post_ffn_norm"][l - 1],
+                    layers["input_norm"][l], "qkv", qkv, l, b.qkv)
+        ops.attention(b.qkv, cos, sin, cache_k[l], cache_v[l], position,
                       ks=None if ks is None else ks[l], vs=None if vs is None else vs[l],
                       num_heads=Nq, q_scale=q_scale, cap=cfg.attn_logit_softcap,
-                      attn_out=attn_buf, k_new=k_new[l], v_new=v_new[l], scratch=scratch)
-        ops.matvec(attn_buf, o["qt"][l], o["scale"][l], out_dtype=bf, out=o_buf)
-        ops.norm_residual(h, o_buf, layers["post_attn_norm"][l], eps=eps)
-        ops.rmsnorm_matvec(h, layers["pre_ffn_norm"][l], gu["qt"][l], gu["scale"][l],
-                           eps=eps, out_dtype=bf, out=gu_buf)
-        ops.gelu_mul(gu_buf, out=act_buf)
-        ops.matvec(act_buf, dn["qt"][l], dn["scale"][l], out_dtype=bf, out=dn_buf)
-        last = l == L - 1
-        ops.norm_residual(h, dn_buf, layers["post_ffn_norm"][l], eps=eps,
-                          final_w=lm_params["final_norm"] if last else None,
-                          final_out=hidden if last else None)
-    return hidden, k_new, v_new
+                      attn_out=b.attn, k_new=b.k_new[l], v_new=b.v_new[l], scratch=b.scratch)
+        ops.matvec(b.attn, o["qt"][l], o["scale"][l], out_dtype=bf, out=b.o)
+        # the post-attention residual update and the pre-FFN norm (_post_attn)
+        norm_matvec(b.o, layers["post_attn_norm"][l], layers["pre_ffn_norm"][l], "gu", gu, l,
+                    b.gu)
+        ops.gelu_mul(b.gu, out=b.act)
+        ops.matvec(b.act, dn["qt"][l], dn["scale"][l], out_dtype=bf, out=b.dn)
+    ops.norm_residual(h, b.dn, layers["post_ffn_norm"][L - 1], eps=eps,
+                      final_w=lm_params["final_norm"], final_out=b.hidden)
+    b.residual = h  # which of b.h holds the residual stream after the last layer
+    return b.hidden, b.k_new, b.v_new
 
 
 def fused_decode_step(
     lm_params: Params, cfg, x: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
-    position, rope_position, *, cache_k_scale=None, cache_v_scale=None,
+    position, rope_position, *, cache_k_scale=None, cache_v_scale=None, buffers=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Same signature and results as the JAX ``fused_decode_step``.
 
@@ -446,13 +509,14 @@ def fused_decode_step(
     rope_position int scalars or (M,) per-row vectors. Returns (hidden (M, H)
     bf16 final-normed, k_new, v_new (L, M, Nkv, D) bf16, unquantized); the
     caller writes k_new / v_new (quantized, for an int8 cache) into the cache
-    at ``position``."""
+    at ``position``. ``buffers``: a ``step_buffers`` of this shape, which the
+    results then live in (allocated per call when not given)."""
     return _step(KERNELS, lm_params, cfg, x, cache_k, cache_v, position, rope_position,
-                 cache_k_scale, cache_v_scale)
+                 cache_k_scale, cache_v_scale, buffers)
 
 
 def fused_decode_step_plain(lm_params, cfg, x, cache_k, cache_v, position, rope_position, *,
-                            cache_k_scale=None, cache_v_scale=None):
+                            cache_k_scale=None, cache_v_scale=None, buffers=None):
     """fused_decode_step with every kernel replaced by its plain version."""
     return _step(PLAIN, lm_params, cfg, x, cache_k, cache_v, position, rope_position,
-                 cache_k_scale, cache_v_scale)
+                 cache_k_scale, cache_v_scale, buffers)

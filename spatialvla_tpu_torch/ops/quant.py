@@ -25,7 +25,13 @@ Kernels:
     in groups of a multiple of 16 columns, they launch the int4 instances of
     ``csrc/q8_matvec.cu``'s kernel, above 16 rows the bf16 tensor-core
     kernel of ``csrc/q4_matvec.cu`` (``q4_route`` says which kernel a call
-    takes).
+    takes);
+  * ``q8_residual_rmsnorm_matvec`` / ``q4_residual_rmsnorm_matvec`` (the
+    residual instances of ``csrc/q8_matvec.cu``'s few-row kernel) fold the
+    decode step's residual update (``decode_step.norm_residual``) into the
+    RMSNorm matvec that follows it, as the JAX decode kernel's ``_post_attn``
+    and ``_post_ffn`` + ``_input_norm`` phases do; ``residual_route`` says
+    which weights take them.
 Each wrapper runs its plain PyTorch version (``*_plain``) only for CPU
 tensors, launches the kernel for CUDA tensors, and counts its launches in
 ``<wrapper>.launches`` (the q4 wrappers those on the tensor-core route also
@@ -363,6 +369,109 @@ q4_rmsnorm_matvec.tiled_launches = 0
 Q4_ROUTES = ("rows", "small", "tiled", "tiled_fma")
 
 
+# ---------------------------------------------------------------------------
+# kernel 2 with the decode step's residual update in front
+# ---------------------------------------------------------------------------
+
+def residual_rmsnorm_matvec_plain(h_in, upd, post_w, norm_w, qt, scale, *, eps=1e-6, h_out,
+                                  out_dtype=torch.bfloat16, out=None):
+    """Plain version of the residual kernels: ``decode_step.norm_residual_plain``
+    (h_out = bf16(bf16(h_in) + bf16(rms(upd) * (1 + post_w))), fp32) followed
+    by ``rmsnorm_matvec_plain`` of h_out with norm_w, the same operations in
+    the same order. h_in is left as it is."""
+    h_out.copy_((h_in.to(torch.bfloat16).float() + _rms_bf16(upd, post_w, eps))
+                .to(torch.bfloat16).float())
+    return rmsnorm_matvec_plain(h_out, norm_w, qt, scale, eps=eps, out_dtype=out_dtype, out=out)
+
+
+def residual_route(x, qt, scale) -> bool:
+    """Whether ``residual_rmsnorm_matvec`` takes these operands (x the (M,
+    K) residual stream, qt and scale one layer's weight), by the rule of
+    ``csrc/q4_matvec.cu:route_of`` for its few-row kernel: M <= 16, x and qt
+    16-byte aligned, int8 with K a multiple of 16, or packed int4 with K / 2
+    a multiple of 16, per channel or in groups of a multiple of 16 columns.
+    On any device, from shapes and addresses alone; the decode step runs
+    ``norm_residual`` and ``rmsnorm_matvec`` for the weights it refuses."""
+    M, K = x.shape
+    if not 1 <= M <= QKERNEL_MAX_M or x.data_ptr() % 16 or qt.data_ptr() % 16:
+        return False
+    if qt.dtype == torch.int8:
+        return K % 16 == 0 and scale.dim() == 1
+    G = scale.shape[-1] if scale.dim() == 2 else 0
+    return (K // 2) % 16 == 0 and (G == 0 or (K % G == 0 and (K // G) % 16 == 0))
+
+
+def _check_residual(name, h_in, upd, post_w, norm_w, h_out):
+    _lib.check_cuda(name, h_in, upd, post_w, norm_w, h_out)
+    M, K = h_in.shape
+    if h_in.dtype != torch.float32 or h_out.dtype != torch.float32 or upd.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: h_in and h_out must be float32, upd bfloat16")
+    if tuple(upd.shape) != (M, K) or tuple(h_out.shape) != (M, K):
+        raise ValueError(f"{name}: upd and h_out must be ({M}, {K}) like h_in")
+    if tuple(post_w.shape) != (K,) or tuple(norm_w.shape) != (K,):
+        raise ValueError(f"{name}: post_w and norm_w must be ({K},)")
+    a, b, n = h_in.data_ptr(), h_out.data_ptr(), 4 * M * K
+    if a < b + n and b < a + n:
+        raise ValueError(f"{name}: h_out overlaps h_in (other blocks still read h_in while "
+                         "the first writes h_out)")
+    if a % 16 or b % 16 or upd.data_ptr() % 16:
+        raise ValueError(f"{name}: h_in, h_out and upd must start 16-byte aligned")
+
+
+def q8_residual_rmsnorm_matvec(h_in, upd, post_w, norm_w, qt, scale, *, eps=1e-6, h_out,
+                               out_dtype=torch.bfloat16, out=None):
+    """h_out (M, K) f32 <- bf16(bf16(h_in) + bf16(rms(upd) * (1 + post_w))),
+    then rms_norm(h_out; norm_w) @ dequant(qt int8, scale) -> (M, N), in one
+    kernel. h_out must not overlap h_in."""
+    if h_in.device.type == "cpu":
+        return residual_rmsnorm_matvec_plain(h_in, upd, post_w, norm_w, qt, scale, eps=eps,
+                                             h_out=h_out, out_dtype=out_dtype, out=out)
+    if out is None:
+        out = torch.empty((h_in.shape[0], qt.shape[0]), dtype=out_dtype, device=h_in.device)
+    M, N, K = _check_matvec("q8_residual_rmsnorm_matvec", h_in, qt, scale, out)
+    _check_residual("q8_residual_rmsnorm_matvec", h_in, upd, post_w, norm_w, h_out)
+    _lib.launch(
+        "q8_residual_rmsnorm_matvec", h_in.data_ptr(), upd.data_ptr(), post_w.data_ptr(),
+        _lib.dtype_code(post_w), norm_w.data_ptr(), _lib.dtype_code(norm_w), float(eps),
+        qt.data_ptr(), scale.data_ptr(), h_out.data_ptr(), out.data_ptr(), _lib.dtype_code(out),
+        M, N, K,
+    )
+    q8_residual_rmsnorm_matvec.launches += 1
+    return out
+
+
+q8_residual_rmsnorm_matvec.launches = 0
+
+
+def q4_residual_rmsnorm_matvec(h_in, upd, post_w, norm_w, qt, scale, *, eps=1e-6, h_out,
+                               out_dtype=torch.bfloat16, out=None):
+    """q8_residual_rmsnorm_matvec for packed int4 weights, per channel or in
+    groups of a multiple of 16 columns, at most 16 rows (``residual_route``);
+    other operands raise."""
+    if h_in.device.type == "cpu":
+        return residual_rmsnorm_matvec_plain(h_in, upd, post_w, norm_w, qt, scale, eps=eps,
+                                             h_out=h_out, out_dtype=out_dtype, out=out)
+    if out is None:
+        out = torch.empty((h_in.shape[0], qt.shape[0]), dtype=out_dtype, device=h_in.device)
+    M, N, K, G = _check_q4("q4_residual_rmsnorm_matvec", h_in, qt, scale, out)
+    _check_residual("q4_residual_rmsnorm_matvec", h_in, upd, post_w, norm_w, h_out)
+    if not residual_route(h_in, qt, scale):
+        raise ValueError(f"q4_residual_rmsnorm_matvec: {M} rows, K={K}, G={G}: the kernel "
+                         "takes M <= 16, aligned operands and groups of a multiple of 16 "
+                         "columns (residual_route)")
+    _lib.launch(
+        "q4_residual_rmsnorm_matvec", h_in.data_ptr(), upd.data_ptr(), post_w.data_ptr(),
+        _lib.dtype_code(post_w), norm_w.data_ptr(), _lib.dtype_code(norm_w), float(eps),
+        qt.data_ptr(), scale.data_ptr(), G, h_out.data_ptr(), out.data_ptr(),
+        _lib.dtype_code(out), M, N, K,
+    )
+    q4_residual_rmsnorm_matvec.launches += 1
+    return out
+
+
+q4_residual_rmsnorm_matvec.launches = 0
+
+
 def q4_route(x, qt, scale) -> str:
     """The kernel that ``q4_matvec`` / ``q4_rmsnorm_matvec`` launch for
     these CUDA operands, as ``csrc/q4_matvec.cu:route_of`` decides: "rows"
@@ -392,6 +501,14 @@ def matvec(x, qt, scale, *, out_dtype=torch.bfloat16, out=None):
 def rmsnorm_matvec(x, norm_w, qt, scale, *, eps=1e-6, out_dtype=torch.bfloat16, out=None):
     fn = q4_rmsnorm_matvec if qt.dtype == torch.uint8 else q8_rmsnorm_matvec
     return fn(x, norm_w, qt, scale, eps=eps, out_dtype=out_dtype, out=out)
+
+
+def residual_rmsnorm_matvec(h_in, upd, post_w, norm_w, qt, scale, *, eps=1e-6, h_out,
+                            out_dtype=torch.bfloat16, out=None):
+    """The int8 or int4 residual kernel wrapper, by the dtype of ``qt``."""
+    fn = q4_residual_rmsnorm_matvec if qt.dtype == torch.uint8 else q8_residual_rmsnorm_matvec
+    return fn(h_in, upd, post_w, norm_w, qt, scale, eps=eps, h_out=h_out, out_dtype=out_dtype,
+              out=out)
 
 
 def matvec_plain(x, qt, scale, *, out_dtype=torch.bfloat16, out=None):

@@ -9,8 +9,10 @@ the repository's conftest (which imports jax) is skipped:
 Without a GPU every test skips. Tolerance: max|kernel - plain| / max|plain|
 below 1e-2 for each kernel (the kernels round where the plain versions do;
 what differs is the fp32 summation order), below 5e-3 for the grouped int4
-matvecs and the int4 tensor-core route with fp32 outputs, below 0.02 for a
-whole decode step (the JAX package's bound for the fused step at batch 1).
+matvecs, the int4 tensor-core route and the residual kernels with fp32
+outputs, below 0.02 for a whole decode step (the JAX package's bound for the
+fused step at batch 1). The decode loop replayed as a CUDA graph gives the
+eager loop's ids and margins exactly.
 """
 import dataclasses
 
@@ -607,6 +609,216 @@ def test_tiny_predict_goes_through_the_kernels(fmt):
         if margins[t] < 0.5:
             break
         assert ids[t] == ref[t]
+
+
+# ---------------------------------------------------------------------------
+# the residual kernels: norm_residual folded into the next RMSNorm matvec
+# ---------------------------------------------------------------------------
+
+RESID_FORMATS = {"int8": (quant.quantize_int8, {}), "int4": (quant.quantize_int4, {}),
+                 "int4-g128": (quant.quantize_int4, dict(group_size=128))}
+
+
+def _resid_case(g, M, K, N, fmt, post_dtype=torch.bfloat16):
+    quantize, kw = RESID_FORMATS[fmt]
+    h_in = _randn(g, M, K, dtype=torch.float32, std=8.0)
+    upd = _randn(g, M, K)
+    post, norm = _randn(g, K, dtype=post_dtype, std=0.1), _randn(g, K, std=0.1)
+    w = quantize(_randn(g, K, N, dtype=torch.float32, std=0.02), **kw)
+    return h_in, upd, post, norm, w
+
+
+# every rows instance (1, 2, 4, 8, 16) and an edge (3); qkv (2304 -> 4096)
+# and gate|up (2304 -> 18432), whose x' fits once per block (the int4 one-row
+# instance shares one round of loads between its passes); K = 9216, staged in
+# chunks at 16 rows, where each chunk recomputes its h' columns; bf16 and
+# fp32 outputs
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 8, 16])
+@pytest.mark.parametrize("fmt", list(RESID_FORMATS))
+@pytest.mark.parametrize("K,N,out_dtype", [(2304, 4096, torch.bfloat16),
+                                           (2304, 18432, torch.float32),
+                                           (9216, 256, torch.float32)])
+def test_residual_rmsnorm_matvec(M, fmt, K, N, out_dtype):
+    """h_out within 1e-2 of the plain version's (max-rel; a bf16 rounding
+    may fall a unit apart where the fp32 sums of the RMS differ in order),
+    the output within 1e-2 (bf16 out) / 5e-3 (fp32 out) of plain; one count a
+    call; two launches give identical bits; h_in is left as it was."""
+    g = _gen(30)
+    h_in, upd, post, norm, w = _resid_case(g, M, K, N, fmt, torch.float32 if M % 2 else torch.bfloat16)
+    keep = h_in.clone()
+    kern = quant.q4_residual_rmsnorm_matvec if fmt != "int8" else quant.q8_residual_rmsnorm_matvec
+    assert quant.residual_route(h_in, w["qt"], w["scale"])
+    outs = []
+    for _ in range(2):
+        h_out = torch.full_like(h_in, float("nan"))
+        before = kern.launches
+        got = quant.residual_rmsnorm_matvec(h_in, upd, post, norm, w["qt"], w["scale"], h_out=h_out,
+                                            out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 1
+        outs.append((h_out, got))
+    h_ref = torch.empty_like(h_in)
+    ref = quant.residual_rmsnorm_matvec_plain(h_in, upd, post, norm, w["qt"], w["scale"],
+                                              h_out=h_ref, out_dtype=out_dtype)
+    (h_out, got), (h_again, again) = outs
+    assert torch.equal(h_in, keep)
+    assert torch.equal(h_out, h_again) and torch.equal(got, again)
+    assert got.dtype == out_dtype and got.shape == (M, N)
+    assert _rel(h_out, h_ref) < 1e-2
+    assert _rel(got, ref) < (1e-2 if out_dtype == torch.bfloat16 else 5e-3)
+
+
+def test_residual_rmsnorm_matvec_refuses_aliasing_and_other_routes():
+    """h_out may not overlap h_in (other blocks still read it); int4 in
+    24-column groups or above 16 rows is not the kernel's (residual_route)
+    and raises, as does a CUDA operand the kernel does not take."""
+    g = _gen(31)
+    h_in, upd, post, norm, w = _resid_case(g, 2, 2304, 512, "int8")
+    with pytest.raises(ValueError, match="overlaps"):
+        quant.residual_rmsnorm_matvec(h_in, upd, post, norm, w["qt"], w["scale"], h_out=h_in)
+    big = torch.empty(3, 2304, dtype=torch.float32, device=DEV)
+    with pytest.raises(ValueError, match="overlaps"):
+        quant.residual_rmsnorm_matvec(big[:2], upd, post, norm, w["qt"], w["scale"], h_out=big[1:])
+    w24 = quant.quantize_int4(_randn(g, 2304, 512, dtype=torch.float32, std=0.02), group_size=24)
+    assert not quant.residual_route(h_in, w24["qt"], w24["scale"])
+    with pytest.raises(ValueError, match="residual_route"):
+        quant.q4_residual_rmsnorm_matvec(h_in, upd, post, norm, w24["qt"], w24["scale"],
+                                         h_out=torch.empty_like(h_in))
+    h17 = _randn(g, 17, 2304, dtype=torch.float32)
+    w4 = quant.quantize_int4(_randn(g, 2304, 512, dtype=torch.float32, std=0.02))
+    with pytest.raises(ValueError):
+        quant.q4_residual_rmsnorm_matvec(h17, _randn(g, 17, 2304), post, norm, w4["qt"],
+                                         w4["scale"], h_out=torch.empty_like(h17))
+
+
+@pytest.mark.parametrize("fmt", list(RESID_FORMATS))
+def test_residual_first_launch_inside_a_cuda_graph(fmt):
+    """A process whose first launch of the residual kernel is captured into
+    a CUDA graph, at 16 rows of K = 2304: inside the capture x' is staged in
+    48 KB chunks (the larger opt-in is not made there), each chunk's h'
+    recomputed from h_in and upd. The replay agrees with the plain version,
+    and writes h_out."""
+    import os
+    import subprocess
+    import sys
+    import textwrap
+
+    quantize, kw = RESID_FORMATS[fmt]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = textwrap.dedent(f"""
+        import torch
+        from spatialvla_tpu_torch.ops import _lib, quant
+        _lib.library()
+        g = torch.Generator(device="cuda").manual_seed(0)
+        M, K = 16, 2304
+        h_in = torch.randn(M, K, generator=g, device="cuda") * 8
+        upd = torch.randn(M, K, generator=g, device="cuda").to(torch.bfloat16)
+        post, nw = ((torch.randn(K, generator=g, device="cuda") * 0.1).to(torch.bfloat16)
+                    for _ in range(2))
+        w = quant.{quantize.__name__}(torch.randn(K, 4096, generator=g, device="cuda") * 0.02,
+                                      **{kw!r})
+        h_out = torch.zeros_like(h_in)
+        out = torch.empty(M, 4096, dtype=torch.float32, device="cuda")
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            quant.residual_rmsnorm_matvec(h_in, upd, post, nw, w["qt"], w["scale"], h_out=h_out,
+                                          out=out)
+        graph.replay()
+        h_ref = torch.empty_like(h_in)
+        ref = quant.residual_rmsnorm_matvec_plain(h_in, upd, post, nw, w["qt"], w["scale"],
+                                                  h_out=h_ref, out_dtype=torch.float32)
+        rel = lambda a, b: ((a - b).abs().max() / b.abs().max()).item()
+        print(rel(out, ref), rel(h_out, h_ref))
+        assert rel(out, ref) < 5e-3 and rel(h_out, h_ref) < 1e-2
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+
+
+def test_step_takes_the_unfused_pair_for_24_column_groups():
+    """A tree in 24-column groups (not a multiple of 16) is not the residual
+    kernels': its step runs norm_residual + q4_rmsnorm_matvec twice a layer
+    (2 L norm_residual launches with the final one, 2 L RMSNorm matvecs),
+    an int8 tree's step the residual kernel 2 L - 1 times and norm_residual
+    once; both hold to the plain step within 0.02."""
+    g = _gen(32)
+    # 6 query heads of 256 (o's K = 1536, whose halves hold whole 24-column
+    # groups, as the flagship's 2048 do not)
+    cfg = Gemma2Config(vocab_size=512, hidden_size=2304, intermediate_size=9216, num_layers=2,
+                       num_heads=6, num_kv_heads=3, head_dim=256, sliding_window=4096,
+                       query_pre_attn_scalar=256.0)
+    L, M, S = 2, 1, 32
+    with torch.inference_mode():
+        base = gemma2.init_params(cfg, generator=g, device=DEV, dtype=torch.bfloat16)
+        for k in ("input_norm", "post_attn_norm", "pre_ffn_norm", "post_ffn_norm"):
+            base["layers"][k] = _randn(g, 2, 2304, std=0.1)
+        x = _randn(g, M, 2304, std=0.3 * 2304 ** 0.5)
+        ck, cv = _randn(g, 2, M, 3, S, 256, std=0.3), _randn(g, 2, M, 3, S, 256, std=0.3)
+        pos = torch.full((M,), S - 1, dtype=torch.int32, device=DEV)
+        for qkw, resid, fused in ((dict(bits=4, group_size=24), quant.q4_residual_rmsnorm_matvec,
+                                   False),
+                                  (dict(bits=8), quant.q8_residual_rmsnorm_matvec, True)):
+            lm = quant.quantize_lm_params(base, **qkw)
+            norm = quant.q4_rmsnorm_matvec if qkw["bits"] == 4 else quant.q8_rmsnorm_matvec
+            counts = (resid, ds.norm_residual, norm)
+            before = [c.launches for c in counts]
+            got = ds.fused_decode_step(lm, cfg, x, ck, cv, pos, pos + 1)
+            ref = ds.fused_decode_step_plain(lm, cfg, x, ck, cv, pos, pos + 1)
+            n = [c.launches - b for c, b in zip(counts, before)]
+            assert n == ([2 * L - 1, 1, 1] if fused else [0, 2 * L, 2 * L]), (qkw, n)
+            for a, b in zip(got, ref):
+                assert _rel(a, b) < 0.02
+
+
+def _tiny_policy(qkw):
+    cfg = spatialvla_tiny(use_vision_zoe=True)
+    # head_dim 32 for the attention kernel; a window that holds the whole
+    # cache; hidden 64 so that int4 (K / 2 = 32) takes the residual kernels
+    cfg = dataclasses.replace(cfg, text=dataclasses.replace(
+        cfg.text, head_dim=32, query_pre_attn_scalar=32.0, sliding_window=512, hidden_size=64))
+    return cfg, SpatialVLAPolicy.init_random(cfg, DEV, seed=0).quantize(**qkw)
+
+
+@pytest.mark.parametrize("fmt", list(QUANTIZE))
+def test_graph_loop_matches_the_eager_loop(fmt):
+    """The decode loop replayed as a CUDA graph gives the eager loop's ids
+    and margins, for a request and a right-padded 2-row batch; the graph is
+    captured once per shape and replayed after; every replay credits the
+    wrappers' launch counts with what one eager request launches; quantize
+    drops the graphs."""
+    qkw, kernels = QUANTIZE[fmt]
+    cfg, policy = _tiny_policy(qkw)
+    size = cfg.vision.image_size
+    frames = [(np.random.RandomState(i).rand(size, size, 3) * 255).astype(np.uint8)
+              for i in range(2)]
+    texts = ["pick up the cup", "open the top drawer of the desk"]
+    counters = kernels + (ds.norm_residual, ds.gelu_mul, quant.q8_residual_rmsnorm_matvec,
+                          quant.q4_residual_rmsnorm_matvec)
+
+    def run(graph, fn):
+        policy.use_cuda_graph = graph
+        before = [c.launches for c in counters]
+        out = fn()
+        torch.cuda.synchronize()
+        return out, [c.launches - b for c, b in zip(counters, before)]
+
+    one = lambda: policy.predict(frames[0], texts[0], return_margins=True)  # noqa: E731
+    batch = lambda: policy.predict_batch(frames, texts)  # noqa: E731
+    eager, n_eager = run(False, one)
+    graphed, _ = run(True, one)  # captures
+    assert len(policy.decode_graphs) == 1
+    again, n_replay = run(True, one)  # replays
+    assert len(policy.decode_graphs) == 1
+    for out in (graphed, again):
+        np.testing.assert_array_equal(out["action_ids"], eager["action_ids"])
+        np.testing.assert_array_equal(out["margins"], eager["margins"])
+    assert n_replay == n_eager and all(n > 0 for n in n_eager[:len(kernels)])
+    (b_eager, _), (b_graph, _) = run(False, batch), run(True, batch)
+    np.testing.assert_array_equal(b_graph["action_ids"], b_eager["action_ids"])
+    assert len(policy.decode_graphs) == 2
+    policy.quantize(bits=None, vision_bits=None, kv_bits=qkw.get("kv_bits"))
+    assert len(policy.decode_graphs) == 0
 
 
 # ---------------------------------------------------------------------------

@@ -287,3 +287,136 @@ def test_split_attention_merge_holds_to_plain(M, S, positions, kv8):
     split = _split_attention(qkv, cos, sin, ck, cv, position, chunk=t_ds.attention_chunk(M, Nkv, S), **kw)
     ref = bufs["attn_out"].float()
     assert ((split.float() - ref).abs().max() / ref.abs().max()).item() < 1e-2
+
+
+# ---------------------------------------------------------------------------
+# the residual kernels' plain version and the step's route by shape
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("M", [1, 3])
+@pytest.mark.parametrize("fmt", ["int8", "int4", "int4-g16", "int4-g8"])
+def test_residual_plain_is_norm_residual_then_rmsnorm_matvec(base_params, M, fmt):
+    """The residual kernels' plain version is norm_residual_plain followed by
+    rmsnorm_matvec_plain, bit for bit (h_out and the output), and leaves
+    h_in as it was; the wrapper on CPU tensors is that plain version."""
+    qkw = dict(FORMATS.get(fmt, dict(bits=4, group_size=8)))
+    tq = t_quant.quantize_lm_params(from_numpy_tree(
+        jax.tree_util.tree_map(np.asarray, base_params), dtype=torch.bfloat16), **qkw)
+    w = tq["layers"]["mlp"]["gate_up"]
+    post, norm = tq["layers"]["post_attn_norm"][1], tq["layers"]["pre_ffn_norm"][1]
+    rng = np.random.RandomState(M)
+    h_in = torch.from_numpy(8 * rng.randn(M, CFG.hidden_size).astype(np.float32))
+    upd = torch.from_numpy(rng.randn(M, CFG.hidden_size).astype(np.float32)).to(torch.bfloat16)
+    keep = h_in.clone()
+    h_ref = h_in.clone()
+    t_ds.norm_residual_plain(h_ref, upd, post, eps=1e-6)
+    want = t_quant.rmsnorm_matvec_plain(h_ref, norm, w["qt"][1], w["scale"][1], eps=1e-6)
+    for fn in (t_quant.residual_rmsnorm_matvec_plain, t_quant.residual_rmsnorm_matvec):
+        h_out = torch.full_like(h_in, float("nan"))
+        got = fn(h_in, upd, post, norm, w["qt"][1], w["scale"][1], eps=1e-6, h_out=h_out)
+        assert torch.equal(h_out, h_ref) and torch.equal(got, want)
+        assert torch.equal(h_in, keep)
+
+
+class _Recorder:
+    """An ops namespace of the decode step that counts each op's calls and
+    runs the plain version."""
+
+    def __init__(self):
+        self.calls = {}
+        for name in vars(t_ds.PLAIN):
+            setattr(self, name, self._counted(name, getattr(t_ds.PLAIN, name)))
+
+    def _counted(self, name, fn):
+        def call(*args, **kw):
+            if name != "residual_route":
+                self.calls[name] = self.calls.get(name, 0) + 1
+            return fn(*args, **kw)
+        return call
+
+
+@pytest.mark.parametrize("fmt,folds", [("int8", (True, True)), ("int8+mlp4", (True, True)),
+                                       ("int4-g16", (True, True)), ("int4-g8", (False, False))])
+def test_step_folds_the_residual_update_by_shape(base_params, fmt, folds):
+    """The step takes the residual kernel for qkv (from layer 1 on) and for
+    gate|up where ``residual_route`` takes the weight: 6 ops a layer and
+    the final norm_residual, 6 L + 1 in all; a weight it refuses (int4 in
+    8-column groups) gets norm_residual + rmsnorm_matvec in its place. Either
+    way the step holds to the Pallas kernel (interpret mode)."""
+    qkw = FORMATS.get(fmt, dict(bits=4, group_size=8))
+    jq = j_quantize_lm_params(base_params, fuse=True, **qkw)
+    tq = from_numpy_tree(jax.tree_util.tree_map(np.asarray, jq))
+    x, ck, cv = _serving_cache(jq, 2, 6, 16, seed=5)
+    tpos = torch.tensor([6, 6], dtype=torch.int32)
+    w = tq["layers"]
+    h = torch.zeros(2, CFG.hidden_size)
+    assert (t_quant.residual_route(h, w["attn"]["qkv"]["qt"][0], w["attn"]["qkv"]["scale"][0]),
+            t_quant.residual_route(h, w["mlp"]["gate_up"]["qt"][0],
+                                   w["mlp"]["gate_up"]["scale"][0])) == folds
+    rec = _Recorder()
+    port = t_ds._step(rec, tq, CFG, _torch(x), _torch(ck), _torch(cv), tpos, tpos + 1, None, None)
+    L = CFG.num_layers
+    n_fold = (L - 1) * folds[0] + L * folds[1]
+    assert rec.calls.get("residual_rmsnorm_matvec", 0) == n_fold
+    assert rec.calls["norm_residual"] == 2 * L - n_fold
+    assert rec.calls["rmsnorm_matvec"] == 2 * L - n_fold
+    assert sum(rec.calls.values()) == 6 * L + 1 + (2 * L - 1 - n_fold)
+    jpos = jnp.asarray([6, 6], jnp.int32)
+    ref = j_fused_decode_step(jq, CFG, x, ck, cv, jpos, jpos + 1, interpret=True)
+    _compare(port, ref)
+
+
+def test_residual_route_rules():
+    """residual_route: at most 16 rows, 16-byte aligned x and weight, int8
+    K a multiple of 16, int4 K / 2 a multiple of 16 in groups of a multiple
+    of 16 columns or per channel."""
+    K = 64
+    x = torch.zeros(17, K)
+    q8 = t_quant.quantize_int8(torch.randn(K, 40))
+    q4 = t_quant.quantize_int4(torch.randn(K, 40))
+    g16 = t_quant.quantize_int4(torch.randn(K, 40), group_size=16)
+    g8 = t_quant.quantize_int4(torch.randn(K, 40), group_size=8)
+    route = lambda x, w: t_quant.residual_route(x, w["qt"], w["scale"])  # noqa: E731
+    assert route(x[:16], q8) and route(x[:1], q4) and route(x[:4], g16)
+    assert not route(x, q8) and not route(x[:2], g8)
+    assert not route(x.reshape(-1)[1:1 + 4 * K].reshape(4, K), q8)  # x 4 bytes off
+    k48 = t_quant.quantize_int4(torch.randn(48, 40))  # K / 2 = 24
+    assert route(torch.zeros(1, 48), t_quant.quantize_int8(torch.randn(48, 40)))
+    assert not route(torch.zeros(1, 48), k48)
+
+
+@pytest.mark.parametrize("slot_kind", ["int", "tensor"])
+def test_scatter_scale_int_and_device_slots(slot_kind):
+    """_scatter_scale writes row m's new scales at flat column m * S +
+    slot[m], the slot a Python int (unpadded rows) or a (B,) tensor (per-row
+    slots), with the columns computed on the scales' device."""
+    L, B, Nkv, S = 2, 3, 2, 7
+    rng = np.random.RandomState(1)
+    sc = torch.from_numpy(rng.rand(L, Nkv, 1, B * S).astype(np.float32))
+    new = torch.from_numpy(rng.rand(L, B, Nkv).astype(np.float32))
+    slots = 4 if slot_kind == "int" else torch.tensor([1, 5, 6], dtype=torch.int32)
+    want = sc.clone()
+    for m in range(B):
+        s = slots if slot_kind == "int" else int(slots[m])
+        want[:, :, 0, m * S + s] = new[:, m]
+    got = _scatter_scale(sc.clone(), new, slots, S)
+    assert torch.equal(got, want)
+
+
+def test_step_keeps_the_pair_above_four_rows(qparams):
+    """Above RESIDUAL_FOLD_MAX_M rows (where the residual kernels lose to
+    the pair on the card) the step runs norm_residual + rmsnorm_matvec twice
+    a layer, 8 ops a layer; the same ops through the plain versions hold to
+    the Pallas kernel (interpret mode)."""
+    jq, tq = qparams
+    B = t_ds.RESIDUAL_FOLD_MAX_M + 1
+    x, ck, cv = _serving_cache(jq, B, 6, 16, seed=8)
+    tpos = torch.full((B,), 6, dtype=torch.int32)
+    rec = _Recorder()
+    port = t_ds._step(rec, tq, CFG, _torch(x), _torch(ck), _torch(cv), tpos, tpos + 1, None, None)
+    L = CFG.num_layers
+    assert "residual_rmsnorm_matvec" not in rec.calls
+    assert rec.calls["norm_residual"] == rec.calls["rmsnorm_matvec"] == 2 * L
+    assert sum(rec.calls.values()) == 8 * L
+    jpos = jnp.full((B,), 6, jnp.int32)
+    _compare(port, j_fused_decode_step(jq, CFG, x, ck, cv, jpos, jpos + 1, interpret=True))

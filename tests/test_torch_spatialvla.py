@@ -320,3 +320,61 @@ def test_flash_prefill_matches_jax_and_the_masked_prefill(params, serving):
     with pytest.raises(ValueError, match="unpadded"):
         _port_predict(tp, CFG, ids, px, K, np.ones(ids.shape, np.int32), torch.float32,
                       use_flash_prefill=True)
+
+
+# ---------------------------------------------------------------------------
+# the fused loop on static buffers (the CUDA graph's loop, run eagerly)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kv_bits", [None, 8], ids=["bf16kv", "kv8"])
+@pytest.mark.parametrize("padded", [False, True], ids=["unpadded", "right-padded"])
+def test_static_buffer_loop_matches_the_eager_loop_and_jax(serving, padded, kv_bits,
+                                                           monkeypatch):
+    """use_cuda_graph=True on CPU tensors runs the loop that the card
+    captures (GreedyLoop: the prefill cache copied into its own buffers,
+    every step's buffers allocated once, the slots written in place) eagerly:
+    the same ids and margins as the eager loop (use_cuda_graph=False), and
+    JAX's fused loop's ids (Pallas in interpret mode) under the margin rule
+    (the inputs of test_fused_path_forced_on_cpu)."""
+    jq, tq = serving
+    ids, px, K, am = _inputs(2, padded=padded, seed=2)
+    monkeypatch.setattr(j_decode_step, "fused_decode_step",
+                        functools.partial(j_decode_step.fused_decode_step, interpret=True))
+    ids_j, m_j = jsv.predict_action(
+        jq, CFG_WIDE, jnp.asarray(ids), pixel_values=jnp.asarray(px), intrinsic=jnp.asarray(K),
+        attention_mask=None if am is None else jnp.asarray(am), compute_dtype=jnp.bfloat16,
+        use_fused_decode=True, kv_bits=kv_bits, return_margins=True)
+    runs = [_port_predict(tq, CFG_WIDE, ids, px, K, am, torch.bfloat16, use_fused_decode=True,
+                          kv_bits=kv_bits, use_cuda_graph=g) for g in (True, False)]
+    (ids_s, m_s), (ids_e, m_e) = runs
+    assert torch.equal(ids_s, ids_e) and torch.equal(m_s, m_e)
+    assert ids_s.shape == (2, 12) and m_s.shape == (2, 12)
+    assert_margin_rule(ids_s, ids_j, m_j)
+
+
+def test_decode_graphs_are_dropped_with_the_tree(params):
+    """A graph holds the weights' addresses: quantize and .to drop every
+    cached graph, and so does a lookup with another tree; at most `limit`
+    graphs stay, the least recently used dropped first."""
+    tp = SpatialVLAPolicy(from_numpy_tree(params), CFG, default_processor(CFG), device="cpu")
+    graphs = tp.decode_graphs
+    made = []
+
+    def build():
+        made.append(object())
+        return made[-1]
+
+    a = graphs.get(tp.params, ("a",), build)
+    assert graphs.get(tp.params, ("a",), build) is a and len(graphs) == 1
+    tp.to("cpu")
+    assert len(graphs) == 0
+    graphs.get(tp.params, ("a",), build)
+    tp.quantize(bits=8)
+    assert len(graphs) == 0
+    graphs.get(tp.params, ("a",), build)
+    other = dict(tp.params, lm=dict(tp.params["lm"]))
+    assert graphs.get(other, ("a",), build) is made[-1] and len(made) == 4  # rebuilt
+    small = tsv.DecodeGraphs(limit=2)
+    for key in ("x", "y", "x", "z"):
+        small.get(tp.params, (key,), build)
+    assert len(small) == 2 and small.get(tp.params, ("x",), build) is made[-3]
