@@ -18,7 +18,7 @@
    plain within 5e-3 and its bf16 output within 2e-2), the bf16- and
    int8-cache decode attention (also on a 4096-slot cache), norm_residual,
    gelu_mul, the residual kernels (norm_residual folded into the next
-   RMSNorm matvec: int8, int4, int4-g128 at 1 and 16 rows, qkv and gate|up,
+   RMSNorm matvec: int8, int4, int4-g128 at 1 and 4 rows, qkv and gate|up,
    bf16 and fp32 out, timed beside the norm_residual + RMSNorm matvec pair
    they replace), a 2-layer decode step, the flash kernels.
 3. The decode-step matrix of bench.py:111-160 at full width (26 layers,
@@ -29,11 +29,14 @@
 4. Drives the serving path: SpatialVLAPolicy.predict on full-width
    spatialvla_4b() (SigLIP-so400m, ZoeDepth BEiT-L, Gemma2-2B with 26 layers)
    with random weights from a seed, after quantize(bits=8): first requests
-   that capture the decode loop's CUDA graphs (capture times printed), then
-   three requests and one right-padded predict_batch of two rows through
-   them. The kernels' launch counts over that run must all be positive and
-   those of the decode steps exact (the wrappers' counts are credited per
-   graph replay): per step 2 L - 1 residual kernels, one norm_residual; the
+   that capture the decode loop's CUDA graphs (one per batch size and
+   64-slot cache bucket; capture times printed), then three requests and
+   one right-padded predict_batch of two rows through them. The kernels'
+   launch counts over that run must all be positive and those of the decode
+   steps exact: per step 2 L - 1 residual kernels, one norm_residual. The
+   wrappers' counts are credited per graph replay, so each graph is replayed
+   once under torch.profiler and the library's kernels in the trace, by
+   wrapper, must equal its credits (also in (5) below). The
    actions must be finite, of shape (4, 7), from action ids in the action
    block, and the greedy ids must follow the unfused decode path's (first
    token equal; equal up to the first step whose margin is below 0.5). One
@@ -41,7 +44,10 @@
    and is held to the default path's ids under the same rule. The decode
    loop through the graph and eagerly on the same request and 2-row batch:
    identical ids and margins, each loop's time (CUDA events); warm predict
-   medians through the graph and with use_cuda_graph=False, in turns; the
+   medians through the graph and with use_cuda_graph=False, in turns; a
+   stream of 24 requests with 24 instruction lengths from no graph at all,
+   each through the graphs and eagerly (captures, hit rate, both ways'
+   latency, identical ids and margins); the
    26-layer step at M=1, S=289 (each layer alone also held to plain) and at
    M=16, S=332 (graph, eager and enqueue times); then the bf16 tree put back
    and quantize(bits=4): the next request must follow the int4 tree.
@@ -68,16 +74,21 @@
    (LOSS_BOUND, GRAD_NORM_BOUND). Then spatialvla_tiny(use_vision_zoe=True)
    must overfit one batch through the kernels (loss down by more than 0.5 in
    8 steps at lr 5e-3).
-7. Prints the card, the kernels' JSON line, and last {"ok": true, ...}.
+7. Prints the card, the kernels' JSON line (with each decode kernel's
+   launches in one replay of the graphs checked, traced and credited), and
+   last {"ok": true, ...}.
 
 Needs CUDA; there is no CPU path. Imports nothing of jax.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import functools
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -520,7 +531,8 @@ def kernel_phases(torch, timer, results, notes):
     # q8_residual_rmsnorm_matvec / q4_residual_rmsnorm_matvec: the decode
     # step's residual update (norm_residual) folded into the RMSNorm matvec
     # that follows it, for qkv (2304 -> 4096) and gate|up (2304 -> 18432) at
-    # 1 and 16 rows, int8, int4 per channel and in 128-column groups. Held to
+    # 1 and 4 rows (the most it takes), int8, int4 per channel and in
+    # 128-column groups. Held to
     # the plain version (norm_residual_plain then rmsnorm_matvec_plain): the
     # bf16 output within 1e-2 (int8) / 2e-2 (int4) of max|plain|, the fp32
     # output within Q4_FP32_TOL, h_out within 1e-2. Timed beside the pair it
@@ -530,7 +542,7 @@ def kernel_phases(torch, timer, results, notes):
     for fmt, qkw in (("int8", None), ("int4", dict(group_size=None)),
                      ("int4-g128", dict(group_size=128))):
         name = "q8_residual_rmsnorm_matvec" if qkw is None else "q4_residual_rmsnorm_matvec"
-        for M in (1, 16):
+        for M in (1, 4):
             for N in (4096, 18432):
                 K = 2304
                 h_in, upd = randn(M, K, dtype=torch.float32, std=8.0), randn(M, K)
@@ -773,6 +785,126 @@ def capture_ms(policy) -> list:
     return [round(loop.capture_ms, 2) for loop in policy.decode_graphs.loops.values()]
 
 
+def library_kernel_names() -> set:
+    """The name of every __global__ function in spatialvla_tpu_torch/csrc."""
+    from spatialvla_tpu_torch.ops import _lib
+
+    pattern = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)")
+    return {n for src in _lib.sources() for n in pattern.findall(src.read_text())}
+
+
+def decode_wrapper_of(kernel: str, targs: list):
+    """The wrapper that launches this kernel in a decode step (at M <= 16
+    each wrapper launches one kernel), from the kernel's name and template
+    arguments; None for a kernel that no decode step launches."""
+    if kernel == "qmatvec_kernel":  # <MR, kNorm, kInt4, kGrouped, kResid>
+        _, norm, int4, _, resid = targs
+        return ("q4" if int4 == "true" else "q8") + (
+            "_residual_rmsnorm_matvec" if resid == "true"
+            else "_rmsnorm_matvec" if norm == "true" else "_matvec")
+    if kernel == "q4_small_kernel":  # <kNorm>
+        return "q4_rmsnorm_matvec" if targs[0] == "true" else "q4_matvec"
+    if kernel == "decode_attention_kernel":  # <KV, GM>
+        return "decode_attention_kv8" if "char" in targs[0] else "decode_attention"
+    return {"norm_residual_kernel": "norm_residual", "gelu_mul_kernel": "gelu_mul"}.get(kernel)
+
+
+def graph_launches(torch, policy, label) -> list:
+    """Each of the policy's decode graphs replayed once under torch.profiler:
+    the library's kernels in the trace of the replay, each counted for the
+    wrapper that launches it (``decode_wrapper_of``), must be exactly the
+    launch counts that the graph credits its wrappers with per replay
+    (``GreedyLoop.credits``). A library kernel that no decode wrapper
+    launches, or a trace without kernels, fails. Returns one entry a graph:
+    its shape key and both counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    names = library_kernel_names()
+    head = re.compile(r"(?:void\s+)?(?:\(anonymous namespace\)::)?(\w+)")
+    checks = []
+    for key, loop in policy.decode_graphs.loops.items():
+        credited = {fn.__name__ + ("" if attr == "launches" else f".{attr}"): n
+                    for (fn, attr), n in loop.credits.items()}
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            loop.graph.replay()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "replay.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel" and e.get("ph") == "X"]
+        if not kernels:
+            fail(f"{label}: the trace of a decode graph's replay holds no kernel")
+        measured = collections.Counter()
+        for name in kernels:
+            base = head.match(name).group(1) if head.match(name) else ""
+            if base not in names:
+                continue  # a torch kernel (embedding, argmax, the cache writes)
+            targs = re.search(re.escape(base) + r"<([^<>]*)>", name)
+            wrapper = decode_wrapper_of(base, targs.group(1).split(", ") if targs else [])
+            if wrapper is None:
+                fail(f"{label}: kernel {name[:120]} in a decode graph is no decode wrapper's")
+            measured[wrapper] += 1
+        shape = f"B={key[0]} S={key[1]} n={key[2]} kv_bits={key[3]}"
+        print(f"{label} decode graph {shape}: one replay traced, {len(kernels)} kernels; "
+              f"library kernels by wrapper {dict(measured)}, credited {credited}", flush=True)
+        if dict(measured) != credited:
+            fail(f"{label} decode graph {shape}: the traced replay launched {dict(measured)}, "
+                 f"the graph credits {credited}")
+        checks.append({"graph": shape, "measured": dict(measured), "credited": credited})
+    return checks
+
+
+def instruction_stream(torch, policy, images, label):
+    """A stream of 24 requests with 24 instruction lengths (prefixes of 264
+    to 379 tokens, more than the 8 graphs ``DecodeGraphs`` keeps), from no
+    graph at all: each request through the decode graphs (capturing where
+    its cache bucket has none) and then eagerly, host clock around a
+    synchronized ``predict``. Ids and margins must agree both ways. Returns
+    the prefix lengths, the captures, the hit rate and both ways' times."""
+    words = ("please pick up the small green block on the left side of the table and then "
+             "place it carefully inside the open top drawer").split()
+    instrs = [" ".join(words[:k]) for k in range(1, len(words) + 1)]
+    policy.decode_graphs.clear()
+    times = {True: [], False: []}
+    lengths, captures = [], 0
+    for i, instr in enumerate(instrs):
+        img = images[i % len(images)]
+        lengths.append(int(policy.processor(img, instr)["input_ids"].shape[1]))
+        outs = {}
+        for graph in (True, False):
+            policy.use_cuda_graph = graph
+            seen = {id(loop) for loop in policy.decode_graphs.loops.values()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[graph] = policy.predict(img, instr, return_margins=True)
+            torch.cuda.synchronize()
+            times[graph].append((time.perf_counter() - t0) * 1e3)
+            captures += graph and any(id(loop) not in seen
+                                      for loop in policy.decode_graphs.loops.values())
+        if not (np.array_equal(outs[True]["action_ids"], outs[False]["action_ids"])
+                and np.array_equal(outs[True]["margins"], outs[False]["margins"])):
+            fail(f"{label} stream '{instr}': graph and eager ids / margins differ")
+    policy.use_cuda_graph = None
+    n = len(instrs)
+    res = {"requests": n, "distinct_prefix_lengths": len(set(lengths)),
+           "prefix_lengths": lengths, "captures": captures, "hit_rate": (n - captures) / n,
+           "graph_ms_all": times[True], "eager_ms_all": times[False],
+           "graph_ms_mean": statistics.mean(times[True]),
+           "eager_ms_mean": statistics.mean(times[False]),
+           "graph_ms_median": statistics.median(times[True]),
+           "eager_ms_median": statistics.median(times[False])}
+    print(f"{label} stream: {n} requests, {res['distinct_prefix_lengths']} prefix lengths "
+          f"{min(lengths)}..{max(lengths)}, {captures} captures (hit rate {res['hit_rate']:.3f}), "
+          f"{len(policy.decode_graphs)} graphs kept; predict through the graphs mean "
+          f"{res['graph_ms_mean']:.2f} ms median {res['graph_ms_median']:.2f} ms, eager mean "
+          f"{res['eager_ms_mean']:.2f} ms median {res['eager_ms_median']:.2f} ms; ids and "
+          f"margins identical | {card_line()}", flush=True)
+    return res
+
+
 def graph_against_eager(torch, policy, label, fn, n=1):
     """``fn()`` (requests of the policy) through the decode loop's CUDA
     graph and through the eager loop, in turns (graph, eager, eager, graph
@@ -906,13 +1038,13 @@ def main_path(torch, timer, counters):
     # the first request of each shape captures its decode graph (a warm-up
     # run of the loop, then the capture); the counted requests replay them
     t0 = time.perf_counter()
-    for img, instr in zip(images, instructions):  # one prefix length each
+    for img, instr in zip(images, instructions):  # prefixes of 277 and 303: one bucket
         policy.predict(img, instr)
     policy.predict_batch(images[:2], batch_texts)
     torch.cuda.synchronize()
-    print(f"main path: first requests (3 prefix lengths, 2 padded rows) with their captures "
-          f"{(time.perf_counter() - t0) * 1e3:.1f} ms; capture ms {capture_ms(policy)}",
-          flush=True)
+    print(f"main path: first requests (3 instructions, 2 padded rows) with their captures "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms; {len(policy.decode_graphs)} graphs, "
+          f"capture ms {capture_ms(policy)}", flush=True)
     for c in counters:
         c.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -952,6 +1084,9 @@ def main_path(torch, timer, counters):
             "gelu_mul": 4 * steps * L}
     if any(launches[k] != v for k, v in want.items()):
         fail(f"main path launches {launches}, want {want}")
+    # the decode loops' counts were credited per replay: each graph's are held
+    # to the kernels of a traced replay
+    graph_checks = graph_launches(torch, policy, "main path")
 
     # reference: the same requests through the unfused decode loop
     agree = 0
@@ -985,7 +1120,7 @@ def main_path(torch, timer, counters):
             torch.as_tensor(inputs["input_ids"], dtype=torch.long, device="cuda"),
             pixel_values=torch.as_tensor(inputs["pixel_values"], device="cuda"),
             intrinsic=torch.as_tensor(inputs["intrinsic"], device="cuda"),
-            use_flash_prefill=True, return_margins=True, use_cuda_graph=False,
+            use_flash_prefill=True, return_margins=True,
         )
     flash_prefill_launches = fa.flash_attention_fwd.launches
     ok = margin_rule_ok(flash_ids[0].cpu().numpy(), outs[0]["action_ids"], outs[0]["margins"])
@@ -1010,6 +1145,8 @@ def main_path(torch, timer, counters):
     print(f"main path: warm predict median {warm['graph'][0]:.2f} ms through the decode graph, "
           f"{warm['eager'][0]:.2f} ms with use_cuda_graph=False (decode loop {warm['graph'][2]:.3f} "
           f"/ {warm['eager'][2]:.3f} ms) | {card_line()}", flush=True)
+    # more instruction lengths than graphs kept: captures, hit rate, latency
+    stream = instruction_stream(torch, policy, images, "main path")
 
     # where the time goes in one request: the vision front and the LM prefill
     # (host clock around synchronized stages), the decode step at batch 1 on
@@ -1084,6 +1221,7 @@ def main_path(torch, timer, counters):
         "warm_predict_ms_all": warm["graph"][1],
         "warm_predict_eager_ms_median": warm["eager"][0],
         "warm_predict_eager_ms_all": warm["eager"][1],
+        "graph_launches": graph_checks, "instruction_stream": stream,
         "decode_loop_ms": {"graph": loop_g, "eager": loop_e, "warm_graph": warm["graph"][2],
                            "warm_eager": warm["eager"][2], "batch2_graph": bloop_g,
                            "batch2_eager": bloop_e},
@@ -1205,11 +1343,11 @@ def decode_step_matrix(torch):
 # the references a configuration's ids are held to: (label, predict_action
 # options, whether the q4 wrappers run their plain versions)
 UNFUSED = ("unfused decode", dict(use_fused_decode=False), False)
-PLAIN_Q4 = ("q4 plain versions", dict(use_cuda_graph=False), True)
+PLAIN_Q4 = ("q4 plain versions", {}, True)
 SERVING_CONFIGS = (  # name, quantize options, references
     ("a:int4", dict(bits=4), (UNFUSED, PLAIN_Q4)),
     ("b:int8+mlp4+kv8", dict(bits=8, mlp_bits=4, kv_bits=8),
-     (("bf16 KV cache", dict(kv_bits=None, use_cuda_graph=False), False),)),
+     (("bf16 KV cache", dict(kv_bits=None), False),)),
     ("c:int4-g128+vision4", dict(bits=4, group_size=128, vision_bits=4), (UNFUSED, PLAIN_Q4)),
 )
 
@@ -1270,8 +1408,8 @@ def fma_tiles(torch):
 
 def serving_configs(torch, counters):
     """spatialvla_4b at full width (random weights from seed 0) after each of
-    SERVING_CONFIGS: warm-up requests (one per prefix length, each capturing
-    its decode graph), then five timed SpatialVLAPolicy.predict requests
+    SERVING_CONFIGS: warm-up requests (the first captures the decode graph of
+    their cache bucket), then five timed SpatialVLAPolicy.predict requests
     through the graph and five through the eager loop, in turns (medians);
     one request's decode loop both ways (identical ids and margins), and for
     (b) one predict_batch of 16 rows with mixed instruction lengths both
@@ -1288,8 +1426,9 @@ def serving_configs(torch, counters):
     requests' ids are held to references on the same tree under the margin
     rule: for (a) and (c) the unfused decode path (which also runs the int4
     kernels) and the served path with the q4 wrappers' plain versions (which
-    runs none), for (b) the bf16 KV cache. Each policy is freed before the
-    next starts."""
+    runs none), for (b) the bf16 KV cache. Each decode graph's traced replay
+    is held to its credited launch counts (``graph_launches``). Each policy
+    is freed before the next starts."""
     from spatialvla_tpu_torch import SpatialVLAPolicy, spatialvla_4b
     from spatialvla_tpu_torch.models import spatialvla as sv
     from spatialvla_tpu_torch.ops import quant
@@ -1317,7 +1456,7 @@ def serving_configs(torch, counters):
         t_setup = time.perf_counter() - t0
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        for img, instr in zip(images, instructions):  # captures, one per prefix length
+        for img, instr in zip(images, instructions):  # the first captures
             policy.predict(img, instr)
         torch.cuda.synchronize()
         t_first = (time.perf_counter() - t0) * 1e3
@@ -1433,6 +1572,7 @@ def serving_configs(torch, counters):
                 agree.append(ok)
         if not all(agree):
             fail(f"serving {name}: ids differ from the reference beyond the margin rule")
+        checks = graph_launches(torch, policy, f"serving {name}")
         out[name] = {"quantize": qkw, "setup_s": t_setup, "warm_predict_ms_median": warm,
                      "warm_predict_ms_all": times,
                      "warm_predict_eager_ms_median": warm_runs["eager"][0],
@@ -1443,7 +1583,8 @@ def serving_configs(torch, counters):
                                         **({"batch16_graph": batch_loops[0],
                                             "batch16_eager": batch_loops[1]}
                                            if batch_loops else {})},
-                     "capture_ms": capture_ms(policy), "actions_per_s": 4 / (warm / 1e3),
+                     "capture_ms": capture_ms(policy), "graph_launches": checks,
+                     "actions_per_s": 4 / (warm / 1e3),
                      "peak_mem_gib": peak, "launches_per_request": per_request,
                      "launches": launches, "tiled_launches_per_request": tiled,
                      "tiled_launches": tiled_run, **stages, "stage_runs_ms": runs}
@@ -1726,6 +1867,18 @@ def main() -> int:
 
     # the q4 wrappers' tensor-core route above 16 rows gets an entry of its
     # own, at its first timed shape (the 277-row prefill's)
+    # each kernel's launches in one replay of the decode graphs checked
+    # (graph_launches): counted in the traced replay, and credited
+    graph_checks = path["graph_launches"] + [c for v in serving.values()
+                                             for c in v["graph_launches"]]
+
+    def per_replay(name):
+        if not any(name in c["credited"] or name in c["measured"] for c in graph_checks):
+            return None
+        return {"measured": sum(c["measured"].get(name, 0) for c in graph_checks),
+                "credited": sum(c["credited"].get(name, 0) for c in graph_checks),
+                "graphs": len(graph_checks)}
+
     entries = [(name, name, False) for name in KERNEL_SOURCES]
     entries[4:4] = [(name + "_tiled", name, True) for name in ("q4_matvec", "q4_rmsnorm_matvec")]
     kernels = []
@@ -1759,7 +1912,7 @@ def main() -> int:
             "ms": r["ms"][first], "plain_ms": r["plain_ms"][first], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": r["library_ms"][first], "shape": first,
             "tolerance": tol, "launches_on": run, "library_note": notes.get(name),
-            **extra,
+            "decode_graph_launches_per_replay": None if tiled else per_replay(name), **extra,
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -874,10 +874,11 @@ extern "C" int q4_rmsnorm_matvec(const void* x, int x_dtype, const void* norm_w,
 
 // h_out = bf16(bf16(h_in) + bf16(rms(upd) * (1 + post_w))), then out = the
 // q4_rmsnorm_matvec of h_out with norm_w, in one launch of the few-row
-// kernel (q8_matvec.cu's header). Only on the "rows" route (M <= 16, x and
-// qt 16-byte aligned, per channel or in groups of a multiple of 16 columns);
-// other operands are refused with cudaErrorInvalidValue, and the caller
-// runs norm_residual and q4_rmsnorm_matvec instead (quant.residual_route)
+// kernel (q8_matvec.cu's header). Only on the "rows" route (x and qt
+// 16-byte aligned, per channel or in groups of a multiple of 16 columns) at
+// M <= 4 and K <= 4096; other operands are refused with
+// cudaErrorInvalidValue, and the caller runs norm_residual and
+// q4_rmsnorm_matvec instead (quant.residual_route)
 extern "C" int q4_residual_rmsnorm_matvec(const float* h_in, const bf16* upd, const void* post_w,
                                           int post_dtype, const void* norm_w, int norm_dtype,
                                           float eps, const uint8_t* qt, const float* scale, int G,

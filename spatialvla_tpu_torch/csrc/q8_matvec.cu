@@ -31,14 +31,16 @@
 // computes rms(upd), h_out and rms(h_out) itself, in the fixed order of the
 // norm pass below, so every block stages the same x'; block 0 alone writes
 // h_out, which must not overlap h_in (other blocks are still reading it).
-// h_out is bf16-exact, so where all of K is staged the norm pass writes it
-// into shared memory as it goes and the staging norms it in place there
-// (no third pass over global memory); at one row int8 too takes the
-// one-round register path of the int4 instance. What bounds it is the
-// weight stream, as for the RMSNorm matvec, plus a prologue of two passes
-// over all M rows in every block: on the H100 that beats norm_residual +
-// the RMSNorm matvec up to 4 rows and loses from 8 on, where the decode
-// step keeps the pair (decode_step.py:RESIDUAL_FOLD_MAX_M).
+// h_out is bf16-exact, so the norm pass writes it into shared memory as it
+// goes and the staging norms it in place there (no third pass over global
+// memory); at one row int8 too takes the one-round register path of the
+// int4 instance. What bounds it is the weight stream, as for the RMSNorm
+// matvec, plus a prologue of two passes over all M rows in every block: on
+// the H100 that beats norm_residual + the RMSNorm matvec up to 4 rows and
+// loses from 8 on, so the variant takes at most kResidMaxRows = 4 rows
+// (instances MR = 1, 2, 4), and all of K staged at once even before the
+// opt-in to more than 48 KB (K <= 4096); launch_resid refuses other shapes
+// (quant.residual_route, the same rule, keeps the pair for them).
 //
 // Weight formats (one 16-byte load, a "unit", of an output channel's row):
 //  * int8, qt (N, K): unit u holds the codes of columns 16u..16u+15;
@@ -117,6 +119,8 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kC = 4;              // output channels per warp
 constexpr int kXBytesMax = 110592;  // staged bf16 x per block (108 KB: two blocks an SM)
 constexpr int kSmemPerSM = 233472;  // 228 KB of shared memory on an H100 SM
+constexpr int kResidMaxRows = 4;    // rows and columns the residual variant takes (the
+constexpr int kResidMaxK = 4096;    // header): all of K staged within 48 KB at 4 rows
 // grouped int4: rows from which the codes are scaled, not the half-unit sums
 constexpr int kScaleCodesFromRows = 8;
 
@@ -449,11 +453,10 @@ qmatvec_kernel(const void* __restrict__ x, int x_dtype,
           } else if (kResid) {
             resid4(m, k, s_rupd[m], v);
             if (blockIdx.x == 0) store4(m, k, v);
-            if (cu == U) {  // h' is bf16-exact: staged as it is, normed in place below
-              const int half = kInt4 ? K / 2 : K, h = k >= half, kk = k - h * half;
-              xs[(m * 4 + ((kk >> 2) & 3)) * xstride + h * cu + (kk >> 4)] =
-                  make_uint2(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]));
-            }
+            // h' is bf16-exact: staged as it is (all of K), normed in place below
+            const int half = kInt4 ? K / 2 : K, h = k >= half, kk = k - h * half;
+            xs[(m * 4 + ((kk >> 2) & 3)) * xstride + h * cu + (kk >> 4)] =
+                make_uint2(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]));
           } else {
             load_x4(x, x_dtype, static_cast<long>(m) * K + k, v);
           }
@@ -479,6 +482,7 @@ qmatvec_kernel(const void* __restrict__ x, int x_dtype,
   // the x units that weight units [c0, c0 + cn) meet, normed and rounded to
   // bf16, into xs: x[:, c0 * 16 : (c0 + cn) * 16] at positions [0, cn), and
   // for int4 also x[:, K/2 + c0 * 16 : K/2 + (c0 + cn) * 16] at cu + [0, cn)
+  // (not kResid, whose norm pass stages all of h')
   const auto stage = [&](int c0, int cn) {
 #pragma unroll 4
     for (int g = threadIdx.x; g < MR * 4 * H * cn; g += kThreads) {
@@ -491,11 +495,7 @@ qmatvec_kernel(const void* __restrict__ x, int x_dtype,
         continue;
       }
       float v[4] = {0.f, 0.f, 0.f, 0.f};  // rows from M to MR stay zero
-      if (kResid && m < M) {
-        resid4(m, col, s_rupd[m], v);
-      } else if (m < M) {
-        load_x4(x, x_dtype, static_cast<long>(m) * K + col, v);
-      }
+      if (m < M) load_x4(x, x_dtype, static_cast<long>(m) * K + col, v);
       if (kNorm && m < M) {
         const float ri = s_rinv[m];
 #pragma unroll
@@ -508,7 +508,7 @@ qmatvec_kernel(const void* __restrict__ x, int x_dtype,
     if (!kNorm) asm volatile("cp.async.wait_all;" ::: "memory");
     __syncthreads();
   };
-  if (kResid && cu == U && !fused) {  // h' staged by the norm pass: norm it in place
+  if (kResid && !fused) {  // h' staged by the norm pass: norm it in place
     for (int g = threadIdx.x; g < MR * 4 * H * U; g += kThreads) {
       const int m = g / (4 * H * U), r0 = g - m * 4 * H * U;
       const int h = kInt4 && r0 >= 4 * U, r = r0 - h * 4 * U, u = r >> 2, q = r & 3;
@@ -564,7 +564,7 @@ qmatvec_kernel(const void* __restrict__ x, int x_dtype,
 #pragma unroll
       for (int c = 0; c < kC; ++c) acc[m][c] = 0.f;
     }
-    if (cu < U) stage(0, cu);
+    if (!kResid && cu < U) stage(0, cu);
     stream_units(0, cu, pre, psc);
     for (int c0 = cu; c0 < U; c0 += cu) {
       const int cn = min(cu, U - c0);
@@ -574,7 +574,7 @@ qmatvec_kernel(const void* __restrict__ x, int x_dtype,
       }
       if (kScale == 1) unit_scales(c0 + u0, u0 < cn, psc);
       __syncthreads();  // every warp is done with the previous chunk
-      stage(c0, cn);
+      if (!kResid) stage(c0, cn);
       stream_units(c0, cn, pre, psc);
     }
     if (tile + gridDim.x < tiles) {  // the next tile's first weights, in flight meanwhile
@@ -649,6 +649,7 @@ int launch_rows(const void* x, int x_dtype, const void* norm_w, int norm_dtype, 
   constexpr int H = kInt4 ? 2 : 1;
   const int U = K / (16 * H);  // weight units a row
   const int xs_units = min(U, limit / (MR * 32 * H));  // 32 x bytes a row a unit
+  if (kResid && xs_units < U) return cudaErrorInvalidValue;  // stages all of K (the header)
   const int xs_bytes = xs_units * MR * 32 * H;
   // resident blocks per SM, from registers (256 a warp at a time) and
   // shared memory (1 KB reserved a block)
@@ -679,7 +680,8 @@ int launch(const void* x, int x_dtype, const void* norm_w, int norm_dtype, float
            const int8_t* qt, const float* scale, int G, void* out, int out_dtype,
            int M, int N, int K, cudaStream_t s, Resid rs = Resid{}) {
   const int unit = kInt4 ? 32 : 16;  // columns of a weight unit
-  if (M < 1 || M > 16 || N < 1 || K < unit || K % unit != 0) return cudaErrorInvalidValue;
+  if (M < 1 || M > (kResid ? kResidMaxRows : 16) || N < 1 || K < unit || K % unit != 0)
+    return cudaErrorInvalidValue;
   // grouped: G groups, both halves of K whole groups of a multiple of 16 columns
   if (kGrouped && (G < 2 || G % 2 != 0 || K % G != 0 || (K / G) % 16 != 0))
     return cudaErrorInvalidValue;
@@ -690,14 +692,17 @@ int launch(const void* x, int x_dtype, const void* norm_w, int norm_dtype, float
   if (M == 1) QMV_ROWS(1);
   if (M == 2) QMV_ROWS(2);
   if (M <= 4) QMV_ROWS(4);
-  if (M <= 8) QMV_ROWS(8);
-  QMV_ROWS(16);
+  if constexpr (!kResid) {  // the residual variant: no 8- or 16-row instances
+    if (M <= 8) QMV_ROWS(8);
+    QMV_ROWS(16);
+  }
+  return cudaErrorInvalidValue;
 #undef QMV_ROWS
 }
 
-// The residual variant: h_in (M, K) and h_out f32, upd bf16, all 16-byte
-// aligned; h_out must not overlap h_in (other blocks still read h_in while
-// block 0 writes h_out)
+// The residual variant: h_in (M <= 4, K <= 4096) and h_out f32, upd bf16,
+// all 16-byte aligned; h_out must not overlap h_in (other blocks still read
+// h_in while block 0 writes h_out)
 template <bool kInt4, bool kGrouped>
 int launch_resid(const float* h_in, const bf16* upd, const void* post_w, int post_dtype,
                  const void* norm_w, int norm_dtype, float eps, const int8_t* qt,
@@ -705,8 +710,9 @@ int launch_resid(const float* h_in, const bf16* upd, const void* post_w, int pos
                  int K, cudaStream_t s) {
   const auto addr = [](const void* p) { return reinterpret_cast<uintptr_t>(p); };
   const uintptr_t bytes = static_cast<uintptr_t>(M > 0 ? M : 0) * (K > 0 ? K : 0) * 4;
-  if (!h_in || !upd || !post_w || !norm_w || !h_out || addr(h_in) % 16 || addr(upd) % 16 ||
-      addr(h_out) % 16 || (addr(h_in) < addr(h_out) + bytes && addr(h_out) < addr(h_in) + bytes))
+  if (K > kResidMaxK || !h_in || !upd || !post_w || !norm_w || !h_out || addr(h_in) % 16 ||
+      addr(upd) % 16 || addr(h_out) % 16 ||
+      (addr(h_in) < addr(h_out) + bytes && addr(h_out) < addr(h_in) + bytes))
     return cudaErrorInvalidValue;
   return launch<true, kInt4, kGrouped, true>(h_in, DT_F32, norm_w, norm_dtype, eps, qt, scale, G,
                                              out, out_dtype, M, N, K, s,
@@ -736,7 +742,7 @@ int q4_rows_matvec(const void* x, int x_dtype, const void* norm_w, int norm_dtyp
 }
 
 // The packed-int4 residual variant, for q4_matvec.cu (its aligned calls of
-// M <= 16, per channel or in groups of a multiple of 16 columns)
+// M <= 4, per channel or in groups of a multiple of 16 columns)
 int q4_rows_residual_matvec(const float* h_in, const bf16* upd, const void* post_w, int post_dtype,
                             const void* norm_w, int norm_dtype, float eps, const uint8_t* qt,
                             const float* scale, int G, float* h_out, void* out, int out_dtype,

@@ -13,10 +13,11 @@ and head, int8 or int4 vision front, and ``kv_bits=8`` for an int8 KV cache.
 Loading a real checkpoint (``load``, ``from_hf_checkpoint``), ``shard`` and
 ``save_serving`` / ``load_serving`` are not ported yet (ROADMAP.md).
 
-On the card the fused decode loop runs as a CUDA graph per request shape
-(``models/spatialvla.py:GreedyLoop``), captured at the first request of that
-shape and replayed after; the policy keeps them (``decode_graphs``) and
-drops them whenever it replaces its parameters (``quantize``, ``to``).
+On the card the fused decode loop runs as a CUDA graph per batch size and
+cache bucket (``models/spatialvla.py:GreedyLoop``; prefixes within 64 tokens
+of each other share one), captured at the first request of that shape and
+replayed after; the policy keeps them (``decode_graphs``) and drops them
+whenever it replaces its parameters (``quantize``, ``to``).
 ``policy.use_cuda_graph = False`` serves through the eager loop instead.
 """
 from __future__ import annotations
@@ -58,8 +59,8 @@ class SpatialVLAPolicy:
         self.depth_image_size: Optional[int] = None  # set by quantize()
         self.kv_bits: Optional[int] = None  # set by quantize()
         self.quant_desc: Optional[Dict] = None  # set by quantize()
-        # the fused decode loop's CUDA graphs, captured for self.params; None:
-        # on for CUDA tensors (predict_action's use_cuda_graph)
+        # the fused decode loop's CUDA graphs, captured for self.params;
+        # use_cuda_graph None: on for CUDA tensors (predict_action's option)
         self.decode_graphs = spatialvla.DecodeGraphs()
         self.use_cuda_graph: Optional[bool] = None
 

@@ -281,8 +281,9 @@ def generate_greedy(
     ``cache_dtype`` and precomputed-``depth`` options are not ported (the
     prefill cache is bf16, ``kv_bits=8`` quantizes it for the fused decode;
     depth comes from ZoeDepth). On the fused decode path ``use_cuda_graph``
-    (None: on for CUDA tensors) replays the loop after the first token as one
-    CUDA graph, kept in ``decode_graphs`` (``_generate_greedy_fused``)."""
+    (None: where ``decode_graphs`` is given) replays the loop after the first
+    token as one CUDA graph, kept in ``decode_graphs``
+    (``_generate_greedy_fused``)."""
     graph_kw = dict(use_cuda_graph=use_cuda_graph, decode_graphs=decode_graphs)
     if use_flash_prefill and attention_mask is not None:
         raise ValueError("use_flash_prefill assumes unpadded rows (attention_mask=None)")
@@ -419,92 +420,61 @@ def _scatter_scale(sc, new, slots, S):
     return sc
 
 
-def _fused_token(params, cfg, tok, ck, cv, kscale, vscale, slot, position, *, kv_bits,
-                 normalizer, next_from, compute_dtype, buffers=None):
-    """One step of the fused greedy loop (spatialvla.py:659-688): embed tok
-    (B,) with the spatial-token override, run ``fused_decode_step`` at
-    ``position`` (an int or (B,) int32 on the card), write the new K / V rows
-    (quantized, with their scales, for an int8 cache) into the cache at
-    ``slot`` in place, and return the next token and its argmax margin.
-    ``slot``: an int (the unpadded rows' shared slot) or the (B,) per-row
-    slots; ``buffers``: the step's ``step_buffers``."""
-    from ..ops.decode_step import fused_decode_step
-    from ..ops.quant import quantize_kv
-
-    embeds = merge_input_embeddings(params, cfg, tok[:, None], None, dtype=compute_dtype)
-    x = embeds[:, 0] * normalizer
-    hidden, k_new, v_new = fused_decode_step(params["lm"], cfg.text, x, ck, cv, position,
-                                             position + 1, cache_k_scale=kscale,
-                                             cache_v_scale=vscale, buffers=buffers)
-    if kv_bits == 8:  # quantize the new rows before writing them
-        S = ck.shape[3]
-        k_new, ks_new = quantize_kv(k_new)
-        v_new, vs_new = quantize_kv(v_new)
-        _scatter_scale(kscale, ks_new, slot, S)
-        _scatter_scale(vscale, vs_new, slot, S)
-    if isinstance(slot, int):
-        ck[:, :, :, slot] = k_new
-        cv[:, :, :, slot] = v_new
-    else:
-        _scatter_rows(ck, k_new, slot)
-        _scatter_rows(cv, v_new, slot)
-    return next_from(hidden.to(normalizer.dtype))
+# Cache slots of a GreedyLoop come in multiples of this, so that requests
+# whose prefixes differ by up to this many tokens share one loop (and one
+# CUDA graph): the decode attention reads only the slots below each row's
+# position (csrc/decode.cu; a chunk past it exits at once).
+SLOT_BUCKET = 64
 
 
 def _kernel_counters():
-    """(wrapper, attribute) of every launch count the decode loop can move:
-    the kernel wrappers' ``.launches`` and the q4 wrappers' ``.tiled_launches``
-    (a function patched in a wrapper's place that counts nothing is left out)."""
-    from ..ops import decode_step as ds
-    from ..ops import quant
+    """(wrapper, attribute) of every kernel launch count (``ops/_lib.COUNTED``)."""
+    from ..ops import _lib, decode_step, quant  # noqa: F401 -- registers their wrappers
 
-    wrappers = (quant.q8_matvec, quant.q8_rmsnorm_matvec, quant.q8_residual_rmsnorm_matvec,
-                quant.q4_matvec, quant.q4_rmsnorm_matvec, quant.q4_residual_rmsnorm_matvec,
-                ds.decode_attention, ds.decode_attention_kv8, ds.norm_residual, ds.gelu_mul)
-    return [(w, a) for w in wrappers for a in ("launches", "tiled_launches") if hasattr(w, a)]
+    return [(fn, a) for fn, names in _lib.COUNTED for a in names]
 
 
 class GreedyLoop:
     """Steps 1 .. n-1 of the fused greedy loop on buffers of its own, for one
-    shape: B rows, prefix P, an S-slot cache, n = S - P tokens, a bf16 or
-    int8 cache, unpadded or right-padded rows. ``load`` copies a request's
-    prefill cache (permuted to the serving layout, quantized for kv_bits=8),
-    first token and, for padded rows, valid lengths into those buffers;
-    ``run`` decodes through them and returns (ids, margins), each (B, n-1).
-    Every step's buffers (``step_buffers``, the attention scratch among
-    them) are allocated once, here.
+    shape: B rows, an S-slot cache (S a multiple of ``SLOT_BUCKET``, or the
+    sliding window), n tokens, a bf16 or int8 cache. Nothing in it depends on
+    a request's prefix length P: ``load`` copies a request's prefill cache
+    (slots [0, P), permuted to the serving layout, quantized for kv_bits=8),
+    its first token and each row's start slot (P, or the row's valid length
+    when right-padded) into the buffers, and row m decodes at slots start[m],
+    start[m] + 1, ... from a device tensor. ``run`` decodes through them and
+    returns (ids, margins), each (B, n-1). Every step's buffers
+    (``step_buffers``, the attention scratch among them) are allocated once,
+    here.
 
     On the card ``capture`` records ``run`` into one CUDA graph (after one
-    warm-up run on a side stream, which also makes the kernels' shared-memory
-    opt-in outside the capture) and ``replay`` replays it: one launch from
-    the host for the whole loop, where an eager loop enqueues 157 kernels and
-    a dozen torch ops a step. A graph holds the addresses of the weights it
-    was captured with; ``DecodeGraphs`` ties it to one tree. The unpadded
-    rows' cache slot P + t is a Python int, baked into the graph (P is part
-    of the shape key); the attention kernels take the position from a
-    device tensor. The wrappers' launch counts move during the capture but
-    nothing runs then: the capture's counts are taken back and credited on
-    every replay instead."""
+    warm-up run on a side stream, which also makes the kernels'
+    shared-memory opt-in outside the capture) and ``replay`` replays it: one
+    launch from the host for the whole loop, where ``run`` enqueues 157
+    kernels and a dozen torch ops a step. A graph holds the addresses of the
+    weights it was captured with; ``DecodeGraphs`` ties it to one tree. The
+    wrappers' launch counts move during the capture but nothing runs then:
+    the capture's counts are taken back and credited on every replay
+    instead (chip_smoke.py holds them to the kernels of a traced replay)."""
 
-    def __init__(self, params, cfg, *, B, P, S, kv_bits, padded, token_range, compute_dtype,
-                 dtype, device):
+    def __init__(self, params, cfg, *, B, S, n, kv_bits, token_range, compute_dtype, dtype,
+                 device):
         from ..ops.decode_step import step_buffers
 
         tcfg = cfg.text
         L, Nkv, D = tcfg.num_layers, tcfg.num_kv_heads, tcfg.head_dim
-        self.params, self.cfg, self.P, self.n = params, cfg, P, S - P
+        self.params, self.cfg, self.S, self.n = params, cfg, S, n
         self.kv_bits, self.compute_dtype = kv_bits, compute_dtype
         cache_dtype = torch.int8 if kv_bits == 8 else torch.bfloat16
-        self.ck, self.cv = (torch.empty((L, B, Nkv, S, D), dtype=cache_dtype, device=device)
+        # zeroed: the slots no request has written yet hold finite values
+        self.ck, self.cv = (torch.zeros((L, B, Nkv, S, D), dtype=cache_dtype, device=device)
                             for _ in range(2))
         self.kscale = self.vscale = None
-        if kv_bits == 8:
-            self.kscale, self.vscale = (torch.empty((L, Nkv, 1, B * S), dtype=torch.float32,
+        if kv_bits == 8:  # per-slot scales in the flat (L, Nkv, 1, B*S) layout
+            self.kscale, self.vscale = (torch.zeros((L, Nkv, 1, B * S), dtype=torch.float32,
                                                     device=device) for _ in range(2))
         self.tok = torch.empty((B,), dtype=torch.long, device=device)
-        self.valid = torch.empty((B,), dtype=torch.int32, device=device) if padded else None
-        # the unpadded rows' positions P .. P + n - 2, one step's on the card
-        self.positions = torch.arange(P, S - 1, dtype=torch.int32, device=device)[:, None]
+        self.start = torch.empty((B,), dtype=torch.int32, device=device)
         self.normalizer = torch.tensor(tcfg.hidden_size ** 0.5, dtype=dtype, device=device)
         self.buffers = step_buffers(tcfg, B, S, device)
         self.begin, self.head = token_range[0], _slice_head(params["lm"], *token_range)
@@ -514,32 +484,56 @@ class GreedyLoop:
         logits = qmatmul(h, self.head)
         return torch.argmax(logits, dim=-1) + self.begin, _argmax_margin(logits)
 
-    def load(self, cache, tok, valid):
-        from ..ops.decode_step import flatten_kv_scales
+    def load(self, cache, tok, P, valid=None):
+        """A request's prefill cache (L, B, S', Nkv, D) with P prefix slots,
+        its first token (B,) and, for right-padded rows, valid (B,)."""
         from ..ops.quant import quantize_kv
 
-        k, v = (cache[n].permute(0, 1, 3, 2, 4) for n in ("k", "v"))
+        if P + self.n > self.S:
+            raise ValueError(f"a {P}-token prefix and {self.n} tokens exceed the loop's "
+                             f"{self.S} cache slots")
+        k, v = (cache[n][:, :, :P].permute(0, 1, 3, 2, 4) for n in ("k", "v"))
         if self.kv_bits == 8:
             (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
-            self.kscale.copy_(flatten_kv_scales(ks))
-            self.vscale.copy_(flatten_kv_scales(vs))
-        self.ck.copy_(k)
-        self.cv.copy_(v)
+            L, B, Nkv = ks.shape[:3]
+            for flat, sc in ((self.kscale, ks), (self.vscale, vs)):
+                flat.view(L, Nkv, B, self.S)[..., :P].copy_(sc.permute(0, 2, 1, 3))
+        self.ck[:, :, :, :P].copy_(k)
+        self.cv[:, :, :, :P].copy_(v)
         self.tok.copy_(tok)
-        if self.valid is not None:
-            self.valid.copy_(valid)
+        if valid is None:
+            self.start.fill_(P)
+        else:
+            self.start.copy_(valid)
+
+    def _token(self, tok, slot):
+        """One step (spatialvla.py:659-688): embed tok (B,) with the
+        spatial-token override, run ``fused_decode_step`` with row m at
+        position slot[m], write the new K / V rows (quantized, with their
+        scales, for an int8 cache) into the cache at slot[m] in place, and
+        return the next token and its argmax margin."""
+        from ..ops.decode_step import fused_decode_step
+        from ..ops.quant import quantize_kv
+
+        embeds = merge_input_embeddings(self.params, self.cfg, tok[:, None], None,
+                                        dtype=self.compute_dtype)
+        x = embeds[:, 0] * self.normalizer
+        hidden, k_new, v_new = fused_decode_step(
+            self.params["lm"], self.cfg.text, x, self.ck, self.cv, slot, slot + 1,
+            cache_k_scale=self.kscale, cache_v_scale=self.vscale, buffers=self.buffers)
+        if self.kv_bits == 8:  # quantize the new rows before writing them
+            k_new, ks_new = quantize_kv(k_new)
+            v_new, vs_new = quantize_kv(v_new)
+            _scatter_scale(self.kscale, ks_new, slot, self.S)
+            _scatter_scale(self.vscale, vs_new, slot, self.S)
+        _scatter_rows(self.ck, k_new, slot)
+        _scatter_rows(self.cv, v_new, slot)
+        return self.next_from(hidden.to(self.normalizer.dtype))
 
     def run(self):
         tok, toks, margs = self.tok, [], []
         for t in range(self.n - 1):
-            if self.valid is None:
-                slot, position = self.P + t, self.positions[t]
-            else:
-                slot = position = (self.valid + t).to(torch.int32)
-            tok, marg = _fused_token(self.params, self.cfg, tok, self.ck, self.cv, self.kscale,
-                                     self.vscale, slot, position, kv_bits=self.kv_bits,
-                                     normalizer=self.normalizer, next_from=self.next_from,
-                                     compute_dtype=self.compute_dtype, buffers=self.buffers)
+            tok, marg = self._token(tok, self.start + t)
             toks.append(tok)
             margs.append(marg)
         return torch.stack(toks, dim=1), torch.stack(margs, dim=1)
@@ -573,8 +567,9 @@ class GreedyLoop:
 
 class DecodeGraphs:
     """The captured greedy loops (``GreedyLoop``) of one parameter tree, one
-    per shape key (B, P, S, kv_bits, padded, token range, compute dtype), as
-    JAX's jit compiles one program per shape; at most ``limit``, the least
+    per shape key (B, cache slots, tokens, kv_bits, token range, compute
+    dtype), as JAX's jit compiles one program per shape; the prefix length
+    is not part of the key (``SLOT_BUCKET``). At most ``limit``, the least
     recently used dropped first. A graph holds the addresses of the weights
     it was captured with, so a lookup with another tree (another ``params``
     or ``params["lm"]`` object) drops every graph first, and
@@ -610,32 +605,29 @@ class DecodeGraphs:
 def _generate_greedy_fused(params, cfg, cache, prefill_hidden, P, max_new_tokens, token_range,
                            *, compute_dtype=None, valid=None, kv_bits=None, return_margins=False,
                            use_cuda_graph=None, decode_graphs=None):
-    """Decode loop over ``fused_decode_step`` (spatialvla.py:576).
+    """Decode loop over ``fused_decode_step`` (spatialvla.py:576), on the
+    buffers of a ``GreedyLoop``.
 
-    Unpadded rows share the scalar cache position P + t; right-padded rows
-    decode at their own slots valid[m] + t, overwriting the pad slots. With
-    kv_bits=8 the prefill cache is quantized (``quantize_kv``), its scales
-    carried in the flat layout, and each step's new rows are quantized
-    before they are written.
+    Unpadded rows start at cache slot P; right-padded rows decode at their
+    own slots valid[m] + t, overwriting the pad slots. With kv_bits=8 the
+    prefill cache is quantized (``quantize_kv``), its scales carried in the
+    flat layout, and each step's new rows are quantized before they are
+    written.
 
-    ``use_cuda_graph`` (None: on for CUDA tensors): the steps after the
-    first token run in a ``GreedyLoop``, on buffers of their own, as one
-    CUDA graph on the card (taken from ``decode_graphs``, or captured for
-    this call where none is given), eagerly on the CPU. False: the eager
-    loop, one ``fused_decode_step`` enqueued after another."""
-    from ..ops.decode_step import flatten_kv_scales
-    from ..ops.quant import quantize_kv
-
+    ``use_cuda_graph``: whether the steps after the first token replay as
+    one CUDA graph (CUDA tensors only), taken from ``decode_graphs`` or
+    captured for this call where none is given; None: where
+    ``decode_graphs`` is given. Otherwise the loop runs eagerly, one
+    ``fused_decode_step`` enqueued after another."""
     if kv_bits not in (None, 8):
         raise ValueError(f"kv_bits={kv_bits}: only 8 (or None) is supported")
+    if use_cuda_graph is None:
+        use_cuda_graph = decode_graphs is not None and prefill_hidden.is_cuda
+    elif use_cuda_graph and not prefill_hidden.is_cuda:
+        raise ValueError("use_cuda_graph: a CUDA graph needs CUDA tensors")
     B = prefill_hidden.shape[0]
     begin, size = token_range
     head = _slice_head(params["lm"], begin, size)
-
-    def next_from(h):
-        logits = qmatmul(h, head)
-        return torch.argmax(logits, dim=-1) + begin, _argmax_margin(logits)
-
     if valid is None:
         last_hidden = prefill_hidden[:, -1]
     else:
@@ -644,52 +636,32 @@ def _generate_greedy_fused(params, cfg, cache, prefill_hidden, P, max_new_tokens
             (valid - 1).long()[:, None, None].expand(B, 1, prefill_hidden.shape[-1]),
         )[:, 0]
     dtype = compute_dtype or prefill_hidden.dtype
-    tok, marg = next_from(last_hidden.to(dtype))
-    S = cache["k"].shape[2]
-    if use_cuda_graph is None:
-        use_cuda_graph = prefill_hidden.is_cuda
-    if use_cuda_graph and max_new_tokens > 1:
-        dev = prefill_hidden.device
-        shape = dict(B=B, P=P, S=S, kv_bits=kv_bits, padded=valid is not None,
-                     token_range=tuple(token_range), compute_dtype=compute_dtype, dtype=dtype)
+    logits = qmatmul(last_hidden.to(dtype), head)
+    tok, marg = torch.argmax(logits, dim=-1) + begin, _argmax_margin(logits)
+    if max_new_tokens == 1:
+        return _stack_steps([tok], [marg], return_margins)
+    S = P + max_new_tokens
+    S_loop = max(S, min(-(-S // SLOT_BUCKET) * SLOT_BUCKET, cfg.text.sliding_window))
+    shape = dict(B=B, S=S_loop, n=max_new_tokens, kv_bits=kv_bits,
+                 token_range=tuple(token_range), compute_dtype=compute_dtype, dtype=dtype)
 
-        def build():
-            return GreedyLoop(params, cfg, device=dev, **shape)
+    def build():
+        return GreedyLoop(params, cfg, device=prefill_hidden.device, **shape)
 
-        if dev.type != "cuda":  # the same loop, eagerly
-            loop = build()
-            loop.load(cache, tok, valid)
-            toks, margs = loop.run()
-        else:
-            loop = (build() if decode_graphs is None
-                    else decode_graphs.get(params, tuple(shape.values()), build))
-            loop.load(cache, tok, valid)
-            if loop.graph is None:
-                loop.capture()
-                loop.load(cache, tok, valid)  # the warm-up wrote into the buffers
-            toks, margs = loop.replay()
-        ids = torch.cat([tok[:, None], toks], dim=1)
-        return (ids, torch.cat([marg[:, None], margs], dim=1)) if return_margins else ids
-
-    # serving cache layout (L, B, Nkv, S, D): one permuted copy, then written in place
-    ck = cache["k"].permute(0, 1, 3, 2, 4).contiguous()
-    cv = cache["v"].permute(0, 1, 3, 2, 4).contiguous()
-    kscale = vscale = None
-    if kv_bits == 8:  # int8 cache + per-slot scales in the flat layout
-        ck, kscale = quantize_kv(ck)
-        cv, vscale = quantize_kv(cv)
-        kscale, vscale = flatten_kv_scales(kscale), flatten_kv_scales(vscale)
-    toks, margs = [tok], [marg]
-    normalizer = torch.tensor(cfg.text.hidden_size ** 0.5, dtype=dtype,
-                              device=prefill_hidden.device)
-    for t in range(max_new_tokens - 1):
-        slot = P + t if valid is None else (valid + t).to(torch.int32)
-        tok, marg = _fused_token(params, cfg, tok, ck, cv, kscale, vscale, slot, slot,
-                                 kv_bits=kv_bits, normalizer=normalizer, next_from=next_from,
-                                 compute_dtype=compute_dtype)
-        toks.append(tok)
-        margs.append(marg)
-    return _stack_steps(toks, margs, return_margins)
+    if not use_cuda_graph:
+        loop = build()
+        loop.load(cache, tok, P, valid)
+        toks, margs = loop.run()
+    else:
+        loop = (build() if decode_graphs is None
+                else decode_graphs.get(params, tuple(shape.values()), build))
+        loop.load(cache, tok, P, valid)
+        if loop.graph is None:
+            loop.capture()
+            loop.load(cache, tok, P, valid)  # the warm-up wrote into the buffers
+        toks, margs = loop.replay()
+    ids = torch.cat([tok[:, None], toks], dim=1)
+    return (ids, torch.cat([marg[:, None], margs], dim=1)) if return_margins else ids
 
 
 def predict_action(

@@ -166,6 +166,23 @@ def launch(name: str, *args) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
 
 
+# Every kernel wrapper with the names of its launch counts (``counted``): a
+# wrapper adds one to ``.launches`` where it launches its kernel, and the q4
+# wrappers also count their tensor-core launches in ``.tiled_launches``. A
+# CUDA graph that replays launches reads this list to know what it holds.
+COUNTED: list = []
+
+
+def counted(fn, *extra: str):
+    """Register the kernel wrapper ``fn``: its ``launches`` and ``extra``
+    counts, each set to 0. Returns fn."""
+    names = ("launches",) + extra
+    for a in names:
+        setattr(fn, a, 0)
+    COUNTED.append((fn, names))
+    return fn
+
+
 def dtype_code(t: torch.Tensor) -> int:
     if t.dtype == torch.float32:
         return DT_F32

@@ -7,8 +7,7 @@ Port of the Pallas kernel ``spatialvla_tpu/ops/decode_step.py:fused_decode_step`
 walks (layer, phase); Hopper blocks run in no order and keep nothing between
 launches, so here each layer is a fixed sequence of hand-written kernels
 launched from a Python loop over the stacked layer tensors, 6 a layer and
-one at the end (157 for Gemma2-2B's 26 layers) at up to
-``RESIDUAL_FOLD_MAX_M`` rows:
+one at the end (157 for Gemma2-2B's 26 layers) at up to 4 rows:
 
     residual_rmsnorm_matvec  the previous layer's post-FFN norm + residual
                              (JAX _post_ffn), then the input norm + fused qkv
@@ -26,9 +25,9 @@ one at the end (157 for Gemma2-2B's 26 layers) at up to
     norm_residual       (after the last layer) its post-FFN norm + residual
                         and the final norm
 
-Above ``RESIDUAL_FOLD_MAX_M`` rows, and for a weight that the residual
-kernels do not take (``quant.residual_route``: misaligned, int4 groups of a
-width that is not a multiple of 16 columns), ``norm_residual`` +
+Where the residual kernels do not take the operands (``quant.residual_route``:
+above 4 rows, where the fold loses to the pair on the card; misaligned; int4
+groups of a width that is not a multiple of 16 columns), ``norm_residual`` +
 ``rmsnorm_matvec`` run in their place (8 launches a layer), chosen by shape
 before the first launch.
 
@@ -69,14 +68,6 @@ from .quant import (matvec, matvec_plain, residual_rmsnorm_matvec, residual_rmsn
                     residual_route, rmsnorm_matvec, rmsnorm_matvec_plain)
 
 Params = Dict[str, Any]
-
-# Rows up to which the step folds the residual update into the next RMSNorm
-# matvec. Every block of the residual kernels passes over all M rows of h and
-# upd before its weight stream, so the fold's cost grows with M: on an H100
-# (scripts/bench_q8_matvec.py --residual) it beats norm_residual + the
-# RMSNorm matvec at 1, 2 and 4 rows and loses from 8 rows on (int8 qkv at 16
-# rows 0.0587 ms against 0.0399), so above this the step keeps the pair.
-RESIDUAL_FOLD_MAX_M = 4
 
 
 # ---------------------------------------------------------------------------
@@ -236,7 +227,7 @@ def decode_attention(qkv, cos, sin, ck, cv, position, *, num_heads, q_scale, cap
     decode_attention.launches += 1
 
 
-decode_attention.launches = 0
+_lib.counted(decode_attention)
 
 
 def decode_attention_kv8(qkv, cos, sin, ck, cv, position, *, ks, vs, num_heads, q_scale, cap,
@@ -263,7 +254,7 @@ def decode_attention_kv8(qkv, cos, sin, ck, cv, position, *, ks, vs, num_heads, 
     decode_attention_kv8.launches += 1
 
 
-decode_attention_kv8.launches = 0
+_lib.counted(decode_attention_kv8)
 
 
 # ---------------------------------------------------------------------------
@@ -309,7 +300,7 @@ def norm_residual(h, upd, w, *, eps, final_w=None, final_out=None):
     norm_residual.launches += 1
 
 
-norm_residual.launches = 0
+_lib.counted(norm_residual)
 
 
 # ---------------------------------------------------------------------------
@@ -335,7 +326,7 @@ def gelu_mul(gu, *, out):
     gelu_mul.launches += 1
 
 
-gelu_mul.launches = 0
+_lib.counted(gelu_mul)
 
 
 # ---------------------------------------------------------------------------
@@ -456,9 +447,8 @@ def _step(ops, lm_params: Params, cfg, x, cache_k, cache_v, position, rope_posit
     # the weights whose RMSNorm matvec takes the residual update in front
     # (one launch instead of norm_residual + rmsnorm_matvec): a route by
     # rows, shape and alignment, chosen before any launch
-    few = M <= RESIDUAL_FOLD_MAX_M
-    fold = {"qkv": few and ops.residual_route(h, qkv["qt"][0], qkv["scale"][0]),
-            "gu": few and ops.residual_route(h, gu["qt"][0], gu["scale"][0])}
+    fold = {"qkv": ops.residual_route(h, qkv["qt"][0], qkv["scale"][0]),
+            "gu": ops.residual_route(h, gu["qt"][0], gu["scale"][0])}
     eps = cfg.rms_norm_eps
     q_scale = cfg.query_pre_attn_scalar ** -0.5
 

@@ -223,7 +223,7 @@ def flash_attention_fwd(q, k, v, prefix_lens, valid_lens, q_offset, *,
     return out, lse
 
 
-flash_attention_fwd.launches = 0
+_lib.counted(flash_attention_fwd)
 
 
 def _check_bwd(name, q, k, v, dout, lse, delta, prefix_lens, valid_lens, q_offset, window):
@@ -259,7 +259,7 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, prefix_lens, valid_lens, q
     return dq
 
 
-flash_attention_bwd_dq.launches = 0
+_lib.counted(flash_attention_bwd_dq)
 
 
 def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, prefix_lens, valid_lens, q_offset, *,
@@ -283,7 +283,7 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, prefix_lens, valid_lens, 
     return dk, dv
 
 
-flash_attention_bwd_dkv.launches = 0
+_lib.counted(flash_attention_bwd_dkv)
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, prefix_lens, valid_lens, q_offset, *,

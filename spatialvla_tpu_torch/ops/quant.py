@@ -57,6 +57,15 @@ QuantW = Dict[str, Any]
 # have not been re-derived on the H100 yet (ROADMAP).
 QKERNEL_MAX_M = 16  # int8 qt
 QKERNEL_MAX_M_INT4 = 512  # packed-int4 qt (uint8 nibbles)
+# The residual kernels' shapes (csrc/q8_matvec.cu, kResidMaxRows): every
+# block passes over all M rows of h and upd before its weight stream, so
+# the fold's cost grows with M; on an H100 (scripts/bench_q8_matvec.py
+# --residual) it beats norm_residual + the RMSNorm matvec at 1, 2 and 4 rows
+# and loses from 8 rows on (int8 qkv at 16 rows 0.0587 ms against 0.0399).
+# All of K is staged at once, even before the kernel's opt-in to more than
+# 48 KB of shared memory: K <= 4096 at 4 rows.
+RESIDUAL_MAX_M = 4
+RESIDUAL_MAX_K = 4096
 
 
 def _qkernel_max_m(qt) -> int:
@@ -201,7 +210,7 @@ def q8_matvec(x, qt, scale, *, out_dtype=torch.bfloat16, out=None):
     return out
 
 
-q8_matvec.launches = 0
+_lib.counted(q8_matvec)
 
 
 # ---------------------------------------------------------------------------
@@ -238,7 +247,7 @@ def q8_rmsnorm_matvec(x, norm_w, qt, scale, *, eps=1e-6, out_dtype=torch.bfloat1
     return out
 
 
-q8_rmsnorm_matvec.launches = 0
+_lib.counted(q8_rmsnorm_matvec)
 
 
 def _check_norm_w(name, x, norm_w, K):
@@ -338,8 +347,7 @@ def q4_matvec(x, qt, scale, *, out_dtype=torch.bfloat16, out=None):
     return out
 
 
-q4_matvec.launches = 0
-q4_matvec.tiled_launches = 0  # of them, on the tensor-core route
+_lib.counted(q4_matvec, "tiled_launches")  # of them, on the tensor-core route
 
 
 def q4_rmsnorm_matvec(x, norm_w, qt, scale, *, eps=1e-6, out_dtype=torch.bfloat16, out=None):
@@ -363,8 +371,7 @@ def q4_rmsnorm_matvec(x, norm_w, qt, scale, *, eps=1e-6, out_dtype=torch.bfloat1
     return out
 
 
-q4_rmsnorm_matvec.launches = 0
-q4_rmsnorm_matvec.tiled_launches = 0
+_lib.counted(q4_rmsnorm_matvec, "tiled_launches")
 
 Q4_ROUTES = ("rows", "small", "tiled", "tiled_fma")
 
@@ -386,14 +393,16 @@ def residual_rmsnorm_matvec_plain(h_in, upd, post_w, norm_w, qt, scale, *, eps=1
 
 def residual_route(x, qt, scale) -> bool:
     """Whether ``residual_rmsnorm_matvec`` takes these operands (x the (M,
-    K) residual stream, qt and scale one layer's weight), by the rule of
-    ``csrc/q4_matvec.cu:route_of`` for its few-row kernel: M <= 16, x and qt
-    16-byte aligned, int8 with K a multiple of 16, or packed int4 with K / 2
-    a multiple of 16, per channel or in groups of a multiple of 16 columns.
+    K) residual stream, qt and scale one layer's weight): M <= 4 and K <=
+    4096 (``RESIDUAL_MAX_M``, ``RESIDUAL_MAX_K``), and the rule of
+    ``csrc/q4_matvec.cu:route_of`` for the few-row kernel: x and qt 16-byte
+    aligned, int8 with K a multiple of 16, or packed int4 with K / 2 a
+    multiple of 16, per channel or in groups of a multiple of 16 columns.
     On any device, from shapes and addresses alone; the decode step runs
-    ``norm_residual`` and ``rmsnorm_matvec`` for the weights it refuses."""
+    ``norm_residual`` and ``rmsnorm_matvec`` for the operands it refuses."""
     M, K = x.shape
-    if not 1 <= M <= QKERNEL_MAX_M or x.data_ptr() % 16 or qt.data_ptr() % 16:
+    if (not 1 <= M <= RESIDUAL_MAX_M or K > RESIDUAL_MAX_K or x.data_ptr() % 16
+            or qt.data_ptr() % 16):
         return False
     if qt.dtype == torch.int8:
         return K % 16 == 0 and scale.dim() == 1
@@ -401,7 +410,7 @@ def residual_route(x, qt, scale) -> bool:
     return (K // 2) % 16 == 0 and (G == 0 or (K % G == 0 and (K // G) % 16 == 0))
 
 
-def _check_residual(name, h_in, upd, post_w, norm_w, h_out):
+def _check_residual(name, h_in, upd, post_w, norm_w, qt, scale, h_out):
     _lib.check_cuda(name, h_in, upd, post_w, norm_w, h_out)
     M, K = h_in.shape
     if h_in.dtype != torch.float32 or h_out.dtype != torch.float32 or upd.dtype != torch.bfloat16:
@@ -416,20 +425,25 @@ def _check_residual(name, h_in, upd, post_w, norm_w, h_out):
                          "the first writes h_out)")
     if a % 16 or b % 16 or upd.data_ptr() % 16:
         raise ValueError(f"{name}: h_in, h_out and upd must start 16-byte aligned")
+    if not residual_route(h_in, qt, scale):
+        raise ValueError(f"{name}: {M} rows, K={K}, scale {tuple(scale.shape)}: the kernel "
+                         f"takes M <= {RESIDUAL_MAX_M}, K <= {RESIDUAL_MAX_K}, aligned operands "
+                         "and int4 groups of a multiple of 16 columns (residual_route)")
 
 
 def q8_residual_rmsnorm_matvec(h_in, upd, post_w, norm_w, qt, scale, *, eps=1e-6, h_out,
                                out_dtype=torch.bfloat16, out=None):
     """h_out (M, K) f32 <- bf16(bf16(h_in) + bf16(rms(upd) * (1 + post_w))),
     then rms_norm(h_out; norm_w) @ dequant(qt int8, scale) -> (M, N), in one
-    kernel. h_out must not overlap h_in."""
+    kernel, at most 4 rows (``residual_route``). h_out must not overlap
+    h_in."""
     if h_in.device.type == "cpu":
         return residual_rmsnorm_matvec_plain(h_in, upd, post_w, norm_w, qt, scale, eps=eps,
                                              h_out=h_out, out_dtype=out_dtype, out=out)
     if out is None:
         out = torch.empty((h_in.shape[0], qt.shape[0]), dtype=out_dtype, device=h_in.device)
     M, N, K = _check_matvec("q8_residual_rmsnorm_matvec", h_in, qt, scale, out)
-    _check_residual("q8_residual_rmsnorm_matvec", h_in, upd, post_w, norm_w, h_out)
+    _check_residual("q8_residual_rmsnorm_matvec", h_in, upd, post_w, norm_w, qt, scale, h_out)
     _lib.launch(
         "q8_residual_rmsnorm_matvec", h_in.data_ptr(), upd.data_ptr(), post_w.data_ptr(),
         _lib.dtype_code(post_w), norm_w.data_ptr(), _lib.dtype_code(norm_w), float(eps),
@@ -440,13 +454,13 @@ def q8_residual_rmsnorm_matvec(h_in, upd, post_w, norm_w, qt, scale, *, eps=1e-6
     return out
 
 
-q8_residual_rmsnorm_matvec.launches = 0
+_lib.counted(q8_residual_rmsnorm_matvec)
 
 
 def q4_residual_rmsnorm_matvec(h_in, upd, post_w, norm_w, qt, scale, *, eps=1e-6, h_out,
                                out_dtype=torch.bfloat16, out=None):
     """q8_residual_rmsnorm_matvec for packed int4 weights, per channel or in
-    groups of a multiple of 16 columns, at most 16 rows (``residual_route``);
+    groups of a multiple of 16 columns, at most 4 rows (``residual_route``);
     other operands raise."""
     if h_in.device.type == "cpu":
         return residual_rmsnorm_matvec_plain(h_in, upd, post_w, norm_w, qt, scale, eps=eps,
@@ -454,11 +468,7 @@ def q4_residual_rmsnorm_matvec(h_in, upd, post_w, norm_w, qt, scale, *, eps=1e-6
     if out is None:
         out = torch.empty((h_in.shape[0], qt.shape[0]), dtype=out_dtype, device=h_in.device)
     M, N, K, G = _check_q4("q4_residual_rmsnorm_matvec", h_in, qt, scale, out)
-    _check_residual("q4_residual_rmsnorm_matvec", h_in, upd, post_w, norm_w, h_out)
-    if not residual_route(h_in, qt, scale):
-        raise ValueError(f"q4_residual_rmsnorm_matvec: {M} rows, K={K}, G={G}: the kernel "
-                         "takes M <= 16, aligned operands and groups of a multiple of 16 "
-                         "columns (residual_route)")
+    _check_residual("q4_residual_rmsnorm_matvec", h_in, upd, post_w, norm_w, qt, scale, h_out)
     _lib.launch(
         "q4_residual_rmsnorm_matvec", h_in.data_ptr(), upd.data_ptr(), post_w.data_ptr(),
         _lib.dtype_code(post_w), norm_w.data_ptr(), _lib.dtype_code(norm_w), float(eps),
@@ -469,7 +479,7 @@ def q4_residual_rmsnorm_matvec(h_in, upd, post_w, norm_w, qt, scale, *, eps=1e-6
     return out
 
 
-q4_residual_rmsnorm_matvec.launches = 0
+_lib.counted(q4_residual_rmsnorm_matvec)
 
 
 def q4_route(x, qt, scale) -> str:

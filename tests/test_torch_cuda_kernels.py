@@ -628,16 +628,15 @@ def _resid_case(g, M, K, N, fmt, post_dtype=torch.bfloat16):
     return h_in, upd, post, norm, w
 
 
-# every rows instance (1, 2, 4, 8, 16) and an edge (3); qkv (2304 -> 4096)
-# and gate|up (2304 -> 18432), whose x' fits once per block (the int4 one-row
-# instance shares one round of loads between its passes); K = 9216, staged in
-# chunks at 16 rows, where each chunk recomputes its h' columns; bf16 and
-# fp32 outputs
-@pytest.mark.parametrize("M", [1, 2, 3, 4, 8, 16])
+# every rows instance of the residual variant (1, 2, 4) and an edge (3);
+# qkv (2304 -> 4096) and gate|up (2304 -> 18432), and the largest K it takes
+# (4096, all of it staged at 4 rows within 48 KB); the int4 one-row instance
+# shares one round of loads between its passes; bf16 and fp32 outputs
+@pytest.mark.parametrize("M", [1, 2, 3, 4])
 @pytest.mark.parametrize("fmt", list(RESID_FORMATS))
 @pytest.mark.parametrize("K,N,out_dtype", [(2304, 4096, torch.bfloat16),
                                            (2304, 18432, torch.float32),
-                                           (9216, 256, torch.float32)])
+                                           (4096, 256, torch.float32)])
 def test_residual_rmsnorm_matvec(M, fmt, K, N, out_dtype):
     """h_out within 1e-2 of the plain version's (max-rel; a bf16 rounding
     may fall a unit apart where the fp32 sums of the RMS differ in order),
@@ -670,8 +669,8 @@ def test_residual_rmsnorm_matvec(M, fmt, K, N, out_dtype):
 
 def test_residual_rmsnorm_matvec_refuses_aliasing_and_other_routes():
     """h_out may not overlap h_in (other blocks still read it); int4 in
-    24-column groups or above 16 rows is not the kernel's (residual_route)
-    and raises, as does a CUDA operand the kernel does not take."""
+    24-column groups, more than 4 rows (int8 and int4) or K above 4096 is
+    not the kernel's (residual_route) and raises."""
     g = _gen(31)
     h_in, upd, post, norm, w = _resid_case(g, 2, 2304, 512, "int8")
     with pytest.raises(ValueError, match="overlaps"):
@@ -684,20 +683,26 @@ def test_residual_rmsnorm_matvec_refuses_aliasing_and_other_routes():
     with pytest.raises(ValueError, match="residual_route"):
         quant.q4_residual_rmsnorm_matvec(h_in, upd, post, norm, w24["qt"], w24["scale"],
                                          h_out=torch.empty_like(h_in))
-    h17 = _randn(g, 17, 2304, dtype=torch.float32)
     w4 = quant.quantize_int4(_randn(g, 2304, 512, dtype=torch.float32, std=0.02))
-    with pytest.raises(ValueError):
-        quant.q4_residual_rmsnorm_matvec(h17, _randn(g, 17, 2304), post, norm, w4["qt"],
-                                         w4["scale"], h_out=torch.empty_like(h17))
+    for M in (5, 8, 16):
+        hM = _randn(g, M, 2304, dtype=torch.float32)
+        for ww in (w, w4):
+            assert not quant.residual_route(hM, ww["qt"], ww["scale"])
+            with pytest.raises(ValueError, match="residual_route"):
+                quant.residual_rmsnorm_matvec(hM, _randn(g, M, 2304), post, norm, ww["qt"],
+                                              ww["scale"], h_out=torch.empty_like(hM))
+    h_big, up_big, p_big, n_big, w_big = _resid_case(g, 1, 4608, 256, "int8")
+    with pytest.raises(ValueError, match="residual_route"):
+        quant.residual_rmsnorm_matvec(h_big, up_big, p_big, n_big, w_big["qt"], w_big["scale"],
+                                      h_out=torch.empty_like(h_big))
 
 
 @pytest.mark.parametrize("fmt", list(RESID_FORMATS))
 def test_residual_first_launch_inside_a_cuda_graph(fmt):
     """A process whose first launch of the residual kernel is captured into
-    a CUDA graph, at 16 rows of K = 2304: inside the capture x' is staged in
-    48 KB chunks (the larger opt-in is not made there), each chunk's h'
-    recomputed from h_in and upd. The replay agrees with the plain version,
-    and writes h_out."""
+    a CUDA graph, at 4 rows of K = 2304: the larger shared-memory opt-in is
+    not made inside the capture, and all of h' fits the first 48 KB. The
+    replay agrees with the plain version, and writes h_out."""
     import os
     import subprocess
     import sys
@@ -710,7 +715,7 @@ def test_residual_first_launch_inside_a_cuda_graph(fmt):
         from spatialvla_tpu_torch.ops import _lib, quant
         _lib.library()
         g = torch.Generator(device="cuda").manual_seed(0)
-        M, K = 16, 2304
+        M, K = 4, 2304
         h_in = torch.randn(M, K, generator=g, device="cuda") * 8
         upd = torch.randn(M, K, generator=g, device="cuda").to(torch.bfloat16)
         post, nw = ((torch.randn(K, generator=g, device="cuda") * 0.1).to(torch.bfloat16)
@@ -784,9 +789,10 @@ def _tiny_policy(qkw):
 def test_graph_loop_matches_the_eager_loop(fmt):
     """The decode loop replayed as a CUDA graph gives the eager loop's ids
     and margins, for a request and a right-padded 2-row batch; the graph is
-    captured once per shape and replayed after; every replay credits the
-    wrappers' launch counts with what one eager request launches; quantize
-    drops the graphs."""
+    captured once per shape and replayed after, also for a request with
+    another prefix length in the same 64-slot cache bucket; every replay
+    credits the wrappers' launch counts with what one eager request
+    launches; quantize drops the graphs."""
     qkw, kernels = QUANTIZE[fmt]
     cfg, policy = _tiny_policy(qkw)
     size = cfg.vision.image_size
@@ -814,6 +820,11 @@ def test_graph_loop_matches_the_eager_loop(fmt):
         np.testing.assert_array_equal(out["action_ids"], eager["action_ids"])
         np.testing.assert_array_equal(out["margins"], eager["margins"])
     assert n_replay == n_eager and all(n > 0 for n in n_eager[:len(kernels)])
+    longer = lambda: policy.predict(frames[1], texts[0] + "s", return_margins=True)  # noqa: E731
+    (l_eager, _), (l_graph, _) = run(False, longer), run(True, longer)
+    assert len(policy.decode_graphs) == 1  # one more prefix token, the same graph
+    np.testing.assert_array_equal(l_graph["action_ids"], l_eager["action_ids"])
+    np.testing.assert_array_equal(l_graph["margins"], l_eager["margins"])
     (b_eager, _), (b_graph, _) = run(False, batch), run(True, batch)
     np.testing.assert_array_equal(b_graph["action_ids"], b_eager["action_ids"])
     assert len(policy.decode_graphs) == 2

@@ -367,18 +367,20 @@ def test_step_folds_the_residual_update_by_shape(base_params, fmt, folds):
 
 
 def test_residual_route_rules():
-    """residual_route: at most 16 rows, 16-byte aligned x and weight, int8
-    K a multiple of 16, int4 K / 2 a multiple of 16 in groups of a multiple
-    of 16 columns or per channel."""
+    """residual_route: at most 4 rows and K <= 4096, 16-byte aligned x and
+    weight, int8 K a multiple of 16, int4 K / 2 a multiple of 16 in groups of
+    a multiple of 16 columns or per channel."""
     K = 64
-    x = torch.zeros(17, K)
+    x = torch.zeros(5, K)
     q8 = t_quant.quantize_int8(torch.randn(K, 40))
     q4 = t_quant.quantize_int4(torch.randn(K, 40))
     g16 = t_quant.quantize_int4(torch.randn(K, 40), group_size=16)
     g8 = t_quant.quantize_int4(torch.randn(K, 40), group_size=8)
     route = lambda x, w: t_quant.residual_route(x, w["qt"], w["scale"])  # noqa: E731
-    assert route(x[:16], q8) and route(x[:1], q4) and route(x[:4], g16)
-    assert not route(x, q8) and not route(x[:2], g8)
+    assert route(x[:4], q8) and route(x[:1], q4) and route(x[:4], g16)
+    assert not route(x, q8) and not route(x, q4) and not route(x[:2], g8)
+    assert route(torch.zeros(4, 4096), t_quant.quantize_int8(torch.randn(4096, 8)))
+    assert not route(torch.zeros(1, 4112), t_quant.quantize_int8(torch.randn(4112, 8)))
     assert not route(x.reshape(-1)[1:1 + 4 * K].reshape(4, K), q8)  # x 4 bytes off
     k48 = t_quant.quantize_int4(torch.randn(48, 40))  # K / 2 = 24
     assert route(torch.zeros(1, 48), t_quant.quantize_int8(torch.randn(48, 40)))
@@ -404,12 +406,12 @@ def test_scatter_scale_int_and_device_slots(slot_kind):
 
 
 def test_step_keeps_the_pair_above_four_rows(qparams):
-    """Above RESIDUAL_FOLD_MAX_M rows (where the residual kernels lose to
-    the pair on the card) the step runs norm_residual + rmsnorm_matvec twice
-    a layer, 8 ops a layer; the same ops through the plain versions hold to
+    """Above RESIDUAL_MAX_M rows (where the residual kernels lose to the
+    pair on the card) the step runs norm_residual + rmsnorm_matvec twice a
+    layer, 8 ops a layer; the same ops through the plain versions hold to
     the Pallas kernel (interpret mode)."""
     jq, tq = qparams
-    B = t_ds.RESIDUAL_FOLD_MAX_M + 1
+    B = t_quant.RESIDUAL_MAX_M + 1
     x, ck, cv = _serving_cache(jq, B, 6, 16, seed=8)
     tpos = torch.full((B,), 6, dtype=torch.int32)
     rec = _Recorder()

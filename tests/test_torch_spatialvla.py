@@ -330,12 +330,14 @@ def test_flash_prefill_matches_jax_and_the_masked_prefill(params, serving):
 @pytest.mark.parametrize("padded", [False, True], ids=["unpadded", "right-padded"])
 def test_static_buffer_loop_matches_the_eager_loop_and_jax(serving, padded, kv_bits,
                                                            monkeypatch):
-    """use_cuda_graph=True on CPU tensors runs the loop that the card
-    captures (GreedyLoop: the prefill cache copied into its own buffers,
-    every step's buffers allocated once, the slots written in place) eagerly:
-    the same ids and margins as the eager loop (use_cuda_graph=False), and
-    JAX's fused loop's ids (Pallas in interpret mode) under the margin rule
-    (the inputs of test_fused_path_forced_on_cpu)."""
+    """The fused loop runs on a GreedyLoop's own buffers (the loop the card
+    captures): the prefill cache copied into the first P of its slots, every
+    step's buffers allocated once, each row's slots from a device tensor,
+    written in place. With the cache rounded up to 64 slots (the graphs'
+    buckets) and with exactly P + 12 slots it gives the same ids and margins,
+    and JAX's fused loop's ids (Pallas in interpret mode) under the margin
+    rule (the inputs of test_fused_path_forced_on_cpu). A CUDA graph of CPU
+    tensors raises."""
     jq, tq = serving
     ids, px, K, am = _inputs(2, padded=padded, seed=2)
     monkeypatch.setattr(j_decode_step, "fused_decode_step",
@@ -344,12 +346,18 @@ def test_static_buffer_loop_matches_the_eager_loop_and_jax(serving, padded, kv_b
         jq, CFG_WIDE, jnp.asarray(ids), pixel_values=jnp.asarray(px), intrinsic=jnp.asarray(K),
         attention_mask=None if am is None else jnp.asarray(am), compute_dtype=jnp.bfloat16,
         use_fused_decode=True, kv_bits=kv_bits, return_margins=True)
-    runs = [_port_predict(tq, CFG_WIDE, ids, px, K, am, torch.bfloat16, use_fused_decode=True,
-                          kv_bits=kv_bits, use_cuda_graph=g) for g in (True, False)]
+    runs = []
+    for bucket in (tsv.SLOT_BUCKET, 1):
+        monkeypatch.setattr(tsv, "SLOT_BUCKET", bucket)
+        runs.append(_port_predict(tq, CFG_WIDE, ids, px, K, am, torch.bfloat16,
+                                  use_fused_decode=True, kv_bits=kv_bits))
     (ids_s, m_s), (ids_e, m_e) = runs
     assert torch.equal(ids_s, ids_e) and torch.equal(m_s, m_e)
     assert ids_s.shape == (2, 12) and m_s.shape == (2, 12)
     assert_margin_rule(ids_s, ids_j, m_j)
+    with pytest.raises(ValueError, match="CUDA graph needs CUDA tensors"):
+        _port_predict(tq, CFG_WIDE, ids, px, K, am, torch.bfloat16, use_fused_decode=True,
+                      kv_bits=kv_bits, use_cuda_graph=True)
 
 
 def test_decode_graphs_are_dropped_with_the_tree(params):
