@@ -20,7 +20,10 @@
    gelu_mul, the residual kernels (norm_residual folded into the next
    RMSNorm matvec: int8, int4, int4-g128 at 1 and 4 rows, qkv and gate|up,
    bf16 and fp32 out, timed beside the norm_residual + RMSNorm matvec pair
-   they replace), a 2-layer decode step, the flash kernels.
+   they replace), a 2-layer decode step, the flash kernels (the bf16
+   backward on its tensor-core route, each call's route and grid printed,
+   two launches bit-identical, and timed beside the FMA kernels it
+   replaces, with its TFLOP/s and share of the bound).
 3. The decode-step matrix of bench.py:111-160 at full width (26 layers,
    M = 16, S = 332, per-row positions): {int8, int4, int4-g128, int8+mlp4}
    x {bf16, int8} KV cache, the fused step against the masked forward on the
@@ -205,6 +208,15 @@ def record_kernel(results, name, shape, err, ms, plain_ms, *, nbytes=None, ops=N
 
 def nbytes_of(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of every tensor in a nested dict, list or tuple."""
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_bytes(v) for v in tree)
+    return nbytes_of(tree) if hasattr(tree, "element_size") else 0
 
 
 def library_int8pack(torch, timer, x, qt, scale):
@@ -628,7 +640,10 @@ def flash_phases(torch, timer, results, notes):
     the training path's shapes (B=2, T=320, 8/4 heads, D=256, softcap 50,
     prefix 277, one row right-padded; window 4096 on even layers, none on odd
     ones) in bf16, timed, and checked again in fp32; then T=2048 with window
-    4096, timed."""
+    4096, timed. Each backward call's route and launch plan is printed; a
+    bf16 backward must take the tensor-core route and give identical bits
+    when launched twice, and is timed beside the FMA kernels in bf16 (the
+    route it took before, "fma_ms")."""
     from spatialvla_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device="cuda").manual_seed(3)
@@ -662,7 +677,21 @@ def flash_phases(torch, timer, results, notes):
         errs = {"fwd": rel_err(out, ref_out), "dq": rel_err(dq, ref_dq),
                 "dk": rel_err(dk, ref_dk), "dv": rel_err(dv, ref_dv)}
         lse_err = (lse - ref_lse).abs().max().item()
-        times = {}
+        plans = {key: fa.bwd_plan(key, q, k) for key in ("dq", "dkv")}
+        want_route = "mma" if dtype == torch.bfloat16 else "fma"
+        print(f"flash {tag} {str(dtype)[6:]}: " + "; ".join(
+            f"{key} route {p['route']}, grid {p['grid']} x {p['threads']} threads, "
+            f"{p['smem_bytes']} B shared, {p['blocks_per_sm']} blocks an SM, clusters of "
+            f"{p['cluster']}"
+            for key, p in plans.items()), flush=True)
+        if any(p["route"] != want_route for p in plans.values()):
+            fail(f"flash {tag}: backward routes {plans}, want {want_route}")
+        if dtype == torch.bfloat16:  # no atomics: a second launch gives the same bits
+            dq2 = fa.flash_attention_bwd_dq(*args, **kw)
+            dk2, dv2 = fa.flash_attention_bwd_dkv(*args, **kw)
+            if not (torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)):
+                fail(f"flash {tag}: two launches of the bf16 backward differ")
+        times, fma = {}, {}
         if timed:
             times = {
                 "fwd": (timer(lambda: fa.flash_attention_fwd(q, k, v, *lens, **kw)),
@@ -672,6 +701,8 @@ def flash_phases(torch, timer, results, notes):
                 "dkv": (timer(lambda: fa.flash_attention_bwd_dkv(*args, **kw)),
                         timer(lambda: fa.flash_attention_bwd_dkv_plain(*args, **kw))),
             }
+            fma = {"dq": timer(lambda: fa.flash_attention_bwd_fma(*args, **kw, dkv=False)),
+                   "dkv": timer(lambda: fa.flash_attention_bwd_fma(*args, **kw, dq=False))}
         print(f"flash {tag}: rel err " + " ".join(f"{k} {r:.3e}" for k, (_, r) in errs.items())
               + f" lse max|d| {lse_err:.3e} (bound {tol}); "
               + " ".join(f"{k} kernel {t[0]:.4f} ms plain {t[1]:.4f} ms" for k, t in times.items()),
@@ -689,8 +720,16 @@ def flash_phases(torch, timer, results, notes):
                                ("flash_attention_bwd_dkv", "dkv", max(errs["dk"][0],
                                                                       errs["dv"][0]))):
             ms, pms = times.get(key, (None, None))
-            record_kernel(results, name, f"B{B}_T{T}_D{D}_{tag.split('_', 1)[1]}", err, ms, pms,
-                          nbytes=io[key][0], ops=io[key][1])
+            shape = f"B{B}_T{T}_D{D}_{tag.split('_', 1)[1]}"
+            record_kernel(results, name, shape, err, ms, pms, nbytes=io[key][0], ops=io[key][1])
+            if key in fma:
+                bms = results[name]["bound"][shape][0]
+                print(f"flash {tag} {key}: {plans[key]['route']} {ms:.4f} ms, "
+                      f"{io[key][1] / ms / 1e9:.1f} TFLOP/s, {bms / ms:.2%} of the bound "
+                      f"{bms:.4f} ms; FMA kernels in bf16 (was) {fma[key]:.4f} ms, "
+                      f"{fma[key] / ms:.1f} x", flush=True)
+                results[name].setdefault("fma_ms", {})[shape] = fma[key]
+                results[name]["cuda_route"] = plans[key]["route"]
     for name in ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
         notes[name] = ("F.scaled_dot_product_attention has no logit softcap (Gemma2's tanh "
                        "cap 50) and no backward entry point of its own")
@@ -966,7 +1005,9 @@ def step_phase(torch, timer, lm, tcfg, x, ck, cv, pos, label, per_layer=False):
     as one CUDA graph, the same launched eagerly (CUDA events, host gaps
     included), the host's enqueue time, and the final hidden state's drift
     to the plain step (bound 0.02); with ``per_layer`` also each layer alone
-    held to its plain version on the plain run's residual (bound 0.02)."""
+    held to its plain version on the plain run's residual (bound 0.02). Its
+    bound: the layer weights and the whole cache (every slot), each read
+    once, over the HBM rate."""
     from spatialvla_tpu_torch.models.gemma2 import layer_slice
     from spatialvla_tpu_torch.ops import decode_step as ds
 
@@ -996,8 +1037,11 @@ def step_phase(torch, timer, lm, tcfg, x, ck, cv, pos, label, per_layer=False):
             layer_drift.append(max(rel_err(hk, hp)[1], rel_err(bk.residual, bp.residual)[1]))
             r = bp.residual.clone()
     worst = max(layer_drift) if layer_drift else None
+    nbytes = tree_bytes(lm["layers"]) + tree_bytes(lm["final_norm"]) + nbytes_of(x, ck, cv)
+    bound_ms = bound(nbytes, 0)[0]
     print(f"decode step {label} ({tcfg.num_layers} layers): CUDA graph {t_graph:.3f} ms, eager "
           f"launches {t_eager:.3f} ms, host enqueue {enqueue:.3f} ms, plain {t_plain:.3f} ms; "
+          f"bound {bound_ms:.4f} ms ({nbytes / 1e9:.4f} GB of weights and cache); "
           f"rel drift {drift:.4e} (bound 0.02)"
           + (f"; each layer alone, worst of hidden and residual {worst:.4e} (bound 0.02): "
              f"{[round(d, 5) for d in layer_drift]}" if per_layer else ""), flush=True)
@@ -1006,7 +1050,8 @@ def step_phase(torch, timer, lm, tcfg, x, ck, cv, pos, label, per_layer=False):
     if per_layer and not worst < 0.02:
         fail(f"decode step {label}: a layer alone drifts {worst} >= 0.02 from plain")
     return {"graph_ms": t_graph, "eager_ms": t_eager, "host_enqueue_ms": enqueue,
-            "plain_ms": t_plain, "rel_drift": drift, "layer_drift": layer_drift}
+            "plain_ms": t_plain, "bound_ms": bound_ms, "rel_drift": drift,
+            "layer_drift": layer_drift}
 
 
 def main_path(torch, timer, counters):
@@ -1905,6 +1950,8 @@ def main() -> int:
         if "residual_rmsnorm" in name:  # what one launch replaces, and the library's matmul
             extra = {"pair_ms": r["pair_ms"][first],
                      "library_matmul_alone_ms": r["library_matmul_alone_ms"][first]}
+        if "fma_ms" in r:  # the flash backward: its CUDA route, and the FMA kernels' time
+            extra = {"cuda_route": r["cuda_route"], "fma_ms": r["fma_ms"][first]}
         kernels.append({
             "name": label, "route": "cuda", "source": f"spatialvla_tpu_torch/csrc/{source}",
             "kernel_sources": [f"spatialvla_tpu_torch/csrc/{s}" for s in sources],

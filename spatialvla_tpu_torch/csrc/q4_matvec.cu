@@ -507,39 +507,6 @@ q4_stage_x(const void* __restrict__ x, int x_dtype, const void* __restrict__ nor
   }
 }
 
-// kBytes global -> shared without registers; zero-filled where !valid
-template <int kBytes>
-__device__ __forceinline__ void cp_async(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = valid ? kBytes : 0;
-  if (kBytes == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s), "l"(gmem), "r"(n)
-                 : "memory");
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;" ::"r"(s), "l"(gmem),
-                 "n"(kBytes), "r"(n)
-                 : "memory");
-  }
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&a)[4], const void* smem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-               : "r"(s)
-               : "memory");
-}
-
-// d += a (16 x 16, bf16) b (16 x 8, bf16), fp32 sums
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // The nibbles at bits 0-3 and 16-19 of v -> bf16x2 signed codes c - 8:
 // 0x4300 | c is the bf16 value 128 + c, and 136 comes off exactly
 __device__ __forceinline__ unsigned codes2(unsigned v) {

@@ -75,6 +75,15 @@ _SIGNATURES = {
     "flash_bwd_dq": (_P,) * 10 + (_I,) * 7 + (_F, _F, _I, _I, _P),
     # ... dk, dv instead of dq
     "flash_bwd_dkv": (_P,) * 11 + (_I,) * 7 + (_F, _F, _I, _I, _P),
+    # dtype, D: the route the two above take (0 "fma", 1 "mma", -1 refused; no launch)
+    "flash_bwd_route": (_I, _I),
+    # the FMA backward in either dtype: q, k, v, dout, lse, delta, prefix, valid,
+    # q_offset, dq, dk, dv (dq or dk null: that kernel is not launched), dtype, B,
+    # Tq, Tk, Nq, Nkv, D, scale, cap, window, causal, stream
+    "flash_bwd_fma": (_P,) * 12 + (_I,) * 7 + (_F, _F, _I, _I, _P),
+    # which (0 dq, 1 dk/dv), fma, dtype, B, Tq, Tk, Nq, Nkv, D, out int[7]: a
+    # call's launch plan (no launch)
+    "flash_bwd_plan": (_I,) * 9 + (_P,),
 }
 
 

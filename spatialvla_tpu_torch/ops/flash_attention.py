@@ -12,6 +12,15 @@ Each wrapper runs its plain PyTorch version (``*_plain``) only for CPU
 tensors, launches the kernel for CUDA tensors (or raises), and counts its
 launches in ``<wrapper>.launches``.
 
+The backward takes one of two routes (``bwd_route``, the twin of the C
+entry ``flash_bwd_route``): bf16 operands the bf16 tensor-core kernels
+("mma"), fp32 operands the FMA kernels ("fma"). The tensor-core kernels skip
+dead tiles by ``_dead_block``'s rule at their own 32 x 32 tiles
+(``dead_tiles``); where the dk/dv grid would leave SMs idle, a cluster of
+blocks shares each kv head's q heads (``bwd_split``).
+``flash_attention_bwd_fma`` launches the FMA kernels in
+either dtype, as a yardstick; no wrapper of the training path calls it.
+
 Layouts follow the JAX package: q (B, Tq, Nq, D), k / v (B, Tk, Nkv, D),
 prefix / valid / q_offset (B,) int32, LSE (B, Nq, Tq, 1) fp32. Masked
 logits are -1e30 (not -inf), as in the Pallas kernel; a query row with no
@@ -177,6 +186,50 @@ def attention_delta(out, dout) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# the backward's routes and tiles (twins of csrc/flash_attention.cu)
+# ---------------------------------------------------------------------------
+
+BWD_ROUTES = {0: "fma", 1: "mma"}
+# the tensor-core kernels' tiles: a block owns 32 q rows (dq) or keys
+# (dk/dv) and streams tiles of 32 keys (dq) or q rows (dk/dv)
+BWD_TILE = 32
+
+
+def bwd_route(dtype: torch.dtype, head_dim: int) -> Optional[str]:
+    """The backward kernels a call takes: "mma" (bf16, tensor cores), "fma"
+    (fp32), or None for operands the kernels refuse (``bwd_route`` in
+    csrc/flash_attention.cu)."""
+    if head_dim % 16 or not 16 <= head_dim <= 256:
+        return None
+    return {torch.bfloat16: "mma", torch.float32: "fma"}.get(dtype)
+
+
+def bwd_split(B: int, Tk: int, Nkv: int, G: int, sms: int) -> int:
+    """Blocks of a cluster that share one dk/dv tile's G q heads on a card
+    of ``sms`` SMs: 1 where the 32-key blocks give every SM one, else G up
+    to 8 (``dkv_split``)."""
+    return 1 if -(-Tk // BWD_TILE) * Nkv * B >= sms else min(G, 8)
+
+
+def dead_tiles(prefix_lens, valid_lens, q_offset, Tq: int, Tk: int, block_q: int, block_k: int,
+               *, window: Optional[int], causal: bool) -> torch.Tensor:
+    """(B, ceil(Tq / block_q), ceil(Tk / block_k)) bool: the tiles that a
+    backward kernel skips, by the rule of ``_dead_block``
+    (flash_attention.py:327; ``dead_block`` in csrc/flash_attention.cu)."""
+    dev = valid_lens.device
+    q_start = (q_offset.long()[:, None, None]
+               + torch.arange(0, Tq, block_q, device=dev)[None, :, None])
+    k_start = torch.arange(0, Tk, block_k, device=dev)[None, None, :]
+    dead = (k_start >= valid_lens.long()[:, None, None]).expand(-1, q_start.shape[1], -1)
+    if causal:
+        dead = dead | ((k_start > q_start + block_q - 1)
+                       & (k_start >= prefix_lens.long()[:, None, None]))
+    if window is not None:
+        dead = dead | ((q_start - (k_start + block_k - 1)) >= window)
+    return dead
+
+
+# ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -239,15 +292,23 @@ def _check_bwd(name, q, k, v, dout, lse, delta, prefix_lens, valid_lens, q_offse
     return dims
 
 
+def _aligned16(*ts):
+    """The tensors, each copied where its data does not start on 16 bytes:
+    the tensor-core route loads 16 bytes at a time."""
+    return tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in ts)
+
+
 def flash_attention_bwd_dq(q, k, v, dout, lse, delta, prefix_lens, valid_lens, q_offset, *,
                            scale, logit_softcap=None, window=None, causal=True):
-    """dq kernel: (B, Tq, Nq, D) in q's dtype, from the LSE and delta."""
+    """dq kernel: (B, Tq, Nq, D) in q's dtype, from the LSE and delta; bf16
+    on tensor cores, fp32 on the FMA units (``bwd_route``)."""
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_plain(q, k, v, dout, lse, delta, prefix_lens, valid_lens,
                                             q_offset, scale=scale, logit_softcap=logit_softcap,
                                             window=window, causal=causal)
     name = "flash_attention_bwd_dq"
     dims = _check_bwd(name, q, k, v, dout, lse, delta, prefix_lens, valid_lens, q_offset, window)
+    q, k, v, dout = _aligned16(q, k, v, dout)
     dq = torch.empty_like(q)
     _lib.launch(
         "flash_bwd_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
@@ -272,6 +333,7 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, prefix_lens, valid_lens, 
                                              window=window, causal=causal)
     name = "flash_attention_bwd_dkv"
     dims = _check_bwd(name, q, k, v, dout, lse, delta, prefix_lens, valid_lens, q_offset, window)
+    q, k, v, dout = _aligned16(q, k, v, dout)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _lib.launch(
         "flash_bwd_dkv", q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
@@ -284,6 +346,53 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, prefix_lens, valid_lens, 
 
 
 _lib.counted(flash_attention_bwd_dkv)
+
+
+def flash_attention_bwd_fma(q, k, v, dout, lse, delta, prefix_lens, valid_lens, q_offset, *,
+                            scale, logit_softcap=None, window=None, causal=True, dq=True,
+                            dkv=True):
+    """(dq, dk, dv) from the FMA kernels in the operands' dtype (None for a
+    kernel not asked for): the route bf16 calls took before the tensor-core
+    kernels, kept to time the two side by side. CUDA tensors only; counts no
+    launch, and the training path never calls it."""
+    name = "flash_attention_bwd_fma"
+    dims = _check_bwd(name, q, k, v, dout, lse, delta, prefix_lens, valid_lens, q_offset, window)
+    dq_t = torch.empty_like(q) if dq else None
+    dk_t, dv_t = (torch.empty_like(k), torch.empty_like(v)) if dkv else (None, None)
+    ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
+    _lib.launch(
+        "flash_bwd_fma", q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), prefix_lens.data_ptr(), valid_lens.data_ptr(),
+        q_offset.data_ptr(), ptr(dq_t), ptr(dk_t), ptr(dv_t), _lib.dtype_code(q),
+        *_tail(dims, scale, logit_softcap, window, causal),
+    )
+    return dq_t, dk_t, dv_t
+
+
+def library_bwd_route(dtype: torch.dtype, head_dim: int) -> Optional[str]:
+    """``bwd_route`` as the kernel library decides it (C entry
+    ``flash_bwd_route``; builds the library, launches nothing)."""
+    code = {torch.float32: _lib.DT_F32, torch.bfloat16: _lib.DT_BF16}.get(dtype, -1)
+    return BWD_ROUTES.get(_lib.library().flash_bwd_route(code, head_dim))
+
+
+def bwd_plan(kernel: str, q, k, *, fma: bool = False) -> dict:
+    """What the backward ``kernel`` ("dq" or "dkv") launches for CUDA
+    operands shaped as q and k, without launching it: route, grid, threads a
+    block, dynamic shared bytes, blocks an SM (the occupancy calculator's)
+    and blocks a cluster. ``fma`` asks about the FMA kernels of
+    ``flash_attention_bwd_fma`` instead of the wrappers' route."""
+    import ctypes
+
+    B, Tq, Nq, D = q.shape
+    Tk, Nkv = k.shape[1], k.shape[2]
+    out = (ctypes.c_int * 7)()
+    route = _lib.library().flash_bwd_plan(int(kernel == "dkv"), int(fma), _lib.dtype_code(q), B,
+                                          Tq, Tk, Nq, Nkv, D, out)
+    if route < 0:
+        raise RuntimeError(f"flash_bwd_plan({kernel}) failed: {route}")
+    return {"route": BWD_ROUTES[route], "grid": tuple(out[:3]), "threads": out[3],
+            "smem_bytes": out[4], "blocks_per_sm": out[5], "cluster": out[6]}
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, prefix_lens, valid_lens, q_offset, *,

@@ -12,7 +12,9 @@ what differs is the fp32 summation order), below 5e-3 for the grouped int4
 matvecs, the int4 tensor-core route and the residual kernels with fp32
 outputs, below 0.02 for a whole decode step (the JAX package's bound for the
 fused step at batch 1). The decode loop replayed as a CUDA graph gives the
-eager loop's ids and margins exactly.
+eager loop's ids and margins exactly. The flash kernels: 1e-4 fp32, 2e-2
+bf16 (their FLASH_TOL); the bf16 backward on tensor cores gives identical
+bits when launched twice.
 """
 import dataclasses
 
@@ -849,6 +851,10 @@ FLASH_CASES = {
     # the training path: prefix 277 of 320, one row right-padded
     "path_global": (2, 320, 320, 8, 4, 50.0, None, [277, 277], [320, 301], [0, 0]),
     "path_window": (2, 320, 320, 8, 4, 50.0, 4096, [277, 277], [320, 301], [0, 0]),
+    # a group of 3 q heads a kv head
+    "gqa3": (2, 96, 96, 12, 4, 50.0, None, [40, 77], [96, 81], [0, 0]),
+    # a window of 17 at T=320: whole tiles of the tensor-core backward are dead
+    "dead_window17": (2, 320, 320, 8, 4, 50.0, 17, [0, 5], [320, 310], [0, 0]),
 }
 # fp32: summation order only; bf16: plus the rounding of p relative to the
 # running max (kernel) or the final max (plain) and the bf16 outputs
@@ -868,7 +874,7 @@ def _flash_inputs(name, D, dtype, seed=0):
 
 
 @pytest.mark.parametrize("name", list(FLASH_CASES))
-@pytest.mark.parametrize("D", [32, 256])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernels(name, D, dtype):
     (q, k, v, do), lens, kw = _flash_inputs(name, D, dtype)
@@ -891,6 +897,80 @@ def test_flash_attention_kernels(name, D, dtype):
     assert dk.dtype == dtype and dk.shape == k.shape
     assert _rel(dk, ref_dk) < tol
     assert _rel(dv, ref_dv) < tol
+
+
+@pytest.mark.parametrize("name", ["path_global", "path_window", "dead_window17", "gqa3"])
+def test_flash_backward_is_deterministic(name):
+    """No atomics in the tensor-core backward: two launches, identical bits."""
+    (q, k, v, do), lens, kw = _flash_inputs(name, 256, torch.bfloat16, seed=2)
+    out, lse = fa.flash_attention_fwd_plain(q, k, v, *lens, **kw)
+    args = (q, k, v, do, lse, fa.attention_delta(out, do), *lens)
+    first = (fa.flash_attention_bwd_dq(*args, **kw), *fa.flash_attention_bwd_dkv(*args, **kw))
+    second = (fa.flash_attention_bwd_dq(*args, **kw), *fa.flash_attention_bwd_dkv(*args, **kw))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("D", [16, 24, 32, 64, 144, 256, 272])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_flash_backward_route(dtype, D):
+    """The library's route is the Python twin's: bf16 -> "mma", fp32 -> "fma"."""
+    route = fa.library_bwd_route(dtype, D)
+    assert route == fa.bwd_route(dtype, D)
+    if D % 16 == 0 and D <= 256 and dtype != torch.float16:
+        assert route == ("mma" if dtype == torch.bfloat16 else "fma")
+
+
+@pytest.mark.parametrize("name", ["path_global", "path_window", "ragged", "gqa3"])
+def test_flash_backward_plan_follows_the_split_rule(name):
+    """The grid of each tensor-core backward kernel: 32 q rows a dq block;
+    32 keys a dk/dv block, its kv head's q heads shared by a cluster of
+    ``bwd_split`` blocks."""
+    (q, k, v, do), lens, kw = _flash_inputs(name, 256, torch.bfloat16)
+    B, Tq, Nq, _ = q.shape
+    Tk, Nkv = k.shape[1], k.shape[2]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    split = fa.bwd_split(B, Tk, Nkv, Nq // Nkv, sms)
+    dq, dkv = fa.bwd_plan("dq", q, k), fa.bwd_plan("dkv", q, k)
+    assert dq["route"] == dkv["route"] == "mma"
+    assert dq["grid"] == (-(-Tq // fa.BWD_TILE), Nq, B) and dq["cluster"] == 1
+    assert dkv["grid"] == (-(-Tk // fa.BWD_TILE), Nkv * split, B) and dkv["cluster"] == split
+    assert dq["blocks_per_sm"] >= 1 and dkv["blocks_per_sm"] >= 1
+    assert fa.bwd_plan("dq", q.float(), k.float())["route"] == "fma"
+    assert fa.bwd_plan("dkv", q, k, fma=True)["route"] == "fma"
+
+
+@pytest.mark.parametrize("name", ["causal_gqa_softcap", "window_prefix", "q_offset", "path_global"])
+@pytest.mark.parametrize("D", [64, 256])
+def test_flash_backward_fma_entry_in_bf16(name, D):
+    """The FMA kernels kept as the bf16 yardstick agree with the plain
+    version, and count no launch."""
+    (q, k, v, do), lens, kw = _flash_inputs(name, D, torch.bfloat16, seed=4)
+    out, lse = fa.flash_attention_fwd_plain(q, k, v, *lens, **kw)
+    args = (q, k, v, do, lse, fa.attention_delta(out, do), *lens)
+    counters = (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+    before = [c.launches for c in counters]
+    dq, dk, dv = fa.flash_attention_bwd_fma(*args, **kw)
+    assert [c.launches for c in counters] == before
+    tol = FLASH_TOL[torch.bfloat16]
+    assert _rel(dq, fa.flash_attention_bwd_dq_plain(*args, **kw)) < tol
+    ref_dk, ref_dv = fa.flash_attention_bwd_dkv_plain(*args, **kw)
+    assert _rel(dk, ref_dk) < tol and _rel(dv, ref_dv) < tol
+    only_dq = fa.flash_attention_bwd_fma(*args, **kw, dkv=False)
+    assert only_dq[1] is None and torch.equal(only_dq[0], dq)
+
+
+def test_flash_backward_takes_misaligned_operands():
+    """bf16 operands that do not start on 16 bytes are copied, not refused."""
+    (q, k, v, do), lens, kw = _flash_inputs("causal_gqa_softcap", 64, torch.bfloat16, seed=6)
+    out, lse = fa.flash_attention_fwd_plain(q, k, v, *lens, **kw)
+    delta = fa.attention_delta(out, do)
+    shifted = torch.empty(q.numel() + 1, dtype=q.dtype, device=DEV)[1:].view(q.shape)
+    shifted.copy_(q)
+    assert shifted.data_ptr() % 16 != 0
+    args = (shifted, k, v, do, lse, delta, *lens)
+    assert torch.equal(fa.flash_attention_bwd_dq(*args, **kw),
+                       fa.flash_attention_bwd_dq(q, *args[1:], **kw))
 
 
 def test_flash_attention_autograd_on_the_card():

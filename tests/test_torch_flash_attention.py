@@ -187,3 +187,63 @@ def test_wrappers_take_the_plain_version_on_the_cpu():
     assert [c.launches for c in counters] == before
     with pytest.raises(ValueError, match="window"):
         tfa._geometry("x", q, k, v, *lens_t, window=0)
+
+
+# ---------------------------------------------------------------------------
+# the backward's route and tile rules (twins of csrc/flash_attention.cu)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("D", [16, 24, 32, 64, 144, 256, 272])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_bwd_route_twin(dtype, D):
+    want = None
+    if D % 16 == 0 and 16 <= D <= 256:
+        want = {torch.bfloat16: "mma", torch.float32: "fma"}.get(dtype)
+    assert tfa.bwd_route(dtype, D) == want
+
+
+@pytest.mark.parametrize("B,T,Nkv,G,want", [(2, 320, 4, 2, 2), (2, 2048, 4, 2, 1),
+                                             (1, 320, 1, 16, 8), (2, 320, 4, 1, 1)])
+def test_bwd_split_fills_a_wave(B, T, Nkv, G, want):
+    """On 132 SMs at the training shape (B=2, 4 kv heads, groups of 2) the
+    80 dk/dv blocks of 32 keys become 160 in clusters of 2; T=2048 fills
+    the card without; clusters stop at 8."""
+    assert tfa.bwd_split(B, T, Nkv, G, 132) == want
+
+
+# name: (B, T, prefix, valid, window) of the training path and of T=2048
+TILE_CASES = {
+    "path_global": (2, 320, [277, 277], [320, 301], None),
+    "path_window": (2, 320, [277, 277], [320, 301], 4096),
+    "T2048_window": (2, 2048, [256, 256], [2048, 1900], 4096),
+}
+
+
+def _tile_case(name):
+    if name in CASES:
+        B, Tq, Tk, _, _, _, _, window, prefix, valid, qoff = CASES[name]
+    else:
+        B, Tq, prefix, valid, window = TILE_CASES[name]
+        Tk, qoff = Tq, [0] * B
+    lens = [torch.tensor(x, dtype=torch.int32) for x in (prefix, valid, qoff)]
+    return lens, Tq, Tk, window
+
+
+@pytest.mark.parametrize("name", list(CASES) + list(TILE_CASES))
+def test_dead_tiles_hold_no_allowed_pair(name):
+    """A tile the backward kernels skip (32 q rows x 32 keys, the dq and
+    dk/dv kernels' tiles) holds no (q, k) pair that attention_mask allows;
+    and every empty tile above the diagonal (all keys past its last q row)
+    is skipped."""
+    block_q = block_k = tfa.BWD_TILE
+    lens, Tq, Tk, window = _tile_case(name)
+    dead = tfa.dead_tiles(*lens, Tq, Tk, block_q, block_k, window=window, causal=True)
+    mask = tfa.attention_mask(*lens, Tq, Tk, window=window, causal=True)
+    nq, nk = -(-Tq // block_q), -(-Tk // block_k)
+    assert dead.shape == (mask.shape[0], nq, nk)
+    padded = torch.nn.functional.pad(mask, (0, nk * block_k - Tk, 0, nq * block_q - Tq))
+    live = padded.reshape(-1, nq, block_q, nk, block_k).any(4).any(2)
+    assert not (dead & live).any()
+    q_end = lens[2].long()[:, None, None] + torch.arange(nq)[None, :, None] * block_q + block_q - 1
+    above = torch.arange(nk)[None, None, :] * block_k > q_end
+    assert dead[above & ~live].all()
