@@ -8,8 +8,9 @@
    shapes the serving and training paths give it, and times both, beside
    the least time the card could take (bytes over 3.35 TB/s or operations
    over 989 TFLOP/s) and one PyTorch call computing the same function where
-   there is one (torch._weight_int8pack_mm, torch._weight_int4pack_mm; for
-   the RMSNorm variants their matmul alone, in the log): the int8 and int4
+   there is one (torch._weight_int8pack_mm, torch._weight_int4pack_mm,
+   torch.compile(flex_attention); for the RMSNorm variants their matmul
+   alone, in the log): the int8 and int4
    matvecs (per channel and in 128-column groups, 1 and 16 rows; int4 also
    the prefill's projections at 277 rows, SigLIP's and the projector's at
    256, qkv at 512 and 17, beside the FMA tiles that took those rows before
@@ -21,9 +22,10 @@
    RMSNorm matvec: int8, int4, int4-g128 at 1 and 4 rows, qkv and gate|up,
    bf16 and fp32 out, timed beside the norm_residual + RMSNorm matvec pair
    they replace), a 2-layer decode step, the flash kernels (the bf16
-   backward on its tensor-core route, each call's route and grid printed,
-   two launches bit-identical, and timed beside the FMA kernels it
-   replaces, with its TFLOP/s and share of the bound).
+   forward and backward on their tensor-core routes, each call's route and
+   grid printed, the forward's registers and spills, two launches
+   bit-identical, and timed beside the FMA kernels they replace, with their
+   TFLOP/s and share of the bound).
 3. The decode-step matrix of bench.py:111-160 at full width (26 layers,
    M = 16, S = 332, per-row positions): {int8, int4, int4-g128, int8+mlp4}
    x {bf16, int8} KV cache, the fused step against the masked forward on the
@@ -271,6 +273,96 @@ def library_int4pack(torch, timer, x, qt, scale):
     if pad:
         note += f", N padded {N} -> {N + pad}"
     return timer(lambda: torch._weight_int4pack_mm(x16, wp, gsize, sz)), note
+
+
+def flex_call(torch, q, k, v, lens, *, scale, logit_softcap, window, causal):
+    """torch.nn.attention.flex_attention.flex_attention on the flash kernels'
+    function, compiled by torch.compile (Triton): Gemma2's softcap as a
+    score_mod, the prefix / causal / window / right-padding mask as a block
+    mask, the kv heads shared by enable_gqa, and the LSE. q (B, Tq, Nq, D), k / v (B, Tk, Nkv, D) go in as (B, heads,
+    T, D) views. Returns fn(q, k, v) -> (out (B, Tq, Nq, D), lse (B, Nq, Tq,
+    1)), or raises where this torch has no flex_attention."""
+    from torch.nn.attention import flex_attention as fx
+
+    prefix, valid, qoff = lens
+    B, Tq, _, _ = q.shape
+    Tk = k.shape[1]
+
+    def mask_mod(b, h, q_idx, kv_idx):
+        qpos = q_idx + qoff[b]
+        ok = kv_idx < valid[b]
+        if causal:
+            ok = ok & ((kv_idx <= qpos) | (kv_idx < prefix[b]))
+        if window is not None:
+            ok = ok & (qpos - kv_idx < window)
+        return ok
+
+    def score_mod(score, b, h, q_idx, kv_idx):
+        return logit_softcap * torch.tanh(score / logit_softcap)
+
+    block_mask = fx.create_block_mask(mask_mod, B, None, Tq, Tk, device=q.device)
+    flex = torch.compile(fx.flex_attention, dynamic=False)
+    aux = fx.AuxRequest(lse=True) if hasattr(fx, "AuxRequest") else None
+
+    def fn(q, k, v):
+        args = [t.transpose(1, 2) for t in (q, k, v)]
+        kw = dict(score_mod=score_mod if logit_softcap else None, block_mask=block_mask,
+                  scale=scale, enable_gqa=True)
+        if aux is not None:
+            out, extra = flex(*args, **kw, return_aux=aux)
+            lse = extra.lse
+        else:
+            out, lse = flex(*args, **kw, return_lse=True)
+        return out.transpose(1, 2), lse.unsqueeze(-1)
+
+    return fn
+
+
+def library_flex(torch, timer, q, k, v, do, lens, kw, ref):
+    """flex_attention (flex_call) as the flash kernels' library yardstick:
+    its forward (out and LSE, under no_grad), and its backward (dq, dk and
+    dv in one autograd call) as the time of forward + backward less that of
+    the same forward with grad enabled (the graph that saves what the
+    backward reads), on the same inputs, each held to the plain versions
+    first (``ref``: out, lse, dq, dk, dv). Returns ({"fwd": ms or None,
+    "bwd": ms or None}, a note with the errors and any reason it could not
+    run)."""
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
+                          os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                       "spatialvla_tpu_torch", "_build", "inductor"))
+    times = {"fwd": None, "bwd": None}
+    try:
+        fn = flex_call(torch, q, k, v, lens, **kw)
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        out, lse = fn(*leaves)
+        grads = torch.autograd.grad(out, leaves, do)
+        torch.cuda.synchronize()
+    except Exception as e:  # no flex_attention, or it does not compile at this head dim
+        return times, f"flex_attention did not run: {type(e).__name__}: {str(e)[:300]}"
+    tol = FLASH_TOL[str(q.dtype).split(".")[-1]]
+    errs = [rel_err(a, b)[1] for a, b in zip((out, *grads), (ref[0], *ref[2:]))]
+    lse_err = (lse.float() - ref[1]).abs().max().item()
+    # the checked graph goes: its leaves' grad accumulators would tie the
+    # timer's captures to this stream
+    del out, lse, grads, leaves
+    note = (f"torch.compile(flex_attention), softcap score_mod, block mask, enable_gqa: rel err "
+            f"out {errs[0]:.2e} dq {errs[1]:.2e} dk {errs[2]:.2e} dv {errs[3]:.2e}, lse max|d| "
+            f"{lse_err:.2e} vs plain")
+    if not (errs[0] < tol and lse_err < 1e-3):
+        return times, note + f"; over the bound {tol} / 1e-3: not timed"
+    with torch.no_grad():
+        times["fwd"] = timer(lambda: fn(q, k, v))
+    if not all(e < tol for e in errs[1:]):
+        return times, note + f"; gradients over the bound {tol}: backward not timed"
+    fresh = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    try:
+        fwd_grad = timer(lambda: fn(*fresh))
+        both = timer(lambda: torch.autograd.grad(fn(*fresh)[0], fresh, do))
+    except Exception as e:  # a capture the library's backward refuses
+        torch.cuda.synchronize()
+        return times, note + f"; backward not timed: {type(e).__name__}: {str(e)[:200]}"
+    times["bwd"] = both - fwd_grad
+    return times, note + f"; forward with grad {fwd_grad:.4f} ms"
 
 
 def q4_tiled_fma(torch, x, norm_w, qt, scale, *, out_dtype=None, eps=1e-6):
@@ -639,28 +731,36 @@ def flash_phases(torch, timer, results, notes):
     """The flash forward, dq and dk/dv kernels against their plain versions:
     the training path's shapes (B=2, T=320, 8/4 heads, D=256, softcap 50,
     prefix 277, one row right-padded; window 4096 on even layers, none on odd
-    ones) in bf16, timed, and checked again in fp32; then T=2048 with window
-    4096, timed. Each backward call's route and launch plan is printed; a
-    bf16 backward must take the tensor-core route and give identical bits
-    when launched twice, and is timed beside the FMA kernels in bf16 (the
-    route it took before, "fma_ms")."""
+    ones) in bf16, timed, and checked again in fp32; T=2048 with window
+    4096, timed; and the flash prefill's (B=1, 277 tokens, all of them
+    prefix, window 4096), timed. Each call's route and launch plan is
+    printed (the forward's with its registers and spills); a bf16 call must
+    take the tensor-core route and give identical bits when launched twice,
+    and is timed beside the FMA kernels in bf16 (the route it took before,
+    "fma_ms"). flex_attention, compiled, is each timed shape's library call
+    (library_flex): its forward is the forward's library_ms; its backward
+    computes dq, dk and dv in one call, so it is held against the port's
+    whole backward (flash_attention_bwd: delta, dq, dk/dv) in "backward",
+    and the dq and dk/dv rows' library_ms stay None."""
     from spatialvla_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device="cuda").manual_seed(3)
-    B, Nq, Nkv, D = 2, 8, 4, 256
-    cases = (  # tag, T, window, prefix, valid, dtype, timed
-        ("T320_window4096", 320, 4096, [277, 277], [320, 301], torch.bfloat16, True),
-        ("T320_global", 320, None, [277, 277], [320, 301], torch.bfloat16, True),
-        ("T320_window4096_fp32", 320, 4096, [277, 277], [320, 301], torch.float32, False),
-        ("T2048_window4096", 2048, 4096, [256, 256], [2048, 1900], torch.bfloat16, True),
+    Nq, Nkv, D = 8, 4, 256
+    cases = (  # tag, B, T, window, prefix, valid, dtype, timed
+        ("T320_window4096", 2, 320, 4096, [277, 277], [320, 301], torch.bfloat16, True),
+        ("T320_global", 2, 320, None, [277, 277], [320, 301], torch.bfloat16, True),
+        ("T320_window4096_fp32", 2, 320, 4096, [277, 277], [320, 301], torch.float32, False),
+        ("T2048_window4096", 2, 2048, 4096, [256, 256], [2048, 1900], torch.bfloat16, True),
+        ("prefill_T277", 1, 277, 4096, [277], [277], torch.bfloat16, True),
     )
-    for tag, T, window, prefix, valid, dtype, timed in cases:
+    flex_notes = {}  # tag: what library_flex found
+    for tag, B, T, window, prefix, valid, dtype, timed in cases:
         def randn(*shape):
             return torch.randn(shape, generator=g, device="cuda").to(dtype)
 
         q, do = randn(B, T, Nq, D), randn(B, T, Nq, D)
         k, v = randn(B, T, Nkv, D), randn(B, T, Nkv, D)
-        lens = [torch.tensor(x, dtype=torch.int32, device="cuda") for x in (prefix, valid, [0, 0])]
+        lens = [torch.tensor(x, dtype=torch.int32, device="cuda") for x in (prefix, valid, [0] * B)]
         kw = dict(scale=D ** -0.5, logit_softcap=50.0, window=window, causal=True)
         if not bool(fa.allowed_rows(*lens, T, T, window=window, causal=True).all()):
             fail(f"flash {tag}: a query row has no allowed key")
@@ -677,21 +777,33 @@ def flash_phases(torch, timer, results, notes):
         errs = {"fwd": rel_err(out, ref_out), "dq": rel_err(dq, ref_dq),
                 "dk": rel_err(dk, ref_dk), "dv": rel_err(dv, ref_dv)}
         lse_err = (lse - ref_lse).abs().max().item()
-        plans = {key: fa.bwd_plan(key, q, k) for key in ("dq", "dkv")}
+        fplan = fa.fwd_plan(q, k)
+        plans = {"fwd": fplan, **{key: fa.bwd_plan(key, q, k) for key in ("dq", "dkv")}}
         want_route = "mma" if dtype == torch.bfloat16 else "fma"
-        print(f"flash {tag} {str(dtype)[6:]}: " + "; ".join(
+        print(f"flash {tag} {str(dtype)[6:]}: fwd route {fplan['route']}, grid {fplan['grid']} x "
+              f"{fplan['threads']} threads ({fplan['rows']} q rows), clusters of "
+              f"{fplan['cluster']}, {fplan['smem_bytes']} B shared, {fplan['blocks_per_sm']} "
+              f"blocks an SM, {fplan['registers']} registers, {fplan['local_bytes']} B local; "
+              + "; ".join(
             f"{key} route {p['route']}, grid {p['grid']} x {p['threads']} threads, "
             f"{p['smem_bytes']} B shared, {p['blocks_per_sm']} blocks an SM, clusters of "
             f"{p['cluster']}"
-            for key, p in plans.items()), flush=True)
+            for key, p in plans.items() if key != "fwd"), flush=True)
         if any(p["route"] != want_route for p in plans.values()):
-            fail(f"flash {tag}: backward routes {plans}, want {want_route}")
+            fail(f"flash {tag}: routes {plans}, want {want_route}")
+        if fplan["route"] == "mma" and fplan["local_bytes"]:
+            fail(f"flash {tag}: the forward spills ({fplan['local_bytes']} B local a thread)")
+        if fplan["route"] == "mma" and (fplan["grid"] != (-(-T // fa.FWD_ROWS), Nq, B)
+                                        or fplan["cluster"] != 1):
+            fail(f"flash {tag}: forward plan {fplan}, want one block a 64-row q tile and head")
         if dtype == torch.bfloat16:  # no atomics: a second launch gives the same bits
+            out2, lse2 = fa.flash_attention_fwd(q, k, v, *lens, **kw)
             dq2 = fa.flash_attention_bwd_dq(*args, **kw)
             dk2, dv2 = fa.flash_attention_bwd_dkv(*args, **kw)
-            if not (torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)):
-                fail(f"flash {tag}: two launches of the bf16 backward differ")
-        times, fma = {}, {}
+            if not (torch.equal(out, out2) and torch.equal(lse, lse2) and torch.equal(dq, dq2)
+                    and torch.equal(dk, dk2) and torch.equal(dv, dv2)):
+                fail(f"flash {tag}: two launches of a bf16 kernel differ")
+        times, fma, lib, backward = {}, {}, {}, None
         if timed:
             times = {
                 "fwd": (timer(lambda: fa.flash_attention_fwd(q, k, v, *lens, **kw)),
@@ -701,8 +813,21 @@ def flash_phases(torch, timer, results, notes):
                 "dkv": (timer(lambda: fa.flash_attention_bwd_dkv(*args, **kw)),
                         timer(lambda: fa.flash_attention_bwd_dkv_plain(*args, **kw))),
             }
-            fma = {"dq": timer(lambda: fa.flash_attention_bwd_fma(*args, **kw, dkv=False)),
+            fma = {"fwd": timer(lambda: fa.flash_attention_fwd_fma(q, k, v, *lens, **kw)),
+                   "dq": timer(lambda: fa.flash_attention_bwd_fma(*args, **kw, dkv=False)),
                    "dkv": timer(lambda: fa.flash_attention_bwd_fma(*args, **kw, dq=False))}
+            ref = (ref_out, ref_lse, *fa.flash_attention_bwd_plain(q, k, v, ref_out, ref_lse, do,
+                                                                   *lens, **kw))
+            flex, flex_notes[tag] = library_flex(torch, timer, q, k, v, do, lens, kw, ref)
+            lib = {"fwd": flex["fwd"]}
+            backward = {"port_ms": timer(lambda: fa.flash_attention_bwd(
+                q, k, v, ref_out, ref_lse, do, *lens, **kw)), "library_ms": flex["bwd"]}
+            ratio = (f", the library {flex['bwd'] / backward['port_ms']:.2f} x the port's"
+                     if flex["bwd"] else "")
+            print(f"flash {tag}: library flex_attention forward {flex['fwd']} ms, backward "
+                  f"(dq, dk, dv) {flex['bwd']} ms against the port's flash_attention_bwd "
+                  f"(delta, dq, dk/dv) {backward['port_ms']:.4f} ms{ratio}; {flex_notes[tag]}",
+                  flush=True)
         print(f"flash {tag}: rel err " + " ".join(f"{k} {r:.3e}" for k, (_, r) in errs.items())
               + f" lse max|d| {lse_err:.3e} (bound {tol}); "
               + " ".join(f"{k} kernel {t[0]:.4f} ms plain {t[1]:.4f} ms" for k, t in times.items()),
@@ -720,8 +845,10 @@ def flash_phases(torch, timer, results, notes):
                                ("flash_attention_bwd_dkv", "dkv", max(errs["dk"][0],
                                                                       errs["dv"][0]))):
             ms, pms = times.get(key, (None, None))
-            shape = f"B{B}_T{T}_D{D}_{tag.split('_', 1)[1]}"
-            record_kernel(results, name, shape, err, ms, pms, nbytes=io[key][0], ops=io[key][1])
+            shape = (f"B{B}_T{T}_D{D}_" + (f"window{window}" if window else "global")
+                     + ("_fp32" if dtype == torch.float32 else ""))
+            record_kernel(results, name, shape, err, ms, pms, nbytes=io[key][0], ops=io[key][1],
+                          library_ms=lib.get(key))
             if key in fma:
                 bms = results[name]["bound"][shape][0]
                 print(f"flash {tag} {key}: {plans[key]['route']} {ms:.4f} ms, "
@@ -730,9 +857,17 @@ def flash_phases(torch, timer, results, notes):
                       f"{fma[key] / ms:.1f} x", flush=True)
                 results[name].setdefault("fma_ms", {})[shape] = fma[key]
                 results[name]["cuda_route"] = plans[key]["route"]
-    for name in ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
-        notes[name] = ("F.scaled_dot_product_attention has no logit softcap (Gemma2's tanh "
-                       "cap 50) and no backward entry point of its own")
+            if backward is not None and key != "fwd":
+                results[name].setdefault("backward", {})[shape] = backward
+    bwd_what = ("its backward computes dq, dk and dv in one call, so library_ms is None and "
+                "\"backward\" holds it against the port's whole backward")
+    for name, what in (("flash_attention_fwd", "its forward (out and LSE) is library_ms"),
+                       ("flash_attention_bwd_dq", bwd_what),
+                       ("flash_attention_bwd_dkv", bwd_what)):
+        notes[name] = (f"torch.compile(flex_attention) with the softcap as a score_mod, the mask "
+                       f"as a block mask and enable_gqa: {what} (F.scaled_dot_product_attention "
+                       f"has no softcap): "
+                       + "; ".join(f"{t}: {n}" for t, n in flex_notes.items()))
 
 
 # ---------------------------------------------------------------------------
@@ -1950,8 +2085,14 @@ def main() -> int:
         if "residual_rmsnorm" in name:  # what one launch replaces, and the library's matmul
             extra = {"pair_ms": r["pair_ms"][first],
                      "library_matmul_alone_ms": r["library_matmul_alone_ms"][first]}
-        if "fma_ms" in r:  # the flash backward: its CUDA route, and the FMA kernels' time
-            extra = {"cuda_route": r["cuda_route"], "fma_ms": r["fma_ms"][first]}
+        if "fma_ms" in r:  # the flash kernels: the CUDA route, the FMA kernels' time
+            extra = {"cuda_route": r["cuda_route"], "fma_ms": r["fma_ms"][first],
+                     "other_shapes": {
+                         s: {"ms": r["ms"][s], "plain_ms": r["plain_ms"][s],
+                             "bound_ms": r["bound"][s][0], "library_ms": r["library_ms"][s],
+                             "fma_ms": r["fma_ms"].get(s)} for s in r["ms"] if s != first}}
+            if "backward" in r:  # flex_attention's backward against the port's whole one
+                extra["backward"] = r["backward"][first]
         kernels.append({
             "name": label, "route": "cuda", "source": f"spatialvla_tpu_torch/csrc/{source}",
             "kernel_sources": [f"spatialvla_tpu_torch/csrc/{s}" for s in sources],

@@ -29,9 +29,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 
 
-def ptxas_report(log: str) -> list:
+def ptxas_report(log: str, kind: str = "flash_bwd") -> list:
     """(kernel, registers, spill store bytes, spill load bytes) of every
-    flash backward kernel in an nvcc -Xptxas -v log."""
+    kernel whose name holds ``kind`` (the flash backward's by default) in an
+    nvcc -Xptxas -v log."""
     rows, name, spills = [], None, (0, 0)
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -43,14 +44,14 @@ def ptxas_report(log: str) -> list:
             spills = (int(m.group(1)), int(m.group(2)))
             continue
         m = re.search(r"Used (\d+) registers", line)
-        if m and name and "flash_bwd" in name:
+        if m and name and kind in name:
             rows.append((readable(name), int(m.group(1)), *spills))
             name = None
     return rows
 
 
 def readable(mangled: str) -> str:
-    m = re.search(r"(flash_bwd_\w+?_kernel)I(.*?)EEv", mangled)
+    m = re.search(r"(flash_(?:fwd|bwd)\w*?_kernel)I(.*?)EEv", mangled)
     if not m:
         return mangled
     kernel, args = m.groups()
@@ -58,6 +59,8 @@ def readable(mangled: str) -> str:
     ints = re.findall(r"L[ib](\d+)E", args)
     if kernel == "flash_bwd_mma_kernel":
         return f"{kernel}<D {ints[0]}, {'dk/dv' if ints[1] == '1' else 'dq'}>"
+    if kernel == "flash_fwd_mma_kernel":
+        return f"{kernel}<D {ints[0]}>"
     return f"{kernel}<{dtype}, D {ints[0]}>"
 
 

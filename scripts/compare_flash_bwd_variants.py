@@ -59,17 +59,19 @@ SHAPES = (("T320_window4096", 320, 4096, [277, 277], [320, 301]),
           ("T2048_window4096", 2048, 4096, [256, 256], [2048, 1900]))
 
 
-def build_all(nvcc, nvcc_flags, names, against=None):
-    """One library a variant, every nvcc started together. Returns {name:
-    (library, nvcc's report)}."""
+def build_all(nvcc, nvcc_flags, names, against=None, variants=None, out=OUT):
+    """One library a variant (of ``variants``, VARIANTS by default), every
+    nvcc started together, into ``out``. Returns {name: (library, nvcc's
+    report)}."""
+    variants = VARIANTS if variants is None else variants
     source = (CSRC / "flash_attention.cu").read_text()
-    shutil.rmtree(OUT, ignore_errors=True)
+    shutil.rmtree(out, ignore_errors=True)
     jobs = {}
     for i, name in enumerate(names):
-        d = OUT / f"v{i}"
+        d = out / f"v{i}"
         d.mkdir(parents=True)
         text = Path(against).read_text() if name == AGAINST else source
-        for old, new in VARIANTS.get(name, []):
+        for old, new in variants.get(name, []):
             if text.count(old) != 1:
                 raise SystemExit(f"variant {name!r}: the patched text is not in the source once")
             text = text.replace(old, new)

@@ -13,10 +13,10 @@
 //                    buffer exists.
 // delta = rowsum(dO * O) stays a plain torch op, as JAX leaves it to XLA.
 //
-// Two routes (bwd_route, exported as flash_bwd_route without a launch):
-// bf16 backward calls take the tensor-core kernels ("mma"), fp32 calls and
-// the forward the FMA kernels ("fma"). flash_bwd_fma launches the FMA
-// backward in either dtype, to time the two routes side by side.
+// Two routes (route_of, exported as flash_fwd_route and flash_bwd_route
+// without a launch): bf16 calls take the tensor-core kernels ("mma"), fp32
+// calls the FMA kernels ("fma"). flash_fwd_fma and flash_bwd_fma launch the
+// FMA kernels in either dtype, to time the two routes side by side.
 //
 // The FMA kernels (translation of the TPU grid): one thread block per (q
 // tile, head, batch row) -- (k tile, kv head, batch row) for dk/dv -- with
@@ -80,6 +80,39 @@
 // T = 2048, by scripts/compare_flash_bwd_variants.py); wgmma reading both
 // operands from shared memory, on 64-row tiles, is the step for long
 // sequences.
+//
+// The tensor-core forward (flash_fwd_mma_kernel). At the training shape it is
+// bound by bytes (0.0024 ms against about 0.0015 ms of operations, 4 D flops
+// an allowed pair), so at T = 320 its time is latency and filling the card;
+// at T = 2048 it is operations (0.0352 ms). The design, from the backward's
+// pieces:
+//   * A warp owns 16 q rows and all of D: the output is 128 fp32 registers a
+//     thread at D = 256, the running max and sum stay in the warp (a row's 4
+//     lanes), and P never leaves registers: the m16n8 C fragments of two key
+//     octets, rounded to bf16, are the A fragment of the P.V product. q is
+//     read by ldmatrix from shared memory every tile (its fragments would
+//     take 64 more registers).
+//   * 4 warps a block (64 q rows) share 32-key K/V tiles staged by cp.async
+//     (16 bytes a thread, zero-filled past T and D, rows padded 16 bytes),
+//     double buffered; V reaches P.V by ldmatrix.trans from its row-major
+//     tile. The products run over all of DMAX (the columns past D are zeros),
+//     so no branch breaks the unrolled loops, and each k-step's fragments
+//     are loaded one step ahead of its mma.
+//   * One block a (64-row q tile, q head, batch row): 80 blocks at the
+//     training shape (T = 320), 40 at the 277-token flash prefill. Sharing a
+//     q tile's key tiles between the 2 blocks of a cluster, merged over
+//     distributed shared memory, took the prefill from 0.0242 to 0.0185 ms
+//     and gained nothing at T = 320 (scripts/bench_flash_fwd.py, PR 14): a
+//     second code path for 0.15 ms of a 170 ms request, so it is not kept.
+//   * The logits on the special-function unit (ex2, rcp; the softcap as in
+//     p_and_ds_mma), in log2 units, with one straight-line copy for each case
+//     of a warp's tile (softcap or not; every pair allowed, so no mask, or
+//     not); a warp skips a tile dead for its own 16 rows, a block one dead
+//     for all its rows (_dead_block's rule at both sizes); the output rows
+//     are rescaled only when some row's max moved.
+//   * The reference's semantics (_fa_kernel): masked logits -1e30, p rounded
+//     to bf16 before P.V and summed before that rounding, a row with no live
+//     tile gets output 0 and LSE 0, the LSE in fp32 natural log, out in bf16.
 #include "common.cuh"
 
 #include <cooperative_groups.h>
@@ -932,6 +965,258 @@ flash_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// tensor-core forward (bf16 operands)
+// ---------------------------------------------------------------------------
+
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kNegInf2 = kNegInf * kLog2e;  // a masked logit, in log2 units
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// The online softmax of a warp's 16 x 32 tile of raw logits s, in place:
+// s[t][e] is the m16n8 C fragment of key octet t (row lane / 4 + 8 (e / 2),
+// key t * 8 + 2 (lane % 4) + e % 2). Each logit is scaled, softcapped (cap
+// tanh(y) with tanh(y) = 1 - 2 / (2^(2 y log2 e) + 1), as p_and_ds_mma),
+// masked to -1e30 and taken to log2 units; m2 (the running max, log2 units)
+// and l (this lane's share of the running sum) move on; s becomes p = 2^(x -
+// m2) and corr the factor of each row's old sum and output. kFull: every
+// pair of the tile is allowed, no mask. One straight-line copy for each case.
+// qi0: the warp's first q row; sl2 = scale log2 e; cap2 = scale 2 log2 e /
+// cap; capl2 = cap log2 e.
+template <bool kFull, bool kCapped>
+__device__ __forceinline__ void online_softmax(float (&s)[4][4], float (&m2)[2], float (&l)[2],
+                                               float (&corr)[2], int qi0, int k0, int qoff,
+                                               int prefix, int valid, float sl2, float cap2,
+                                               float capl2, const Geometry& g) {
+  const int lane = threadIdx.x & 31;
+  float mx[2] = {m2[0], m2[1]};
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x;
+      if constexpr (kCapped) {
+        x = fmaf(-2.f, rcp(ex2(s[t][e] * cap2) + 1.f), 1.f) * capl2;
+      } else {
+        x = s[t][e] * sl2;
+      }
+      if constexpr (!kFull) {
+        const int qi = qi0 + (lane >> 2) + (e >> 1) * 8;
+        const int ki = k0 + t * 8 + ((lane & 3) << 1) + (e & 1);
+        if (!allowed(qoff + qi, ki, prefix, valid, g)) x = kNegInf2;
+      }
+      s[t][e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {  // the 4 lanes of a row
+    mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+    mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+    corr[hh] = ex2(m2[hh] - mx[hh]);  // 0 for the first live tile (m2 = -inf)
+    m2[hh] = mx[hh];
+  }
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[t][e] = ex2(s[t][e] - m2[e >> 1]);
+      sum[e >> 1] += s[t][e];
+    }
+  }
+  l[0] = fmaf(l[0], corr[0], sum[0]);
+  l[1] = fmaf(l[1], corr[1], sum[1]);
+}
+
+constexpr int kFwdWarps = 4;  // warps of a forward block, 16 q rows each
+
+// The forward on bf16 tensor cores (flash_fwd on bf16 operands; see the note
+// at the head of the file). Block (q tile, q head, batch row): kFwdWarps
+// warps, each owning 16 q rows and all of D, so a warp's running max, sum
+// and output stay in its registers and P goes from the S fragments straight
+// into the P.V product; the warps share the block's K/V tiles.
+template <int DMAX>
+__global__ void __launch_bounds__(kFwdWarps * 32)
+flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const int* __restrict__ prefix_lens,
+                     const int* __restrict__ valid_lens, const int* __restrict__ q_offset,
+                     bf16* __restrict__ out, float* __restrict__ lse, Geometry g) {
+  constexpr int NT = kFwdWarps * 32, R = kFwdWarps * 16;
+  constexpr int SD = DMAX + 8;  // row stride of the q/k/v tiles
+  constexpr int NJ = DMAX / 8;  // n8 tiles of the output row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // (R, SD)
+  bf16* Ks = Qs + R * SD;                          // 2 stages of (kInner, SD)
+  bf16* Vs = Ks + 2 * kInner * SD;
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int q0 = blockIdx.x * R, h = blockIdx.y, b = blockIdx.z, D = g.D;
+  const int hk = h / (g.Nq / g.Nkv);
+  const int prefix = prefix_lens[b], valid = valid_lens[b], qoff = q_offset[b];
+  const long qstride = static_cast<long>(g.Nq) * D, kstride = static_cast<long>(g.Nkv) * D;
+  const long qh = (static_cast<long>(b) * g.Tq * g.Nq + h) * D;
+  const bf16* kb = k + (static_cast<long>(b) * g.Tk * g.Nkv + hk) * D;
+  const bf16* vb = v + (static_cast<long>(b) * g.Tk * g.Nkv + hk) * D;
+  const int nt = (g.Tk + kInner - 1) / kInner;
+
+  const RowStager<DMAX, R, NT> stage_q(D);
+  const RowStager<DMAX, kInner, NT> stage_kv(D);
+  stage_q(Qs, q + qh, q0, g.Tq, qstride);
+  // the next key tile at or after j that the mask does not leave dead for
+  // the block's rows
+  auto next_live = [&](int j) {
+    while (j < nt && dead_block(qoff + q0, R, j * kInner, kInner, prefix, valid, g)) ++j;
+    return j;
+  };
+  auto stage = [&](int j, int st) {
+    stage_kv(Ks + st * kInner * SD, kb, j * kInner, g.Tk, kstride);
+    stage_kv(Vs + st * kInner * SD, vb, j * kInner, g.Tk, kstride);
+  };
+  int j = next_live(0);
+  if (j < nt) stage(j, 0);
+  cp_async_commit();
+
+  float acc[NJ][4];
+#pragma unroll
+  for (int t = 0; t < NJ; ++t) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
+  }
+  float m2[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  const bool capped = g.cap > 0.f;
+  const float sl2 = g.scale * kLog2e;
+  const float cap2 = capped ? g.scale * 2.f * kLog2e / g.cap : 0.f;
+  const float capl2 = g.cap * kLog2e;
+  // ldmatrix lane offsets: A (and B by .trans) from a row-major tile, and B
+  // from a tile whose rows are its columns
+  const int arow = (lane & 7) + ((lane >> 3) & 1) * 8, acol = (lane >> 4) * 8;
+  const int brow = (lane & 7) + (lane >> 4) * 8, bcol = ((lane >> 3) & 1) * 8;
+  const int w0 = q0 + warp * 16;  // this warp's first q row
+  const bf16* qw = Qs + (warp * 16 + arow) * SD + acol;
+
+  int st = 0;
+  while (j < nt) {
+    cp_async_wait_all();
+    __syncthreads();  // tile j has landed; every warp is done with the other stage
+    const int jn = next_live(j + 1);
+    if (jn < nt) stage(jn, st ^ 1);
+    cp_async_commit();
+    const int k0 = j * kInner;
+    // warp-uniform: this warp's 16 rows skip a tile dead for them
+    if (w0 < g.Tq && !dead_block(qoff + w0, 16, k0, kInner, prefix, valid, g)) {
+      const bf16* Kt = Ks + st * kInner * SD;
+      const bf16* Vt = Vs + st * kInner * SD;
+      // s = q . k over DMAX (the columns past D are zeros in shared memory,
+      // so no branch breaks the unrolled loop): 16 rows x 32 keys (four n8
+      // tiles), each k-step's fragments loaded one step ahead
+      float s[4][4];
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[t][e] = 0.f;
+      }
+      unsigned fq[2][4], fk0[2][4], fk1[2][4];
+      ldmatrix_x4(fq[0], qw);
+      ldmatrix_x4(fk0[0], Kt + brow * SD + bcol);
+      ldmatrix_x4(fk1[0], Kt + (16 + brow) * SD + bcol);
+#pragma unroll
+      for (int kk = 0; kk < DMAX / 16; ++kk) {
+        const int c = kk & 1, n = c ^ 1;
+        if (kk + 1 < DMAX / 16) {
+          ldmatrix_x4(fq[n], qw + (kk + 1) * 16);
+          ldmatrix_x4(fk0[n], Kt + brow * SD + (kk + 1) * 16 + bcol);
+          ldmatrix_x4(fk1[n], Kt + (16 + brow) * SD + (kk + 1) * 16 + bcol);
+        }
+        mma_bf16(s[0], fq[c], fk0[c][0], fk0[c][1]);
+        mma_bf16(s[1], fq[c], fk0[c][2], fk0[c][3]);
+        mma_bf16(s[2], fq[c], fk1[c][0], fk1[c][1]);
+        mma_bf16(s[3], fq[c], fk1[c][2], fk1[c][3]);
+      }
+      float corr[2];
+      const bool full = full_block(w0, 16, k0, kInner, qoff, prefix, valid, g);
+#define SOFTMAX_ARGS s, m2, l, corr, w0, k0, qoff, prefix, valid, sl2, cap2, capl2, g
+      if (full) {
+        if (capped) online_softmax<true, true>(SOFTMAX_ARGS);
+        else online_softmax<true, false>(SOFTMAX_ARGS);
+      } else {
+        if (capped) online_softmax<false, true>(SOFTMAX_ARGS);
+        else online_softmax<false, false>(SOFTMAX_ARGS);
+      }
+#undef SOFTMAX_ARGS
+      // rescale the output rows whose max moved (none, in most tiles once a
+      // row has met its largest logits)
+      if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+        for (int t = 0; t < NJ; ++t) {
+          acc[t][0] *= corr[0];
+          acc[t][1] *= corr[0];
+          acc[t][2] *= corr[1];
+          acc[t][3] *= corr[1];
+        }
+      }
+      // out += p . v over DMAX columns: p rounded to bf16
+      // (flash_attention.py:146) as the A fragments of 16-key chunks (the C
+      // fragments of two key octets), v by ldmatrix.trans from the
+      // row-major tile, each fragment loaded one step ahead
+      unsigned pa[kInner / 16][4];
+#pragma unroll
+      for (int kc = 0; kc < kInner / 16; ++kc) {
+        pa[kc][0] = pack_bf16(s[2 * kc][0], s[2 * kc][1]);
+        pa[kc][1] = pack_bf16(s[2 * kc][2], s[2 * kc][3]);
+        pa[kc][2] = pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
+        pa[kc][3] = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
+      }
+      constexpr int NPV = kInner / 16 * (DMAX / 16);  // (key chunk, 16 columns) steps
+      unsigned fv[2][4];
+      ldmatrix_x4_trans(fv[0], Vt + arow * SD + acol);
+#pragma unroll
+      for (int i = 0; i < NPV; ++i) {
+        const int kc = i / (DMAX / 16), np = i % (DMAX / 16), c = i & 1;
+        if (i + 1 < NPV) {
+          const int kn = (i + 1) / (DMAX / 16), nn = (i + 1) % (DMAX / 16);
+          ldmatrix_x4_trans(fv[c ^ 1], Vt + (kn * 16 + arow) * SD + nn * 16 + acol);
+        }
+        mma_bf16(acc[2 * np], pa[kc], fv[c][0], fv[c][1]);
+        mma_bf16(acc[2 * np + 1], pa[kc], fv[c][2], fv[c][3]);
+      }
+    }
+    j = jn;
+    st ^= 1;
+  }
+  cp_async_wait_all();
+
+  // out = acc / l in bf16 and the LSE (natural log) of each row below Tq; a
+  // row that met no live tile (l = 0) gets output 0 and LSE 0
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float lr = l[hh];
+    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+    const int row = w0 + (lane >> 2) + hh * 8;
+    if (row < g.Tq) {
+      const float inv = lr == 0.f ? 0.f : 1.f / lr;
+      bf16* o = out + qh + static_cast<long>(row) * qstride;
+#pragma unroll
+      for (int t = 0; t < NJ; ++t) {
+        const int col = t * 8 + ((lane & 3) << 1);
+        if (col < D) {
+          *reinterpret_cast<__nv_bfloat162*>(o + col) =
+              __floats2bfloat162_rn(acc[t][2 * hh] * inv, acc[t][2 * hh + 1] * inv);
+        }
+      }
+      if ((lane & 3) == 0) {
+        lse[(static_cast<long>(b) * g.Nq + h) * g.Tq + row] =
+            lr == 0.f ? 0.f : fmaf(m2[hh], kLn2, logf(lr));
+      }
+    }
+  }
+}
+
 size_t fwd_smem(int D) { return (3 * kTile * (D + 4) + kTile * kPS) * sizeof(float); }
 size_t dq_smem(int D) { return (4 * kTile * (D + 4) + kTile * kPS) * sizeof(float); }
 size_t dkv_smem(int D) { return (4 * kTile * (D + 4) + 2 * kTile * kPS + 2 * kTile) * sizeof(float); }
@@ -1009,6 +1294,12 @@ int dkv_launch(const void* q, const void* k, const void* v, const void* dout, co
     return cudaErrorInvalidValue;                                                         \
   } while (0)
 
+int fma_fwd(const void* q, const void* k, const void* v, const int* prefix, const int* valid,
+            const int* qoff, void* out, float* lse, int dtype, int B, const Geometry& g,
+            cudaStream_t st) {
+  FLASH_DISPATCH(fwd_launch, q, k, v, prefix, valid, qoff, out, lse, B, g, st);
+}
+
 int fma_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,
            const float* delta, const int* prefix, const int* valid, const int* qoff, void* dq,
            int dtype, int B, const Geometry& g, cudaStream_t st) {
@@ -1025,9 +1316,9 @@ int fma_dkv(const void* q, const void* k, const void* v, const void* dout, const
 
 enum { kRouteFma = 0, kRouteMma = 1 };
 
-// The backward's route: bf16 -> the tensor-core kernels, fp32 -> the FMA
-// kernels; -1 for operands the kernels do not take
-int bwd_route(int dtype, int D) {
+// The route of the forward and of the backward: bf16 -> the tensor-core
+// kernels, fp32 -> the FMA kernels; -1 for operands the kernels do not take
+int route_of(int dtype, int D) {
   if (D < 16 || D > 256 || D % 16 != 0) return -1;
   if (dtype == DT_BF16) return kRouteMma;
   if (dtype == DT_F32) return kRouteFma;
@@ -1107,6 +1398,36 @@ int mma_launch(const void* q, const void* k, const void* v, const void* dout, co
   });
 }
 
+constexpr int kFwdRows = kFwdWarps * 16;  // q rows of a forward block
+
+template <int DMAX>
+size_t fwd_mma_smem() {
+  return sizeof(bf16) * (kFwdRows + 4 * kInner) * (DMAX + 8);
+}
+
+dim3 fwd_grid(int B, const Geometry& g) {
+  return dim3((g.Tq + kFwdRows - 1) / kFwdRows, g.Nq, B);
+}
+
+int fwd_mma_launch(const void* q, const void* k, const void* v, const int* prefix,
+                   const int* valid, const int* qoff, void* out, float* lse, int B,
+                   const Geometry& g, cudaStream_t st) {
+  // 16-byte cp.async of every row, 4-byte stores of column pairs
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(out))
+    return cudaErrorMisalignedAddress;
+  return mma_instance(g, [&](auto dmax) {
+    constexpr int DM = decltype(dmax)::value;
+    const auto kernel = flash_fwd_mma_kernel<DM>;
+    const size_t smem = fwd_mma_smem<DM>();
+    static const int attr = prepare(kernel, smem);
+    if (attr) return attr;
+    kernel<<<fwd_grid(B, g), kFwdWarps * 32, smem, st>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        prefix, valid, qoff, static_cast<bf16*>(out), lse, g);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
 // ---------------------------------------------------------------- plans
 
 // out[0..6]: grid x, y, z, threads a block, dynamic shared memory bytes,
@@ -1148,16 +1469,86 @@ int fma_plan_of(int dtype, bool dkv, int B, const Geometry& g, int* out) {
   FLASH_DISPATCH(fma_plan, dkv, B, g, out);
 }
 
+// out[0..9]: grid x, y, z, threads a block, dynamic shared memory bytes,
+// blocks an SM, blocks a cluster, q rows a block, registers a thread, local
+// memory bytes a thread (spills)
+template <typename K>
+int fill_fwd_plan(K kernel, size_t smem_max, dim3 grid, int threads, size_t smem, int cluster,
+                  int rows, int* out) {
+  if (fill_plan(kernel, smem_max, grid, threads, smem, cluster, out)) return -2;
+  cudaFuncAttributes a;
+  if (cudaFuncGetAttributes(&a, kernel)) return -2;
+  out[7] = rows;
+  out[8] = a.numRegs;
+  out[9] = static_cast<int>(a.localSizeBytes);
+  return 0;
+}
+
+int fwd_mma_plan(int B, const Geometry& g, int* out) {
+  return mma_instance(g, [&](auto dmax) {
+    constexpr int DM = decltype(dmax)::value;
+    const size_t smem = fwd_mma_smem<DM>();
+    return fill_fwd_plan(flash_fwd_mma_kernel<DM>, smem, fwd_grid(B, g), kFwdWarps * 32, smem, 1,
+                         kFwdRows, out);
+  });
+}
+
+template <typename T, int DMAX>
+int fwd_fma_plan(int B, const Geometry& g, int* out) {
+  return fill_fwd_plan(flash_fwd_kernel<T, DMAX>, fwd_smem(DMAX),
+                       dim3((g.Tq + kTile - 1) / kTile, g.Nq, B), kThreads, fwd_smem(g.D), 1,
+                       kTile, out);
+}
+
+int fwd_fma_plan_of(int dtype, int B, const Geometry& g, int* out) {
+  FLASH_DISPATCH(fwd_fma_plan, B, g, out);
+}
+
 }  // namespace
 
+// bf16 on the tensor-core kernel, fp32 on the FMA kernel (route_of); a
+// refused launch is returned, never retried on the other route
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, const int* prefix,
                          const int* valid, const int* qoff, void* out, float* lse, int dtype,
                          int B, int Tq, int Tk, int Nq, int Nkv, int D, float scale, float cap,
                          int window, int causal, void* stream) {
   const Geometry g{Tq, Tk, Nq, Nkv, D, scale, cap, window, causal};
+  const int route = route_of(dtype, D);
+  if (bad_geometry(B, g) || route < 0) return cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (route == kRouteMma) return fwd_mma_launch(q, k, v, prefix, valid, qoff, out, lse, B, g, st);
+  return fma_fwd(q, k, v, prefix, valid, qoff, out, lse, dtype, B, g, st);
+}
+
+// The route (kRouteFma 0, kRouteMma 1) that flash_fwd takes for these
+// operands, -1 for operands it refuses; launches nothing
+extern "C" int flash_fwd_route(int dtype, int D) { return route_of(dtype, D); }
+
+// The FMA forward in either dtype: what bf16 calls took before the
+// tensor-core kernel, kept so that the two can be timed side by side
+// (chip_smoke.py); no wrapper of the training or serving path calls it
+extern "C" int flash_fwd_fma(const void* q, const void* k, const void* v, const int* prefix,
+                             const int* valid, const int* qoff, void* out, float* lse, int dtype,
+                             int B, int Tq, int Tk, int Nq, int Nkv, int D, float scale, float cap,
+                             int window, int causal, void* stream) {
+  const Geometry g{Tq, Tk, Nq, Nkv, D, scale, cap, window, causal};
   if (bad_geometry(B, g)) return cudaErrorInvalidValue;
-  FLASH_DISPATCH(fwd_launch, q, k, v, prefix, valid, qoff, out, lse, B, g,
+  return fma_fwd(q, k, v, prefix, valid, qoff, out, lse, dtype, B, g,
                  static_cast<cudaStream_t>(stream));
+}
+
+// What a forward call launches, without launching it: fma 0 for the
+// wrapper's route, 1 for the FMA kernel of flash_fwd_fma. Fills out[0..9]
+// (grid x, y, z, threads, dynamic shared bytes, blocks an SM, blocks a
+// cluster, q rows a block, registers, local bytes a thread) and returns the
+// route, or -1 for operands the kernels refuse, -2 for a CUDA error
+extern "C" int flash_fwd_plan(int fma, int dtype, int B, int Tq, int Tk, int Nq, int Nkv, int D,
+                              int* out) {
+  const Geometry g{Tq, Tk, Nq, Nkv, D, 1.f, 0.f, 0, 1};
+  if (bad_geometry(B, g) || route_of(dtype, D) < 0) return -1;
+  const int route = fma ? kRouteFma : route_of(dtype, D);
+  const int err = route == kRouteMma ? fwd_mma_plan(B, g, out) : fwd_fma_plan_of(dtype, B, g, out);
+  return err ? (err < 0 ? err : -2) : route;
 }
 
 // bf16 on the tensor-core kernel, fp32 on the FMA kernel (bwd_route); a
@@ -1168,7 +1559,7 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const v
                             int Tk, int Nq, int Nkv, int D, float scale, float cap, int window,
                             int causal, void* stream) {
   const Geometry g{Tq, Tk, Nq, Nkv, D, scale, cap, window, causal};
-  const int route = bwd_route(dtype, D);
+  const int route = route_of(dtype, D);
   if (bad_geometry(B, g) || route < 0) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (route == kRouteMma) {
@@ -1184,7 +1575,7 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
                              int B, int Tq, int Tk, int Nq, int Nkv, int D, float scale, float cap,
                              int window, int causal, void* stream) {
   const Geometry g{Tq, Tk, Nq, Nkv, D, scale, cap, window, causal};
-  const int route = bwd_route(dtype, D);
+  const int route = route_of(dtype, D);
   if (bad_geometry(B, g) || route < 0) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (route == kRouteMma) {
@@ -1195,7 +1586,7 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
 
 // The route (kRouteFma 0, kRouteMma 1) that flash_bwd_dq / flash_bwd_dkv
 // take for these operands, -1 for operands they refuse; launches nothing
-extern "C" int flash_bwd_route(int dtype, int D) { return bwd_route(dtype, D); }
+extern "C" int flash_bwd_route(int dtype, int D) { return route_of(dtype, D); }
 
 // The FMA kernels in either dtype: dq where dq is not null, dk/dv where dk
 // is not null. What bf16 calls took before the tensor-core route, kept so
@@ -1225,8 +1616,8 @@ extern "C" int flash_bwd_fma(const void* q, const void* k, const void* v, const 
 extern "C" int flash_bwd_plan(int which, int fma, int dtype, int B, int Tq, int Tk, int Nq,
                               int Nkv, int D, int* out) {
   const Geometry g{Tq, Tk, Nq, Nkv, D, 1.f, 0.f, 0, 1};
-  const int route = fma ? kRouteFma : bwd_route(dtype, D);
-  if (bad_geometry(B, g) || bwd_route(dtype, D) < 0 || (which != 0 && which != 1)) return -1;
+  const int route = fma ? kRouteFma : route_of(dtype, D);
+  if (bad_geometry(B, g) || route_of(dtype, D) < 0 || (which != 0 && which != 1)) return -1;
   int err;
   if (route == kRouteMma) {
     err = which ? mma_plan<true>(B, g, out) : mma_plan<false>(B, g, out);

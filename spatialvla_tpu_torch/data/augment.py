@@ -188,6 +188,7 @@ def augment_image(
     # (sample_augment_params draws in the default augment_order, matching
     # the per-op rng consumption of the previous draw-inside-each-op form)
     H, W = img.shape[:2]
+    out = img.astype(np.float32)
     for op in kwargs.get("augment_order", []):
         if op == "random_resized_crop" and "random_resized_crop" in kwargs:
             cy, cx, ch, cw = p["crop"]

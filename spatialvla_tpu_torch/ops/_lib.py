@@ -70,6 +70,13 @@ _SIGNATURES = {
     # q, k, v, prefix, valid, q_offset, out, lse, dtype, B, Tq, Tk, Nq, Nkv, D,
     # scale, cap, window, causal, stream
     "flash_fwd": (_P,) * 8 + (_I,) * 7 + (_F, _F, _I, _I, _P),
+    # the FMA forward in either dtype (same arguments as flash_fwd)
+    "flash_fwd_fma": (_P,) * 8 + (_I,) * 7 + (_F, _F, _I, _I, _P),
+    # dtype, D: the route flash_fwd takes (0 "fma", 1 "mma", -1 refused; no launch)
+    "flash_fwd_route": (_I, _I),
+    # fma, dtype, B, Tq, Tk, Nq, Nkv, D, out int[10]: a forward call's launch
+    # plan (no launch)
+    "flash_fwd_plan": (_I,) * 8 + (_P,),
     # q, k, v, dout, lse, delta, prefix, valid, q_offset, dq, dtype, B, Tq, Tk,
     # Nq, Nkv, D, scale, cap, window, causal, stream
     "flash_bwd_dq": (_P,) * 10 + (_I,) * 7 + (_F, _F, _I, _I, _P),

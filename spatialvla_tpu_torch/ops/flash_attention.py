@@ -12,14 +12,17 @@ Each wrapper runs its plain PyTorch version (``*_plain``) only for CPU
 tensors, launches the kernel for CUDA tensors (or raises), and counts its
 launches in ``<wrapper>.launches``.
 
-The backward takes one of two routes (``bwd_route``, the twin of the C
-entry ``flash_bwd_route``): bf16 operands the bf16 tensor-core kernels
-("mma"), fp32 operands the FMA kernels ("fma"). The tensor-core kernels skip
-dead tiles by ``_dead_block``'s rule at their own 32 x 32 tiles
-(``dead_tiles``); where the dk/dv grid would leave SMs idle, a cluster of
-blocks shares each kv head's q heads (``bwd_split``).
-``flash_attention_bwd_fma`` launches the FMA kernels in
-either dtype, as a yardstick; no wrapper of the training path calls it.
+The forward and the backward each take one of two routes (``fwd_route`` /
+``bwd_route``, the twins of the C entries ``flash_fwd_route`` /
+``flash_bwd_route``): bf16 operands the bf16 tensor-core kernels ("mma"),
+fp32 operands the FMA kernels ("fma"). The tensor-core kernels skip dead
+tiles by ``_dead_block``'s rule at their own tiles (``dead_tiles``): 32 x 32
+in the backward; in the forward 32 keys against a block's 64 q rows and
+against each warp's 16. Where the dk/dv grid would leave SMs idle, a
+cluster of blocks shares each kv head's q heads (``bwd_split``).
+``flash_attention_fwd_fma``
+and ``flash_attention_bwd_fma`` launch the FMA kernels in either dtype, as
+a yardstick; no wrapper of the training or serving path calls them.
 
 Layouts follow the JAX package: q (B, Tq, Nq, D), k / v (B, Tk, Nkv, D),
 prefix / valid / q_offset (B,) int32, LSE (B, Nq, Tq, 1) fp32. Masked
@@ -186,10 +189,10 @@ def attention_delta(out, dout) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# the backward's routes and tiles (twins of csrc/flash_attention.cu)
+# the routes and tiles (twins of csrc/flash_attention.cu)
 # ---------------------------------------------------------------------------
 
-BWD_ROUTES = {0: "fma", 1: "mma"}
+ROUTES = {0: "fma", 1: "mma"}
 # the tensor-core kernels' tiles: a block owns 32 q rows (dq) or keys
 # (dk/dv) and streams tiles of 32 keys (dq) or q rows (dk/dv)
 BWD_TILE = 32
@@ -197,11 +200,17 @@ BWD_TILE = 32
 
 def bwd_route(dtype: torch.dtype, head_dim: int) -> Optional[str]:
     """The backward kernels a call takes: "mma" (bf16, tensor cores), "fma"
-    (fp32), or None for operands the kernels refuse (``bwd_route`` in
+    (fp32), or None for operands the kernels refuse (``route_of`` in
     csrc/flash_attention.cu)."""
     if head_dim % 16 or not 16 <= head_dim <= 256:
         return None
     return {torch.bfloat16: "mma", torch.float32: "fma"}.get(dtype)
+
+
+fwd_route = bwd_route  # the forward's route follows the same rule (route_of)
+
+# the tensor-core forward: 4 warps of 16 q rows a block
+FWD_WARP_ROWS, FWD_ROWS = 16, 64
 
 
 def bwd_split(B: int, Tk: int, Nkv: int, G: int, sms: int) -> int:
@@ -214,7 +223,7 @@ def bwd_split(B: int, Tk: int, Nkv: int, G: int, sms: int) -> int:
 def dead_tiles(prefix_lens, valid_lens, q_offset, Tq: int, Tk: int, block_q: int, block_k: int,
                *, window: Optional[int], causal: bool) -> torch.Tensor:
     """(B, ceil(Tq / block_q), ceil(Tk / block_k)) bool: the tiles that a
-    backward kernel skips, by the rule of ``_dead_block``
+    tensor-core kernel skips, by the rule of ``_dead_block``
     (flash_attention.py:327; ``dead_block`` in csrc/flash_attention.cu)."""
     dev = valid_lens.device
     q_start = (q_offset.long()[:, None, None]
@@ -262,21 +271,39 @@ def flash_attention_fwd(q, k, v, prefix_lens, valid_lens, q_offset, *,
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, prefix_lens, valid_lens, q_offset, scale=scale,
                                          logit_softcap=logit_softcap, window=window, causal=causal)
-    name = "flash_attention_fwd"
-    _lib.check_cuda(name, q, k, v, prefix_lens, valid_lens, q_offset)
-    B, Tq, Tk, Nq, Nkv, D = _geometry(name, q, k, v, prefix_lens, valid_lens, q_offset, window)
-    out = torch.empty_like(q)
-    lse = torch.empty((B, Nq, Tq, 1), dtype=torch.float32, device=q.device)
-    _lib.launch(
-        "flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(), prefix_lens.data_ptr(),
-        valid_lens.data_ptr(), q_offset.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        _lib.dtype_code(q), *_tail((B, Tq, Tk, Nq, Nkv, D), scale, logit_softcap, window, causal),
-    )
+    out, lse = _launch_fwd("flash_attention_fwd", "flash_fwd", q, k, v, prefix_lens, valid_lens,
+                           q_offset, scale, logit_softcap, window, causal)
     flash_attention_fwd.launches += 1
     return out, lse
 
 
 _lib.counted(flash_attention_fwd)
+
+
+def _launch_fwd(name, entry, q, k, v, prefix_lens, valid_lens, q_offset, scale, logit_softcap,
+                window, causal):
+    _lib.check_cuda(name, q, k, v, prefix_lens, valid_lens, q_offset)
+    dims = _geometry(name, q, k, v, prefix_lens, valid_lens, q_offset, window)
+    B, Tq, _, Nq, _, _ = dims
+    q, k, v = _aligned16(q, k, v)
+    out = torch.empty_like(q)
+    lse = torch.empty((B, Nq, Tq, 1), dtype=torch.float32, device=q.device)
+    _lib.launch(
+        entry, q.data_ptr(), k.data_ptr(), v.data_ptr(), prefix_lens.data_ptr(),
+        valid_lens.data_ptr(), q_offset.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        _lib.dtype_code(q), *_tail(dims, scale, logit_softcap, window, causal),
+    )
+    return out, lse
+
+
+def flash_attention_fwd_fma(q, k, v, prefix_lens, valid_lens, q_offset, *,
+                            scale, logit_softcap=None, window=None, causal=True):
+    """(out, lse) from the FMA forward in the operands' dtype: the route bf16
+    calls took before the tensor-core kernel, kept to time the two side by
+    side. CUDA tensors only; counts no launch, and neither the training nor
+    the serving path calls it."""
+    return _launch_fwd("flash_attention_fwd_fma", "flash_fwd_fma", q, k, v, prefix_lens,
+                       valid_lens, q_offset, scale, logit_softcap, window, causal)
 
 
 def _check_bwd(name, q, k, v, dout, lse, delta, prefix_lens, valid_lens, q_offset, window):
@@ -373,7 +400,35 @@ def library_bwd_route(dtype: torch.dtype, head_dim: int) -> Optional[str]:
     """``bwd_route`` as the kernel library decides it (C entry
     ``flash_bwd_route``; builds the library, launches nothing)."""
     code = {torch.float32: _lib.DT_F32, torch.bfloat16: _lib.DT_BF16}.get(dtype, -1)
-    return BWD_ROUTES.get(_lib.library().flash_bwd_route(code, head_dim))
+    return ROUTES.get(_lib.library().flash_bwd_route(code, head_dim))
+
+
+def library_fwd_route(dtype: torch.dtype, head_dim: int) -> Optional[str]:
+    """``fwd_route`` as the kernel library decides it (C entry
+    ``flash_fwd_route``; builds the library, launches nothing)."""
+    code = {torch.float32: _lib.DT_F32, torch.bfloat16: _lib.DT_BF16}.get(dtype, -1)
+    return ROUTES.get(_lib.library().flash_fwd_route(code, head_dim))
+
+
+def fwd_plan(q, k, *, fma: bool = False) -> dict:
+    """What the forward launches for CUDA operands shaped as q and k,
+    without launching it: route, grid, threads a block, dynamic shared
+    bytes, blocks an SM (the occupancy calculator's), blocks a cluster (1), q
+    rows a block, registers and local memory bytes a thread (spills).
+    ``fma`` asks about the FMA kernel of ``flash_attention_fwd_fma``
+    instead."""
+    import ctypes
+
+    B, Tq, Nq, D = q.shape
+    Tk, Nkv = k.shape[1], k.shape[2]
+    out = (ctypes.c_int * 10)()
+    route = _lib.library().flash_fwd_plan(int(fma), _lib.dtype_code(q), B, Tq, Tk, Nq, Nkv, D,
+                                          out)
+    if route < 0:
+        raise RuntimeError(f"flash_fwd_plan failed: {route}")
+    return {"route": ROUTES[route], "grid": tuple(out[:3]), "threads": out[3],
+            "smem_bytes": out[4], "blocks_per_sm": out[5], "cluster": out[6],
+            "rows": out[7], "registers": out[8], "local_bytes": out[9]}
 
 
 def bwd_plan(kernel: str, q, k, *, fma: bool = False) -> dict:
@@ -391,7 +446,7 @@ def bwd_plan(kernel: str, q, k, *, fma: bool = False) -> dict:
                                           Tq, Tk, Nq, Nkv, D, out)
     if route < 0:
         raise RuntimeError(f"flash_bwd_plan({kernel}) failed: {route}")
-    return {"route": BWD_ROUTES[route], "grid": tuple(out[:3]), "threads": out[3],
+    return {"route": ROUTES[route], "grid": tuple(out[:3]), "threads": out[3],
             "smem_bytes": out[4], "blocks_per_sm": out[5], "cluster": out[6]}
 
 

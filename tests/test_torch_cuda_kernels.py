@@ -13,8 +13,8 @@ matvecs, the int4 tensor-core route and the residual kernels with fp32
 outputs, below 0.02 for a whole decode step (the JAX package's bound for the
 fused step at batch 1). The decode loop replayed as a CUDA graph gives the
 eager loop's ids and margins exactly. The flash kernels: 1e-4 fp32, 2e-2
-bf16 (their FLASH_TOL); the bf16 backward on tensor cores gives identical
-bits when launched twice.
+bf16 (their FLASH_TOL), the LSE within 1e-3; the bf16 forward and backward
+on tensor cores give identical bits when launched twice.
 """
 import dataclasses
 
@@ -971,6 +971,74 @@ def test_flash_backward_takes_misaligned_operands():
     args = (shifted, k, v, do, lse, delta, *lens)
     assert torch.equal(fa.flash_attention_bwd_dq(*args, **kw),
                        fa.flash_attention_bwd_dq(q, *args[1:], **kw))
+
+
+@pytest.mark.parametrize("D", [16, 24, 32, 64, 144, 256, 272])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_flash_forward_route(dtype, D):
+    """The library's forward route is the Python twin's: bf16 -> "mma",
+    fp32 -> "fma"."""
+    route = fa.library_fwd_route(dtype, D)
+    assert route == fa.fwd_route(dtype, D)
+    if D % 16 == 0 and D <= 256 and dtype != torch.float16:
+        assert route == ("mma" if dtype == torch.bfloat16 else "fma")
+
+
+@pytest.mark.parametrize("name", ["path_global", "ragged", "q_offset", "gqa3"])
+@pytest.mark.parametrize("D", [64, 256])
+def test_flash_forward_plan_takes_64_row_blocks(name, D):
+    """bf16 forward calls plan the tensor-core kernel: one block of 4 warps
+    a (64-row q tile, q head, batch row), no cluster; fp32 calls (and
+    ``fma``) the FMA kernel's 32 rows; neither spills."""
+    (q, k, _, _), _, _ = _flash_inputs(name, D, torch.bfloat16)
+    B, Tq, Nq, _ = q.shape
+    plan = fa.fwd_plan(q, k)
+    assert plan["route"] == "mma" and plan["rows"] == fa.FWD_ROWS and plan["threads"] == 128
+    assert plan["grid"] == (-(-Tq // fa.FWD_ROWS), Nq, B) and plan["cluster"] == 1
+    assert plan["blocks_per_sm"] >= 1 and plan["local_bytes"] == 0
+    for fma in (fa.fwd_plan(q.float(), k.float()), fa.fwd_plan(q, k, fma=True)):
+        assert fma["route"] == "fma" and fma["rows"] == 32 and fma["threads"] == 256
+        assert fma["grid"] == (-(-Tq // 32), Nq, B) and fma["cluster"] == 1
+
+
+@pytest.mark.parametrize("name", ["path_global", "path_window", "dead_window17", "ragged"])
+def test_flash_forward_is_deterministic(name):
+    """The tensor-core forward: two launches, identical bits."""
+    (q, k, v, _), lens, kw = _flash_inputs(name, 256, torch.bfloat16, seed=8)
+    first = fa.flash_attention_fwd(q, k, v, *lens, **kw)
+    second = fa.flash_attention_fwd(q, k, v, *lens, **kw)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["causal_gqa_softcap", "window_prefix", "q_offset", "path_global"])
+@pytest.mark.parametrize("D", [64, 256])
+def test_flash_forward_fma_entry_in_bf16(name, D):
+    """The FMA forward kept as the bf16 yardstick agrees with the plain
+    version, and counts no launch."""
+    (q, k, v, _), lens, kw = _flash_inputs(name, D, torch.bfloat16, seed=9)
+    before = fa.flash_attention_fwd.launches
+    out, lse = fa.flash_attention_fwd_fma(q, k, v, *lens, **kw)
+    assert fa.flash_attention_fwd.launches == before
+    ref_out, ref_lse = fa.flash_attention_fwd_plain(q, k, v, *lens, **kw)
+    assert out.dtype == torch.bfloat16 and _rel(out, ref_out) < FLASH_TOL[torch.bfloat16]
+    assert (lse - ref_lse).abs().max().item() < 1e-3
+
+
+def test_flash_forward_takes_misaligned_operands():
+    """bf16 q, k, v that do not start on 16 bytes are copied, not refused,
+    and give the aligned call's bits."""
+    (q, k, v, _), lens, kw = _flash_inputs("ragged", 64, torch.bfloat16, seed=10)
+    shifted = []
+    for t in (q, k, v):
+        s = torch.empty(t.numel() + 1, dtype=t.dtype, device=DEV)[1:].view(t.shape)
+        s.copy_(t)
+        assert s.data_ptr() % 16 != 0
+        shifted.append(s)
+    got = fa.flash_attention_fwd(*shifted, *lens, **kw)
+    want = fa.flash_attention_fwd(q, k, v, *lens, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 def test_flash_attention_autograd_on_the_card():

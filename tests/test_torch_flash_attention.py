@@ -202,6 +202,16 @@ def test_bwd_route_twin(dtype, D):
     assert tfa.bwd_route(dtype, D) == want
 
 
+@pytest.mark.parametrize("D", [16, 24, 32, 64, 144, 256, 272])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_fwd_route_twin(dtype, D):
+    """The forward takes the backward's rule: bf16 -> "mma", fp32 -> "fma"."""
+    want = None
+    if D % 16 == 0 and 16 <= D <= 256:
+        want = {torch.bfloat16: "mma", torch.float32: "fma"}.get(dtype)
+    assert tfa.fwd_route(dtype, D) == want
+
+
 @pytest.mark.parametrize("B,T,Nkv,G,want", [(2, 320, 4, 2, 2), (2, 2048, 4, 2, 1),
                                              (1, 320, 1, 16, 8), (2, 320, 4, 1, 1)])
 def test_bwd_split_fills_a_wave(B, T, Nkv, G, want):
@@ -211,11 +221,16 @@ def test_bwd_split_fills_a_wave(B, T, Nkv, G, want):
     assert tfa.bwd_split(B, T, Nkv, G, 132) == want
 
 
-# name: (B, T, prefix, valid, window) of the training path and of T=2048
+# name: (B, T, prefix, valid, window) of the training path, T=2048 and the flash prefill
 TILE_CASES = {
     "path_global": (2, 320, [277, 277], [320, 301], None),
     "path_window": (2, 320, [277, 277], [320, 301], 4096),
     "T2048_window": (2, 2048, [256, 256], [2048, 1900], 4096),
+    # the flash prefill (B=1, 277 tokens, all of them prefix), both layer kinds
+    "prefill_window": (1, 277, [277], [277], 4096),
+    "prefill_global": (1, 277, [277], [277], None),
+    # a window shorter than T, where whole tiles left of the window die
+    "T2048_window300": (2, 2048, [256, 256], [2048, 1900], 300),
 }
 
 
@@ -229,13 +244,7 @@ def _tile_case(name):
     return lens, Tq, Tk, window
 
 
-@pytest.mark.parametrize("name", list(CASES) + list(TILE_CASES))
-def test_dead_tiles_hold_no_allowed_pair(name):
-    """A tile the backward kernels skip (32 q rows x 32 keys, the dq and
-    dk/dv kernels' tiles) holds no (q, k) pair that attention_mask allows;
-    and every empty tile above the diagonal (all keys past its last q row)
-    is skipped."""
-    block_q = block_k = tfa.BWD_TILE
+def _check_dead_tiles(name, block_q, block_k):
     lens, Tq, Tk, window = _tile_case(name)
     dead = tfa.dead_tiles(*lens, Tq, Tk, block_q, block_k, window=window, causal=True)
     mask = tfa.attention_mask(*lens, Tq, Tk, window=window, causal=True)
@@ -247,3 +256,21 @@ def test_dead_tiles_hold_no_allowed_pair(name):
     q_end = lens[2].long()[:, None, None] + torch.arange(nq)[None, :, None] * block_q + block_q - 1
     above = torch.arange(nk)[None, None, :] * block_k > q_end
     assert dead[above & ~live].all()
+
+
+@pytest.mark.parametrize("name", list(CASES) + list(TILE_CASES))
+def test_dead_tiles_hold_no_allowed_pair(name):
+    """A tile the backward kernels skip (32 q rows x 32 keys, the dq and
+    dk/dv kernels' tiles) holds no (q, k) pair that attention_mask allows;
+    and every empty tile above the diagonal (all keys past its last q row)
+    is skipped."""
+    _check_dead_tiles(name, tfa.BWD_TILE, tfa.BWD_TILE)
+
+
+@pytest.mark.parametrize("name", list(CASES) + list(TILE_CASES))
+@pytest.mark.parametrize("rows", [tfa.FWD_WARP_ROWS, tfa.FWD_ROWS])
+def test_fwd_dead_tiles_hold_no_allowed_pair(name, rows):
+    """The tensor-core forward's tiles: 32 keys against a warp's 16 q rows
+    (the warp skips such a tile) and against a block's 64 rows (the block
+    skips it)."""
+    _check_dead_tiles(name, rows, tfa.BWD_TILE)
