@@ -17,11 +17,16 @@
    the tensor-core kernel; 16- and 24-column groups checked untimed; each
    int4 call's kernel printed and held to its route, its fp32 output to
    plain within 5e-3 and its bf16 output within 2e-2), the bf16- and
-   int8-cache decode attention (also on a 4096-slot cache), norm_residual,
-   gelu_mul, the residual kernels (norm_residual folded into the next
+   int8-cache decode attention (also on a 4096-slot cache), norm_residual
+   (one row a block in registers, 1 and 16 rows, alone and after a copy of
+   h), gelu_mul, the residual kernels (norm_residual folded into the next
    RMSNorm matvec: int8, int4, int4-g128 at 1 and 4 rows, qkv and gate|up,
-   bf16 and fp32 out, timed beside the norm_residual + RMSNorm matvec pair
-   they replace), a 2-layer decode step, the flash kernels (the bf16
+   bf16 and fp32 out, timed beside the pair the step runs where they are
+   not taken: norm_residual writing the next norm's x', the plain matvec),
+   gate|up with gelu(gate) * up in its epilogue (the
+   residual kernel at 1 and 4 rows, the plain matvec at 16; the bits of
+   the gate|up kernel followed by gelu_mul, timed beside that pair), a
+   2-layer decode step, the flash kernels (the bf16
    forward and backward on their tensor-core routes, each call's route and
    grid printed, the forward's registers and spills, two launches
    bit-identical, and timed beside the FMA kernels they replace, with their
@@ -30,7 +35,10 @@
    M = 16, S = 332, per-row positions): {int8, int4, int4-g128, int8+mlp4}
    x {bf16, int8} KV cache, the fused step against the masked forward on the
    same tree (relative drift below 0.05 / 0.08); and the step of every
-   format at batch 1 (S = 289, bf16 cache).
+   format at batch 1 (S = 289, bf16 cache); each step's launches exact (131
+   at one row, 182 at 16: 5 a layer + 1, 7 a layer less 1). Then the path
+   that still launches gelu_mul: the 26-layer step with an int4 MLP in
+   24-column groups, which no gelu epilogue takes (refused_shape_step).
 4. Drives the serving path: SpatialVLAPolicy.predict on full-width
    spatialvla_4b() (SigLIP-so400m, ZoeDepth BEiT-L, Gemma2-2B with 26 layers)
    with random weights from a seed, after quantize(bits=8): first requests
@@ -38,7 +46,8 @@
    64-slot cache bucket; capture times printed), then three requests and
    one right-padded predict_batch of two rows through them. The kernels'
    launch counts over that run must all be positive and those of the decode
-   steps exact: per step 2 L - 1 residual kernels, one norm_residual. The
+   steps exact: per step 2 L - 1 residual kernels, L of them with gelu(gate)
+   * up in their epilogue (no gelu_mul), one norm_residual. The
    wrappers' counts are credited per graph replay, so each graph is replayed
    once under torch.profiler and the library's kernels in the trace, by
    wrapper, must equal its credits (also in (5) below). The
@@ -392,6 +401,107 @@ def rel_err(a, b):
 # kernel phases
 # ---------------------------------------------------------------------------
 
+def zero_counts(counters):
+    """Every launch count of these wrappers (``launches`` and, where a
+    wrapper has it, ``gelu_launches``) set to 0."""
+    for c in counters:
+        c.launches = 0
+        if hasattr(c, "gelu_launches"):
+            c.gelu_launches = 0
+
+
+def launch_counts(torch, fn) -> dict:
+    """The kernel launches that one call of ``fn`` makes, by wrapper (and
+    "wrapper.attr" for the counts of a kind of launch, as
+    GreedyLoop.credits names them); counts that did not move are left out."""
+    from spatialvla_tpu_torch.ops import _lib
+
+    before = {(f, a): getattr(f, a) for f, names in _lib.COUNTED for a in names}
+    fn()
+    torch.cuda.synchronize()
+    return {f.__name__ + ("" if a == "launches" else f".{a}"): getattr(f, a) - n
+            for (f, a), n in before.items() if getattr(f, a) != n}
+
+
+def check_step_launches(label, counts, M, L):
+    """The launches of one decode step of L layers at M rows whose weights
+    every route takes (aligned, per channel or in groups of a multiple of 16
+    columns): up to 4 rows 5 a layer and one at the end (the residual
+    kernels 2 L - 1 times, gate|up's with the gelu epilogue, one
+    norm_residual), above 4 rows 7 a layer less one (norm_residual with the
+    next norm's x' 2 L times, the plain matvec with the gelu epilogue for
+    gate|up); gelu_mul never."""
+    launches = {k: n for k, n in counts.items() if "." not in k}
+    gelu = sum(n for k, n in counts.items() if k.endswith(".gelu_launches"))
+    total, want = sum(launches.values()), (5 * L + 1 if M <= 4 else 7 * L)
+    n_norm = launches.get("norm_residual", 0)
+    print(f"{label}: {total} launches a step (want {want}), norm_residual {n_norm}, "
+          f"gelu epilogues {gelu}: {counts}", flush=True)
+    if (total != want or gelu != L or launches.get("gelu_mul", 0)
+            or n_norm != (1 if M <= 4 else 2 * L)):
+        fail(f"{label}: launches {counts}; want {want} in all, {L} gelu epilogues, no gelu_mul")
+
+
+def gelu_epilogue_phase(torch, timer, results, randn, qweight):
+    """The gate|up matvec (2304 -> 2 x 9216) with gelu(gate) * up in its
+    epilogue (gelu=True), int8, int4 per channel and in 128-column groups,
+    as the decode step runs it: the residual kernel at 1 and 4 rows, the
+    plain matvec on bf16 x' at 16 rows. It must give the bits of the pair
+    it replaces (the same kernel's bf16 gate | up, then gelu_mul), and hold
+    to the plain version (then gelu_mul_plain) within 1e-2 (int8) / 2e-2
+    (int4) of max|plain|. Timed beside the pair and plain; recorded under
+    the wrapper that launches it ("gelu_epilogue")."""
+    from spatialvla_tpu_torch.ops import decode_step as ds
+    from spatialvla_tpu_torch.ops import quant
+
+    K, I = 2304, 9216
+    for fmt, group in (("int8", None), ("int4", 0), ("int4-g128", 128)):
+        w = qweight(2 * I, K) if group is None else qweight(2 * I, K, 4, group or None)
+        qt, scale = w["qt"], w["scale"]
+        for kind, M in (("residual", 1), ("residual", 4), ("plain", 16)):
+            if kind == "plain":
+                x = randn(M, K)
+                name = "q8_matvec" if group is None else "q4_matvec"
+                call = lambda gelu, x=x: quant.matvec(x, qt, scale, gelu=gelu)  # noqa: E731
+                plain = lambda x=x: quant.matvec_plain(x, qt, scale, gelu=True)  # noqa: E731
+                nbytes = nbytes_of(x, qt, scale) + 2 * M * I
+            else:
+                h_in, upd = randn(M, K, dtype=torch.float32, std=8.0), randn(M, K)
+                post, nw = randn(K, std=0.1), randn(K, std=0.1)
+                h_out, h_ref = torch.empty_like(h_in), torch.empty_like(h_in)
+                name = ("q8_residual_rmsnorm_matvec" if group is None
+                        else "q4_residual_rmsnorm_matvec")
+                call = lambda gelu, a=(h_in, upd, post, nw), h_out=h_out: (  # noqa: E731
+                    quant.residual_rmsnorm_matvec(*a, qt, scale, h_out=h_out, gelu=gelu))
+                plain = lambda a=(h_in, upd, post, nw), h_ref=h_ref: (  # noqa: E731
+                    quant.residual_rmsnorm_matvec_plain(*a, qt, scale, h_out=h_ref, gelu=True))
+                nbytes = nbytes_of(h_in, upd, post, nw, qt, scale, h_out) + 2 * M * I
+            act = call(True)
+            pair_out = torch.empty_like(act)
+
+            def pair(call=call, pair_out=pair_out):
+                ds.gelu_mul(call(False), out=pair_out)
+            pair()
+            ref = plain()
+            d_pair, _ = rel_err(act, pair_out)
+            d, r = rel_err(act, ref)
+            ms, pair_ms, pms = timer(lambda call=call: call(True)), timer(pair), timer(plain)
+            gate_up_ms = timer(lambda call=call: call(False))
+            print(f"{name} gelu epilogue {fmt} M={M} {K}->2x{I}: max|d| against the pair "
+                  f"(gate|up kernel, gelu_mul) {d_pair:.3e}, against plain {d:.3e} (rel {r:.3e}); "
+                  f"kernel {ms:.4f} ms, pair {pair_ms:.4f} ms (gate|up alone {gate_up_ms:.4f}), "
+                  f"plain {pms:.4f} ms", flush=True)
+            if d_pair != 0.0:
+                fail(f"{name} gelu epilogue {fmt} M={M}: differs from the pair by {d_pair}")
+            if not r < (1e-2 if group is None else 2e-2):
+                fail(f"{name} gelu epilogue {fmt} M={M}: rel err {r} against plain")
+            shape = f"{fmt}_M{M}_{K}x2x{I}"
+            results[name].setdefault("gelu_epilogue", {})[shape] = {
+                "ms": ms, "pair_ms": pair_ms, "gate_up_ms": gate_up_ms, "plain_ms": pms,
+                "max_abs_err_vs_pair": d_pair, "max_abs_err_vs_plain": d,
+                "bound_ms": bound(nbytes, 2 * M * 2 * I * K)[0]}
+
+
 def kernel_phases(torch, timer, results, notes):
     from spatialvla_tpu_torch import Gemma2Config
     from spatialvla_tpu_torch.models import gemma2
@@ -592,7 +702,10 @@ def kernel_phases(torch, timer, results, notes):
     notes["decode_attention"] = notes["decode_attention_kv8"] = (
         "F.scaled_dot_product_attention has no logit softcap (Gemma2's tanh cap 50)")
 
-    # norm_residual (with the final norm, as on the last layer) and gelu_mul
+    # norm_residual with the next norm's x' (the final norm on the last
+    # layer; above 4 rows every residual update of the step): one row a
+    # block in registers. Timed alone, on an h that each run updates again,
+    # and with a copy of h0 in front of each run (as PRs 1-14 timed it)
     H, I = 2304, 9216
     for M in (1, 16):
         h0, upd = randn(M, H, dtype=torch.float32), randn(M, H)
@@ -603,19 +716,24 @@ def kernel_phases(torch, timer, results, notes):
             out = torch.empty(M, H, dtype=torch.bfloat16, device=dev)
             fn(h, upd, w, eps=1e-6, final_w=fw, final_out=out)
             hh = h0.clone()
-            t = timer(lambda fn=fn, hh=hh, out=out: (hh.copy_(h0), fn(
+            t = timer(lambda fn=fn, hh=hh, out=out: fn(hh, upd, w, eps=1e-6, final_w=fw,
+                                                     final_out=out))
+            t_copy = timer(lambda fn=fn, hh=hh, out=out: (hh.copy_(h0), fn(
                 hh, upd, w, eps=1e-6, final_w=fw, final_out=out)))
-            res[tag] = (h, out, t)
+            res[tag] = (h, out, t, t_copy)
         d1, r1 = rel_err(res["kernel"][0], res["plain"][0])
         d2, r2 = rel_err(res["kernel"][1], res["plain"][1])
         ms, pms = res["kernel"][2], res["plain"][2]
-        print(f"norm_residual M={M}: h max|d|={d1:.3e} out max|d|={d2:.3e} "
-              f"kernel {ms:.4f} ms plain {pms:.4f} ms (each incl. a {M}x{H} copy)", flush=True)
+        print(f"norm_residual M={M} H={H}: h max|d|={d1:.3e} out max|d|={d2:.3e} "
+              f"kernel {ms:.4f} ms plain {pms:.4f} ms; each with a {M}x{H} copy of h in "
+              f"front: kernel {res['kernel'][3]:.4f} ms plain {res['plain'][3]:.4f} ms",
+              flush=True)
         if not (r1 < 1e-2 and r2 < 1e-2):
             fail(f"norm_residual M={M}: rel {r1}, {r2}")
         # h read and written, upd, both norm weights, the final output
         record("norm_residual", f"M{M}_H{H}", max(d1, d2), ms, pms,
                nbytes_of(h0, h0, upd, w, fw, res["kernel"][1]), 12 * M * H)
+        results["norm_residual"].setdefault("with_copy_ms", {})[f"M{M}_H{H}"] = res["kernel"][3]
 
         gu = randn(M, 2 * I)
         ka = torch.empty(M, I, dtype=torch.bfloat16, device=dev)
@@ -639,10 +757,11 @@ def kernel_phases(torch, timer, results, notes):
     # 128-column groups. Held to
     # the plain version (norm_residual_plain then rmsnorm_matvec_plain): the
     # bf16 output within 1e-2 (int8) / 2e-2 (int4) of max|plain|, the fp32
-    # output within Q4_FP32_TOL, h_out within 1e-2. Timed beside the pair it
-    # replaces in the decode step (norm_residual + the RMSNorm matvec, both
-    # launches in the CUDA-graph timer) and beside the library's int8 / int4
-    # matmul alone on the plain normed x (not the same function)
+    # output within Q4_FP32_TOL, h_out within 1e-2. Timed beside the pair
+    # the step runs where it is not taken (norm_residual writing the next
+    # norm's x', then the plain matvec; both launches in the CUDA-graph
+    # timer) and beside the library's int8 / int4 matmul alone on the plain
+    # normed x (not the same function)
     for fmt, qkw in (("int8", None), ("int4", dict(group_size=None)),
                      ("int4-g128", dict(group_size=128))):
         name = "q8_residual_rmsnorm_matvec" if qkw is None else "q4_residual_rmsnorm_matvec"
@@ -668,14 +787,17 @@ def kernel_phases(torch, timer, results, notes):
                 y = quant.residual_rmsnorm_matvec(*args, h_out=h_out)
                 ms = timer(lambda: quant.residual_rmsnorm_matvec(*args, h_out=h_out))
                 pms = timer(lambda: quant.residual_rmsnorm_matvec_plain(*args, h_out=h_ref))
-                hh = h_in.clone()
-                pair = timer(lambda: (ds.norm_residual(hh, upd, post, eps=1e-6),
-                                      quant.rmsnorm_matvec(hh, nw, w["qt"], w["scale"])))
+                # the step's route where the fold is not taken (above 4 rows):
+                # norm_residual writes the next norm's x', the plain matvec reads it
+                hh, xn = h_in.clone(), torch.empty(M, K, dtype=torch.bfloat16, device=dev)
+                pair = timer(lambda: (
+                    ds.norm_residual(hh, upd, post, eps=1e-6, final_w=nw, final_out=xn),
+                    quant.matvec(xn, w["qt"], w["scale"])))
                 xl = quant._rms_bf16(h_ref, nw, 1e-6)
                 lib_fn = library_int8pack if qkw is None else library_int4pack
                 lib, note = lib_fn(torch, timer, xl, w["qt"], w["scale"])
                 print(f"{name} {fmt} M={M} {K}->{N}: max|d| {max(errs):.3e} kernel {ms:.4f} ms "
-                      f"(norm_residual + rmsnorm_matvec {pair:.4f} ms) plain {pms:.4f} ms "
+                      f"(norm_residual with x' + matvec {pair:.4f} ms) plain {pms:.4f} ms "
                       f"library matmul alone {lib} ms ({note})", flush=True)
                 shape = f"{fmt}_M{M}_{K}x{N}"
                 # h_in, upd and h_out (M x K f32 / bf16 / f32), the norm weights,
@@ -688,6 +810,8 @@ def kernel_phases(torch, timer, results, notes):
     for name in ("q8_residual_rmsnorm_matvec", "q4_residual_rmsnorm_matvec"):
         notes[name] = ("no single PyTorch call does the residual update, the RMSNorm and the "
                        "matmul (the log gives the library's matmul alone)")
+
+    gelu_epilogue_phase(torch, timer, results, randn, qweight)
 
     # the whole decode step on a 2-layer cross-section of the flagship width
     tcfg = Gemma2Config(vocab_size=2048, hidden_size=2304, intermediate_size=9216,
@@ -967,20 +1091,23 @@ def library_kernel_names() -> set:
     return {n for src in _lib.sources() for n in pattern.findall(src.read_text())}
 
 
-def decode_wrapper_of(kernel: str, targs: list):
-    """The wrapper that launches this kernel in a decode step (at M <= 16
-    each wrapper launches one kernel), from the kernel's name and template
-    arguments; None for a kernel that no decode step launches."""
-    if kernel == "qmatvec_kernel":  # <MR, kNorm, kInt4, kGrouped, kResid>
-        _, norm, int4, _, resid = targs
-        return ("q4" if int4 == "true" else "q8") + (
+def decode_wrapper_of(kernel: str, targs: list) -> list:
+    """The launch counts that this kernel's launch in a decode step adds one
+    to (at M <= 16 each wrapper launches one kernel): its wrapper's, and for
+    the gelu epilogue also "wrapper.gelu_launches", from the kernel's name
+    and template arguments; [] for a kernel that no decode step launches."""
+    if kernel == "qmatvec_kernel":  # <MR, kNorm, kInt4, kGrouped, kResid, kGelu>
+        _, norm, int4, _, resid, gelu = targs
+        wrapper = ("q4" if int4 == "true" else "q8") + (
             "_residual_rmsnorm_matvec" if resid == "true"
             else "_rmsnorm_matvec" if norm == "true" else "_matvec")
+        return [wrapper] + ([wrapper + ".gelu_launches"] if gelu == "true" else [])
     if kernel == "q4_small_kernel":  # <kNorm>
-        return "q4_rmsnorm_matvec" if targs[0] == "true" else "q4_matvec"
+        return ["q4_rmsnorm_matvec" if targs[0] == "true" else "q4_matvec"]
     if kernel == "decode_attention_kernel":  # <KV, GM>
-        return "decode_attention_kv8" if "char" in targs[0] else "decode_attention"
-    return {"norm_residual_kernel": "norm_residual", "gelu_mul_kernel": "gelu_mul"}.get(kernel)
+        return ["decode_attention_kv8" if "char" in targs[0] else "decode_attention"]
+    return {"norm_residual_kernel": ["norm_residual"],
+            "gelu_mul_kernel": ["gelu_mul"]}.get(kernel, [])
 
 
 def graph_launches(torch, policy, label) -> list:
@@ -1017,10 +1144,10 @@ def graph_launches(torch, policy, label) -> list:
             if base not in names:
                 continue  # a torch kernel (embedding, argmax, the cache writes)
             targs = re.search(re.escape(base) + r"<([^<>]*)>", name)
-            wrapper = decode_wrapper_of(base, targs.group(1).split(", ") if targs else [])
-            if wrapper is None:
+            counts = decode_wrapper_of(base, targs.group(1).split(", ") if targs else [])
+            if not counts:
                 fail(f"{label}: kernel {name[:120]} in a decode graph is no decode wrapper's")
-            measured[wrapper] += 1
+            measured.update(counts)
         shape = f"B={key[0]} S={key[1]} n={key[2]} kv_bits={key[3]}"
         print(f"{label} decode graph {shape}: one replay traced, {len(kernels)} kernels; "
               f"library kernels by wrapper {dict(measured)}, credited {credited}", flush=True)
@@ -1148,6 +1275,8 @@ def step_phase(torch, timer, lm, tcfg, x, ck, cv, pos, label, per_layer=False):
 
     step = lambda: ds.fused_decode_step(lm, tcfg, x, ck, cv, pos, pos + 1)  # noqa: E731
     plain = lambda: ds.fused_decode_step_plain(lm, tcfg, x, ck, cv, pos, pos + 1)  # noqa: E731
+    counts = launch_counts(torch, step)
+    check_step_launches(f"decode step {label}", counts, x.shape[0], tcfg.num_layers)
     _, drift = rel_err(step()[0], plain()[0])
     t_graph, t_eager = timer(step), timer.eager(step)
     t_plain = Timer(torch, n=5)(plain)
@@ -1186,7 +1315,7 @@ def step_phase(torch, timer, lm, tcfg, x, ck, cv, pos, label, per_layer=False):
         fail(f"decode step {label}: a layer alone drifts {worst} >= 0.02 from plain")
     return {"graph_ms": t_graph, "eager_ms": t_eager, "host_enqueue_ms": enqueue,
             "plain_ms": t_plain, "bound_ms": bound_ms, "rel_drift": drift,
-            "layer_drift": layer_drift}
+            "layer_drift": layer_drift, "launches": counts}
 
 
 def main_path(torch, timer, counters):
@@ -1225,8 +1354,7 @@ def main_path(torch, timer, counters):
     print(f"main path: first requests (3 instructions, 2 padded rows) with their captures "
           f"{(time.perf_counter() - t0) * 1e3:.1f} ms; {len(policy.decode_graphs)} graphs, "
           f"capture ms {capture_ms(policy)}", flush=True)
-    for c in counters:
-        c.launches = 0
+    zero_counts(counters)
     torch.cuda.reset_peak_memory_stats()
     outs = []
     for img, instr in zip(images, instructions):
@@ -1237,8 +1365,10 @@ def main_path(torch, timer, counters):
     batch = policy.predict_batch(images[:2], batch_texts)
     torch.cuda.synchronize()
     launches = {c.__name__: c.launches for c in counters}
+    gelu_launches = {c.__name__: c.gelu_launches for c in counters if hasattr(c, "gelu_launches")}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    print(f"main path launches: {launches}", flush=True)
+    print(f"main path launches: {launches}; of them with the gelu epilogue {gelu_launches}",
+          flush=True)
 
     for o in outs:
         a, ids = np.asarray(o["actions"]), np.asarray(o["action_ids"])
@@ -1256,14 +1386,16 @@ def main_path(torch, timer, counters):
         if n <= 0:
             fail(f"kernel {name} was not launched on the main path")
     # 4 decode loops of 11 steps (3 requests, one 2-row batch): each step
-    # folds 2 L - 1 residual updates into the RMSNorm matvecs, keeps layer
-    # 0's input norm and one norm_residual (the last layer's, with the final
-    # norm), and runs the attention once a layer
+    # folds 2 L - 1 residual updates into the RMSNorm matvecs, gate|up's with
+    # gelu(gate) * up in its epilogue (no gelu_mul: refused_shape_step
+    # launches it), keeps layer 0's input norm and one norm_residual (the last
+    # layer's, with the final norm), and runs the attention once a layer
     want = {"q8_residual_rmsnorm_matvec": 4 * steps * (2 * L - 1), "norm_residual": 4 * steps,
-            "q8_rmsnorm_matvec": 4 * steps, "decode_attention": 4 * steps * L,
-            "gelu_mul": 4 * steps * L}
-    if any(launches[k] != v for k, v in want.items()):
-        fail(f"main path launches {launches}, want {want}")
+            "q8_rmsnorm_matvec": 4 * steps, "decode_attention": 4 * steps * L}
+    if (any(launches[k] != v for k, v in want.items())
+            or gelu_launches != {"q8_matvec": 0, "q8_residual_rmsnorm_matvec": 4 * steps * L}):
+        fail(f"main path launches {launches}, gelu epilogues {gelu_launches}, want {want} and "
+             f"{4 * steps * L} gelu epilogues of q8_residual_rmsnorm_matvec")
     # the decode loops' counts were credited per replay: each graph's are held
     # to the kernels of a traced replay
     graph_checks = graph_launches(torch, policy, "main path")
@@ -1420,6 +1552,7 @@ def main_path(torch, timer, counters):
         "quantize_s": t_quant,
         "peak_mem_gib": peak_gib,
         "launches": launches,
+        "gelu_launches": gelu_launches,
         "flash_prefill_launches": flash_prefill_launches,
     }
 
@@ -1447,7 +1580,9 @@ def decode_step_matrix(torch):
     tree and the bf16 cache; relative drift max|h_fused - h_masked| /
     max|h_masked| below DRIFT_BOUND. Also the device time of each step, and
     for every format the step at batch 1 (row 0 at position 277 of a
-    289-slot bf16 cache, the serving path's request), held the same way."""
+    289-slot bf16 cache, the serving path's request), held the same way;
+    each step's launches are held to check_step_launches (131 at one row,
+    182 at 16)."""
     from spatialvla_tpu_torch import spatialvla_4b
     from spatialvla_tpu_torch.models import gemma2
     from spatialvla_tpu_torch.ops import decode_step as ds
@@ -1489,6 +1624,7 @@ def decode_step_matrix(torch):
                                           "v": cv1.permute(0, 1, 3, 2, 4).contiguous()},
                                    cache_position=S1 - 1)
             step = lambda: ds.fused_decode_step(qp, tcfg, x[:1], ck1, cv1, pos1, pos1 + 1)  # noqa: E731
+            check_step_launches(f"decode step {name} M=1", launch_counts(torch, step), 1, L)
             hf = step()[0].float()
             hx = hx[:, 0].float()
             drift = ((hf - hx).abs().max() / (hx.abs().max() + 1e-6)).item()
@@ -1506,6 +1642,8 @@ def decode_step_matrix(torch):
             del ref_cache
             for kv_name, (kc, vc, kw) in caches.items():
                 step = lambda: ds.fused_decode_step(qp, tcfg, x, kc, vc, pos, pos + 1, **kw)  # noqa: E731
+                check_step_launches(f"decode-step matrix {name}+{kv_name}",
+                                    launch_counts(torch, step), M, L)
                 hf = step()[0].float()
                 drift = ((hf - hx).abs().max() / (hx.abs().max() + 1e-6)).item()
                 ms = timer(step)
@@ -1518,6 +1656,61 @@ def decode_step_matrix(torch):
             del qp
     torch.cuda.empty_cache()
     return out
+
+
+def refused_shape_step(torch, timer, counters):
+    """The path that still launches gelu_mul: the 26-layer decode step of
+    spatialvla_4b's LM (random weights from a seed, a 2048-row vocabulary)
+    after quantize_lm_params(bits=8, mlp_bits=4, group_size=24), int8
+    attention and an int4 MLP in 24-column groups, at one row (position 277
+    of a 289-slot bf16 cache). 24 is not a multiple of 16, so neither the
+    residual kernels nor the gelu epilogue take the MLP's weights: each
+    layer runs norm_residual with the pre-FFN norm's x', gate|up on
+    q4_small_kernel into gate | up, gelu_mul, and down. The counts are set
+    to 0 just before the step and read just after: L gelu_mul launches, L +
+    1 norm_residual, 2 L q4_matvec, L - 1 residual kernels for qkv, no gelu
+    epilogue, 7 L + 1 in all; the hidden state within 0.02 of the plain
+    step's (relative to its max); timed as a CUDA graph."""
+    from spatialvla_tpu_torch import spatialvla_4b
+    from spatialvla_tpu_torch.models import gemma2
+    from spatialvla_tpu_torch.ops import decode_step as ds
+    from spatialvla_tpu_torch.ops import quant
+
+    tcfg = dataclasses.replace(spatialvla_4b().text, vocab_size=2048)
+    L, H, Nkv, D = tcfg.num_layers, tcfg.hidden_size, tcfg.num_kv_heads, tcfg.head_dim
+    S, pos = 289, torch.tensor([277], dtype=torch.int32, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(17)
+    with torch.inference_mode():
+        base = gemma2.init_params(tcfg, generator=g, device="cuda", dtype=torch.bfloat16)
+        for k in ("input_norm", "post_attn_norm", "pre_ffn_norm", "post_ffn_norm"):
+            base["layers"][k] = (torch.randn(L, H, generator=g, device="cuda") * 0.1).to(
+                torch.bfloat16)
+        qp = quant.quantize_lm_params(base, bits=8, mlp_bits=4, group_size=24)
+        del base
+        ck, cv = ((torch.randn(L, 1, Nkv, S, D, generator=g, device="cuda") * 0.3)
+                  .to(torch.bfloat16) for _ in range(2))
+        x = (torch.randn(1, H, generator=g, device="cuda") * 0.3 * H ** 0.5).to(torch.bfloat16)
+        step = lambda: ds.fused_decode_step(qp, tcfg, x, ck, cv, pos, pos + 1)  # noqa: E731
+        zero_counts(counters)
+        hk = step()[0]
+        torch.cuda.synchronize()
+        launches = {c.__name__: c.launches for c in counters}
+        gelu = sum(getattr(c, "gelu_launches", 0) for c in counters)
+        hp = ds.fused_decode_step_plain(qp, tcfg, x, ck, cv, pos, pos + 1)[0]
+        _, drift = rel_err(hk, hp)
+        ms = timer(step)
+    want = {"gelu_mul": L, "norm_residual": L + 1, "q4_matvec": 2 * L,
+            "q8_residual_rmsnorm_matvec": L - 1, "q8_rmsnorm_matvec": 1, "q8_matvec": L,
+            "decode_attention": L}
+    print(f"refused-shape decode step (int8 + int4 MLP in 24-column groups, 26 layers, M=1, "
+          f"S={S}): launches {launches}, gelu epilogues {gelu}; rel drift {drift:.4e} (bound "
+          f"0.02); CUDA graph {ms:.3f} ms", flush=True)
+    if any(launches.get(k, 0) != v for k, v in want.items()) or gelu or sum(
+            launches.values()) != 7 * L + 1:
+        fail(f"refused-shape decode step: launches {launches}, {gelu} gelu epilogues; want {want}")
+    if not drift < 0.02:
+        fail(f"refused-shape decode step: drift {drift} >= 0.02 from plain")
+    return {"launches": launches, "rel_drift": drift, "graph_ms": ms}
 
 
 # the references a configuration's ids are held to: (label, predict_action
@@ -1540,18 +1733,8 @@ def plain_q4(torch):
     from spatialvla_tpu_torch.ops import quant
 
     saved = quant.q4_matvec, quant.q4_rmsnorm_matvec, quant.q4_residual_rmsnorm_matvec
-
-    def q4_matvec(x, qt, scale, *, out_dtype=torch.bfloat16, out=None):
-        y = quant.q4_matvec_plain(x, qt, scale, out_dtype=out_dtype)
-        return y if out is None else out.copy_(y)
-
-    def q4_rmsnorm_matvec(x, norm_w, qt, scale, *, eps=1e-6, out_dtype=torch.bfloat16, out=None):
-        y = quant.q4_rmsnorm_matvec_plain(x, norm_w, qt, scale, eps=eps, out_dtype=out_dtype)
-        return y if out is None else out.copy_(y)
-
-    (quant.q4_matvec, quant.q4_rmsnorm_matvec,
-     quant.q4_residual_rmsnorm_matvec) = q4_matvec, q4_rmsnorm_matvec, \
-        quant.residual_rmsnorm_matvec_plain
+    (quant.q4_matvec, quant.q4_rmsnorm_matvec, quant.q4_residual_rmsnorm_matvec) = (
+        quant.matvec_plain, quant.rmsnorm_matvec_plain, quant.residual_rmsnorm_matvec_plain)
     try:
         yield
     finally:
@@ -1567,9 +1750,9 @@ def fma_tiles(torch):
 
     saved = quant.q4_matvec, quant.q4_rmsnorm_matvec
 
-    def q4_matvec(x, qt, scale, *, out_dtype=torch.bfloat16, out=None):
-        if quant.q4_route(x, qt, scale) != "tiled":
-            return saved[0](x, qt, scale, out_dtype=out_dtype, out=out)
+    def q4_matvec(x, qt, scale, *, out_dtype=torch.bfloat16, out=None, gelu=False):
+        if gelu or quant.q4_route(x, qt, scale) != "tiled":  # the gelu epilogue is not tiled
+            return saved[0](x, qt, scale, out_dtype=out_dtype, out=out, gelu=gelu)
         y = q4_tiled_fma(torch, x, None, qt, scale, out_dtype=out_dtype)
         return y if out is None else out.copy_(y)
 
@@ -1640,12 +1823,13 @@ def serving_configs(torch, counters):
             policy.predict(img, instr)
         torch.cuda.synchronize()
         t_first = (time.perf_counter() - t0) * 1e3
-        for c in counters:
-            c.launches = 0
+        zero_counts(counters)
         quant.q4_matvec.tiled_launches = quant.q4_rmsnorm_matvec.tiled_launches = 0
         first = policy.predict(images[0], instructions[0])  # counted alone
         torch.cuda.synchronize()
         per_request = {c.__name__: c.launches for c in counters}
+        gelu_per_request = {c.__name__: c.gelu_launches for c in counters
+                            if hasattr(c, "gelu_launches")}
         tiled = quant.q4_matvec.tiled_launches + quant.q4_rmsnorm_matvec.tiled_launches
         warm_runs, timed_outs = warm_medians(torch, policy,
                                              [(images[i % 3], instructions[i % 3])
@@ -1671,7 +1855,8 @@ def serving_configs(torch, counters):
               f"{[round(t, 2) for t in times]} through the decode graph, "
               f"{warm_runs['eager'][0]:.2f} ms with use_cuda_graph=False; decode loop "
               f"{warm_runs['graph'][2]:.3f} / {warm_runs['eager'][2]:.3f} ms; peak {peak:.2f} GiB; "
-              f"launches per request {per_request} | {card_line()}", flush=True)
+              f"launches per request {per_request}, of them with the gelu epilogue "
+              f"{gelu_per_request} | {card_line()}", flush=True)
 
         for o in outs:
             a = np.asarray(o["actions"])
@@ -1687,19 +1872,23 @@ def serving_configs(torch, counters):
         qkv4 = qkw.get("mlp_bits") != 4
         want = {"q4_rmsnorm_matvec": (1 + qkv4) * L + qkv4 * steps,
                 "q4_residual_rmsnorm_matvec": (L + qkv4 * (L - 1)) * steps,
-                "norm_residual": steps}
+                "norm_residual": steps, "gelu_mul": 0}
         if qkw.get("kv_bits"):
             want.update(decode_attention_kv8=L * steps, decode_attention=0)
         if not qkv4:
             want.update(q8_rmsnorm_matvec=steps, q8_residual_rmsnorm_matvec=(L - 1) * steps)
         ran = ["q4_matvec", "q4_rmsnorm_matvec", "q4_residual_rmsnorm_matvec", "norm_residual",
-               "gelu_mul", "decode_attention_kv8" if qkw.get("kv_bits") else "decode_attention"]
+               "decode_attention_kv8" if qkw.get("kv_bits") else "decode_attention"]
         if qkw.get("bits") == 8:
             ran += ["q8_matvec", "q8_rmsnorm_matvec", "q8_residual_rmsnorm_matvec"]
-        if any(per_request[k] != v for k, v in want.items()) or any(per_request[k] <= 0
-                                                                     for k in ran):
-            fail(f"serving {name}: launches per request {per_request}, want {want} and "
-                 f"every one of {ran} launched")
+        # gate|up (int4 in every configuration) with gelu(gate) * up in the
+        # residual kernel's epilogue in every decode step, never in the prefill
+        want_gelu = {k: (L * steps if k == "q4_residual_rmsnorm_matvec" else 0)
+                     for k in gelu_per_request}
+        if (any(per_request[k] != v for k, v in want.items())
+                or any(per_request[k] <= 0 for k in ran) or gelu_per_request != want_gelu):
+            fail(f"serving {name}: launches per request {per_request}, gelu epilogues "
+                 f"{gelu_per_request}; want {want}, {want_gelu} and every one of {ran} launched")
         # the tensor-core route in one request: the int4 projections of the
         # 277-row prefill (4 a layer, 2 with mlp_bits=4), and with
         # vision_bits=4 SigLIP's six a layer at 256 rows and the projector
@@ -1766,6 +1955,7 @@ def serving_configs(torch, counters):
                      "capture_ms": capture_ms(policy), "graph_launches": checks,
                      "actions_per_s": 4 / (warm / 1e3),
                      "peak_mem_gib": peak, "launches_per_request": per_request,
+                     "gelu_launches_per_request": gelu_per_request,
                      "launches": launches, "tiled_launches_per_request": tiled,
                      "tiled_launches": tiled_run, **stages, "stage_runs_ms": runs}
         del policy, first, outs, batch
@@ -2009,9 +2199,12 @@ def main() -> int:
                         quant.q4_rmsnorm_matvec, quant.q4_residual_rmsnorm_matvec,
                         ds.decode_attention, ds.decode_attention_kv8, ds.norm_residual,
                         ds.gelu_mul]
+    # the int8 main path launches no gelu_mul (gate|up's epilogue does its
+    # work); the refused-shape step (int4 in 24-column groups) does
+    refused = refused_shape_step(torch, timer, serving_counters)
     path = main_path(torch, timer, [quant.q8_matvec, quant.q8_rmsnorm_matvec,
                                     quant.q8_residual_rmsnorm_matvec, ds.decode_attention,
-                                    ds.norm_residual, ds.gelu_mul])
+                                    ds.norm_residual])
     print(f"main path: warm predict median {path['warm_predict_ms_median']:.2f} ms "
           f"({path['actions_per_s']:.2f} actions/s) through the decode graph, "
           f"{path['warm_predict_eager_ms_median']:.2f} ms eager, "
@@ -2027,17 +2220,23 @@ def main() -> int:
           f"{train['tokens_per_s']:.1f} tokens/s, peak {train['peak_mem_gib']:.2f} GiB | {card}",
           flush=True)
     print("detail: " + json.dumps({"build_s": build_s, "decode_step_2_layers": steps,
-                                   "decode_step_matrix": matrix, "main_path": path,
+                                   "decode_step_matrix": matrix, "refused_shape_step": refused,
+                                   "main_path": path,
                                    "serving_configs": serving, "train_path": train,
                                    "tiny_overfit": overfit, "kernel_times": results,
                                    "card": card}), flush=True)
 
     # launches on each kernel's path: the int8 serving path (q8, bf16-cache
-    # attention, norm_residual, gelu_mul), the serving configurations (q4,
-    # int8-cache attention), the training path (flash)
+    # attention, norm_residual), the refused-shape decode step (gelu_mul),
+    # the serving configurations (q4, int8-cache attention), the training
+    # path (flash)
     def launches(name, tiled=False):
         if name.startswith("flash"):
             return train["launches"][name], "train_path (5 steps)"
+        if name == "gelu_mul":
+            return (refused["launches"][name],
+                    "refused_shape_step (one 26-layer step, int8 + int4 MLP in 24-column groups: "
+                    "the gate|up kernel takes no gelu epilogue there)")
         if name.startswith("q4") or name.endswith("kv8"):
             key = "tiled_launches" if tiled else "launches"
             return (sum(c[key][name] for c in serving.values()),
@@ -2085,6 +2284,10 @@ def main() -> int:
         if "residual_rmsnorm" in name:  # what one launch replaces, and the library's matmul
             extra = {"pair_ms": r["pair_ms"][first],
                      "library_matmul_alone_ms": r["library_matmul_alone_ms"][first]}
+        if "gelu_epilogue" in r and not tiled:  # gate|up with gelu(gate) * up, beside its pair
+            extra["gelu_epilogue"] = r["gelu_epilogue"]
+        if "with_copy_ms" in r:
+            extra["with_copy_ms"] = r["with_copy_ms"]
         if "fma_ms" in r:  # the flash kernels: the CUDA route, the FMA kernels' time
             extra = {"cuda_route": r["cuda_route"], "fma_ms": r["fma_ms"][first],
                      "other_shapes": {

@@ -64,18 +64,20 @@ FORMATS = {
 
 def register_report(log: Path) -> list:
     """(instance, registers, spill stores, spill loads) of each
-    qmatvec_kernel<MR, kNorm, kInt4, kGrouped, kResid> in nvcc's -Xptxas -v
-    output ("resid": the residual instances)."""
+    qmatvec_kernel<MR, kNorm, kInt4, kGrouped, kResid, kGelu> in nvcc's
+    -Xptxas -v output ("resid": the residual instances, "gelu": the gelu
+    epilogue's)."""
     rows, current = [], None
     for line in log.read_text().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"qmatvec_kernelILi(\d+)ELb([01])ELb([01])ELb([01])E(?:Lb([01])E)?",
-                          m.group(1))
+            k = re.search(r"qmatvec_kernelILi(\d+)ELb([01])ELb([01])ELb([01])E"
+                          r"(?:Lb([01])E)?(?:Lb([01])E)?", m.group(1))
             fmt = None if not k else ("int8" if k.group(3) == "0" else
                                       "int4-grouped" if k.group(4) == "1" else "int4")
             current = (f"{fmt} MR={k.group(1)} norm={k.group(2)}"
-                       + (" resid" if k.group(5) == "1" else "") if k else None)
+                       + (" resid" if k.group(5) == "1" else "")
+                       + (" gelu" if k.group(6) == "1" else "") if k else None)
             spills = None
             continue
         if current is None:

@@ -2,6 +2,7 @@
 """Where one decode step's device time goes, kernel by kernel, on an NVIDIA GPU.
 
     python3 scripts/profile_decode_step.py [--root DIR] [--rows M] [--formats int8,int4]
+        [--residual-max-m R]
 
 Builds the 26 Gemma2-2B layers of spatialvla_4b (random weights from a
 seed, a 2048-row vocabulary) in each weight format, captures one
@@ -12,7 +13,10 @@ every kernel of one replay, summed by kernel name from the chrome trace
 the launches. ``--root`` imports ``spatialvla_tpu_torch`` from another
 checkout (a parent commit unpacked with ``git archive``), so that two
 versions can be traced in one call. Writes the traces under
-``chiprun_out/profile_decode_step/``.
+``chiprun_out/profile_decode_step/``. ``--residual-max-m`` sets
+``quant.RESIDUAL_MAX_M`` for the run (0: no residual kernel, every
+residual update by ``norm_residual`` with the next norm's x' and the plain
+matvec), to trace the step's two routes side by side.
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ def main() -> int:
     ap.add_argument("--rows", type=int, default=1)
     ap.add_argument("--formats", default="int8")
     ap.add_argument("--tag", default="")
+    ap.add_argument("--residual-max-m", type=int, default=None)
     args = ap.parse_args()
     sys.path.insert(0, args.root)
     import torch
@@ -44,6 +49,9 @@ def main() -> int:
     from spatialvla_tpu_torch.models import gemma2
     from spatialvla_tpu_torch.ops import decode_step as ds
     from spatialvla_tpu_torch.ops import quant
+
+    if args.residual_max_m is not None:
+        quant.RESIDUAL_MAX_M = args.residual_max_m
 
     card = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()

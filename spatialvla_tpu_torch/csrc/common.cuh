@@ -20,6 +20,15 @@ __device__ __forceinline__ float bf16r(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
+// bf16(gelu_tanh(g)) * u for bf16-exact gate and up values, not yet rounded
+// to the output (decode_step.py:345-355): the arithmetic of gelu_mul_kernel
+// (decode.cu) and of the gate|up matvec's gelu epilogue (q8_matvec.cu), one
+// copy so that the two give the same bits
+__device__ __forceinline__ float gelu_mul_value(float g, float u) {
+  const float inner = __fmul_rn(0.7978845608028654f, __fadd_rn(g, __fmul_rn(0.044715f, g * g * g)));
+  return bf16r(g * (0.5f * (1.f + tanhf(inner)))) * u;
+}
+
 __device__ __forceinline__ float load_any(const void* p, int dtype, long i) {
   return dtype == DT_F32 ? reinterpret_cast<const float*>(p)[i]
                          : __bfloat162float(reinterpret_cast<const bf16*>(p)[i]);

@@ -484,52 +484,111 @@ __global__ void __launch_bounds__(kAttnThreads) decode_attention_kernel(
   }
 }
 
-// h = bf16(bf16(h) + bf16(rms(upd) * (1 + w))) in place, one block per row;
-// with `final_w` also out = bf16(rms(h) * (1 + final_w)) (the final norm).
-// Bound by the few KB of its row; it exists to keep the residual stream
-// on the card between the matvecs.
-__global__ void norm_residual_kernel(float* __restrict__ h, const bf16* __restrict__ upd,
-                                     const void* __restrict__ w, int w_dtype,
-                                     const void* __restrict__ final_w, int final_dtype,
-                                     bf16* __restrict__ out, int H, float eps) {
-  __shared__ float red[32];
-  const int m = blockIdx.x;
-  float* hr = h + (long)m * H;
-  const bf16* ur = upd + (long)m * H;
-  float ss = 0.f;
-  for (int k = threadIdx.x; k < H; k += blockDim.x) {
-    const float u = __bfloat162float(ur[k]);
-    ss += u * u;
-  }
-  const float r = rsqrtf(block_sum(ss, red) / static_cast<float>(H) + eps);
-  float ss2 = 0.f;
-  for (int k = threadIdx.x; k < H; k += blockDim.x) {
-    const float u = __bfloat162float(ur[k]);
-    const float up = bf16r((u * r) * (1.f + load_any(w, w_dtype, k)));
-    const float hn = bf16r(bf16r(hr[k]) + up);
-    hr[k] = hn;
-    ss2 += hn * hn;
-  }
-  if (final_w != nullptr) {
-    const float r2 = rsqrtf(block_sum(ss2, red) / static_cast<float>(H) + eps);
-    for (int k = threadIdx.x; k < H; k += blockDim.x) {
-      out[(long)m * H + k] =
-          __float2bfloat16((hr[k] * r2) * (1.f + load_any(final_w, final_dtype, k)));
+// norm_residual: h = bf16(bf16(h) + bf16(rms(upd) * (1 + w))) in place; with
+// `final_w` also out = bf16(rms(h) * (1 + final_w)), the next norm's x' (the
+// final norm, or above 4 rows the input of the plain matvec that follows:
+// ops/decode_step.py). The residual phases of the Pallas decode kernel
+// (decode_step.py:_post_attn, _post_ffn, :335-340, 364) with their rounding
+// points.
+//
+// What bounds it: one launch and the latency of its row, not its bytes (14
+// KB a row at H = 2304, 0.004 us at 3.35 TB/s). So every value is loaded
+// once, in one round: a block a row, thread t holds columns [8t, 8t + 8) in
+// registers (upd by one 16-byte load, h by two, each norm weight by one or
+// two), and the two sums of squares are warp shuffles and one round through
+// shared memory each, added in warp order (the same on every launch). h' is
+// written once and the normed output computed from registers. One chunk of 8
+// columns a thread: H a multiple of 8 up to 8 * kNormMaxThreads = 8192
+// (Gemma2's 2304, 3584 and 4608 take 288, 448 and 576 threads); the entry
+// point refuses other widths.
+constexpr int kNormMaxThreads = 1024;
+
+// 8 consecutive values from `off` (16-byte aligned), f32 or bf16
+__device__ __forceinline__ void load8(const void* p, int dtype, long off, float (&v)[8]) {
+  if (dtype == DT_F32) {
+    const float4* q = reinterpret_cast<const float4*>(reinterpret_cast<const float*>(p) + off);
+    const float4 a = __ldg(q), b = __ldg(q + 1);
+    v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+  } else {
+    const uint4 u = __ldg(reinterpret_cast<const uint4*>(reinterpret_cast<const bf16*>(p) + off));
+    const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {  // little endian: element 2j is the low half
+      v[2 * j] = __uint_as_float(w[j] << 16);
+      v[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
     }
   }
 }
 
+__global__ void __launch_bounds__(kNormMaxThreads)
+norm_residual_kernel(float* __restrict__ h, const bf16* __restrict__ upd,
+                     const void* __restrict__ w, int w_dtype, const void* __restrict__ final_w,
+                     int final_dtype, bf16* __restrict__ out, int H, float eps) {
+  __shared__ float red[2][kNormMaxThreads / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const long row = static_cast<long>(blockIdx.x) * H, col = 8L * threadIdx.x;
+  const bool live = col < H;  // the last warp's lanes past H hold nothing
+  float4* hr = reinterpret_cast<float4*>(h + row + col);
+  float u[8], hv[8], wv[8], fv[8];
+  float ss = 0.f;
+  if (live) {  // every load of the launch, issued together
+    load8(upd, DT_BF16, row + col, u);
+    const float4 a = hr[0], b = hr[1];  // h is written below: no read-only path
+    hv[0] = a.x, hv[1] = a.y, hv[2] = a.z, hv[3] = a.w;
+    hv[4] = b.x, hv[5] = b.y, hv[6] = b.z, hv[7] = b.w;
+    load8(w, w_dtype, col, wv);
+    if (final_w != nullptr) load8(final_w, final_dtype, col, fv);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) ss += u[j] * u[j];
+  }
+  // the block's sum of v, the same on every thread: warp shuffles, then the
+  // warps' sums in warp order
+  const auto block_total = [&](float v, float* r) {
+    v = warp_sum(v);
+    if (lane == 0) r[warp] = v;
+    __syncthreads();
+    float s = 0.f;
+    for (int i = 0; i < nwarps; ++i) s += r[i];
+    return s;
+  };
+  const float ru = rsqrtf(block_total(ss, red[0]) / static_cast<float>(H) + eps);
+  float ss2 = 0.f;
+  if (live) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      hv[j] = bf16r(bf16r(hv[j]) + bf16r((u[j] * ru) * (1.f + wv[j])));
+      ss2 += hv[j] * hv[j];
+    }
+    hr[0] = make_float4(hv[0], hv[1], hv[2], hv[3]);
+    hr[1] = make_float4(hv[4], hv[5], hv[6], hv[7]);
+  }
+  if (final_w == nullptr) return;  // the same for the whole block
+  const float rh = rsqrtf(block_total(ss2, red[1]) / static_cast<float>(H) + eps);
+  if (live) {
+    float o[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) o[j] = (hv[j] * rh) * (1.f + fv[j]);
+    unsigned p[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {  // element 2j in the low half
+      const __nv_bfloat162 b2 = __floats2bfloat162_rn(o[2 * j], o[2 * j + 1]);
+      p[j] = *reinterpret_cast<const unsigned*>(&b2);
+    }
+    *reinterpret_cast<uint4*>(out + row + col) = make_uint4(p[0], p[1], p[2], p[3]);
+  }
+}
+
 // act = bf16(bf16(gelu_tanh(gate)) * up) from the fused (M, 2I) gate|up output.
-// Elementwise and bound by its 3 * M * I * 2 bytes.
+// Elementwise and bound by its 3 * M * I * 2 bytes. The decode step launches
+// it only where the gate|up matvec's kernel refuses the weight
+// (quant.gelu_route); elsewhere that kernel's epilogue computes the same bits
+// (q8_matvec.cu, kGelu).
 __global__ void gelu_mul_kernel(const bf16* __restrict__ gu, bf16* __restrict__ act, int M, int I) {
   const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (long)M * I) return;
   const long m = i / I, j = i % I;
-  const float g = __bfloat162float(gu[m * 2 * I + j]);
-  const float u = __bfloat162float(gu[m * 2 * I + I + j]);
-  const float inner = __fmul_rn(0.7978845608028654f, __fadd_rn(g, __fmul_rn(0.044715f, g * g * g)));
-  const float a = bf16r(g * (0.5f * (1.f + tanhf(inner))));
-  act[i] = __float2bfloat16(a * u);
+  act[i] = __float2bfloat16(gelu_mul_value(__bfloat162float(gu[m * 2 * I + j]),
+                                           __bfloat162float(gu[m * 2 * I + I + j])));
 }
 
 template <typename KV, int GM>
@@ -604,11 +663,17 @@ extern "C" int decode_attention_kv8(const void* qkv, const float* cos_t, const f
                                   stream);
 }
 
+// h, upd, w, final_w and out 16-byte aligned, H a multiple of 8 up to 8192
+// (norm_residual_kernel holds a row in registers, 8 columns a thread)
 extern "C" int norm_residual(float* h, const void* upd, const void* w, int w_dtype,
                              const void* final_w, int final_dtype, void* out, int M, int H,
                              float eps, void* stream) {
-  if (M < 1 || H < 1) return cudaErrorInvalidValue;
-  norm_residual_kernel<<<M, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+  const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
+  if (M < 1 || H < 8 || H % 8 != 0 || H > 8 * kNormMaxThreads || misaligned(h) ||
+      misaligned(upd) || misaligned(w) || (final_w && (misaligned(final_w) || misaligned(out))))
+    return cudaErrorInvalidValue;
+  const int threads = (H / 8 + 31) / 32 * 32;
+  norm_residual_kernel<<<M, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       h, static_cast<const bf16*>(upd), w, w_dtype, final_w, final_dtype,
       static_cast<bf16*>(out), H, eps);
   return static_cast<int>(cudaGetLastError());

@@ -74,16 +74,17 @@
 #include "common.cuh"
 
 // q8_matvec.cu: the packed-int4 instances of its few-row kernel, per
-// channel (G = 0) or in groups of a multiple of 16 columns
+// channel (G = 0) or in groups of a multiple of 16 columns (gelu: the
+// gate|up weight's gelu epilogue, without the norm)
 int q4_rows_matvec(const void* x, int x_dtype, const void* norm_w, int norm_dtype, float eps,
                    const uint8_t* qt, const float* scale, int G, void* out, int out_dtype, int M,
-                   int N, int K, cudaStream_t stream);
+                   int N, int K, int gelu, cudaStream_t stream);
 // ... and its residual variant (the decode step's residual update fused in
 // front of the RMSNorm)
 int q4_rows_residual_matvec(const float* h_in, const bf16* upd, const void* post_w, int post_dtype,
                             const void* norm_w, int norm_dtype, float eps, const uint8_t* qt,
                             const float* scale, int G, float* h_out, void* out, int out_dtype,
-                            int M, int N, int K, cudaStream_t stream);
+                            int M, int N, int K, int gelu, cudaStream_t stream);
 
 namespace {
 
@@ -780,16 +781,20 @@ bool valid_shape(int M, int N, int K, int G) {
          (G == 0 || (G >= 2 && G % 2 == 0 && K % G == 0));
 }
 
+// gelu (no norm): the gelu epilogue of the few-row kernel, on the "rows"
+// route only
 template <bool kNorm>
 int launch(const void* x, int x_dtype, const void* norm_w, int norm_dtype, float eps,
            const uint8_t* qt, const float* scale, int G, void* work, void* out, int out_dtype,
-           int M, int N, int K, void* stream) {
+           int M, int N, int K, int gelu, void* stream) {
   if (!valid_shape(M, N, K, G)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (route_of(x, qt, M, K, G)) {
+  const Route route = route_of(x, qt, M, K, G);
+  if (gelu && (kNorm || route != kRows)) return cudaErrorInvalidValue;
+  switch (route) {
     case kRows:
       return q4_rows_matvec(x, x_dtype, kNorm ? norm_w : nullptr, norm_dtype, eps, qt, scale, G,
-                            out, out_dtype, M, N, K, s);
+                            out, out_dtype, M, N, K, gelu, s);
     case kSmall: {
       const dim3 grid((N + kWarps - 1) / kWarps), block(kWarps * 32);
       q4_small_kernel<kNorm><<<grid, block, 0, s>>>(x, x_dtype, norm_w, norm_dtype, eps, qt,
@@ -824,11 +829,14 @@ extern "C" int q4_work_bytes(const void* x, const void* qt, int M, int N, int K,
 }
 
 // work: q4_work_bytes(...) bytes of device memory (null on the other
-// routes, where it is not touched)
+// routes, where it is not touched). gelu: the weight is gate | up (N = 2 I)
+// and out (M, I) bf16 receives gelu(gate) * up from the few-row kernel's
+// epilogue (q8_matvec.cu), on the "rows" route only
 extern "C" int q4_matvec(const void* x, int x_dtype, const uint8_t* qt, const float* scale, int G,
-                         void* work, void* out, int out_dtype, int M, int N, int K, void* stream) {
+                         void* work, void* out, int out_dtype, int M, int N, int K, int gelu,
+                         void* stream) {
   return launch<false>(x, x_dtype, nullptr, DT_F32, 0.f, qt, scale, G, work, out, out_dtype, M,
-                       N, K, stream);
+                       N, K, gelu, stream);
 }
 
 extern "C" int q4_rmsnorm_matvec(const void* x, int x_dtype, const void* norm_w, int norm_dtype,
@@ -836,7 +844,7 @@ extern "C" int q4_rmsnorm_matvec(const void* x, int x_dtype, const void* norm_w,
                                  void* work, void* out, int out_dtype, int M, int N, int K,
                                  void* stream) {
   return launch<true>(x, x_dtype, norm_w, norm_dtype, eps, qt, scale, G, work, out, out_dtype, M,
-                      N, K, stream);
+                      N, K, 0, stream);
 }
 
 // h_out = bf16(bf16(h_in) + bf16(rms(upd) * (1 + post_w))), then out = the
@@ -844,17 +852,18 @@ extern "C" int q4_rmsnorm_matvec(const void* x, int x_dtype, const void* norm_w,
 // kernel (q8_matvec.cu's header). Only on the "rows" route (x and qt
 // 16-byte aligned, per channel or in groups of a multiple of 16 columns) at
 // M <= 4 and K <= 4096; other operands are refused with
-// cudaErrorInvalidValue, and the caller runs norm_residual and
-// q4_rmsnorm_matvec instead (quant.residual_route)
+// cudaErrorInvalidValue, and the caller runs norm_residual with the next
+// norm's x' and q4_matvec instead (quant.residual_route); gelu as for
+// q4_matvec
 extern "C" int q4_residual_rmsnorm_matvec(const float* h_in, const bf16* upd, const void* post_w,
                                           int post_dtype, const void* norm_w, int norm_dtype,
                                           float eps, const uint8_t* qt, const float* scale, int G,
                                           float* h_out, void* out, int out_dtype, int M, int N,
-                                          int K, void* stream) {
+                                          int K, int gelu, void* stream) {
   if (!valid_shape(M, N, K, G) || route_of(h_in, qt, M, K, G) != kRows)
     return cudaErrorInvalidValue;
   return q4_rows_residual_matvec(h_in, upd, post_w, post_dtype, norm_w, norm_dtype, eps, qt, scale,
-                                 G, h_out, out, out_dtype, M, N, K,
+                                 G, h_out, out, out_dtype, M, N, K, gelu,
                                  static_cast<cudaStream_t>(stream));
 }
 

@@ -40,7 +40,26 @@
 // loses from 8 on, so the variant takes at most kResidMaxRows = 4 rows
 // (instances MR = 1, 2, 4), and all of K staged at once even before the
 // opt-in to more than 48 KB (K <= 4096); launch_resid refuses other shapes
-// (quant.residual_route, the same rule, keeps the pair for them).
+// (quant.residual_route, the same rule). Above that the decode step runs
+// norm_residual, which also writes the next norm's bf16 x', and the plain
+// matvec on x' (no norm prologue).
+//
+// The gelu epilogue (kGelu; the plain matvec and the residual variant, every
+// format and MR they have) replaces the decode step's gelu_mul (decode.cu)
+// behind the gate|up projection: the weight is gate | up, N = 2 I rows, and
+// the output (M, I) bf16 is act = bf16(bf16(gelu_tanh(bf16(gate))) *
+// bf16(up)), the rounding points of the JAX decode kernel's g_scr
+// (decode_step.py:345-355). Warp tile p owns gate rows 2p, 2p + 1 and up rows
+// I + 2p, I + 2p + 1 instead of rows 4p .. 4p + 3, so both halves of an
+// output column end in one warp's sums; the store loop rounds each to bf16
+// and applies gelu_mul_value (common.cuh, gelu_mul_kernel's arithmetic). Each
+// channel's sum keeps its order (the same K split as N = 2 I rows), so the
+// output has the bits of the gate|up kernel followed by gelu_mul, with half
+// the output bytes and one launch fewer: 5 a layer and one at the end at up
+// to 4 rows, 131 a step of Gemma2-2B's 26 layers (157 with gelu_mul), and 7
+// a layer less the one of layer 0 above 4 rows, 182 (208). Applying it in the
+// down matvec's staging instead would recompute tanhf for all of x' in
+// every block (and every chunk), about the work of the launch it removes.
 //
 // Weight formats (one 16-byte load, a "unit", of an output channel's row):
 //  * int8, qt (N, K): unit u holds the codes of columns 16u..16u+15;
@@ -70,8 +89,7 @@
 // has an SM to itself and up to 255 registers: in 128 (two blocks an SM)
 // the 16-row instance spilled 556 B and ran 15-20% slower at 8 and 16 rows.
 // 8 lanes share a 128-column group, so the scales are cached loads; a
-// channel's scale row comes from the warp's first channel, clamped to N - 1
-// like its weight row.
+// channel's scale row is its weight row (`chan`, clamped past N).
 //
 // What bounds it on the H100: weight bytes at one row (int8 gate|up streams
 // 42.5 MB a call, int4 21.2 MB), and at 16 rows the fp32 FMAs on the CUDA
@@ -270,8 +288,9 @@ struct Resid {
 // kInt4: packed int4 weights (N, K/2); otherwise int8 (N, K). kGrouped
 // (int4 only): scale (N, G), groups of a multiple of 16 columns; otherwise
 // (N,). kResid (kNorm only): x' is the RMSNorm of the residual update of x
-// (the header), h_out its fp32 result
-template <int MR, bool kNorm, bool kInt4, bool kGrouped, bool kResid>
+// (the header), h_out its fp32 result. kGelu: the weight is gate | up (N =
+// 2 I rows) and out (M, I) bf16 receives gelu(gate) * up (the header)
+template <int MR, bool kNorm, bool kInt4, bool kGrouped, bool kResid, bool kGelu>
 __global__ void __launch_bounds__(kThreads, kGrouped && MR >= 8 ? 1 : 2)
 qmatvec_kernel(const void* __restrict__ x, int x_dtype,
                const void* __restrict__ norm_w, int norm_dtype, float eps,
@@ -279,6 +298,7 @@ qmatvec_kernel(const void* __restrict__ x, int x_dtype,
                void* __restrict__ out, int out_dtype, int M, int N, int K, int warps_k,
                int xs_units, Resid rs) {
   static_assert(kNorm || !kResid, "the residual variant norms its result");
+  static_assert(!kGelu || !kNorm || kResid, "no gelu instance of the plain RMSNorm form");
   // [m][quarter][position] of 4 bf16; int4 keeps a chunk's high-nibble x
   // units `cu` positions after its low ones
   extern __shared__ __align__(16) uint2 xs[];
@@ -306,22 +326,30 @@ qmatvec_kernel(const void* __restrict__ x, int x_dtype,
   const int gshift = (gu & (gu - 1)) ? -1 : __ffs(gu) - 1;
 
   const int4* wrow[kC];
-  int n0 = 0;  // the warp's first channel of the tile (grouped: its scales)
+  // the warp's tile index: channels 4p .. 4p + 3, or (kGelu) the gate rows
+  // 2p, 2p + 1 and the up rows I + 2p, I + 2p + 1 of output columns 2p, 2p + 1
+  int p0 = 0;
+  const auto chan = [&](int c) {  // channel c of the warp (past N: clamped, as N - 1 or I - 1)
+    if constexpr (kGelu) {
+      return (c >> 1) * (N / 2) + min(2 * p0 + (c & 1), N / 2 - 1);
+    } else {
+      return min(kC * p0 + c, N - 1);
+    }
+  };
   const auto rows_of = [&](int tile) {
-    n0 = (tile * warps_n + wn) * kC;
+    p0 = tile * warps_n + wn;
 #pragma unroll
     for (int c = 0; c < kC; ++c) {
-      const int n = min(n0 + c, N - 1);
-      wrow[c] = reinterpret_cast<const int4*>(qt + static_cast<long>(n) * (K / H));
+      wrow[c] = reinterpret_cast<const int4*>(qt + static_cast<long>(chan(c)) * (K / H));
     }
   };
   // grouped: channel c's scales of half h of absolute weight unit ua (zero
   // where !ok), group ua / gu of the low columns and G/2 + ua / gu of the
-  // high; a channel past N reads row N - 1, as its weights do
+  // high; a channel past N reads the row its weights come from
   const auto scales_of = [&](int ua, int h, bool ok, float (&s)[kC]) {
     const int j = h * (G / 2) + (gshift >= 0 ? ua >> gshift : ua / gu);
 #pragma unroll
-    for (int c = 0; c < kC; ++c) s[c] = ok ? __ldg(scale + min(n0 + c, N - 1) * G + j) : 0.f;
+    for (int c = 0; c < kC; ++c) s[c] = ok ? __ldg(scale + chan(c) * G + j) : 0.f;
   };
   const auto unit_scales = [&](int ua, bool ok, float (&s)[2][kC]) {  // both halves
     scales_of(ua, 0, ok, s[0]);
@@ -594,14 +622,32 @@ qmatvec_kernel(const void* __restrict__ x, int x_dtype,
     for (int i = 0; i < kHeld; ++i) red[warp][base + i] = sums[i];
     __syncthreads();
     // the K-split warps' partials, added in warp order; scaled per channel
-    // (grouped: already scaled); rounded once
-    for (int t = threadIdx.x; t < warps_n * MR * kC; t += kThreads) {
-      const int g = t / (MR * kC), i = t - g * MR * kC, m = i / kC, c = i - m * kC;
-      const int n = (tile * warps_n + g) * kC + c;
-      if (m < M && n < N) {
-        float s = 0.f;
-        for (int w = 0; w < warps_k; ++w) s += red[g * warps_k + w][i];
-        store_any(out, out_dtype, static_cast<long>(m) * N + n, kGrouped ? s : s * scale[n]);
+    // (grouped: already scaled); rounded once. kGelu: a gate and an up sum,
+    // each rounded to bf16 as the gate|up output would be, then gelu(gate) *
+    // up rounded to bf16 into column j of the (M, I) output
+    const auto channel_sum = [&](int g, int i, int n) {
+      float s = 0.f;
+      for (int w = 0; w < warps_k; ++w) s += red[g * warps_k + w][i];
+      return kGrouped ? s : s * scale[n];
+    };
+    if constexpr (kGelu) {
+      const int I = N / 2;
+      for (int t = threadIdx.x; t < warps_n * MR * 2; t += kThreads) {
+        const int g = t / (MR * 2), i = t - g * MR * 2, m = i >> 1, c = i & 1;
+        const int j = (tile * warps_n + g) * 2 + c;
+        if (m < M && j < I) {
+          const float gate = bf16r(channel_sum(g, m * kC + c, j));
+          const float up = bf16r(channel_sum(g, m * kC + 2 + c, I + j));
+          store_any(out, DT_BF16, static_cast<long>(m) * I + j, gelu_mul_value(gate, up));
+        }
+      }
+    } else {
+      for (int t = threadIdx.x; t < warps_n * MR * kC; t += kThreads) {
+        const int g = t / (MR * kC), i = t - g * MR * kC, m = i / kC, c = i - m * kC;
+        const int n = (tile * warps_n + g) * kC + c;
+        if (m < M && n < N) {
+          store_any(out, out_dtype, static_cast<long>(m) * N + n, channel_sum(g, i, n));
+        }
       }
     }
     __syncthreads();  // red and xs are free for the next tile
@@ -620,11 +666,11 @@ int sm_count() {
   return cached[dev];
 }
 
-template <int MR, bool kNorm, bool kInt4, bool kGrouped, bool kResid>
+template <int MR, bool kNorm, bool kInt4, bool kGrouped, bool kResid, bool kGelu>
 int launch_rows(const void* x, int x_dtype, const void* norm_w, int norm_dtype, float eps,
                 const int8_t* qt, const float* scale, int G, void* out, int out_dtype, int M,
                 int N, int K, Resid rs, cudaStream_t stream) {
-  const auto kernel = qmatvec_kernel<MR, kNorm, kInt4, kGrouped, kResid>;
+  const auto kernel = qmatvec_kernel<MR, kNorm, kInt4, kGrouped, kResid, kGelu>;
   static cudaFuncAttributes attr;
   static bool have_attr = false, opted_in = false;
   if (!have_attr) {
@@ -658,7 +704,9 @@ int launch_rows(const void* x, int x_dtype, const void* norm_w, int norm_dtype, 
   const int by_smem = kSmemPerSM / (static_cast<int>(attr.sharedSizeBytes) + xs_bytes + 1024);
   const int slots = max(1, min(min(by_regs, by_smem), 2048 / kThreads)) * sm_count();
   // K split 1-8 ways (every lane keeps a unit of each chunk): the fewest
-  // unit steps for the busiest lane, and the fewest blocks on a tie
+  // unit steps for the busiest lane, and the fewest blocks on a tie. kGelu
+  // tiles the same N rows 4 a warp, so it splits K as the gate|up matvec
+  // does, and each channel's sum keeps its order
   int warps_k = 1, best = 0;
   for (int wk = 1; wk <= kWarps && 32 * wk <= xs_units; wk *= 2) {
     const int tiles = (N + kC * (kWarps / wk) - 1) / (kC * (kWarps / wk));
@@ -675,20 +723,22 @@ int launch_rows(const void* x, int x_dtype, const void* norm_w, int norm_dtype, 
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kNorm, bool kInt4, bool kGrouped, bool kResid = false>
+template <bool kNorm, bool kInt4, bool kGrouped, bool kResid = false, bool kGelu = false>
 int launch(const void* x, int x_dtype, const void* norm_w, int norm_dtype, float eps,
            const int8_t* qt, const float* scale, int G, void* out, int out_dtype,
            int M, int N, int K, cudaStream_t s, Resid rs = Resid{}) {
   const int unit = kInt4 ? 32 : 16;  // columns of a weight unit
   if (M < 1 || M > (kResid ? kResidMaxRows : 16) || N < 1 || K < unit || K % unit != 0)
     return cudaErrorInvalidValue;
+  // kGelu: gate | up, N = 2 I rows, into bf16 act (M, I)
+  if (kGelu && (N % 2 != 0 || out_dtype != DT_BF16)) return cudaErrorInvalidValue;
   // grouped: G groups, both halves of K whole groups of a multiple of 16 columns
   if (kGrouped && (G < 2 || G % 2 != 0 || K % G != 0 || (K / G) % 16 != 0))
     return cudaErrorInvalidValue;
-#define QMV_ROWS(MR)                                                                    \
-  return launch_rows<MR, kNorm, kInt4, kGrouped, kResid>(x, x_dtype, norm_w, norm_dtype, \
-                                                         eps, qt, scale, G, out, out_dtype, \
-                                                         M, N, K, rs, s)
+#define QMV_ROWS(MR)                                                                         \
+  return launch_rows<MR, kNorm, kInt4, kGrouped, kResid, kGelu>(x, x_dtype, norm_w, norm_dtype, \
+                                                                eps, qt, scale, G, out,         \
+                                                                out_dtype, M, N, K, rs, s)
   if (M == 1) QMV_ROWS(1);
   if (M == 2) QMV_ROWS(2);
   if (M <= 4) QMV_ROWS(4);
@@ -703,7 +753,7 @@ int launch(const void* x, int x_dtype, const void* norm_w, int norm_dtype, float
 // The residual variant: h_in (M <= 4, K <= 4096) and h_out f32, upd bf16,
 // all 16-byte aligned; h_out must not overlap h_in (other blocks still read
 // h_in while block 0 writes h_out)
-template <bool kInt4, bool kGrouped>
+template <bool kInt4, bool kGrouped, bool kGelu>
 int launch_resid(const float* h_in, const bf16* upd, const void* post_w, int post_dtype,
                  const void* norm_w, int norm_dtype, float eps, const int8_t* qt,
                  const float* scale, int G, float* h_out, void* out, int out_dtype, int M, int N,
@@ -714,9 +764,32 @@ int launch_resid(const float* h_in, const bf16* upd, const void* post_w, int pos
       addr(upd) % 16 || addr(h_out) % 16 ||
       (addr(h_in) < addr(h_out) + bytes && addr(h_out) < addr(h_in) + bytes))
     return cudaErrorInvalidValue;
-  return launch<true, kInt4, kGrouped, true>(h_in, DT_F32, norm_w, norm_dtype, eps, qt, scale, G,
-                                             out, out_dtype, M, N, K, s,
-                                             Resid{upd, post_w, post_dtype, h_out});
+  return launch<true, kInt4, kGrouped, true, kGelu>(h_in, DT_F32, norm_w, norm_dtype, eps, qt,
+                                                    scale, G, out, out_dtype, M, N, K, s,
+                                                    Resid{upd, post_w, post_dtype, h_out});
+}
+
+// The few-row plain matvec with the gelu epilogue or without it
+template <bool kInt4, bool kGrouped>
+int launch_plain(const void* x, int x_dtype, const int8_t* qt, const float* scale, int G,
+                 void* out, int out_dtype, int M, int N, int K, int gelu, cudaStream_t s) {
+  return gelu ? launch<false, kInt4, kGrouped, false, true>(x, x_dtype, nullptr, DT_F32, 0.f, qt,
+                                                            scale, G, out, out_dtype, M, N, K, s)
+              : launch<false, kInt4, kGrouped>(x, x_dtype, nullptr, DT_F32, 0.f, qt, scale, G, out,
+                                               out_dtype, M, N, K, s);
+}
+
+template <bool kInt4, bool kGrouped>
+int launch_resid_any(const float* h_in, const bf16* upd, const void* post_w, int post_dtype,
+                     const void* norm_w, int norm_dtype, float eps, const int8_t* qt,
+                     const float* scale, int G, float* h_out, void* out, int out_dtype, int M,
+                     int N, int K, int gelu, cudaStream_t s) {
+  return gelu ? launch_resid<kInt4, kGrouped, true>(h_in, upd, post_w, post_dtype, norm_w,
+                                                    norm_dtype, eps, qt, scale, G, h_out, out,
+                                                    out_dtype, M, N, K, s)
+              : launch_resid<kInt4, kGrouped, false>(h_in, upd, post_w, post_dtype, norm_w,
+                                                     norm_dtype, eps, qt, scale, G, h_out, out,
+                                                     out_dtype, M, N, K, s);
 }
 
 }  // namespace
@@ -724,21 +797,23 @@ int launch_resid(const float* h_in, const bf16* upd, const void* post_w, int pos
 // The packed-int4 instances, for q4_matvec.cu: x (M <= 16, K), qt (N, K/2)
 // with K a multiple of 32, x and qt 16-byte aligned; scale (N,) with G = 0,
 // or (N, G) in groups of a multiple of 16 columns; norm_w null for no
-// RMSNorm. Returns cudaGetLastError().
+// RMSNorm; gelu (no norm_w): the gelu epilogue into out (M, N / 2) bf16.
+// Returns cudaGetLastError().
 int q4_rows_matvec(const void* x, int x_dtype, const void* norm_w, int norm_dtype, float eps,
                    const uint8_t* qt, const float* scale, int G, void* out, int out_dtype, int M,
-                   int N, int K, cudaStream_t stream) {
+                   int N, int K, int gelu, cudaStream_t stream) {
   const int8_t* q = reinterpret_cast<const int8_t*>(qt);
+  if (norm_w && gelu) return cudaErrorInvalidValue;
   if (G != 0) {
     return norm_w ? launch<true, true, true>(x, x_dtype, norm_w, norm_dtype, eps, q, scale, G,
                                              out, out_dtype, M, N, K, stream)
-                  : launch<false, true, true>(x, x_dtype, nullptr, DT_F32, 0.f, q, scale, G, out,
-                                              out_dtype, M, N, K, stream);
+                  : launch_plain<true, true>(x, x_dtype, q, scale, G, out, out_dtype, M, N, K,
+                                             gelu, stream);
   }
   return norm_w ? launch<true, true, false>(x, x_dtype, norm_w, norm_dtype, eps, q, scale, 0, out,
                                             out_dtype, M, N, K, stream)
-                : launch<false, true, false>(x, x_dtype, nullptr, DT_F32, 0.f, q, scale, 0, out,
-                                             out_dtype, M, N, K, stream);
+                : launch_plain<true, false>(x, x_dtype, q, scale, 0, out, out_dtype, M, N, K,
+                                            gelu, stream);
 }
 
 // The packed-int4 residual variant, for q4_matvec.cu (its aligned calls of
@@ -746,19 +821,22 @@ int q4_rows_matvec(const void* x, int x_dtype, const void* norm_w, int norm_dtyp
 int q4_rows_residual_matvec(const float* h_in, const bf16* upd, const void* post_w, int post_dtype,
                             const void* norm_w, int norm_dtype, float eps, const uint8_t* qt,
                             const float* scale, int G, float* h_out, void* out, int out_dtype,
-                            int M, int N, int K, cudaStream_t stream) {
+                            int M, int N, int K, int gelu, cudaStream_t stream) {
   const int8_t* q = reinterpret_cast<const int8_t*>(qt);
-  return G != 0 ? launch_resid<true, true>(h_in, upd, post_w, post_dtype, norm_w, norm_dtype, eps,
-                                           q, scale, G, h_out, out, out_dtype, M, N, K, stream)
-                : launch_resid<true, false>(h_in, upd, post_w, post_dtype, norm_w, norm_dtype,
-                                            eps, q, scale, 0, h_out, out, out_dtype, M, N, K,
-                                            stream);
+  return G != 0 ? launch_resid_any<true, true>(h_in, upd, post_w, post_dtype, norm_w, norm_dtype,
+                                               eps, q, scale, G, h_out, out, out_dtype, M, N, K,
+                                               gelu, stream)
+                : launch_resid_any<true, false>(h_in, upd, post_w, post_dtype, norm_w, norm_dtype,
+                                                eps, q, scale, 0, h_out, out, out_dtype, M, N, K,
+                                                gelu, stream);
 }
 
+// gelu: the weight is gate | up (N = 2 I rows) and out (M, I) bf16 receives
+// bf16(bf16(gelu_tanh(gate)) * up), gate and up rounded to bf16 first
 extern "C" int q8_matvec(const void* x, int x_dtype, const int8_t* qt, const float* scale,
-                         void* out, int out_dtype, int M, int N, int K, void* stream) {
-  return launch<false, false, false>(x, x_dtype, nullptr, DT_F32, 0.f, qt, scale, 0, out,
-                                     out_dtype, M, N, K, static_cast<cudaStream_t>(stream));
+                         void* out, int out_dtype, int M, int N, int K, int gelu, void* stream) {
+  return launch_plain<false, false>(x, x_dtype, qt, scale, 0, out, out_dtype, M, N, K, gelu,
+                                    static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int q8_rmsnorm_matvec(const void* x, int x_dtype, const void* norm_w, int norm_dtype,
@@ -769,13 +847,14 @@ extern "C" int q8_rmsnorm_matvec(const void* x, int x_dtype, const void* norm_w,
 }
 
 // h_out = bf16(bf16(h_in) + bf16(rms(upd) * (1 + post_w))), then
-// out = the q8_rmsnorm_matvec of h_out with norm_w (the header)
+// out = the q8_rmsnorm_matvec of h_out with norm_w (the header); gelu as
+// for q8_matvec
 extern "C" int q8_residual_rmsnorm_matvec(const float* h_in, const bf16* upd, const void* post_w,
                                           int post_dtype, const void* norm_w, int norm_dtype,
                                           float eps, const int8_t* qt, const float* scale,
                                           float* h_out, void* out, int out_dtype, int M, int N,
-                                          int K, void* stream) {
-  return launch_resid<false, false>(h_in, upd, post_w, post_dtype, norm_w, norm_dtype, eps, qt,
-                                    scale, 0, h_out, out, out_dtype, M, N, K,
-                                    static_cast<cudaStream_t>(stream));
+                                          int K, int gelu, void* stream) {
+  return launch_resid_any<false, false>(h_in, upd, post_w, post_dtype, norm_w, norm_dtype, eps,
+                                        qt, scale, 0, h_out, out, out_dtype, M, N, K, gelu,
+                                        static_cast<cudaStream_t>(stream));
 }

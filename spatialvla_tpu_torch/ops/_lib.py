@@ -36,12 +36,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # x, x_dtype, qt, scale, out, out_dtype, M, N, K, stream
-    "q8_matvec": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x, x_dtype, qt, scale, out, out_dtype, M, N, K, gelu (the gate|up epilogue), stream
+    "q8_matvec": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, x_dtype, norm_w, norm_dtype, eps, qt, scale, out, out_dtype, M, N, K, stream
     "q8_rmsnorm_matvec": (_P, _I, _P, _I, _F, _P, _P, _P, _I, _I, _I, _I, _P),
-    # x, x_dtype, qt, scale, G, work (q4_work_bytes), out, out_dtype, M, N, K, stream
-    "q4_matvec": (_P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P),
+    # x, x_dtype, qt, scale, G, work (q4_work_bytes), out, out_dtype, M, N, K, gelu, stream
+    "q4_matvec": (_P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, x_dtype, norm_w, norm_dtype, eps, qt, scale, G, work, out, out_dtype, M, N, K, stream
     "q4_rmsnorm_matvec": (_P, _I, _P, _I, _F, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P),
     # x, qt, M, N, K, G: the bytes of the work buffer the two above need (no launch)
@@ -52,18 +52,20 @@ _SIGNATURES = {
     # x, qt, M, K, G: which kernel the two above launch (no stream, no launch)
     "q4_route": (_P, _P, _I, _I, _I),
     # h_in, upd, post_w, post_dtype, norm_w, norm_dtype, eps, qt, scale, h_out, out,
-    # out_dtype, M, N, K, stream
-    "q8_residual_rmsnorm_matvec": (_P, _P, _P, _I, _P, _I, _F, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # out_dtype, M, N, K, gelu, stream
+    "q8_residual_rmsnorm_matvec": (_P, _P, _P, _I, _P, _I, _F, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _P),
     # the same with qt packed int4 and G (0 per channel) after scale
     "q4_residual_rmsnorm_matvec": (_P, _P, _P, _I, _P, _I, _F, _P, _P, _I, _P, _P, _I, _I, _I, _I,
-                                   _P),
+                                   _I, _P),
     # qkv, cos, sin, ck, cv, position, attn, k_new, v_new, part, tickets, M, Nq, Nkv, D, S,
     # chunk, q_scale, cap, stream
     "decode_attention": (_P,) * 11 + (_I,) * 6 + (_F, _F, _P),
     # qkv, cos, sin, ck, cv, ks, vs, position, attn, k_new, v_new, part, tickets, M, Nq, Nkv,
     # D, S, chunk, q_scale, cap, stream
     "decode_attention_kv8": (_P,) * 13 + (_I,) * 6 + (_F, _F, _P),
-    # h, upd, w, w_dtype, final_w, final_dtype, out, M, H, eps, stream
+    # h, upd, w, w_dtype, final_w, final_dtype, out, M, H (a multiple of 8 up to 8192),
+    # eps, stream
     "norm_residual": (_P, _P, _P, _I, _P, _I, _P, _I, _I, _F, _P),
     # gu, act, M, I, stream
     "gelu_mul": (_P, _P, _I, _I, _P),

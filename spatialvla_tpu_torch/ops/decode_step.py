@@ -6,8 +6,8 @@ Port of the Pallas kernel ``spatialvla_tpu/ops/decode_step.py:fused_decode_step`
 (``_decode_kernel``). The TPU runs the whole stack as one kernel whose grid
 walks (layer, phase); Hopper blocks run in no order and keep nothing between
 launches, so here each layer is a fixed sequence of hand-written kernels
-launched from a Python loop over the stacked layer tensors, 6 a layer and
-one at the end (157 for Gemma2-2B's 26 layers) at up to 4 rows:
+launched from a Python loop over the stacked layer tensors, 5 a layer and
+one at the end (131 for Gemma2-2B's 26 layers) at up to 4 rows:
 
     residual_rmsnorm_matvec  the previous layer's post-FFN norm + residual
                              (JAX _post_ffn), then the input norm + fused qkv
@@ -19,17 +19,21 @@ one at the end (157 for Gemma2-2B's 26 layers) at up to 4 rows:
                         (csrc/decode.cu)
     matvec              o projection
     residual_rmsnorm_matvec  post-attention norm + residual, then the
-                             pre-FFN norm + fused gate|up (_post_attn)
-    gelu_mul            gelu_tanh(gate) * up
+                             pre-FFN norm + fused gate|up (_post_attn), and in
+                             its epilogue gelu_tanh(gate) * up (gelu=True)
     matvec              down projection
     norm_residual       (after the last layer) its post-FFN norm + residual
                         and the final norm
 
 Where the residual kernels do not take the operands (``quant.residual_route``:
 above 4 rows, where the fold loses to the pair on the card; misaligned; int4
-groups of a width that is not a multiple of 16 columns), ``norm_residual`` +
-``rmsnorm_matvec`` run in their place (8 launches a layer), chosen by shape
-before the first launch.
+groups of a width that is not a multiple of 16 columns), ``norm_residual``
+updates the residual and writes the next norm's bf16 x' (its ``final_w``
+mode: what JAX's ``xn_scr`` holds), and the plain ``matvec`` takes x' (7
+launches a layer, 6 in layer 0, and one at the end: 182 a step). Where the
+few-row kernel does not take gate|up (``quant.gelu_route``: int4 groups of
+another width, misaligned) the projection writes gate | up and ``gelu_mul``
+follows it. The routes are chosen by shape before the first launch.
 
 Each projection takes the kernel of its own format (``_matvec_block``,
 decode_step.py:120-168): q8_* for int8 weights, q4_* for packed int4, per
@@ -64,8 +68,9 @@ from typing import Any, Dict, Tuple
 import torch
 
 from . import _lib
-from .quant import (matvec, matvec_plain, residual_rmsnorm_matvec, residual_rmsnorm_matvec_plain,
-                    residual_route, rmsnorm_matvec, rmsnorm_matvec_plain)
+from .quant import (gelu_mul_plain, gelu_route, matvec, matvec_plain, residual_rmsnorm_matvec,
+                    residual_rmsnorm_matvec_plain, residual_route, rmsnorm_matvec,
+                    rmsnorm_matvec_plain)
 
 Params = Dict[str, Any]
 
@@ -276,9 +281,18 @@ def norm_residual_plain(h, upd, w, *, eps, final_w=None, final_out=None):
         final_out.copy_(_rms(h, final_w, eps))
 
 
+# the kernel holds a row in registers, 8 columns a thread, up to 1024 threads
+NORM_RESIDUAL_MAX_H = 8192
+
+
 def norm_residual(h, upd, w, *, eps, final_w=None, final_out=None):
+    """Kernel wrapper; see norm_residual_plain. H a multiple of 8 up to
+    ``NORM_RESIDUAL_MAX_H`` (Gemma2's 2304, 3584, 4608), every operand
+    16-byte aligned; others raise."""
     if h.device.type == "cpu":
         return norm_residual_plain(h, upd, w, eps=eps, final_w=final_w, final_out=final_out)
+    if (final_w is None) != (final_out is None):
+        raise ValueError("norm_residual: final_w and final_out go together")
     extra = () if final_w is None else (final_w, final_out)
     _lib.check_cuda("norm_residual", h, upd, w, *extra)
     M, H = h.shape
@@ -286,11 +300,15 @@ def norm_residual(h, upd, w, *, eps, final_w=None, final_out=None):
         raise TypeError("norm_residual: h must be float32 (M, H) and upd bf16 (M, H)")
     if final_out is not None and final_out.dtype != torch.bfloat16:
         raise TypeError("norm_residual: final_out must be bf16")
-    if (final_w is None) != (final_out is None):
-        raise ValueError("norm_residual: final_w and final_out go together")
     if tuple(w.shape) != (H,) or (final_w is not None and (
             tuple(final_w.shape) != (H,) or tuple(final_out.shape) != (M, H))):
         raise ValueError(f"norm_residual: norm weights must be ({H},) and final_out ({M}, {H})")
+    if H % 8 or H > NORM_RESIDUAL_MAX_H:
+        raise ValueError(f"norm_residual: the kernel holds a row in registers, 8 columns a "
+                         f"thread: H a multiple of 8 up to {NORM_RESIDUAL_MAX_H}, got {H}")
+    if any(t.data_ptr() % 16 for t in (h, upd, w) + extra):
+        raise ValueError("norm_residual: every operand must start 16-byte aligned (the kernel "
+                         "reads and writes 16-byte vectors)")
     _lib.launch(
         "norm_residual", h.data_ptr(), upd.data_ptr(), w.data_ptr(), _lib.dtype_code(w),
         None if final_w is None else final_w.data_ptr(),
@@ -307,15 +325,13 @@ _lib.counted(norm_residual)
 # gelu_mul
 # ---------------------------------------------------------------------------
 
-def gelu_mul_plain(gu, *, out):
-    """out (M, I) bf16 <- bf16(bf16(gelu_tanh(gate)) * up), gu = gate | up."""
-    I = out.shape[-1]
-    gate, up = gu[:, :I].float(), gu[:, I:].float()
-    g = torch.nn.functional.gelu(gate, approximate="tanh").to(torch.bfloat16).float()
-    out.copy_(g * up)
-
+# gelu_mul_plain (quant.py, also the plain version of the matvecs' gelu
+# epilogue): out (M, I) bf16 <- bf16(bf16(gelu_tanh(gate)) * up)
 
 def gelu_mul(gu, *, out):
+    """Kernel wrapper; see gelu_mul_plain. The decode step launches it only
+    where its gate|up matvec does not take the gelu epilogue
+    (``quant.gelu_route``)."""
     if gu.device.type == "cpu":
         return gelu_mul_plain(gu, out=out)
     _lib.check_cuda("gelu_mul", gu, out)
@@ -347,13 +363,13 @@ def _attention_plain(*args, scratch, **kw):
 
 KERNELS = SimpleNamespace(
     rmsnorm_matvec=rmsnorm_matvec, residual_rmsnorm_matvec=residual_rmsnorm_matvec,
-    residual_route=residual_route, matvec=matvec, attention=_attention_kernel,
-    norm_residual=norm_residual, gelu_mul=gelu_mul,
+    residual_route=residual_route, gelu_route=gelu_route, matvec=matvec,
+    attention=_attention_kernel, norm_residual=norm_residual, gelu_mul=gelu_mul,
 )
 PLAIN = SimpleNamespace(
     rmsnorm_matvec=rmsnorm_matvec_plain, residual_rmsnorm_matvec=residual_rmsnorm_matvec_plain,
-    residual_route=residual_route, matvec=matvec_plain, attention=_attention_plain,
-    norm_residual=norm_residual_plain, gelu_mul=gelu_mul_plain,
+    residual_route=residual_route, gelu_route=gelu_route, matvec=matvec_plain,
+    attention=_attention_plain, norm_residual=norm_residual_plain, gelu_mul=gelu_mul_plain,
 )
 
 
@@ -398,17 +414,19 @@ def _kv_scales(cfg, M, S, cache_k, cache_k_scale, cache_v_scale):
 def step_buffers(cfg, M: int, S: int, device) -> SimpleNamespace:
     """The buffers of one step at M rows and an S-slot cache: the two fp32
     residual buffers the step alternates between (a residual kernel reads
-    one and writes the other), the projections' and attention's outputs, the
-    final hidden state, the new K / V rows, and (on the card) the attention
-    scratch. ``fused_decode_step`` allocates them per call unless given; the
-    decode loop's CUDA graph allocates them once."""
+    one and writes the other), the normed x' of a projection that the
+    residual kernels do not take, the projections' and attention's outputs,
+    the final hidden state, the new K / V rows, and (on the card) the
+    attention scratch. ``fused_decode_step`` allocates them per call unless
+    given; the decode loop's CUDA graph allocates them once."""
     L, H, I = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
     Nq, Nkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     empty = functools.partial(torch.empty, dtype=torch.bfloat16, device=device)
     return SimpleNamespace(
         h=(torch.empty((M, H), dtype=torch.float32, device=device),
            torch.empty((M, H), dtype=torch.float32, device=device)),
-        qkv=empty((M, (Nq + 2 * Nkv) * D)), attn=empty((M, Nq * D)), o=empty((M, H)),
+        xn=empty((M, H)), qkv=empty((M, (Nq + 2 * Nkv) * D)), attn=empty((M, Nq * D)),
+        o=empty((M, H)),
         gu=empty((M, 2 * I)), act=empty((M, I)), dn=empty((M, H)), hidden=empty((M, H)),
         k_new=empty((L, M, Nkv, D)), v_new=empty((L, M, Nkv, D)),
         scratch=(attention_scratch(M, Nkv, S, D, Nq, device)
@@ -445,25 +463,31 @@ def _step(ops, lm_params: Params, cfg, x, cache_k, cache_v, position, rope_posit
     h, spare = b.h  # the residual stream; a residual kernel writes its update into `spare`
     h.copy_(x)
     # the weights whose RMSNorm matvec takes the residual update in front
-    # (one launch instead of norm_residual + rmsnorm_matvec): a route by
-    # rows, shape and alignment, chosen before any launch
+    # (one launch instead of norm_residual with the next norm's x' + matvec),
+    # and whether gate|up's kernel computes gelu(gate) * up in its epilogue
+    # (one launch instead of gate|up + gelu_mul): routes by rows, shape and
+    # alignment, chosen before any launch
     fold = {"qkv": ops.residual_route(h, qkv["qt"][0], qkv["scale"][0]),
             "gu": ops.residual_route(h, gu["qt"][0], gu["scale"][0])}
+    gelu = ops.gelu_route(h if fold["gu"] else b.xn, gu["qt"][0], gu["scale"][0])
     eps = cfg.rms_norm_eps
     q_scale = cfg.query_pre_attn_scalar ** -0.5
 
-    def norm_matvec(upd, post_w, norm_w, name, w, l, out):
-        """out <- the RMSNorm matvec (norm_w, layer l of w) of h after h's
-        residual update by upd with post_w (no update: upd None)."""
+    def norm_matvec(upd, post_w, norm_w, name, w, l, out, gelu=False):
+        """out <- the RMSNorm matvec (norm_w, layer l of w; with ``gelu``
+        gelu(gate) * up of it) of h after h's residual update by upd with
+        post_w (no update: upd None)."""
         nonlocal h, spare
-        if upd is not None and fold[name]:
-            ops.residual_rmsnorm_matvec(h, upd, post_w, norm_w, w["qt"][l], w["scale"][l],
-                                        eps=eps, h_out=spare, out_dtype=bf, out=out)
+        q, s = w["qt"][l], w["scale"][l]
+        if upd is None:
+            ops.rmsnorm_matvec(h, norm_w, q, s, eps=eps, out_dtype=bf, out=out)
+        elif fold[name]:
+            ops.residual_rmsnorm_matvec(h, upd, post_w, norm_w, q, s, eps=eps, h_out=spare,
+                                        out_dtype=bf, out=out, gelu=gelu)
             h, spare = spare, h
-            return
-        if upd is not None:
-            ops.norm_residual(h, upd, post_w, eps=eps)
-        ops.rmsnorm_matvec(h, norm_w, w["qt"][l], w["scale"][l], eps=eps, out_dtype=bf, out=out)
+        else:  # the update writes the normed x' (JAX's xn_scr), the matvec reads it
+            ops.norm_residual(h, upd, post_w, eps=eps, final_w=norm_w, final_out=b.xn)
+            ops.matvec(b.xn, q, s, out_dtype=bf, out=out, gelu=gelu)
 
     for l in range(L):
         # layer l - 1's post-FFN residual update and layer l's input norm
@@ -475,10 +499,12 @@ def _step(ops, lm_params: Params, cfg, x, cache_k, cache_v, position, rope_posit
                       num_heads=Nq, q_scale=q_scale, cap=cfg.attn_logit_softcap,
                       attn_out=b.attn, k_new=b.k_new[l], v_new=b.v_new[l], scratch=b.scratch)
         ops.matvec(b.attn, o["qt"][l], o["scale"][l], out_dtype=bf, out=b.o)
-        # the post-attention residual update and the pre-FFN norm (_post_attn)
+        # the post-attention residual update and the pre-FFN norm (_post_attn),
+        # gate|up and gelu(gate) * up
         norm_matvec(b.o, layers["post_attn_norm"][l], layers["pre_ffn_norm"][l], "gu", gu, l,
-                    b.gu)
-        ops.gelu_mul(b.gu, out=b.act)
+                    b.act if gelu else b.gu, gelu)
+        if not gelu:
+            ops.gelu_mul(b.gu, out=b.act)
         ops.matvec(b.act, dn["qt"][l], dn["scale"][l], out_dtype=bf, out=b.dn)
     ops.norm_residual(h, b.dn, layers["post_ffn_norm"][L - 1], eps=eps,
                       final_w=lm_params["final_norm"], final_out=b.hidden)

@@ -32,10 +32,16 @@ Kernels:
     RMSNorm matvec that follows it, as the JAX decode kernel's ``_post_attn``
     and ``_post_ffn`` + ``_input_norm`` phases do; ``residual_route`` says
     which weights take them.
+  * ``gelu=True`` on ``q8_matvec`` / ``q4_matvec`` and the residual kernels:
+    the decode step's gate|up projection with ``gelu_mul`` in the few-row
+    kernel's epilogue (out (M, N / 2) = gelu(gate) * up, the bits of the
+    matvec followed by ``decode_step.gelu_mul``); ``gelu_route`` says which
+    weights take it.
 Each wrapper runs its plain PyTorch version (``*_plain``) only for CPU
 tensors, launches the kernel for CUDA tensors, and counts its launches in
 ``<wrapper>.launches`` (the q4 wrappers those on the tensor-core route also
-in ``<wrapper>.tiled_launches``).
+in ``<wrapper>.tiled_launches``, the matvecs those with the gelu epilogue
+also in ``<wrapper>.gelu_launches``).
 
 Not ported yet (ROADMAP): LoRA-factored weights in ``qmatmul`` and the
 unfused quantized LM tree (``fuse=False``).
@@ -175,7 +181,39 @@ def q8_matvec_plain(x, qt, scale, *, out_dtype=torch.bfloat16):
     return (acc * scale.float()).to(out_dtype)
 
 
-def _check_matvec(name, x, qt, scale, out):
+def gelu_mul_plain(gu, *, out):
+    """out (M, I) bf16 <- bf16(bf16(gelu_tanh(gate)) * up), gu = gate | up
+    (M, 2 I) bf16: the decode step's gelu·up (decode_step.py:345-355), the
+    plain version of ``decode_step.gelu_mul`` and of the gelu epilogue."""
+    I = out.shape[-1]
+    gate, up = gu[:, :I].float(), gu[:, I:].float()
+    g = torch.nn.functional.gelu(gate, approximate="tanh").to(torch.bfloat16).float()
+    return out.copy_(g * up)
+
+
+def _check_gelu(name, out_dtype, N):
+    """The gelu epilogue's operands: gate | up rows (N even) into bf16."""
+    if out_dtype != torch.bfloat16 or N % 2:
+        raise ValueError(f"{name}: gelu takes a gate | up weight (N even, got {N}) and a bf16 "
+                         f"output (got {out_dtype})")
+
+
+def _plain_out(y, out, gelu):
+    """The plain matvec's output y (M, N) into ``out`` (allocated where
+    None); with ``gelu``, y is bf16 gate | up and ``out`` (M, N / 2) gets
+    gelu_mul_plain of it."""
+    if not gelu:
+        return y if out is None else out.copy_(y)
+    if out is None:
+        out = torch.empty((y.shape[0], y.shape[1] // 2), dtype=torch.bfloat16, device=y.device)
+    return gelu_mul_plain(y, out=out)
+
+
+def _empty_out(x, N, out_dtype, gelu):
+    return torch.empty((x.shape[0], N // 2 if gelu else N), dtype=out_dtype, device=x.device)
+
+
+def _check_matvec(name, x, qt, scale, out, gelu=False):
     _lib.check_cuda(name, x, qt, scale, out)
     M, K = x.shape
     if qt.dtype != torch.int8 or qt.dim() != 2 or qt.shape[1] != K:
@@ -183,8 +221,11 @@ def _check_matvec(name, x, qt, scale, out):
     N = qt.shape[0]
     if scale.dtype != torch.float32 or tuple(scale.shape) != (N,):
         raise ValueError(f"{name}: scale must be float32 ({N},), got {scale.dtype} {tuple(scale.shape)}")
-    if tuple(out.shape) != (M, N):
-        raise ValueError(f"{name}: out must be ({M}, {N}), got {tuple(out.shape)}")
+    if gelu:
+        _check_gelu(name, out.dtype, N)
+    if tuple(out.shape) != (M, N // 2 if gelu else N):
+        raise ValueError(f"{name}: out must be ({M}, {N // 2 if gelu else N}), got "
+                         f"{tuple(out.shape)}")
     if not 1 <= M <= QKERNEL_MAX_M:
         raise ValueError(f"{name}: {M} rows; the kernel takes 1..{QKERNEL_MAX_M}")
     if K % 16 or x.data_ptr() % 16 or qt.data_ptr() % 16:
@@ -192,25 +233,29 @@ def _check_matvec(name, x, qt, scale, out):
     return M, N, K
 
 
-def q8_matvec(x, qt, scale, *, out_dtype=torch.bfloat16, out=None):
+def q8_matvec(x, qt, scale, *, out_dtype=torch.bfloat16, out=None, gelu=False):
     """x (M, K) f32/bf16 @ dequant(qt (N, K) int8, scale (N,) f32) -> (M, N).
 
-    ``out`` (optional) receives the result in place."""
+    ``out`` (optional) receives the result in place. ``gelu``: qt is gate |
+    up (N = 2 I) and the result is gelu_mul_plain of the bf16 (M, N) output,
+    (M, I) bf16, from the kernel's epilogue (``gelu_route``)."""
+    if gelu:
+        _check_gelu("q8_matvec", out_dtype, qt.shape[0])
     if x.device.type == "cpu":
-        y = q8_matvec_plain(x, qt, scale, out_dtype=out_dtype)
-        return y if out is None else out.copy_(y)
+        return _plain_out(q8_matvec_plain(x, qt, scale, out_dtype=out_dtype), out, gelu)
     if out is None:
-        out = torch.empty((x.shape[0], qt.shape[0]), dtype=out_dtype, device=x.device)
-    M, N, K = _check_matvec("q8_matvec", x, qt, scale, out)
+        out = _empty_out(x, qt.shape[0], out_dtype, gelu)
+    M, N, K = _check_matvec("q8_matvec", x, qt, scale, out, gelu)
     _lib.launch(
         "q8_matvec", x.data_ptr(), _lib.dtype_code(x), qt.data_ptr(), scale.data_ptr(),
-        out.data_ptr(), _lib.dtype_code(out), M, N, K,
+        out.data_ptr(), _lib.dtype_code(out), M, N, K, int(gelu),
     )
     q8_matvec.launches += 1
+    q8_matvec.gelu_launches += gelu
     return out
 
 
-_lib.counted(q8_matvec)
+_lib.counted(q8_matvec, "gelu_launches")  # of them, with the gelu epilogue
 
 
 # ---------------------------------------------------------------------------
@@ -290,8 +335,9 @@ def q4_rmsnorm_matvec_plain(x, norm_w, qt, scale, *, eps=1e-6, out_dtype=torch.b
     return _q4_dot_plain(_rms_bf16(x, norm_w, eps), qt, scale).to(out_dtype)
 
 
-def _check_q4(name, x, qt, scale, out):
-    """Shapes the q4 kernels take; returns (M, N, K, G), G = 0 per channel."""
+def _check_q4(name, x, qt, scale, out, gelu=False):
+    """Shapes the q4 kernels take; returns (M, N, K, G), G = 0 per channel.
+    ``gelu``: out (M, N / 2) bf16, on the few-row kernel's route only."""
     _lib.check_cuda(name, x, qt, scale, out)
     M, K = x.shape
     if qt.dtype != torch.uint8 or qt.dim() != 2 or 2 * qt.shape[1] != K:
@@ -305,8 +351,14 @@ def _check_q4(name, x, qt, scale, out):
     if grouped and (G < 2 or G % 2 or K % G):
         raise ValueError(f"{name}: {G} groups over K={K}; both halves of K must hold "
                          "whole groups (an even G that divides K, as quantize_int4 makes)")
-    if tuple(out.shape) != (M, N):
-        raise ValueError(f"{name}: out must be ({M}, {N}), got {tuple(out.shape)}")
+    if gelu:
+        _check_gelu(name, out.dtype, N)
+        if not _rows_route(x, qt, G):
+            raise ValueError(f"{name}: {M} rows, K={K}, {G} groups: the gelu epilogue is the "
+                             "few-row kernel's (gelu_route)")
+    if tuple(out.shape) != (M, N // 2 if gelu else N):
+        raise ValueError(f"{name}: out must be ({M}, {N // 2 if gelu else N}), got "
+                         f"{tuple(out.shape)}")
     if not 1 <= M <= QKERNEL_MAX_M_INT4:
         raise ValueError(f"{name}: {M} rows; the kernel takes 1..{QKERNEL_MAX_M_INT4}")
     return M, N, K, G
@@ -328,26 +380,30 @@ def _ptr(t) -> int:
     return 0 if t is None else t.data_ptr()
 
 
-def q4_matvec(x, qt, scale, *, out_dtype=torch.bfloat16, out=None):
+def q4_matvec(x, qt, scale, *, out_dtype=torch.bfloat16, out=None, gelu=False):
     """x (M, K) f32/bf16 @ dequant(qt (N, K/2) packed int4, scale (N,) or
-    (N, G)) -> (M, N), 1 <= M <= 512."""
+    (N, G)) -> (M, N), 1 <= M <= 512. ``gelu`` as for ``q8_matvec``, on the
+    few-row kernel's route only (``gelu_route``)."""
+    if gelu:
+        _check_gelu("q4_matvec", out_dtype, qt.shape[0])
     if x.device.type == "cpu":
-        y = q4_matvec_plain(x, qt, scale, out_dtype=out_dtype)
-        return y if out is None else out.copy_(y)
+        return _plain_out(q4_matvec_plain(x, qt, scale, out_dtype=out_dtype), out, gelu)
     if out is None:
-        out = torch.empty((x.shape[0], qt.shape[0]), dtype=out_dtype, device=x.device)
-    M, N, K, G = _check_q4("q4_matvec", x, qt, scale, out)
+        out = _empty_out(x, qt.shape[0], out_dtype, gelu)
+    M, N, K, G = _check_q4("q4_matvec", x, qt, scale, out, gelu)
     work = _q4_work(x, qt, M, N, K, G)
     _lib.launch(
         "q4_matvec", x.data_ptr(), _lib.dtype_code(x), qt.data_ptr(), scale.data_ptr(), G,
-        _ptr(work), out.data_ptr(), _lib.dtype_code(out), M, N, K,
+        _ptr(work), out.data_ptr(), _lib.dtype_code(out), M, N, K, int(gelu),
     )
     q4_matvec.launches += 1
     q4_matvec.tiled_launches += work is not None
+    q4_matvec.gelu_launches += gelu
     return out
 
 
-_lib.counted(q4_matvec, "tiled_launches")  # of them, on the tensor-core route
+# of them, on the tensor-core route and with the gelu epilogue
+_lib.counted(q4_matvec, "tiled_launches", "gelu_launches")
 
 
 def q4_rmsnorm_matvec(x, norm_w, qt, scale, *, eps=1e-6, out_dtype=torch.bfloat16, out=None):
@@ -381,14 +437,18 @@ Q4_ROUTES = ("rows", "small", "tiled", "tiled_fma")
 # ---------------------------------------------------------------------------
 
 def residual_rmsnorm_matvec_plain(h_in, upd, post_w, norm_w, qt, scale, *, eps=1e-6, h_out,
-                                  out_dtype=torch.bfloat16, out=None):
+                                  out_dtype=torch.bfloat16, out=None, gelu=False):
     """Plain version of the residual kernels: ``decode_step.norm_residual_plain``
     (h_out = bf16(bf16(h_in) + bf16(rms(upd) * (1 + post_w))), fp32) followed
-    by ``rmsnorm_matvec_plain`` of h_out with norm_w, the same operations in
-    the same order. h_in is left as it is."""
+    by ``rmsnorm_matvec_plain`` of h_out with norm_w (and with ``gelu``,
+    ``gelu_mul_plain`` of its output), the same operations in the same order.
+    h_in is left as it is."""
     h_out.copy_((h_in.to(torch.bfloat16).float() + _rms_bf16(upd, post_w, eps))
                 .to(torch.bfloat16).float())
-    return rmsnorm_matvec_plain(h_out, norm_w, qt, scale, eps=eps, out_dtype=out_dtype, out=out)
+    if gelu:
+        _check_gelu("residual_rmsnorm_matvec", out_dtype, qt.shape[0])
+    y = rmsnorm_matvec_plain(h_out, norm_w, qt, scale, eps=eps, out_dtype=out_dtype)
+    return _plain_out(y, out, gelu)
 
 
 def residual_route(x, qt, scale) -> bool:
@@ -398,16 +458,43 @@ def residual_route(x, qt, scale) -> bool:
     ``csrc/q4_matvec.cu:route_of`` for the few-row kernel: x and qt 16-byte
     aligned, int8 with K a multiple of 16, or packed int4 with K / 2 a
     multiple of 16, per channel or in groups of a multiple of 16 columns.
-    On any device, from shapes and addresses alone; the decode step runs
-    ``norm_residual`` and ``rmsnorm_matvec`` for the operands it refuses."""
+    On any device, from shapes and addresses alone; for the operands it
+    refuses the decode step runs ``norm_residual`` with the next norm's x'
+    and then the plain ``matvec``."""
     M, K = x.shape
-    if (not 1 <= M <= RESIDUAL_MAX_M or K > RESIDUAL_MAX_K or x.data_ptr() % 16
-            or qt.data_ptr() % 16):
-        return False
+    return 1 <= M <= RESIDUAL_MAX_M and K <= RESIDUAL_MAX_K and _few_rows(x, qt, scale)
+
+
+def _rows_route(x, qt, G):
+    """``csrc/q4_matvec.cu:route_of``'s "rows" (the few-row kernel of
+    ``csrc/q8_matvec.cu``) for packed int4: M <= 16, x and qt 16-byte
+    aligned, K / 2 a multiple of 16, per channel or in groups of a multiple
+    of 16 columns."""
+    M, K = x.shape
+    return (M <= 16 and x.data_ptr() % 16 == 0 and qt.data_ptr() % 16 == 0 and (K // 2) % 16 == 0
+            and (G == 0 or (K % G == 0 and (K // G) % 16 == 0)))
+
+
+def _few_rows(x, qt, scale) -> bool:
+    """Whether the few-row kernel of ``csrc/q8_matvec.cu`` takes x @ qt: M
+    <= 16 and, for int8, K a multiple of 16 with x and qt 16-byte aligned;
+    for packed int4 ``_rows_route``."""
+    M, K = x.shape
     if qt.dtype == torch.int8:
-        return K % 16 == 0 and scale.dim() == 1
-    G = scale.shape[-1] if scale.dim() == 2 else 0
-    return (K // 2) % 16 == 0 and (G == 0 or (K % G == 0 and (K // G) % 16 == 0))
+        return (1 <= M <= QKERNEL_MAX_M and K % 16 == 0 and scale.dim() == 1
+                and x.data_ptr() % 16 == 0 and qt.data_ptr() % 16 == 0)
+    return M >= 1 and _rows_route(x, qt, scale.shape[-1] if scale.dim() == 2 else 0)
+
+
+def gelu_route(x, qt, scale) -> bool:
+    """Whether the gate|up matvec of x (M, K) with this layer's weight qt,
+    scale (gate | up, N = 2 I rows) takes the gelu epilogue (``gelu=True``):
+    the few-row kernel takes the operands (``_few_rows``: M <= 16, aligned,
+    int8 or int4 per channel or in groups of a multiple of 16 columns) and
+    N is even. On any device, from shapes and addresses alone; for the
+    operands it refuses the decode step writes gate | up and launches
+    ``decode_step.gelu_mul``."""
+    return qt.shape[0] % 2 == 0 and _few_rows(x, qt, scale)
 
 
 def _check_residual(name, h_in, upd, post_w, norm_w, qt, scale, h_out):
@@ -432,54 +519,56 @@ def _check_residual(name, h_in, upd, post_w, norm_w, qt, scale, h_out):
 
 
 def q8_residual_rmsnorm_matvec(h_in, upd, post_w, norm_w, qt, scale, *, eps=1e-6, h_out,
-                               out_dtype=torch.bfloat16, out=None):
+                               out_dtype=torch.bfloat16, out=None, gelu=False):
     """h_out (M, K) f32 <- bf16(bf16(h_in) + bf16(rms(upd) * (1 + post_w))),
     then rms_norm(h_out; norm_w) @ dequant(qt int8, scale) -> (M, N), in one
     kernel, at most 4 rows (``residual_route``). h_out must not overlap
-    h_in."""
+    h_in. ``gelu`` as for ``q8_matvec``."""
     if h_in.device.type == "cpu":
         return residual_rmsnorm_matvec_plain(h_in, upd, post_w, norm_w, qt, scale, eps=eps,
-                                             h_out=h_out, out_dtype=out_dtype, out=out)
+                                             h_out=h_out, out_dtype=out_dtype, out=out, gelu=gelu)
     if out is None:
-        out = torch.empty((h_in.shape[0], qt.shape[0]), dtype=out_dtype, device=h_in.device)
-    M, N, K = _check_matvec("q8_residual_rmsnorm_matvec", h_in, qt, scale, out)
+        out = _empty_out(h_in, qt.shape[0], out_dtype, gelu)
+    M, N, K = _check_matvec("q8_residual_rmsnorm_matvec", h_in, qt, scale, out, gelu)
     _check_residual("q8_residual_rmsnorm_matvec", h_in, upd, post_w, norm_w, qt, scale, h_out)
     _lib.launch(
         "q8_residual_rmsnorm_matvec", h_in.data_ptr(), upd.data_ptr(), post_w.data_ptr(),
         _lib.dtype_code(post_w), norm_w.data_ptr(), _lib.dtype_code(norm_w), float(eps),
         qt.data_ptr(), scale.data_ptr(), h_out.data_ptr(), out.data_ptr(), _lib.dtype_code(out),
-        M, N, K,
+        M, N, K, int(gelu),
     )
     q8_residual_rmsnorm_matvec.launches += 1
+    q8_residual_rmsnorm_matvec.gelu_launches += gelu
     return out
 
 
-_lib.counted(q8_residual_rmsnorm_matvec)
+_lib.counted(q8_residual_rmsnorm_matvec, "gelu_launches")
 
 
 def q4_residual_rmsnorm_matvec(h_in, upd, post_w, norm_w, qt, scale, *, eps=1e-6, h_out,
-                               out_dtype=torch.bfloat16, out=None):
+                               out_dtype=torch.bfloat16, out=None, gelu=False):
     """q8_residual_rmsnorm_matvec for packed int4 weights, per channel or in
     groups of a multiple of 16 columns, at most 4 rows (``residual_route``);
     other operands raise."""
     if h_in.device.type == "cpu":
         return residual_rmsnorm_matvec_plain(h_in, upd, post_w, norm_w, qt, scale, eps=eps,
-                                             h_out=h_out, out_dtype=out_dtype, out=out)
+                                             h_out=h_out, out_dtype=out_dtype, out=out, gelu=gelu)
     if out is None:
-        out = torch.empty((h_in.shape[0], qt.shape[0]), dtype=out_dtype, device=h_in.device)
-    M, N, K, G = _check_q4("q4_residual_rmsnorm_matvec", h_in, qt, scale, out)
+        out = _empty_out(h_in, qt.shape[0], out_dtype, gelu)
+    M, N, K, G = _check_q4("q4_residual_rmsnorm_matvec", h_in, qt, scale, out, gelu)
     _check_residual("q4_residual_rmsnorm_matvec", h_in, upd, post_w, norm_w, qt, scale, h_out)
     _lib.launch(
         "q4_residual_rmsnorm_matvec", h_in.data_ptr(), upd.data_ptr(), post_w.data_ptr(),
         _lib.dtype_code(post_w), norm_w.data_ptr(), _lib.dtype_code(norm_w), float(eps),
         qt.data_ptr(), scale.data_ptr(), G, h_out.data_ptr(), out.data_ptr(),
-        _lib.dtype_code(out), M, N, K,
+        _lib.dtype_code(out), M, N, K, int(gelu),
     )
     q4_residual_rmsnorm_matvec.launches += 1
+    q4_residual_rmsnorm_matvec.gelu_launches += gelu
     return out
 
 
-_lib.counted(q4_residual_rmsnorm_matvec)
+_lib.counted(q4_residual_rmsnorm_matvec, "gelu_launches")
 
 
 def q4_route(x, qt, scale) -> str:
@@ -502,10 +591,10 @@ def q4_route(x, qt, scale) -> str:
 # dispatch on the weight format (quant.py:395-436)
 # ---------------------------------------------------------------------------
 
-def matvec(x, qt, scale, *, out_dtype=torch.bfloat16, out=None):
+def matvec(x, qt, scale, *, out_dtype=torch.bfloat16, out=None, gelu=False):
     """The int8 or int4 kernel wrapper, by the dtype of ``qt``."""
     fn = q4_matvec if qt.dtype == torch.uint8 else q8_matvec
-    return fn(x, qt, scale, out_dtype=out_dtype, out=out)
+    return fn(x, qt, scale, out_dtype=out_dtype, out=out, gelu=gelu)
 
 
 def rmsnorm_matvec(x, norm_w, qt, scale, *, eps=1e-6, out_dtype=torch.bfloat16, out=None):
@@ -514,18 +603,20 @@ def rmsnorm_matvec(x, norm_w, qt, scale, *, eps=1e-6, out_dtype=torch.bfloat16, 
 
 
 def residual_rmsnorm_matvec(h_in, upd, post_w, norm_w, qt, scale, *, eps=1e-6, h_out,
-                            out_dtype=torch.bfloat16, out=None):
+                            out_dtype=torch.bfloat16, out=None, gelu=False):
     """The int8 or int4 residual kernel wrapper, by the dtype of ``qt``."""
     fn = q4_residual_rmsnorm_matvec if qt.dtype == torch.uint8 else q8_residual_rmsnorm_matvec
     return fn(h_in, upd, post_w, norm_w, qt, scale, eps=eps, h_out=h_out, out_dtype=out_dtype,
-              out=out)
+              out=out, gelu=gelu)
 
 
-def matvec_plain(x, qt, scale, *, out_dtype=torch.bfloat16, out=None):
-    """The plain version of ``matvec``'s kernel, on any device."""
+def matvec_plain(x, qt, scale, *, out_dtype=torch.bfloat16, out=None, gelu=False):
+    """The plain version of ``matvec``'s kernel (with ``gelu``, then
+    ``gelu_mul_plain``), on any device."""
+    if gelu:
+        _check_gelu("matvec", out_dtype, qt.shape[0])
     fn = q4_matvec_plain if qt.dtype == torch.uint8 else q8_matvec_plain
-    y = fn(x, qt, scale, out_dtype=out_dtype)
-    return y if out is None else out.copy_(y)
+    return _plain_out(fn(x, qt, scale, out_dtype=out_dtype), out, gelu)
 
 
 def rmsnorm_matvec_plain(x, norm_w, qt, scale, *, eps=1e-6, out_dtype=torch.bfloat16, out=None):

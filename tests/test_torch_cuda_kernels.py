@@ -535,6 +535,135 @@ def test_norm_residual_and_gelu_mul(M, final):
     assert _rel(ka, pa) < 1e-2
 
 
+# Gemma2's widths (2B, 9B, 27B): one row in registers, 288, 448 and 576
+# threads; rows of one block each; f32 and bf16 norm weights
+@pytest.mark.parametrize("M", [1, 4, 16])
+@pytest.mark.parametrize("H", [2304, 3584, 4608])
+@pytest.mark.parametrize("final", [False, True])
+def test_norm_residual_in_registers(M, H, final):
+    """The one-round norm_residual against norm_residual_plain: h within
+    1e-2 of max|plain| (a bf16 rounding may fall a unit apart where the fp32
+    sums of squares differ in order), the normed output within 1e-2; two
+    launches give identical bits; one count a launch."""
+    g = _gen(40 + M)
+    h0, upd = _randn(g, M, H, dtype=torch.float32, std=8.0), _randn(g, M, H)
+    w = _randn(g, H, dtype=torch.float32 if M % 2 else torch.bfloat16, std=0.1)
+    fw = _randn(g, H, std=0.1) if final else None
+    res = []
+    for fn in (ds.norm_residual, ds.norm_residual, ds.norm_residual_plain):
+        h = h0.clone()
+        out = torch.full((M, H), float("nan"), dtype=torch.bfloat16, device=DEV) if final else None
+        before = ds.norm_residual.launches
+        fn(h, upd, w, eps=1e-6, final_w=fw, final_out=out)
+        torch.cuda.synchronize()
+        assert ds.norm_residual.launches == before + (fn is ds.norm_residual)
+        res.append((h, out))
+    (hk, ok), (hk2, ok2), (hp, op) = res
+    assert torch.equal(hk, hk2) and _rel(hk, hp) < 1e-2
+    if final:
+        assert torch.equal(ok, ok2) and _rel(ok, op) < 1e-2
+
+
+def test_norm_residual_refuses_other_widths():
+    """H not a multiple of 8, H above 8192 (a row no longer fits the
+    registers of one block) and operands off 16-byte alignment raise; none
+    falls back to the plain version."""
+    g = _gen(47)
+    for H in (2300, 8200):
+        h, upd, w = _randn(g, 1, H, dtype=torch.float32), _randn(g, 1, H), _randn(g, H)
+        with pytest.raises(ValueError, match="multiple of 8"):
+            ds.norm_residual(h, upd, w, eps=1e-6)
+    big = _randn(g, 2 * 2304 + 4, dtype=torch.float32)
+    h = big[4:].reshape(2, 2304)  # 16 bytes off: aligned; 4 floats in
+    h_off = big[2:2 + 2 * 2304].reshape(2, 2304)  # 8 bytes off
+    upd, w = _randn(g, 2, 2304), _randn(g, 2304)
+    ds.norm_residual(h, upd, w, eps=1e-6)
+    with pytest.raises(ValueError, match="16-byte"):
+        ds.norm_residual(h_off, upd, w, eps=1e-6)
+
+
+GELU_FORMATS = {"int8": (quant.quantize_int8, {}), "int4": (quant.quantize_int4, {}),
+                "int4-g128": (quant.quantize_int4, dict(group_size=128))}
+# every rows instance of the gelu epilogue: the plain matvec at 1, 2, 4, 8
+# and 16 rows (and 5, an edge), the residual variant at 1, 2 and 4 (the most
+# it takes); gate|up of the flagship (2304 -> 2 x 9216) and an odd I (2051)
+GELU_CASES = ([("plain", M) for M in (1, 2, 4, 5, 8, 16)]
+              + [("residual", M) for M in (1, 2, 4)])
+
+
+@pytest.mark.parametrize("kind,M", GELU_CASES)
+@pytest.mark.parametrize("fmt", list(GELU_FORMATS))
+@pytest.mark.parametrize("I", [9216, 2051])
+def test_gelu_epilogue_is_the_pair(kind, M, fmt, I):
+    """The gate|up matvec with gelu(gate) * up in its epilogue (gelu=True)
+    gives the bits of the same kernel's bf16 gate|up followed by the
+    gelu_mul kernel (each channel's sum keeps its order), and holds to the
+    plain version (matvec_plain then gelu_mul_plain) within 1e-2 of
+    max|plain|; one launch, counted in launches and gelu_launches; h_out as
+    without the epilogue."""
+    g = _gen(50 + M)
+    K = 2304
+    quantize, kw = GELU_FORMATS[fmt]
+    w = quantize(_randn(g, K, 2 * I, dtype=torch.float32, std=0.02), **kw)
+    qt, scale = w["qt"], w["scale"]
+    if kind == "plain":
+        x = _randn(g, M, K)
+        assert quant.gelu_route(x, qt, scale)
+        kern = quant.q4_matvec if fmt != "int8" else quant.q8_matvec
+        call = lambda gelu, out=None: quant.matvec(x, qt, scale, gelu=gelu, out=out)  # noqa: E731
+        plain = lambda: quant.matvec_plain(x, qt, scale, gelu=True)  # noqa: E731
+    else:
+        h_in, upd = _randn(g, M, K, dtype=torch.float32, std=8.0), _randn(g, M, K)
+        post, norm = _randn(g, K, std=0.1), _randn(g, K, std=0.1)
+        assert quant.residual_route(h_in, qt, scale) and quant.gelu_route(h_in, qt, scale)
+        kern = (quant.q4_residual_rmsnorm_matvec if fmt != "int8"
+                else quant.q8_residual_rmsnorm_matvec)
+        h_outs = [torch.empty_like(h_in) for _ in range(3)]
+        call = lambda gelu, out=None: quant.residual_rmsnorm_matvec(  # noqa: E731
+            h_in, upd, post, norm, qt, scale, h_out=h_outs[int(gelu)], gelu=gelu, out=out)
+        plain = lambda: quant.residual_rmsnorm_matvec_plain(  # noqa: E731
+            h_in, upd, post, norm, qt, scale, h_out=h_outs[2], gelu=True)
+    before = (kern.launches, kern.gelu_launches)
+    act = call(True, torch.full((M, I), float("nan"), dtype=torch.bfloat16, device=DEV))
+    torch.cuda.synchronize()
+    assert (kern.launches, kern.gelu_launches) == (before[0] + 1, before[1] + 1)
+    gu = call(False)
+    pair = torch.empty(M, I, dtype=torch.bfloat16, device=DEV)
+    ds.gelu_mul(gu, out=pair)
+    ref = plain()
+    assert act.shape == (M, I) and act.dtype == torch.bfloat16
+    assert torch.equal(act, pair)
+    assert torch.equal(call(True), act)
+    assert _rel(act, ref) < 1e-2
+    if kind == "residual":
+        assert torch.equal(h_outs[0], h_outs[1]) and _rel(h_outs[1], h_outs[2]) < 1e-2
+
+
+def test_gelu_epilogue_refuses_other_routes():
+    """gelu=True on operands that the few-row kernel does not take (int4 in
+    24-column groups, more than 16 rows, misaligned x) or with an odd N or a
+    non-bf16 output raises before any launch; gelu_route says so first."""
+    g = _gen(56)
+    K = 2304
+    w24 = quant.quantize_int4(_randn(g, K, 512, dtype=torch.float32, std=0.02), group_size=24)
+    w8 = quant.quantize_int8(_randn(g, K, 512, dtype=torch.float32, std=0.02))
+    w4 = quant.quantize_int4(_randn(g, K, 512, dtype=torch.float32, std=0.02))
+    x = _randn(g, 1, K)
+    big = _randn(g, 17, K)
+    x_off = _randn(g, K + 1)[1:].reshape(1, K)
+    for xx, ww in ((x, w24), (big, w4), (x_off, w4)):
+        assert not quant.gelu_route(xx, ww["qt"], ww["scale"])
+        with pytest.raises(ValueError, match="gelu"):
+            quant.matvec(xx, ww["qt"], ww["scale"], gelu=True)
+    assert not quant.gelu_route(x_off, w8["qt"], w8["scale"])
+    w_odd = quant.quantize_int8(_randn(g, K, 513, dtype=torch.float32, std=0.02))
+    assert not quant.gelu_route(x, w_odd["qt"], w_odd["scale"])
+    with pytest.raises(ValueError, match="gelu"):
+        quant.matvec(x, w_odd["qt"], w_odd["scale"], gelu=True)
+    with pytest.raises(ValueError, match="gelu"):
+        quant.matvec(x, w8["qt"], w8["scale"], gelu=True, out_dtype=torch.float32)
+
+
 FORMATS = {"int8": dict(bits=8), "int4": dict(bits=4), "int4-g128": dict(bits=4, group_size=128),
            "int8+mlp4": dict(bits=8, mlp_bits=4)}
 
@@ -592,10 +721,18 @@ def test_tiny_predict_goes_through_the_kernels(fmt):
     policy = SpatialVLAPolicy.init_random(cfg, DEV, seed=0).quantize(**qkw)
     size = cfg.vision.image_size
     frame = (np.random.RandomState(0).rand(size, size, 3) * 255).astype(np.uint8)
-    counters = kernels + (ds.norm_residual, ds.gelu_mul)
-    before = [c.launches for c in counters]
+    # gate|up (hidden 48): an int8 MLP takes the residual kernel with
+    # gelu(gate) * up in its epilogue; an int4 one (K / 2 = 24, not the
+    # few-row kernel's) writes gate | up and launches gelu_mul
+    int8_mlp = qkw.get("mlp_bits", qkw["bits"]) == 8
+    counters = [(c, "launches") for c in kernels + (ds.norm_residual,)] + (
+        [(quant.q8_residual_rmsnorm_matvec, "gelu_launches")] if int8_mlp
+        else [(ds.gelu_mul, "launches")])
+    before = [getattr(*c) for c in counters]
+    gelu_mul_before = ds.gelu_mul.launches
     out = policy.predict(frame, "pick up the cup", return_margins=True)
-    assert all(c.launches > b for c, b in zip(counters, before))
+    assert all(getattr(*c) > b for c, b in zip(counters, before))
+    assert (ds.gelu_mul.launches == gelu_mul_before) == int8_mlp
     assert out["actions"].shape == (4, 7) and np.isfinite(out["actions"]).all()
 
     inputs = policy.processor(frame, "pick up the cup")
@@ -745,10 +882,12 @@ def test_residual_first_launch_inside_a_cuda_graph(fmt):
 
 def test_step_takes_the_unfused_pair_for_24_column_groups():
     """A tree in 24-column groups (not a multiple of 16) is not the residual
-    kernels': its step runs norm_residual + q4_rmsnorm_matvec twice a layer
-    (2 L norm_residual launches with the final one, 2 L RMSNorm matvecs),
-    an int8 tree's step the residual kernel 2 L - 1 times and norm_residual
-    once; both hold to the plain step within 0.02."""
+    kernels': its step runs norm_residual, writing the next norm's x', +
+    q4_matvec twice a layer (2 L norm_residual launches with the final one,
+    one RMSNorm matvec: layer 0's qkv), and gate|up then gelu_mul (L
+    launches); an int8 tree's step the residual kernel 2 L - 1 times,
+    norm_residual once and gelu(gate) * up in gate|up's epilogue; both hold
+    to the plain step within 0.02."""
     g = _gen(32)
     # 6 query heads of 256 (o's K = 1536, whose halves hold whole 24-column
     # groups, as the flagship's 2048 do not)
@@ -768,12 +907,12 @@ def test_step_takes_the_unfused_pair_for_24_column_groups():
                                   (dict(bits=8), quant.q8_residual_rmsnorm_matvec, True)):
             lm = quant.quantize_lm_params(base, **qkw)
             norm = quant.q4_rmsnorm_matvec if qkw["bits"] == 4 else quant.q8_rmsnorm_matvec
-            counts = (resid, ds.norm_residual, norm)
+            counts = (resid, ds.norm_residual, norm, ds.gelu_mul)
             before = [c.launches for c in counts]
             got = ds.fused_decode_step(lm, cfg, x, ck, cv, pos, pos + 1)
             ref = ds.fused_decode_step_plain(lm, cfg, x, ck, cv, pos, pos + 1)
             n = [c.launches - b for c, b in zip(counts, before)]
-            assert n == ([2 * L - 1, 1, 1] if fused else [0, 2 * L, 2 * L]), (qkw, n)
+            assert n == ([2 * L - 1, 1, 1, 0] if fused else [0, 2 * L, 1, L]), (qkw, n)
             for a, b in zip(got, ref):
                 assert _rel(a, b) < 0.02
 

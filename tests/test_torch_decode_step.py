@@ -319,49 +319,73 @@ def test_residual_plain_is_norm_residual_then_rmsnorm_matvec(base_params, M, fmt
 
 
 class _Recorder:
-    """An ops namespace of the decode step that counts each op's calls and
-    runs the plain version."""
+    """An ops namespace of the decode step that counts each op's calls (the
+    routes aside; ``gelu``: the calls with the gelu epilogue) and runs the
+    plain version."""
 
     def __init__(self):
-        self.calls = {}
+        self.calls, self.gelu = {}, {}
         for name in vars(t_ds.PLAIN):
             setattr(self, name, self._counted(name, getattr(t_ds.PLAIN, name)))
 
     def _counted(self, name, fn):
         def call(*args, **kw):
-            if name != "residual_route":
+            if not name.endswith("_route"):
                 self.calls[name] = self.calls.get(name, 0) + 1
+            if kw.get("gelu"):
+                self.gelu[name] = self.gelu.get(name, 0) + 1
             return fn(*args, **kw)
         return call
 
 
+def _check_step_ops(rec, n_fold, gelu_op):
+    """The ops of one step on CFG's L layers: ``n_fold`` residual kernels, a
+    norm_residual with the next norm's x' + matvec for every other residual
+    update, layer 0's rmsnorm_matvec, o and down, the final norm_residual;
+    gate|up's gelu·up in the epilogue of ``gelu_op`` once a layer, or (None)
+    gelu_mul. 5 L + 1 ops with every update folded and the epilogue, 7 L with
+    none folded."""
+    L = CFG.num_layers
+    n_pair = 2 * L - 1 - n_fold
+    assert rec.calls.get("residual_rmsnorm_matvec", 0) == n_fold
+    assert rec.calls["norm_residual"] == n_pair + 1
+    assert rec.calls["rmsnorm_matvec"] == 1
+    assert rec.calls["matvec"] == 2 * L + n_pair
+    assert rec.calls["attention"] == L
+    assert rec.calls.get("gelu_mul", 0) == (0 if gelu_op else L)
+    assert rec.gelu == ({gelu_op: L} if gelu_op else {})
+    assert sum(rec.calls.values()) == 5 * L + 1 + n_pair + (0 if gelu_op else L)
+
+
+@pytest.mark.parametrize("M", [1, 2, 4])
 @pytest.mark.parametrize("fmt,folds", [("int8", (True, True)), ("int8+mlp4", (True, True)),
                                        ("int4-g16", (True, True)), ("int4-g8", (False, False))])
-def test_step_folds_the_residual_update_by_shape(base_params, fmt, folds):
+def test_step_folds_the_residual_update_by_shape(base_params, M, fmt, folds):
     """The step takes the residual kernel for qkv (from layer 1 on) and for
-    gate|up where ``residual_route`` takes the weight: 6 ops a layer and
-    the final norm_residual, 6 L + 1 in all; a weight it refuses (int4 in
-    8-column groups) gets norm_residual + rmsnorm_matvec in its place. Either
-    way the step holds to the Pallas kernel (interpret mode)."""
+    gate|up where ``residual_route`` takes the weight, with gelu(gate) * up
+    in gate|up's epilogue where ``gelu_route`` takes it: 5 ops a layer and
+    the final norm_residual, 5 L + 1 in all; a weight it refuses (int4 in
+    8-column groups) gets norm_residual with the next norm's x' + matvec in
+    its place, and gate|up then gelu_mul. Either way the step holds to the
+    Pallas kernel (interpret mode), at 1, 2 and 4 rows."""
     qkw = FORMATS.get(fmt, dict(bits=4, group_size=8))
     jq = j_quantize_lm_params(base_params, fuse=True, **qkw)
     tq = from_numpy_tree(jax.tree_util.tree_map(np.asarray, jq))
-    x, ck, cv = _serving_cache(jq, 2, 6, 16, seed=5)
-    tpos = torch.tensor([6, 6], dtype=torch.int32)
+    x, ck, cv = _serving_cache(jq, M, 6, 16, seed=5)
+    tpos = torch.full((M,), 6, dtype=torch.int32)
     w = tq["layers"]
-    h = torch.zeros(2, CFG.hidden_size)
+    h = torch.zeros(M, CFG.hidden_size)
     assert (t_quant.residual_route(h, w["attn"]["qkv"]["qt"][0], w["attn"]["qkv"]["scale"][0]),
             t_quant.residual_route(h, w["mlp"]["gate_up"]["qt"][0],
                                    w["mlp"]["gate_up"]["scale"][0])) == folds
+    assert t_quant.gelu_route(h, w["mlp"]["gate_up"]["qt"][0],
+                              w["mlp"]["gate_up"]["scale"][0]) == folds[1]
     rec = _Recorder()
     port = t_ds._step(rec, tq, CFG, _torch(x), _torch(ck), _torch(cv), tpos, tpos + 1, None, None)
     L = CFG.num_layers
-    n_fold = (L - 1) * folds[0] + L * folds[1]
-    assert rec.calls.get("residual_rmsnorm_matvec", 0) == n_fold
-    assert rec.calls["norm_residual"] == 2 * L - n_fold
-    assert rec.calls["rmsnorm_matvec"] == 2 * L - n_fold
-    assert sum(rec.calls.values()) == 6 * L + 1 + (2 * L - 1 - n_fold)
-    jpos = jnp.asarray([6, 6], jnp.int32)
+    _check_step_ops(rec, (L - 1) * folds[0] + L * folds[1],
+                    "residual_rmsnorm_matvec" if folds[1] else None)
+    jpos = jnp.full((M,), 6, jnp.int32)
     ref = j_fused_decode_step(jq, CFG, x, ck, cv, jpos, jpos + 1, interpret=True)
     _compare(port, ref)
 
@@ -387,6 +411,53 @@ def test_residual_route_rules():
     assert not route(torch.zeros(1, 48), k48)
 
 
+def test_gelu_route_rules():
+    """gelu_route: the few-row kernel's operands (at most 16 rows, 16-byte
+    aligned x and weight, int8 K a multiple of 16, int4 K / 2 a multiple of
+    16 per channel or in groups of a multiple of 16 columns) and gate | up
+    rows in pairs (N even)."""
+    K = 64
+    x = torch.zeros(17, K)
+    q8 = t_quant.quantize_int8(torch.randn(K, 40))
+    q4 = t_quant.quantize_int4(torch.randn(K, 40))
+    g16 = t_quant.quantize_int4(torch.randn(K, 40), group_size=16)
+    g8 = t_quant.quantize_int4(torch.randn(K, 40), group_size=8)
+    route = lambda x, w: t_quant.gelu_route(x, w["qt"], w["scale"])  # noqa: E731
+    assert route(x[:16], q8) and route(x[:1], q4) and route(x[:8], g16) and route(x[:5], q4)
+    assert not route(x, q8) and not route(x, q4) and not route(x[:2], g8)
+    assert not route(x[:1], t_quant.quantize_int8(torch.randn(K, 41)))  # N odd
+    assert not route(x.reshape(-1)[1:1 + 4 * K].reshape(4, K), q8)  # x 4 bytes off
+    assert not route(torch.zeros(1, 48), t_quant.quantize_int4(torch.randn(48, 40)))  # K/2 = 24
+    assert route(torch.zeros(1, 4608), t_quant.quantize_int8(torch.randn(4608, 8)))
+
+
+@pytest.mark.parametrize("M", [1, 5])
+@pytest.mark.parametrize("fmt", ["int8", "int4", "int4-g16", "int4-g8"])
+def test_norm_residual_with_next_norm_then_matvec_is_the_pair(base_params, M, fmt):
+    """norm_residual_plain writing the next norm's x' (final_w, final_out)
+    followed by matvec_plain on x' (the step above 4 rows and for weights
+    the residual kernels refuse) gives the h and the output of
+    norm_residual_plain followed by rmsnorm_matvec_plain on h (the pair it
+    replaces). On the CPU both norm h in one fp32 order, so the two agree bit
+    for bit; on the card the order of the sum of squares moves from the
+    matvec's prologue into norm_residual (held there within 1e-2)."""
+    qkw = dict(FORMATS.get(fmt, dict(bits=4, group_size=8)))
+    tq = t_quant.quantize_lm_params(from_numpy_tree(
+        jax.tree_util.tree_map(np.asarray, base_params), dtype=torch.bfloat16), **qkw)
+    w = tq["layers"]["mlp"]["gate_up"]
+    post, norm = tq["layers"]["post_attn_norm"][2], tq["layers"]["pre_ffn_norm"][2]
+    rng = np.random.RandomState(10 + M)
+    h0 = torch.from_numpy(8 * rng.randn(M, CFG.hidden_size).astype(np.float32))
+    upd = torch.from_numpy(rng.randn(M, CFG.hidden_size).astype(np.float32)).to(torch.bfloat16)
+    h_pair, h_new = h0.clone(), h0.clone()
+    t_ds.norm_residual_plain(h_pair, upd, post, eps=1e-6)
+    want = t_quant.rmsnorm_matvec_plain(h_pair, norm, w["qt"][2], w["scale"][2], eps=1e-6)
+    xn = torch.full((M, CFG.hidden_size), float("nan"), dtype=torch.bfloat16)
+    t_ds.norm_residual(h_new, upd, post, eps=1e-6, final_w=norm, final_out=xn)
+    got = t_quant.matvec(xn, w["qt"][2], w["scale"][2])
+    assert torch.equal(h_new, h_pair) and torch.equal(got, want)
+
+
 @pytest.mark.parametrize("slot_kind", ["int", "tensor"])
 def test_scatter_scale_int_and_device_slots(slot_kind):
     """_scatter_scale writes row m's new scales at flat column m * S +
@@ -405,20 +476,21 @@ def test_scatter_scale_int_and_device_slots(slot_kind):
     assert torch.equal(got, want)
 
 
-def test_step_keeps_the_pair_above_four_rows(qparams):
-    """Above RESIDUAL_MAX_M rows (where the residual kernels lose to the
-    pair on the card) the step runs norm_residual + rmsnorm_matvec twice a
-    layer, 8 ops a layer; the same ops through the plain versions hold to
-    the Pallas kernel (interpret mode)."""
+@pytest.mark.parametrize("B", [t_quant.RESIDUAL_MAX_M + 1, 8, 16])
+def test_step_keeps_the_pair_above_four_rows(qparams, B):
+    """Above RESIDUAL_MAX_M rows (where the residual kernels lose on the
+    card) the step runs the pair norm_residual, writing the next norm's x',
+    + the plain matvec on x' twice a layer (never rmsnorm_matvec on h after
+    layer 0), gate|up with gelu(gate) * up in its epilogue: 7 ops a layer, 6
+    in layer 0 and the final norm_residual (7 L); the same ops through the
+    plain versions hold to the Pallas kernel (interpret mode) at 5, 8 and 16
+    rows."""
     jq, tq = qparams
-    B = t_quant.RESIDUAL_MAX_M + 1
     x, ck, cv = _serving_cache(jq, B, 6, 16, seed=8)
     tpos = torch.full((B,), 6, dtype=torch.int32)
     rec = _Recorder()
     port = t_ds._step(rec, tq, CFG, _torch(x), _torch(ck), _torch(cv), tpos, tpos + 1, None, None)
-    L = CFG.num_layers
-    assert "residual_rmsnorm_matvec" not in rec.calls
-    assert rec.calls["norm_residual"] == rec.calls["rmsnorm_matvec"] == 2 * L
-    assert sum(rec.calls.values()) == 8 * L
+    _check_step_ops(rec, 0, "matvec")
+    assert sum(rec.calls.values()) == 7 * CFG.num_layers
     jpos = jnp.full((B,), 6, jnp.int32)
     _compare(port, j_fused_decode_step(jq, CFG, x, ck, cv, jpos, jpos + 1, interpret=True))

@@ -229,6 +229,66 @@ def test_wrappers_raise_off_cpu_and_cuda():
     assert tq.q4_matvec.launches == 0 and tq.q4_rmsnorm_matvec.launches == 0
 
 
+GELU_FORMATS = {"int8": jq.quantize_int8, "int4": jq.quantize_int4,
+                "int4-g16": functools.partial(jq.quantize_int4, group_size=16)}
+
+
+@pytest.mark.parametrize("M", [1, 5, 16])
+@pytest.mark.parametrize("fmt", list(GELU_FORMATS))
+def test_gelu_epilogue_plain_is_matvec_then_gelu_mul(M, fmt):
+    """The plain version of the gate|up matvec with the gelu epilogue
+    (gelu=True, N = 2 I = 384) is matvec_plain followed by gelu_mul_plain,
+    bit for bit: through the wrapper on CPU tensors (with and without
+    ``out``), matvec_plain, and the residual kernels' wrapper and plain
+    version (the update, then the RMSNorm matvec, then gelu_mul_plain). It
+    holds to the JAX decode kernel's gate|up and _activate
+    (decode_step.py:345-355) on the Pallas matvec in interpret mode within
+    1e-2 of max|ref| (the two fp32 sums may round gate or up a bf16 unit
+    apart)."""
+    jx, tx, w, tw, norm_w = _operands(M, 256, 384, "bfloat16", seed=8, quantize=GELU_FORMATS[fmt])
+    qt, scale, I = tw["qt"], tw["scale"], 192
+    def gelu_mul(gu):
+        return tq.gelu_mul_plain(gu, out=torch.empty(M, I, dtype=torch.bfloat16))
+
+    want = gelu_mul(tq.matvec_plain(tx, qt, scale))
+    nan = torch.full((M, I), float("nan"), dtype=torch.bfloat16)
+    for got in (tq.matvec(tx, qt, scale, gelu=True), tq.matvec(tx, qt, scale, gelu=True, out=nan),
+                tq.matvec_plain(tx, qt, scale, gelu=True)):
+        assert got.dtype == torch.bfloat16 and got.shape == (M, I) and torch.equal(got, want)
+
+    rng = np.random.RandomState(M)
+    h_in = torch.from_numpy(8 * rng.randn(M, 256).astype(np.float32))
+    upd = torch.from_numpy(rng.randn(M, 256).astype(np.float32)).to(torch.bfloat16)
+    post, norm = torch.from_numpy(0.1 * rng.randn(256).astype(np.float32)), torch.from_numpy(norm_w)
+    h_ref = torch.empty_like(h_in)
+    r_want = gelu_mul(tq.residual_rmsnorm_matvec_plain(h_in, upd, post, norm, qt, scale,
+                                                       h_out=h_ref))
+    for fn in (tq.residual_rmsnorm_matvec, tq.residual_rmsnorm_matvec_plain):
+        h_out = torch.empty_like(h_in)
+        got = fn(h_in, upd, post, norm, qt, scale, h_out=h_out, gelu=True)
+        assert torch.equal(got, r_want) and torch.equal(h_out, h_ref)
+
+    gu = jq.int8_matmul(jx, w["qt"], w["scale"], out_dtype=jnp.bfloat16, interpret=True)
+    ref = np.asarray((jax.nn.gelu(gu[:, :I].astype(jnp.float32), approximate=True)
+                      .astype(jnp.bfloat16) * gu[:, I:]).astype(jnp.float32))
+    np.testing.assert_allclose(want.float().numpy(), ref, atol=1e-2 * np.abs(ref).max(), rtol=0)
+
+
+def test_gelu_epilogue_refuses_odd_rows_and_other_outputs():
+    """gelu=True needs gate | up rows in pairs and a bf16 output, on every
+    device; off the CPU it raises before any launch."""
+    _, tx, _, tw, _ = _operands(1, 64, 33, "float32")
+    with pytest.raises(ValueError, match="gelu"):
+        tq.matvec(tx, tw["qt"], tw["scale"], gelu=True)
+    _, tx, _, tw, _ = _operands(1, 64, 32, "float32")
+    with pytest.raises(ValueError, match="gelu"):
+        tq.matvec_plain(tx, tw["qt"], tw["scale"], gelu=True, out_dtype=torch.float32)
+    meta = lambda t: t.to("meta")  # noqa: E731
+    with pytest.raises(RuntimeError, match="no kernel"):
+        tq.q8_matvec(meta(tx), meta(tw["qt"]), meta(tw["scale"]), gelu=True)
+    assert tq.q8_matvec.launches == 0 and tq.q8_matvec.gelu_launches == 0
+
+
 
 def _signed_int4_codes(qt: np.ndarray) -> np.ndarray:
     """The int4 unpack of the few-row kernel (``csrc/q8_matvec.cu:codes4``)
