@@ -11,7 +11,8 @@
    there is one (torch._weight_int8pack_mm, torch._weight_int4pack_mm,
    torch.compile(flex_attention); for the RMSNorm variants their matmul
    alone, in the log): the int8 and int4
-   matvecs (per channel and in 128-column groups, 1 and 16 rows; int4 also
+   matvecs (int8 also at the whole-vocabulary head, 2304 -> 265346 at 1 and
+   2 rows) (per channel and in 128-column groups, 1 and 16 rows; int4 also
    the prefill's projections at 277 rows, SigLIP's and the projector's at
    256, qkv at 512 and 17, beside the FMA tiles that took those rows before
    the tensor-core kernel; 16- and 24-column groups checked untimed; each
@@ -50,7 +51,7 @@
    * up in their epilogue (no gelu_mul), one norm_residual. The
    wrappers' counts are credited per graph replay, so each graph is replayed
    once under torch.profiler and the library's kernels in the trace, by
-   wrapper, must equal its credits (also in (5) below). The
+   wrapper, must equal its credits (also in (5) and (6) below). The
    actions must be finite, of shape (4, 7), from action ids in the action
    block, and the greedy ids must follow the unfused decode path's (first
    token equal; equal up to the first step whose margin is below 0.5). One
@@ -65,7 +66,18 @@
    26-layer step at M=1, S=289 (each layer alone also held to plain) and at
    M=16, S=332 (graph, eager and enqueue times); then the bf16 tree put back
    and quantize(bits=4): the next request must follow the int4 tree.
-5. The same entry point after quantize(bits=4), quantize(bits=8, mlp_bits=4,
+5. The checkpoint entry points at the same width (checkpoint_path): the
+   seed's bf16 tree exported as a reference-format HF checkpoint and loaded
+   back with from_hf_checkpoint (bit-identical), quantize(bits=8) and the
+   three requests (ids and margins those of (4)), a serving checkpoint
+   written and loaded back (save_serving / load_serving: bit-identical,
+   knobs restored, the same ids and margins through the decode graph), one
+   request with the argmax over the whole vocabulary through its own decode
+   graph (held to the eager unfused loop under the margin rule, its graph's
+   replay traced) and one on the unfused int8 tree (fuse=False), held to the
+   fused tree. The seconds and bytes of each write and load, each load's
+   peak host RSS and the free disk are printed; too little disk fails.
+6. The same entry point after quantize(bits=4), quantize(bits=8, mlp_bits=4,
    kv_bits=8) (plus a 16-row predict_batch) and quantize(bits=4,
    group_size=128, vision_bits=4): warm-up requests (the captures) and five
    timed requests each through the decode graph and five eagerly, the
@@ -77,7 +89,7 @@
    and with the FMA tiles in its place, and two requests' ids under the
    margin rule against the unfused path and the served path with the q4
    wrappers' plain versions, or the bf16 cache.
-6. Drives the training path: full-parameter training of full-width
+7. Drives the training path: full-parameter training of full-width
    spatialvla_4b() (fp32 masters, bf16 compute, remat, flash attention,
    256-token loss chunks, AdamW with clipping, batch 2 x 320 built by the
    port's processor) through train_loop for 5 steps. The flash kernels must
@@ -88,7 +100,7 @@
    (LOSS_BOUND, GRAD_NORM_BOUND). Then spatialvla_tiny(use_vision_zoe=True)
    must overfit one batch through the kernels (loss down by more than 0.5 in
    8 steps at lr 5e-3).
-7. Prints the card, the kernels' JSON line (with each decode kernel's
+8. Prints the card, the kernels' JSON line (with each decode kernel's
    launches in one replay of the graphs checked, traced and credited), and
    last {"ok": true, ...}.
 
@@ -526,11 +538,13 @@ def kernel_phases(torch, timer, results, notes):
         if not r < bound_rel:
             fail(f"{name} {shape}: rel err {r} >= {bound_rel}")
 
-    # q8_matvec: the action head (M = 1, 2304 -> 8194), the down projection
+    # q8_matvec: the action head (M = 1, 2304 -> 8194), the whole-vocabulary
+    # head (M = 1 and 2, 2304 -> 265346: greedy with
+    # restrict_to_action_tokens=False, 611 MB of codes), the down projection
     # at batch 16 (9216 -> 2304), the decode step's o (2048 -> 2304) and
     # down (9216 -> 2304) projections at batch 1, and o at batch 16
-    for M, K, N in ((1, 2304, 8194), (16, 9216, 2304), (1, 2048, 2304), (1, 9216, 2304),
-                    (16, 2048, 2304)):
+    for M, K, N in ((1, 2304, 8194), (1, 2304, 265346), (2, 2304, 265346), (16, 9216, 2304),
+                    (1, 2048, 2304), (1, 9216, 2304), (16, 2048, 2304)):
         x, w = randn(M, K), qweight(N, K)
         y = quant.q8_matvec(x, w["qt"], w["scale"])
         ref = quant.q8_matvec_plain(x, w["qt"], w["scale"])
@@ -1318,6 +1332,16 @@ def step_phase(torch, timer, lm, tcfg, x, ck, cv, pos, label, per_layer=False):
             "layer_drift": layer_drift, "launches": counts}
 
 
+def main_requests(cfg):
+    """The main path's three requests: (frames, instructions)."""
+    rng = np.random.RandomState(7)
+    size = cfg.vision.image_size
+    images = [(rng.rand(size, size, 3) * 255).astype(np.uint8) for _ in range(3)]
+    instructions = ["pick up the red cup", "open the top drawer",
+                    "put the spoon into the pot on the left burner"]
+    return images, instructions
+
+
 def main_path(torch, timer, counters):
     from spatialvla_tpu_torch import SpatialVLAPolicy, spatialvla_4b
     from spatialvla_tpu_torch.models import spatialvla as sv
@@ -1336,11 +1360,7 @@ def main_path(torch, timer, counters):
     print(f"main path: init_random {t_init:.2f} s, quantize(bits=8) {t_quant:.2f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated", flush=True)
 
-    rng = np.random.RandomState(7)
-    size = cfg.vision.image_size
-    images = [(rng.rand(size, size, 3) * 255).astype(np.uint8) for _ in range(3)]
-    instructions = ["pick up the red cup", "open the top drawer",
-                    "put the spoon into the pot on the left burner"]
+    images, instructions = main_requests(cfg)
     batch_texts = ["pick up the cup", "open the top drawer of the desk"]
     begin, n_act = cfg.action_token_begin_idx, cfg.spatial_token_num
 
@@ -1554,7 +1574,280 @@ def main_path(torch, timer, counters):
         "launches": launches,
         "gelu_launches": gelu_launches,
         "flash_prefill_launches": flash_prefill_launches,
+        "requests": [{"ids": o["action_ids"].tolist(), "margins": o["margins"].tolist()}
+                     for o in outs],
     }
+
+
+# ---------------------------------------------------------------------------
+# checkpoints: an HF checkpoint in and out, a serving checkpoint in and out
+# ---------------------------------------------------------------------------
+
+def host_rss() -> int:
+    """This process's resident host memory (VmRSS), bytes."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("/proc/self/status has no VmRSS")
+
+
+@contextlib.contextmanager
+def rss_peak(out: dict, period_s: float = 0.002):
+    """The largest VmRSS while the block runs, sampled on a thread every
+    ``period_s`` (the card's machine reports no VmHWM): out["rss_before"],
+    out["rss_peak"], out["rss_after"]."""
+    import threading
+
+    out["rss_before"] = peak = host_rss()
+    done = threading.Event()
+
+    def sample():
+        nonlocal peak
+        while not done.is_set():
+            peak = max(peak, host_rss())
+            done.wait(period_s)
+
+    thread = threading.Thread(target=sample, daemon=True)
+    thread.start()
+    try:
+        yield out
+    finally:
+        done.set()
+        thread.join()
+        out["rss_after"] = host_rss()
+        out["rss_peak"] = max(peak, out["rss_after"])
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(root, fn))
+               for root, _, files in os.walk(path) for fn in files)
+
+
+def tree_paths(tree, prefix=""):
+    """(path, tensor) of every leaf of a nested dict / list."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_paths(v, f"{prefix}{k}/")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tree_paths(v, f"{prefix}{i}/")
+    else:
+        yield prefix[:-1], tree
+
+
+def bit_identical(torch, a, b, label):
+    """Fail unless trees a and b have the same leaves, dtypes, shapes and bits."""
+    la, lb = dict(tree_paths(a)), dict(tree_paths(b))
+    if sorted(la) != sorted(lb):
+        fail(f"{label}: leaves differ: {sorted(set(la) ^ set(lb))[:8]}")
+    for k, x in la.items():
+        y = lb[k]
+        if x.dtype != y.dtype or x.shape != y.shape:
+            fail(f"{label}: {k} is {x.dtype} {tuple(x.shape)}, not {y.dtype} {tuple(y.shape)}")
+        if x.numel() and not torch.equal(x.contiguous().reshape(-1).view(torch.uint8),
+                                         y.contiguous().reshape(-1).view(torch.uint8)):
+            fail(f"{label}: {k} differs in its bits")
+    return len(la)
+
+
+def checkpoint_path(torch, reference, *, cfg=None, device="cuda"):
+    """Full-width spatialvla_4b() through the checkpoint entry points:
+    init_random(seed=0) exported in bf16 as a reference-format HF checkpoint
+    (export_hf_checkpoint) and loaded back (from_hf_checkpoint, onto the
+    card): every leaf bit-identical. quantize(bits=8), then the main path's
+    three requests: ids and margins equal to the main path's (the same seed's
+    tree quantized in memory, ``reference``). The HF directory removed, the
+    tree saved as a serving checkpoint and loaded back (save_serving /
+    load_serving): bit-identical, kv_bits / depth_image_size / quant_desc
+    restored, the three requests' ids and margins identical through the
+    decode graph. One request with the argmax over the whole vocabulary
+    (restrict_to_action_tokens=False) through its own decode graph, held to
+    the eager unfused loop under the margin rule, its graph's launches
+    traced; one request on the unfused int8 tree (quantize_lm_params
+    fuse=False, the unfused loop on separate q / k / v / gate / up), held to
+    the fused tree. Prints the seconds and bytes of each write and load, the
+    host RSS peak of each load and the free disk before the phase.
+
+    ``cfg`` and ``device="cpu"`` rehearse the phase on the CPU at a small
+    size: everything but the decode graphs and the launch counts (the
+    wrappers count nothing there)."""
+    import shutil
+
+    from spatialvla_tpu_torch import SpatialVLAPolicy, spatialvla_4b
+    from spatialvla_tpu_torch.convert import export_hf_checkpoint
+    from spatialvla_tpu_torch.convert.hf_checkpoint import processor_from_hf
+    from spatialvla_tpu_torch.models import spatialvla as sv
+    from spatialvla_tpu_torch.ops import quant
+
+    cfg = cfg or spatialvla_4b()
+    on_card = device != "cpu"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    images, instructions = main_requests(cfg)
+    work = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    res = {"dir": work}
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t0
+
+    def timed_load(fn):
+        mem = {}
+        with rss_peak(mem):
+            out, sec = timed(fn)
+        return out, sec, mem
+
+    def requests(policy, label):
+        outs = [policy.predict(img, instr, return_margins=True)
+                for img, instr in zip(images, instructions)]
+        for o, ref in zip(outs, reference):
+            same = (o["action_ids"].tolist() == ref["ids"]
+                    and o["margins"].tolist() == ref["margins"])
+            print(f"checkpoint path, {label}: ids {o['action_ids'].tolist()} "
+                  f"-> {'identical' if same else 'DIFFER from ' + str(ref['ids'])}", flush=True)
+            if not same:
+                fail(f"checkpoint path, {label}: ids / margins differ from the tree quantized "
+                     "in memory")
+        return outs
+
+    try:
+        free = shutil.disk_usage(work).free
+        original = SpatialVLAPolicy.init_random(cfg, device, seed=0)
+        need = tree_bytes(original.params)
+        print(f"checkpoint path: {free} bytes free in {work} before the phase; the bf16 HF "
+              f"checkpoint needs {need} bytes | {card_line()}", flush=True)
+        if free < need * 1.02:
+            fail(f"checkpoint path: {free} bytes free in {work}, the HF checkpoint needs "
+                 f"{need} bytes (about 8.1 GB) and the serving checkpoint after it about 4.7 GB")
+        res["disk_free_bytes"] = free
+
+        hf_dir = os.path.join(work, "hf")
+        _, sec = timed(lambda: export_hf_checkpoint(original.params, cfg, hf_dir,
+                                                    processor=original.processor))
+        res["hf_write"] = {"s": sec, "bytes": dir_bytes(hf_dir)}
+        # the processor files alone first: where transformers is installed,
+        # processor_from_hf's first tokenizer attempt imports it (seconds)
+        _, res["hf_processor_s"] = timed(lambda: processor_from_hf(hf_dir, cfg))
+        loaded, sec, mem = timed_load(lambda: SpatialVLAPolicy.from_hf_checkpoint(
+            hf_dir, device=device))
+        res["hf_load"] = {"s": sec, "bytes": res["hf_write"]["bytes"], **mem}
+        n = bit_identical(torch, loaded.params, original.params, "HF round trip")
+        print(f"checkpoint path: export_hf_checkpoint {res['hf_write']['s']:.2f} s, "
+              f"{res['hf_write']['bytes']} bytes; processor files {res['hf_processor_s']:.2f} s; "
+              f"from_hf_checkpoint {sec:.2f} s, host RSS "
+              f"{mem['rss_before'] / 2**30:.2f} GiB before, peak {mem['rss_peak'] / 2**30:.2f} "
+              f"GiB, after {mem['rss_after'] / 2**30:.2f} GiB; {n} leaves bit-identical | "
+              f"{card_line()}", flush=True)
+        del original
+        raw = loaded.params  # the bf16 tree, for the unfused tree below
+        loaded.quantize(bits=8)
+        outs = requests(loaded, "loaded HF checkpoint, quantize(bits=8)")
+        shutil.rmtree(hf_dir)
+
+        serving_dir = os.path.join(work, "serving")
+        _, sec = timed(lambda: loaded.save_serving(serving_dir))
+        res["serving_write"] = {"s": sec, "bytes": dir_bytes(serving_dir)}
+        reloaded, sec, mem = timed_load(lambda: SpatialVLAPolicy.load_serving(
+            serving_dir, device=device))
+        res["serving_load"] = {"s": sec, "bytes": res["serving_write"]["bytes"], **mem}
+        n = bit_identical(torch, reloaded.params, loaded.params, "serving round trip")
+        knobs = (reloaded.kv_bits, reloaded.depth_image_size, reloaded.quant_desc)
+        if knobs != (loaded.kv_bits, loaded.depth_image_size, loaded.quant_desc):
+            fail(f"serving round trip: knobs {knobs} not restored")
+        print(f"checkpoint path: save_serving {res['serving_write']['s']:.2f} s, "
+              f"{res['serving_write']['bytes']} bytes; load_serving {sec:.2f} s, host RSS "
+              f"{mem['rss_before'] / 2**30:.2f} GiB before, peak {mem['rss_peak'] / 2**30:.2f} "
+              f"GiB, after {mem['rss_after'] / 2**30:.2f} GiB; {n} leaves bit-identical, knobs "
+              f"{knobs} | {card_line()}", flush=True)
+        del loaded
+        reference = [{"ids": o["action_ids"].tolist(), "margins": o["margins"].tolist()}
+                     for o in outs]
+        requests(reloaded, "serving checkpoint")
+        if on_card and not len(reloaded.decode_graphs):
+            fail("checkpoint path: the serving checkpoint's requests captured no decode graph")
+
+        # the argmax over the whole vocabulary, through a decode graph of its own
+        inputs = reloaded.processor(images[0], instructions[0])
+        args = (torch.as_tensor(inputs["input_ids"], dtype=torch.long, device=device),)
+        kw = dict(pixel_values=torch.as_tensor(inputs["pixel_values"], device=device),
+                  intrinsic=torch.as_tensor(inputs["intrinsic"], device=device),
+                  restrict_to_action_tokens=False, return_margins=True)
+        graphs_before = set(reloaded.decode_graphs.loops)
+        out = []
+
+        def whole_vocabulary():
+            out[:] = sv.predict_action(reloaded.params, cfg, *args, use_cuda_graph=on_card,
+                                       decode_graphs=reloaded.decode_graphs, **kw)
+
+        loop_ms = {}
+
+        def loop_timed(label, fn):  # the decode loop of the request, CUDA events
+            with decode_loops(torch, []) as sink:
+                fn()
+            loop_ms[label] = sink[0][2] if sink else None
+
+        with torch.inference_mode():
+            whole_vocabulary()  # captures its graph
+            # a request's launches, by wrapper, and its decode loop's time:
+            # the action block's, then the whole vocabulary's, both replaying
+            # their graphs
+            block = launch_counts(torch, lambda: loop_timed(
+                "block", lambda: reloaded.predict(images[0], instructions[0])))
+            whole = launch_counts(torch, lambda: loop_timed("whole", whole_vocabulary))
+            ids, margins = out
+            ref_ids, ref_m = sv.predict_action(reloaded.params, cfg, *args,
+                                               use_fused_decode=False, **kw)
+        added = [key for key in reloaded.decode_graphs.loops if key not in graphs_before]
+        head = reloaded.decode_graphs.loops[added[0]].head if len(added) == 1 else None
+        ok = margin_rule_ok(ids[0].cpu().numpy(), ref_ids[0].cpu().numpy(),
+                            ref_m[0].cpu().numpy())
+        print(f"checkpoint path, whole vocabulary: ids {ids[0].tolist()} through the graph "
+              f"(margins {np.round(margins[0].cpu().numpy(), 3).tolist()}), eager unfused "
+              f"{ref_ids[0].tolist()} (margins {np.round(ref_m[0].cpu().numpy(), 3).tolist()}) "
+              f"-> {'ok' if ok else 'DIFFER'}; graphs added {added}, head "
+              f"{None if head is None else tuple(head['qt'].shape)}; launches {whole} (the "
+              f"action block's request: {block}); decode loop {loop_ms['whole']} ms (the "
+              f"action block's {loop_ms['block']} ms)", flush=True)
+        if not ok:
+            fail("whole-vocabulary greedy through the decode graph disagrees with the eager "
+                 "unfused loop beyond the margin rule")
+        if on_card and (head is None or head["qt"].shape[0] != cfg.text.vocab_size
+                        or whole != block):
+            fail(f"whole-vocabulary greedy: graphs added {added}, launches {whole} against the "
+                 f"action block's {block}")
+        res["whole_vocabulary"] = {
+            "ids": ids[0].tolist(), "reference_ids": ref_ids[0].tolist(), "launches": whole,
+            "decode_loop_ms": loop_ms["whole"], "block_decode_loop_ms": loop_ms["block"],
+            "graph_launches": graph_launches(torch, reloaded, "checkpoint path") if on_card
+            else None}
+
+        # the unfused int8 tree (separate q / k / v / gate / up) on the unfused loop
+        with torch.inference_mode():
+            unfused = dict(reloaded.params,
+                           lm=quant.quantize_lm_params(raw["lm"], bits=8, fuse=False))
+            del raw
+            kw["restrict_to_action_tokens"] = True
+            launches = launch_counts(torch, lambda: out.__setitem__(
+                slice(None), sv.predict_action(unfused, cfg, *args, **kw)))
+            u_ids = out[0]
+        ok = margin_rule_ok(u_ids[0].cpu().numpy(), reference[0]["ids"], reference[0]["margins"])
+        print(f"checkpoint path, unfused int8 tree (fuse=False): ids {u_ids[0].tolist()} vs "
+              f"the fused tree's {reference[0]['ids']} -> {'ok' if ok else 'DIFFER'}; "
+              f"launches {launches}", flush=True)
+        # the first token's head, then 11 steps of q, k, v, o, gate, up and
+        # down in each layer and the head, all on q8_matvec (the 277-row
+        # prefill and the vision front dequantize above 16 rows)
+        want = {"q8_matvec": 1 + 11 * (7 * cfg.text.num_layers + 1)} if on_card else {}
+        if not ok or launches != want:
+            fail(f"unfused int8 tree: ids differ beyond the margin rule ({ok}) or launches "
+                 f"{launches} (want {want})")
+        res["unfused"] = {"ids": u_ids[0].tolist(), "launches": launches}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -2210,6 +2503,14 @@ def main() -> int:
           f"{path['warm_predict_eager_ms_median']:.2f} ms eager, "
           f"peak {path['peak_mem_gib']:.2f} GiB | {card}", flush=True)
     torch.cuda.empty_cache()
+    ckpt = checkpoint_path(torch, path["requests"])
+    print(f"checkpoint path: HF write {ckpt['hf_write']['s']:.2f} s / load "
+          f"{ckpt['hf_load']['s']:.2f} s ({ckpt['hf_write']['bytes']} bytes), serving write "
+          f"{ckpt['serving_write']['s']:.2f} s / load {ckpt['serving_load']['s']:.2f} s "
+          f"({ckpt['serving_write']['bytes']} bytes), peak host RSS of the loads "
+          f"{ckpt['hf_load']['rss_peak'] / 2**30:.2f} / {ckpt['serving_load']['rss_peak'] / 2**30:.2f} "
+          f"GiB | {card}", flush=True)
+    torch.cuda.empty_cache()
     serving = serving_configs(torch, serving_counters)
 
     flash = [fa.flash_attention_fwd, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv]
@@ -2221,7 +2522,7 @@ def main() -> int:
           flush=True)
     print("detail: " + json.dumps({"build_s": build_s, "decode_step_2_layers": steps,
                                    "decode_step_matrix": matrix, "refused_shape_step": refused,
-                                   "main_path": path,
+                                   "main_path": path, "checkpoint_path": ckpt,
                                    "serving_configs": serving, "train_path": train,
                                    "tiny_overfit": overfit, "kernel_times": results,
                                    "card": card}), flush=True)
@@ -2288,6 +2589,12 @@ def main() -> int:
             extra["gelu_epilogue"] = r["gelu_epilogue"]
         if "with_copy_ms" in r:
             extra["with_copy_ms"] = r["with_copy_ms"]
+        head = [sh for sh in r["ms"] if sh.endswith("x265346")]
+        if head and not tiled:  # the whole-vocabulary head (restrict_to_action_tokens=False)
+            extra["whole_vocabulary_head"] = {
+                sh: {"ms": r["ms"][sh], "plain_ms": r["plain_ms"][sh],
+                     "bound_ms": r["bound"][sh][0], "bound_by": r["bound"][sh][1],
+                     "library_ms": r["library_ms"][sh]} for sh in head}
         if "fma_ms" in r:  # the flash kernels: the CUDA route, the FMA kernels' time
             extra = {"cuda_route": r["cuda_route"], "fma_ms": r["fma_ms"][first],
                      "other_shapes": {

@@ -2,9 +2,9 @@
 
 # ROADMAP.md items that hold what is still to port
 ROADMAP_ITEMS = {
-    "checkpoint": "Queue A item 2, checkpoint loading",
-    "serving": "Queue A item 3, the serving options still to port (shard, save_serving / "
-               "load_serving, LoRA-factored weights)",
+    "train_checkpoint": "Queue A item 6, checkpoints in the training loop",
+    "serving": "Queue A item 3, the serving options still to port (shard, LoRA-factored "
+               "weights)",
     "parallel": "Queue A item 8, parallelism",
 }
 

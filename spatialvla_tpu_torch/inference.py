@@ -1,17 +1,21 @@
 """User-facing inference API (port of spatialvla_tpu/inference.py):
 
-    policy = SpatialVLAPolicy.init_random(spatialvla_4b(), "cuda:0", seed=0)
+    policy = SpatialVLAPolicy.from_hf_checkpoint("path/to/hf_checkpoint")  # on "cuda"
     policy.quantize(bits=8)
-    out = policy.predict(image, "move the cup")
+    out = policy.predict(image, "move the cup", unnorm_key="bridge_orig/1.0.0")
     out["actions"]  # (chunk, 7)
 
 The parameters are the JAX tree's nested dict of tensors (same keys and
-shapes; convert/bridge.py moves trees between the packages). ``quantize``
-takes every serving format of the JAX package: int8 or int4 LM (per channel
-or ``group_size``), ``mlp_bits=4`` for an int4 MLP under an int8 attention
-and head, int8 or int4 vision front, and ``kv_bits=8`` for an int8 KV cache.
-Loading a real checkpoint (``load``, ``from_hf_checkpoint``), ``shard`` and
-``save_serving`` / ``load_serving`` are not ported yet (ROADMAP.md).
+shapes; convert/bridge.py moves trees between the packages). They come from
+a reference-format HF checkpoint (``from_hf_checkpoint``), a checkpoint of
+the port's own format (``load``, ``train/checkpoints.py``), a serving
+checkpoint (``save_serving`` / ``load_serving``: the quantized tree and its
+knobs, stored as they are) or random weights (``init_random``). Every loader
+takes ``device`` (default "cuda", which raises without a card; the tests
+pass "cpu"). ``quantize`` takes every serving format of the JAX package:
+int8 or int4 LM (per channel or ``group_size``), ``mlp_bits=4`` for an int4
+MLP under an int8 attention and head, int8 or int4 vision front, and
+``kv_bits=8`` for an int8 KV cache. ``shard`` is not ported yet (ROADMAP.md).
 
 On the card the fused decode loop runs as a CUDA graph per batch size and
 cache bucket (``models/spatialvla.py:GreedyLoop``; prefixes within 64 tokens
@@ -22,6 +26,8 @@ whenever it replaces its parameters (``quantize``, ``to``).
 """
 from __future__ import annotations
 
+import json
+import os
 from typing import Dict, Optional
 
 import numpy as np
@@ -29,10 +35,11 @@ import torch
 
 from .config import SpatialVLAConfig
 from .convert.bridge import map_tree
+from .convert.params import target_device
 from .errors import not_ported
 from .models import spatialvla
 from .ops.quant import quantize_lm_params, quantize_vision_params
-from .processor import ByteTokenizer, SpatialVLAProcessor
+from .processor import ByteTokenizer, SpatialVLAProcessor, TextTokenizer
 
 
 def default_processor(config: SpatialVLAConfig) -> SpatialVLAProcessor:
@@ -59,6 +66,7 @@ class SpatialVLAPolicy:
         self.depth_image_size: Optional[int] = None  # set by quantize()
         self.kv_bits: Optional[int] = None  # set by quantize()
         self.quant_desc: Optional[Dict] = None  # set by quantize()
+        self.quality_gate: Optional[Dict] = None  # a serve.gating artifact
         # the fused decode loop's CUDA graphs, captured for self.params;
         # use_cuda_graph None: on for CUDA tensors (predict_action's option)
         self.decode_graphs = spatialvla.DecodeGraphs()
@@ -84,19 +92,103 @@ class SpatialVLAPolicy:
         return self
 
     @classmethod
-    def load(cls, *args, **kwargs):
-        raise not_ported("loading an Orbax checkpoint (load)", "checkpoint")
+    def load(cls, checkpoint_dir: str, *, device="cuda",
+             text_tokenizer: Optional[TextTokenizer] = None,
+             param_dtype=torch.bfloat16) -> "SpatialVLAPolicy":
+        """A checkpoint of the port's own format (``train/checkpoints.py``:
+        params.safetensors, config.json, the processor files), its floating
+        leaves cast to ``param_dtype``. The JAX package's Orbax directories
+        are not read (the error says so)."""
+        from .train.checkpoints import load_params
+
+        device = target_device(device)
+        with open(os.path.join(checkpoint_dir, "config.json")) as f:
+            config = SpatialVLAConfig.from_json(f.read())
+        processor = SpatialVLAProcessor.load(checkpoint_dir, text_tokenizer)
+        params = load_params(checkpoint_dir, device=device, float_dtype=param_dtype)
+        return cls(params, config, processor, device=device)
 
     @classmethod
-    def from_hf_checkpoint(cls, *args, **kwargs):
-        raise not_ported("loading a Hugging Face checkpoint (from_hf_checkpoint)", "checkpoint")
+    def from_hf_checkpoint(cls, hf_dir: str, *, device="cuda",
+                           text_tokenizer: Optional[TextTokenizer] = None,
+                           param_dtype=torch.bfloat16) -> "SpatialVLAPolicy":
+        """Load directly from a reference-format HF checkpoint directory
+        (safetensors + config.json + processor files), each tensor moved to
+        ``device`` in ``param_dtype`` as it is read."""
+        from .convert.hf_checkpoint import load_hf_checkpoint
+
+        device = target_device(device)
+        params, config, processor = load_hf_checkpoint(
+            hf_dir, text_tokenizer=text_tokenizer, dtype=param_dtype, device=device)
+        return cls(params, config, processor, device=device)
+
+    def save_serving(self, directory: str, *, quality_gate: Optional[Dict] = None):
+        """Persist the CURRENT parameterization as a serving checkpoint.
+
+        Called after quantize(), this writes the int8 / int4 packed tree (+
+        scales + precomputed ZoeDepth relative-position bias) verbatim
+        (``train/checkpoints.save_params``), so a server restart loads it
+        directly with load_serving(): no bf16 tree, no quantize pass. Beside
+        it: config.json, the processor files, and serving_config.json with
+        the knobs that live on the policy rather than in the tree (kv_bits,
+        depth_image_size, quant_desc), as the JAX package writes them.
+
+        quality_gate: a serve.gating artifact measuring THIS
+        parameterization against bf16, embedded in serving_config.json;
+        rejected (ValueError) unless it covers the baked knobs.
+
+        The JAX package does not read this directory: its serving
+        checkpoints are Orbax, the port's are its own safetensors format."""
+        from .serve.gating import check_gate, policy_quality_knobs
+        from .train.checkpoints import save_params
+
+        if quality_gate is not None:
+            ok, problems = check_gate(quality_gate, policy_quality_knobs(self))
+            if not ok:
+                raise ValueError("quality_gate does not cover this checkpoint's baked knobs: "
+                                 + "; ".join(problems))
+        save_params(directory, self.params, config_json=self.config.to_json())
+        self.processor.save(directory)
+        with open(os.path.join(directory, "serving_config.json"), "w") as f:
+            json.dump(
+                {
+                    "format_version": 1,
+                    "kv_bits": self.kv_bits,
+                    "depth_image_size": self.depth_image_size,
+                    "quant_desc": self.quant_desc,
+                    "quality_gate": quality_gate
+                    if quality_gate is not None
+                    else self.quality_gate,
+                },
+                f, indent=2,
+            )
 
     @classmethod
-    def load_serving(cls, *args, **kwargs):
-        raise not_ported("load_serving")
+    def load_serving(cls, directory: str, *, device="cuda",
+                     text_tokenizer: Optional[TextTokenizer] = None) -> "SpatialVLAPolicy":
+        """Load a save_serving() checkpoint: the tree with its stored dtypes
+        and structure (quantized leaves stay quantized), moved to ``device``
+        once; kv_bits, depth_image_size, quant_desc and the quality gate
+        from serving_config.json. Do not call quantize() on the result: the
+        tree already is."""
+        from .train.checkpoints import load_params
 
-    def save_serving(self, *args, **kwargs):
-        raise not_ported("save_serving")
+        scfg_path = os.path.join(directory, "serving_config.json")
+        if not os.path.exists(scfg_path):
+            raise FileNotFoundError(f"{scfg_path} not found: not a save_serving() checkpoint "
+                                    "(use SpatialVLAPolicy.load for other checkpoints)")
+        device = target_device(device)
+        with open(scfg_path) as f:
+            scfg = json.load(f)
+        with open(os.path.join(directory, "config.json")) as f:
+            config = SpatialVLAConfig.from_json(f.read())
+        processor = SpatialVLAProcessor.load(directory, text_tokenizer)
+        policy = cls(load_params(directory, device=device), config, processor, device=device)
+        policy.kv_bits = scfg.get("kv_bits")
+        policy.depth_image_size = scfg.get("depth_image_size")
+        policy.quant_desc = scfg.get("quant_desc")
+        policy.quality_gate = scfg.get("quality_gate")
+        return policy
 
     def shard(self, *args, **kwargs):
         raise not_ported("shard()")

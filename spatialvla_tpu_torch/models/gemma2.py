@@ -261,23 +261,23 @@ def forward_flash(params: Params, cfg, inputs_embeds: torch.Tensor, position_ids
 
 
 def prefill_flash(params: Params, cfg, inputs_embeds: torch.Tensor, position_ids: torch.Tensor,
-                  cache_len: int) -> Tuple[torch.Tensor, Params]:
+                  cache_len: int, cache_dtype=torch.bfloat16) -> Tuple[torch.Tensor, Params]:
     """Serving prefill over an unpadded, fully bidirectional prefix through
     the flash forward kernel (gemma2.py:331): returns (final-normed hidden,
-    bf16 cache) with the roped k / v rows in cache slots [0, P) and zeros
-    after."""
+    cache in ``cache_dtype``) with the roped k / v rows in cache slots
+    [0, P) and zeros after."""
     B, P, H = inputs_embeds.shape
     dev = inputs_embeds.device
     normalizer = torch.tensor(cfg.hidden_size ** 0.5, dtype=inputs_embeds.dtype, device=dev)
     h = inputs_embeds * normalizer
     cos, sin = rope_cos_sin(position_ids, cfg.head_dim, cfg.rope_theta)
     lens = torch.full((B,), P, dtype=torch.int32, device=dev)
-    cache = init_cache(cfg, B, cache_len, device=dev, dtype=torch.bfloat16)
+    cache = init_cache(cfg, B, cache_len, device=dev, dtype=cache_dtype)
     for l, lp in enumerate(unstack_layers(params["layers"], cfg.num_layers)):
         window = cfg.sliding_window if l % 2 == 0 else None  # even layers slide
         h, k, v = _decoder_layer_flash(cfg, h, lp, cos, sin, lens, lens, window)
-        cache["k"][l, :, :P] = k.to(torch.bfloat16)
-        cache["v"][l, :, :P] = v.to(torch.bfloat16)
+        cache["k"][l, :, :P] = k.to(cache_dtype)
+        cache["v"][l, :, :P] = v.to(cache_dtype)
     return rms_norm(params["final_norm"], h, cfg.rms_norm_eps), cache
 
 

@@ -244,6 +244,16 @@ def _slice_head(lm_params: Params, begin: int, size: int):
     return head[:, begin : begin + size]
 
 
+def _greedy_head(lm_params: Params, token_range: Optional[Tuple[int, int]]):
+    """(id offset, head) of the greedy argmax: the rows of ``token_range``,
+    or the whole lm_head (``embed.T`` without one) for token_range None
+    (spatialvla.py:603-609)."""
+    if token_range is None:
+        head = lm_params["lm_head"] if "lm_head" in lm_params else lm_params["embed"].t()
+        return 0, head
+    return token_range[0], _slice_head(lm_params, *token_range)
+
+
 def _argmax_margin(logits: torch.Tensor) -> torch.Tensor:
     """(..., V) -> (...,) fp32 top1 - top2 logit."""
     top2 = torch.topk(logits.float(), 2, dim=-1).values
@@ -255,12 +265,14 @@ def generate_greedy(
     cfg,
     input_ids: torch.Tensor,  # (B, P) prefix [+ right pad]
     *,
-    token_range: Tuple[int, int],  # (begin, size): greedy argmax over these ids
     pixel_values: Optional[torch.Tensor] = None,
     intrinsic: Optional[torch.Tensor] = None,
+    depth: Optional[torch.Tensor] = None,  # (B, H, W) metric depth in place of ZoeDepth's
     attention_mask: Optional[torch.Tensor] = None,  # (B, P) 1 = valid; None = unpadded
     max_new_tokens: int = 12,
+    cache_dtype=torch.bfloat16,
     compute_dtype=None,
+    token_range: Optional[Tuple[int, int]] = None,  # (begin, size); None: the whole vocabulary
     use_fused_decode: Optional[bool] = None,
     use_flash_prefill: Optional[bool] = None,
     depth_image_size: Optional[int] = None,
@@ -275,14 +287,19 @@ def generate_greedy(
     unpadded prefix, or pad-aware (mask-cumsum positions, pad keys masked,
     true positions for the sliding window) with ``attention_mask``; with
     ``use_flash_prefill`` (unpadded rows only; off by default as in JAX,
-    spatialvla.py:387-391) the prefill runs through the flash kernel. The
-    argmax runs over the lm_head rows of ``token_range`` (the action block on
-    the serving path); the JAX package's full-vocabulary greedy and its
-    ``cache_dtype`` and precomputed-``depth`` options are not ported (the
-    prefill cache is bf16, ``kv_bits=8`` quantizes it for the fused decode;
-    depth comes from ZoeDepth). On the fused decode path ``use_cuda_graph``
-    (None: where ``decode_graphs`` is given) replays the loop after the first
-    token as one CUDA graph, kept in ``decode_graphs``
+    spatialvla.py:387-391) the prefill runs through the flash kernel.
+
+    ``token_range=(begin, size)`` restricts the argmax to the lm_head rows
+    of that id block (the action block on the serving path: a 265k-row head
+    streams 32 times the bytes of the 8194-row block); None takes the whole
+    vocabulary, through the unfused loop's softcapped logits
+    (``gemma2.compute_logits``) or the fused loop's head matvec, as in JAX.
+    ``depth`` (B, H, W) replaces ZoeDepth's estimate. ``cache_dtype`` is the
+    prefill cache's dtype, which the unfused loop keeps; the fused loop
+    decodes from a bf16 cache (or, with ``kv_bits=8``, from the prefill
+    cache quantized to int8) and refuses another. On the fused decode path
+    ``use_cuda_graph`` (None: where ``decode_graphs`` is given) replays the
+    loop after the first token as one CUDA graph, kept in ``decode_graphs``
     (``_generate_greedy_fused``)."""
     graph_kw = dict(use_cuda_graph=use_cuda_graph, decode_graphs=decode_graphs)
     if use_flash_prefill and attention_mask is not None:
@@ -294,20 +311,21 @@ def generate_greedy(
     image_features = None
     if pixel_values is not None:
         image_features = get_image_features(
-            params, cfg, pixel_values, intrinsic,
+            params, cfg, pixel_values, intrinsic, depth=depth,
             compute_dtype=compute_dtype, depth_image_size=depth_image_size,
         )
     embeds = merge_input_embeddings(params, cfg, input_ids, image_features, dtype=compute_dtype)
 
     if use_flash_prefill:
         position_ids = torch.arange(1, P + 1, device=dev)[None].expand(B, P)
-        hidden, cache = gemma2_mod.prefill_flash(params["lm"], cfg.text, embeds, position_ids, S)
+        hidden, cache = gemma2_mod.prefill_flash(params["lm"], cfg.text, embeds, position_ids, S,
+                                                 cache_dtype=cache_dtype)
         return _decode_after_prefill(
             params, cfg, cache, hidden, P, S, max_new_tokens, token_range, use_fused_decode,
             compute_dtype, valid=None, key_valid=None, k_pos_true=None, kv_bits=kv_bits,
             return_margins=return_margins, **graph_kw,
         )
-    cache = gemma2_mod.init_cache(cfg.text, B, S, device=dev, dtype=torch.bfloat16)
+    cache = gemma2_mod.init_cache(cfg.text, B, S, device=dev, dtype=cache_dtype)
     if attention_mask is None:
         position_ids = torch.arange(1, P + 1, device=dev)[None].expand(B, P)
         mask = bidirectional_prefill_mask(P, S, B, device=dev)
@@ -361,12 +379,16 @@ def _decode_after_prefill(params, cfg, cache, hidden, P, S, max_new_tokens, toke
     if kv_bits:
         raise ValueError("kv_bits requires the fused decode path (use_fused_decode)")
 
-    begin, size = token_range
-    head = _slice_head(params["lm"], begin, size)
+    if token_range is not None:
+        begin, head = _greedy_head(params["lm"], token_range)
 
-    def next_from(hidden_last):
-        logits = qmatmul(hidden_last[:, 0], head)
-        return torch.argmax(logits, dim=-1) + begin, _argmax_margin(logits)
+        def next_from(hidden_last):
+            logits = qmatmul(hidden_last[:, 0], head)
+            return torch.argmax(logits, dim=-1) + begin, _argmax_margin(logits)
+    else:
+        def next_from(hidden_last):
+            logits = gemma2_mod.compute_logits(params["lm"], cfg.text, hidden_last)[:, 0]
+            return torch.argmax(logits, dim=-1), _argmax_margin(logits)
 
     dev = hidden.device
     if valid is None:
@@ -437,7 +459,8 @@ def _kernel_counters():
 class GreedyLoop:
     """Steps 1 .. n-1 of the fused greedy loop on buffers of its own, for one
     shape: B rows, an S-slot cache (S a multiple of ``SLOT_BUCKET``, or the
-    sliding window), n tokens, a bf16 or int8 cache. Nothing in it depends on
+    sliding window), n tokens, a bf16 or int8 cache, the argmax over the ids
+    of ``token_range`` (None: the whole vocabulary). Nothing in it depends on
     a request's prefix length P: ``load`` copies a request's prefill cache
     (slots [0, P), permuted to the serving layout, quantized for kv_bits=8),
     its first token and each row's start slot (P, or the row's valid length
@@ -477,7 +500,7 @@ class GreedyLoop:
         self.start = torch.empty((B,), dtype=torch.int32, device=device)
         self.normalizer = torch.tensor(tcfg.hidden_size ** 0.5, dtype=dtype, device=device)
         self.buffers = step_buffers(tcfg, B, S, device)
-        self.begin, self.head = token_range[0], _slice_head(params["lm"], *token_range)
+        self.begin, self.head = _greedy_head(params["lm"], token_range)
         self.graph, self.out, self.credits, self.capture_ms = None, None, {}, None
 
     def next_from(self, h):
@@ -621,13 +644,16 @@ def _generate_greedy_fused(params, cfg, cache, prefill_hidden, P, max_new_tokens
     ``fused_decode_step`` enqueued after another."""
     if kv_bits not in (None, 8):
         raise ValueError(f"kv_bits={kv_bits}: only 8 (or None) is supported")
+    if kv_bits is None and cache["k"].dtype != torch.bfloat16:
+        raise ValueError(f"the fused decode path decodes from a bf16 (or, with kv_bits=8, int8) "
+                         f"cache, not {cache['k'].dtype}: use cache_dtype=torch.bfloat16 or "
+                         "use_fused_decode=False")
     if use_cuda_graph is None:
         use_cuda_graph = decode_graphs is not None and prefill_hidden.is_cuda
     elif use_cuda_graph and not prefill_hidden.is_cuda:
         raise ValueError("use_cuda_graph: a CUDA graph needs CUDA tensors")
     B = prefill_hidden.shape[0]
-    begin, size = token_range
-    head = _slice_head(params["lm"], begin, size)
+    begin, head = _greedy_head(params["lm"], token_range)
     if valid is None:
         last_hidden = prefill_hidden[:, -1]
     else:
@@ -643,7 +669,8 @@ def _generate_greedy_fused(params, cfg, cache, prefill_hidden, P, max_new_tokens
     S = P + max_new_tokens
     S_loop = max(S, min(-(-S // SLOT_BUCKET) * SLOT_BUCKET, cfg.text.sliding_window))
     shape = dict(B=B, S=S_loop, n=max_new_tokens, kv_bits=kv_bits,
-                 token_range=tuple(token_range), compute_dtype=compute_dtype, dtype=dtype)
+                 token_range=None if token_range is None else tuple(token_range),
+                 compute_dtype=compute_dtype, dtype=dtype)
 
     def build():
         return GreedyLoop(params, cfg, device=prefill_hidden.device, **shape)
@@ -671,9 +698,11 @@ def predict_action(
     *,
     pixel_values: Optional[torch.Tensor] = None,
     intrinsic: Optional[torch.Tensor] = None,
+    depth: Optional[torch.Tensor] = None,
     attention_mask: Optional[torch.Tensor] = None,
     action_chunk_size: int = 4,
     compute_dtype=torch.bfloat16,
+    restrict_to_action_tokens: bool = True,
     use_fused_decode: Optional[bool] = None,
     use_flash_prefill: Optional[bool] = None,
     depth_image_size: Optional[int] = None,
@@ -682,11 +711,16 @@ def predict_action(
     use_cuda_graph: Optional[bool] = None,
     decode_graphs: Optional[DecodeGraphs] = None,
 ):
-    """Greedy-decode exactly 3 * chunk spatial action token ids."""
+    """Greedy-decode exactly 3 * chunk spatial action token ids (3 tokens an
+    action step: translation, rotation, gripper). restrict_to_action_tokens
+    slices the lm_head to the action block (decode_actions only reads action
+    ids); False takes the argmax over the whole vocabulary."""
+    token_range = ((cfg.action_token_begin_idx, cfg.spatial_token_num)
+                   if restrict_to_action_tokens else None)
     return generate_greedy(
-        params, cfg, input_ids,
-        token_range=(cfg.action_token_begin_idx, cfg.spatial_token_num),
-        pixel_values=pixel_values, intrinsic=intrinsic, attention_mask=attention_mask,
+        params, cfg, input_ids, token_range=token_range,
+        pixel_values=pixel_values, intrinsic=intrinsic, depth=depth,
+        attention_mask=attention_mask,
         max_new_tokens=3 * action_chunk_size, compute_dtype=compute_dtype,
         use_fused_decode=use_fused_decode, use_flash_prefill=use_flash_prefill,
         depth_image_size=depth_image_size, kv_bits=kv_bits, return_margins=return_margins,

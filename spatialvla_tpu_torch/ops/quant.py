@@ -43,8 +43,7 @@ tensors, launches the kernel for CUDA tensors, and counts its launches in
 in ``<wrapper>.tiled_launches``, the matvecs those with the gelu epilogue
 also in ``<wrapper>.gelu_launches``).
 
-Not ported yet (ROADMAP): LoRA-factored weights in ``qmatmul`` and the
-unfused quantized LM tree (``fuse=False``).
+Not ported yet (ROADMAP): LoRA-factored weights in ``qmatmul``.
 """
 from __future__ import annotations
 
@@ -703,16 +702,17 @@ def quantize_lm_params(
     lm_params: Dict[str, Any], *, fuse: bool = True, bits: int = 8,
     group_size: Optional[int] = None, mlp_bits: Optional[int] = None,
 ) -> Dict[str, Any]:
-    """The serving tree of quant.py:443 with fused q|k|v and gate|up: int8
-    (bits=8) or packed int4 (bits=4, per channel or with ``group_size``)
-    weight matrices; ``mlp_bits`` overrides the MLP's precision (bits=8,
-    mlp_bits=4 is the mixed tree). Embedding and norms stay."""
+    """The serving tree of quant.py:443: int8 (bits=8) or packed int4
+    (bits=4, per channel or with ``group_size``) weight matrices; ``mlp_bits``
+    overrides the MLP's precision (bits=8, mlp_bits=4 is the mixed tree).
+    ``fuse`` concatenates q|k|v and gate|up along the output dim (one kernel
+    a projection group; the fused decode path needs it); fuse=False keeps
+    q, k, v, o, gate, up and down apart, which the unfused decode loop
+    serves. Embedding and norms stay."""
     if bits not in (4, 8):
         raise ValueError(f"bits={bits}: weight quantization supports 8 or 4")
     if mlp_bits is not None and mlp_bits not in (4, 8):
         raise ValueError(f"mlp_bits={mlp_bits}: supports 8 or 4 (or None)")
-    if not fuse:
-        raise not_ported("the unfused quantized LM tree (fuse=False)")
     quantize = _format(bits, group_size)
     quantize_mlp = _format(mlp_bits if mlp_bits is not None else bits, group_size)
     out = dict(lm_params)
@@ -721,10 +721,16 @@ def quantize_lm_params(
     layers = dict(lm_params["layers"])
     L = attn["q"].shape[0]
     cat = lambda *ws: [torch.cat([w[i] for w in ws], dim=-1) for i in range(L)]  # noqa: E731
-    layers["attn"] = {"qkv": _stack([quantize(w) for w in cat(attn["q"], attn["k"], attn["v"])]),
-                      "o": _quantize_stacked(attn["o"], quantize)}
-    layers["mlp"] = {"gate_up": _stack([quantize_mlp(w) for w in cat(mlp["gate"], mlp["up"])]),
-                     "down": _quantize_stacked(mlp["down"], quantize_mlp)}
+    if fuse:
+        layers["attn"] = {
+            "qkv": _stack([quantize(w) for w in cat(attn["q"], attn["k"], attn["v"])]),
+            "o": _quantize_stacked(attn["o"], quantize)}
+        layers["mlp"] = {
+            "gate_up": _stack([quantize_mlp(w) for w in cat(mlp["gate"], mlp["up"])]),
+            "down": _quantize_stacked(mlp["down"], quantize_mlp)}
+    else:
+        layers["attn"] = {k: _quantize_stacked(v, quantize) for k, v in attn.items()}
+        layers["mlp"] = {k: _quantize_stacked(v, quantize_mlp) for k, v in mlp.items()}
     out["layers"] = layers
     if "lm_head" in lm_params:
         out["lm_head"] = _quantize_head(lm_params["lm_head"], quantize)

@@ -95,7 +95,7 @@ def _check_ported(args):
     if args.coordinator_address or args.num_processes or args.process_id is not None:
         raise not_ported("multi-host launch flags", "parallel")
     if args.init_checkpoint:
-        raise not_ported("--init_checkpoint", "checkpoint")
+        raise not_ported("--init_checkpoint", "train_checkpoint")
 
 
 def build_everything(args):
@@ -217,7 +217,7 @@ def main(argv=None):
         profile_steps=tuple(args.profile_steps) if args.profile_steps else None,
     )
     print("note: checkpoints are not written yet (ROADMAP.md, "
-          "Queue A item 2, checkpoint loading)", flush=True)
+          "Queue A item 6, checkpoints in the training loop)", flush=True)
     return train_loop(state=parts["state"], train_step=parts["step"], batches=parts["batches"],
                       config=config)
 

@@ -67,7 +67,8 @@ def train_loop(*, state, train_step: Callable, batches: Iterator[Dict[str, Any]]
     ``log_every`` steps and the first; ``on_metrics(step, metrics)`` then
     sees them too."""
     if checkpoint_manager is not None:
-        raise not_ported("checkpoints in the training loop (checkpoint_manager)", "checkpoint")
+        raise not_ported("checkpoints in the training loop (checkpoint_manager)",
+                         "train_checkpoint")
     logger = MetricsLogger(config.output_dir, tensorboard=config.tensorboard)
     start_step = int(state["step"])
     t_last, step_last = time.perf_counter(), start_step

@@ -1,13 +1,17 @@
 """The port's own copies of the JAX package's jax-free modules (config,
-action tokenizer, processor, TensorBoard writer, RLDS data layer) give the
-originals' dataclass fields, tokens, arrays, bytes and batches exactly, on
-the same inputs."""
+action tokenizer, processor, TensorBoard writer, RLDS data layer, the HF
+config and processor readers and config writer of convert/, serve/gating)
+give the originals' dataclass fields, tokens, arrays, bytes, batches, dicts
+and verdicts exactly, on the same inputs."""
 import dataclasses
+import json
 
 import numpy as np
 import pytest
 
 from spatialvla_tpu import config as j_config
+from spatialvla_tpu.convert import config_to_hf as j_config_to_hf
+from spatialvla_tpu.convert import hf_checkpoint as j_hf
 from spatialvla_tpu.action import SpatialActionTokenizer as JaxActionTokenizer
 from spatialvla_tpu.data import FrameTransformConfig as JaxFrameConfig
 from spatialvla_tpu.data import InterleavedRLDSDataset as JaxDataset
@@ -16,8 +20,11 @@ from spatialvla_tpu.data import VLABatcher as JaxBatcher
 from spatialvla_tpu.data import statistics as j_statistics
 from spatialvla_tpu.data.pipeline import RLDSDataSource as JaxSource
 from spatialvla_tpu.processor import SpatialVLAProcessor as JaxProcessor
+from spatialvla_tpu.serve import gating as j_gating
 from spatialvla_tpu.train import tb_writer as j_tb
 from spatialvla_tpu_torch import config as t_config
+from spatialvla_tpu_torch.convert import config_to_hf as t_config_to_hf
+from spatialvla_tpu_torch.convert import hf_checkpoint as t_hf
 from spatialvla_tpu_torch.action import SpatialActionTokenizer as PortActionTokenizer
 from spatialvla_tpu_torch.data import FrameTransformConfig as PortFrameConfig
 from spatialvla_tpu_torch.data import InterleavedRLDSDataset as PortDataset
@@ -26,6 +33,7 @@ from spatialvla_tpu_torch.data import VLABatcher as PortBatcher
 from spatialvla_tpu_torch.data import statistics as t_statistics
 from spatialvla_tpu_torch.data.pipeline import RLDSDataSource as PortSource
 from spatialvla_tpu_torch.processor import SpatialVLAProcessor as PortProcessor
+from spatialvla_tpu_torch.serve import gating as t_gating
 from spatialvla_tpu_torch.train import tb_writer as t_tb
 from tests.fixtures import make_bridge_like_dataset
 
@@ -39,6 +47,95 @@ def test_config_copy_matches(preset):
     assert a.to_json() == b.to_json()
     assert dataclasses.asdict(t_config.SpatialVLAConfig.from_json(b.to_json())) == \
         dataclasses.asdict(b)
+
+
+PRESETS = ["spatialvla_4b", "spatialvla_tiny", "spatialvla_tiny_zoe"]
+
+
+def _preset(module, preset):
+    name, kw = (preset[:-4], dict(use_vision_zoe=True)) if preset.endswith("_zoe") else (preset, {})
+    return getattr(module, name)(**kw)
+
+
+@pytest.mark.parametrize("preset", PRESETS)
+def test_hf_config_copies_match(preset):
+    """config_to_hf and config_from_hf (convert/export_hf.py,
+    convert/hf_checkpoint.py): the same config.json dict, the same config
+    read back, and the same defaults for a config.json that names little."""
+    d = t_config_to_hf(_preset(t_config, preset))
+    assert d == j_config_to_hf(_preset(j_config, preset))
+    assert dataclasses.asdict(t_hf.config_from_hf(d)) == dataclasses.asdict(j_hf.config_from_hf(d))
+    sparse = {"text_config": {"num_hidden_layers": 2}, "vision_zoe_config": {},
+              "use_spatial_token": False}
+    assert dataclasses.asdict(t_hf.config_from_hf(sparse)) == \
+        dataclasses.asdict(j_hf.config_from_hf(sparse))
+
+
+def test_processor_from_hf_copy_matches(tmp_path):
+    """processor_from_hf on a directory with processor_config.json and on one
+    without: the same processor state and prompt ids (no tokenizer files:
+    both fall back to the ByteTokenizer)."""
+    cfg = t_config.spatialvla_tiny(use_vision_zoe=True)
+    state = {"statistics": {"d": {"action": {"q01": [-0.5] * 7, "q99": [2.0] * 7}}},
+             "action_chunk_size": 2, "num_obs_steps": 1, "obs_delta": 1, "min_sigma": 0.1}
+    full = tmp_path / "full"
+    full.mkdir()
+    (full / "processor_config.json").write_text(json.dumps(state))
+    empty = tmp_path / "empty"
+    empty.mkdir()
+    for d in (full, empty):
+        a = t_hf.processor_from_hf(str(d), cfg)
+        b = j_hf.processor_from_hf(str(d), _preset(j_config, "spatialvla_tiny_zoe"))
+        for name in ("image_token_id", "action_token_begin_idx", "image_seq_length",
+                     "image_size", "statistics", "bin_policy", "intrinsic_config",
+                     "action_config", "num_obs_steps", "obs_delta", "action_chunk_size",
+                     "min_sigma"):
+            assert getattr(a, name) == getattr(b, name), name
+        assert type(a.text_tokenizer).__name__ == type(b.text_tokenizer).__name__
+        assert a.build_prompt_ids("open the drawer") == b.build_prompt_ids("open the drawer")
+
+
+KNOB_SETS = [dict(), dict(bits=8), dict(bits=4), dict(bits=4, group_size=128),
+             dict(bits=8, mlp_bits=4), dict(bits=8, mlp_bits=8), dict(vision_bits=8),
+             dict(bits=4, vision_bits=4, kv_bits=8, depth_image_size=256)]
+
+
+def test_gating_copy_matches(tmp_path):
+    """serve/gating.py: the same knobs, covering entries, verdicts, gate files
+    and server-log lines (or the same refusal)."""
+    class Policy:
+        def __init__(self, desc, kv_bits=None, depth_image_size=None):
+            self.quant_desc, self.kv_bits, self.depth_image_size = desc, kv_bits, depth_image_size
+
+    gate = {"checkpoint": "c", "entries": [
+        {"label": "int4", "knobs": {"bits": 4, "vision_bits": 8}, "token_agreement": 0.97,
+         "action_l1": 0.004},
+        {"label": "kv8", "knobs": {"kv_bits": 8}, "token_agreement": 0.99, "action_l1": 0.001}]}
+    t_gating.write_gate(str(tmp_path / "t.json"), gate)
+    j_gating.write_gate(str(tmp_path / "j.json"), gate)
+    assert (tmp_path / "t.json").read_text() == (tmp_path / "j.json").read_text()
+    assert t_gating.load_gate(str(tmp_path / "j.json")) == j_gating.load_gate(str(tmp_path / "t.json"))
+    (tmp_path / "bad.json").write_text(json.dumps({"format_version": 9}))
+    for mod in (t_gating, j_gating):
+        with pytest.raises(ValueError, match="format_version"):
+            mod.load_gate(str(tmp_path / "bad.json"))
+    for kw in KNOB_SETS:
+        knobs = t_gating.quality_trade_knobs(**kw)
+        assert knobs == j_gating.quality_trade_knobs(**kw)
+        for g in (None, gate, {"entries": []}):
+            assert t_gating.check_gate(g, knobs) == j_gating.check_gate(g, knobs)
+            assert t_gating.covering_entry(g, knobs) == j_gating.covering_entry(g, knobs)
+        desc = {k: kw.get(k) for k in ("bits", "vision_bits", "mlp_bits", "group_size")}
+        policy = Policy(desc, kw.get("kv_bits"), kw.get("depth_image_size"))
+        assert t_gating.policy_quality_knobs(policy) == j_gating.policy_quality_knobs(policy)
+        for g, ungated in ((gate, False), (None, True), (None, False)):
+            outs = []
+            for mod in (t_gating, j_gating):
+                try:
+                    outs.append(("ok", mod.enforce_gate(policy, g, ungated=ungated)))
+                except SystemExit as e:
+                    outs.append(("refused", str(e)))
+            assert outs[0] == outs[1]
 
 
 @pytest.mark.parametrize("use_spherical", [True, False])

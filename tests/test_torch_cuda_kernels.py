@@ -1206,3 +1206,79 @@ def test_flash_attention_rejects_unsupported_shapes():
     with pytest.raises(TypeError, match="int32"):
         fa.flash_attention_fwd(z(1, 4, 2, 32), z(1, 4, 1, 32), z(1, 4, 1, 32),
                                *[t.long() for t in lens], scale=1.0)
+
+
+# ---------------------------------------------------------------------------
+# checkpoints and the whole-vocabulary head
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("M", [1, 2])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_matvec_at_the_whole_vocabulary_head(M, bits):
+    """Greedy over every id: the few-row kernels at N = 265,346 rows (611 MB
+    of int8 codes, N x K just below 2^31), against their plain versions."""
+    g = _gen(7)
+    K, N = 2304, 265346
+    x = _randn(g, M, K)
+    w = _randn(g, K, N, dtype=torch.float32, std=0.02)
+    w = quant.quantize_int8(w) if bits == 8 else quant.quantize_int4(w)
+    kernel, plain = ((quant.q8_matvec, quant.q8_matvec_plain) if bits == 8
+                     else (quant.q4_matvec, quant.q4_matvec_plain))
+    got = kernel(x, w["qt"], w["scale"])
+    assert got.shape == (M, N) and torch.isfinite(got.float()).all()
+    assert _rel(got, plain(x, w["qt"], w["scale"])) < (1e-2 if bits == 8 else 2e-2)
+
+
+def _tree_bits_equal(a, b):
+    if isinstance(a, dict):
+        assert sorted(a) == sorted(b)
+        return all(_tree_bits_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_tree_bits_equal(x, y) for x, y in zip(a, b))
+    assert a.dtype == b.dtype and a.shape == b.shape and a.device == b.device
+    return torch.equal(a.contiguous().reshape(-1).view(torch.uint8),
+                       b.contiguous().reshape(-1).view(torch.uint8))
+
+
+def test_checkpoints_round_trip_on_the_card(tmp_path):
+    """An HF checkpoint exported from the card and loaded back onto it, and a
+    serving checkpoint saved and loaded back: bit for bit, the same ids
+    through the decode graph; the whole vocabulary's greedy through a graph
+    of its own follows the unfused loop under the margin rule."""
+    from spatialvla_tpu_torch.convert import export_hf_checkpoint
+
+    cfg = spatialvla_tiny(use_vision_zoe=True)
+    cfg = dataclasses.replace(cfg, text=dataclasses.replace(
+        cfg.text, head_dim=32, query_pre_attn_scalar=32.0, sliding_window=512))
+    original = SpatialVLAPolicy.init_random(cfg, DEV, seed=0)
+    export_hf_checkpoint(original.params, cfg, str(tmp_path / "hf"), processor=original.processor)
+    loaded = SpatialVLAPolicy.from_hf_checkpoint(str(tmp_path / "hf"))
+    assert loaded.device.type == "cuda" and _tree_bits_equal(loaded.params, original.params)
+    loaded.quantize(bits=8)
+    size = cfg.vision.image_size
+    frame = (np.random.RandomState(0).rand(size, size, 3) * 255).astype(np.uint8)
+    first = loaded.predict(frame, "pick up the cup", return_margins=True)
+    loaded.save_serving(str(tmp_path / "serving"))
+    served = SpatialVLAPolicy.load_serving(str(tmp_path / "serving"))
+    assert _tree_bits_equal(served.params, loaded.params)
+    again = served.predict(frame, "pick up the cup", return_margins=True)
+    assert len(served.decode_graphs) == 1
+    np.testing.assert_array_equal(again["action_ids"], first["action_ids"])
+    np.testing.assert_array_equal(again["margins"], first["margins"])
+
+    inputs = served.processor(frame, "pick up the cup")
+    args = (served.params, cfg,
+            torch.as_tensor(inputs["input_ids"], dtype=torch.long, device=DEV))
+    kw = dict(pixel_values=torch.as_tensor(inputs["pixel_values"], device=DEV),
+              intrinsic=torch.as_tensor(inputs["intrinsic"], device=DEV),
+              restrict_to_action_tokens=False, return_margins=True)
+    with torch.inference_mode():
+        ids, _ = sv.predict_action(*args, decode_graphs=served.decode_graphs, **kw)
+        ref, margins = sv.predict_action(*args, use_fused_decode=False, **kw)
+    assert len(served.decode_graphs) == 2  # the whole vocabulary's graph beside the block's
+    ids, ref, margins = ids[0].cpu().numpy(), ref[0].cpu().numpy(), margins[0].cpu().numpy()
+    assert ids[0] == ref[0]
+    for t in range(1, len(ids)):
+        if margins[t] < 0.5:
+            break
+        assert ids[t] == ref[t]

@@ -1,11 +1,16 @@
-"""The port never loads jax, optax or the JAX package (spatialvla_tpu), and
-its image step needs no PIL: without it, frames of any size are resized.
+"""The port never loads jax, optax, the JAX package (spatialvla_tpu) or the
+``safetensors`` package, and its image step needs no PIL: without it, frames
+of any size are resized.
 
 A fresh interpreter (this test process has jax loaded) imports every module
-of spatialvla_tpu_torch with PIL blocked, runs a tiny predict with the int8
-tree and one with the mixed tree on an int8 KV cache, imports the pretrain
-CLI, and reports which jax, optax and spatialvla_tpu modules are loaded. No
-``import`` or ``from`` in the port or chip_smoke.py names the JAX package."""
+of spatialvla_tpu_torch with PIL, safetensors and transformers blocked (the
+card's machine has none of them), runs a tiny predict with the int8 tree and
+one with the mixed tree on an int8 KV cache, exports an HF checkpoint, bakes
+it into a serving checkpoint with scripts/quantize_checkpoint_torch.py,
+serves a request from that, imports the pretrain CLI, and reports which jax,
+optax, safetensors and spatialvla_tpu modules are loaded. No ``import`` or
+``from`` in the port, chip_smoke.py or scripts/quantize_checkpoint_torch.py
+names the JAX package or safetensors."""
 import ast
 import json
 import os
@@ -20,7 +25,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _CHILD = r"""
 import json, pkgutil, importlib, sys
-sys.modules["PIL"] = None  # the card's machine has no PIL
+for blocked in ("PIL", "safetensors", "transformers"):  # none of them on the card's machine
+    sys.modules[blocked] = None
 import numpy as np
 import spatialvla_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(spatialvla_tpu_torch.__path__, "spatialvla_tpu_torch.")]
@@ -36,6 +42,19 @@ policy = SpatialVLAPolicy.init_random(cfg, "cpu", seed=0).quantize(bits=8)
 size = cfg.vision.image_size
 frame = (np.random.RandomState(0).rand(size, size, 3) * 255).astype(np.uint8)
 out = policy.predict(frame, "pick up the cup")
+# an HF checkpoint, baked by the script into a serving checkpoint, served
+import importlib.util, os, tempfile
+from spatialvla_tpu_torch.convert import export_hf_checkpoint
+work = tempfile.mkdtemp()
+export_hf_checkpoint(SpatialVLAPolicy.init_random(cfg, "cpu", seed=1).params, cfg,
+                     os.path.join(work, "hf"), processor=policy.processor)
+spec = importlib.util.spec_from_file_location("qc", os.path.join("scripts", "quantize_checkpoint_torch.py"))
+script = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(script)
+script.main(["--ckpt", os.path.join(work, "hf"), "--hf", "--out", os.path.join(work, "serving"),
+             "--device", "cpu"])
+served = SpatialVLAPolicy.load_serving(os.path.join(work, "serving"), device="cpu")
+out_served = served.predict(frame, "pick up the cup")
 # the int8 KV cache needs the fused path, which the CPU takes only when asked,
 # and a window that holds the whole cache
 import functools
@@ -51,9 +70,13 @@ print(json.dumps({
     "optax": sorted(m for m in sys.modules if m == "optax" or m.startswith("optax.")),
     "spatialvla_tpu": sorted(m for m in sys.modules
                              if m == "spatialvla_tpu" or m.startswith("spatialvla_tpu.")),
-    "actions_shape": [list(np.asarray(o["actions"]).shape) for o in (out, out_kv8)],
-    "finite": bool(all(np.isfinite(o["actions"]).all() for o in (out, out_kv8))),
-    "ids": [np.asarray(o["action_ids"]).tolist() for o in (out, out_kv8)],
+    "safetensors": sorted(m for m in sys.modules
+                          if (m == "safetensors" or m.startswith("safetensors."))
+                          and sys.modules[m] is not None),
+    "actions_shape": [list(np.asarray(o["actions"]).shape) for o in (out, out_kv8, out_served)],
+    "finite": bool(all(np.isfinite(o["actions"]).all() for o in (out, out_kv8, out_served))),
+    "ids": [np.asarray(o["action_ids"]).tolist() for o in (out, out_kv8, out_served)],
+    "served_quant": served.quant_desc,
     "resized_shape": list(resized["pixel_values"].shape),
     "resized_finite": bool(np.isfinite(resized["pixel_values"]).all()),
     "resized_keys": sorted(resized),
@@ -74,11 +97,14 @@ def child():
 def test_port_imports_no_jax(child):
     for m in ("ops.decode_step", "ops.flash_attention", "models.zoe", "train.train_step",
               "train.optimizer", "train.trainer", "train.pretrain", "train.tb_writer", "config",
-              "action.tokenizer", "processor.processor", "data.pipeline", "data.native"):
+              "action.tokenizer", "processor.processor", "data.pipeline", "data.native",
+              "convert.safetensors_io", "convert.hf_checkpoint", "convert.export_hf",
+              "train.checkpoints", "serve.gating"):
         assert f"spatialvla_tpu_torch.{m}" in child["modules"]
     assert child["jax"] == []
     assert child["optax"] == []
     assert child["spatialvla_tpu"] == []
+    assert child["safetensors"] == []
 
 
 def _imported_names(path):
@@ -90,10 +116,12 @@ def _imported_names(path):
 
 
 def test_no_import_names_the_jax_package():
-    files = sorted(Path(ROOT, "spatialvla_tpu_torch").rglob("*.py")) + [Path(ROOT, "chip_smoke.py")]
+    files = sorted(Path(ROOT, "spatialvla_tpu_torch").rglob("*.py")) + [
+        Path(ROOT, "chip_smoke.py"), Path(ROOT, "scripts", "quantize_checkpoint_torch.py")]
     assert len(files) > 40
+    banned = ("spatialvla_tpu", "jax", "jaxlib", "optax", "safetensors")
     bad = [(str(f.relative_to(ROOT)), name) for f in files for name in _imported_names(f)
-           if name == "spatialvla_tpu" or name.startswith("spatialvla_tpu.")]
+           if name.split(".")[0] in banned]
     assert bad == []
 
 
@@ -101,7 +129,9 @@ def test_tiny_predict_without_pil(child):
     from spatialvla_tpu.config import spatialvla_tiny
 
     cfg = spatialvla_tiny(use_vision_zoe=True)
-    assert child["actions_shape"] == [[4, 7], [4, 7]] and child["finite"]
+    assert child["actions_shape"] == [[4, 7]] * 3 and child["finite"]
+    assert child["served_quant"] == {"bits": 8, "vision_bits": 8, "mlp_bits": None,
+                                     "group_size": None}
     ids = np.asarray(child["ids"])
     begin = cfg.action_token_begin_idx
     assert ((ids >= begin) & (ids < begin + cfg.spatial_token_num)).all()

@@ -72,18 +72,23 @@ def test_quantize_vision_params_bit_identical():
 @pytest.mark.parametrize("unported", [dict(bits=4), dict(mlp_bits=4), dict(group_size=128),
                                       dict(fuse=False)])
 def test_unported_lm_formats_raise(unported):
-    """Only the unfused tree is still unported; the int4, mixed and grouped
-    options give JAX's tree bit for bit (group_size=128 with bits=8 leaves
-    the int8 tree as it is, as in JAX)."""
+    """The LM formats beyond the fused int8 tree give JAX's tree bit for bit:
+    int4, mixed and grouped (group_size=128 with bits=8 leaves the int8 tree
+    as it is, as in JAX), and the unfused tree (fuse=False: q, k, v, o, gate,
+    up and down quantized apart; test_torch_greedy_options.py decodes it)."""
     cfg = Gemma2Config(vocab_size=64, hidden_size=16, intermediate_size=32, num_layers=2,
                        num_heads=2, num_kv_heads=1, head_dim=8)
     params = jax.tree_util.tree_map(np.asarray, j_gemma2.init_params(jax.random.PRNGKey(0), cfg))
-    if "fuse" in unported:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tq.quantize_lm_params(from_numpy_tree(params), **unported)
-        return
-    port = tq.quantize_lm_params(from_numpy_tree(params), **unported)
-    _assert_tree_equal(port, jq.quantize_lm_params(params, fuse=True, **unported))
+    kw = dict(unported)
+    fuse = kw.pop("fuse", True)
+    port = tq.quantize_lm_params(from_numpy_tree(params), fuse=fuse, **kw)
+    _assert_tree_equal(port, jq.quantize_lm_params(params, fuse=fuse, **kw))
+    if not fuse:
+        assert sorted(port["layers"]["attn"]) == ["k", "o", "q", "v"]
+        for bits in (4, 8):  # and per format, with the mixed MLP
+            mixed = dict(bits=bits, mlp_bits=12 - bits, group_size=16 if bits == 4 else None)
+            _assert_tree_equal(tq.quantize_lm_params(from_numpy_tree(params), fuse=False, **mixed),
+                               jq.quantize_lm_params(params, fuse=False, **mixed))
 
 
 @pytest.mark.parametrize("shape", [(64, 48), (3, 96, 40), (2304, 7)])

@@ -257,10 +257,6 @@ def test_policy_predict_int4_and_kv8_margin_rule(params, qkw, request):
 
 
 @pytest.mark.parametrize("call, item", [
-    (lambda p: SpatialVLAPolicy.from_hf_checkpoint("ckpt"), "item 2"),
-    (lambda p: SpatialVLAPolicy.load("ckpt"), "item 2"),
-    (lambda p: SpatialVLAPolicy.load_serving("dir"), "item 3"),
-    (lambda p: p.save_serving("dir"), "item 3"),
     (lambda p: p.shard(), "item 3"),
     (lambda p: p.quantize(bits=4), None),
     (lambda p: p.quantize(mlp_bits=4), None),
@@ -269,9 +265,10 @@ def test_policy_predict_int4_and_kv8_margin_rule(params, qkw, request):
                            attn_backend="ring"), "item 8"),
 ])
 def test_unported_surfaces_name_their_roadmap_item(call, item, params):
-    """Each surface still to port names its ROADMAP item; the quantize
-    options ported since (item None) give the trees of JAX's quantize
-    functions bit for bit (run eagerly: under jit XLA may turn the scale
+    """Each surface still to port names its ROADMAP item (the loaders and
+    save_serving, ported since, are tested in test_torch_checkpoints.py); the
+    quantize options ported since (item None) give the trees of JAX's
+    quantize functions bit for bit (run eagerly: under jit XLA may turn the scale
     divisions into reciprocal products, one ulp away) and JAX's quant_desc."""
     if item is None:
         class Record:

@@ -285,7 +285,7 @@ def test_pretrain_without_a_card_raises_unless_asked_for_the_cpu(data_dir, tmp_p
 @pytest.mark.parametrize("argv, item", [
     (["--mesh_fsdp", "2"], "item 8"),
     (["--attn_backend", "ring"], "item 8"),
-    (["--init_checkpoint", "ckpt"], "item 2"),
+    (["--init_checkpoint", "ckpt"], "item 6"),
 ])
 def test_pretrain_unported_flags_name_their_roadmap_item(argv, item):
     from spatialvla_tpu_torch.train import pretrain
@@ -299,6 +299,6 @@ def test_pretrain_unported_flags_name_their_roadmap_item(argv, item):
 def test_train_loop_checkpoints_are_not_ported(tmp_path):
     from spatialvla_tpu_torch.train.trainer import TrainerConfig, train_loop
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue A item 2"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue A item 6"):
         train_loop(state={"step": 0}, train_step=None, batches=iter(()),
                    config=TrainerConfig(output_dir=str(tmp_path)), checkpoint_manager=object())
