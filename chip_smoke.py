@@ -66,6 +66,15 @@
    26-layer step at M=1, S=289 (each layer alone also held to plain) and at
    M=16, S=332 (graph, eager and enqueue times); then the bf16 tree put back
    and quantize(bits=4): the next request must follow the int4 tree.
+   Then the serving engines on the seed's int8 tree (serving_engines): the
+   dynamic batcher after warmup_buckets (12 decode graphs) with 8
+   closed-loop clients x 3 requests of 24 instruction lengths, and the
+   split-phase engine (16 slots, its decode batch one CUDA graph) with 16
+   clients x 2 requests: every result held to predict under the margin
+   rule, no capture inside either timed window, the split engine's ids of
+   4 requests alone and inside a burst of 16 identical, its decode graph's
+   traced replay held to its credits; each engine's actions/s and p50 /
+   p95 latency printed with the card.
 5. The checkpoint entry points at the same width (checkpoint_path): the
    seed's bf16 tree exported as a reference-format HF checkpoint and loaded
    back with from_hf_checkpoint (bit-identical), quantize(bits=8) and the
@@ -119,6 +128,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -1125,51 +1135,55 @@ def decode_wrapper_of(kernel: str, targs: list) -> list:
 
 
 def graph_launches(torch, policy, label) -> list:
-    """Each of the policy's decode graphs replayed once under torch.profiler:
-    the library's kernels in the trace of the replay, each counted for the
-    wrapper that launches it (``decode_wrapper_of``), must be exactly the
-    launch counts that the graph credits its wrappers with per replay
-    (``GreedyLoop.credits``). A library kernel that no decode wrapper
-    launches, or a trace without kernels, fails. Returns one entry a graph:
+    """Each of the policy's decode graphs replayed once under torch.profiler
+    and held to its credits (``graph_check``). Returns one entry a graph:
     its shape key and both counts."""
+    return [graph_check(torch, loop.graph, loop.credits, label,
+                        f"B={key[0]} S={key[1]} n={key[2]} kv_bits={key[3]}")
+            for key, loop in policy.decode_graphs.loops.items()]
+
+
+def graph_check(torch, graph, credits, label, shape) -> dict:
+    """One decode graph replayed once under torch.profiler: the library's
+    kernels in the trace of the replay, each counted for the wrapper that
+    launches it (``decode_wrapper_of``), must be exactly the launch counts
+    that the graph credits its wrappers with per replay (``GreedyLoop`` /
+    ``ServingLoop.credits``). A library kernel that no decode wrapper
+    launches, or a trace without kernels, fails."""
     from torch.profiler import ProfilerActivity, profile
 
     names = library_kernel_names()
     head = re.compile(r"(?:void\s+)?(?:\(anonymous namespace\)::)?(\w+)")
-    checks = []
-    for key, loop in policy.decode_graphs.loops.items():
-        credited = {fn.__name__ + ("" if attr == "launches" else f".{attr}"): n
-                    for (fn, attr), n in loop.credits.items()}
+    credited = {fn.__name__ + ("" if attr == "launches" else f".{attr}"): n
+                for (fn, attr), n in credits.items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        graph.replay()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            loop.graph.replay()
-            torch.cuda.synchronize()
-        with tempfile.TemporaryDirectory() as tmp:
-            path = os.path.join(tmp, "replay.json")
-            prof.export_chrome_trace(path)
-            with open(path) as f:
-                events = json.load(f)["traceEvents"]
-        kernels = [e["name"] for e in events if e.get("cat") == "kernel" and e.get("ph") == "X"]
-        if not kernels:
-            fail(f"{label}: the trace of a decode graph's replay holds no kernel")
-        measured = collections.Counter()
-        for name in kernels:
-            base = head.match(name).group(1) if head.match(name) else ""
-            if base not in names:
-                continue  # a torch kernel (embedding, argmax, the cache writes)
-            targs = re.search(re.escape(base) + r"<([^<>]*)>", name)
-            counts = decode_wrapper_of(base, targs.group(1).split(", ") if targs else [])
-            if not counts:
-                fail(f"{label}: kernel {name[:120]} in a decode graph is no decode wrapper's")
-            measured.update(counts)
-        shape = f"B={key[0]} S={key[1]} n={key[2]} kv_bits={key[3]}"
-        print(f"{label} decode graph {shape}: one replay traced, {len(kernels)} kernels; "
-              f"library kernels by wrapper {dict(measured)}, credited {credited}", flush=True)
-        if dict(measured) != credited:
-            fail(f"{label} decode graph {shape}: the traced replay launched {dict(measured)}, "
-                 f"the graph credits {credited}")
-        checks.append({"graph": shape, "measured": dict(measured), "credited": credited})
-    return checks
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "replay.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel" and e.get("ph") == "X"]
+    if not kernels:
+        fail(f"{label}: the trace of a decode graph's replay holds no kernel")
+    measured = collections.Counter()
+    for name in kernels:
+        base = head.match(name).group(1) if head.match(name) else ""
+        if base not in names:
+            continue  # a torch kernel (embedding, argmax, the cache writes)
+        targs = re.search(re.escape(base) + r"<([^<>]*)>", name)
+        counts = decode_wrapper_of(base, targs.group(1).split(", ") if targs else [])
+        if not counts:
+            fail(f"{label}: kernel {name[:120]} in a decode graph is no decode wrapper's")
+        measured.update(counts)
+    print(f"{label} decode graph {shape}: one replay traced, {len(kernels)} kernels; "
+          f"library kernels by wrapper {dict(measured)}, credited {credited}", flush=True)
+    if dict(measured) != credited:
+        fail(f"{label} decode graph {shape}: the traced replay launched {dict(measured)}, "
+             f"the graph credits {credited}")
+    return {"graph": shape, "measured": dict(measured), "credited": credited}
 
 
 def instruction_stream(torch, policy, images, label):
@@ -1577,6 +1591,264 @@ def main_path(torch, timer, counters):
         "requests": [{"ids": o["action_ids"].tolist(), "margins": o["margins"].tolist()}
                      for o in outs],
     }
+
+
+# ---------------------------------------------------------------------------
+# the serving engines: the dynamic batcher and the split-phase engine
+# ---------------------------------------------------------------------------
+
+ENGINE_WAIT_S = 300  # a request of the engines' phase that takes longer fails it
+
+
+def engine_clients(engine, requests, n_clients, per_client, label):
+    """``n_clients`` closed-loop client threads: client i submits requests
+    ``requests[(per_client * i + j) % len(requests)]`` (image, instruction)
+    for j < per_client, each after the last one's result, waiting at most
+    ENGINE_WAIT_S for it. Returns (results by request number, latencies ms
+    sorted, wall s); an exception, a timeout or a stuck client fails."""
+    results, lat, errors = {}, [], []
+    lock = threading.Lock()
+
+    def client(i):
+        for j in range(per_client):
+            r = per_client * i + j
+            img, instr = requests[r % len(requests)]
+            t0 = time.monotonic()
+            try:
+                out = engine.submit(img, instr).result(timeout=ENGINE_WAIT_S)
+            except Exception as e:  # noqa: BLE001 - failed on the main thread below
+                with lock:
+                    errors.append(f"request {r}: {type(e).__name__}: {e}")
+                return
+            with lock:
+                results[r] = out
+                lat.append((time.monotonic() - t0) * 1e3)
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(n_clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=ENGINE_WAIT_S * per_client)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        fail(f"{label}: {errors or 'a client thread did not finish'}")
+    return results, sorted(lat), wall
+
+
+def engine_rule_ok(ids, ref_ids, ref_margins) -> bool:
+    """The margin rule from the first token on: ids equal up to the first
+    step whose reference margin is below MARGIN_BOUND. An engine's prefill
+    pads the prompt and runs several rows where ``predict``'s runs one
+    unpadded row, so a near tie may round the other way at the first token
+    too (``margin_rule_ok`` holds the first token exactly, for paths that
+    share the prefill)."""
+    for t in range(len(ids)):
+        if ref_margins[t] < MARGIN_BOUND:
+            return True
+        if ids[t] != ref_ids[t]:
+            return False
+    return True
+
+
+def check_engine_results(results, requests, refs, cfg, label):
+    """Each result finite, (4, 7), its ids in the action block and following
+    ``policy.predict``'s on the same observation under ``engine_rule_ok``.
+    Returns how many equal predict's ids exactly and how many first tokens
+    do."""
+    begin, n_act = cfg.action_token_begin_idx, cfg.spatial_token_num
+    exact = first = 0
+    for r, out in sorted(results.items()):
+        a, ids = np.asarray(out["actions"]), np.asarray(out["action_ids"])
+        ref = refs[r % len(requests)]
+        if a.shape != (4, 7) or not np.isfinite(a).all():
+            fail(f"{label} request {r}: actions {a.shape}, finite={np.isfinite(a).all()}")
+        if not ((ids >= begin) & (ids < begin + n_act)).all():
+            fail(f"{label} request {r}: ids outside the action block: {ids}")
+        if not engine_rule_ok(ids, ref["action_ids"], ref["margins"]):
+            fail(f"{label} request {r} '{requests[r % len(requests)][1]}': ids {ids.tolist()} "
+                 f"vs predict's {ref['action_ids'].tolist()}, predict margins "
+                 f"{np.round(ref['margins'], 3).tolist()}: beyond the margin rule")
+        exact += bool(np.array_equal(ids, ref["action_ids"]))
+        first += bool(ids[0] == ref["action_ids"][0])
+    return exact, first
+
+
+def engine_summary(lat, wall, n):
+    return {"requests": n, "wall_s": wall, "actions_per_s": 4 * n / wall,
+            "latency_ms_p50": lat[len(lat) // 2],
+            "latency_ms_p95": lat[min(len(lat) - 1, int(0.95 * len(lat)))],
+            "latency_ms_all": lat}
+
+
+def serving_engines(torch, counters, *, cfg=None, device="cuda"):
+    """The serving engines (serve/engine.py, serve/split_engine.py) on
+    spatialvla_4b() after quantize(bits=8), seed 0, the main path's frames.
+    References: ``policy.predict`` (ids, margins) on 24 requests whose
+    instructions are the prefixes of one long instruction (24 prompt
+    lengths, as ``instruction_stream``).
+
+    Monolithic (``ServingEngine``, batches of up to 8 rows, buckets 1, 2, 4,
+    8): ``warmup_buckets`` over the 24 instructions (8 prompt buckets of 16
+    tokens, 3 cache-slot buckets: 12 decode graphs, more than the policy's
+    default 8), then 8 closed-loop clients x 3 requests, the 24. Split
+    (``SplitServingEngine``, 16 slots, 4 decode steps a dispatch, prompts
+    of up to 320 tokens, every prefill 16 rows so that its shape is the same
+    whatever the group): 16 clients x 2 requests over the instructions whose
+    prompts pad to one 64-token bucket; then 4 of them submitted alone, one
+    after another, and the same 4 inside a burst of 16: identical ids
+    (exact scheduling invariance), and the burst's first tokens exactly
+    those of ``prefill_for_serving`` on the same 16 rows. Every result must
+    follow predict's under ``engine_rule_ok``, and no graph may be captured
+    inside a timed window;
+    each window's kernel launches by wrapper are read (the decode wrappers
+    must all launch), and the split engine's decode graph is replayed under
+    torch.profiler and held to its credited launches."""
+    from spatialvla_tpu_torch import SpatialVLAPolicy, spatialvla_4b
+    from spatialvla_tpu_torch.serve import ServingEngine, SplitServingEngine, warmup_buckets
+    from spatialvla_tpu_torch.serve import split_engine as split_engine_mod
+
+    cfg = cfg or spatialvla_4b()
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    card = card_line() if on_card else "cpu"
+    t_phase = time.perf_counter()
+    policy = SpatialVLAPolicy.init_random(cfg, device, seed=0).quantize(bits=8)
+    images, _ = main_requests(cfg)
+    words = ("please pick up the small green block on the left side of the table and then "
+             "place it carefully inside the open top drawer").split()
+    requests = [(images[k % 3], " ".join(words[:k + 1])) for k in range(len(words))]
+    refs = [policy.predict(img, instr, return_margins=True) for img, instr in requests]
+    lengths = [int(policy.processor(img, instr)["input_ids"].shape[1]) for img, instr in requests]
+
+    def window_counts():
+        return {c.__name__: c.launches for c in counters}
+
+    # --- the monolithic engine -------------------------------------------
+    buckets = (1, 2, 4, 8)
+    policy.decode_graphs.clear()
+    t0 = time.perf_counter()
+    warmup_buckets(policy, sample_image=images[0], instructions=[q[1] for q in requests],
+                   prompt_pad_multiple=16, batch_buckets=buckets)
+    sync()
+    t_warm = time.perf_counter() - t0
+    warm = {id(loop) for loop in policy.decode_graphs.loops.values()}
+    with ServingEngine(policy, max_batch_size=8, batch_buckets=buckets) as engine:
+        zero_counts(counters)
+        results, lat, wall = engine_clients(engine, requests, 8, 3, "monolithic engine")
+        sync()
+        mono_counts = window_counts()
+        stats = engine.stats()
+    after = {id(loop) for loop in policy.decode_graphs.loops.values()}
+    mono = {**engine_summary(lat, wall, len(results)), "stats": stats,
+            "warm_graphs": len(warm), "graph_limit": policy.decode_graphs.limit,
+            "warmup_s": t_warm, "captures_in_window": len(after - warm),
+            "graphs_dropped_in_window": len(warm - after), "launches": mono_counts,
+            "exact_and_first": check_engine_results(results, requests, refs, cfg,
+                                                    "monolithic engine")}
+    print(f"serving engines: monolithic, 8 closed-loop clients x 3 requests (prompts "
+          f"{min(lengths)}..{max(lengths)} tokens): {mono['actions_per_s']:.2f} actions/s, p50 "
+          f"{mono['latency_ms_p50']:.1f} ms, p95 {mono['latency_ms_p95']:.1f} ms; stats {stats}; "
+          f"{len(warm)} decode graphs warmed in {t_warm:.1f} s (limit "
+          f"{policy.decode_graphs.limit}), {mono['captures_in_window']} captured and "
+          f"{mono['graphs_dropped_in_window']} dropped in the timed window; "
+          f"of {len(results)} results {mono['exact_and_first'][0]} equal predict's ids, "
+          f"{mono['exact_and_first'][1]} its first token, all within the margin rule; "
+          f"launches {mono_counts} | {card}", flush=True)
+    if mono["captures_in_window"] or mono["graphs_dropped_in_window"]:
+        fail("monolithic engine: decode graphs captured or dropped inside the timed window")
+    policy.decode_graphs.clear()
+
+    # --- the split engine ------------------------------------------------
+    T = -(-lengths[0] // 64) * 64  # the shortest prompt's 64-token bucket
+    split_idx = [k for k, n in enumerate(lengths) if -(-n // 64) * 64 == T]
+    split_reqs = [requests[k] for k in split_idx]
+    split_refs = [refs[k] for k in split_idx]
+    t0 = time.perf_counter()
+    engine = SplitServingEngine(policy, n_slots=16, decode_block=4, max_prompt_len=T,
+                                prefill_buckets=(16,))
+    try:
+        t_build = time.perf_counter() - t0
+        loop = engine._programs.loop
+        graph = loop.graph
+        engine.warmup(images[0], [q[1] for q in split_reqs])
+        engine.reset_stats()
+        zero_counts(counters)
+        results, lat, wall = engine_clients(engine, split_reqs, 16, 2, "split engine")
+        sync()
+        split_counts = window_counts()
+        stats = engine.stats()
+        alone = [engine.submit(img, instr).result(timeout=ENGINE_WAIT_S)
+                 for img, instr in split_reqs[:4]]
+        burst_reqs = (split_reqs * 16)[:16]
+        futs = [engine.submit(img, instr) for img, instr in burst_reqs]
+        burst = [f.result(timeout=ENGINE_WAIT_S) for f in futs]
+        burst_stats = engine.stats()
+        recaptured = loop.graph is not graph
+    finally:
+        engine.shutdown()
+    # the burst's first tokens against prefill_for_serving on the same 16 rows
+    # (each row's result depends on its own inputs alone)
+    pad_id = policy.processor.text_tokenizer.pad_id
+    ins = [policy.processor(img, instr) for img, instr in burst_reqs]
+    ids = np.full((16, T), pad_id, np.int32)
+    attn = np.zeros((16, T), np.int32)
+    for i, x in enumerate(ins):
+        ids[i, : x["input_ids"].shape[1]] = x["input_ids"][0]
+        attn[i, : x["input_ids"].shape[1]] = 1
+    with torch.inference_mode():
+        px = torch.cat([split_engine_mod._put_pixels(np.asarray(x["pixel_values"]),
+                                                     x.get("pixel_values_u8"), device=device)
+                        for x in ins])
+        rows = engine._programs.prefill(ids, px, np.concatenate([x["intrinsic"] for x in ins]),
+                                        attn)
+    prefill_first = rows["tok"].cpu().numpy()
+    burst_first = np.array([b["action_ids"][0] for b in burst])
+    split = {**engine_summary(lat, wall, len(results)), "stats": stats, "build_s": t_build,
+             "capture_ms": loop.capture_ms, "prompt_tokens": T, "captures_in_window": int(recaptured),
+             "launches": split_counts,
+             "exact_and_first": check_engine_results(results, split_reqs, split_refs, cfg,
+                                                     "split engine"),
+             "burst_first_tokens": burst_first.tolist(),
+             "prefill_first_tokens": prefill_first.tolist()}
+    check_engine_results(dict(enumerate(alone)), split_reqs, split_refs, cfg, "split alone")
+    invariant = [np.array_equal(a["action_ids"], b["action_ids"]) for a, b in zip(alone, burst)]
+    split["invariance"] = {"alone": [a["action_ids"].tolist() for a in alone],
+                           "in_burst": [b["action_ids"].tolist() for b in burst[:4]],
+                           "burst_prefill_batches": burst_stats["prefill_batches"]
+                           - stats["prefill_batches"], "identical": invariant}
+    print(f"serving engines: split, 16 slots, 4 steps a dispatch, 16 closed-loop clients x 2 "
+          f"requests ({len(split_reqs)} instructions, prompts padded to {T}): "
+          f"{split['actions_per_s']:.2f} actions/s, p50 {split['latency_ms_p50']:.1f} ms, p95 "
+          f"{split['latency_ms_p95']:.1f} ms; stats {stats}; engine built (decode graph "
+          f"captured) in {t_build:.2f} s, {split['captures_in_window']} captures in the timed "
+          f"window; of {len(results)} results {split['exact_and_first'][0]} equal predict's "
+          f"ids, {split['exact_and_first'][1]} its first token, all within the margin rule; "
+          f"alone vs in a burst of 16: identical {invariant}; the burst's first tokens those of "
+          f"prefill_for_serving on its 16 rows: "
+          f"{bool(np.array_equal(burst_first, prefill_first))}; launches {split_counts} | {card}",
+          flush=True)
+    if recaptured:
+        fail("split engine: its decode graph was captured again while serving")
+    if not np.array_equal(burst_first, prefill_first):
+        fail(f"split engine: the burst's first tokens {burst_first.tolist()} are not those of "
+             f"prefill_for_serving on the same rows {prefill_first.tolist()}")
+    if not all(invariant):
+        fail(f"split engine: ids alone {split['invariance']['alone']} differ from the same "
+             f"requests' in a burst {split['invariance']['in_burst']}")
+    if on_card:
+        for label, counts in (("monolithic engine", mono_counts), ("split engine", split_counts)):
+            for name, n in counts.items():
+                if n <= 0 and name != "q8_residual_rmsnorm_matvec":  # only batches of <= 4 rows
+                    fail(f"{label}: kernel {name} was not launched in the timed window")
+        if loop.graph is None:
+            fail("split engine: no decode graph on the card")
+        shape = f"n_slots=16 S={T + 12} steps=4"
+        split["graph_launches"] = graph_check(torch, loop.graph, loop.credits,
+                                              "split engine", shape)
+    print(f"serving engines: the phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"monolithic": mono, "split": split}
 
 
 # ---------------------------------------------------------------------------
@@ -2503,6 +2775,16 @@ def main() -> int:
           f"{path['warm_predict_eager_ms_median']:.2f} ms eager, "
           f"peak {path['peak_mem_gib']:.2f} GiB | {card}", flush=True)
     torch.cuda.empty_cache()
+    engines = serving_engines(torch, [quant.q8_matvec, quant.q8_rmsnorm_matvec,
+                                      quant.q8_residual_rmsnorm_matvec, ds.decode_attention,
+                                      ds.norm_residual])
+    print(f"serving engines: monolithic {engines['monolithic']['actions_per_s']:.2f} actions/s "
+          f"(p50 {engines['monolithic']['latency_ms_p50']:.1f} / p95 "
+          f"{engines['monolithic']['latency_ms_p95']:.1f} ms, 8 clients), split "
+          f"{engines['split']['actions_per_s']:.2f} actions/s (p50 "
+          f"{engines['split']['latency_ms_p50']:.1f} / p95 "
+          f"{engines['split']['latency_ms_p95']:.1f} ms, 16 clients) | {card}", flush=True)
+    torch.cuda.empty_cache()
     ckpt = checkpoint_path(torch, path["requests"])
     print(f"checkpoint path: HF write {ckpt['hf_write']['s']:.2f} s / load "
           f"{ckpt['hf_load']['s']:.2f} s ({ckpt['hf_write']['bytes']} bytes), serving write "
@@ -2522,7 +2804,8 @@ def main() -> int:
           flush=True)
     print("detail: " + json.dumps({"build_s": build_s, "decode_step_2_layers": steps,
                                    "decode_step_matrix": matrix, "refused_shape_step": refused,
-                                   "main_path": path, "checkpoint_path": ckpt,
+                                   "main_path": path, "serving_engines": engines,
+                                   "checkpoint_path": ckpt,
                                    "serving_configs": serving, "train_path": train,
                                    "tiny_overfit": overfit, "kernel_times": results,
                                    "card": card}), flush=True)
@@ -2610,7 +2893,10 @@ def main() -> int:
             "ms": r["ms"][first], "plain_ms": r["plain_ms"][first], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": r["library_ms"][first], "shape": first,
             "tolerance": tol, "launches_on": run, "library_note": notes.get(name),
-            "decode_graph_launches_per_replay": None if tiled else per_replay(name), **extra,
+            "decode_graph_launches_per_replay": None if tiled else per_replay(name),
+            "serving_engines_launches": None if tiled else {
+                e: engines[e]["launches"][name] for e in engines
+                if name in engines[e]["launches"]} or None, **extra,
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

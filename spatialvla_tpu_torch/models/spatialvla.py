@@ -21,7 +21,10 @@ graph per shape (``GreedyLoop``, ``DecodeGraphs``; ``use_cuda_graph``).
 scales. ``use_flash_prefill`` (off by default, as in JAX) runs the prefill
 through ``gemma2.prefill_flash``.
 
-Not ported yet (ROADMAP): the split-phase serving functions.
+Split-phase serving (``serve/split_engine.py``): ``prefill_for_serving``,
+``init_serving_state``, ``admit_rows_serving``, ``decode_steps_serving``
+(the fused step, or ``xla_decode_step`` in plain torch ops) on a state
+written in place, replayed as one CUDA graph by ``ServingLoop``.
 """
 from __future__ import annotations
 
@@ -449,6 +452,13 @@ def _scatter_scale(sc, new, slots, S):
 SLOT_BUCKET = 64
 
 
+def loop_slots(S: int, cfg) -> int:
+    """The cache slots of the GreedyLoop that serves a request needing S
+    slots: S rounded up to ``SLOT_BUCKET``, but not past the sliding window
+    (nor below S)."""
+    return max(S, min(-(-S // SLOT_BUCKET) * SLOT_BUCKET, cfg.text.sliding_window))
+
+
 def _kernel_counters():
     """(wrapper, attribute) of every kernel launch count (``ops/_lib.COUNTED``)."""
     from ..ops import _lib, decode_step, quant  # noqa: F401 -- registers their wrappers
@@ -564,28 +574,43 @@ class GreedyLoop:
     def capture(self):
         """Warm up once on a side stream, then capture ``run`` into a CUDA
         graph; the buffers hold a loaded request. A failed capture raises."""
-        t0 = time.perf_counter()
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            self.run()
-        torch.cuda.current_stream().wait_stream(side)
-        before = {c: getattr(*c) for c in _kernel_counters()}
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            out = self.run()
-        torch.cuda.synchronize()
-        self.credits = {c: getattr(*c) - n for c, n in before.items() if getattr(*c) != n}
-        for (fn, attr), n in self.credits.items():  # nothing ran during the capture
-            setattr(fn, attr, getattr(fn, attr) - n)
-        self.graph, self.out = graph, out
-        self.capture_ms = (time.perf_counter() - t0) * 1e3
+        self.graph, self.out, self.credits, self.capture_ms = _capture_graph(self.run)
 
     def replay(self):
-        self.graph.replay()
-        for (fn, attr), n in self.credits.items():
-            setattr(fn, attr, getattr(fn, attr) + n)
+        _replay_graph(self.graph, self.credits)
         return self.out[0].clone(), self.out[1].clone()
+
+
+def _capture_graph(run):
+    """``run()`` once on a side stream (a warm-up, which also makes the
+    kernels' shared-memory opt-in outside the capture), then captured into a
+    CUDA graph. The capture's error mode is thread-local: a serving engine's
+    other threads may use CUDA meanwhile (copy pixels to the card, wait for a
+    result), which the global mode would turn into a failed capture. Returns
+    (graph, what the captured run returned, the launch counts the capture
+    moved, taken back since nothing ran, ms)."""
+    t0 = time.perf_counter()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    before = {c: getattr(*c) for c in _kernel_counters()}
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        out = run()
+    torch.cuda.synchronize()
+    credits = {c: getattr(*c) - n for c, n in before.items() if getattr(*c) != n}
+    for (fn, attr), n in credits.items():  # nothing ran during the capture
+        setattr(fn, attr, getattr(fn, attr) - n)
+    return graph, out, credits, (time.perf_counter() - t0) * 1e3
+
+
+def _replay_graph(graph, credits):
+    """Replay a captured graph and credit its wrappers with its launches."""
+    graph.replay()
+    for (fn, attr), n in credits.items():
+        setattr(fn, attr, getattr(fn, attr) + n)
 
 
 class DecodeGraphs:
@@ -666,9 +691,7 @@ def _generate_greedy_fused(params, cfg, cache, prefill_hidden, P, max_new_tokens
     tok, marg = torch.argmax(logits, dim=-1) + begin, _argmax_margin(logits)
     if max_new_tokens == 1:
         return _stack_steps([tok], [marg], return_margins)
-    S = P + max_new_tokens
-    S_loop = max(S, min(-(-S // SLOT_BUCKET) * SLOT_BUCKET, cfg.text.sliding_window))
-    shape = dict(B=B, S=S_loop, n=max_new_tokens, kv_bits=kv_bits,
+    shape = dict(B=B, S=loop_slots(P + max_new_tokens, cfg), n=max_new_tokens, kv_bits=kv_bits,
                  token_range=None if token_range is None else tuple(token_range),
                  compute_dtype=compute_dtype, dtype=dtype)
 
@@ -726,3 +749,331 @@ def predict_action(
         depth_image_size=depth_image_size, kv_bits=kv_bits, return_margins=return_margins,
         use_cuda_graph=use_cuda_graph, decode_graphs=decode_graphs,
     )
+
+
+# ---------------------------------------------------------------------------
+# split-phase serving: a prefill per arrival group, a persistent decode batch
+# ---------------------------------------------------------------------------
+# Continuous batching (spatialvla.py:700-727) splits the two phases that
+# predict_action runs back to back: ``prefill_for_serving`` runs the vision
+# front, the prefix and the first token of an arrival group, and
+# ``decode_steps_serving`` advances a persistent batch of n_slots rows, each
+# at its own cache position, a few steps at a time. ``admit_rows_serving``
+# moves an arrival group's rows into free slots between two decode
+# dispatches, and a row retires after 3 * chunk tokens, so the decode step's
+# weight stream is shared by up to n_slots rows whatever the groups' sizes.
+# Where JAX returns new arrays from each program, the state here is a dict of
+# tensors allocated once and written in place: the decode program is one
+# CUDA graph (``ServingLoop``), which holds their addresses.
+
+def prefill_for_serving(
+    params: Params,
+    cfg,
+    input_ids: torch.Tensor,  # (Bp, P) right-padded prompt ids
+    *,
+    pixel_values: torch.Tensor,
+    intrinsic: Optional[torch.Tensor],
+    attention_mask: torch.Tensor,  # (Bp, P) 1 = valid
+    cache_len: int,  # the persistent decode state's cache slots
+    compute_dtype=torch.bfloat16,
+    token_range: Optional[Tuple[int, int]] = None,
+    depth_image_size: Optional[int] = None,
+    kv_bits: Optional[int] = None,
+    cache_dtype=torch.bfloat16,
+) -> Dict[str, torch.Tensor]:
+    """The vision front and the pad-aware prefix of an arrival group
+    (spatialvla.py:730), as the rows that ``admit_rows_serving`` writes into
+    the first P cache slots of free decode slots: {"k", "v" (L, Bp, Nkv, P,
+    D) in the serving layout [, "k_scale", "v_scale" (L, Bp, Nkv, P) with
+    kv_bits=8], "tok" (Bp,) the first generated token, "valid" (Bp,) the
+    prefix lengths}, int32 where JAX's are. The prefill is
+    ``generate_greedy``'s pad-aware one over P slots only: the slots past P
+    would be masked keys. ``cache_len`` only bounds the prompt."""
+    from ..ops.quant import quantize_kv
+
+    B, P = input_ids.shape
+    if P > cache_len:
+        raise ValueError(f"prompt P={P} exceeds cache_len={cache_len}")
+    if kv_bits not in (None, 8):
+        raise ValueError(f"kv_bits={kv_bits}: only 8 (or None) is supported")
+    dev = input_ids.device
+    image_features = get_image_features(params, cfg, pixel_values, intrinsic,
+                                        compute_dtype=compute_dtype,
+                                        depth_image_size=depth_image_size)
+    embeds = merge_input_embeddings(params, cfg, input_ids, image_features, dtype=compute_dtype)
+    cache = gemma2_mod.init_cache(cfg.text, B, P, device=dev, dtype=cache_dtype)
+    am = attention_mask.to(device=dev, dtype=torch.int32)
+    valid = am.sum(dim=-1)  # each row's prefix length
+    position_ids = torch.cumsum(am, dim=-1) * am  # 1-indexed at the valid slots
+    mask = am.bool()[:, None, None, :].expand(B, 1, P, P)
+    hidden, cache = gemma2_mod.forward(
+        params["lm"], cfg.text, embeds, position_ids, mask, cache=cache, cache_position=0,
+        window_positions=(position_ids, position_ids),  # each slot's true position
+    )
+    offset, head = _greedy_head(params["lm"], token_range)
+    last = torch.gather(hidden, 1, (valid - 1).long()[:, None, None].expand(B, 1, hidden.shape[-1]))
+    tok = torch.argmax(qmatmul(last[:, 0].to(compute_dtype or hidden.dtype), head), dim=-1) + offset
+    ck, cv = (cache[n].permute(0, 1, 3, 2, 4).contiguous() for n in ("k", "v"))
+    out = {"tok": tok.to(torch.int32), "valid": valid.to(torch.int32)}
+    if kv_bits == 8:
+        out["k"], out["k_scale"] = quantize_kv(ck)
+        out["v"], out["v_scale"] = quantize_kv(cv)
+    else:
+        out["k"], out["v"] = ck, cv
+    return out
+
+
+def init_serving_state(cfg, n_slots: int, cache_len: int, n_tokens: int, *,
+                       kv_bits: Optional[int] = None, cache_dtype=torch.bfloat16,
+                       device=None) -> Dict[str, torch.Tensor]:
+    """The persistent decode batch (spatialvla.py:810): n_slots rows, each
+    with its KV cache (L, n_slots, Nkv, cache_len, D), last token, cache
+    position, emitted-token count and output buffer (n_slots, n_tokens),
+    int32 as in JAX. A new slot is inactive: steps = n_tokens, past the
+    output buffer, so a decode step writes none of its tokens. With
+    kv_bits=8 the cache holds int8 codes and its per-slot scales live in the
+    flat (L, Nkv, 1, n_slots * cache_len) layout that the decode step reads
+    (``ops/decode_step.flatten_kv_scales``), written there directly."""
+    tcfg = cfg.text
+    L, Nkv, D = tcfg.num_layers, tcfg.num_kv_heads, tcfg.head_dim
+    shape = (L, n_slots, Nkv, cache_len, D)
+    i32 = dict(dtype=torch.int32, device=device)
+    state = {
+        "tok": torch.zeros((n_slots,), **i32),
+        "pos": torch.zeros((n_slots,), **i32),
+        "steps": torch.full((n_slots,), n_tokens, **i32),
+        "out": torch.zeros((n_slots, n_tokens), **i32),
+    }
+    if kv_bits == 8:
+        state["k"], state["v"] = (torch.zeros(shape, dtype=torch.int8, device=device)
+                                  for _ in range(2))
+        sshape = (L, Nkv, 1, n_slots * cache_len)
+        state["k_scale"], state["v_scale"] = (torch.zeros(sshape, dtype=torch.float32,
+                                                          device=device) for _ in range(2))
+    else:
+        state["k"], state["v"] = (torch.zeros(shape, dtype=cache_dtype, device=device)
+                                  for _ in range(2))
+    return state
+
+
+def admit_rows_serving(state: Dict[str, torch.Tensor], rows: Dict[str, torch.Tensor],
+                       slots) -> Dict[str, torch.Tensor]:
+    """An arrival group's prefill rows (``prefill_for_serving``) written in
+    place into the decode slots ``slots`` (Bp,) (spatialvla.py:848): cache
+    slots [0, P) of each, its scales at flat columns slot * S + [0, P), its
+    first token in ``tok`` and ``out[:, 0]``, its position the prefix length
+    and steps = 1. Slots [P, S) keep what the slot's last occupant left: the
+    decode step attends only below a row's position and writes each slot
+    before the position passes it. Returns ``state``."""
+    P = rows["k"].shape[3]
+    sl = torch.as_tensor(slots, device=state["tok"].device).long()
+    state["k"][:, sl, :, :P] = rows["k"]
+    state["v"][:, sl, :, :P] = rows["v"]
+    if "k_scale" in state:
+        S = state["k"].shape[3]
+        cols = sl[:, None] * S + torch.arange(P, device=sl.device)[None, :]  # (Bp, P)
+        for name in ("k_scale", "v_scale"):
+            state[name][:, :, 0][:, :, cols] = rows[name].float().permute(0, 2, 1, 3)
+    tok = rows["tok"].to(torch.int32)
+    state["tok"][sl] = tok
+    state["pos"][sl] = rows["valid"].to(torch.int32)
+    state["steps"][sl] = 1
+    state["out"][sl, 0] = tok
+    return state
+
+
+def xla_decode_step(lm_params: Params, tcfg, x: torch.Tensor, cache_k: torch.Tensor,
+                    cache_v: torch.Tensor, position, rope_position, *, cache_k_scale=None,
+                    cache_v_scale=None, compute_dtype=torch.bfloat16):
+    """The decode step of ``ops/decode_step.fused_decode_step`` in plain
+    torch ops, layer by layer as ``gemma2``'s attention and MLP blocks do it
+    for one query token (spatialvla.py:889, XLA math in JAX): the same
+    contract (x (M, H) embeddings * sqrt(H), a read-only (L, M, Nkv, S, D)
+    cache, per-row positions; returns (hidden bf16, k_new, v_new) for the
+    caller to write). An int8 cache stays codes: its per-slot scales (flat
+    (L, Nkv, 1, M*S) layout) multiply the logits after q . K and the
+    probabilities before p @ V, and the current token attends unquantized
+    through a separate self term, as the kernel does; k_new / v_new come back
+    bf16 for the caller to quantize. ``decode_steps_serving(use_fused=False)``
+    runs it."""
+    from ..ops.quant import qnorm_matmul
+    from .attention import multi_head_attention
+    from .layers import rms_norm
+    from .rope import apply_rope, rope_cos_sin
+
+    layers = lm_params["layers"]
+    L, M, Nkv, S, D = cache_k.shape
+    Nq, eps = tcfg.num_heads, tcfg.rms_norm_eps
+    kv_quant = cache_k.dtype == torch.int8
+    if kv_quant:
+        flat = (L, Nkv, 1, M * S)
+        if (cache_k_scale is None or cache_v_scale is None
+                or tuple(cache_k_scale.shape) != flat or tuple(cache_v_scale.shape) != flat):
+            raise ValueError("an int8 KV cache needs per-slot scales in the flat "
+                             f"{flat} layout (ops/decode_step.flatten_kv_scales)")
+    if S > tcfg.sliding_window:
+        raise ValueError("serving cache exceeds the sliding window; this step treats window "
+                         "and global layers identically")
+    dev = x.device
+    position = torch.as_tensor(position, dtype=torch.int32, device=dev).reshape(-1).expand(M)
+    rope_position = torch.as_tensor(rope_position, dtype=torch.int32,
+                                    device=dev).reshape(-1).expand(M)
+    cos, sin = rope_cos_sin(rope_position[:, None], D, tcfg.rope_theta)
+    kiota = torch.arange(S, device=dev)
+    mask = (kiota[None, :] <= position[:, None])[:, None, None, :]  # the valid cache and itself
+    scale = tcfg.query_pre_attn_scalar ** -0.5
+    cap = tcfg.attn_logit_softcap
+    rows = torch.arange(M, device=dev)
+    h = x.to(compute_dtype)
+    k_news, v_news = [], []
+    for l in range(L):
+        lp = gemma2_mod.layer_slice(layers, l)
+        hT = h[:, None, :]
+        if "qkv" in lp["attn"]:  # the fused-quantized serving tree
+            qkv = qnorm_matmul(hT, lp["input_norm"], lp["attn"]["qkv"], eps=eps)
+            q, k, v = torch.split(qkv, [Nq * D, Nkv * D, Nkv * D], dim=-1)
+        else:
+            xn = rms_norm(lp["input_norm"], hT, eps)
+            q, k, v = (qmatmul(xn, lp["attn"][n]) for n in ("q", "k", "v"))
+        q = apply_rope(q.reshape(M, 1, Nq, D), cos, sin)
+        k = apply_rope(k.reshape(M, 1, Nkv, D), cos, sin)
+        v = v.reshape(M, 1, Nkv, D)
+        if kv_quant:
+            k_new, v_new = k[:, 0].to(torch.bfloat16), v[:, 0].to(torch.bfloat16)
+            G = Nq // Nkv
+            qf = q[:, 0].reshape(M, Nkv, G, D).float() * scale
+            ks, vs = (sc[l].reshape(Nkv, M, S).permute(1, 0, 2)[:, :, None, :]
+                      for sc in (cache_k_scale, cache_v_scale))
+            logits = torch.einsum("mhgd,mhsd->mhgs", qf, cache_k[l].float()) * ks
+            self_l = (qf * k_new.float()[:, :, None, :]).sum(-1)[..., None]  # (M, Nkv, G, 1)
+            if cap:
+                logits = torch.tanh(logits / cap) * cap
+                self_l = torch.tanh(self_l / cap) * cap
+            col_ok = (kiota[None, :] < position[:, None])[:, None, None, :]  # the self term: pos
+            logits = torch.where(col_ok, logits, torch.full_like(logits, -1e30))
+            mx = torch.maximum(logits.amax(-1, keepdim=True), self_l)
+            e, e_self = torch.exp(logits - mx), torch.exp(self_l - mx)
+            denom = e.sum(-1, keepdim=True) + e_self
+            out = (torch.einsum("mhgs,mhsd->mhgd", (e / denom) * vs, cache_v[l].float())
+                   + (e_self / denom) * v_new.float()[:, :, None, :])
+            out = out.reshape(M, 1, Nq * D)
+        else:
+            k_new, v_new = k[:, 0].to(cache_k.dtype), v[:, 0].to(cache_v.dtype)
+            # the cache in (M, S, Nkv, D) with the current token at each row's
+            # slot (the caller writes it into the persistent cache)
+            kk, vv = (c[l].permute(0, 2, 1, 3).clone() for c in (cache_k, cache_v))
+            kk[rows, position.long()] = k_new
+            vv[rows, position.long()] = v_new
+            out = multi_head_attention(q, kk.to(compute_dtype), vv.to(compute_dtype), mask,
+                                       scale=scale, logit_softcap=cap).reshape(M, 1, Nq * D)
+        attn = qmatmul(out.to(compute_dtype), lp["attn"]["o"])
+        h = h + rms_norm(lp["post_attn_norm"], attn[:, 0], eps)
+        mlp = gemma2_mod._mlp_block(lp["mlp"], h[:, None, :], lp["pre_ffn_norm"], eps)
+        h = h + rms_norm(lp["post_ffn_norm"], mlp[:, 0], eps)
+        k_news.append(k_new)
+        v_news.append(v_new)
+    hidden = rms_norm(lm_params["final_norm"], h, eps)
+    return hidden.to(torch.bfloat16), torch.stack(k_news), torch.stack(v_news)
+
+
+def decode_steps_serving(params: Params, cfg, state: Dict[str, torch.Tensor], *, n_steps: int,
+                         n_tokens: int, token_range: Optional[Tuple[int, int]] = None,
+                         compute_dtype=torch.bfloat16, use_fused: bool = True,
+                         buffers=None) -> Dict[str, torch.Tensor]:
+    """Every slot of the persistent decode batch advanced by n_steps decode
+    steps at its own cache position (spatialvla.py:1051), in place.
+
+    Free and finished slots (steps >= n_tokens) decode too, into their own
+    row: their output writes are masked, their position stops at S - 1 and
+    their step count at n_tokens, and admission overwrites what they wrote,
+    so the step needs no mask of active rows and its shape never changes.
+    Each step: embed the last token (spatial-token override), one
+    ``fused_decode_step`` (``buffers``: its ``step_buffers``) or, with
+    use_fused=False, ``xla_decode_step``; the argmax over ``token_range``'s
+    head rows; the new K / V rows (quantized, with their scales, for an int8
+    cache) written at each row's position. Returns ``state``."""
+    from ..ops.decode_step import fused_decode_step
+    from ..ops.quant import quantize_kv
+
+    tcfg = cfg.text
+    B, S = state["tok"].shape[0], state["k"].shape[3]
+    offset, head = _greedy_head(params["lm"], token_range)
+    tok, pos, steps, out = (state[n] for n in ("tok", "pos", "steps", "out"))
+    # sqrt(H) rounded to the compute dtype (JAX's jnp.asarray(.., compute_dtype)),
+    # as a number: a tensor made from it would be a host-to-card copy, which
+    # a CUDA graph cannot capture
+    normalizer = float(torch.tensor(tcfg.hidden_size ** 0.5, dtype=compute_dtype))
+    rows = torch.arange(B, device=tok.device)
+    for _ in range(n_steps):
+        embeds = merge_input_embeddings(params, cfg, tok[:, None].long(), None,
+                                        dtype=compute_dtype)
+        x = embeds[:, 0] * normalizer
+        kw = dict(cache_k_scale=state.get("k_scale"), cache_v_scale=state.get("v_scale"))
+        if use_fused:
+            hidden, k_new, v_new = fused_decode_step(params["lm"], tcfg, x, state["k"],
+                                                     state["v"], pos, pos + 1, buffers=buffers,
+                                                     **kw)
+        else:
+            hidden, k_new, v_new = xla_decode_step(params["lm"], tcfg, x, state["k"], state["v"],
+                                                   pos, pos + 1, compute_dtype=compute_dtype, **kw)
+        nxt = (torch.argmax(qmatmul(hidden.to(compute_dtype), head), dim=-1)
+               + offset).to(torch.int32)
+        if "k_scale" in state:
+            k_new, ks_new = quantize_kv(k_new)
+            v_new, vs_new = quantize_kv(v_new)
+            _scatter_scale(state["k_scale"], ks_new, pos, S)
+            _scatter_scale(state["v_scale"], vs_new, pos, S)
+        _scatter_rows(state["k"], k_new, pos)
+        _scatter_rows(state["v"], v_new, pos)
+        # the token's write, masked for free and finished slots (a retired
+        # row's last token must stay)
+        idx = steps.clamp(0, n_tokens - 1).long()
+        out[rows, idx] = torch.where(steps < n_tokens, nxt, out[rows, idx])
+        tok.copy_(nxt)
+        pos.copy_(torch.clamp(pos + 1, max=S - 1))
+        steps.copy_(torch.clamp(steps + 1, max=n_tokens))
+    return state
+
+
+class ServingLoop:
+    """The persistent decode batch of a split-phase serving engine, for one
+    fixed shape: ``n_slots`` rows, ``cache_len`` cache slots, ``n_tokens``
+    tokens a request, ``decode_block`` steps a dispatch, a bf16 or int8
+    cache, the argmax over ``token_range``, the compute dtype. ``state`` is
+    ``init_serving_state``'s dict, allocated once with the decode step's
+    buffers; ``admit_rows_serving`` writes arrival groups into it between
+    dispatches and ``step`` advances it by ``decode_block`` steps
+    (``decode_steps_serving``).
+
+    On the card ``capture`` records the decode_block steps as one CUDA graph
+    (as ``GreedyLoop.capture``: a warm-up run on a side stream, the launch
+    counts credited per replay in ``credits``); the shape never changes, so
+    one capture serves the engine's life. Capture it before the first
+    admission: the warm-up run advances every slot. Without a graph (the
+    CPU) ``step`` runs the steps eagerly."""
+
+    def __init__(self, params, cfg, *, n_slots, cache_len, n_tokens, decode_block, kv_bits,
+                 token_range, compute_dtype, device):
+        from ..ops.decode_step import step_buffers
+
+        self.params, self.cfg = params, cfg
+        self.n_tokens, self.decode_block = n_tokens, decode_block
+        self.token_range, self.compute_dtype = token_range, compute_dtype
+        self.state = init_serving_state(cfg, n_slots, cache_len, n_tokens, kv_bits=kv_bits,
+                                        device=device)
+        self.buffers = step_buffers(cfg.text, n_slots, cache_len, device)
+        self.graph, self.credits, self.capture_ms = None, {}, None
+
+    def run(self):
+        decode_steps_serving(self.params, self.cfg, self.state, n_steps=self.decode_block,
+                             n_tokens=self.n_tokens, token_range=self.token_range,
+                             compute_dtype=self.compute_dtype, buffers=self.buffers)
+
+    def capture(self):
+        self.graph, _, self.credits, self.capture_ms = _capture_graph(self.run)
+
+    def step(self):
+        if self.graph is None:
+            self.run()
+        else:
+            _replay_graph(self.graph, self.credits)

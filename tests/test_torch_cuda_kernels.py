@@ -12,7 +12,8 @@ what differs is the fp32 summation order), below 5e-3 for the grouped int4
 matvecs, the int4 tensor-core route and the residual kernels with fp32
 outputs, below 0.02 for a whole decode step (the JAX package's bound for the
 fused step at batch 1). The decode loop replayed as a CUDA graph gives the
-eager loop's ids and margins exactly. The flash kernels: 1e-4 fp32, 2e-2
+eager loop's ids and margins exactly, and the split engine's persistent
+decode batch the eager state bit for bit. The flash kernels: 1e-4 fp32, 2e-2
 bf16 (their FLASH_TOL), the LSE within 1e-3; the bf16 forward and backward
 on tensor cores give identical bits when launched twice.
 """
@@ -971,6 +972,58 @@ def test_graph_loop_matches_the_eager_loop(fmt):
     assert len(policy.decode_graphs) == 2
     policy.quantize(bits=None, vision_bits=None, kv_bits=qkw.get("kv_bits"))
     assert len(policy.decode_graphs) == 0
+
+
+@pytest.mark.parametrize("fmt", list(QUANTIZE))
+def test_serving_loop_graph_matches_eager(fmt):
+    """The split engine's persistent decode batch (ServingLoop): 3
+    dispatches of 4 steps replayed as its CUDA graph leave the state (cache,
+    scales, tokens, positions, step counts, outputs) bit-identical to the
+    same dispatches run eagerly on a twin loop, with 2 of 3 slots admitted
+    from one prefill; a replay credits the wrappers with what an eager
+    dispatch launches."""
+    qkw, kernels = QUANTIZE[fmt]
+    cfg, policy = _tiny_policy(qkw)
+    proc, kv_bits = policy.processor, qkw.get("kv_bits")
+    size = cfg.vision.image_size
+    frames = [(np.random.RandomState(i).rand(size, size, 3) * 255).astype(np.uint8)
+              for i in range(2)]
+    inputs = proc(frames, ["pick up the cup", "open the top drawer of the desk"])
+    T, token_range = 64, (cfg.action_token_begin_idx, cfg.spatial_token_num)
+    ids = torch.full((2, T), proc.text_tokenizer.pad_id, dtype=torch.long, device=DEV)
+    am = torch.zeros((2, T), dtype=torch.int32, device=DEV)
+    n = inputs["input_ids"].shape[1]
+    ids[:, :n] = torch.as_tensor(inputs["input_ids"], device=DEV)
+    am[:, :n] = torch.as_tensor(inputs["attention_mask"], device=DEV)
+    counters = kernels + (ds.norm_residual, quant.q8_residual_rmsnorm_matvec,
+                          quant.q4_residual_rmsnorm_matvec)
+    with torch.inference_mode():
+        rows = sv.prefill_for_serving(
+            policy.params, cfg, ids, pixel_values=torch.as_tensor(inputs["pixel_values"],
+                                                                  device=DEV),
+            intrinsic=torch.as_tensor(inputs["intrinsic"], device=DEV), attention_mask=am,
+            cache_len=T + 12, token_range=token_range, kv_bits=kv_bits)
+        graphed, eager = (sv.ServingLoop(policy.params, cfg, n_slots=3, cache_len=T + 12,
+                                         n_tokens=12, decode_block=4, kv_bits=kv_bits,
+                                         token_range=token_range, compute_dtype=torch.bfloat16,
+                                         device=DEV) for _ in range(2))
+        graphed.capture()  # its warm-up run advances the state once
+        eager.run()
+        launches = []
+        for loop in (graphed, eager):
+            sv.admit_rows_serving(loop.state, rows, [2, 0])
+            torch.cuda.synchronize()
+            before = [c.launches for c in counters]
+            for _ in range(3):
+                loop.step()
+            torch.cuda.synchronize()
+            launches.append([c.launches - b for c, b in zip(counters, before)])
+    assert graphed.graph is not None and eager.graph is None
+    for key, value in graphed.state.items():
+        assert torch.equal(value, eager.state[key]), key
+    # the last of the format's kernels is its attention kernel: every layer of every step
+    assert launches[0] == launches[1] and launches[0][len(kernels) - 1] == 3 * 4 * cfg.text.num_layers
+    assert (graphed.state["steps"][[2, 0]] == 12).all()
 
 
 # ---------------------------------------------------------------------------

@@ -9,8 +9,9 @@ one with the mixed tree on an int8 KV cache, exports an HF checkpoint, bakes
 it into a serving checkpoint with scripts/quantize_checkpoint_torch.py,
 serves a request from that, imports the pretrain CLI, and reports which jax,
 optax, safetensors and spatialvla_tpu modules are loaded. No ``import`` or
-``from`` in the port, chip_smoke.py or scripts/quantize_checkpoint_torch.py
-names the JAX package or safetensors."""
+``from`` in the port, chip_smoke.py, scripts/quantize_checkpoint_torch.py,
+scripts/serve_torch.py or scripts/bench_serve_torch.py names the JAX
+package or safetensors."""
 import ast
 import json
 import os
@@ -99,7 +100,7 @@ def test_port_imports_no_jax(child):
               "train.optimizer", "train.trainer", "train.pretrain", "train.tb_writer", "config",
               "action.tokenizer", "processor.processor", "data.pipeline", "data.native",
               "convert.safetensors_io", "convert.hf_checkpoint", "convert.export_hf",
-              "train.checkpoints", "serve.gating"):
+              "train.checkpoints", "serve.gating", "serve.engine", "serve.split_engine"):
         assert f"spatialvla_tpu_torch.{m}" in child["modules"]
     assert child["jax"] == []
     assert child["optax"] == []
@@ -117,7 +118,8 @@ def _imported_names(path):
 
 def test_no_import_names_the_jax_package():
     files = sorted(Path(ROOT, "spatialvla_tpu_torch").rglob("*.py")) + [
-        Path(ROOT, "chip_smoke.py"), Path(ROOT, "scripts", "quantize_checkpoint_torch.py")]
+        Path(ROOT, "chip_smoke.py")] + [Path(ROOT, "scripts", f"{name}.py") for name in (
+        "quantize_checkpoint_torch", "serve_torch", "bench_serve_torch")]
     assert len(files) > 40
     banned = ("spatialvla_tpu", "jax", "jaxlib", "optax", "safetensors")
     bad = [(str(f.relative_to(ROOT)), name) for f in files for name in _imported_names(f)
