@@ -109,9 +109,32 @@
    (LOSS_BOUND, GRAD_NORM_BOUND). Then spatialvla_tiny(use_vision_zoe=True)
    must overfit one batch through the kernels (loss down by more than 0.5 in
    8 steps at lr 5e-3).
-8. Prints the card, the kernels' JSON line (with each decode kernel's
-   launches in one replay of the graphs checked, traced and credited), and
-   last {"ok": true, ...}.
+8. LoRA fine-tuning as train/finetune.py runs it (finetune_path): the
+   seed's fp32 spatialvla_4b() tree written as a pretrained directory
+   (save_params, config.json, the processor) and read back with
+   finetune.load_pretrained; scripts/finetune_lora.sh's settings (rank 32,
+   alpha 32, the 'linear' targets, lr 5e-4, flash attention, remat,
+   256-token loss chunks) on batch 2 x 320 for 6 steps of train_loop with a
+   CheckpointManager that saves every 2 steps and keeps 2. One batch's loss
+   and trainable-gradient norm with flash against xla attention (LOSS_BOUND,
+   GRAD_NORM_BOUND); the flash kernels launched 2 x 26, 26 and 26 times a
+   step; the metrics finite; every base leaf bit-identical afterwards and
+   every B factor and the spatial embedding changed. A fresh state restored
+   from the step-4 checkpoint is bit-identical to the state saved there, and
+   steps 5-6 from it give the uninterrupted run's losses (bit-exact, or
+   within RESUME_LOSS_BOUND; which of the two is printed). A LoRA-factored
+   int8 projection (the trained q factors of layer 0 over the int8 base) at
+   1 and 16 rows against its plain version (1e-2). Then insert_saved,
+   lora_fold, bf16 and quantize(bits=8): the policy served next.
+9. Evaluation of that policy through the eval driver (eval_path): a task
+   that succeeds at the first step and one that never does, 8 episodes
+   each, serially and with 4 envs whose queries the driver's ServingEngine
+   batches; equal rows, every episode counted, finite actions, the int8
+   kernels and the decode kernels launched in both runs, a mean batch above
+   1, the decode-graph captures during each run counted.
+10. Prints the card, the kernels' JSON line (with each decode kernel's
+   launches in one replay of the graphs checked, traced and credited, and
+   the launches of the LoRA and eval runs), and last {"ok": true, ...}.
 
 Needs CUDA; there is no CPU path. Imports nothing of jax.
 """
@@ -1896,21 +1919,11 @@ def dir_bytes(path: str) -> int:
                for root, _, files in os.walk(path) for fn in files)
 
 
-def tree_paths(tree, prefix=""):
-    """(path, tensor) of every leaf of a nested dict / list."""
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from tree_paths(v, f"{prefix}{k}/")
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            yield from tree_paths(v, f"{prefix}{i}/")
-    else:
-        yield prefix[:-1], tree
-
-
 def bit_identical(torch, a, b, label):
     """Fail unless trees a and b have the same leaves, dtypes, shapes and bits."""
-    la, lb = dict(tree_paths(a)), dict(tree_paths(b))
+    from spatialvla_tpu_torch.utils.tree import iter_leaves
+
+    la, lb = dict(iter_leaves(a)), dict(iter_leaves(b))
     if sorted(la) != sorted(lb):
         fail(f"{label}: leaves differ: {sorted(set(la) ^ set(lb))[:8]}")
     for k, x in la.items():
@@ -2709,6 +2722,398 @@ def tiny_overfit(torch, counters, device="cuda"):
     return {"losses": losses, "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# LoRA fine-tuning with checkpoints and resume, then evaluation through the
+# eval driver
+# ---------------------------------------------------------------------------
+
+LORA = dict(rank=32, alpha=32.0, target="linear")  # scripts/finetune_lora.sh
+RESUME_LOSS_BOUND = 1e-4  # |loss_resumed - loss_uninterrupted| / loss, if not bit-exact
+
+
+def finetune_path(torch, counters, *, cfg=None, device="cuda", n_steps=6, save_every=2,
+                  seq_len=320):
+    """LoRA fine-tuning of full-width spatialvla_4b() as train/finetune.py
+    runs it (see the module docstring), then the folded, quantized policy.
+
+    Returns (result dict, the policy). ``cfg`` and ``device="cpu"``
+    rehearse the phase on the CPU at a small size: everything but the
+    launch counts (the wrappers count nothing there)."""
+    import shutil
+
+    from spatialvla_tpu_torch import SpatialVLAPolicy, spatialvla_4b
+    from spatialvla_tpu_torch.convert.bridge import map_tree
+    from spatialvla_tpu_torch.inference import default_processor
+    from spatialvla_tpu_torch.models import spatialvla as sv
+    from spatialvla_tpu_torch.ops import quant
+    from spatialvla_tpu_torch.train import (OptimizerConfig, TrainStepConfig, build_decode_luts,
+                                            init_lora_train_state, make_loss_fn,
+                                            make_lora_train_step, make_optimizer)
+    from spatialvla_tpu_torch.train.checkpoints import CheckpointManager, save_params
+    from spatialvla_tpu_torch.train.finetune import load_pretrained
+    from spatialvla_tpu_torch.train.lora import (TARGET_PRESETS, insert_saved, lora_apply_tree,
+                                                 lora_fold)
+    from spatialvla_tpu_torch.train.train_step import batch_to_tensors
+    from spatialvla_tpu_torch.train.trainer import TrainerConfig, train_loop
+    from spatialvla_tpu_torch.utils.tree import count_params, iter_leaves, map_with_paths
+
+    cfg = cfg or spatialvla_4b()
+    on_card = device != "cpu"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    rank, alpha = LORA["rank"], LORA["alpha"]
+    work = tempfile.mkdtemp(prefix="chip_smoke_finetune_")
+    res = {"dir": work}
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t0
+
+    def clone(tree):
+        return {p: t.detach().clone() for p, t in iter_leaves(tree) if torch.is_tensor(t)}
+
+    try:
+        # a pretrained directory as the pretrain CLI writes one: fp32 params,
+        # config.json and the processor
+        free = shutil.disk_usage(work).free
+        params = sv.init_params(cfg, generator=torch.Generator(device=device).manual_seed(0),
+                                device=device, dtype=torch.float32)
+        need = tree_bytes(params)
+        print(f"finetune path: {free} bytes free in {work}; the fp32 pretrained tree needs "
+              f"{need} bytes | {card_line() if on_card else 'cpu'}", flush=True)
+        if free < need * 1.1:
+            fail(f"finetune path: {free} bytes free in {work}, the fp32 pretrained tree needs "
+                 f"{need} bytes and the LoRA checkpoints about a tenth more")
+        pre_dir = os.path.join(work, "pretrained")
+        nbytes, sec = timed(lambda: save_params(pre_dir, params, config_json=cfg.to_json()))
+        default_processor(cfg).save(pre_dir)
+        res["pretrained_write"] = {"s": sec, "bytes": nbytes}
+        del params
+        if on_card:
+            torch.cuda.empty_cache()
+        (base, processor), sec = timed(lambda: load_pretrained(pre_dir, device=device))
+        res["pretrained_load"] = {"s": sec, "bytes": nbytes}
+        print(f"finetune path: pretrained tree written in {res['pretrained_write']['s']:.2f} s "
+              f"and loaded with finetune.load_pretrained in {sec:.2f} s ({nbytes} bytes, "
+              f"{count_params(base) / 1e9:.3f} B parameters)", flush=True)
+
+        batches = training_batches(processor, cfg, n_steps, seq_len=seq_len)
+        luts = {k: torch.as_tensor(v, device=device)
+                for k, v in build_decode_luts(processor.action_tokenizer).items()}
+        # the fine-tuning CLI's optimizer for finetune_lora.sh (lr 5e-4, 10000 steps)
+        tx = make_optimizer(OptimizerConfig(learning_rate=5e-4, warmup_ratio=0.005,
+                                            total_steps=10_000), None, None)
+        step_cfg = TrainStepConfig(use_remat=True, compute_dtype=torch.bfloat16,
+                                   attn_backend="flash", loss_chunk_size=256)
+
+        def new_state(seed):
+            return init_lora_train_state(torch.Generator(device=device).manual_seed(seed), base,
+                                         tx, target_patterns=TARGET_PRESETS[LORA["target"]],
+                                         rank=rank)
+
+        state = new_state(1)
+        n_train = count_params(state["trainable"])
+        print(f"finetune path: LoRA rank {rank}, alpha {alpha}, {len(state['trainable']['lora'])} "
+              f"adapted leaves, {n_train / 1e6:.2f} M trainable parameters", flush=True)
+
+        # flash vs xla: loss and trainable-gradient norm of one batch, no update
+        def loss_and_grad_norm(backend):
+            loss_fn = make_loss_fn(cfg, dataclasses.replace(step_cfg, attn_backend=backend),
+                                   luts=luts)
+            frozen = map_with_paths(lambda _, t: t.detach(), base)
+            p = lora_apply_tree(insert_saved(frozen, state["trainable"]["saved"]),
+                                state["trainable"]["lora"], alpha=alpha, rank=rank)
+            loss, _ = loss_fn(p, batch_to_tensors(batches[0], device))
+            loss.backward()
+            leaves = [t for _, t in iter_leaves(state["trainable"])]
+            norm = torch.sqrt(torch.stack([t.grad.float().pow(2).sum() for t in leaves
+                                           if t.grad is not None]).sum())
+            for t in leaves:
+                t.grad = None
+            return float(loss.detach()), float(norm)
+
+        (lf, gf), (lx, gx) = loss_and_grad_norm("flash"), loss_and_grad_norm("xla")
+        d_loss, d_gn = abs(lf - lx) / abs(lx), abs(gf - gx) / gx
+        print(f"finetune flash vs xla (one batch): loss {lf:.6f} vs {lx:.6f} (rel {d_loss:.3e}, "
+              f"bound {LOSS_BOUND}), trainable grad_norm {gf:.6f} vs {gx:.6f} (rel {d_gn:.3e}, "
+              f"bound {GRAD_NORM_BOUND})", flush=True)
+        if not (d_loss < LOSS_BOUND and d_gn < GRAD_NORM_BOUND):
+            fail(f"finetune: flash vs xla loss rel {d_loss}, grad_norm rel {d_gn}")
+        res["flash_vs_xla"] = {"loss": [lf, lx], "grad_norm": [gf, gx], "loss_rel": d_loss,
+                               "grad_norm_rel": d_gn}
+
+        base_before = clone(base)  # on the device: bit-identical afterwards
+        trainable_before = clone(state["trainable"])
+        step = make_lora_train_step(cfg, tx, step_cfg, alpha=alpha, rank=rank, luts=luts)
+        times, logged, saves, snapshots = [], [], {}, {}
+
+        def timed_step(state, base_params, batch):
+            out, sec = timed(lambda: step(state, base_params, batch))
+            times.append(sec)
+            return out
+
+        class Manager(CheckpointManager):
+            """Times each write and keeps a copy of the state it wrote."""
+
+            def save(self, step, state, **kw):
+                done, sec = timed(lambda: super(Manager, self).save(step, state, **kw))
+                if done:
+                    saves[step] = {"s": sec, "bytes": dir_bytes(self._step_dir(step))}
+                    snapshots[step] = clone(state) | {
+                        "step": state["step"], "count": state["opt_state"]["count"]}
+                return done
+
+        mgr = Manager(os.path.join(work, "checkpoints"), save_interval_steps=save_every,
+                      max_to_keep=2)
+        zero_counts(counters)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        state = train_loop(state=state, train_step=timed_step, batches=iter(batches),
+                           config=TrainerConfig(output_dir=os.path.join(work, "run"),
+                                                max_steps=n_steps, log_every=1,
+                                                save_every=save_every, tensorboard=False),
+                           checkpoint_manager=mgr, step_args=(base,),
+                           on_metrics=lambda s, m: logged.append(m))
+        launches = {c.__name__: c.launches for c in counters}
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30 if on_card else float("nan")
+        L = cfg.text.num_layers
+        want = ({"flash_attention_fwd": 2 * L * n_steps, "flash_attention_bwd_dq": L * n_steps,
+                 "flash_attention_bwd_dkv": L * n_steps} if on_card
+                else {c.__name__: 0 for c in counters})
+        print(f"finetune launches over {n_steps} steps: {launches} (want {want})", flush=True)
+        if launches != want:
+            fail(f"finetune: kernel launches {launches}, want {want}")
+        if len(logged) != n_steps or not all(np.isfinite(v) for m in logged for v in m.values()):
+            fail(f"finetune: {len(logged)} logged steps, metrics {logged}")
+        for path, before in base_before.items():
+            if not torch.equal(before, dict(iter_leaves(base))[path]):
+                fail(f"finetune: base leaf {path} changed")
+        after = clone(state["trainable"])
+        unchanged = [p for p in after if (p.endswith("/b") or p == "saved/spatial_embed")
+                     and torch.equal(after[p], trainable_before[p])]
+        if unchanged:
+            fail(f"finetune: trainable leaves did not change: {unchanged[:6]}")
+        kept = [s for s in range(save_every, n_steps + 1, save_every)][-2:]
+        if mgr.all_steps() != kept or sorted(saves) != list(range(save_every, n_steps + 1,
+                                                                      save_every)):
+            fail(f"finetune: checkpoints {mgr.all_steps()} kept, {sorted(saves)} written; want "
+                 f"{kept} kept")
+        del base_before
+        steady = times[2:]
+        step_s = statistics.median(steady)
+        tokens = batches[0]["input_ids"].size
+        res.update({
+            "n_trainable": n_train, "step_ms_all": [t * 1e3 for t in times],
+            "step_ms_median": step_s * 1e3, "tokens_per_s": tokens / step_s,
+            "peak_mem_gib": peak_gib, "launches": launches, "metrics": logged, "saves": saves})
+        print(f"finetune: step times {[round(t * 1e3, 2) for t in times]} ms; median after 2 "
+              f"warm-up steps {step_s * 1e3:.2f} ms, {tokens / step_s:.1f} tokens/s, peak "
+              f"{peak_gib:.2f} GiB; losses {[round(m['loss'], 4) for m in logged]}; checkpoint "
+              f"writes {[(s, round(v['s'], 3), v['bytes']) for s, v in sorted(saves.items())]} "
+              f"(step, s, bytes), kept {mgr.all_steps()} | "
+              f"{card_line() if on_card else 'cpu'}", flush=True)
+
+        # resume: a fresh state restored from the middle checkpoint, bit for
+        # bit, then the rest of the run against the uninterrupted one
+        mid = kept[0]
+        fresh = new_state(2)
+        restored, sec = timed(lambda: mgr.restore(fresh, step=mid))
+        res["restore"] = {"s": sec, "bytes": saves[mid]["bytes"], "step": mid}
+        snap = snapshots[mid]
+        got = clone(restored)
+        differ = [p for p in got if not torch.equal(got[p], snap[p])]
+        if differ or restored["step"] != mid or restored["opt_state"]["count"] != snap["count"]:
+            fail(f"finetune resume: the restored state differs from the one saved at step {mid}: "
+                 f"{differ[:6]}, step {restored['step']}, count {restored['opt_state']['count']}")
+        cont = []
+        restored = train_loop(state=restored, train_step=step, batches=iter(batches[mid:]),
+                              config=TrainerConfig(output_dir=os.path.join(work, "resumed"),
+                                                   max_steps=n_steps, log_every=1,
+                                                   tensorboard=False),
+                              step_args=(base,), on_metrics=lambda s, m: cont.append(m))
+        straight = [m["loss"] for m in logged[mid:]]
+        resumed = [m["loss"] for m in cont]
+        final, resumed_final = clone(state["trainable"]), clone(restored["trainable"])
+        exact = resumed == straight and all(torch.equal(final[p], resumed_final[p])
+                                            for p in final)
+        worst_loss = max(abs(a - b) / abs(b) for a, b in zip(resumed, straight))
+        worst_param = max(float((final[p] - resumed_final[p]).abs().max()) for p in final)
+        print(f"finetune resume from step {mid}: restore {sec:.3f} s ({saves[mid]['bytes']} "
+              f"bytes), {len(got)} tensors bit-identical to the state saved; losses "
+              f"{resumed} resumed vs {straight} uninterrupted -> "
+              f"{'bit-exact' if exact else 'NOT bit-exact'} (worst loss rel {worst_loss:.3e}, "
+              f"worst trainable |diff| {worst_param:.3e})", flush=True)
+        if not worst_loss <= RESUME_LOSS_BOUND:
+            fail(f"finetune resume: losses {resumed} vs {straight} (rel {worst_loss})")
+        res["resume"] = {"losses": resumed, "uninterrupted": straight, "bit_exact": exact,
+                         "worst_loss_rel": worst_loss, "worst_trainable_abs": worst_param}
+        del fresh, restored, snapshots
+
+        # a LoRA-factored int8 projection: the trained q factors of layer 0
+        # over the int8 base, at 1 and 16 rows, against its plain version
+        fac = state["trainable"]["lora"]["lm/layers/attn/q"]
+        a, b = fac["a"][0].detach() * (alpha / rank), fac["b"][0].detach()
+        wq = quant.quantize_int8(base["lm"]["layers"]["attn"]["q"][0].detach().to(torch.bfloat16))
+        g = torch.Generator(device=device).manual_seed(21)
+        res["lora_int8_projection"] = {}
+        for M in (1, 16):
+            x = torch.randn(M, a.shape[0], generator=g, device=device).to(torch.bfloat16)
+            n0 = quant.q8_matvec.launches
+            got = quant.qmatmul(x, {"w": wq, "a": a, "b": b})
+            plain = (quant.q8_matvec_plain(x, wq["qt"], wq["scale"], out_dtype=x.dtype)
+                     + (x @ a.to(x.dtype)) @ b.to(x.dtype))
+            err = rel_err(got, plain)[1]
+            n = quant.q8_matvec.launches - n0
+            res["lora_int8_projection"][M] = {"rel_err": err, "q8_matvec_launches": n}
+            print(f"finetune: LoRA-factored int8 q projection, M={M}: rel err {err:.3e} vs "
+                  f"plain (bound 1e-2), q8_matvec launches {n}", flush=True)
+            if not err < 1e-2 or n != (1 if on_card else 0):
+                fail(f"LoRA-factored int8 projection at M={M}: rel err {err}, {n} launches")
+
+        # fold, then serve: insert_saved, lora_fold, bf16, quantize(bits=8)
+        with torch.no_grad():
+            merged = insert_saved(base, {k: v.detach() for k, v in
+                                         state["trainable"]["saved"].items()})
+            folded = map_tree(lambda t: t.to(torch.bfloat16),
+                              lora_fold(merged, state["trainable"]["lora"], alpha=alpha,
+                                        rank=rank))
+        del merged, base, state
+        if on_card:
+            torch.cuda.empty_cache()
+        policy = SpatialVLAPolicy(folded, cfg, processor, device=device).quantize(bits=8)
+        res["policy"] = policy.quant_desc
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return res, policy
+
+
+class EvalEnv:
+    """A SimplerEnv-shaped gym env (tests/test_eval_driver.py's FakeEnv): an
+    episode succeeds once the summed |dx| of its actions reaches
+    ``threshold`` (0: at the first step; inf: never, so it runs max_steps);
+    frames come from a seed at the model's image size; every action taken is
+    kept."""
+
+    def __init__(self, env_id, threshold, size, seed):
+        self.env_id, self.threshold, self.size = env_id, threshold, size
+        self.rng = np.random.RandomState(seed)
+        self.n_resets, self.actions = 0, []
+
+    def reset(self):
+        self.n_resets += 1
+        self.t, self.travel = 0, 0.0
+        return {"image": self._img()}, {}
+
+    def _img(self):
+        return (self.rng.rand(self.size, self.size, 3) * 255).astype(np.uint8)
+
+    def get_language_instruction(self):
+        return f"do the {self.env_id} task"
+
+    def step(self, action):
+        action = np.asarray(action, dtype=np.float64)
+        self.actions.append(action)
+        self.t += 1
+        self.travel += float(np.abs(action[0]))
+        info = {"success": self.travel >= self.threshold,
+                "moved_correct_obj": self.travel >= self.threshold / 2}
+        done = info["success"] or self.t >= 8
+        return {"image": self._img()}, float(info["success"]), done, False, info
+
+
+def eval_path(torch, counters, policy, *, episodes=8, parallel_envs=4):
+    """The fine-tuned, quantized policy through the eval driver
+    (spatialvla_tpu_torch/eval, see the module docstring): two tasks, one
+    that succeeds at the first step and one that never does, ``episodes``
+    each, serially (policy.predict) and with ``parallel_envs`` envs (their
+    queries through one ServingEngine, which the driver builds). Both runs'
+    rows must be equal, every episode counted, every action finite, the
+    kernels #1-#3 launched in each run, and the parallel run's engine must
+    batch (mean batch above 1)."""
+    from spatialvla_tpu_torch import serve
+    from spatialvla_tpu_torch.eval.driver import EvalTask, evaluate
+
+    size = policy.config.vision.image_size
+    unnorm = next(iter(policy.processor.statistics))
+    tasks = [EvalTask("first step", "eval_at_once", "chip_smoke", "widowx_bridge", unnorm,
+                      episodes=episodes, max_steps=8, partial_key="moved_correct_obj"),
+             EvalTask("never", "eval_never", "chip_smoke", "widowx_bridge", unnorm,
+                      episodes=episodes, max_steps=8, partial_key="moved_correct_obj")]
+    thresholds = {"eval_at_once": 0.0, "eval_never": float("inf")}
+    on_card = policy.device.type == "cuda"
+    engine_cls = serve.ServingEngine
+
+    class Recording(engine_cls):
+        """The driver's engine, kept for its stats."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            engines.append(self)
+
+    res = {}
+    for label, n_envs in (("serial", 1), ("parallel", parallel_envs)):
+        envs = []
+
+        def factory(task):
+            envs.append(EvalEnv(task.env_id, thresholds[task.env_id], size, seed=len(envs)))
+            return envs[-1]
+
+        graphs_before = set(policy.decode_graphs.loops)
+        engines = []
+        zero_counts(counters)
+        serve.ServingEngine = Recording
+        try:
+            t0 = time.perf_counter()
+            results = evaluate(policy, tasks, env_factory=factory,
+                               image_getter=lambda env, obs: obs["image"], parallel_envs=n_envs)
+            if on_card:
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            serve.ServingEngine = engine_cls
+        launches = {c.__name__: c.launches for c in counters}
+        added = [k for k in policy.decode_graphs.loops if k not in graphs_before]
+        actions = np.stack([a for env in envs for a in env.actions])
+        n_ep = sum(env.n_resets for env in envs)
+        stats = None
+        if engines:  # one engine a task: their requests and batches summed
+            each = [e.stats() for e in engines]
+            batches = sum(st["batches"] for st in each)
+            stats = {"engines": len(each), "requests": sum(st["requests"] for st in each),
+                     "batches": batches,
+                     "mean_batch_occupancy": sum(st["mean_batch_occupancy"] * st["batches"]
+                                                 for st in each) / max(batches, 1)}
+        res[label] = {"rows": results["rows"], "suites": results["suites"], "wall_s": wall,
+                      "episodes": n_ep, "episodes_per_s": n_ep / wall, "steps": len(actions),
+                      "launches": launches, "graph_captures": len(added),
+                      "capture_ms": [round(policy.decode_graphs.loops[k].capture_ms, 2)
+                                     for k in added],
+                      "engine": stats}
+        print(f"eval path, {label} ({n_envs} env{'s' if n_envs > 1 else ''}): {n_ep} episodes, "
+              f"{len(actions)} steps in {wall:.2f} s ({n_ep / wall:.3f} episodes/s); rows "
+              f"{[(r['label'], r['episodes'], r['success_rate'], r['mean_steps']) for r in results['rows']]}; "
+              f"launches {launches}; {len(added)} decode-graph captures during the run "
+              f"({res[label]['capture_ms']} ms)"
+              + (f"; engine {stats['requests']} requests in {stats['batches']} batches, mean "
+                 f"batch {stats['mean_batch_occupancy']:.2f}" if stats else "")
+              + f" | {card_line() if on_card else 'cpu'}", flush=True)
+        if n_ep != 2 * episodes or any(r["episodes"] != episodes for r in results["rows"]):
+            fail(f"eval path, {label}: {n_ep} episodes run, rows {results['rows']}")
+        if not np.isfinite(actions).all() or actions.shape[1] != 7:
+            fail(f"eval path, {label}: actions of shape {actions.shape}, finite "
+                 f"{np.isfinite(actions).all()}")
+        if on_card and not all(n > 0 for n in launches.values()):
+            fail(f"eval path, {label}: a kernel was not launched ({launches})")
+        if (n_envs > 1) != bool(engines) or (stats and not stats["mean_batch_occupancy"] > 1):
+            fail(f"eval path, parallel: the engine did not batch ({stats})")
+    if res["parallel"]["rows"] != res["serial"]["rows"]:
+        fail(f"eval path: parallel rows {res['parallel']['rows']} differ from the serial "
+             f"{res['serial']['rows']}")
+    return res
+
+
 KERNEL_SOURCES = {  # name: (source of its C entry point, the TPU kernel it replaces)
     "q8_matvec": ("q8_matvec.cu", "spatialvla_tpu/ops/quant.py:297"),
     "q8_rmsnorm_matvec": ("q8_matvec.cu", "spatialvla_tpu/ops/quant.py:336"),
@@ -2732,6 +3137,7 @@ KERNEL_SOURCES = {  # name: (source of its C entry point, the TPU kernel it repl
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: the port's kernels run on an NVIDIA GPU only")
     try:
@@ -2802,13 +3208,36 @@ def main() -> int:
     print(f"train path: median step {train['step_ms_median']:.2f} ms, "
           f"{train['tokens_per_s']:.1f} tokens/s, peak {train['peak_mem_gib']:.2f} GiB | {card}",
           flush=True)
+    torch.cuda.empty_cache()
+    t_earlier = time.perf_counter() - t_start  # the build and every phase before LoRA
+    lora, tuned = finetune_path(torch, flash)
+    torch.cuda.empty_cache()
+    t_lora = time.perf_counter() - t_start - t_earlier
+    evals = eval_path(torch, [quant.q8_matvec, quant.q8_rmsnorm_matvec,
+                              quant.q8_residual_rmsnorm_matvec, ds.decode_attention,
+                              ds.norm_residual], tuned)
+    del tuned
+    t_eval = time.perf_counter() - t_start - t_earlier - t_lora
+    print(f"finetune path: LoRA step median {lora['step_ms_median']:.2f} ms, "
+          f"{lora['tokens_per_s']:.1f} tokens/s, peak {lora['peak_mem_gib']:.2f} GiB; checkpoint "
+          f"write {lora['saves'][lora['restore']['step']]['s']:.3f} s / restore "
+          f"{lora['restore']['s']:.3f} s ({lora['restore']['bytes']} bytes); resume "
+          f"{'bit-exact' if lora['resume']['bit_exact'] else 'not bit-exact'} | {card}",
+          flush=True)
+    print(f"eval path: {evals['serial']['episodes_per_s']:.3f} episodes/s serially, "
+          f"{evals['parallel']['episodes_per_s']:.3f} with 4 envs through the engine (mean batch "
+          f"{evals['parallel']['engine']['mean_batch_occupancy']:.2f}) | {card}", flush=True)
+    wall = {"before_finetune_s": t_earlier, "finetune_path_s": t_lora, "eval_path_s": t_eval}
+    print(f"wall time: {t_earlier:.1f} s to the end of the training phase (build included), "
+          f"finetune path {t_lora:.1f} s, eval path {t_eval:.1f} s", flush=True)
     print("detail: " + json.dumps({"build_s": build_s, "decode_step_2_layers": steps,
                                    "decode_step_matrix": matrix, "refused_shape_step": refused,
                                    "main_path": path, "serving_engines": engines,
                                    "checkpoint_path": ckpt,
                                    "serving_configs": serving, "train_path": train,
-                                   "tiny_overfit": overfit, "kernel_times": results,
-                                   "card": card}), flush=True)
+                                   "tiny_overfit": overfit, "finetune_path": lora,
+                                   "eval_path": evals, "wall_s": wall,
+                                   "kernel_times": results, "card": card}), flush=True)
 
     # launches on each kernel's path: the int8 serving path (q8, bf16-cache
     # attention, norm_residual), the refused-shape decode step (gelu_mul),
@@ -2896,7 +3325,13 @@ def main() -> int:
             "decode_graph_launches_per_replay": None if tiled else per_replay(name),
             "serving_engines_launches": None if tiled else {
                 e: engines[e]["launches"][name] for e in engines
-                if name in engines[e]["launches"]} or None, **extra,
+                if name in engines[e]["launches"]} or None,
+            # the LoRA run's launches (6 steps) and the eval driver's (serial,
+            # then 4 envs through its ServingEngine)
+            "finetune_path_launches": None if tiled else lora["launches"].get(name),
+            "eval_path_launches": None if tiled or name not in evals["serial"]["launches"]
+            else {run: evals[run]["launches"][name] for run in ("serial", "parallel")},
+            **extra,
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -5,7 +5,11 @@ Layers:
     config, action, processor   the port's own copies of the JAX package's
                                 jax-free modules; the processor's image step
                                 is jax-free (processor/image.py)
-    data, train                 the RLDS data layer (copied) and the trainer
+    data, train                 the RLDS data layer (copied); the train steps
+                                (full and LoRA), step checkpoints with resume,
+                                the pretrain and fine-tuning CLIs
+    eval                        the closed-loop eval driver (copied)
+    utils.tree                  '/'-joined tree paths
     convert.bridge              numpy pytree <-> nested dict of tensors
     models                      SigLIP, ZoeDepth, Ego3D, Gemma2, the fusion model
     ops                         quantized matvec, decode-step and flash kernels

@@ -2,9 +2,7 @@
 
 # ROADMAP.md items that hold what is still to port
 ROADMAP_ITEMS = {
-    "train_checkpoint": "Queue A item 6, checkpoints in the training loop",
-    "serving": "Queue A item 3, the serving options still to port (shard, LoRA-factored "
-               "weights)",
+    "serving": "Queue A item 3, the serving options still to port (shard)",
     "parallel": "Queue A item 8, parallelism",
 }
 

@@ -43,7 +43,9 @@ tensors, launches the kernel for CUDA tensors, and counts its launches in
 in ``<wrapper>.tiled_launches``, the matvecs those with the gelu epilogue
 also in ``<wrapper>.gelu_launches``).
 
-Not ported yet (ROADMAP): LoRA-factored weights in ``qmatmul``.
+``qmatmul`` also takes LoRA-factored weights ``{"w", "a", "b"}`` over a
+plain or quantized base: the base through the kernels as above, plus the
+low-rank product in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -52,7 +54,6 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from ..errors import not_ported
 from . import _lib
 
 QuantW = Dict[str, Any]
@@ -139,6 +140,12 @@ def unpack_int4(qt: torch.Tensor) -> torch.Tensor:
 
 def is_quantized(w) -> bool:
     return isinstance(w, dict) and "qt" in w and "scale" in w
+
+
+def is_lora_factored(w) -> bool:
+    """{'w': base, 'a': (..., in, r), 'b': (..., r, out)}, applied as
+    x @ w + (x @ a) @ b without forming the delta (train/lora.py)."""
+    return isinstance(w, dict) and "w" in w and "a" in w and "b" in w
 
 
 def is_int4(w) -> bool:
@@ -625,11 +632,13 @@ def rmsnorm_matvec_plain(x, norm_w, qt, scale, *, eps=1e-6, out_dtype=torch.bflo
 
 
 def qmatmul(x: torch.Tensor, w) -> torch.Tensor:
-    """x (..., K) @ w, where w is a plain (K, N) tensor or a QuantW of any
-    format. The kernels take CUDA tensors of at most ``_qkernel_max_m`` rows
-    (the JAX package takes its kernel off-CPU)."""
-    if isinstance(w, dict) and "a" in w and "b" in w:
-        raise not_ported("LoRA-factored weights")
+    """x (..., K) @ w, where w is a plain (K, N) tensor, a QuantW of any
+    format, or a LoRA factor dict over either (the base product plus the
+    low-rank one, quant.py:416-419). The kernels take CUDA tensors of at
+    most ``_qkernel_max_m`` rows (the JAX package takes its kernel
+    off-CPU)."""
+    if is_lora_factored(w):
+        return qmatmul(x, w["w"]) + (x @ w["a"].to(x.dtype)) @ w["b"].to(x.dtype)
     if not is_quantized(w):
         return x @ w.to(x.dtype)
     lead = x.shape[:-1]

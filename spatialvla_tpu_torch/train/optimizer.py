@@ -17,9 +17,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Iterator, Optional, Tuple
+from typing import Any, Callable, Dict, Optional
 
 import torch
+
+from ..utils.tree import iter_leaves, map_with_paths
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,31 +61,12 @@ def make_schedule(cfg: OptimizerConfig) -> Callable[[int], float]:
     return lambda step: linear(0.0, lr, warmup, step) if step < warmup else decay(step - warmup)
 
 
-def _children(tree):
-    if isinstance(tree, dict):
-        return list(tree.items())
-    if isinstance(tree, (list, tuple)):
-        return list(enumerate(tree))
-    return None
-
-
-def iter_leaves(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
-    """(path, leaf) pairs of nested dicts / lists, path parts (keys or list
-    indices, as JAX's tree paths) joined with '/'."""
-    children = _children(tree)
-    if children is None:
-        yield prefix, tree
-        return
-    for k, v in children:
-        yield from iter_leaves(v, f"{prefix}/{k}" if prefix else str(k))
-
-
 def trainable_mask(params: Dict[str, Any], *, freeze_llm_embed: bool = True,
                    freeze_vision: bool = False, freeze_zoe: bool = True,
                    extra_frozen_paths: tuple = ()) -> Dict[str, Any]:
     """Nested dict of bools, True = trainable (optimizer.py:53)."""
 
-    def decide(p):
+    def decide(p, _leaf):
         if freeze_zoe and p.startswith("zoe"):
             return False
         if freeze_vision and p.startswith("vision"):
@@ -92,14 +75,7 @@ def trainable_mask(params: Dict[str, Any], *, freeze_llm_embed: bool = True,
             return False
         return not any(p.startswith(f) for f in extra_frozen_paths)
 
-    def walk(tree, prefix):
-        children = _children(tree)
-        if children is None:
-            return decide(prefix)
-        out = [walk(v, f"{prefix}/{k}" if prefix else str(k)) for k, v in children]
-        return dict(zip(tree.keys(), out)) if isinstance(tree, dict) else type(tree)(out)
-
-    return walk(params, "")
+    return map_with_paths(decide, params)
 
 
 class AdamW:

@@ -1,16 +1,19 @@
 """Pretraining entry point of the port (port of
 spatialvla_tpu/train/pretrain.py): RLDS mixture pipeline (the port's copy of
 the JAX package's jax-free data layer) -> processor / action tokenizer -> SpatialVLA with
-random weights from ``--seed`` -> the train step on one device ->
-metrics.
+random weights from ``--seed`` (or ``--init_checkpoint``, a directory of the
+port's own format) -> the train step on one device -> metrics and
+step-numbered checkpoints under ``<output_dir>/checkpoints`` (resumed from
+the latest on a restart) -> the final parameters in ``<output_dir>``
+(``params.safetensors`` beside the processor and ``config.json``, what the
+fine-tuning CLI's ``--pretrained_dir`` reads).
 
     python -m spatialvla_tpu_torch.train.pretrain \\
         --data_root_dir /data/oxe --mixture bridge \\
         --output_dir out/pretrain --max_steps 100000
 
-Not ported yet (ROADMAP.md): ``--init_checkpoint`` and checkpoint saving
-(the checkpoint item), meshes larger than one device, multi-host launch
-flags and the "ring" / "pipeline" backends (the parallelism item).
+Not ported yet (ROADMAP.md): meshes larger than one device, multi-host
+launch flags and the "ring" / "pipeline" backends (the parallelism item).
 """
 from __future__ import annotations
 
@@ -24,8 +27,8 @@ from ..errors import not_ported
 
 
 def build_argparser():
-    """The JAX CLI's flags (pretrain.py:26) but the checkpoint-saving and
-    pipeline-microbatch ones, plus ``--device``."""
+    """The JAX CLI's flags (pretrain.py:26) but the pipeline-microbatch one,
+    plus ``--device``."""
     import argparse
 
     p = argparse.ArgumentParser(description=__doc__)
@@ -42,7 +45,9 @@ def build_argparser():
     p.add_argument("--load_depth", action="store_true")
     p.add_argument("--model_preset", type=str, default="spatialvla_4b",
                    choices=["spatialvla_4b", "spatialvla_tiny"])
-    p.add_argument("--init_checkpoint", type=str, default=None)
+    p.add_argument("--init_checkpoint", type=str, default=None,
+                   help="a directory of the port's own format (params.safetensors, as this CLI "
+                        "writes it) to start from")
     p.add_argument("--action_config", type=str, default=None)
     p.add_argument("--gs_params", type=str, default=None)
     p.add_argument("--intrinsics", type=str, default=None)
@@ -72,6 +77,8 @@ def build_argparser():
     p.add_argument("--mesh_pp", type=int, default=1)
     p.add_argument("--loader_workers", type=int, default=1)
     p.add_argument("--output_dir", type=str, required=True)
+    p.add_argument("--save_steps", type=int, default=20_000)
+    p.add_argument("--save_total_limit", type=int, default=3)
     p.add_argument("--logging_steps", type=int, default=500)
     p.add_argument("--profile_steps", type=int, nargs=2, default=None)
     p.add_argument("--seed", type=int, default=0)
@@ -84,6 +91,18 @@ def build_argparser():
     return p
 
 
+def training_device(args) -> torch.device:
+    """The device of a training CLI's ``args`` (``--device`` and the mesh,
+    multi-host and backend flags, which the port runs on one device only):
+    raises on what is not ported and on ``cuda`` without a card."""
+    _check_ported(args)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {args.device}: no CUDA device is available; pass "
+                           "--device cpu to train on the CPU")
+    return device
+
+
 def _check_ported(args):
     meshes = {"--mesh_data": args.mesh_data, "--mesh_fsdp": args.mesh_fsdp,
               "--mesh_model": args.mesh_model, "--mesh_sp": args.mesh_sp,
@@ -94,8 +113,6 @@ def _check_ported(args):
                          "parallel")
     if args.coordinator_address or args.num_processes or args.process_id is not None:
         raise not_ported("multi-host launch flags", "parallel")
-    if args.init_checkpoint:
-        raise not_ported("--init_checkpoint", "train_checkpoint")
 
 
 def build_everything(args):
@@ -107,18 +124,17 @@ def build_everything(args):
     from ..processor import SpatialVLAProcessor, load_text_tokenizer
     from . import (OptimizerConfig, TrainStepConfig, build_decode_luts, init_train_state,
                    make_optimizer, make_train_step, trainable_mask)
-    from .optimizer import iter_leaves
+    from ..utils.tree import count_params, iter_leaves, map_with_paths, param_summary
+    from .checkpoints import CheckpointManager, restore_params
 
-    _check_ported(args)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {args.device}: no CUDA device is available; pass "
-                           "--device cpu to train on the CPU")
+    device = training_device(args)
     cfg = spatialvla_4b() if args.model_preset == "spatialvla_4b" else spatialvla_tiny()
     if args.no_vision_zoe:
         cfg = dataclasses.replace(cfg, use_vision_zoe=False, zoe=None)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = spatialvla.init_params(cfg, generator=gen, device=device, dtype=torch.float32)
+    if args.init_checkpoint:
+        params = restore_params(args.init_checkpoint, params)
 
     ds = InterleavedRLDSDataset(
         args.mixture, args.data_root_dir,
@@ -159,14 +175,11 @@ def build_everything(args):
                                         warmup_ratio=args.warmup_ratio,
                                         total_steps=args.max_steps,
                                         weight_decay=args.weight_decay), params, mask)
+    # the trainable-parameter dump (reference spatialvla_pretrain.py:352-354)
     flags = dict(iter_leaves(mask))
-    total, trainable = 0, {}
-    for path, p in iter_leaves(params):
-        total += p.numel()
-        if flags[path]:
-            top = path.split("/")[0]
-            trainable[top] = trainable.get(top, 0) + p.numel()
-    print(f"params: {total / 1e6:.1f}M total; trainable by module: "
+    trainable = param_summary(map_with_paths(lambda p, t: t if flags[p] else None, params),
+                              max_depth=1)
+    print(f"params: {count_params(params) / 1e6:.1f}M total; trainable by module: "
           + ", ".join(f"{k}={v / 1e6:.1f}M" for k, v in trainable.items()))
     luts = {k: torch.as_tensor(v, device=device)
             for k, v in build_decode_luts(action_tokenizer).items()}
@@ -198,28 +211,34 @@ def build_everything(args):
                          for k, v in batch.items()}
             yield batch
 
-    os.makedirs(args.output_dir, exist_ok=True)
+    ckpt = CheckpointManager(os.path.join(args.output_dir, "checkpoints"),
+                             save_interval_steps=args.save_steps,
+                             max_to_keep=args.save_total_limit)
+    sidecar = {"model_config": json.loads(cfg.to_json()), "mixture": args.mixture}
     processor.save(args.output_dir)
     save_dataset_statistics(ds.statistics, f"{args.output_dir}/ds_stats.json")
     with open(f"{args.output_dir}/config.json", "w") as f:
         f.write(cfg.to_json())
-    return dict(cfg=cfg, state=state, step=step, batches=batches(), processor=processor,
-                dataset=ds, device=device)
+    return dict(cfg=cfg, state=state, step=step, batches=batches(), ckpt=ckpt, sidecar=sidecar,
+                processor=processor, dataset=ds, device=device)
 
 
 def main(argv=None):
+    from .checkpoints import save_params
     from .trainer import TrainerConfig, train_loop
 
     args = build_argparser().parse_args(argv)
     parts = build_everything(args)
     config = TrainerConfig(
         output_dir=args.output_dir, max_steps=args.max_steps, log_every=args.logging_steps,
+        save_every=args.save_steps, save_total_limit=args.save_total_limit,
         profile_steps=tuple(args.profile_steps) if args.profile_steps else None,
     )
-    print("note: checkpoints are not written yet (ROADMAP.md, "
-          "Queue A item 6, checkpoints in the training loop)", flush=True)
-    return train_loop(state=parts["state"], train_step=parts["step"], batches=parts["batches"],
-                      config=config)
+    state = train_loop(state=parts["state"], train_step=parts["step"], batches=parts["batches"],
+                       config=config, checkpoint_manager=parts["ckpt"], sidecar=parts["sidecar"])
+    # bare-params export for inference / finetune-from (beside the processor)
+    save_params(args.output_dir, state["params"], config_json=parts["cfg"].to_json())
+    return state
 
 
 if __name__ == "__main__":

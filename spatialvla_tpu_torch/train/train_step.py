@@ -11,6 +11,11 @@ reported ``grad_norm`` is the norm of all of them (train_step.py:131),
 frozen LM embedding included; the optimizer then updates only the trainable
 leaves. Parameters and moments are updated in place, and ``state`` is
 returned as the same dict.
+
+The LoRA step (``make_lora_train_step``, train_step.py:141) trains a state
+of its own, the factors and the 'saved' tensors (``train/lora.py``), over a
+base tree passed beside it that is detached every step: the base takes no
+gradient and no update.
 """
 from __future__ import annotations
 
@@ -22,9 +27,11 @@ import torch
 
 from ..errors import not_ported
 from ..models import spatialvla
+from ..utils.tree import iter_leaves, map_with_paths
+from .lora import DEFAULT_SAVED, extract_saved, insert_saved, lora_apply_tree, lora_init
 from .loss import chunked_loss_and_metrics
 from .metrics import action_metrics
-from .optimizer import AdamW, iter_leaves
+from .optimizer import AdamW
 
 Params = Dict[str, Any]
 
@@ -140,6 +147,53 @@ def make_train_step(cfg, tx: AdamW, step_cfg: TrainStepConfig = TrainStepConfig(
         return state, metrics
 
     return train_step
+
+
+def make_lora_train_step(cfg, tx: AdamW, step_cfg: TrainStepConfig = TrainStepConfig(), *,
+                         alpha: float = 32.0, rank: int = 32, luts=None) -> Callable:
+    """LoRA step (train_step.py:141): train_step(state, base_params, batch)
+    -> (state, metrics), with state = {'trainable': {'lora', 'saved'},
+    'opt_state', 'step'} from ``init_lora_train_state`` and the frozen base
+    tree a separate argument (no optimizer state for it). The metrics are
+    the loss function's; JAX's LoRA step adds no grad_norm. One batch a
+    step, as in JAX (no micro-batches)."""
+    if step_cfg.micro_steps != 1:
+        raise ValueError("the LoRA step takes one batch a step (micro_steps=1), as JAX's does")
+    loss_inner = make_loss_fn(cfg, step_cfg, luts=luts)
+
+    def train_step(state, base_params, batch):
+        trainable = state["trainable"]
+        leaves = _grad_leaves(trainable)
+        for _, p in leaves:
+            p.grad = None
+        base = map_with_paths(lambda _, t: t.detach(), base_params)
+        params = insert_saved(base, trainable["saved"])
+        params = lora_apply_tree(params, trainable["lora"], alpha=alpha, rank=rank)
+        loss, metrics = loss_inner(params, batch_to_tensors(batch, leaves[0][1].device))
+        loss.backward()
+        tx.update(trainable, {path: p.grad for path, p in leaves}, state["opt_state"])
+        for _, p in leaves:
+            p.grad = None
+        state["step"] += 1
+        return state, {k: v.detach() for k, v in metrics.items()}
+
+    return train_step
+
+
+def init_lora_train_state(generator: torch.Generator, base_params: Params, tx: AdamW, *,
+                          target_patterns, rank: int = 32, saved_patterns=None) -> Dict[str, Any]:
+    """{'trainable': {'lora': factors, 'saved': copies of the saved tensors},
+    'opt_state', 'step'}; every trainable tensor takes a gradient. The saved
+    tensors are copied, so the step's in-place updates leave the base tree
+    as it was."""
+    saved = extract_saved(base_params, saved_patterns or DEFAULT_SAVED)
+    trainable = {
+        "lora": lora_init(generator, base_params, target_patterns=target_patterns, rank=rank),
+        "saved": {p: t.detach().clone() for p, t in saved.items()},
+    }
+    for _, p in iter_leaves(trainable):
+        p.requires_grad_(True)
+    return {"trainable": trainable, "opt_state": tx.init(trainable), "step": 0}
 
 
 def init_train_state(params: Params, tx: AdamW) -> Dict[str, Any]:

@@ -1,8 +1,8 @@
 """The step loop around the train step (port of
 spatialvla_tpu/train/trainer.py): host batches -> train_step -> metrics
-(JSONL, stdout and TensorBoard scalar events), with a ``torch.profiler``
-trace over an optional step window. Checkpoints are not ported yet
-(ROADMAP.md): passing a ``checkpoint_manager`` raises."""
+(JSONL, stdout and TensorBoard scalar events) -> step-numbered checkpoints
+with their sidecar (``checkpoints.CheckpointManager``) -> resume from the
+latest, with a ``torch.profiler`` trace over an optional step window."""
 from __future__ import annotations
 
 import dataclasses
@@ -13,7 +13,6 @@ from typing import Any, Callable, Dict, Iterator, Optional
 
 import torch
 
-from ..errors import not_ported
 from .tb_writer import SummaryWriter
 
 
@@ -22,7 +21,10 @@ class TrainerConfig:
     output_dir: str = "output"
     max_steps: int = 1000
     log_every: int = 50
+    save_every: int = 500
+    save_total_limit: int = 3
     profile_steps: Optional[tuple] = None  # (start, stop) step window
+    resume: bool = True
     tensorboard: bool = True  # also write events.out.tfevents scalars
 
 
@@ -58,19 +60,26 @@ class MetricsLogger:
 
 
 def train_loop(*, state, train_step: Callable, batches: Iterator[Dict[str, Any]],
-               config: TrainerConfig, checkpoint_manager=None,
-               on_metrics: Optional[Callable] = None):
+               config: TrainerConfig, checkpoint_manager=None, sidecar: Optional[Dict] = None,
+               step_args: tuple = (), on_metrics: Optional[Callable] = None):
     """Runs the loop; returns the final state.
 
-    step signature: train_step(state, batch) -> (state, metrics). Metrics
-    are read back to the host (a device sync) only on logged steps: every
-    ``log_every`` steps and the first; ``on_metrics(step, metrics)`` then
-    sees them too."""
-    if checkpoint_manager is not None:
-        raise not_ported("checkpoints in the training loop (checkpoint_manager)",
-                         "train_checkpoint")
+    step signature: train_step(state, *step_args, batch) -> (state,
+    metrics). Metrics are read back to the host (a device sync) only on
+    logged steps: every ``log_every`` steps and the first;
+    ``on_metrics(step, metrics)`` then sees them too. With a
+    ``checkpoint_manager`` the loop first resumes from its latest step when
+    that is past the state's own (``config.resume``; the state is restored
+    in place), saves every ``save_every`` steps, and ends with a forced save
+    (skipped when that step is already saved)."""
     logger = MetricsLogger(config.output_dir, tensorboard=config.tensorboard)
     start_step = int(state["step"])
+    if checkpoint_manager is not None and config.resume:
+        latest = checkpoint_manager.latest_step()
+        if latest is not None and latest > start_step:
+            state = checkpoint_manager.restore(state)
+            start_step = int(state["step"])
+            print(f"resumed from checkpoint step {start_step}", flush=True)
     t_last, step_last = time.perf_counter(), start_step
     profiler = None
     for step in range(start_step, config.max_steps):
@@ -84,7 +93,7 @@ def train_loop(*, state, train_step: Callable, batches: Iterator[Dict[str, Any]]
         batch = next(batches, None)
         if batch is None:
             break
-        state, metrics = train_step(state, batch)
+        state, metrics = train_step(state, *step_args, batch)
         if profiler is not None and step + 1 >= window[1]:
             profiler = _stop_profiler(profiler, config.output_dir)
         if (step + 1) % config.log_every == 0 or step == start_step:
@@ -96,8 +105,13 @@ def train_loop(*, state, train_step: Callable, batches: Iterator[Dict[str, Any]]
             logger.log(step + 1, metrics)
             if on_metrics is not None:
                 on_metrics(step + 1, metrics)
+        if checkpoint_manager is not None and (step + 1) % config.save_every == 0:
+            checkpoint_manager.save(step + 1, state, sidecar=sidecar)
     if profiler is not None:  # the loop ended inside the window
         _stop_profiler(profiler, config.output_dir)
+    if checkpoint_manager is not None:
+        checkpoint_manager.save(int(state["step"]), state, sidecar=sidecar, force=True)
+        checkpoint_manager.wait()
     logger.close()
     return state
 

@@ -252,3 +252,16 @@ def test_data_pipeline_copy_matches(data_dir, augment, tmp_path, monkeypatch):
         assert sorted(bt) == sorted(bj)
         for k in bj:
             np.testing.assert_array_equal(np.asarray(bt[k]), np.asarray(bj[k]), err_msg=k)
+
+
+@pytest.mark.parametrize("name", ["__init__.py", "adapters.py", "driver.py"])
+def test_eval_copies_match_their_originals(name):
+    """eval/: the port's files are the JAX package's, byte for byte (their
+    imports are relative, so the driver's ``..serve.ServingEngine`` is the
+    port's engine); tests/test_torch_eval.py runs them."""
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    port = open(os.path.join(root, "spatialvla_tpu_torch", "eval", name)).read()
+    assert port == open(os.path.join(root, "spatialvla_tpu", "eval", name)).read()
+    assert "jax" not in port.replace("SimplerEnv", "")

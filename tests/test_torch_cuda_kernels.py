@@ -1335,3 +1335,122 @@ def test_checkpoints_round_trip_on_the_card(tmp_path):
         if margins[t] < 0.5:
             break
         assert ids[t] == ref[t]
+
+
+# ---------------------------------------------------------------------------
+# LoRA: the factored projection, the step, and train-state checkpoints
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("M", [1, 16])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_lora_factored_quantized_qmatmul(bits, M):
+    """qmatmul over {w: int8 / int4, a, b}: the base through the few-row
+    kernel (one launch), plus the factor product, against the plain matvec
+    plus the same product."""
+    g = _gen(11)
+    K, N, r = 2304, 2048, 32
+    x = _randn(g, M, K)
+    wq = (quant.quantize_int8 if bits == 8 else quant.quantize_int4)(
+        _randn(g, K, N, dtype=torch.float32, std=0.02))
+    a, b = _randn(g, K, r, dtype=torch.float32, std=0.02), _randn(g, r, N, dtype=torch.float32,
+                                                                  std=0.02)
+    kernel, plain = ((quant.q8_matvec, quant.q8_matvec_plain) if bits == 8
+                     else (quant.q4_matvec, quant.q4_matvec_plain))
+    before = kernel.launches
+    got = quant.qmatmul(x, {"w": wq, "a": a, "b": b})
+    assert kernel.launches == before + 1
+    want = plain(x, wq["qt"], wq["scale"], out_dtype=x.dtype) + (x @ a.to(x.dtype)) @ b.to(x.dtype)
+    assert got.shape == (M, N) and _rel(got, want) < (1e-2 if bits == 8 else 2e-2)
+
+
+def _lora_setup(cfg, backend, seed=0):
+    from spatialvla_tpu_torch.train import lora, optimizer, train_step as ts
+
+    base = sv.init_params(cfg, generator=_gen(seed), device=DEV, dtype=torch.float32)
+    tx = optimizer.make_optimizer(optimizer.OptimizerConfig(learning_rate=1e-3, eps=1e-3,
+                                                            warmup_ratio=0.2, total_steps=10),
+                                  None, None)
+    state = ts.init_lora_train_state(_gen(seed + 1), base, tx,
+                                     target_patterns=lora.TARGET_PRESETS["linear"], rank=8)
+    with torch.no_grad():  # B non-zero, so every factor takes a gradient
+        for p, f in state["trainable"]["lora"].items():
+            f["b"].copy_(torch.randn(f["b"].shape, generator=_gen(seed + 2), device=DEV) * 0.02)
+    step = ts.make_lora_train_step(cfg, tx, ts.TrainStepConfig(
+        compute_dtype=torch.float32, attn_backend=backend, loss_chunk_size=16), rank=8)
+    return base, state, step
+
+
+def _lora_batch(cfg, B=2):
+    rng = np.random.RandomState(0)
+    N, begin = cfg.num_image_tokens, cfg.action_token_begin_idx
+    ids = np.concatenate([np.full((B, N), cfg.image_token_index), rng.randint(3, 250, (B, 5)),
+                          rng.randint(begin, begin + cfg.spatial_token_num, (B, 6))], axis=1)
+    tt = np.zeros(ids.shape, np.int32)
+    tt[:, N + 5:] = 1
+    size = cfg.vision.image_size
+    return {"input_ids": ids, "attention_mask": np.ones(ids.shape, np.int32),
+            "token_type_ids": tt, "labels": np.where(tt == 0, -100, ids),
+            "pixel_values": rng.rand(B, size, size, 3).astype(np.float32),
+            "intrinsic": np.array([[60.0, 0, 28], [0, 55.0, 27], [0, 0, 1]],
+                                  np.float32)[None].repeat(B, 0)}
+
+
+def test_tiny_lora_step_flash_against_xla():
+    """Two LoRA steps of a tiny model through the flash kernels and through
+    plain attention, fp32: the same losses and factors; the flash forward
+    and backward launched (2L with remat, L and L a step); the base
+    untouched."""
+    from spatialvla_tpu_torch.ops import flash_attention as fa
+
+    cfg = spatialvla_tiny(use_vision_zoe=True)
+    cfg = dataclasses.replace(cfg, text=dataclasses.replace(
+        cfg.text, head_dim=32, query_pre_attn_scalar=32.0))
+    batch = _lora_batch(cfg)
+    runs = {}
+    for backend in ("xla", "flash"):
+        base, state, step = _lora_setup(cfg, backend)
+        before = {k: f.launches for k, f in (("fwd", fa.flash_attention_fwd),
+                                              ("dq", fa.flash_attention_bwd_dq),
+                                              ("dkv", fa.flash_attention_bwd_dkv))}
+        losses = []
+        for _ in range(2):
+            state, metrics = step(state, base, batch)
+            losses.append(float(metrics["loss"]))
+        launched = {"fwd": fa.flash_attention_fwd.launches - before["fwd"],
+                    "dq": fa.flash_attention_bwd_dq.launches - before["dq"],
+                    "dkv": fa.flash_attention_bwd_dkv.launches - before["dkv"]}
+        assert all(p.grad is None and not p.requires_grad
+                   for p in (base["lm"]["layers"]["attn"]["q"], base["spatial_embed"]))
+        runs[backend] = (losses, state["trainable"], launched)
+    L = cfg.text.num_layers
+    assert runs["flash"][2] == {"fwd": 2 * 2 * L, "dq": 2 * L, "dkv": 2 * L}
+    assert runs["xla"][2] == {"fwd": 0, "dq": 0, "dkv": 0}
+    np.testing.assert_allclose(runs["flash"][0], runs["xla"][0], rtol=1e-4)
+    from spatialvla_tpu_torch.utils.tree import iter_leaves
+
+    for (path, a), (_, b) in zip(iter_leaves(runs["flash"][1]), iter_leaves(runs["xla"][1])):
+        assert _rel(a.detach(), b.detach()) < 1e-4, path
+
+
+def test_checkpoint_manager_restores_onto_the_card(tmp_path):
+    """A LoRA train state on the card saved and restored into a fresh state
+    on the card: bit for bit, in place, on the card, factors still taking
+    gradients."""
+    from spatialvla_tpu_torch.train.checkpoints import CheckpointManager
+    from spatialvla_tpu_torch.utils.tree import iter_leaves
+
+    cfg = spatialvla_tiny(use_vision_zoe=False)
+    base, state, step = _lora_setup(cfg, "xla", seed=3)
+    state, _ = step(state, base, _lora_batch(cfg))
+    mgr = CheckpointManager(str(tmp_path / "ck"), save_interval_steps=1)
+    assert mgr.save(state["step"], state)
+    _, fresh, _ = _lora_setup(cfg, "xla", seed=5)
+    live = dict(iter_leaves(fresh))
+    restored = CheckpointManager(str(tmp_path / "ck")).restore(fresh)
+    assert restored["step"] == 1 and restored["opt_state"]["count"] == 1
+    saved = dict(iter_leaves(state))
+    for path, t in iter_leaves(restored):
+        if torch.is_tensor(t):
+            assert t is live[path] and t.device.type == "cuda", path
+            assert torch.equal(t, saved[path]), path
+    assert all(p.requires_grad for _, p in iter_leaves(restored["trainable"]))

@@ -7,11 +7,14 @@ of spatialvla_tpu_torch with PIL, safetensors and transformers blocked (the
 card's machine has none of them), runs a tiny predict with the int8 tree and
 one with the mixed tree on an int8 KV cache, exports an HF checkpoint, bakes
 it into a serving checkpoint with scripts/quantize_checkpoint_torch.py,
-serves a request from that, imports the pretrain CLI, and reports which jax,
-optax, safetensors and spatialvla_tpu modules are loaded. No ``import`` or
-``from`` in the port, chip_smoke.py, scripts/quantize_checkpoint_torch.py,
-scripts/serve_torch.py or scripts/bench_serve_torch.py names the JAX
-package or safetensors."""
+serves a request from that, imports the pretrain and fine-tuning CLIs and the
+three eval CLIs (the SimplerEnv and LIBERO ones run to their missing-sim
+exit), runs a LoRA step and one eval episode through the eval driver, and
+reports which jax, optax, safetensors and spatialvla_tpu modules are loaded.
+No ``import`` or ``from`` in the port, chip_smoke.py, or the port's scripts
+(quantize_checkpoint_torch, serve_torch, bench_serve_torch,
+run_simpler_eval_torch, run_libero_eval_torch, eval_quant_torch) names the
+JAX package or safetensors."""
 import ast
 import json
 import os
@@ -56,6 +59,43 @@ script.main(["--ckpt", os.path.join(work, "hf"), "--hf", "--out", os.path.join(w
              "--device", "cpu"])
 served = SpatialVLAPolicy.load_serving(os.path.join(work, "serving"), device="cpu")
 out_served = served.predict(frame, "pick up the cup")
+# the fine-tuning CLI, a LoRA step, and the eval driver and CLIs
+from spatialvla_tpu_torch.train import finetune, lora, train_step as ts, optimizer as opt
+tx = opt.make_optimizer(opt.OptimizerConfig(), None, None)
+from spatialvla_tpu_torch.models import spatialvla as sv
+base = sv.init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+lstate = ts.init_lora_train_state(torch.Generator().manual_seed(1), base, tx,
+                                  target_patterns=lora.TARGET_PRESETS["linear"], rank=4)
+N, begin = cfg.num_image_tokens, cfg.action_token_begin_idx
+ids = np.concatenate([np.full((1, N), cfg.image_token_index), [[5, 6, begin, begin + 1]]], 1)
+tt = np.zeros(ids.shape, np.int32)
+tt[:, -2:] = 1
+batch = {"input_ids": ids, "attention_mask": np.ones(ids.shape, np.int32), "token_type_ids": tt,
+         "labels": np.where(tt == 0, -100, ids),
+         "pixel_values": np.random.RandomState(0).rand(1, size, size, 3).astype(np.float32),
+         "intrinsic": np.eye(3, dtype=np.float32)[None]}
+lstate, lmetrics = ts.make_lora_train_step(cfg, tx, ts.TrainStepConfig(compute_dtype=torch.float32),
+                                           rank=4)(lstate, base, batch)
+from spatialvla_tpu_torch.eval.driver import EvalTask, evaluate_task
+class Env:
+    def reset(self):
+        return {"image": frame}, {}
+    def get_language_instruction(self):
+        return "pick up the cup"
+    def step(self, action):
+        return {"image": frame}, 1.0, True, False, {"success": True}
+row = evaluate_task(EvalTask("t", "e", "widowx", "widowx_bridge", "random_init", episodes=1,
+                             max_steps=2), policy, env_factory=lambda t: Env(),
+                    image_getter=lambda env, obs: obs["image"])
+rcs = []
+for script, sim in (("run_simpler_eval_torch", "simpler_env"), ("run_libero_eval_torch", "libero"),
+                    ("eval_quant_torch", None)):
+    spec = importlib.util.spec_from_file_location(script, os.path.join("scripts", script + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    if sim is not None:
+        sys.modules[sim] = None
+        rcs.append(mod.main(["--checkpoint_dir", work]))
 # the int8 KV cache needs the fused path, which the CPU takes only when asked,
 # and a window that holds the whole cache
 import functools
@@ -82,6 +122,9 @@ print(json.dumps({
     "resized_finite": bool(np.isfinite(resized["pixel_values"]).all()),
     "resized_keys": sorted(resized),
     "image_size": size,
+    "lora_loss_finite": bool(np.isfinite(float(lmetrics["loss"]))),
+    "eval_row": row,
+    "missing_sim_rcs": rcs,
 }))
 """
 
@@ -100,12 +143,15 @@ def test_port_imports_no_jax(child):
               "train.optimizer", "train.trainer", "train.pretrain", "train.tb_writer", "config",
               "action.tokenizer", "processor.processor", "data.pipeline", "data.native",
               "convert.safetensors_io", "convert.hf_checkpoint", "convert.export_hf",
-              "train.checkpoints", "serve.gating", "serve.engine", "serve.split_engine"):
+              "train.checkpoints", "serve.gating", "serve.engine", "serve.split_engine",
+              "train.lora", "train.finetune", "eval.adapters", "eval.driver", "utils.tree"):
         assert f"spatialvla_tpu_torch.{m}" in child["modules"]
     assert child["jax"] == []
     assert child["optax"] == []
     assert child["spatialvla_tpu"] == []
     assert child["safetensors"] == []
+    assert child["lora_loss_finite"] and child["missing_sim_rcs"] == [2, 2]
+    assert child["eval_row"]["episodes"] == 1 and child["eval_row"]["success_rate"] == 1.0
 
 
 def _imported_names(path):
@@ -119,7 +165,8 @@ def _imported_names(path):
 def test_no_import_names_the_jax_package():
     files = sorted(Path(ROOT, "spatialvla_tpu_torch").rglob("*.py")) + [
         Path(ROOT, "chip_smoke.py")] + [Path(ROOT, "scripts", f"{name}.py") for name in (
-        "quantize_checkpoint_torch", "serve_torch", "bench_serve_torch")]
+        "quantize_checkpoint_torch", "serve_torch", "bench_serve_torch", "run_simpler_eval_torch",
+        "run_libero_eval_torch", "eval_quant_torch")]
     assert len(files) > 40
     banned = ("spatialvla_tpu", "jax", "jaxlib", "optax", "safetensors")
     bad = [(str(f.relative_to(ROOT)), name) for f in files for name in _imported_names(f)

@@ -285,7 +285,7 @@ def test_pretrain_without_a_card_raises_unless_asked_for_the_cpu(data_dir, tmp_p
 @pytest.mark.parametrize("argv, item", [
     (["--mesh_fsdp", "2"], "item 8"),
     (["--attn_backend", "ring"], "item 8"),
-    (["--init_checkpoint", "ckpt"], "item 6"),
+    (["--num_processes", "2"], "item 8"),
 ])
 def test_pretrain_unported_flags_name_their_roadmap_item(argv, item):
     from spatialvla_tpu_torch.train import pretrain
@@ -296,9 +296,29 @@ def test_pretrain_unported_flags_name_their_roadmap_item(argv, item):
         pretrain.build_everything(args)
 
 
-def test_train_loop_checkpoints_are_not_ported(tmp_path):
+def test_train_loop_passes_step_args_and_saves_through_the_manager(tmp_path):
+    """train_step(state, *step_args, batch) as JAX's loop calls it; a save
+    every save_every steps, then one forced final save (trainer.py:85-153)."""
+    from spatialvla_tpu_torch.train.checkpoints import CheckpointManager
     from spatialvla_tpu_torch.train.trainer import TrainerConfig, train_loop
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue A item 6"):
-        train_loop(state={"step": 0}, train_step=None, batches=iter(()),
-                   config=TrainerConfig(output_dir=str(tmp_path)), checkpoint_manager=object())
+    base = torch.ones(3)
+    seen = []
+
+    def step(state, base_arg, batch):
+        assert base_arg is base
+        seen.append(batch["i"])
+        state["w"].add_(base_arg)
+        state["step"] += 1
+        return state, {"loss": torch.tensor(float(batch["i"]))}
+
+    mgr = CheckpointManager(str(tmp_path / "ck"), save_interval_steps=2, max_to_keep=5)
+    state = train_loop(state={"w": torch.zeros(3), "step": 0}, train_step=step,
+                       batches=iter([{"i": i} for i in range(5)]),
+                       config=TrainerConfig(output_dir=str(tmp_path), max_steps=5, log_every=1,
+                                            save_every=2, tensorboard=False),
+                       checkpoint_manager=mgr, sidecar={"run": "a"}, step_args=(base,))
+    assert seen == [0, 1, 2, 3, 4] and state["step"] == 5
+    assert mgr.all_steps() == [2, 4, 5] and mgr.load_sidecar(4) == {"run": "a"}
+    restored = mgr.restore({"w": torch.zeros(3), "step": 0}, step=4)
+    assert restored["step"] == 4 and torch.equal(restored["w"], torch.full((3,), 4.0))
