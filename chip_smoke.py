@@ -108,7 +108,17 @@
    batch and weights with attn_backend="xla" is held to the flash one
    (LOSS_BOUND, GRAD_NORM_BOUND). Then spatialvla_tiny(use_vision_zoe=True)
    must overfit one batch through the kernels (loss down by more than 0.5 in
-   8 steps at lr 5e-3).
+   8 steps at lr 5e-3). Between the two, the parallel phase
+   (parallel_path) on the same weights and batches: ring attention alone at
+   the training shape with n = 4 and 2 shards held by this process, against
+   the unsharded flash kernel and plain (prefix and causal); one loss and
+   gradient through the ring (LocalMesh sp=4, sp=2) and the pipe (pipe=2,
+   7+6 layer pairs, 2 microbatches) within LOSS_BOUND / GRAD_NORM_BOUND of
+   flash, with exact flash launches (2 L n^2 / L n^2 for the ring, 2 L m /
+   L m for the pipe); a one-rank NCCL process group (initialize_distributed,
+   make_mesh) and the sharded step over its sp group, whose loss and
+   grad_norm must equal the flash step's bit for bit; three timed steps of
+   each through train_loop with their peak memory.
 8. LoRA fine-tuning as train/finetune.py runs it (finetune_path): the
    seed's fp32 spatialvla_4b() tree written as a pretrained directory
    (save_params, config.json, the processor) and read back with
@@ -384,6 +394,16 @@ def library_flex(torch, timer, q, k, v, do, lens, kw, ref):
     os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
                           os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                        "spatialvla_tpu_torch", "_build", "inductor"))
+    # every timed shape compiles flex_attention anew (with and without
+    # grad): past dynamo's default limit of 8 it would fall back to eager,
+    # whose dense path cannot be captured into the timer's graph
+    import importlib
+
+    dynamo = importlib.import_module("torch._dynamo").config
+    for key in ("recompile_limit", "cache_size_limit", "accumulated_recompile_limit",
+                "accumulated_cache_size_limit"):
+        if hasattr(dynamo, key):
+            setattr(dynamo, key, max(getattr(dynamo, key), 256))
     times = {"fwd": None, "bwd": None}
     try:
         fn = flex_call(torch, q, k, v, lens, **kw)
@@ -404,8 +424,12 @@ def library_flex(torch, timer, q, k, v, do, lens, kw, ref):
             f"{lse_err:.2e} vs plain")
     if not (errs[0] < tol and lse_err < 1e-3):
         return times, note + f"; over the bound {tol} / 1e-3: not timed"
-    with torch.no_grad():
-        times["fwd"] = timer(lambda: fn(q, k, v))
+    try:
+        with torch.no_grad():
+            times["fwd"] = timer(lambda: fn(q, k, v))
+    except Exception as e:  # a capture the library's forward refuses
+        torch.cuda.synchronize()
+        return times, note + f"; forward not timed: {type(e).__name__}: {str(e)[:200]}"
     if not all(e < tol for e in errs[1:]):
         return times, note + f"; gradients over the bound {tol}: backward not timed"
     fresh = [t.detach().clone().requires_grad_() for t in (q, k, v)]
@@ -903,8 +927,10 @@ def flash_phases(torch, timer, results, notes):
     the training path's shapes (B=2, T=320, 8/4 heads, D=256, softcap 50,
     prefix 277, one row right-padded; window 4096 on even layers, none on odd
     ones) in bf16, timed, and checked again in fp32; T=2048 with window
-    4096, timed; and the flash prefill's (B=1, 277 tokens, all of them
-    prefix, window 4096), timed. Each call's route and launch plan is
+    4096, timed; the flash prefill's (B=1, 277 tokens, all of them prefix,
+    window 4096), timed; and a ring visit of the training batch at sp=4 and
+    sp=2 (Tq = Tk = 80 and 160, q_offset 160 and the prefix and lengths in
+    the visiting shard's frame), timed. Each call's route and launch plan is
     printed (the forward's with its registers and spills); a bf16 call must
     take the tensor-core route and give identical bits when launched twice,
     and is timed beside the FMA kernels in bf16 (the route it took before,
@@ -917,21 +943,27 @@ def flash_phases(torch, timer, results, notes):
 
     g = torch.Generator(device="cuda").manual_seed(3)
     Nq, Nkv, D = 8, 4, 256
-    cases = (  # tag, B, T, window, prefix, valid, dtype, timed
-        ("T320_window4096", 2, 320, 4096, [277, 277], [320, 301], torch.bfloat16, True),
-        ("T320_global", 2, 320, None, [277, 277], [320, 301], torch.bfloat16, True),
-        ("T320_window4096_fp32", 2, 320, 4096, [277, 277], [320, 301], torch.float32, False),
-        ("T2048_window4096", 2, 2048, 4096, [256, 256], [2048, 1900], torch.bfloat16, True),
-        ("prefill_T277", 1, 277, 4096, [277], [277], torch.bfloat16, True),
+    cases = (  # tag, B, T, window, prefix, valid, dtype, timed, q_offset
+        ("T320_window4096", 2, 320, 4096, [277, 277], [320, 301], torch.bfloat16, True, 0),
+        ("T320_global", 2, 320, None, [277, 277], [320, 301], torch.bfloat16, True, 0),
+        ("T320_window4096_fp32", 2, 320, 4096, [277, 277], [320, 301], torch.float32, False, 0),
+        ("T2048_window4096", 2, 2048, 4096, [256, 256], [2048, 1900], torch.bfloat16, True, 0),
+        ("prefill_T277", 1, 277, 4096, [277], [277], torch.bfloat16, True, 0),
+        # a ring visit of the training batch (parallel_path), in the visiting
+        # shard's key frame: sp=4, q shard 3 over K/V shard 1 (Tq = Tk = 80,
+        # k_start 80); sp=2, q shard 1 over K/V shard 0 (160, k_start 0)
+        ("ring4_T80_visit", 2, 80, 4096, [197, 197], [240, 221], torch.bfloat16, True, 160),
+        ("ring2_T160_visit", 2, 160, 4096, [277, 277], [320, 301], torch.bfloat16, True, 160),
     )
     flex_notes = {}  # tag: what library_flex found
-    for tag, B, T, window, prefix, valid, dtype, timed in cases:
+    for tag, B, T, window, prefix, valid, dtype, timed, qoff in cases:
         def randn(*shape):
             return torch.randn(shape, generator=g, device="cuda").to(dtype)
 
         q, do = randn(B, T, Nq, D), randn(B, T, Nq, D)
         k, v = randn(B, T, Nkv, D), randn(B, T, Nkv, D)
-        lens = [torch.tensor(x, dtype=torch.int32, device="cuda") for x in (prefix, valid, [0] * B)]
+        lens = [torch.tensor(x, dtype=torch.int32, device="cuda")
+                for x in (prefix, valid, [qoff] * B)]
         kw = dict(scale=D ** -0.5, logit_softcap=50.0, window=window, causal=True)
         if not bool(fa.allowed_rows(*lens, T, T, window=window, causal=True).all()):
             fail(f"flash {tag}: a query row has no allowed key")
@@ -1017,7 +1049,8 @@ def flash_phases(torch, timer, results, notes):
                                                                       errs["dv"][0]))):
             ms, pms = times.get(key, (None, None))
             shape = (f"B{B}_T{T}_D{D}_" + (f"window{window}" if window else "global")
-                     + ("_fp32" if dtype == torch.float32 else ""))
+                     + ("_fp32" if dtype == torch.float32 else "")
+                     + (f"_qoff{qoff}_prefix{prefix[0]}" if qoff else ""))
             record_kernel(results, name, shape, err, ms, pms, nbytes=io[key][0], ops=io[key][1],
                           library_ms=lib.get(key))
             if key in fma:
@@ -2674,7 +2707,219 @@ def train_path(torch, counters, *, cfg=None, device="cuda", n_steps=5, warmup=2,
         "peak_mem_gib": peak_gib, "launches": launches, "metrics": logged,
         "flash_vs_xla": {"loss": [lf, lx], "grad_norm": [gf, gx], "loss_rel": d_loss,
                          "grad_norm_rel": d_gn},
+        # for parallel_path: the trained state and its batches (not printed)
+        "reuse": dict(cfg=cfg, state=state, batches=batches, luts=luts, step_cfg=step_cfg,
+                      tx=tx),
     }
+
+
+# ---------------------------------------------------------------------------
+# training parallelism on one card: the ring and the pipe held by one
+# process, and the process-group path on a one-rank NCCL group
+# ---------------------------------------------------------------------------
+
+def ring_alone(torch, fa, device):
+    """ring_flash_attention of random bf16 q / k / v at the training shape
+    (B=2, T=320, 8/4 heads, D=256, softcap 50, window 4096, one row
+    right-padded to 301), n = 4 and 2 shards, with the 277-token prefix
+    across the shards and causal (where whole visits are dead and rows of a
+    visit have no allowed key), against the unsharded flash kernel and the
+    plain version on the rows with an allowed key: out, dq, dk, dv."""
+    from spatialvla_tpu_torch.parallel import LocalMesh, ring_flash_attention
+
+    g = torch.Generator(device=device).manual_seed(5)
+    B, T, Nq, Nkv, D = 2, 320, 8, 4, 256
+    randn = lambda *shape: torch.randn(shape, generator=g, device=device).to(torch.bfloat16)  # noqa: E731
+    q, do = randn(B, T, Nq, D), randn(B, T, Nq, D)
+    k, v = randn(B, T, Nkv, D), randn(B, T, Nkv, D)
+    kw = dict(scale=D ** -0.5, logit_softcap=50.0, window=4096, causal=True)
+    out = {}
+    for tag, prefix in (("prefix277", 277), ("causal", 0)):
+        lens = [torch.tensor(x, dtype=torch.int32, device=device)
+                for x in ([prefix] * B, [320, 301], [0] * B)]
+        rows = fa.allowed_rows(*lens, T, T, window=4096, causal=True)
+        dom = do * rows[..., None, None]
+
+        def grads(fn):
+            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            o = fn(*leaves)
+            return [o.detach()] + list(torch.autograd.grad(o, leaves, dom))
+
+        flash = grads(lambda q, k, v: fa.flash_attention(q, k, v, *lens, **kw))
+        ref_out, ref_lse = fa.flash_attention_fwd_plain(q, k, v, *lens, **kw)
+        plain = [ref_out, *fa.flash_attention_bwd_plain(q, k, v, ref_out, ref_lse, dom, *lens,
+                                                        **kw)]
+        for n in (4, 2):
+            ring = grads(lambda q, k, v: ring_flash_attention(
+                q, k, v, lens[0], lens[1], mesh=LocalMesh(sp=n), **kw))
+            errs = {}
+            for name, a, b, c in zip(("out", "dq", "dk", "dv"), ring, flash, plain):
+                if name == "out":
+                    a, b, c = a[rows], b[rows], c[rows]
+                errs[name] = {"vs_flash": rel_err(a, b)[1], "vs_plain": rel_err(a, c)[1]}
+            worst = max(max(e.values()) for e in errs.values())
+            print(f"parallel: ring_flash_attention n={n} {tag}: rel err "
+                  + " ".join(f"{k} {e['vs_flash']:.2e} / {e['vs_plain']:.2e}"
+                             for k, e in errs.items())
+                  + f" (vs the flash kernel / plain; bound {FLASH_TOL['bfloat16']})", flush=True)
+            if not worst < FLASH_TOL["bfloat16"]:
+                fail(f"parallel: ring n={n} {tag} against flash and plain: {errs}")
+            out[f"n{n}_{tag}"] = errs
+    return out
+
+
+def parallel_path(torch, counters, reuse, *, device="cuda", n_steps=3):
+    """Training parallelism (spatialvla_tpu_torch/parallel) on the training
+    path's full-width weights and batches (train_path's ``reuse``):
+
+    1. ring attention alone at the training shape (ring_alone);
+    2. one loss and gradient of batch 0 through the ring held by this
+       process (LocalMesh sp=4, sp=2) and the pipe (pipe=2: 7+6 layer
+       pairs, 2 microbatches), each against the flash backend's within
+       LOSS_BOUND / GRAD_NORM_BOUND, with exact flash launches: with remat
+       2 L n^2 forward and L n^2 of each backward kernel for the ring (every
+       visit launches, as JAX's does), 2 L m and L m for the pipe;
+    3. a process group of one rank (NCCL on the card): initialize_distributed,
+       make_mesh, and the sharded step (shard_train_step) of the "ring"
+       backend over the sp group; its loss and grad_norm on batch 0 must
+       equal the flash step's bit for bit (the ring of one shard is one
+       flash call; the collectives of one rank copy);
+    4. n_steps timed steps of each through train_loop, with the peak memory.
+    Returns what it measured; the weights are updated by step 4."""
+    import socket
+
+    from spatialvla_tpu_torch.ops import flash_attention as fa
+    from spatialvla_tpu_torch.parallel import (LocalMesh, MeshConfig, initialize_distributed,
+                                               make_mesh)
+    from spatialvla_tpu_torch.train import make_loss_fn, make_train_step, shard_train_step
+    from spatialvla_tpu_torch.train.optimizer import iter_leaves
+    from spatialvla_tpu_torch.train.train_step import batch_to_tensors
+    from spatialvla_tpu_torch.train.trainer import TrainerConfig, train_loop
+
+    cfg, state, batches = reuse["cfg"], reuse["state"], reuse["batches"]
+    luts, step_cfg, tx = reuse["luts"], reuse["step_cfg"], reuse["tx"]
+    params = state["params"]
+    L = cfg.text.num_layers
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    t_phase = time.perf_counter()
+    result = {"ring_alone": ring_alone(torch, fa, device)}
+
+    def loss_and_grad_norm(backend, mesh, **kw):
+        zero_counts(counters)
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss_fn = make_loss_fn(cfg, dataclasses.replace(step_cfg, attn_backend=backend, **kw),
+                               luts=luts, mesh=mesh)
+        loss, _ = loss_fn(params, batch_to_tensors(batches[0], device))
+        loss.backward()
+        grads = [p.grad for _, p in iter_leaves(params) if p.grad is not None]
+        norm = torch.sqrt(torch.stack([g.float().pow(2).sum() for g in grads]).sum())
+        for _, p in iter_leaves(params):
+            p.grad = None
+        sync()
+        return {"loss": float(loss.detach()), "grad_norm": float(norm),
+                "s": time.perf_counter() - t0,
+                "launches": {c.__name__: c.launches for c in counters},
+                "peak_gib": (torch.cuda.max_memory_allocated() / 2**30 if device == "cuda"
+                             else float("nan"))}
+
+    def want(n_fwd, n_bwd):
+        return {"flash_attention_fwd": n_fwd, "flash_attention_bwd_dq": n_bwd,
+                "flash_attention_bwd_dkv": n_bwd}
+
+    ref = loss_and_grad_norm("flash", None)
+    runs = {"flash": (ref, want(2 * L, L))}
+    for n in (4, 2):
+        runs[f"ring_n{n}"] = (loss_and_grad_norm("ring", LocalMesh(sp=n)),
+                              want(2 * L * n * n, L * n * n))
+    m = 2
+    runs["pipeline_S2_m2"] = (loss_and_grad_norm("pipeline", LocalMesh(pipe=2),
+                                                 pp_microbatches=m), want(2 * L * m, L * m))
+    for name, (r, launches) in runs.items():
+        d_loss = abs(r["loss"] - ref["loss"]) / abs(ref["loss"])
+        d_gn = abs(r["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
+        r.update(loss_rel=d_loss, grad_norm_rel=d_gn, want_launches=launches)
+        print(f"parallel: {name}: loss {r['loss']:.6f} (rel {d_loss:.3e}, bound {LOSS_BOUND}), "
+              f"grad_norm {r['grad_norm']:.6f} (rel {d_gn:.3e}, bound {GRAD_NORM_BOUND}) "
+              f"against flash; one loss and gradient {r['s']:.2f} s, peak {r['peak_gib']:.2f} "
+              f"GiB; launches {r['launches']} (want {launches})", flush=True)
+        if not (d_loss < LOSS_BOUND and d_gn < GRAD_NORM_BOUND):
+            fail(f"parallel: {name} against flash: loss rel {d_loss}, grad_norm rel {d_gn}")
+        if device == "cuda" and r["launches"] != launches:
+            fail(f"parallel: {name} launches {r['launches']}, want {launches}")
+    result["loss_and_grad"] = {name: r for name, (r, _) in runs.items()}
+
+    # a process group of one rank: the process-group transports and the
+    # sharded step's collectives
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    initialize_distributed(f"localhost:{port}", 1, 0, device_type=device)
+    mesh = make_mesh(MeshConfig(), device)
+    backend = torch.distributed.get_backend()
+    ring_cfg = dataclasses.replace(step_cfg, attn_backend="ring")
+    sharded, state = shard_train_step(make_train_step(cfg, tx, ring_cfg, luts=luts, mesh=mesh),
+                                      mesh, state)
+    zero_counts(counters)
+    state, metrics = sharded(state, batches[0])
+    sync()
+    group = {"backend": backend, "mesh": mesh.shape, "loss": float(metrics["loss"]),
+             "grad_norm": float(metrics["grad_norm"]),
+             "launches": {c.__name__: c.launches for c in counters}}
+    group["loss_diff"] = group["loss"] - ref["loss"]
+    group["grad_norm_diff"] = group["grad_norm"] - ref["grad_norm"]
+    print(f"parallel: one-rank {backend} group, mesh {mesh.shape}: the sharded ring step's loss "
+          f"{group['loss']!r} grad_norm {group['grad_norm']!r}; minus the flash step's: "
+          f"{group['loss_diff']!r} / {group['grad_norm_diff']!r} (bit-identical expected); "
+          f"launches {group['launches']}", flush=True)
+    if group["loss_diff"] != 0.0 or group["grad_norm_diff"] != 0.0:
+        fail(f"parallel: the one-rank sharded step differs from the flash step: {group}")
+    if device == "cuda" and group["launches"] != want(2 * L, L):
+        fail(f"parallel: the one-rank sharded step launched {group['launches']}")
+    result["process_group"] = group
+
+    # timed steps through train_loop
+    timed = {}
+    steps = {f"ring_n{n}": make_train_step(cfg, tx, ring_cfg, luts=luts, mesh=LocalMesh(sp=n))
+             for n in (4, 2)}
+    steps["pipeline_S2_m2"] = make_train_step(
+        cfg, tx, dataclasses.replace(step_cfg, attn_backend="pipeline", pp_microbatches=m),
+        luts=luts, mesh=LocalMesh(pipe=2))
+    steps["process_group_ring"] = sharded
+    for name, step in steps.items():
+        times, logged = [], []
+
+        def timed_step(state, batch):
+            sync()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            sync()
+            times.append(time.perf_counter() - t0)
+            return state, metrics
+
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        start = int(state["step"])
+        with tempfile.TemporaryDirectory() as out_dir:
+            state = train_loop(state=state, train_step=timed_step,
+                               batches=iter(batches[:n_steps]),
+                               config=TrainerConfig(output_dir=out_dir, max_steps=start + n_steps,
+                                                    log_every=1, tensorboard=False),
+                               on_metrics=lambda s, mm: logged.append(mm))
+        peak = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else float("nan")
+        if len(logged) != n_steps or not all(np.isfinite(v) for mm in logged for v in mm.values()):
+            fail(f"parallel: {name} steps: {logged}")
+        timed[name] = {"step_ms": [t * 1e3 for t in times], "peak_gib": peak,
+                       "losses": [mm["loss"] for mm in logged]}
+        print(f"parallel: {name}: {n_steps} steps of train_loop "
+              f"{[round(t * 1e3, 2) for t in times]} ms, peak {peak:.2f} GiB, losses "
+              f"{[round(mm['loss'], 4) for mm in logged]}", flush=True)
+    torch.distributed.destroy_process_group()
+    result["steps"] = timed
+    result["phase_s"] = time.perf_counter() - t_phase
+    print(f"parallel: the phase took {result['phase_s']:.1f} s", flush=True)
+    return result, state
 
 
 def tiny_overfit(torch, counters, device="cuda"):
@@ -3203,11 +3448,16 @@ def main() -> int:
 
     flash = [fa.flash_attention_fwd, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv]
     train = train_path(torch, flash)
+    par, _ = parallel_path(torch, flash, train.pop("reuse"))
     torch.cuda.empty_cache()
     overfit = tiny_overfit(torch, flash)
     print(f"train path: median step {train['step_ms_median']:.2f} ms, "
           f"{train['tokens_per_s']:.1f} tokens/s, peak {train['peak_mem_gib']:.2f} GiB | {card}",
           flush=True)
+    print("parallel path: median step ms " + ", ".join(
+        f"{k} {statistics.median(v['step_ms']):.2f} (peak {v['peak_gib']:.2f} GiB)"
+        for k, v in par["steps"].items()) + f"; the phase {par['phase_s']:.1f} s | {card}",
+        flush=True)
     torch.cuda.empty_cache()
     t_earlier = time.perf_counter() - t_start  # the build and every phase before LoRA
     lora, tuned = finetune_path(torch, flash)
@@ -3235,6 +3485,7 @@ def main() -> int:
                                    "main_path": path, "serving_engines": engines,
                                    "checkpoint_path": ckpt,
                                    "serving_configs": serving, "train_path": train,
+                                   "parallel_path": par,
                                    "tiny_overfit": overfit, "finetune_path": lora,
                                    "eval_path": evals, "wall_s": wall,
                                    "kernel_times": results, "card": card}), flush=True)
@@ -3315,6 +3566,11 @@ def main() -> int:
                              "fma_ms": r["fma_ms"].get(s)} for s in r["ms"] if s != first}}
             if "backward" in r:  # flex_attention's backward against the port's whole one
                 extra["backward"] = r["backward"][first]
+            # one loss and gradient of the training batch through each
+            # parallel layout (parallel_path), and the one-rank group's step
+            extra["parallel_path_launches"] = {
+                **{run: v["launches"][name] for run, v in par["loss_and_grad"].items()},
+                "process_group_ring_step": par["process_group"]["launches"][name]}
         kernels.append({
             "name": label, "route": "cuda", "source": f"spatialvla_tpu_torch/csrc/{source}",
             "kernel_sources": [f"spatialvla_tpu_torch/csrc/{s}" for s in sources],

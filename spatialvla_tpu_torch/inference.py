@@ -191,7 +191,7 @@ class SpatialVLAPolicy:
         return policy
 
     def shard(self, *args, **kwargs):
-        raise not_ported("shard()")
+        raise not_ported("shard() (tensor parallelism over a mesh)")
 
     # ------------------------------------------------------------------
     def quantize(self, bits: Optional[int] = 8, *, vision_bits: Optional[int] = 8,

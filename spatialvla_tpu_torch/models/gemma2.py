@@ -15,7 +15,9 @@ activation dtype and fp32 RoPE follow the JAX module. Quantized serving trees
 attention through the flash-attention kernels (ops/flash_attention.py).
 With ``use_remat`` each window/global layer pair is recomputed in the
 backward pass (``torch.utils.checkpoint``), as ``jax.checkpoint`` wraps the
-JAX package's pair step.
+JAX package's pair step. ``forward_ring`` (sequence parallelism) and
+``forward_pipeline`` (GPipe stages) run the same pairs over a mesh's ``sp``
+and ``pipe`` axes (spatialvla_tpu_torch/parallel).
 """
 from __future__ import annotations
 
@@ -258,6 +260,107 @@ def forward_flash(params: Params, cfg, inputs_embeds: torch.Tensor, position_ids
     for i in range(0, L, 2):
         h = pair(h, layers[i], layers[i + 1])
     return rms_norm(params["final_norm"], h, cfg.rms_norm_eps)
+
+
+def forward_ring(params: Params, cfg, inputs_embeds: torch.Tensor, position_ids: torch.Tensor,
+                 prefix_lens: torch.Tensor, valid_lens: torch.Tensor, *, mesh,
+                 axis_name: str = "sp", use_remat: bool = False) -> torch.Tensor:
+    """Sequence-parallel forward (gemma2.py:390-458): forward_flash's layer
+    pairs with attention through ring attention over ``axis_name``
+    (parallel/ring_attention.py). ``inputs_embeds`` / ``position_ids`` span
+    the whole sequence; the QKV and MLP matmuls run on the positions this
+    process holds (``seq_shard``: all of them on a ``LocalMesh``, this rank's
+    1/n on a ``Mesh``), and so does the result. ``prefix_lens`` /
+    ``valid_lens`` (B,) are global."""
+    from ..parallel.ring_attention import ring_flash_attention, seq_shard
+
+    L = cfg.num_layers
+    if L % 2:
+        raise ValueError("forward_ring runs window/global layer pairs: num_layers must be even")
+    start, stop = seq_shard(mesh, inputs_embeds.shape[1], axis_name)
+    x = inputs_embeds[:, start:stop]
+    normalizer = torch.tensor(cfg.hidden_size ** 0.5, dtype=x.dtype, device=x.device)
+    h = x * normalizer
+    cos, sin = rope_cos_sin(position_ids[:, start:stop], cfg.head_dim, cfg.rope_theta)
+    prefix_lens, valid_lens = prefix_lens.to(torch.int32), valid_lens.to(torch.int32)
+    Nq, Nkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+    def layer(h, lp, window):
+        B, T, _ = h.shape
+        q, k, v = _qkv(lp["attn"], cfg, h, lp["input_norm"])
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        out = ring_flash_attention(q, k, v, prefix_lens, valid_lens, mesh=mesh,
+                                   axis_name=axis_name, scale=cfg.query_pre_attn_scalar ** -0.5,
+                                   logit_softcap=cfg.attn_logit_softcap, window=window)
+        attn = qmatmul(out.reshape(B, T, Nq * D).to(h.dtype), lp["attn"]["o"])
+        h = h + rms_norm(lp["post_attn_norm"], attn, cfg.rms_norm_eps)
+        mlp_out = _mlp_block(lp["mlp"], h, lp["pre_ffn_norm"], cfg.rms_norm_eps)
+        return h + rms_norm(lp["post_ffn_norm"], mlp_out, cfg.rms_norm_eps)
+
+    pair = remat(lambda h, lp0, lp1: layer(layer(h, lp0, cfg.sliding_window), lp1, None),
+                 use_remat)
+    layers = unstack_layers(params["layers"], L)
+    for i in range(0, L, 2):
+        h = pair(h, layers[i], layers[i + 1])
+    return rms_norm(params["final_norm"], h, cfg.rms_norm_eps)
+
+
+def stage_pairs(n_pairs: int, S: int) -> List[Tuple[int, int]]:
+    """[start, stop) of each stage's window/global layer pairs: the balanced
+    partition of gemma2.py:497-505 (13 pairs: 7+6 at S=2, 4+3+3+3 at S=4)."""
+    base, rem = divmod(n_pairs, S)
+    counts = [base + (s < rem) for s in range(S)]
+    starts = [sum(counts[:s]) for s in range(S)]
+    return [(a, a + c) for a, c in zip(starts, counts)]
+
+
+def forward_pipeline(params: Params, cfg, inputs_embeds: torch.Tensor,
+                     position_ids: torch.Tensor, prefix_lens: torch.Tensor,
+                     valid_lens: torch.Tensor, *, mesh, axis_name: str = "pipe",
+                     n_microbatches: int = 0, use_remat: bool = False) -> torch.Tensor:
+    """Pipeline-parallel forward (gemma2.py:461-555): the layer pairs split
+    into S = ``mesh.shape[axis_name]`` stages by ``stage_pairs`` under GPipe
+    microbatching (parallel/pipeline.py); each stage runs forward_flash's
+    pairs, each pair one checkpoint under ``use_remat``. The stages are lists
+    of layers, not a stacked tensor, so a short stage runs its own pairs and
+    none padded (JAX pads to the longest stage and masks the padded pairs
+    to identity). The default microbatch count is the largest divisor of B
+    that is at most S."""
+    from ..parallel.pipeline import pipeline_apply
+
+    L = cfg.num_layers
+    if L % 2:
+        raise ValueError(f"{L} layers do not form window/global pairs")
+    S = mesh.shape[axis_name]
+    if S > L // 2:
+        raise ValueError(f"{S} stages exceed the {L // 2} layer pairs")
+    B = inputs_embeds.shape[0]
+    m = n_microbatches or max(d for d in range(1, min(S, B) + 1) if B % d == 0)
+    normalizer = torch.tensor(cfg.hidden_size ** 0.5, dtype=inputs_embeds.dtype,
+                              device=inputs_embeds.device)
+    h = inputs_embeds * normalizer
+    layers = unstack_layers(params["layers"], L)
+    stages = [layers[2 * a:2 * b] for a, b in stage_pairs(L // 2, S)]
+
+    def stage_fn(stage_layers, x, aux):
+        cos, sin = rope_cos_sin(aux["position_ids"], cfg.head_dim, cfg.rope_theta)
+
+        def pair(h, lp0, lp1):
+            h = _decoder_layer_flash(cfg, h, lp0, cos, sin, aux["prefix_lens"],
+                                     aux["valid_lens"], cfg.sliding_window)[0]
+            return _decoder_layer_flash(cfg, h, lp1, cos, sin, aux["prefix_lens"],
+                                        aux["valid_lens"], None)[0]
+
+        pair = remat(pair, use_remat)
+        for i in range(0, len(stage_layers), 2):
+            x = pair(x, stage_layers[i], stage_layers[i + 1])
+        return x
+
+    aux = {"position_ids": position_ids, "prefix_lens": prefix_lens.to(torch.int32),
+           "valid_lens": valid_lens.to(torch.int32)}
+    out = pipeline_apply(stage_fn, stages, h, aux, mesh=mesh, n_microbatches=m,
+                         axis_name=axis_name)
+    return rms_norm(params["final_norm"], out, cfg.rms_norm_eps)
 
 
 def prefill_flash(params: Params, cfg, inputs_embeds: torch.Tensor, position_ids: torch.Tensor,

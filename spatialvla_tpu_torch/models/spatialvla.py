@@ -39,7 +39,7 @@ from . import gemma2 as gemma2_mod
 from . import siglip as siglip_mod
 from . import zoe as zoe_mod
 from .layers import normal_init, zeros
-from ..errors import not_ported
+from ..parallel.mesh import LocalMesh
 from ..ops.quant import is_quantized, qmatmul
 
 Params = Dict[str, Any]
@@ -168,18 +168,29 @@ def forward(
     depth: Optional[torch.Tensor] = None,
     use_remat: bool = False,
     compute_dtype=None,
-    attn_backend: str = "xla",  # "xla" | "flash"
+    attn_backend: str = "xla",  # "xla" | "flash" | "ring" (SP) | "pipeline" (PP)
+    mesh=None,  # "ring" / "pipeline": a parallel.Mesh or LocalMesh
+    pp_microbatches: int = 0,  # "pipeline": GPipe microbatches (0: one a stage)
     with_logits: bool = True,
 ) -> Dict[str, torch.Tensor]:
     """Full forward without a cache (spatialvla.py:195). Returns {'hidden'}
-    and, with_logits, 'logits' (and 'loss' with labels). "flash" derives the
-    bidirectional-prefix length from token_type_ids (the first suffix token,
-    or the valid length) as spatialvla.py:232-239 does."""
-    if attn_backend in ("ring", "pipeline"):
-        raise not_ported(f"attn_backend={attn_backend!r} (sequence / pipeline parallelism)",
-                         "parallel")
-    if attn_backend not in ("xla", "flash"):
+    and, with_logits, 'logits' (and 'loss' with labels). "flash", "ring" and
+    "pipeline" derive the bidirectional-prefix length from token_type_ids
+    (the first suffix token, or the valid length) as spatialvla.py:232-239
+    does. "ring" runs ``gemma2.forward_ring`` over the mesh's sp axis: on a
+    process-group ``Mesh`` 'hidden' (and 'logits') hold this rank's
+    sequence shard only, and labels are refused (the train step takes each
+    rank's part of the loss); "pipeline" runs ``gemma2.forward_pipeline``
+    over its pipe axis, every stage ending with the whole hidden."""
+    if attn_backend not in ("xla", "flash", "ring", "pipeline"):
         raise ValueError(f"unknown attn_backend {attn_backend!r}")
+    if attn_backend == "ring" and mesh is None:
+        raise ValueError("attn_backend='ring' requires a mesh with an 'sp' axis")
+    if attn_backend == "pipeline" and mesh is None:
+        raise ValueError("attn_backend='pipeline' requires a mesh with a 'pipe' axis")
+    if attn_backend == "ring" and labels is not None and not isinstance(mesh, LocalMesh):
+        raise ValueError("attn_backend='ring' on a process-group mesh returns this rank's "
+                         "sequence shard: pass labels=None and take the loss per shard")
     B, T = input_ids.shape
     if attention_mask is None:
         attention_mask = torch.ones((B, T), dtype=torch.int32, device=input_ids.device)
@@ -193,7 +204,7 @@ def forward(
     embeds = merge_input_embeddings(params, cfg, input_ids, image_features, dtype=compute_dtype)
     position_ids = torch.cumsum(attention_mask, dim=1)  # 1-indexed (PaliGemma)
 
-    if attn_backend == "flash":
+    if attn_backend in ("flash", "ring", "pipeline"):
         valid_lens = attention_mask.sum(dim=1).to(torch.int32)
         if token_type_ids is not None:
             is_suffix = token_type_ids == 1
@@ -201,8 +212,14 @@ def forward(
             prefix_lens = torch.where(is_suffix.any(dim=1), first_suffix, valid_lens)
         else:
             prefix_lens = torch.zeros((B,), dtype=torch.int32, device=input_ids.device)
-        hidden = gemma2_mod.forward_flash(params["lm"], cfg.text, embeds, position_ids,
-                                          prefix_lens, valid_lens, use_remat=use_remat)
+        args = (params["lm"], cfg.text, embeds, position_ids, prefix_lens, valid_lens)
+        if attn_backend == "ring":
+            hidden = gemma2_mod.forward_ring(*args, mesh=mesh, use_remat=use_remat)
+        elif attn_backend == "pipeline":
+            hidden = gemma2_mod.forward_pipeline(*args, mesh=mesh, n_microbatches=pp_microbatches,
+                                                 use_remat=use_remat)
+        else:
+            hidden = gemma2_mod.forward_flash(*args, use_remat=use_remat)
     else:
         if token_type_ids is not None:
             base_mask = prefix_lm_mask(attention_mask, token_type_ids)

@@ -1,0 +1,33 @@
+"""Training parallelism for the port (port of spatialvla_tpu/parallel): the
+named mesh and the multi-process bootstrap, the partitioning rules and the
+fsdp cut they drive, ring attention over ``sp`` and the GPipe pipeline over
+``pipe``. Imports torch and torch.distributed, no jax."""
+from .mesh import (AXES, LocalMesh, Mesh, MeshConfig, batch_sharding, form_global_batch,
+                   initialize_distributed, local_rows, make_mesh, mesh_shape, process_count,
+                   process_index, replicated)
+from .partitioning import DEFAULT_RULES, FsdpShards, param_pspecs, shard_params, spec_for
+from .pipeline import pipeline_apply
+from .ring_attention import ring_flash_attention
+
+__all__ = [
+    "AXES",
+    "DEFAULT_RULES",
+    "FsdpShards",
+    "LocalMesh",
+    "Mesh",
+    "MeshConfig",
+    "batch_sharding",
+    "form_global_batch",
+    "initialize_distributed",
+    "local_rows",
+    "make_mesh",
+    "mesh_shape",
+    "param_pspecs",
+    "pipeline_apply",
+    "process_count",
+    "process_index",
+    "replicated",
+    "ring_flash_attention",
+    "shard_params",
+    "spec_for",
+]

@@ -1,0 +1,265 @@
+"""The device mesh and the multi-process bootstrap (port of
+spatialvla_tpu/parallel/mesh.py).
+
+The JAX package names a ``jax.sharding.Mesh`` and lets GSPMD insert the
+collectives. The port runs one process a GPU and calls the collectives
+itself: ``make_mesh`` lays the processes of an initialized
+``torch.distributed`` group out as a ``DeviceMesh`` over the same five named
+axes, in JAX's order, and ``Mesh`` keeps it with the process groups the
+training layer reduces over.
+
+Axes (as in JAX):
+  data   data parallelism: the batch's rows, gradients summed
+  fsdp   ZeRO-3: the fp32 masters and AdamW moments cut by the rules
+         (parallel/partitioning.py), weights gathered for compute, gradients
+         reduce-scattered back to the shards; the batch's rows too
+  model  tensor parallelism: not ported yet (ROADMAP.md), a mesh with
+         model > 1 raises
+  sp     sequence parallelism: the ring of parallel/ring_attention.py
+  pipe   pipeline parallelism: the GPipe stages of parallel/pipeline.py
+
+``LocalMesh`` holds the sp and pipe axes in one process: a ring of ``sp``
+sequence shards and a pipe of ``pipe`` stages, run in turn by this process
+through the same loops as the process-group transports (the counterpart of
+the JAX tests' virtual CPU devices, and what one card runs). The caller asks
+for it by name; a mesh of several processes never turns into one.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import os
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from ..errors import not_ported
+
+AXES = ("data", "fsdp", "model", "sp", "pipe")
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    data: int = 1
+    fsdp: int = -1  # -1: absorb the remaining devices
+    model: int = 1
+    sp: int = 1  # sequence parallelism (ring attention)
+    pipe: int = 1  # pipeline parallelism (GPipe stages)
+
+    def resolve(self, n_devices: int) -> tuple:
+        """The five sizes, -1 replaced by what the others leave of
+        ``n_devices`` (mesh.py:44-54); raises when they need more."""
+        dims = [self.data, self.fsdp, self.model, self.sp, self.pipe]
+        if -1 in dims:
+            known = math.prod(d for d in dims if d != -1)
+            dims[dims.index(-1)] = n_devices // known
+        if math.prod(dims) > n_devices:
+            raise ValueError(f"mesh {dims} needs more than the {n_devices} available devices")
+        return tuple(dims)
+
+
+@dataclasses.dataclass(frozen=True)
+class LocalMesh:
+    """The sp and pipe axes held by one process (see the module docstring)."""
+    sp: int = 1
+    pipe: int = 1
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {"data": 1, "fsdp": 1, "model": 1, "sp": self.sp, "pipe": self.pipe}
+
+
+class Mesh:
+    """A ``DeviceMesh`` over ``AXES`` (``device_mesh``) and the process
+    groups of the axes and of the axis sets the training layer reduces over.
+    ``shape`` maps an axis to its size, as JAX's ``mesh.shape`` does."""
+
+    # the axis sets the train step reduces over (besides single axes)
+    GROUPS = (("data", "fsdp"), ("data", "sp", "pipe"), AXES)
+
+    def __init__(self, device_mesh):
+        self.device_mesh = device_mesh
+        self.device_type = device_mesh.device_type
+        self.shape = dict(zip(AXES, device_mesh.mesh.shape))
+        ranks = device_mesh.mesh
+        me = torch.distributed.get_rank()
+        self.coords = dict(zip(AXES, torch.nonzero(ranks == me)[0].tolist()))
+        self._groups = {}
+        for axes in self.GROUPS:  # every rank creates every group, in one order
+            dims = [AXES.index(a) for a in axes]
+            rest = [d for d in range(len(AXES)) if d not in dims]
+            moved = ranks.permute(*rest, *dims).reshape(-1, math.prod(ranks.shape[d] for d in dims))
+            for row in moved.tolist():
+                group = torch.distributed.new_group(row)
+                if me in row:
+                    self._groups[axes] = group
+
+    def group(self, *axes: str):
+        """The process group of the ranks that share this rank's place on
+        every axis but ``axes``."""
+        if len(axes) == 1:
+            return self.device_mesh.get_group(axes[0])
+        return self._groups[tuple(axes)]
+
+    def index(self, axis: str) -> int:
+        """This rank's coordinate on ``axis``."""
+        return self.coords[axis]
+
+    def __repr__(self):
+        return f"Mesh({self.shape}, {self.device_type!r})"
+
+
+def mesh_shape(mesh) -> Dict[str, int]:
+    """Axis sizes of a ``Mesh``, a ``LocalMesh``, or a plain dict (all 1 for
+    None)."""
+    if mesh is None:
+        return dict.fromkeys(AXES, 1)
+    shape = mesh if isinstance(mesh, dict) else mesh.shape
+    return {a: int(shape.get(a, 1)) for a in AXES}
+
+
+def gather_along(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The tensors of every rank of ``group``, in rank order, joined along
+    ``dim``."""
+    parts = [torch.empty_like(t) for _ in range(torch.distributed.get_world_size(group))]
+    torch.distributed.all_gather(parts, t.contiguous(), group=group)
+    return torch.cat(parts, dim)
+
+
+def process_index() -> int:
+    dist = torch.distributed
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
+def process_count() -> int:
+    dist = torch.distributed
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
+def make_mesh(cfg: MeshConfig = MeshConfig(), device_type: str = "cuda") -> Mesh:
+    """The named mesh over the processes of the initialized process group
+    (``initialize_distributed``), one device each; the sizes must use every
+    process. ``device_type`` is the caller's (``cuda`` by default)."""
+    dist = torch.distributed
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError("make_mesh lays out the processes of an initialized process group "
+                           "(initialize_distributed); one process holds a ring or a pipe with "
+                           "LocalMesh")
+    world = dist.get_world_size()
+    shape = cfg.resolve(world)
+    if math.prod(shape) != world:
+        raise ValueError(f"mesh {shape} leaves processes out of the {world} started")
+    if shape[AXES.index("model")] > 1:
+        raise not_ported(f"--mesh_model {shape[AXES.index('model')]} (tensor parallelism)",
+                         "parallel")
+    from torch.distributed.device_mesh import init_device_mesh
+
+    return Mesh(init_device_mesh(device_type, shape, mesh_dim_names=AXES))
+
+
+def _launcher_env() -> Optional[Tuple[int, int, str]]:
+    """(rank, world size, address) from a launcher's environment: torchrun's
+    RANK / WORLD_SIZE / MASTER_ADDR / MASTER_PORT, SLURM's or Open MPI's
+    rank and size (with MASTER_ADDR / MASTER_PORT for the address); None
+    outside a launch of several processes."""
+    env = os.environ
+    for size_key, rank_key in (("WORLD_SIZE", "RANK"), ("SLURM_NTASKS", "SLURM_PROCID"),
+                               ("OMPI_COMM_WORLD_SIZE", "OMPI_COMM_WORLD_RANK")):
+        if int(env.get(size_key, "1")) > 1:
+            if "MASTER_ADDR" not in env or "MASTER_PORT" not in env:
+                raise RuntimeError(f"{size_key}={env[size_key]}: set MASTER_ADDR and "
+                                   "MASTER_PORT (or pass --coordinator_address) to say where "
+                                   "process 0 listens")
+            return (int(env[rank_key]), int(env[size_key]),
+                    f"{env['MASTER_ADDR']}:{env['MASTER_PORT']}")
+    return None
+
+
+def initialize_distributed(coordinator_address: Optional[str] = None,
+                           num_processes: Optional[int] = None,
+                           process_id: Optional[int] = None, *,
+                           device_type: str = "cuda") -> tuple:
+    """The multi-process bootstrap (mesh.py:67-113), in JAX's order:
+
+      1. explicit arguments (or SPATIALVLA_COORDINATOR / _NUM_PROCESSES /
+         _PROCESS_ID), ``coordinator_address`` as ``host:port``;
+      2. a launcher's environment (torchrun, SLURM, Open MPI);
+      3. otherwise one process: nothing to do.
+
+    The process group's backend is NCCL for ``cuda`` (each process takes the
+    card LOCAL_RANK names, or its rank modulo the cards) and gloo for
+    ``cpu``; ``cuda`` without a card raises. Returns (process_index,
+    process_count)."""
+    env = os.environ
+    coordinator_address = coordinator_address or env.get("SPATIALVLA_COORDINATOR")
+    if num_processes is None and env.get("SPATIALVLA_NUM_PROCESSES"):
+        num_processes = int(env["SPATIALVLA_NUM_PROCESSES"])
+    if process_id is None and env.get("SPATIALVLA_PROCESS_ID"):
+        process_id = int(env["SPATIALVLA_PROCESS_ID"])
+    dist = torch.distributed
+    if dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    if coordinator_address is not None and num_processes is not None:
+        if process_id is None:
+            raise ValueError("--coordinator_address and --num_processes need --process_id")
+        rank, world, address = process_id, num_processes, coordinator_address
+    else:
+        found = _launcher_env()
+        if found is None:
+            return 0, 1
+        rank, world, address = found
+    if device_type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("initialize_distributed(device_type='cuda'): no CUDA device is "
+                               "available; pass device_type='cpu' (--device cpu) for gloo")
+        local = int(env.get("LOCAL_RANK", rank % torch.cuda.device_count()))
+        torch.cuda.set_device(local)
+        backend = "nccl"
+    elif device_type == "cpu":
+        backend = "gloo"
+    else:
+        raise ValueError(f"device_type {device_type!r}: 'cuda' or 'cpu'")
+    dist.init_process_group(backend, init_method=f"tcp://{address}", rank=rank, world_size=world)
+    return rank, world
+
+
+def batch_sharding(mesh, dim: int = 0) -> tuple:
+    """DTensor placements of a batch: its rows (dim ``dim``) over (data,
+    fsdp), the same rows on every other axis."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    return tuple(Shard(dim) if a in ("data", "fsdp") else Replicate() for a in AXES)
+
+
+def replicated(mesh) -> tuple:
+    from torch.distributed.tensor import Replicate
+
+    return tuple(Replicate() for _ in AXES)
+
+
+def form_global_batch(mesh, batch: dict, dim: int = 0) -> dict:
+    """The global batch as DTensors made from each process's own rows, dim
+    ``dim`` (1 under gradient accumulation) (mesh.py:131-144:
+    ``make_array_from_process_local_data``); the batch unchanged in one
+    process. The train step reads each process's rows back (``to_local``)
+    and reduces across the batch axes itself."""
+    if process_count() == 1 or not isinstance(mesh, Mesh):
+        return batch
+    import numpy as np
+    from torch.distributed.tensor import DTensor
+
+    placements = batch_sharding(mesh, dim)
+    return {k: DTensor.from_local(torch.as_tensor(np.asarray(v)), mesh.device_mesh, placements,
+                                  run_check=False) for k, v in batch.items()}
+
+
+def local_rows(mesh, n_rows: int) -> slice:
+    """The rows of an ``n_rows`` global batch that this process takes: its
+    block on the combined (data, fsdp) axes."""
+    shape = mesh_shape(mesh)
+    n = shape["data"] * shape["fsdp"]
+    if n_rows % n:
+        raise ValueError(f"{n_rows} rows do not split over data x fsdp = {n}")
+    i = mesh.index("data") * shape["fsdp"] + mesh.index("fsdp") if isinstance(mesh, Mesh) else 0
+    per = n_rows // n
+    return slice(i * per, (i + 1) * per)

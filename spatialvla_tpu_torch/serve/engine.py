@@ -231,7 +231,7 @@ class ServingEngine:
         max_queue: Optional[int] = None,
     ):
         if getattr(policy, "mesh", None) is not None:
-            raise not_ported("ServingEngine over a mesh-sharded policy", "parallel")
+            raise not_ported("ServingEngine over a mesh-sharded policy")
         if max_batch_size > max(batch_buckets):
             raise ValueError("max_batch_size exceeds the largest batch bucket")
         if pipeline_depth < 1:

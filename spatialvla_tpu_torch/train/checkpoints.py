@@ -25,7 +25,12 @@ saved step, each written into a temporary directory and renamed into place
 (a crash mid-save leaves the last good step, as Orbax's do), with Orbax's
 save interval and retention and the JAX manager's JSON sidecars. Writes are
 synchronous: ``save`` returns once the step is on disk, and ``wait`` has
-nothing to wait for (Orbax writes in the background).
+nothing to wait for (Orbax writes in the background). In a run of several
+processes every process calls ``save`` and process 0 writes (the JAX
+manager's sidecars, checkpoints.py:41, 50); a state cut over fsdp
+(``shards``, ``parallel.FsdpShards``) is gathered whole first, so the file
+is the one an unsharded run writes, and a restore gives each rank its
+shards of it: a checkpoint of a 2-rank run restores in one process.
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ import torch
 
 from ..convert.params import target_device
 from ..convert.safetensors_io import SafetensorsFile, save_file
+from ..parallel.mesh import process_count, process_index
 
 PARAMS_FILE = "params.safetensors"
 FORMAT = "spatialvla_tpu_torch.tree"
@@ -129,12 +135,14 @@ def load_params(directory: str, *, device="cuda", float_dtype=None) -> Dict[str,
     return cast(spec)
 
 
-def restore_params(directory: str, like):
+def restore_params(directory: str, like, *, cut=None):
     """The tree ``save_params`` wrote, read into the tensors of ``like`` IN
     PLACE (on their devices, in their dtypes; ``requires_grad`` and every
     other reference to them stay valid). Scalar leaves come from the file.
     Returns a tree of ``like``'s structure: its tensors and the stored
-    scalars. The nesting, and each tensor's shape, must be ``like``'s."""
+    scalars. The nesting, and each tensor's shape, must be ``like``'s, after
+    ``cut(path, tensor)`` (a rank's shard of a whole stored tensor) when
+    given."""
     f, spec = _open(directory)
 
     def fill(like, spec, where):
@@ -151,6 +159,8 @@ def restore_params(directory: str, like):
             if not isinstance(spec, str):
                 raise ValueError(f"{directory}: {where!r} is not a tensor in the checkpoint")
             src = f.get_tensor(spec)
+            if cut is not None:
+                src = cut(where, src)
             if src.shape != like.shape:
                 raise ValueError(f"{directory}: {where!r} has shape {tuple(src.shape)}, the "
                                  f"state's {tuple(like.shape)}")
@@ -163,6 +173,11 @@ def restore_params(directory: str, like):
         return spec
 
     return fill(like, spec, "")
+
+
+def _barrier():
+    if process_count() > 1:
+        torch.distributed.barrier()
 
 
 class CheckpointManager:
@@ -178,20 +193,25 @@ class CheckpointManager:
     _TMP = ".tmp-"
 
     def __init__(self, directory: str, *, save_interval_steps: int = 1,
-                 max_to_keep: Optional[int] = 3):
+                 max_to_keep: Optional[int] = 3, shards=None):
         self.directory = os.path.abspath(directory)
-        os.makedirs(self.directory, exist_ok=True)
         self.save_interval_steps = save_interval_steps
         self.max_to_keep = max_to_keep
-        for name in os.listdir(self.directory):  # steps an earlier run left half-written
-            if self._TMP in name:
-                shutil.rmtree(os.path.join(self.directory, name), ignore_errors=True)
+        self.shards = shards
+        if process_index() == 0:
+            os.makedirs(self.directory, exist_ok=True)
+            for name in os.listdir(self.directory):  # steps an earlier run left half-written
+                if self._TMP in name:
+                    shutil.rmtree(os.path.join(self.directory, name), ignore_errors=True)
+        _barrier()
 
     def _step_dir(self, step: int) -> str:
         return os.path.join(self.directory, str(step))
 
     def all_steps(self) -> List[int]:
         """The saved steps, oldest first (directories that hold a whole step)."""
+        if not os.path.isdir(self.directory):
+            return []
         return sorted(int(name) for name in os.listdir(self.directory)
                       if name.isdigit() and os.path.isfile(
                           os.path.join(self.directory, name, PARAMS_FILE)))
@@ -211,6 +231,14 @@ class CheckpointManager:
         ``force``, not due."""
         if step in self.all_steps() or not (force or self.should_save(step)):
             return False
+        if self.shards is not None:  # every rank takes part in the gather
+            state = self.shards.gather_state(state)
+        if process_index() == 0:
+            self._write(step, state, sidecar)
+        _barrier()
+        return True
+
+    def _write(self, step: int, state, sidecar):
         tmp = tempfile.mkdtemp(dir=self.directory, prefix=f"{step}{self._TMP}")
         try:
             save_params(tmp, state)
@@ -228,7 +256,6 @@ class CheckpointManager:
                     json.dump(sidecar, f, indent=2)
         self._apply_retention()
         self._prune_sidecars(keep_extra={step})
-        return True
 
     def _apply_retention(self):
         steps = self.all_steps()
@@ -273,12 +300,15 @@ class CheckpointManager:
 
     def restore(self, state_like: Dict[str, Any], step: Optional[int] = None):
         """The state saved at ``step`` (default the latest), read into the
-        tensors of ``state_like`` in place (``restore_params``); None when
-        no step is saved."""
+        tensors of ``state_like`` in place (``restore_params``; with
+        ``shards``, each rank's shards of the stored tensors); None when no
+        step is saved."""
         step = step if step is not None else self.latest_step()
         if step is None:
             return None
-        return restore_params(self._step_dir(step), state_like)
+        shards = self.shards
+        cut = None if shards is None else (lambda p, t: shards.cut(t, shards.state_dim(p)))
+        return restore_params(self._step_dir(step), state_like, cut=cut)
 
     def wait(self):
         """Nothing to wait for: ``save`` writes synchronously."""

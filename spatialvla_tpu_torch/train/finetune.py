@@ -7,16 +7,16 @@ re-grids the spatial-token embeddings to the fine-tune data's Gaussian action
 statistics (``--adapt_emb``, reference :229-238), and trains either the full
 model or LoRA adapters (target presets 'linear' / 'linear+emb' /
 'linear+emb+h' with the spatial embedding in modules_to_save, reference
-:262-302) on one device. New-mixture statistics are merged into the
-processor so old unnorm keys survive (reference :315-327). Checkpoints go to
-``<output_dir>/checkpoints`` and a restart resumes from the latest.
+:262-302), on one device or over a mesh of processes (the mesh and
+multi-host flags as in ``train.pretrain``; the full model's step is sharded,
+the LoRA step holds its base whole on every rank). New-mixture statistics
+are merged into the processor so old unnorm keys survive (reference
+:315-327). Checkpoints go to ``<output_dir>/checkpoints`` and a restart
+resumes from the latest.
 
     python -m spatialvla_tpu_torch.train.finetune \\
         --pretrained_dir out/pretrain --data_root_dir /data/oxe \\
         --mixture bridge --output_dir out/finetune --use_lora
-
-Not ported yet (ROADMAP.md): meshes larger than one device, multi-host
-launch flags and the "ring" / "pipeline" backends (the parallelism item).
 """
 from __future__ import annotations
 
@@ -69,8 +69,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--no_remat", action="store_true")
     p.add_argument("--loss_chunk_size", type=int, default=256)
     p.add_argument("--mesh_data", type=int, default=1)
-    p.add_argument("--mesh_fsdp", type=int, default=-1,
-                   help="-1 (all devices) and 1 both mean the one device here")
+    p.add_argument("--mesh_fsdp", type=int, default=-1)
     p.add_argument("--mesh_model", type=int, default=1)
     p.add_argument("--save_steps", type=int, default=10_000)
     p.add_argument("--logging_steps", type=int, default=100)
@@ -104,12 +103,14 @@ def build_everything(args):
     from ..processor import load_text_tokenizer
     from . import (OptimizerConfig, TrainStepConfig, build_decode_luts, init_lora_train_state,
                    init_train_state, make_lora_train_step, make_optimizer, make_train_step,
-                   trainable_mask)
+                   shard_train_step, trainable_mask)
     from .checkpoints import CheckpointManager
     from .lora import TARGET_PRESETS
-    from .pretrain import training_device
+    from ..parallel import form_global_batch, process_index
+    from .pretrain import setup_parallel, training_device
 
     device = training_device(args)
+    device, mesh, batch_rank, n_batch = setup_parallel(args, device, explain=False)
     cfg = spatialvla_4b() if args.model_preset == "spatialvla_4b" else spatialvla_tiny()
     if args.no_vision_zoe:
         cfg = dataclasses.replace(cfg, use_vision_zoe=False, zoe=None)
@@ -134,7 +135,8 @@ def build_everything(args):
         args.mixture, args.data_root_dir,
         traj_config=TrajTransformConfig(forward_window_size=args.action_forward_steps),
         frame_config=FrameTransformConfig(resize_size=(args.image_size, args.image_size)),
-        shuffle_buffer_size=args.shuffle_buffer_size, seed=args.seed, shard_by_rank=(0, 1),
+        shuffle_buffer_size=args.shuffle_buffer_size, seed=args.seed + 3407 * batch_rank,
+        shard_by_rank=(batch_rank, n_batch),
     )
     # merge new statistics into processor (old unnorm keys survive)
     processor.statistics = {**processor.statistics, **ds.statistics}
@@ -144,7 +146,8 @@ def build_everything(args):
     luts = {k: torch.as_tensor(v, device=device)
             for k, v in build_decode_luts(processor.action_tokenizer).items()}
     scfg = TrainStepConfig(use_remat=not args.no_remat, compute_dtype=torch.bfloat16,
-                           attn_backend=args.attn_backend, loss_chunk_size=args.loss_chunk_size)
+                           attn_backend=args.attn_backend, pp_microbatches=args.pp_microbatches,
+                           loss_chunk_size=args.loss_chunk_size)
     if args.use_lora:
         tx = make_optimizer(ocfg, None, None)
         gen = torch.Generator(device=device).manual_seed(args.seed + 1)
@@ -152,13 +155,13 @@ def build_everything(args):
                                       target_patterns=TARGET_PRESETS[args.lora_target],
                                       rank=args.lora_rank)
         step = make_lora_train_step(cfg, tx, scfg, alpha=args.lora_alpha, rank=args.lora_rank,
-                                    luts=luts)
+                                    luts=luts, mesh=mesh)
         step_args = (params,)
     else:
         mask = trainable_mask(params, freeze_llm_embed=cfg.use_spatial_token)
         tx = make_optimizer(ocfg, params, mask)
-        state = init_train_state(params, tx)
-        step = make_train_step(cfg, tx, scfg, luts=luts)
+        step = make_train_step(cfg, tx, scfg, luts=luts, mesh=mesh)
+        step, state = shard_train_step(step, mesh, init_train_state(params, tx))
         step_args = ()
 
     batcher = VLABatcher(processor, batch_size=args.per_device_batch_size, seq_len=args.seq_len,
@@ -167,11 +170,13 @@ def build_everything(args):
     def batches():
         for batch in batcher.batches(ds.frames()):
             batch.pop("actions", None)
-            yield batch
+            yield form_global_batch(mesh, batch)
 
     ckpt = CheckpointManager(os.path.join(args.output_dir, "checkpoints"),
-                             save_interval_steps=args.save_steps, max_to_keep=3)
-    processor.save(args.output_dir)
+                             save_interval_steps=args.save_steps, max_to_keep=3,
+                             shards=getattr(step, "shards", None))
+    if process_index() == 0:
+        processor.save(args.output_dir)
     return dict(cfg=cfg, state=state, step=step, step_args=step_args, batches=batches(),
                 ckpt=ckpt, processor=processor, dataset=ds, base_params=params, device=device)
 

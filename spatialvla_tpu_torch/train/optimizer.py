@@ -86,27 +86,31 @@ class AdamW:
         self.schedule = make_schedule(cfg)
         self.trainable = None if mask is None else dict(iter_leaves(mask))
 
-    def _is_trainable(self, path: str) -> bool:
+    def is_trainable(self, path: str) -> bool:
         return self.trainable is None or bool(self.trainable[path])
 
     def init(self, params) -> Dict[str, Any]:
         mu, nu = {}, {}
         for path, p in iter_leaves(params):
-            if self._is_trainable(path):
+            if self.is_trainable(path):
                 mu[path] = torch.zeros_like(p, dtype=torch.float32)
                 nu[path] = torch.zeros_like(p, dtype=torch.float32)
         return {"count": 0, "mu": mu, "nu": nu}
 
     @torch.no_grad()
-    def update(self, params, grads: Dict[str, Optional[torch.Tensor]], state) -> float:
+    def update(self, params, grads: Dict[str, Optional[torch.Tensor]], state, *,
+               norm: Optional[torch.Tensor] = None) -> float:
         """Applies one update in place: ``grads`` maps a leaf's path to its
         gradient (None = zero; a clipped gradient is scaled in place).
+        ``norm``, when given, is the trainable gradients' global norm (a
+        sharded step's, over every rank's shards); else it is taken here.
         Returns the learning rate used."""
         cfg = self.cfg
         leaves = [(path, p, grads.get(path)) for path, p in iter_leaves(params)
-                  if self._is_trainable(path)]
-        sq = [g.float().pow(2).sum() for _, _, g in leaves if g is not None]
-        norm = torch.sqrt(torch.stack(sq).sum()) if sq else None
+                  if self.is_trainable(path)]
+        if norm is None:
+            sq = [g.float().pow(2).sum() for _, _, g in leaves if g is not None]
+            norm = torch.sqrt(torch.stack(sq).sum()) if sq else None
         clip = norm is not None and not float(norm) < cfg.grad_clip  # one host sync
         lr = self.schedule(state["count"])
         state["count"] += 1

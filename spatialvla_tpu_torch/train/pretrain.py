@@ -2,18 +2,30 @@
 spatialvla_tpu/train/pretrain.py): RLDS mixture pipeline (the port's copy of
 the JAX package's jax-free data layer) -> processor / action tokenizer -> SpatialVLA with
 random weights from ``--seed`` (or ``--init_checkpoint``, a directory of the
-port's own format) -> the train step on one device -> metrics and
-step-numbered checkpoints under ``<output_dir>/checkpoints`` (resumed from
-the latest on a restart) -> the final parameters in ``<output_dir>``
-(``params.safetensors`` beside the processor and ``config.json``, what the
-fine-tuning CLI's ``--pretrained_dir`` reads).
+port's own format) -> the train step, on one device or sharded over a mesh
+of processes -> metrics and step-numbered checkpoints under
+``<output_dir>/checkpoints`` (resumed from the latest on a restart) -> the
+final parameters in ``<output_dir>`` (``params.safetensors`` beside the
+processor and ``config.json``, what the fine-tuning CLI's
+``--pretrained_dir`` reads).
 
     python -m spatialvla_tpu_torch.train.pretrain \\
         --data_root_dir /data/oxe --mixture bridge \\
         --output_dir out/pretrain --max_steps 100000
 
-Not ported yet (ROADMAP.md): meshes larger than one device, multi-host
-launch flags and the "ring" / "pipeline" backends (the parallelism item).
+Several processes, one a GPU, through torchrun or the explicit flags
+(``--coordinator_address host:port --num_processes N --process_id I``):
+
+    torchrun --nproc_per_node 4 -m spatialvla_tpu_torch.train.pretrain \\
+        ... --mesh_data 2 --mesh_fsdp 2
+
+The mesh flags lay the processes out (``parallel.MeshConfig``; -1 takes
+what is left); ``--mesh_sp`` > 1 selects the "ring" backend and
+``--mesh_pp`` > 1 the "pipeline" one. Each process loads its own rows,
+``per_device_batch_size`` x ``grad_accum`` a step, so the global batch is
+that times data x fsdp; processes that share a (data, fsdp) place draw the
+same rows. ``--mesh_model`` > 1 (tensor parallelism) is not ported yet
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -27,8 +39,7 @@ from ..errors import not_ported
 
 
 def build_argparser():
-    """The JAX CLI's flags (pretrain.py:26) but the pipeline-microbatch one,
-    plus ``--device``."""
+    """The JAX CLI's flags (pretrain.py:26), plus ``--device``."""
     import argparse
 
     p = argparse.ArgumentParser(description=__doc__)
@@ -70,11 +81,15 @@ def build_argparser():
     p.add_argument("--loss_chunk_size", type=int, default=256,
                    help="sequence-chunked CE (0 = full logits)")
     p.add_argument("--mesh_data", type=int, default=1)
-    p.add_argument("--mesh_fsdp", type=int, default=-1,
-                   help="-1 (all devices) and 1 both mean the one device here")
+    p.add_argument("--mesh_fsdp", type=int, default=-1)
     p.add_argument("--mesh_model", type=int, default=1)
-    p.add_argument("--mesh_sp", type=int, default=1)
-    p.add_argument("--mesh_pp", type=int, default=1)
+    p.add_argument("--mesh_sp", type=int, default=1,
+                   help="sequence-parallel axis (ring attention); >1 selects attn_backend=ring")
+    p.add_argument("--mesh_pp", type=int, default=1,
+                   help="pipeline-parallel axis (GPipe decoder stages); >1 selects "
+                        "attn_backend=pipeline")
+    p.add_argument("--pp_microbatches", type=int, default=0,
+                   help="GPipe microbatches per step (0 = one per stage)")
     p.add_argument("--loader_workers", type=int, default=1)
     p.add_argument("--output_dir", type=str, required=True)
     p.add_argument("--save_steps", type=int, default=20_000)
@@ -92,10 +107,10 @@ def build_argparser():
 
 
 def training_device(args) -> torch.device:
-    """The device of a training CLI's ``args`` (``--device`` and the mesh,
-    multi-host and backend flags, which the port runs on one device only):
-    raises on what is not ported and on ``cuda`` without a card."""
-    _check_ported(args)
+    """The device of a training CLI's ``args`` (``--device``): raises on
+    ``--mesh_model`` > 1 (not ported) and on ``cuda`` without a card."""
+    if args.mesh_model > 1:
+        raise not_ported(f"--mesh_model {args.mesh_model} (tensor parallelism)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device is available; pass "
@@ -103,16 +118,36 @@ def training_device(args) -> torch.device:
     return device
 
 
-def _check_ported(args):
-    meshes = {"--mesh_data": args.mesh_data, "--mesh_fsdp": args.mesh_fsdp,
-              "--mesh_model": args.mesh_model, "--mesh_sp": args.mesh_sp,
-              "--mesh_pp": args.mesh_pp}
-    big = [f"{k} {v}" for k, v in meshes.items() if v not in (-1, 1)]
-    if big or args.attn_backend in ("ring", "pipeline"):
-        raise not_ported(f"multi-device training ({', '.join(big) or args.attn_backend})",
-                         "parallel")
-    if args.coordinator_address or args.num_processes or args.process_id is not None:
-        raise not_ported("multi-host launch flags", "parallel")
+def setup_parallel(args, device: torch.device, *, explain: bool):
+    """(device, mesh, batch rank, batch ranks) of a training CLI: the
+    process group from the multi-host flags or a launcher
+    (``initialize_distributed``; NCCL on cuda, gloo on cpu), the mesh of the
+    mesh flags over its processes (None in one process, or a one-process
+    ``LocalMesh`` for an explicit "ring" / "pipeline"), and this process's
+    place on the batch axes (data x fsdp), which picks its rows and data
+    seed. ``--mesh_sp`` / ``--mesh_pp`` > 1 select their backend with the
+    JAX CLIs' message (``explain``: pretrain's, which says what it is)."""
+    from ..parallel import LocalMesh, MeshConfig, initialize_distributed, make_mesh
+
+    rank, nproc = initialize_distributed(args.coordinator_address, args.num_processes,
+                                         args.process_id, device_type=device.type)
+    if device.type == "cuda" and nproc > 1:
+        device = torch.device("cuda", torch.cuda.current_device())
+    selections = (("mesh_sp", args.mesh_sp, "ring", "sequence-parallel ring flash attention"),
+                  ("mesh_pp", args.mesh_pp, "pipeline", "GPipe decoder stages"))
+    for axis, n, backend, what in selections:
+        if n > 1 and (args.attn_backend or "flash") != backend:
+            print(f"{axis}={n}: selecting attn_backend={backend}"
+                  + (f" ({what})" if explain else ""))
+            args.attn_backend = backend
+    cfg = MeshConfig(args.mesh_data, args.mesh_fsdp, args.mesh_model, args.mesh_sp, args.mesh_pp)
+    if nproc == 1:
+        cfg.resolve(1)  # a mesh larger than one process raises here
+        local = args.attn_backend in ("ring", "pipeline")
+        return device, (LocalMesh() if local else None), 0, 1
+    mesh = make_mesh(cfg, device.type)
+    n_batch = mesh.shape["data"] * mesh.shape["fsdp"]
+    return device, mesh, mesh.index("data") * mesh.shape["fsdp"] + mesh.index("fsdp"), n_batch
 
 
 def build_everything(args):
@@ -121,13 +156,16 @@ def build_everything(args):
     from ..data import FrameTransformConfig, InterleavedRLDSDataset, TrajTransformConfig, VLABatcher
     from ..data.statistics import save_dataset_statistics
     from ..models import spatialvla
+    from ..parallel import form_global_batch, process_index
     from ..processor import SpatialVLAProcessor, load_text_tokenizer
     from . import (OptimizerConfig, TrainStepConfig, build_decode_luts, init_train_state,
-                   make_optimizer, make_train_step, trainable_mask)
+                   make_optimizer, make_train_step, shard_train_step, trainable_mask)
     from ..utils.tree import count_params, iter_leaves, map_with_paths, param_summary
     from .checkpoints import CheckpointManager, restore_params
 
     device = training_device(args)
+    device, mesh, batch_rank, n_batch = setup_parallel(args, device, explain=True)
+    primary = process_index() == 0
     cfg = spatialvla_4b() if args.model_preset == "spatialvla_4b" else spatialvla_tiny()
     if args.no_vision_zoe:
         cfg = dataclasses.replace(cfg, use_vision_zoe=False, zoe=None)
@@ -135,6 +173,8 @@ def build_everything(args):
     params = spatialvla.init_params(cfg, generator=gen, device=device, dtype=torch.float32)
     if args.init_checkpoint:
         params = restore_params(args.init_checkpoint, params)
+    # each batch rank draws its own rows (pretrain.py:182-183)
+    data_seed, data_shard = args.seed + 3407 * batch_rank, (batch_rank, n_batch)
 
     ds = InterleavedRLDSDataset(
         args.mixture, args.data_root_dir,
@@ -143,7 +183,7 @@ def build_everything(args):
                                         forward_window_size=args.action_forward_steps),
         frame_config=FrameTransformConfig(resize_size=(args.image_size, args.image_size),
                                           augment=not args.no_augment),
-        shuffle_buffer_size=args.shuffle_buffer_size, seed=args.seed, shard_by_rank=(0, 1),
+        shuffle_buffer_size=args.shuffle_buffer_size, seed=data_seed, shard_by_rank=data_shard,
         load_camera_views=tuple(args.camera_views.split(",")), load_depth=args.load_depth,
     )
     gs_params = json.load(open(args.gs_params)) if args.gs_params else None
@@ -155,7 +195,7 @@ def build_everything(args):
         use_spherical=action_config.get("use_spherical", True), min_sigma=args.min_sigma,
         token_begin_idx=cfg.action_token_begin_idx,
     )
-    if args.tokenizer_path is None:
+    if args.tokenizer_path is None and primary:
         print("WARNING: no --tokenizer_path given; using the byte-level test tokenizer. The "
               "trained model's text interface will NOT be compatible with reference "
               "(PaliGemma2) checkpoints.")
@@ -179,15 +219,18 @@ def build_everything(args):
     flags = dict(iter_leaves(mask))
     trainable = param_summary(map_with_paths(lambda p, t: t if flags[p] else None, params),
                               max_depth=1)
-    print(f"params: {count_params(params) / 1e6:.1f}M total; trainable by module: "
-          + ", ".join(f"{k}={v / 1e6:.1f}M" for k, v in trainable.items()))
+    if primary:
+        print(f"params: {count_params(params) / 1e6:.1f}M total; trainable by module: "
+              + ", ".join(f"{k}={v / 1e6:.1f}M" for k, v in trainable.items()))
     luts = {k: torch.as_tensor(v, device=device)
             for k, v in build_decode_luts(action_tokenizer).items()}
     step = make_train_step(cfg, tx, TrainStepConfig(
         use_remat=not args.no_remat, compute_dtype=torch.bfloat16, micro_steps=args.grad_accum,
-        attn_backend=args.attn_backend or "flash", loss_chunk_size=args.loss_chunk_size,
-    ), luts=luts)
-    state = init_train_state(params, tx)
+        attn_backend=args.attn_backend or "flash", pp_microbatches=args.pp_microbatches,
+        loss_chunk_size=args.loss_chunk_size,
+    ), luts=luts, mesh=mesh)
+    step, state = shard_train_step(step, mesh, init_train_state(params, tx))
+    del params  # the state holds this rank's shards
     batcher = VLABatcher(processor, batch_size=args.per_device_batch_size * args.grad_accum,
                          seq_len=args.seq_len, prompt_template=args.prompt_template)
 
@@ -198,7 +241,7 @@ def build_everything(args):
             frames = ProcessShardedFrameLoader(dict(
                 mixture=args.mixture, data_dir=args.data_root_dir, traj_config=ds.traj_config,
                 frame_config=ds.frame_config, shuffle_buffer_size=args.shuffle_buffer_size,
-                seed=args.seed, shard_by_rank=(0, 1), statistics_override=ds.statistics,
+                seed=data_seed, shard_by_rank=data_shard, statistics_override=ds.statistics,
                 load_camera_views=tuple(args.camera_views.split(",")),
                 load_depth=args.load_depth,
             ), num_workers=args.loader_workers).frames()
@@ -209,21 +252,24 @@ def build_everything(args):
             if args.grad_accum > 1:
                 batch = {k: v.reshape((args.grad_accum, -1) + v.shape[1:])
                          for k, v in batch.items()}
-            yield batch
+            yield form_global_batch(mesh, batch, dim=int(args.grad_accum > 1))
 
+    shards = getattr(step, "shards", None)
     ckpt = CheckpointManager(os.path.join(args.output_dir, "checkpoints"),
                              save_interval_steps=args.save_steps,
-                             max_to_keep=args.save_total_limit)
+                             max_to_keep=args.save_total_limit, shards=shards)
     sidecar = {"model_config": json.loads(cfg.to_json()), "mixture": args.mixture}
-    processor.save(args.output_dir)
-    save_dataset_statistics(ds.statistics, f"{args.output_dir}/ds_stats.json")
-    with open(f"{args.output_dir}/config.json", "w") as f:
-        f.write(cfg.to_json())
+    if primary:
+        processor.save(args.output_dir)
+        save_dataset_statistics(ds.statistics, f"{args.output_dir}/ds_stats.json")
+        with open(f"{args.output_dir}/config.json", "w") as f:
+            f.write(cfg.to_json())
     return dict(cfg=cfg, state=state, step=step, batches=batches(), ckpt=ckpt, sidecar=sidecar,
-                processor=processor, dataset=ds, device=device)
+                processor=processor, dataset=ds, device=device, mesh=mesh, shards=shards)
 
 
 def main(argv=None):
+    from ..parallel import process_index
     from .checkpoints import save_params
     from .trainer import TrainerConfig, train_loop
 
@@ -236,8 +282,12 @@ def main(argv=None):
     )
     state = train_loop(state=parts["state"], train_step=parts["step"], batches=parts["batches"],
                        config=config, checkpoint_manager=parts["ckpt"], sidecar=parts["sidecar"])
-    # bare-params export for inference / finetune-from (beside the processor)
-    save_params(args.output_dir, state["params"], config_json=parts["cfg"].to_json())
+    # bare-params export for inference / finetune-from (beside the processor),
+    # gathered from every rank's shards and written by process 0
+    shards = parts["shards"]
+    params = shards.gather_tree(state["params"]) if shards is not None else state["params"]
+    if process_index() == 0:
+        save_params(args.output_dir, params, config_json=parts["cfg"].to_json())
     return state
 
 

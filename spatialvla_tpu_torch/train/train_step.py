@@ -16,6 +16,24 @@ The LoRA step (``make_lora_train_step``, train_step.py:141) trains a state
 of its own, the factors and the 'saved' tensors (``train/lora.py``), over a
 base tree passed beside it that is detached every step: the base takes no
 gradient and no update.
+
+``mesh=`` takes the "ring" / "pipeline" backends (a ``LocalMesh`` runs them
+in this process) and, on a process-group ``Mesh``, makes the sharded step,
+the counterpart of ``jit_train_step`` (train_step.py:210-245), set up by
+``shard_train_step``. Each process holds its own rows of the batch (its
+block on data x fsdp; the same rows on every sp and pipe rank). Its fp32
+masters and AdamW moments are cut over fsdp by the partitioning rules
+(ZeRO-3: ``parallel.FsdpShards``): the weights are gathered for the
+compute, and the gradients reduce-scattered back to the shards and summed
+over data, sp and pipe. Each rank's loss is its part of the global mean:
+its positions' NLL over the global count of valid targets, divided by the
+ranks that compute the same positions (the pipe ranks, and the sp ranks
+but under "ring"), so that every contribution enters the summed gradient
+once. Every rank reports the same metrics: the loss summed across ranks,
+the rest from the gathered predictions; ``grad_norm`` and the clip take
+the norm of the whole sharded gradient, one all-reduce of the squared sums.
+The LoRA step under a ``Mesh`` holds the base and its small trainable state
+whole on every rank and sums the gradients over the mesh.
 """
 from __future__ import annotations
 
@@ -25,12 +43,13 @@ from typing import Any, Callable, Dict
 import numpy as np
 import torch
 
-from ..errors import not_ported
 from ..models import spatialvla
+from ..parallel.mesh import AXES, Mesh, gather_along
+from ..parallel.partitioning import FsdpShards
 from ..utils.tree import iter_leaves, map_with_paths
 from .lora import DEFAULT_SAVED, extract_saved, insert_saved, lora_apply_tree, lora_init
-from .loss import chunked_loss_and_metrics
-from .metrics import action_metrics
+from .loss import chunked_loss_and_metrics, position_loss
+from .metrics import action_metrics, metrics_from_predictions
 from .optimizer import AdamW
 
 Params = Dict[str, Any]
@@ -43,7 +62,11 @@ class TrainStepConfig:
     use_remat: bool = True
     compute_dtype: Any = torch.bfloat16
     micro_steps: int = 1  # gradient accumulation
-    attn_backend: str = "xla"  # "xla" | "flash" (the flash-attention kernels)
+    # "xla" | "flash" (the flash-attention kernels) | "ring" (sequence
+    # parallelism over the mesh's sp axis) | "pipeline" (GPipe stages over
+    # its pipe axis); the last two need make_*_train_step(mesh=...)
+    attn_backend: str = "xla"
+    pp_microbatches: int = 0  # "pipeline": microbatches a step (0: one a stage)
     # sequence-chunked CE: caps logits memory at B x chunk x vocab; 0 = full logits
     loss_chunk_size: int = 0
 
@@ -53,6 +76,8 @@ def batch_to_tensors(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
     int64, masks and token types int32, floats float32."""
     out = {}
     for k, v in batch.items():
+        if hasattr(v, "to_local"):  # a DTensor of form_global_batch: this process's rows
+            v = v.to_local()
         t = torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v)
         if k in _INT_KEYS:
             t = t.long()
@@ -64,29 +89,20 @@ def batch_to_tensors(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
     return out
 
 
-def make_loss_fn(cfg, step_cfg: TrainStepConfig, luts=None) -> Callable:
-    """loss_fn(params, batch) -> (loss, metrics) (train_step.py:42)."""
-    if step_cfg.attn_backend in ("ring", "pipeline"):
-        raise not_ported(f"attn_backend={step_cfg.attn_backend!r}", "parallel")
+def make_loss_fn(cfg, step_cfg: TrainStepConfig, luts=None, mesh=None) -> Callable:
+    """loss_fn(params, batch) -> (loss, metrics) (train_step.py:42). On a
+    process-group ``Mesh``, the loss is this rank's part of the global one
+    (``_sharded_loss_fn``)."""
+    if step_cfg.attn_backend in ("ring", "pipeline") and mesh is None:
+        raise ValueError(f"attn_backend={step_cfg.attn_backend!r} requires "
+                         "make_*_train_step(mesh=...)")
+    if isinstance(mesh, Mesh):
+        return _sharded_loss_fn(cfg, step_cfg, luts, mesh)
 
     def loss_fn(params: Params, batch: Dict[str, torch.Tensor]):
-        attn = batch.get("attention_mask")
-        if attn is None:
-            attn = torch.ones_like(batch["input_ids"], dtype=torch.int32)
+        attn = _attention_mask(batch)
         chunked = step_cfg.loss_chunk_size > 0
-        out = spatialvla.forward(
-            params, cfg, batch["input_ids"],
-            pixel_values=batch.get("pixel_values"),
-            intrinsic=batch.get("intrinsic"),
-            attention_mask=attn,
-            token_type_ids=batch.get("token_type_ids"),
-            labels=None if chunked else batch["labels"],
-            depth=batch.get("depth"),
-            use_remat=step_cfg.use_remat,
-            compute_dtype=step_cfg.compute_dtype,
-            attn_backend=step_cfg.attn_backend,
-            with_logits=not chunked,
-        )
+        out = _forward(params, cfg, step_cfg, batch, attn, mesh, labels=not chunked)
         if chunked:
             return chunked_loss_and_metrics(
                 params["lm"], cfg.text, out["hidden"], batch["labels"], attn,
@@ -101,26 +117,93 @@ def make_loss_fn(cfg, step_cfg: TrainStepConfig, luts=None) -> Callable:
     return loss_fn
 
 
+def _attention_mask(batch):
+    attn = batch.get("attention_mask")
+    return torch.ones_like(batch["input_ids"], dtype=torch.int32) if attn is None else attn
+
+
+def _forward(params, cfg, step_cfg, batch, attn, mesh, *, labels: bool):
+    return spatialvla.forward(
+        params, cfg, batch["input_ids"],
+        pixel_values=batch.get("pixel_values"),
+        intrinsic=batch.get("intrinsic"),
+        attention_mask=attn,
+        token_type_ids=batch.get("token_type_ids"),
+        labels=batch["labels"] if labels else None,
+        depth=batch.get("depth"),
+        use_remat=step_cfg.use_remat,
+        compute_dtype=step_cfg.compute_dtype,
+        attn_backend=step_cfg.attn_backend,
+        mesh=mesh,
+        pp_microbatches=step_cfg.pp_microbatches,
+        with_logits=labels,
+    )
+
+
+def _sharded_loss_fn(cfg, step_cfg: TrainStepConfig, luts, mesh: Mesh) -> Callable:
+    """loss_fn(params, batch) -> (this rank's loss, global metrics) on a
+    process-group mesh (see the module docstring)."""
+    from ..parallel.ring_attention import seq_shard
+
+    ring = step_cfg.attn_backend == "ring"
+    replicas = mesh.shape["pipe"] * (1 if ring else mesh.shape["sp"])
+    rows, seq = mesh.group("data", "fsdp"), mesh.group("sp")
+    ignore = cfg.ignore_index
+
+    def loss_fn(params: Params, batch: Dict[str, torch.Tensor]):
+        attn = _attention_mask(batch)
+        T = batch["input_ids"].shape[1]
+        out = _forward(params, cfg, step_cfg, batch, attn, mesh, labels=False)
+        start, stop = seq_shard(mesh, T) if ring else (0, T)
+        stop_t = min(stop, T - 1)  # the last position has no next token
+        targets = batch["labels"][:, start + 1:stop_t + 1]
+        valid = (targets != ignore) & (attn[:, start + 1:stop_t + 1] != 0)
+        loss_sum, preds = position_loss(params["lm"], cfg.text, out["hidden"][:, :stop_t - start],
+                                        targets, valid, chunk_size=step_cfg.loss_chunk_size)
+        count = valid.sum()
+        torch.distributed.all_reduce(count, group=rows)
+        if ring:
+            torch.distributed.all_reduce(count, group=seq)
+        loss = loss_sum / count.clamp_min(1)
+        reported = loss.detach().clone()
+        torch.distributed.all_reduce(reported, group=rows)
+        if ring:
+            torch.distributed.all_reduce(reported, group=seq)
+            width = stop - start  # every shard's pieces padded to one width
+            pad = lambda t, v: torch.nn.functional.pad(t, (0, width - t.shape[1]), value=v)  # noqa: E731
+            preds, targets, valid = (gather_along(pad(t, v), seq, 1)[:, :T - 1]
+                                     for t, v in ((preds, 0), (targets, ignore), (valid.byte(), 0)))
+        preds, targets, valid = (gather_along(t, rows, 0) for t in (preds, targets, valid.byte()))
+        valid = valid.bool()
+        metrics = metrics_from_predictions(preds, targets, valid,
+                                           begin_idx=cfg.action_token_begin_idx, luts=luts)
+        metrics["loss"] = reported
+        return (loss / replicas if replicas > 1 else loss), metrics
+
+    return loss_fn
+
+
 def _grad_leaves(params):
     return [(path, p) for path, p in iter_leaves(params)
             if torch.is_tensor(p) and p.requires_grad]
 
 
 def make_train_step(cfg, tx: AdamW, step_cfg: TrainStepConfig = TrainStepConfig(),
-                    luts=None) -> Callable:
+                    luts=None, mesh=None) -> Callable:
     """Returns train_step(state, batch) -> (state, metrics).
 
     state = {'params', 'opt_state', 'step'} (from ``init_train_state``);
     batch leaves are (B, ...) or (M, B, ...) with step_cfg.micro_steps = M.
     Gradients of the M micro-batches are summed in fp32 and divided by M;
-    the metrics are their means."""
-    loss_fn = make_loss_fn(cfg, step_cfg, luts=luts)
+    the metrics are their means. On a process-group ``Mesh`` the step is
+    train_step(state, batch, shards) on a state cut by ``shard_train_step``,
+    which binds the shards."""
+    loss_fn = make_loss_fn(cfg, step_cfg, luts=luts, mesh=mesh)
     M = step_cfg.micro_steps
 
-    def train_step(state, batch):
-        params = state["params"]
+    def grads_and_metrics(params, batch, device):
+        """(path -> gradient of the compute tree, metrics) of one step."""
         leaves = _grad_leaves(params)
-        device = leaves[0][1].device
         for _, p in leaves:
             p.grad = None
         batch = batch_to_tensors(batch, device)
@@ -137,29 +220,100 @@ def make_train_step(cfg, tx: AdamW, step_cfg: TrainStepConfig = TrainStepConfig(
             if p.grad is not None and M > 1:
                 p.grad.div_(M)
             grads[path] = p.grad
+            p.grad = None
+        return grads, metrics
+
+    def train_step(state, batch):
+        params = state["params"]
+        grads, metrics = grads_and_metrics(params, batch, _grad_leaves(params)[0][1].device)
         present = [g for g in grads.values() if g is not None]
         metrics["grad_norm"] = torch.sqrt(torch.stack([g.float().pow(2).sum()
                                                        for g in present]).sum())
         tx.update(params, grads, state["opt_state"])
-        for _, p in leaves:
-            p.grad = None
         state["step"] += 1
         return state, metrics
 
-    return train_step
+    def sharded_step(state, batch, shards: FsdpShards):
+        masters = state["params"]
+        # the compute tree: each cut leaf gathered whole (a leaf of its own),
+        # the rest the masters themselves
+        full = map_with_paths(lambda p, t: _compute_leaf(shards, p, t), masters)
+        device = _grad_leaves(full)[0][1].device
+        grads, metrics = grads_and_metrics(full, batch, device)
+        local, sq, trainable = {}, [], []
+        for path, g in grads.items():
+            if g is None:
+                local[path] = None
+                continue
+            dim = shards.dim(path)
+            if dim is not None and shards.n > 1:
+                g = shards.reduce_scatter(g, dim)
+                torch.distributed.all_reduce(g, group=mesh.group("data", "sp", "pipe"))
+            else:
+                torch.distributed.all_reduce(g, group=mesh.group(*AXES))
+            local[path] = g
+            # a whole leaf's square counts once across the fsdp axis
+            part = g.float().pow(2).sum()
+            sq.append(part if dim is not None or shards.index == 0 else torch.zeros_like(part))
+            trainable.append(tx.is_trainable(path))
+        sq = torch.stack(sq)
+        torch.distributed.all_reduce(sq, group=shards.group)
+        metrics["grad_norm"] = torch.sqrt(sq.sum())
+        keep = torch.tensor(trainable, device=sq.device)
+        norm = torch.sqrt(sq[keep].sum()) if bool(keep.any()) else None
+        tx.update(masters, local, state["opt_state"], norm=norm)
+        state["step"] += 1
+        return state, metrics
+
+    return sharded_step if isinstance(mesh, Mesh) else train_step
+
+
+def _compute_leaf(shards: FsdpShards, path: str, t):
+    if not (torch.is_tensor(t) and t.is_floating_point()):
+        return t
+    dim = shards.dim(path)
+    if dim is None or shards.n == 1:
+        return t.requires_grad_(True)
+    return shards.gather(t.detach(), dim).requires_grad_(True)
+
+
+class ShardedStep:
+    """A sharded train step bound to its state's fsdp cut: ``step(state,
+    batch)``, as ``train_loop`` calls it; ``shards`` is what a
+    ``CheckpointManager`` gathers and cuts by."""
+
+    def __init__(self, step: Callable, shards: FsdpShards):
+        self.step, self.shards = step, shards
+
+    def __call__(self, state, batch):
+        return self.step(state, batch, self.shards)
+
+
+def shard_train_step(train_step: Callable, mesh, state, *, rules=None):
+    """(step, state) for the step of ``make_train_step(mesh=mesh)``: the
+    counterpart of ``jit_train_step`` (train_step.py:210-245). On a
+    process-group ``Mesh`` the state's parameters and AdamW moments are cut
+    to this rank's fsdp shards by the partitioning rules (the whole tensors
+    are freed) and the step is bound to that cut; elsewhere both come back
+    as they are."""
+    if not isinstance(mesh, Mesh):
+        return train_step, state
+    shards = FsdpShards(mesh, state["params"], rules)
+    return ShardedStep(train_step, shards), shards.cut_state(state)
 
 
 def make_lora_train_step(cfg, tx: AdamW, step_cfg: TrainStepConfig = TrainStepConfig(), *,
-                         alpha: float = 32.0, rank: int = 32, luts=None) -> Callable:
+                         alpha: float = 32.0, rank: int = 32, luts=None, mesh=None) -> Callable:
     """LoRA step (train_step.py:141): train_step(state, base_params, batch)
     -> (state, metrics), with state = {'trainable': {'lora', 'saved'},
     'opt_state', 'step'} from ``init_lora_train_state`` and the frozen base
     tree a separate argument (no optimizer state for it). The metrics are
     the loss function's; JAX's LoRA step adds no grad_norm. One batch a
-    step, as in JAX (no micro-batches)."""
+    step, as in JAX (no micro-batches). On a process-group ``Mesh`` the
+    gradients are summed over the mesh before the update."""
     if step_cfg.micro_steps != 1:
         raise ValueError("the LoRA step takes one batch a step (micro_steps=1), as JAX's does")
-    loss_inner = make_loss_fn(cfg, step_cfg, luts=luts)
+    loss_inner = make_loss_fn(cfg, step_cfg, luts=luts, mesh=mesh)
 
     def train_step(state, base_params, batch):
         trainable = state["trainable"]
@@ -171,6 +325,9 @@ def make_lora_train_step(cfg, tx: AdamW, step_cfg: TrainStepConfig = TrainStepCo
         params = lora_apply_tree(params, trainable["lora"], alpha=alpha, rank=rank)
         loss, metrics = loss_inner(params, batch_to_tensors(batch, leaves[0][1].device))
         loss.backward()
+        if isinstance(mesh, Mesh):
+            for _, p in leaves:
+                torch.distributed.all_reduce(p.grad, group=mesh.group(*AXES))
         tx.update(trainable, {path: p.grad for path, p in leaves}, state["opt_state"])
         for _, p in leaves:
             p.grad = None

@@ -2,7 +2,9 @@
 spatialvla_tpu/train/trainer.py): host batches -> train_step -> metrics
 (JSONL, stdout and TensorBoard scalar events) -> step-numbered checkpoints
 with their sidecar (``checkpoints.CheckpointManager``) -> resume from the
-latest, with a ``torch.profiler`` trace over an optional step window."""
+latest, with a ``torch.profiler`` trace over an optional step window. In a
+run of several processes every process runs the loop and computes the same
+metrics; process 0 alone writes and prints them."""
 from __future__ import annotations
 
 import dataclasses
@@ -13,6 +15,7 @@ from typing import Any, Callable, Dict, Iterator, Optional
 
 import torch
 
+from ..parallel.mesh import process_count, process_index
 from .tb_writer import SummaryWriter
 
 
@@ -72,14 +75,16 @@ def train_loop(*, state, train_step: Callable, batches: Iterator[Dict[str, Any]]
     that is past the state's own (``config.resume``; the state is restored
     in place), saves every ``save_every`` steps, and ends with a forced save
     (skipped when that step is already saved)."""
-    logger = MetricsLogger(config.output_dir, tensorboard=config.tensorboard)
+    primary = process_index() == 0
+    logger = MetricsLogger(config.output_dir, tensorboard=config.tensorboard) if primary else None
     start_step = int(state["step"])
     if checkpoint_manager is not None and config.resume:
         latest = checkpoint_manager.latest_step()
         if latest is not None and latest > start_step:
             state = checkpoint_manager.restore(state)
             start_step = int(state["step"])
-            print(f"resumed from checkpoint step {start_step}", flush=True)
+            if primary:
+                print(f"resumed from checkpoint step {start_step}", flush=True)
     t_last, step_last = time.perf_counter(), start_step
     profiler = None
     for step in range(start_step, config.max_steps):
@@ -102,7 +107,8 @@ def train_loop(*, state, train_step: Callable, batches: Iterator[Dict[str, Any]]
             n_steps = step + 1 - step_last
             metrics["steps_per_sec"] = n_steps / (now - t_last) if step > start_step else 0.0
             t_last, step_last = now, step + 1
-            logger.log(step + 1, metrics)
+            if logger is not None:
+                logger.log(step + 1, metrics)
             if on_metrics is not None:
                 on_metrics(step + 1, metrics)
         if checkpoint_manager is not None and (step + 1) % config.save_every == 0:
@@ -112,12 +118,14 @@ def train_loop(*, state, train_step: Callable, batches: Iterator[Dict[str, Any]]
     if checkpoint_manager is not None:
         checkpoint_manager.save(int(state["step"]), state, sidecar=sidecar, force=True)
         checkpoint_manager.wait()
-    logger.close()
+    if logger is not None:
+        logger.close()
     return state
 
 
 def _stop_profiler(profiler, output_dir: str):
     profiler.__exit__(None, None, None)
     os.makedirs(os.path.join(output_dir, "traces"), exist_ok=True)
-    profiler.export_chrome_trace(os.path.join(output_dir, "traces", "trace.json"))
+    name = "trace.json" if process_count() == 1 else f"trace-{process_index()}.json"
+    profiler.export_chrome_trace(os.path.join(output_dir, "traces", name))
     return None

@@ -21,6 +21,7 @@ from spatialvla_tpu.data import statistics as j_statistics
 from spatialvla_tpu.data.pipeline import RLDSDataSource as JaxSource
 from spatialvla_tpu.processor import SpatialVLAProcessor as JaxProcessor
 from spatialvla_tpu.serve import gating as j_gating
+from spatialvla_tpu.parallel import partitioning as j_partitioning
 from spatialvla_tpu.train import tb_writer as j_tb
 from spatialvla_tpu_torch import config as t_config
 from spatialvla_tpu_torch.convert import config_to_hf as t_config_to_hf
@@ -34,6 +35,7 @@ from spatialvla_tpu_torch.data import statistics as t_statistics
 from spatialvla_tpu_torch.data.pipeline import RLDSDataSource as PortSource
 from spatialvla_tpu_torch.processor import SpatialVLAProcessor as PortProcessor
 from spatialvla_tpu_torch.serve import gating as t_gating
+from spatialvla_tpu_torch.parallel import partitioning as t_partitioning
 from spatialvla_tpu_torch.train import tb_writer as t_tb
 from tests.fixtures import make_bridge_like_dataset
 
@@ -265,3 +267,12 @@ def test_eval_copies_match_their_originals(name):
     port = open(os.path.join(root, "spatialvla_tpu_torch", "eval", name)).read()
     assert port == open(os.path.join(root, "spatialvla_tpu", "eval", name)).read()
     assert "jax" not in port.replace("SimplerEnv", "")
+
+
+def test_partitioning_rules_copy_matches():
+    """The port's DEFAULT_RULES are JAX's (partitioning.py:23-54): the same
+    patterns in the same order, each with the same axes (a PartitionSpec as
+    a tuple)."""
+    want = [(pattern, tuple(spec)) for pattern, spec in j_partitioning.DEFAULT_RULES]
+    assert t_partitioning.DEFAULT_RULES == want
+    assert len(want) == 25

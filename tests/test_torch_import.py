@@ -9,7 +9,8 @@ one with the mixed tree on an int8 KV cache, exports an HF checkpoint, bakes
 it into a serving checkpoint with scripts/quantize_checkpoint_torch.py,
 serves a request from that, imports the pretrain and fine-tuning CLIs and the
 three eval CLIs (the SimplerEnv and LIBERO ones run to their missing-sim
-exit), runs a LoRA step and one eval episode through the eval driver, and
+exit), runs a LoRA step, a ring step and a pipeline step held by one process
+(the parallel package) and one eval episode through the eval driver, and
 reports which jax, optax, safetensors and spatialvla_tpu modules are loaded.
 No ``import`` or ``from`` in the port, chip_smoke.py, or the port's scripts
 (quantize_checkpoint_torch, serve_torch, bench_serve_torch,
@@ -76,6 +77,15 @@ batch = {"input_ids": ids, "attention_mask": np.ones(ids.shape, np.int32), "toke
          "intrinsic": np.eye(3, dtype=np.float32)[None]}
 lstate, lmetrics = ts.make_lora_train_step(cfg, tx, ts.TrainStepConfig(compute_dtype=torch.float32),
                                            rank=4)(lstate, base, batch)
+# the parallel package: a ring step and a pipeline step held by this process
+from spatialvla_tpu_torch.parallel import LocalMesh
+par_losses = []
+for backend, mesh in (("ring", LocalMesh(sp=2)), ("pipeline", LocalMesh(pipe=2))):
+    pstate = ts.init_train_state(sv.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                                                device="cpu"), tx)
+    pstep = ts.make_train_step(cfg, tx, ts.TrainStepConfig(compute_dtype=torch.float32,
+                                                           attn_backend=backend), mesh=mesh)
+    par_losses.append(float(pstep(pstate, batch)[1]["loss"]))
 from spatialvla_tpu_torch.eval.driver import EvalTask, evaluate_task
 class Env:
     def reset(self):
@@ -123,6 +133,7 @@ print(json.dumps({
     "resized_keys": sorted(resized),
     "image_size": size,
     "lora_loss_finite": bool(np.isfinite(float(lmetrics["loss"]))),
+    "parallel_losses": par_losses,
     "eval_row": row,
     "missing_sim_rcs": rcs,
 }))
@@ -144,13 +155,16 @@ def test_port_imports_no_jax(child):
               "action.tokenizer", "processor.processor", "data.pipeline", "data.native",
               "convert.safetensors_io", "convert.hf_checkpoint", "convert.export_hf",
               "train.checkpoints", "serve.gating", "serve.engine", "serve.split_engine",
-              "train.lora", "train.finetune", "eval.adapters", "eval.driver", "utils.tree"):
+              "train.lora", "train.finetune", "eval.adapters", "eval.driver", "utils.tree",
+              "parallel", "parallel.mesh", "parallel.partitioning", "parallel.ring_attention",
+              "parallel.pipeline"):
         assert f"spatialvla_tpu_torch.{m}" in child["modules"]
     assert child["jax"] == []
     assert child["optax"] == []
     assert child["spatialvla_tpu"] == []
     assert child["safetensors"] == []
     assert child["lora_loss_finite"] and child["missing_sim_rcs"] == [2, 2]
+    assert len(child["parallel_losses"]) == 2 and np.isfinite(child["parallel_losses"]).all()
     assert child["eval_row"]["episodes"] == 1 and child["eval_row"]["success_rate"] == 1.0
 
 
@@ -168,6 +182,8 @@ def test_no_import_names_the_jax_package():
         "quantize_checkpoint_torch", "serve_torch", "bench_serve_torch", "run_simpler_eval_torch",
         "run_libero_eval_torch", "eval_quant_torch")]
     assert len(files) > 40
+    assert {f.name for f in files if f.parent.name == "parallel"} == {
+        "__init__.py", "mesh.py", "partitioning.py", "ring_attention.py", "pipeline.py"}
     banned = ("spatialvla_tpu", "jax", "jaxlib", "optax", "safetensors")
     bad = [(str(f.relative_to(ROOT)), name) for f in files for name in _imported_names(f)
            if name.split(".")[0] in banned]

@@ -256,13 +256,19 @@ def test_policy_predict_int4_and_kv8_margin_rule(params, qkw, request):
         assert a["actions"].shape == (4, 7) and np.isfinite(a["actions"]).all()
 
 
+def _engine_over_a_mesh(policy):
+    from spatialvla_tpu_torch.serve import ServingEngine
+
+    policy.mesh = object()  # a policy sharded over a mesh, as shard() would leave it
+    ServingEngine(policy)
+
+
 @pytest.mark.parametrize("call, item", [
-    (lambda p: p.shard(), "item 3"),
+    (lambda p: p.shard(), "item 8b"),
     (lambda p: p.quantize(bits=4), None),
     (lambda p: p.quantize(mlp_bits=4), None),
     (lambda p: p.quantize(bits=4, group_size=128, vision_bits=4), None),
-    (lambda p: tsv.forward(p.params, CFG, torch.zeros((1, 4), dtype=torch.long),
-                           attn_backend="ring"), "item 8"),
+    (_engine_over_a_mesh, "item 8b"),
 ])
 def test_unported_surfaces_name_their_roadmap_item(call, item, params):
     """Each surface still to port names its ROADMAP item (the loaders and
