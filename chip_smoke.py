@@ -142,9 +142,20 @@
    batches; equal rows, every episode counted, finite actions, the int8
    kernels and the decode kernels launched in both runs, a mean batch above
    1, the decode-graph captures during each run counted.
-10. Prints the card, the kernels' JSON line (with each decode kernel's
-   launches in one replay of the graphs checked, traced and credited, and
-   the launches of the LoRA and eval runs), and last {"ok": true, ...}.
+10. Tensor-parallel serving (tensor_parallel_path), after (9): the int8 and
+   the int4-g128 (vision_bits=4) trees sharded over n_model = 2 and 4 with
+   every shard on this card (SpatialVLAPolicy.shard): the main path's three
+   requests held to the unsharded policy's (fused path) under the margin
+   rule from the first token on, one request's launches of kernels #1 and #2 exact and no other
+   kernel launched (the unfused loop, no decode graph), n_model=2 x
+   n_data=2 over a 2-row batch, both engines over shard(n_model=2) (the
+   split one with kv_bits=8) serving 8 requests from 4 clients, kernels #1
+   and #2 at every new shard shape against their plain versions, and warm
+   predict ms at n_model = 1 (unfused), 2 and 4.
+11. Prints the card, the kernels' JSON line (with each decode kernel's
+   launches in one replay of the graphs checked, traced and credited, the
+   launches of the LoRA and eval runs, and an entry "<name>_tp" for each of
+   kernels #1 and #2 at the shard shapes), and last {"ok": true, ...}.
 
 Needs CUDA; there is no CPU path. Imports nothing of jax.
 """
@@ -1199,47 +1210,58 @@ def graph_launches(torch, policy, label) -> list:
             for key, loop in policy.decode_graphs.loops.items()]
 
 
-def graph_check(torch, graph, credits, label, shape) -> dict:
-    """One decode graph replayed once under torch.profiler: the library's
-    kernels in the trace of the replay, each counted for the wrapper that
-    launches it (``decode_wrapper_of``), must be exactly the launch counts
-    that the graph credits its wrappers with per replay (``GreedyLoop`` /
+def graph_check(torch, graph, credits, label, shape, attempts: int = 3) -> dict:
+    """One decode graph replayed under torch.profiler: the library's kernels
+    in the trace of the replay, each counted for the wrapper that launches it
+    (``decode_wrapper_of``), must be exactly the launch counts that the graph
+    credits its wrappers with per replay (``GreedyLoop`` /
     ``ServingLoop.credits``). A library kernel that no decode wrapper
-    launches, or a trace without kernels, fails."""
+    launches, or a trace without kernels, fails. The profiler can drop a
+    replay's activity records (a trace of 1781 kernels where the same graph
+    traced 2029 in another run, torch kernels among the missing), so a
+    trace that falls short is taken again, up to ``attempts`` traces; a
+    graph that launches too few kernels falls short in every one, and
+    fails."""
     from torch.profiler import ProfilerActivity, profile
 
     names = library_kernel_names()
     head = re.compile(r"(?:void\s+)?(?:\(anonymous namespace\)::)?(\w+)")
     credited = {fn.__name__ + ("" if attr == "launches" else f".{attr}"): n
                 for (fn, attr), n in credits.items()}
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        graph.replay()
+    traces = []
+    for _ in range(attempts):
         torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "replay.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    kernels = [e["name"] for e in events if e.get("cat") == "kernel" and e.get("ph") == "X"]
-    if not kernels:
-        fail(f"{label}: the trace of a decode graph's replay holds no kernel")
-    measured = collections.Counter()
-    for name in kernels:
-        base = head.match(name).group(1) if head.match(name) else ""
-        if base not in names:
-            continue  # a torch kernel (embedding, argmax, the cache writes)
-        targs = re.search(re.escape(base) + r"<([^<>]*)>", name)
-        counts = decode_wrapper_of(base, targs.group(1).split(", ") if targs else [])
-        if not counts:
-            fail(f"{label}: kernel {name[:120]} in a decode graph is no decode wrapper's")
-        measured.update(counts)
-    print(f"{label} decode graph {shape}: one replay traced, {len(kernels)} kernels; "
-          f"library kernels by wrapper {dict(measured)}, credited {credited}", flush=True)
-    if dict(measured) != credited:
-        fail(f"{label} decode graph {shape}: the traced replay launched {dict(measured)}, "
-             f"the graph credits {credited}")
-    return {"graph": shape, "measured": dict(measured), "credited": credited}
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            graph.replay()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "replay.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel" and e.get("ph") == "X"]
+        if not kernels:
+            fail(f"{label}: the trace of a decode graph's replay holds no kernel")
+        measured = collections.Counter()
+        for name in kernels:
+            base = head.match(name).group(1) if head.match(name) else ""
+            if base not in names:
+                continue  # a torch kernel (embedding, argmax, the cache writes)
+            targs = re.search(re.escape(base) + r"<([^<>]*)>", name)
+            counts = decode_wrapper_of(base, targs.group(1).split(", ") if targs else [])
+            if not counts:
+                fail(f"{label}: kernel {name[:120]} in a decode graph is no decode wrapper's")
+            measured.update(counts)
+        traces.append((len(kernels), dict(measured)))
+        print(f"{label} decode graph {shape}: one replay traced, {len(kernels)} kernels; "
+              f"library kernels by wrapper {dict(measured)}, credited {credited}", flush=True)
+        if dict(measured) == credited:
+            break
+    else:
+        fail(f"{label} decode graph {shape}: no traced replay of {attempts} launched what the "
+             f"graph credits {credited}: (kernels, by wrapper) {traces}")
+    return {"graph": shape, "measured": dict(measured), "credited": credited,
+            "traces": len(traces), "kernels_traced": [n for n, _ in traces]}
 
 
 def instruction_stream(torch, policy, images, label):
@@ -2575,6 +2597,324 @@ def serving_configs(torch, counters):
 
 
 # ---------------------------------------------------------------------------
+# tensor-parallel serving: SpatialVLAPolicy.shard, every shard on this card
+# ---------------------------------------------------------------------------
+
+TP_FORMATS = (("int8", dict(bits=8)), ("int4_g128", dict(bits=4, group_size=128, vision_bits=4)))
+# the few-row kernels that a shard's matmuls take at decode (and, int4, in the
+# prefill, SigLIP and the projector): each at the shard shapes has a kernels
+# entry of its own, "<name>_tp"
+TP_KERNELS = ("q8_matvec", "q8_rmsnorm_matvec", "q4_matvec", "q4_rmsnorm_matvec")
+
+
+def tp_launches_want(cfg, cut, n, fmt) -> dict:
+    """The kernel launches of one request through the sharded path, from the
+    unfused decode loop (a prefill, then 11 steps; the first token's head
+    after the prefill), n and the blocks the cut keeps whole: a cut block
+    runs once a shard, a whole block once. The head runs on each shard whose
+    vocabulary rows meet the action block (one at n = 2: the block lies in
+    shard 1). int8: the prefill's, SigLIP's and the projector's rows exceed
+    the kernels' 16, so only the decode steps and heads launch. int4: the
+    prefill (under 512 rows), SigLIP's 27 layers and the projector (256 rows)
+    launch q4_matvec too; ZoeDepth's 577 rows do not."""
+    L, Lv, steps = cfg.text.num_layers, cfg.vision.num_layers, 11
+    k = lambda block: n if cut.blocks.get(block) else 1  # noqa: E731
+    A, F = k("lm_attn"), k("lm_mlp")
+    begin, size = cfg.action_token_begin_idx, cfg.spatial_token_num
+    h = 1
+    if cut.blocks.get("vocab"):
+        w = cfg.text.vocab_size // n
+        h = sum(max(begin, s * w) < min(begin + size, (s + 1) * w) for s in range(n))
+    if fmt == "int8":
+        return {"q8_matvec": h + steps * (L * (A + F) + h),
+                "q8_rmsnorm_matvec": steps * L * (A + F)}
+    fwd = steps + 1
+    return {"q4_matvec": (Lv * (4 * k("vision_attn") + 2 * k("vision_mlp")) + k("projector")
+                          + fwd * (L * (A + F) + h)),
+            "q4_rmsnorm_matvec": fwd * L * (A + F)}
+
+
+def tp_kernel_checks(torch, timer, results, notes, tree, fmt, n):
+    """Kernels #1 and #2 at shard s = 0's shapes at one row (layer 0 of its
+    tree: qkv and gate|up with their norms, o and down), against their plain
+    versions: rel err below 1e-2 (int8) or 2e-2 (int4, bf16 out), int4 on
+    its few-row route; timed beside plain and the library's matmul
+    (record_kernel, as "<name>_tp"). Only the blocks the cut splits have new
+    shapes. int4 also: SigLIP's fc2 shard at 256 rows (K = 4304 / n, packed
+    rows of K / 2 bytes) on the tensor-core route against plain, untimed."""
+    from spatialvla_tpu_torch.ops import quant
+
+    g = torch.Generator(device="cuda").manual_seed(21 + n)
+    int4 = fmt != "int8"
+    lp = {k: v for k, v in tree["lm"]["layers"].items()}
+    cases = (("rmsnorm", lp["attn"]["qkv"], lp["input_norm"]), ("matvec", lp["attn"]["o"], None),
+             ("rmsnorm", lp["mlp"]["gate_up"], lp["pre_ffn_norm"]),
+             ("matvec", lp["mlp"]["down"], None))
+    tol = 2e-2 if int4 else 1e-2
+    for kind, w, norm in cases:
+        qt, scale = w["qt"][0], w["scale"][0]
+        N, K = qt.shape[0], qt.shape[1] * (2 if int4 else 1)
+        name = ("q4_" if int4 else "q8_") + ("rmsnorm_matvec" if norm is not None else "matvec")
+        x = (torch.randn(1, K, generator=g, device="cuda")
+             * (1.0 if norm is not None else 0.3)).to(torch.float32 if norm is not None
+                                                       else torch.bfloat16)
+        args = (x, norm[0], qt, scale) if norm is not None else (x, qt, scale)
+        kern, plain = getattr(quant, name), getattr(quant, name + "_plain")
+        y = kern(*args)
+        d, r = rel_err(y, plain(*args))
+        if not r < tol:
+            fail(f"{name} n={n} M=1 {K}->{N} ({fmt} shard): rel err {r} >= {tol}")
+        if int4 and quant.q4_route(x, qt, scale) != "rows":
+            fail(f"{name} n={n} M=1 {K}->{N}: took the {quant.q4_route(x, qt, scale)} kernel, "
+                 "not the few-row kernel")
+        ms, pms = timer(lambda: kern(*args)), timer(lambda: plain(*args))
+        lib = None
+        if norm is None:
+            lib, note = (library_int4pack if int4 else library_int8pack)(torch, timer, x, qt,
+                                                                          scale)
+            notes.setdefault(name + "_tp", note)
+        shape = f"n{n}_{fmt}_M1_{K}x{N}"
+        print(f"{name} shard n={n} ({fmt}) M=1 {K}->{N}: max|d|={d:.3e} rel={r:.3e} kernel "
+              f"{ms:.4f} ms plain {pms:.4f} ms library {lib} ms", flush=True)
+        record_kernel(results, name + "_tp", shape, d, ms, pms,
+                      nbytes=nbytes_of(*args, y),
+                      ops=2 * N * K + (4 * K if norm is not None else 0),
+                      library_ms=lib)
+    notes.setdefault("q8_rmsnorm_matvec_tp", "no single PyTorch call fuses the RMSNorm with "
+                                             "the matmul")
+    notes.setdefault("q4_rmsnorm_matvec_tp", notes["q8_rmsnorm_matvec_tp"])
+    if int4 and "fc2" in tree["vision"]["layers"]["mlp"]:
+        w = tree["vision"]["layers"]["mlp"]["fc2"]["w"]
+        qt, scale = w["qt"][0], w["scale"][0]
+        x = (torch.randn(256, 2 * qt.shape[1], generator=g, device="cuda") * 0.3).to(
+            torch.bfloat16)
+        route = quant.q4_route(x, qt, scale)
+        d, r = rel_err(quant.q4_matvec(x, qt, scale), quant.q4_matvec_plain(x, qt, scale))
+        print(f"q4_matvec SigLIP fc2 shard n={n} M=256 {x.shape[1]}->{qt.shape[0]}: {route} "
+              f"kernel, rel={r:.3e}", flush=True)
+        if route != "tiled" or not r < 2e-2:
+            fail(f"SigLIP fc2 shard n={n}: {route} kernel, rel err {r}")
+        record_kernel(results, "q4_matvec_tp", f"n{n}_vision_fc2_M256", d, None, None)
+
+
+def tp_counts(torch, fn):
+    """(fn(), the launches it made by wrapper) on the card; (fn(), {}) off it."""
+    from spatialvla_tpu_torch.ops import _lib
+
+    if not torch.cuda.is_available():
+        return fn(), {}
+    before = {(f, a): getattr(f, a) for f, names in _lib.COUNTED for a in names}
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {f.__name__ + ("" if a == "launches" else f".{a}"): getattr(f, a) - c
+                 for (f, a), c in before.items() if getattr(f, a) != c}
+
+
+def tensor_parallel_path(torch, timer, results, notes, *, cfg=None, device="cuda"):
+    """Tensor-parallel serving (SpatialVLAPolicy.shard) at full width: the
+    int8 tree (quantize(bits=8)) and the int4-g128 tree with an int4 vision
+    front, on seed 0's weights, each sharded over n_model = 2 and 4 with
+    every shard on this card. The unsharded policy's ids and margins (its
+    fused path through the decode graph) on the main path's three requests
+    are taken before shard(); each sharded policy's must follow them under
+    the margin rule from the first token on (engine_rule_ok: the shards sum
+    their partial products in another order from the prefill on, so a near
+    tie may round the other way at the first token too), its actions equal
+    theirs wherever the chunk step's three ids agree. One request's launches of kernels #1 and #2 must be exactly
+    tp_launches_want's, and no other kernel may launch (the path is the
+    unfused loop: no decode graph, no decode attention). The int8 tree also
+    runs n_model=2 x n_data=2 over a 2-row predict_batch of two instruction
+    lengths (each data group a row: twice one request's launches), held to
+    the unsharded batch, and serves 8 requests from 4 closed-loop clients
+    through ServingEngine and SplitServingEngine(kv_bits=8) over
+    shard(n_model=2), each result held to the sharded predict under
+    engine_rule_ok. Kernels #1 and #2 at every new shard shape at one row
+    (tp_kernel_checks). Warm predict ms at n_model = 1 (the unfused loop), 2
+    and 4: slower than the fused path, and one card gives the shards no
+    more bandwidth; recorded, no claim."""
+    from spatialvla_tpu_torch import SpatialVLAPolicy, spatialvla_4b
+    from spatialvla_tpu_torch.models import spatialvla as sv
+    from spatialvla_tpu_torch.serve import ServingEngine, SplitServingEngine
+
+    cfg = cfg or spatialvla_4b()
+    on_card = torch.device(device).type == "cuda"
+    card = card_line() if on_card else "cpu"
+    t_phase = time.perf_counter()
+    allocated = torch.cuda.memory_allocated() if on_card else 0
+    images, instructions = main_requests(cfg)
+    requests = list(zip(images, instructions))
+    batch_texts = ["pick up the cup", "open the top drawer of the desk"]
+    begin, n_act = cfg.action_token_begin_idx, cfg.spatial_token_num
+    out = {"formats": {}, "launches": collections.Counter()}
+
+    def check_request(label, o, ref):
+        ids, a = np.asarray(o["action_ids"]), np.asarray(o["actions"])
+        if a.shape != (4, 7) or not np.isfinite(a).all():
+            fail(f"{label}: actions {a.shape}, finite={np.isfinite(a).all()}")
+        if not ((ids >= begin) & (ids < begin + n_act)).all():
+            fail(f"{label}: ids outside the action block: {ids}")
+        if not engine_rule_ok(ids, ref["action_ids"], ref["margins"]):
+            fail(f"{label}: ids {ids.tolist()} vs the unsharded {ref['action_ids'].tolist()} "
+                 f"(margins {np.round(ref['margins'], 3).tolist()}): beyond the margin rule")
+        same = (ids.reshape(4, 3) == np.asarray(ref["action_ids"]).reshape(4, 3)).all(1)
+        if not np.array_equal(a[same], np.asarray(ref["actions"])[same]):
+            fail(f"{label}: actions differ on chunk steps whose ids agree")
+        return bool(np.array_equal(ids, ref["action_ids"]))
+
+    def warm_ms(fn):
+        times = []
+        for img, instr in requests:
+            t0 = time.perf_counter()
+            fn(img, instr)
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times), times
+
+    for fmt, qkw in TP_FORMATS:
+        t0 = time.perf_counter()
+        base = SpatialVLAPolicy.init_random(cfg, device, seed=0).quantize(**qkw)
+        tree, proc = base.params, base.processor
+        refs = [base.predict(img, instr, return_margins=True) for img, instr in requests]
+        rec = {"setup_s": time.perf_counter() - t0, "fused_ms": warm_ms(base.predict)[0]}
+
+        def unfused(img, instr):
+            inputs = base.processor(img, instr)
+            with torch.inference_mode():
+                ids = sv.predict_action(
+                    base.params, cfg,
+                    torch.as_tensor(inputs["input_ids"], dtype=torch.long, device=device),
+                    pixel_values=torch.as_tensor(inputs["pixel_values"], device=device),
+                    intrinsic=torch.as_tensor(inputs["intrinsic"], device=device),
+                    use_fused_decode=False)
+            return base.processor.decode_actions(ids.cpu().numpy())
+
+        unfused(*requests[0])
+        rec["n1_unfused_ms"], rec["n1_unfused_ms_all"] = warm_ms(unfused)
+        if fmt == "int8":
+            binputs = proc(images[:2], batch_texts)
+            bmask = torch.as_tensor(np.asarray(binputs["attention_mask"]), device=device)
+            with torch.inference_mode():
+                bref_ids, bref_m = base._generate(binputs, attention_mask=bmask,
+                                                  return_margins=True)
+        base.decode_graphs.clear()
+        for n in (2, 4):
+            tp = SpatialVLAPolicy(tree, cfg, proc, device=device).shard(n_model=n)
+            cut = tp.params.cut
+            whole = sorted(b for b, c in cut.blocks.items() if not c)
+            tp.predict(*requests[0])  # the first launches (cuBLAS plans, the kernels' loads)
+            _, counts = tp_counts(torch, lambda: tp.predict(*requests[0]))
+            want = tp_launches_want(cfg, cut, n, fmt)
+            got = {k: v for k, v in counts.items() if "." not in k}
+            if on_card and got != want:
+                fail(f"tensor parallel {fmt} n={n}: one request launched {counts}, want {want} "
+                     f"(blocks kept whole: {whole})")
+            out["launches"].update(got)
+            outs = []
+            t_req = []
+            for img, instr in requests:
+                t1 = time.perf_counter()
+                outs.append(tp.predict(img, instr, return_margins=True))
+                t_req.append((time.perf_counter() - t1) * 1e3)
+            exact = [check_request(f"tensor parallel {fmt} n={n} '{instr}'", o, r)
+                     for o, r, instr in zip(outs, refs, instructions)]
+            rec[f"n{n}"] = {"warm_ms": statistics.median(t_req), "warm_ms_all": t_req,
+                            "blocks_whole": whole, "launches_per_request": counts,
+                            "exact_ids": exact, "graphs": len(tp.decode_graphs)}
+            if len(tp.decode_graphs):
+                fail(f"tensor parallel {fmt} n={n}: a decode graph was captured under a mesh")
+            print(f"tensor parallel {fmt} n_model={n}: blocks kept whole {whole}; one request's "
+                  f"launches {counts} (want {want}); ids equal to the unsharded fused path "
+                  f"{exact}, all within the margin rule; warm predict median "
+                  f"{rec[f'n{n}']['warm_ms']:.1f} ms | {card}", flush=True)
+            if on_card:
+                tp_kernel_checks(torch, timer, results, notes, tp.params.groups[0].trees[0],
+                                 fmt, n)
+            if fmt == "int8" and n == 2:
+                # n_model=2 x n_data=2: each data group one row of the batch
+                dp = SpatialVLAPolicy(tree, cfg, proc, device=device).shard(n_model=2, n_data=2)
+                with torch.inference_mode():
+                    bids, bcounts = tp_counts(torch, lambda: dp._generate(binputs,
+                                                                          attention_mask=bmask))
+                bgot = {k: v for k, v in bcounts.items() if "." not in k}
+                if on_card and bgot != {k: 2 * v for k, v in want.items()}:
+                    fail(f"tensor parallel int8 n_model=2 x n_data=2: the 2-row batch launched "
+                         f"{bcounts}, want twice {want}")
+                out["launches"].update(bgot)
+                rows_ok = [engine_rule_ok(bids[i].cpu().numpy(), bref_ids[i].cpu().numpy(),
+                                          bref_m[i].cpu().numpy()) for i in range(2)]
+                print(f"tensor parallel int8 n_model=2 x n_data=2, 2 rows of prompt lengths "
+                      f"{[int(v) for v in binputs['attention_mask'].sum(1)]}: ids "
+                      f"{bids.tolist()} vs the unsharded {bref_ids.tolist()} -> {rows_ok}; "
+                      f"launches {bcounts}", flush=True)
+                if not all(rows_ok):
+                    fail("tensor parallel n_model=2 x n_data=2: a row beyond the margin rule")
+                rec["n2_data2"] = {"launches": bcounts, "ids": bids.tolist(),
+                                   "unsharded_ids": bref_ids.tolist()}
+                del dp
+                rec["engines"] = tp_engines(torch, tp, requests, outs, cfg, card,
+                                            ServingEngine, SplitServingEngine)
+            del tp
+            if on_card:
+                torch.cuda.empty_cache()
+        print(f"tensor parallel {fmt}: warm predict median unsharded fused {rec['fused_ms']:.1f} "
+              f"ms, n_model=1 unfused {rec['n1_unfused_ms']:.1f} ms, n_model=2 "
+              f"{rec['n2']['warm_ms']:.1f} ms, n_model=4 {rec['n4']['warm_ms']:.1f} ms | {card}",
+              flush=True)
+        out["formats"][fmt] = rec
+        del base, tree, refs
+        if on_card:
+            torch.cuda.empty_cache()
+    if on_card:
+        # the engines' threads each took a cuBLAS handle, whose workspace the
+        # allocator keeps after the thread ends
+        torch.cuda.synchronize()
+        torch._C._cuda_clearCublasWorkspaces()
+        torch.cuda.empty_cache()
+    out["allocated_gib"] = {"before": allocated / 2**30,
+                            "after": (torch.cuda.memory_allocated() if on_card else 0) / 2**30}
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["launches"] = dict(out["launches"])
+    print(f"tensor parallel: the phase took {out['phase_s']:.1f} s; device memory allocated "
+          f"{out['allocated_gib']['before']:.3f} GiB before it, {out['allocated_gib']['after']:.3f} "
+          "after", flush=True)
+    return out
+
+
+def tp_engines(torch, tp, requests, refs, cfg, card, ServingEngine, SplitServingEngine):
+    """Both engines over the sharded policy ``tp``: 4 closed-loop clients x 2
+    requests each, every result held to ``refs`` (the sharded predict's ids
+    and margins) under engine_rule_ok; the kernel launches of each window."""
+    res = {}
+    for label, make in (
+            ("monolithic", lambda: ServingEngine(tp, max_batch_size=4, batch_buckets=(1, 2, 4))),
+            ("split_kv8", lambda: SplitServingEngine(tp, n_slots=4, decode_block=4,
+                                                     max_prompt_len=320, kv_bits=8))):
+        t0 = time.perf_counter()
+        with make() as engine:
+            if label.startswith("split"):
+                engine.warmup(requests[0][0], [r[1] for r in requests])
+                engine.reset_stats()
+            (results, lat, wall), counts = tp_counts(
+                torch, lambda: engine_clients(engine, requests, 4, 2, f"{label} engine over "
+                                              "shard(n_model=2)"))
+            stats = engine.stats()
+        exact, first = check_engine_results(results, requests, refs, cfg,
+                                            f"{label} engine over shard(n_model=2)")
+        if torch.cuda.is_available() and not all(
+                counts.get(k, 0) > 0 for k in ("q8_matvec", "q8_rmsnorm_matvec")):
+            fail(f"{label} engine over shard(n_model=2): kernels #1 and #2 not launched "
+                 f"({counts})")
+        res[label] = {**engine_summary(lat, wall, len(results)), "stats": stats,
+                      "launches": counts, "exact_and_first": (exact, first),
+                      "s": time.perf_counter() - t0}
+        print(f"tensor parallel engines: {label} over shard(n_model=2), 4 clients x 2 "
+              f"requests: {res[label]['actions_per_s']:.2f} actions/s, p50 "
+              f"{res[label]['latency_ms_p50']:.1f} ms; of {len(results)} results {exact} equal "
+              f"the sharded predict's ids, {first} its first token, all within the margin rule; "
+              f"launches {counts} | {card}", flush=True)
+    return res
+
+
+# ---------------------------------------------------------------------------
 # training path
 # ---------------------------------------------------------------------------
 
@@ -3468,6 +3808,8 @@ def main() -> int:
                               ds.norm_residual], tuned)
     del tuned
     t_eval = time.perf_counter() - t_start - t_earlier - t_lora
+    torch.cuda.empty_cache()
+    tensor = tensor_parallel_path(torch, timer, results, notes)
     print(f"finetune path: LoRA step median {lora['step_ms_median']:.2f} ms, "
           f"{lora['tokens_per_s']:.1f} tokens/s, peak {lora['peak_mem_gib']:.2f} GiB; checkpoint "
           f"write {lora['saves'][lora['restore']['step']]['s']:.3f} s / restore "
@@ -3477,14 +3819,17 @@ def main() -> int:
     print(f"eval path: {evals['serial']['episodes_per_s']:.3f} episodes/s serially, "
           f"{evals['parallel']['episodes_per_s']:.3f} with 4 envs through the engine (mean batch "
           f"{evals['parallel']['engine']['mean_batch_occupancy']:.2f}) | {card}", flush=True)
-    wall = {"before_finetune_s": t_earlier, "finetune_path_s": t_lora, "eval_path_s": t_eval}
+    wall = {"before_finetune_s": t_earlier, "finetune_path_s": t_lora, "eval_path_s": t_eval,
+            "tensor_parallel_s": tensor["phase_s"]}
     print(f"wall time: {t_earlier:.1f} s to the end of the training phase (build included), "
-          f"finetune path {t_lora:.1f} s, eval path {t_eval:.1f} s", flush=True)
+          f"finetune path {t_lora:.1f} s, eval path {t_eval:.1f} s, tensor parallel "
+          f"{tensor['phase_s']:.1f} s", flush=True)
     print("detail: " + json.dumps({"build_s": build_s, "decode_step_2_layers": steps,
                                    "decode_step_matrix": matrix, "refused_shape_step": refused,
                                    "main_path": path, "serving_engines": engines,
                                    "checkpoint_path": ckpt,
-                                   "serving_configs": serving, "train_path": train,
+                                   "serving_configs": serving, "tensor_parallel": tensor,
+                                   "train_path": train,
                                    "parallel_path": par,
                                    "tiny_overfit": overfit, "finetune_path": lora,
                                    "eval_path": evals, "wall_s": wall,
@@ -3588,6 +3933,30 @@ def main() -> int:
             "eval_path_launches": None if tiled or name not in evals["serial"]["launches"]
             else {run: evals[run]["launches"][name] for run in ("serial", "parallel")},
             **extra,
+        })
+    # kernels #1 and #2 at the shard shapes of the tensor-parallel phase: one
+    # entry a wrapper, its first shape (n = 2, o or qkv) in front and every
+    # shard shape under "shard_shapes"; launches those of the phase's counted
+    # requests (one a format and n, and the 2-row batch over data x model)
+    for name in TP_KERNELS:
+        source, replaces = KERNEL_SOURCES[name]
+        r = results[name + "_tp"]
+        first = next(iter(r["ms"]))
+        bound_ms, bound_by = r["bound"][first]
+        kernels.append({
+            "name": name + "_tp", "route": "cuda", "source": f"spatialvla_tpu_torch/csrc/{source}",
+            "kernel_sources": [f"spatialvla_tpu_torch/csrc/{source}"]
+            + (["spatialvla_tpu_torch/csrc/q8_matvec.cu"] if name.startswith("q4") else []),
+            "replaces": replaces, "launches": tensor["launches"][name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"][first], "plain_ms": r["plain_ms"][first],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": r["library_ms"][first],
+            "shape": first, "launches_on": "tensor_parallel (one request a format and n_model, "
+            "and the n_model=2 x n_data=2 batch)", "library_note": notes.get(name + "_tp"),
+            "tolerance": "max|kernel - plain| / max|plain| < "
+            + ("2e-2 (bf16 out)" if name.startswith("q4") else "1e-2"),
+            "shard_shapes": {sh: {"ms": r["ms"][sh], "plain_ms": r["plain_ms"][sh],
+                                  "bound_ms": r["bound"][sh][0], "bound_by": r["bound"][sh][1],
+                                  "library_ms": r["library_ms"][sh]} for sh in r["ms"]},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

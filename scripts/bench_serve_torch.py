@@ -16,6 +16,7 @@ quantize(bits=8), nothing downloaded):
     python scripts/bench_serve_torch.py --clients 8 --requests 4 [--split]
         [--bits 8] [--mlp_bits 4] [--kv_bits 8] [--n_slots 16]
         [--decode_block 4] [--max_batch 16] [--parity_check] [--seed 0]
+        [--mesh_model N] [--mesh_data N]
     # CPU smoke: spatialvla_tiny, its sliding window widened to hold the cache
     python scripts/bench_serve_torch.py --tiny --device cpu --clients 3 --requests 2
 
@@ -32,6 +33,11 @@ speeds are not the untraced run's.
 token equal, then equal up to the first step whose ``predict`` argmax margin
 is below 0.5 (the engines batch and pad, so a near tie may round the other
 way). Without a card the default ``--device cuda`` raises.
+``--mesh_model`` / ``--mesh_data`` serve a sharded policy
+(``SpatialVLAPolicy.shard``, every shard on the one card): under a mesh
+``--kv_bits`` needs ``--split`` (the monolithic mesh decode has no int8-cache
+layout; the split engine takes the knob), and ``--split`` also serves a bf16
+LM (``--bits 0``).
 """
 import argparse
 import collections
@@ -90,10 +96,18 @@ def build_policy(args):
     else:
         cfg = spatialvla_4b()
     policy = SpatialVLAPolicy.init_random(cfg, device, seed=args.seed)
+    meshed = _meshed(args)
     if args.bits or args.kv_bits:
+        # under a mesh the split ENGINE owns the kv_bits knob (make_engine)
         policy.quantize(args.bits or None, mlp_bits=args.mlp_bits or None,
-                        kv_bits=args.kv_bits or None)
+                        kv_bits=None if meshed else (args.kv_bits or None))
+    if meshed:
+        policy.shard(n_model=args.mesh_model, n_data=args.mesh_data)
     return policy
+
+
+def _meshed(args) -> bool:
+    return args.mesh_model > 1 or args.mesh_data > 1
 
 
 def make_engine(policy, args):
@@ -102,7 +116,8 @@ def make_engine(policy, args):
     if args.split:
         return SplitServingEngine(policy, n_slots=args.n_slots, max_prompt_len=args.max_prompt_len,
                                   prompt_pad_multiple=args.pad_multiple,
-                                  decode_block=args.decode_block)
+                                  decode_block=args.decode_block,
+                                  kv_bits=(args.kv_bits or None) if _meshed(args) else None)
     return ServingEngine(policy, max_batch_size=args.max_batch,
                          prompt_pad_multiple=args.pad_multiple,
                          batch_buckets=bucket_ladder(args.max_batch))
@@ -254,6 +269,10 @@ def main(argv=None):
     p.add_argument("--decode_block", type=int, default=4,
                    help="split engine: decode steps a dispatch")
     p.add_argument("--max_batch", type=int, default=16, help="monolithic engine: batch rows")
+    p.add_argument("--mesh_model", type=int, default=1,
+                   help="tensor-parallel serving over N model shards (policy.shard)")
+    p.add_argument("--mesh_data", type=int, default=1,
+                   help="data groups a batch's rows split over (policy.shard)")
     p.add_argument("--parity_check", action="store_true",
                    help="hold the engine's ids to policy.predict first (margin rule)")
     p.add_argument("--seed", type=int, default=0, help="random weights and frames")
@@ -265,8 +284,14 @@ def main(argv=None):
                    help="torch.profiler over the timed window: card busy / idle, kernels, "
                         "host waits")
     args = p.parse_args(argv)
-    if args.split and not args.bits:
-        p.error("--split needs a fused-quantized LM: pass --bits 8 or 4")
+    if args.split and not args.bits and not _meshed(args):
+        p.error("--split on a single device needs a fused-quantized LM: pass --bits 8 or 4 "
+                "(mesh-sharded split serving also takes bf16: its decode step is "
+                "xla_decode_step)")
+    if args.kv_bits and not args.split and _meshed(args):
+        p.error("--kv_bits under a mesh needs --split: the monolithic mesh decode has no "
+                "int8-cache layout (split serving runs xla_decode_step's code-domain "
+                "attention)")
     args.pad_multiple = 64  # every pool prompt pads to one length bucket
     args.max_prompt_len = 320
 
@@ -287,6 +312,8 @@ def main(argv=None):
     if args.kv_bits:
         tag += f", int{args.kv_bits} kv"
     tag += ", split-phase" if args.split else ", monolithic"
+    if _meshed(args):
+        tag += f", mesh model={args.mesh_model} data={args.mesh_data}"
     cuda = policy.device.type == "cuda"
     result = {
         "metric": f"serving load, {args.clients} closed-loop clients ({tag})",

@@ -16,7 +16,10 @@ port's own format, both quantized here (``--bits``, ``--vision_bits``,
 ``--serving`` loads a baked serving checkpoint
 (``scripts/quantize_checkpoint_torch.py``), whose knobs override those
 flags. Runs on the card unless ``--device cpu``; without a card the default
-raises.
+raises. ``--mesh_model N`` / ``--mesh_data N`` shard the policy
+(``SpatialVLAPolicy.shard``, every shard on the one device): under a mesh
+``--kv_bits`` needs ``--split``, whose engine takes the knob (a serving
+checkpoint's baked kv_bits moves to it; the monolithic engine clears it).
 
 API:
     POST /predict   {"image": <nested [H][W][3] uint8 list, or base64
@@ -116,7 +119,13 @@ def make_handler(engine):
     return Handler
 
 
+def meshed(args) -> bool:
+    return args.mesh_model > 1 or args.mesh_data > 1
+
+
 def load_policy(args):
+    """The policy the flags describe, sharded under ``--mesh_model`` /
+    ``--mesh_data``; under a mesh ``args.kv_bits`` is the split engine's."""
     from spatialvla_tpu_torch.inference import SpatialVLAPolicy
 
     if args.serving:
@@ -127,13 +136,31 @@ def load_policy(args):
                   f"(kv_bits={policy.kv_bits}, depth_res={policy.depth_image_size}) overrides "
                   "the --bits/--vision_bits/--mlp_bits/--kv_bits/--depth_res/--group_size "
                   "flags", flush=True)
-        return policy
-    load = SpatialVLAPolicy.from_hf_checkpoint if args.hf else SpatialVLAPolicy.load
-    policy = load(args.hf or args.ckpt, device=args.device)
-    if args.bits or args.vision_bits or args.depth_res or args.kv_bits:
-        policy.quantize(args.bits or None, vision_bits=args.vision_bits or None,
-                        depth_image_size=args.depth_res or None, kv_bits=args.kv_bits or None,
-                        mlp_bits=args.mlp_bits or None, group_size=args.group_size or None)
+        if meshed(args) and policy.kv_bits:
+            # shard() rejects a policy-level kv_bits (the monolithic mesh
+            # decode has no int8-cache layout); the split engine takes it
+            baked, policy.kv_bits = policy.kv_bits, None
+            if args.split:
+                args.kv_bits = args.kv_bits or baked
+                print(f"note: baked kv_bits={baked} moves to the split engine (mesh-sharded "
+                      "int8 KV runs xla_decode_step)", flush=True)
+            else:
+                print(f"note: clearing baked kv_bits={baked}: the monolithic mesh decode has "
+                      "no int8-cache layout (--split serves it sharded)", flush=True)
+    else:
+        if meshed(args) and args.kv_bits and not args.split:
+            raise SystemExit("--kv_bits under a mesh needs --split (the monolithic mesh decode "
+                             "has no int8-cache layout)")
+        load = SpatialVLAPolicy.from_hf_checkpoint if args.hf else SpatialVLAPolicy.load
+        policy = load(args.hf or args.ckpt, device=args.device)
+        if args.bits or args.vision_bits or args.depth_res or args.kv_bits:
+            policy.quantize(args.bits or None, vision_bits=args.vision_bits or None,
+                            depth_image_size=args.depth_res or None,
+                            # under a mesh the split engine owns the kv_bits knob
+                            kv_bits=None if meshed(args) else (args.kv_bits or None),
+                            mlp_bits=args.mlp_bits or None, group_size=args.group_size or None)
+    if meshed(args):
+        policy.shard(n_model=args.mesh_model, n_data=args.mesh_data)
     return policy
 
 
@@ -152,6 +179,10 @@ def main(argv=None):
     ap.add_argument("--group_size", type=int, default=0, help="int4 grouped scales")
     ap.add_argument("--depth_res", type=int, default=0, help="reduced ZoeDepth resolution")
     ap.add_argument("--device", default="cuda", help="cuda (raises without a card) or cpu")
+    ap.add_argument("--mesh_model", type=int, default=1,
+                    help="tensor-parallel serving over N model shards (policy.shard)")
+    ap.add_argument("--mesh_data", type=int, default=1,
+                    help="data groups a batch's rows split over (policy.shard)")
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--max_batch", type=int, default=16,
                     help="monolithic: rows a batch; split: decode slots")
@@ -204,6 +235,7 @@ def main(argv=None):
             prompt_pad_multiple=args.pad_multiple, decode_block=args.decode_block,
             max_queue=args.max_queue or None, prefill_min_free=args.prefill_min_free,
             prefill_wait_ms=args.prefill_wait_ms, prefill_quiet_ms=args.prefill_quiet_ms,
+            kv_bits=(args.kv_bits or None) if meshed(args) else None,
         )
         if not args.no_warmup:
             print("warming the split engine's prefill buckets...", flush=True)

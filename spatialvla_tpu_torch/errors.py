@@ -2,8 +2,8 @@
 
 # ROADMAP.md items that hold what is still to port
 ROADMAP_ITEMS = {
-    "parallel": ("Queue A item 8b, the model axis: tensor parallelism (SpatialVLAPolicy.shard, "
-                 "the mesh-sharded serving engines, --mesh_model)"),
+    "parallel": ("Queue A item 8c, the model axis in training: --mesh_model in the pretrain and "
+                 "fine-tune CLIs and make_mesh with model > 1"),
 }
 
 

@@ -15,7 +15,8 @@ takes ``device`` (default "cuda", which raises without a card; the tests
 pass "cpu"). ``quantize`` takes every serving format of the JAX package:
 int8 or int4 LM (per channel or ``group_size``), ``mlp_bits=4`` for an int4
 MLP under an int8 attention and head, int8 or int4 vision front, and
-``kv_bits=8`` for an int8 KV cache. ``shard`` is not ported yet (ROADMAP.md).
+``kv_bits=8`` for an int8 KV cache. ``shard`` lays the tree over a
+``data x model`` mesh held by this process (tensor-parallel serving, below).
 
 On the card the fused decode loop runs as a CUDA graph per batch size and
 cache bucket (``models/spatialvla.py:GreedyLoop``; prefixes within 64 tokens
@@ -23,6 +24,19 @@ of each other share one), captured at the first request of that shape and
 replayed after; the policy keeps them (``decode_graphs``) and drops them
 whenever it replaces its parameters (``quantize``, ``to``).
 ``policy.use_cuda_graph = False`` serves through the eager loop instead.
+
+``shard(n_model=, n_data=, devices=None)`` replaces ``params`` with the
+trees of the model shards (``parallel/partitioning.py:ShardedParams``), as
+JAX replaces its tree with a sharded one, and keeps the ``LocalMesh`` in
+``mesh``. Every shard lies on the policy's device by default (what one card
+runs); ``devices`` puts each on a CUDA device of its own, one
+``torch.cuda.nccl.all_reduce`` a reduction (no machine has tried that form
+yet: it needs several cards). Under a mesh ``predict`` / ``predict_batch``
+run the masked prefill and the unfused decode loop with no CUDA graph (JAX's
+``use_fused_decode=False``), each shard's few-row matmuls on the kernels of
+``ops/quant.py`` at the shard's shapes; a batch whose rows n_data divides is
+split over the data groups, which run in turn, and otherwise group 0 runs it
+whole (JAX's replicated placement).
 """
 from __future__ import annotations
 
@@ -36,7 +50,6 @@ import torch
 from .config import SpatialVLAConfig
 from .convert.bridge import map_tree
 from .convert.params import target_device
-from .errors import not_ported
 from .models import spatialvla
 from .ops.quant import quantize_lm_params, quantize_vision_params
 from .processor import ByteTokenizer, SpatialVLAProcessor, TextTokenizer
@@ -67,6 +80,7 @@ class SpatialVLAPolicy:
         self.kv_bits: Optional[int] = None  # set by quantize()
         self.quant_desc: Optional[Dict] = None  # set by quantize()
         self.quality_gate: Optional[Dict] = None  # a serve.gating artifact
+        self.mesh = None  # set by shard()
         # the fused decode loop's CUDA graphs, captured for self.params;
         # use_cuda_graph None: on for CUDA tensors (predict_action's option)
         self.decode_graphs = spatialvla.DecodeGraphs()
@@ -86,6 +100,9 @@ class SpatialVLAPolicy:
     def to(self, device) -> "SpatialVLAPolicy":
         """Move every parameter to ``device``; returns self. The decode
         graphs of the old tree are dropped."""
+        if self.mesh is not None:
+            raise ValueError("to() on a sharded policy is unsupported: shard() placed the "
+                             "shards (its devices argument)")
         self.device = torch.device(device)
         self.decode_graphs.clear()
         self.params = map_tree(lambda t: t.to(self.device), self.params)
@@ -147,6 +164,9 @@ class SpatialVLAPolicy:
             if not ok:
                 raise ValueError("quality_gate does not cover this checkpoint's baked knobs: "
                                  + "; ".join(problems))
+        if self.mesh is not None:
+            raise ValueError("save_serving() on a sharded policy is unsupported: save before "
+                             "shard() (the loaded tree re-shards with the same rules)")
         save_params(directory, self.params, config_json=self.config.to_json())
         self.processor.save(directory)
         with open(os.path.join(directory, "serving_config.json"), "w") as f:
@@ -190,8 +210,36 @@ class SpatialVLAPolicy:
         policy.quality_gate = scfg.get("quality_gate")
         return policy
 
-    def shard(self, *args, **kwargs):
-        raise not_ported("shard() (tensor parallelism over a mesh)")
+    def shard(self, *, n_model: int = 1, n_data: int = 1, devices=None) -> "SpatialVLAPolicy":
+        """Mesh-sharded serving (inference.py:308): ``n_model`` shards of
+        tensor parallelism, each holding its attention heads, MLP hidden
+        columns and vocabulary rows of the weight matrices
+        (``parallel/partitioning.py:TensorShards``), their partial products
+        summed after each projection (``parallel/mesh.py:sum_shards``), and
+        ``n_data`` data groups over which ``predict_batch`` splits its rows
+        when it can. ``devices`` (n_data * n_model, data-major) places the
+        shards; None puts all of them on the policy's device.
+
+        Prediction under a mesh runs the unfused decode loop, whose
+        monolithic form has no int8-cache layout, so policy-level kv_bits is
+        rejected; mesh-sharded split serving takes int8 KV through
+        SplitServingEngine(kv_bits=8). Call quantize() before shard(): the
+        quantized tree shards with the same rules. In place; returns self."""
+        from .parallel.mesh import LocalMesh
+        from .parallel.partitioning import ShardedParams
+
+        if self.kv_bits:
+            raise ValueError(
+                "kv_bits on the monolithic mesh path is unsupported: quantize(kv_bits=None) "
+                "before shard(); for mesh-sharded split serving pass "
+                "SplitServingEngine(kv_bits=8) instead")
+        mesh = LocalMesh(data=n_data, model=n_model,
+                         devices=None if devices is None else tuple(devices))
+        self.decode_graphs.clear()
+        with torch.inference_mode():
+            self.params = ShardedParams.shard(self.params, self.config, mesh, self.device)
+        self.mesh = mesh
+        return self
 
     # ------------------------------------------------------------------
     def quantize(self, bits: Optional[int] = 8, *, vision_bits: Optional[int] = 8,
@@ -208,6 +256,9 @@ class SpatialVLAPolicy:
         place; returns self. Each tensor is quantized on its own so the fp32
         temporaries stay small. The decode graphs of the old tree are
         dropped."""
+        if self.mesh is not None:
+            raise ValueError("quantize() after shard() is unsupported: quantize first, then "
+                             "shard (the quantized tree shards with the same rules)")
         prior = self.quant_desc or {}
         # per-subtree re-pack guard: only the subtree already packed blocks a
         # second pass over it (a knob-only call never trips it)
@@ -249,6 +300,8 @@ class SpatialVLAPolicy:
 
     # ------------------------------------------------------------------
     def _generate(self, inputs, attention_mask=None, return_margins=False):
+        if self.mesh is not None:
+            return self._generate_sharded(inputs, attention_mask, return_margins)
         dev = self.device
         with torch.inference_mode():
             return spatialvla.predict_action(
@@ -265,6 +318,38 @@ class SpatialVLAPolicy:
                 use_cuda_graph=self.use_cuda_graph,
                 decode_graphs=self.decode_graphs,
             )
+
+    def _generate_sharded(self, inputs, attention_mask, return_margins):
+        """``_generate`` over the mesh (inference.py:351-395): the rows split
+        over the data groups when n_data divides them (each group's on its
+        home device, the groups in turn), else group 0 takes them all; each
+        group runs the unfused path over its model shards. The result lies on
+        group 0's home device."""
+        groups = self.params.groups
+        ids = torch.as_tensor(inputs["input_ids"], dtype=torch.long)
+        B = ids.shape[0]
+        n = len(groups) if len(groups) > 1 and B % len(groups) == 0 else 1
+        per = B // n
+        outs = []
+        with torch.inference_mode():
+            for g in range(n):
+                rows, dev = slice(g * per, (g + 1) * per), groups[g].home
+                mask = None if attention_mask is None else attention_mask[rows].to(dev)
+                outs.append(spatialvla.predict_action(
+                    groups[g], self.config, ids[rows].to(dev),
+                    pixel_values=torch.as_tensor(inputs["pixel_values"])[rows].to(dev),
+                    intrinsic=torch.as_tensor(inputs["intrinsic"])[rows].to(dev),
+                    attention_mask=mask,
+                    action_chunk_size=self.processor.action_chunk_size,
+                    compute_dtype=self.compute_dtype,
+                    depth_image_size=self.depth_image_size,
+                    return_margins=return_margins,
+                    use_fused_decode=False,
+                ))
+        home = groups[0].home
+        if return_margins:
+            return tuple(torch.cat([o[i].to(home) for o in outs]) for i in range(2))
+        return torch.cat([o.to(home) for o in outs])
 
     def predict(self, image, instruction: str, *, unnorm_key: Optional[str] = None,
                 return_margins: bool = False) -> Dict[str, np.ndarray]:

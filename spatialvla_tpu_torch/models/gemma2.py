@@ -164,6 +164,23 @@ def make_masks(cfg, base_mask, q_positions, k_positions):
     return base_mask, base_mask & within
 
 
+def _prepare(cfg, inputs_embeds, position_ids, base_mask, cache_len, cache_position,
+             window_positions):
+    """The scaled embeddings, RoPE tables and (global, sliding) masks of a
+    masked forward over ``cache_len`` key slots."""
+    B, T, H = inputs_embeds.shape
+    dev = inputs_embeds.device
+    normalizer = torch.tensor(cfg.hidden_size ** 0.5, dtype=inputs_embeds.dtype, device=dev)
+    h = inputs_embeds * normalizer
+    cos, sin = rope_cos_sin(position_ids, cfg.head_dim, cfg.rope_theta)
+    start = cache_position if cache_position is not None else 0
+    k_positions = torch.arange(cache_len, device=dev)
+    q_positions = (torch.arange(T, device=dev)[None, :] + start).expand(B, T)
+    if window_positions is not None:
+        q_positions, k_positions = window_positions
+    return (h, cos, sin) + make_masks(cfg, base_mask, q_positions, k_positions)
+
+
 def forward(
     params: Params,
     cfg,
@@ -180,19 +197,11 @@ def forward(
     the rows are written into it in place and the same dict is returned.
     use_remat recomputes each layer in the backward pass (training, no
     cache)."""
-    B, T, H = inputs_embeds.shape
-    dev = inputs_embeds.device
-    normalizer = torch.tensor(cfg.hidden_size ** 0.5, dtype=inputs_embeds.dtype, device=dev)
-    h = inputs_embeds * normalizer
-    cos, sin = rope_cos_sin(position_ids, cfg.head_dim, cfg.rope_theta)
-
+    T = inputs_embeds.shape[1]
     start = cache_position if cache_position is not None else 0
     S = cache["k"].shape[2] if cache is not None else T
-    k_positions = torch.arange(S, device=dev)
-    q_positions = (torch.arange(T, device=dev)[None, :] + start).expand(B, T)
-    if window_positions is not None:
-        q_positions, k_positions = window_positions
-    mask_global, mask_sliding = make_masks(cfg, base_mask, q_positions, k_positions)
+    h, cos, sin, mask_global, mask_sliding = _prepare(
+        cfg, inputs_embeds, position_ids, base_mask, S, cache_position, window_positions)
 
     if use_remat and cache is not None:
         raise ValueError("use_remat is for training; it takes no cache")
@@ -206,6 +215,110 @@ def forward(
             h = _decoder_layer(cfg, h, lp, mask, cos, sin, (cache["k"][l], cache["v"][l]), start)
 
     return rms_norm(params["final_norm"], h, cfg.rms_norm_eps), cache
+
+
+# ---------------------------------------------------------------------------
+# over the model axis (tensor parallelism, SpatialVLAPolicy.shard)
+# ---------------------------------------------------------------------------
+# ``tp`` is one data group of a sharded tree (parallel/partitioning.py
+# ShardGroup): each shard of the attention runs the block above over its q
+# and kv heads (``tp.text_cfg()``) and its own cache, each shard of the MLP
+# over its hidden columns; their partial ``o`` / ``down`` products are summed
+# (``sum_shards``). The residual stream, the norms and a whole block run on
+# the group's home device.
+
+def init_cache_tp(tp, cfg, batch: int, max_len: int, *, dtype=torch.bfloat16) -> List[Params]:
+    """One cache a shard of the attention, over its kv heads, on its device."""
+    tcfg = tp.text_cfg()
+    return [init_cache(tcfg, batch, max_len, device=tp.devices[s], dtype=dtype)
+            for s in tp.shards("lm_attn")]
+
+
+def decoder_layer_tp(tp, l: int, cfg, h, mask, cos, sin, caches, cache_position):
+    """Layer l of the stack over the model shards (``_decoder_layer``);
+    ``caches`` one cache a shard of the attention (None: no cache)."""
+    lps = tp.layers("lm")
+    lp = lps[0][l]
+    tcfg, eps = tp.text_cfg(), cfg.rms_norm_eps
+
+    def attn(s, tree, h, mask, cos, sin):
+        cache_kv = None if caches is None else (caches[s]["k"][l], caches[s]["v"][l])
+        return _attention_block(lps[s][l]["attn"], tcfg, h, lps[s][l]["input_norm"], cos, sin,
+                                mask, cache_kv, cache_position)
+
+    attn_out = tp.reduce("lm_attn", attn, h, mask, cos, sin)
+    h = h + rms_norm(lp["post_attn_norm"], attn_out, eps)
+    mlp_out = tp.reduce("lm_mlp", lambda s, tree, h: _mlp_block(lps[s][l]["mlp"], h,
+                                                               lps[s][l]["pre_ffn_norm"], eps), h)
+    return h + rms_norm(lp["post_ffn_norm"], mlp_out, eps)
+
+
+def forward_tp(tp, cfg, inputs_embeds, position_ids, base_mask, *, caches: List[Params],
+               cache_position: int = 0, window_positions=None) -> torch.Tensor:
+    """``forward`` with a cache over the model shards of ``tp``: the rows are
+    written in place into ``caches`` (``init_cache_tp``); returns
+    final_norm(h) on the home device."""
+    S = caches[0]["k"].shape[2]
+    h, cos, sin, mask_global, mask_sliding = _prepare(
+        cfg, inputs_embeds, position_ids, base_mask, S, cache_position, window_positions)
+    for l in range(cfg.num_layers):
+        mask = mask_sliding if l % 2 == 0 else mask_global  # even layers slide
+        h = decoder_layer_tp(tp, l, cfg, h, mask, cos, sin, caches, cache_position)
+    return rms_norm(tp.trees[0]["lm"]["final_norm"], h, cfg.rms_norm_eps)
+
+
+def embed_tokens_tp(tp, input_ids: torch.Tensor, dtype=None) -> torch.Tensor:
+    """``embed_tokens`` over a vocabulary cut: each shard looks up the ids
+    of its rows (the others masked to zero) and ``sum_shards`` adds them, so
+    every row is the table's own."""
+    if not tp.is_cut("vocab"):
+        return embed_tokens(tp.trees[0]["lm"], input_ids, dtype)
+
+    def one(s, tree, ids):
+        table = tree["lm"]["embed"]
+        rows = table.shape[0]
+        local = ids - s * rows
+        ok = (local >= 0) & (local < rows)
+        emb = table[local.clamp(0, rows - 1)]
+        return torch.where(ok[..., None], emb, torch.zeros_like(emb))
+
+    emb = tp.reduce("vocab", one, input_ids)
+    return emb if dtype is None else emb.to(dtype)
+
+
+def _head_of(lm: Params):
+    return lm["lm_head"] if "lm_head" in lm else lm["embed"].t()
+
+
+def head_logits_tp(tp, cfg, hidden: torch.Tensor, token_range=None, *,
+                   full_logits: bool = False) -> torch.Tensor:
+    """The logits of the greedy head over a vocabulary cut, in id order on the
+    home device: the head's rows [begin, begin + size) of ``token_range``
+    (None: every id) as ``qmatmul`` gives them, or with ``full_logits``
+    ``compute_logits``' softcapped fp32 ones. Each shard computes the rows
+    it holds inside the range (a shard holding none computes nothing), and
+    the blocks are joined in order, so argmax and margins over them are
+    those of the whole vector."""
+    from ..ops.quant import is_quantized
+
+    V = cfg.vocab_size
+    lo, hi = (0, V) if token_range is None else (token_range[0], token_range[0] + token_range[1])
+    width = V // tp.n if tp.is_cut("vocab") else V
+    parts = []
+    for s in tp.shards("vocab"):
+        a, b = max(lo, s * width), min(hi, (s + 1) * width)
+        if a >= b:
+            continue
+        head = _head_of(tp.trees[s]["lm"])
+        i, j = a - s * width, b - s * width
+        head = ({"qt": head["qt"][i:j], "scale": head["scale"][i:j]} if is_quantized(head)
+                else head[:, i:j])
+        x = hidden.to(tp.devices[s])
+        if full_logits:
+            parts.append(compute_logits({"lm_head": head}, cfg, x))
+        else:
+            parts.append(qmatmul(x, head))
+    return torch.cat([p.to(tp.home) for p in parts], dim=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -54,21 +54,35 @@ def _patchify(params: Params, cfg, pixel_values: torch.Tensor) -> torch.Tensor:
 
 
 def _linear(x: torch.Tensor, p: Params) -> torch.Tensor:
-    y = qmatmul(x, p["w"])
+    return _bias(qmatmul(x, p["w"]), p)
+
+
+def _bias(y: torch.Tensor, p: Params) -> torch.Tensor:
     return y + p["b"].to(y.dtype)
 
 
+def _attention(cfg, x: torch.Tensor, p: Params, nh: int) -> torch.Tensor:
+    """Self-attention of x over ``nh`` heads through p's q / k / v and o's
+    weight; o's bias is the caller's."""
+    B, N, _ = x.shape
+    hd = cfg.head_dim
+    q = _linear(x, p["q"]).reshape(B, N, nh, hd)
+    k = _linear(x, p["k"]).reshape(B, N, nh, hd)
+    v = _linear(x, p["v"]).reshape(B, N, nh, hd)
+    attn = multi_head_attention(q, k, v, None, scale=hd ** -0.5).reshape(B, N, nh * hd)
+    return qmatmul(attn, p["o"]["w"])
+
+
+def _mlp(x: torch.Tensor, p: Params) -> torch.Tensor:
+    """fc2's weight after gelu(fc1); fc2's bias is the caller's."""
+    return qmatmul(gelu_tanh(_linear(x, p["fc1"])), p["fc2"]["w"])
+
+
 def _encoder_layer(cfg, h: torch.Tensor, lp: Params) -> torch.Tensor:
-    B, N, H = h.shape
-    nh, hd = cfg.num_heads, cfg.head_dim
     x = layer_norm(lp["ln1"], h, cfg.layer_norm_eps)
-    q = _linear(x, lp["attn"]["q"]).reshape(B, N, nh, hd)
-    k = _linear(x, lp["attn"]["k"]).reshape(B, N, nh, hd)
-    v = _linear(x, lp["attn"]["v"]).reshape(B, N, nh, hd)
-    attn = multi_head_attention(q, k, v, None, scale=hd ** -0.5).reshape(B, N, H)
-    h = h + _linear(attn, lp["attn"]["o"])
+    h = h + _bias(_attention(cfg, x, lp["attn"], cfg.num_heads), lp["attn"]["o"])
     x2 = layer_norm(lp["ln2"], h, cfg.layer_norm_eps)
-    return h + _linear(gelu_tanh(_linear(x2, lp["mlp"]["fc1"])), lp["mlp"]["fc2"])
+    return h + _bias(_mlp(x2, lp["mlp"]), lp["mlp"]["fc2"])
 
 
 def forward(params: Params, cfg, pixel_values: torch.Tensor, *,
@@ -80,3 +94,28 @@ def forward(params: Params, cfg, pixel_values: torch.Tensor, *,
     for lp in unstack_layers(params["layers"], cfg.num_layers):
         h = layer(h, lp)
     return layer_norm(params["post_ln"], h, cfg.layer_norm_eps)
+
+
+def forward_tp(tp, cfg, pixel_values: torch.Tensor) -> torch.Tensor:
+    """``forward`` over the model shards of ``tp`` (parallel/partitioning.py
+    ShardGroup): the patch conv's output channels per shard, joined in order
+    before pos_embed; each layer's attention over a shard's heads and MLP
+    over its hidden columns, the partial o / fc2 products summed
+    (``sum_shards``) before their bias, which is added once. The residual
+    stream and the LayerNorms run on the group's home device."""
+    h = tp.gather("patch", lambda s, tree, px: _patchify(tree["vision"], cfg, px), pixel_values)
+    home = tp.trees[0]["vision"]
+    h = h + home["pos_embed"].to(h.dtype)[None]
+    lps = tp.layers("vision")
+    nh = cfg.num_heads // tp.n if tp.is_cut("vision_attn") else cfg.num_heads
+    eps = cfg.layer_norm_eps
+    for l in range(cfg.num_layers):
+        lp = lps[0][l]
+        x = layer_norm(lp["ln1"], h, eps)
+        attn = tp.reduce("vision_attn",
+                         lambda s, tree, x: _attention(cfg, x, lps[s][l]["attn"], nh), x)
+        h = h + _bias(attn, lp["attn"]["o"])
+        x2 = layer_norm(lp["ln2"], h, eps)
+        h = h + _bias(tp.reduce("vision_mlp", lambda s, tree, x: _mlp(x, lps[s][l]["mlp"]), x2),
+                      lp["mlp"]["fc2"])
+    return layer_norm(home["post_ln"], h, eps)

@@ -7,8 +7,8 @@ block.
 Training: ``forward`` (spatialvla.py:195) with ``attn_backend`` "xla" (the
 masked forward) or "flash" (``gemma2.forward_flash`` through the
 flash-attention kernels); the ZoeDepth branch runs under ``torch.no_grad``
-(``jax.lax.stop_gradient`` at :139). "ring" and "pipeline" wait for the
-parallelism item of ROADMAP.md.
+(``jax.lax.stop_gradient`` at :139). "ring" and "pipeline" run the sp ring
+and the GPipe stages of ``parallel/``.
 
 Decoding keeps the two JAX paths and the JAX rule for choosing between them
 (spatialvla.py:474-481): the fused path (one ``fused_decode_step`` per token,
@@ -25,6 +25,15 @@ Split-phase serving (``serve/split_engine.py``): ``prefill_for_serving``,
 ``init_serving_state``, ``admit_rows_serving``, ``decode_steps_serving``
 (the fused step, or ``xla_decode_step`` in plain torch ops) on a state
 written in place, replayed as one CUDA graph by ``ServingLoop``.
+
+Over the model axis (``SpatialVLAPolicy.shard``) the serving functions take
+one data group of the sharded tree (``parallel/partitioning.py:ShardGroup``)
+in place of ``params``: SigLIP, the projector, the LM's attention and MLP,
+the embedding and the greedy head run over the model shards (the models'
+``*_tp`` functions), ZoeDepth and Ego3D once on the group's home device. As
+in JAX, the decode loop there is the unfused one (``use_fused_decode`` is
+refused) and the split-phase decode is ``xla_decode_step`` over each
+shard's kv heads.
 """
 from __future__ import annotations
 
@@ -40,6 +49,7 @@ from . import siglip as siglip_mod
 from . import zoe as zoe_mod
 from .layers import normal_init, zeros
 from ..parallel.mesh import LocalMesh
+from ..parallel.partitioning import ShardGroup
 from ..ops.quant import is_quantized, qmatmul
 
 Params = Dict[str, Any]
@@ -106,8 +116,12 @@ def get_image_features(params: Params, cfg, pixel_values: torch.Tensor,
             intrinsic = intrinsic.repeat_interleave(k, dim=0)
         if depth is not None:
             depth = depth.reshape((B * k,) + tuple(depth.shape[2:]))
-    feats = siglip_mod.forward(params["vision"], cfg.vision,
-                               (pixel_values - SIGLIP_MEAN) / SIGLIP_STD, use_remat=use_remat)
+    tp = params if isinstance(params, ShardGroup) else None
+    if tp is not None:  # the replicated leaves, on the group's home device
+        params = tp.trees[0]
+    normed = (pixel_values - SIGLIP_MEAN) / SIGLIP_STD
+    feats = (siglip_mod.forward(params["vision"], cfg.vision, normed, use_remat=use_remat)
+             if tp is None else siglip_mod.forward_tp(tp, cfg.vision, normed))
     if cfg.use_vision_zoe:
         with torch.no_grad():  # frozen depth branch (stop_gradient, spatialvla.py:139)
             if depth is None:
@@ -120,19 +134,29 @@ def get_image_features(params: Params, cfg, pixel_values: torch.Tensor,
             patch_size=cfg.vision.patch_size, reso=cfg.ego3d.patch_reso,
         )
         feats = feats + ego3d_mod.forward(params["ego3d"], cfg.ego3d, xyz, dtype=feats.dtype)
-    proj = params["projector"]
-    feats = qmatmul(feats, proj["w"]) + proj["b"].to(feats.dtype)
+    if tp is None:
+        feats = _project(params["projector"], feats)
+    else:  # output columns over the model shards, joined before the scale
+        feats = tp.gather("projector", lambda s, tree, f: _project(tree["projector"], f), feats)
     feats = feats / (cfg.text.hidden_size ** 0.5)
     if multi_obs:
         feats = feats.reshape(B, -1, feats.shape[-1])
     return feats
 
 
+def _project(proj: Params, feats: torch.Tensor) -> torch.Tensor:
+    return qmatmul(feats, proj["w"]) + proj["b"].to(feats.dtype)
+
+
 def merge_input_embeddings(params: Params, cfg, input_ids: torch.Tensor,
                            image_features: Optional[torch.Tensor], dtype=None):
     """Token embeddings with the spatial-token table overriding the action
     ids, and image features scattered into the <image> positions."""
-    embeds = gemma2_mod.embed_tokens(params["lm"], input_ids, dtype=dtype)
+    if isinstance(params, ShardGroup):  # the embedding over a vocabulary cut
+        embeds = gemma2_mod.embed_tokens_tp(params, input_ids, dtype=dtype)
+        params = params.trees[0]
+    else:
+        embeds = gemma2_mod.embed_tokens(params["lm"], input_ids, dtype=dtype)
     if cfg.use_spatial_token and "spatial_embed" in params:
         begin = cfg.action_token_begin_idx
         is_spatial = (input_ids >= begin) & (input_ids < begin + cfg.spatial_token_num)
@@ -274,6 +298,41 @@ def _greedy_head(lm_params: Params, token_range: Optional[Tuple[int, int]]):
     return token_range[0], _slice_head(lm_params, *token_range)
 
 
+def _head_logits(params, cfg, h: torch.Tensor, token_range, *, full_logits: bool = False):
+    """(id offset, logits) of the greedy head for h (..., H): the rows of
+    ``token_range`` (None: the whole head) through ``qmatmul``, or with
+    ``full_logits`` (and token_range None) ``gemma2.compute_logits``'s
+    softcapped fp32 logits; over the model shards for a ``ShardGroup``."""
+    full_logits = full_logits and token_range is None
+    if isinstance(params, ShardGroup):
+        offset = 0 if token_range is None else token_range[0]
+        return offset, gemma2_mod.head_logits_tp(params, cfg.text, h, token_range,
+                                                 full_logits=full_logits)
+    if full_logits:
+        return 0, gemma2_mod.compute_logits(params["lm"], cfg.text, h)
+    offset, head = _greedy_head(params["lm"], token_range)
+    return offset, qmatmul(h, head)
+
+
+def _lm_forward(params, cfg, embeds, position_ids, mask, cache, cache_position,
+                window_positions=None):
+    """The masked LM forward with a cache (written in place): ``gemma2.forward``,
+    or over the model shards of a ``ShardGroup`` (``cache`` one a shard of the
+    attention, ``gemma2.init_cache_tp``)."""
+    if isinstance(params, ShardGroup):
+        return gemma2_mod.forward_tp(params, cfg.text, embeds, position_ids, mask, caches=cache,
+                                     cache_position=cache_position,
+                                     window_positions=window_positions), cache
+    return gemma2_mod.forward(params["lm"], cfg.text, embeds, position_ids, mask, cache=cache,
+                              cache_position=cache_position, window_positions=window_positions)
+
+
+def _init_cache(params, cfg, B: int, S: int, *, device, dtype):
+    if isinstance(params, ShardGroup):
+        return gemma2_mod.init_cache_tp(params, cfg.text, B, S, dtype=dtype)
+    return gemma2_mod.init_cache(cfg.text, B, S, device=device, dtype=dtype)
+
+
 def _argmax_margin(logits: torch.Tensor) -> torch.Tensor:
     """(..., V) -> (...,) fp32 top1 - top2 logit."""
     top2 = torch.topk(logits.float(), 2, dim=-1).values
@@ -324,6 +383,10 @@ def generate_greedy(
     graph_kw = dict(use_cuda_graph=use_cuda_graph, decode_graphs=decode_graphs)
     if use_flash_prefill and attention_mask is not None:
         raise ValueError("use_flash_prefill assumes unpadded rows (attention_mask=None)")
+    if isinstance(params, ShardGroup) and (use_flash_prefill or use_fused_decode or kv_bits):
+        raise ValueError("over the model axis the prefill is the masked one and the decode loop "
+                         "the unfused one (use_flash_prefill, use_fused_decode and kv_bits off), "
+                         "as in JAX")
     B, P = input_ids.shape
     S = P + max_new_tokens
     dev = input_ids.device
@@ -345,7 +408,7 @@ def generate_greedy(
             compute_dtype, valid=None, key_valid=None, k_pos_true=None, kv_bits=kv_bits,
             return_margins=return_margins, **graph_kw,
         )
-    cache = gemma2_mod.init_cache(cfg.text, B, S, device=dev, dtype=cache_dtype)
+    cache = _init_cache(params, cfg, B, S, device=dev, dtype=cache_dtype)
     if attention_mask is None:
         position_ids = torch.arange(1, P + 1, device=dev)[None].expand(B, P)
         mask = bidirectional_prefill_mask(P, S, B, device=dev)
@@ -359,10 +422,8 @@ def generate_greedy(
         k_pos_true = torch.cat(
             [position_ids, valid[:, None] + torch.arange(1, S - P + 1, device=dev)[None]], dim=-1
         )
-    hidden, cache = gemma2_mod.forward(
-        params["lm"], cfg.text, embeds, position_ids, mask, cache=cache, cache_position=0,
-        window_positions=None if valid is None else (position_ids, k_pos_true),
-    )
+    hidden, cache = _lm_forward(params, cfg, embeds, position_ids, mask, cache, 0,
+                                None if valid is None else (position_ids, k_pos_true))
     return _decode_after_prefill(
         params, cfg, cache, hidden, P, S, max_new_tokens, token_range, use_fused_decode,
         compute_dtype, valid=valid, key_valid=key_valid, k_pos_true=k_pos_true, kv_bits=kv_bits,
@@ -382,7 +443,8 @@ def _decode_after_prefill(params, cfg, cache, hidden, P, S, max_new_tokens, toke
     """The greedy decode loop after the prefill (spatialvla.py:439)."""
     B = hidden.shape[0]
     use_fused = (
-        "qkv" in params["lm"]["layers"]["attn"]
+        not isinstance(params, ShardGroup)
+        and "qkv" in params["lm"]["layers"]["attn"]
         and B <= 16
         and S <= cfg.text.sliding_window
         and hidden.is_cuda
@@ -399,16 +461,12 @@ def _decode_after_prefill(params, cfg, cache, hidden, P, S, max_new_tokens, toke
     if kv_bits:
         raise ValueError("kv_bits requires the fused decode path (use_fused_decode)")
 
-    if token_range is not None:
-        begin, head = _greedy_head(params["lm"], token_range)
-
-        def next_from(hidden_last):
-            logits = qmatmul(hidden_last[:, 0], head)
-            return torch.argmax(logits, dim=-1) + begin, _argmax_margin(logits)
-    else:
-        def next_from(hidden_last):
-            logits = gemma2_mod.compute_logits(params["lm"], cfg.text, hidden_last)[:, 0]
-            return torch.argmax(logits, dim=-1), _argmax_margin(logits)
+    def next_from(hidden_last):
+        # the action block's rows as qmatmul gives them, or the whole
+        # vocabulary's softcapped logits
+        begin, logits = _head_logits(params, cfg, hidden_last[:, 0], token_range,
+                                     full_logits=True)
+        return torch.argmax(logits, dim=-1) + begin, _argmax_margin(logits)
 
     dev = hidden.device
     if valid is None:
@@ -431,10 +489,7 @@ def _decode_after_prefill(params, cfg, cache, hidden, P, S, max_new_tokens, toke
             gen = (k_idx >= P) & (k_idx <= P + t)
             step_mask = (key_valid | gen[None, :])[:, None, None, :]
             wpos = (pos, k_pos_true)
-        hidden, cache = gemma2_mod.forward(
-            params["lm"], cfg.text, embeds, pos, step_mask,
-            cache=cache, cache_position=P + t, window_positions=wpos,
-        )
+        hidden, cache = _lm_forward(params, cfg, embeds, pos, step_mask, cache, P + t, wpos)
         tok, marg = next_from(hidden)
         toks.append(tok)
         margs.append(marg)
@@ -805,7 +860,9 @@ def prefill_for_serving(
     kv_bits=8], "tok" (Bp,) the first generated token, "valid" (Bp,) the
     prefix lengths}, int32 where JAX's are. The prefill is
     ``generate_greedy``'s pad-aware one over P slots only: the slots past P
-    would be masked keys. ``cache_len`` only bounds the prompt."""
+    would be masked keys. ``cache_len`` only bounds the prompt. Over the
+    model shards (a ``ShardGroup``) the K / V rows are one dict a shard of
+    the attention, over its kv heads, under "shards"."""
     from ..ops.quant import quantize_kv
 
     B, P = input_ids.shape
@@ -818,25 +875,30 @@ def prefill_for_serving(
                                         compute_dtype=compute_dtype,
                                         depth_image_size=depth_image_size)
     embeds = merge_input_embeddings(params, cfg, input_ids, image_features, dtype=compute_dtype)
-    cache = gemma2_mod.init_cache(cfg.text, B, P, device=dev, dtype=cache_dtype)
+    cache = _init_cache(params, cfg, B, P, device=dev, dtype=cache_dtype)
     am = attention_mask.to(device=dev, dtype=torch.int32)
     valid = am.sum(dim=-1)  # each row's prefix length
     position_ids = torch.cumsum(am, dim=-1) * am  # 1-indexed at the valid slots
     mask = am.bool()[:, None, None, :].expand(B, 1, P, P)
-    hidden, cache = gemma2_mod.forward(
-        params["lm"], cfg.text, embeds, position_ids, mask, cache=cache, cache_position=0,
-        window_positions=(position_ids, position_ids),  # each slot's true position
-    )
-    offset, head = _greedy_head(params["lm"], token_range)
+    hidden, cache = _lm_forward(params, cfg, embeds, position_ids, mask, cache, 0,
+                                (position_ids, position_ids))  # each slot's true position
     last = torch.gather(hidden, 1, (valid - 1).long()[:, None, None].expand(B, 1, hidden.shape[-1]))
-    tok = torch.argmax(qmatmul(last[:, 0].to(compute_dtype or hidden.dtype), head), dim=-1) + offset
-    ck, cv = (cache[n].permute(0, 1, 3, 2, 4).contiguous() for n in ("k", "v"))
+    offset, logits = _head_logits(params, cfg, last[:, 0].to(compute_dtype or hidden.dtype),
+                                  token_range)
+    tok = torch.argmax(logits, dim=-1) + offset
+
+    def kv_rows(c):
+        ck, cv = (c[n].permute(0, 1, 3, 2, 4).contiguous() for n in ("k", "v"))
+        if kv_bits == 8:
+            (k, ks), (v, vs) = quantize_kv(ck), quantize_kv(cv)
+            return {"k": k, "k_scale": ks, "v": v, "v_scale": vs}
+        return {"k": ck, "v": cv}
+
     out = {"tok": tok.to(torch.int32), "valid": valid.to(torch.int32)}
-    if kv_bits == 8:
-        out["k"], out["k_scale"] = quantize_kv(ck)
-        out["v"], out["v_scale"] = quantize_kv(cv)
+    if isinstance(params, ShardGroup):
+        out["shards"] = [kv_rows(c) for c in cache]
     else:
-        out["k"], out["v"] = ck, cv
+        out.update(kv_rows(cache))
     return out
 
 
@@ -881,22 +943,110 @@ def admit_rows_serving(state: Dict[str, torch.Tensor], rows: Dict[str, torch.Ten
     first token in ``tok`` and ``out[:, 0]``, its position the prefix length
     and steps = 1. Slots [P, S) keep what the slot's last occupant left: the
     decode step attends only below a row's position and writes each slot
-    before the position passes it. Returns ``state``."""
-    P = rows["k"].shape[3]
+    before the position passes it. A state over the model shards
+    (``TensorShards.cut_state``) takes each shard's rows into its own K / V.
+    Returns ``state``."""
     sl = torch.as_tensor(slots, device=state["tok"].device).long()
-    state["k"][:, sl, :, :P] = rows["k"]
-    state["v"][:, sl, :, :P] = rows["v"]
-    if "k_scale" in state:
-        S = state["k"].shape[3]
-        cols = sl[:, None] * S + torch.arange(P, device=sl.device)[None, :]  # (Bp, P)
-        for name in ("k_scale", "v_scale"):
-            state[name][:, :, 0][:, :, cols] = rows[name].float().permute(0, 2, 1, 3)
+    pairs = (zip(state["shards"], rows["shards"]) if "shards" in state
+             else [(state, rows)])
+    for kv, kv_rows in pairs:
+        P = kv_rows["k"].shape[3]
+        slk = sl.to(kv["k"].device)
+        kv["k"][:, slk, :, :P] = kv_rows["k"]
+        kv["v"][:, slk, :, :P] = kv_rows["v"]
+        if "k_scale" in kv:
+            S = kv["k"].shape[3]
+            cols = slk[:, None] * S + torch.arange(P, device=slk.device)[None, :]  # (Bp, P)
+            for name in ("k_scale", "v_scale"):
+                kv[name][:, :, 0][:, :, cols] = kv_rows[name].float().permute(0, 2, 1, 3)
     tok = rows["tok"].to(torch.int32)
     state["tok"][sl] = tok
     state["pos"][sl] = rows["valid"].to(torch.int32)
     state["steps"][sl] = 1
     state["out"][sl, 0] = tok
     return state
+
+
+def _check_step_cache(tcfg, cache_k, cache_k_scale, cache_v_scale):
+    L, M, Nkv, S, D = cache_k.shape
+    if cache_k.dtype == torch.int8:
+        flat = (L, Nkv, 1, M * S)
+        if (cache_k_scale is None or cache_v_scale is None
+                or tuple(cache_k_scale.shape) != flat or tuple(cache_v_scale.shape) != flat):
+            raise ValueError("an int8 KV cache needs per-slot scales in the flat "
+                             f"{flat} layout (ops/decode_step.flatten_kv_scales)")
+    if S > tcfg.sliding_window:
+        raise ValueError("serving cache exceeds the sliding window; this step treats window "
+                         "and global layers identically")
+
+
+def _step_attention(la, norm_w, tcfg, h, ck, cv, ks, vs, position, cos, sin, compute_dtype):
+    """One layer's attention of ``xla_decode_step`` for h (M, H) over a cache
+    ck / cv (M, Nkv, S, D) of ``tcfg``'s heads (with an int8 cache, ks / vs
+    the layer's flat scales (Nkv, 1, M*S)): returns (o's product (M, 1, H),
+    k_new, v_new)."""
+    from ..ops.quant import qnorm_matmul
+    from .attention import multi_head_attention
+    from .layers import rms_norm
+    from .rope import apply_rope
+
+    M, Nkv, S, D = ck.shape
+    Nq, eps = tcfg.num_heads, tcfg.rms_norm_eps
+    dev = h.device
+    kiota = torch.arange(S, device=dev)
+    scale = tcfg.query_pre_attn_scalar ** -0.5
+    cap = tcfg.attn_logit_softcap
+    hT = h[:, None, :]
+    if "qkv" in la:  # the fused-quantized serving tree
+        qkv = qnorm_matmul(hT, norm_w, la["qkv"], eps=eps)
+        q, k, v = torch.split(qkv, [Nq * D, Nkv * D, Nkv * D], dim=-1)
+    else:
+        xn = rms_norm(norm_w, hT, eps)
+        q, k, v = (qmatmul(xn, la[n]) for n in ("q", "k", "v"))
+    q = apply_rope(q.reshape(M, 1, Nq, D), cos, sin)
+    k = apply_rope(k.reshape(M, 1, Nkv, D), cos, sin)
+    v = v.reshape(M, 1, Nkv, D)
+    if ck.dtype == torch.int8:
+        k_new, v_new = k[:, 0].to(torch.bfloat16), v[:, 0].to(torch.bfloat16)
+        G = Nq // Nkv
+        qf = q[:, 0].reshape(M, Nkv, G, D).float() * scale
+        ks, vs = (sc.reshape(Nkv, M, S).permute(1, 0, 2)[:, :, None, :] for sc in (ks, vs))
+        logits = torch.einsum("mhgd,mhsd->mhgs", qf, ck.float()) * ks
+        self_l = (qf * k_new.float()[:, :, None, :]).sum(-1)[..., None]  # (M, Nkv, G, 1)
+        if cap:
+            logits = torch.tanh(logits / cap) * cap
+            self_l = torch.tanh(self_l / cap) * cap
+        col_ok = (kiota[None, :] < position[:, None])[:, None, None, :]  # the self term: pos
+        logits = torch.where(col_ok, logits, torch.full_like(logits, -1e30))
+        mx = torch.maximum(logits.amax(-1, keepdim=True), self_l)
+        e, e_self = torch.exp(logits - mx), torch.exp(self_l - mx)
+        denom = e.sum(-1, keepdim=True) + e_self
+        out = (torch.einsum("mhgs,mhsd->mhgd", (e / denom) * vs, cv.float())
+               + (e_self / denom) * v_new.float()[:, :, None, :])
+        out = out.reshape(M, 1, Nq * D)
+    else:
+        k_new, v_new = k[:, 0].to(ck.dtype), v[:, 0].to(cv.dtype)
+        # the cache in (M, S, Nkv, D) with the current token at each row's
+        # slot (the caller writes it into the persistent cache)
+        rows = torch.arange(M, device=dev)
+        kk, vv = (c.permute(0, 2, 1, 3).clone() for c in (ck, cv))
+        kk[rows, position.long()] = k_new
+        vv[rows, position.long()] = v_new
+        mask = (kiota[None, :] <= position[:, None])[:, None, None, :]  # the valid cache and itself
+        out = multi_head_attention(q, kk.to(compute_dtype), vv.to(compute_dtype), mask,
+                                   scale=scale, logit_softcap=cap).reshape(M, 1, Nq * D)
+    return qmatmul(out.to(compute_dtype), la["o"]), k_new, v_new
+
+
+def _step_positions(tcfg, x, position, rope_position):
+    from .rope import rope_cos_sin
+
+    M = x.shape[0]
+    position = torch.as_tensor(position, dtype=torch.int32, device=x.device).reshape(-1).expand(M)
+    rope_position = torch.as_tensor(rope_position, dtype=torch.int32,
+                                    device=x.device).reshape(-1).expand(M)
+    cos, sin = rope_cos_sin(rope_position[:, None], tcfg.head_dim, tcfg.rope_theta)
+    return position, cos, sin
 
 
 def xla_decode_step(lm_params: Params, tcfg, x: torch.Tensor, cache_k: torch.Tensor,
@@ -913,77 +1063,21 @@ def xla_decode_step(lm_params: Params, tcfg, x: torch.Tensor, cache_k: torch.Ten
     through a separate self term, as the kernel does; k_new / v_new come back
     bf16 for the caller to quantize. ``decode_steps_serving(use_fused=False)``
     runs it."""
-    from ..ops.quant import qnorm_matmul
-    from .attention import multi_head_attention
     from .layers import rms_norm
-    from .rope import apply_rope, rope_cos_sin
 
     layers = lm_params["layers"]
-    L, M, Nkv, S, D = cache_k.shape
-    Nq, eps = tcfg.num_heads, tcfg.rms_norm_eps
-    kv_quant = cache_k.dtype == torch.int8
-    if kv_quant:
-        flat = (L, Nkv, 1, M * S)
-        if (cache_k_scale is None or cache_v_scale is None
-                or tuple(cache_k_scale.shape) != flat or tuple(cache_v_scale.shape) != flat):
-            raise ValueError("an int8 KV cache needs per-slot scales in the flat "
-                             f"{flat} layout (ops/decode_step.flatten_kv_scales)")
-    if S > tcfg.sliding_window:
-        raise ValueError("serving cache exceeds the sliding window; this step treats window "
-                         "and global layers identically")
-    dev = x.device
-    position = torch.as_tensor(position, dtype=torch.int32, device=dev).reshape(-1).expand(M)
-    rope_position = torch.as_tensor(rope_position, dtype=torch.int32,
-                                    device=dev).reshape(-1).expand(M)
-    cos, sin = rope_cos_sin(rope_position[:, None], D, tcfg.rope_theta)
-    kiota = torch.arange(S, device=dev)
-    mask = (kiota[None, :] <= position[:, None])[:, None, None, :]  # the valid cache and itself
-    scale = tcfg.query_pre_attn_scalar ** -0.5
-    cap = tcfg.attn_logit_softcap
-    rows = torch.arange(M, device=dev)
+    L, eps = cache_k.shape[0], tcfg.rms_norm_eps
+    _check_step_cache(tcfg, cache_k, cache_k_scale, cache_v_scale)
+    position, cos, sin = _step_positions(tcfg, x, position, rope_position)
     h = x.to(compute_dtype)
     k_news, v_news = [], []
     for l in range(L):
         lp = gemma2_mod.layer_slice(layers, l)
-        hT = h[:, None, :]
-        if "qkv" in lp["attn"]:  # the fused-quantized serving tree
-            qkv = qnorm_matmul(hT, lp["input_norm"], lp["attn"]["qkv"], eps=eps)
-            q, k, v = torch.split(qkv, [Nq * D, Nkv * D, Nkv * D], dim=-1)
-        else:
-            xn = rms_norm(lp["input_norm"], hT, eps)
-            q, k, v = (qmatmul(xn, lp["attn"][n]) for n in ("q", "k", "v"))
-        q = apply_rope(q.reshape(M, 1, Nq, D), cos, sin)
-        k = apply_rope(k.reshape(M, 1, Nkv, D), cos, sin)
-        v = v.reshape(M, 1, Nkv, D)
-        if kv_quant:
-            k_new, v_new = k[:, 0].to(torch.bfloat16), v[:, 0].to(torch.bfloat16)
-            G = Nq // Nkv
-            qf = q[:, 0].reshape(M, Nkv, G, D).float() * scale
-            ks, vs = (sc[l].reshape(Nkv, M, S).permute(1, 0, 2)[:, :, None, :]
-                      for sc in (cache_k_scale, cache_v_scale))
-            logits = torch.einsum("mhgd,mhsd->mhgs", qf, cache_k[l].float()) * ks
-            self_l = (qf * k_new.float()[:, :, None, :]).sum(-1)[..., None]  # (M, Nkv, G, 1)
-            if cap:
-                logits = torch.tanh(logits / cap) * cap
-                self_l = torch.tanh(self_l / cap) * cap
-            col_ok = (kiota[None, :] < position[:, None])[:, None, None, :]  # the self term: pos
-            logits = torch.where(col_ok, logits, torch.full_like(logits, -1e30))
-            mx = torch.maximum(logits.amax(-1, keepdim=True), self_l)
-            e, e_self = torch.exp(logits - mx), torch.exp(self_l - mx)
-            denom = e.sum(-1, keepdim=True) + e_self
-            out = (torch.einsum("mhgs,mhsd->mhgd", (e / denom) * vs, cache_v[l].float())
-                   + (e_self / denom) * v_new.float()[:, :, None, :])
-            out = out.reshape(M, 1, Nq * D)
-        else:
-            k_new, v_new = k[:, 0].to(cache_k.dtype), v[:, 0].to(cache_v.dtype)
-            # the cache in (M, S, Nkv, D) with the current token at each row's
-            # slot (the caller writes it into the persistent cache)
-            kk, vv = (c[l].permute(0, 2, 1, 3).clone() for c in (cache_k, cache_v))
-            kk[rows, position.long()] = k_new
-            vv[rows, position.long()] = v_new
-            out = multi_head_attention(q, kk.to(compute_dtype), vv.to(compute_dtype), mask,
-                                       scale=scale, logit_softcap=cap).reshape(M, 1, Nq * D)
-        attn = qmatmul(out.to(compute_dtype), lp["attn"]["o"])
+        ks, vs = ((None, None) if cache_k_scale is None
+                  else (cache_k_scale[l], cache_v_scale[l]))
+        attn, k_new, v_new = _step_attention(lp["attn"], lp["input_norm"], tcfg, h, cache_k[l],
+                                             cache_v[l], ks, vs, position, cos, sin,
+                                             compute_dtype)
         h = h + rms_norm(lp["post_attn_norm"], attn[:, 0], eps)
         mlp = gemma2_mod._mlp_block(lp["mlp"], h[:, None, :], lp["pre_ffn_norm"], eps)
         h = h + rms_norm(lp["post_ffn_norm"], mlp[:, 0], eps)
@@ -991,6 +1085,45 @@ def xla_decode_step(lm_params: Params, tcfg, x: torch.Tensor, cache_k: torch.Ten
         v_news.append(v_new)
     hidden = rms_norm(lm_params["final_norm"], h, eps)
     return hidden.to(torch.bfloat16), torch.stack(k_news), torch.stack(v_news)
+
+
+def xla_decode_step_tp(tp: ShardGroup, tcfg, x: torch.Tensor, kv: list, position,
+                       rope_position, *, compute_dtype=torch.bfloat16):
+    """``xla_decode_step`` over the model shards of ``tp``: each shard of the
+    attention attends over its kv heads in ``kv`` (one dict a shard:
+    "k" / "v" (L, M, Nkv_s, S, D) [, "k_scale" / "v_scale" flat]), each
+    shard of the MLP over its hidden columns, their partial products summed
+    (``sum_shards``). Returns (hidden bf16, [k_new a shard], [v_new a
+    shard])."""
+    from .layers import rms_norm
+
+    scfg, eps = tp.text_cfg(), tcfg.rms_norm_eps
+    for c in kv:
+        _check_step_cache(scfg, c["k"], c.get("k_scale"), c.get("v_scale"))
+    position, cos, sin = _step_positions(tcfg, x, position, rope_position)
+    lps = tp.layers("lm")
+    h = x.to(compute_dtype)
+    news = [([], []) for _ in kv]
+    for l in range(tcfg.num_layers):
+        def attn(s, tree, h, position, cos, sin):
+            c = kv[s]
+            ks, vs = ((None, None) if "k_scale" not in c else (c["k_scale"][l], c["v_scale"][l]))
+            out, k_new, v_new = _step_attention(lps[s][l]["attn"], lps[s][l]["input_norm"], scfg,
+                                                h, c["k"][l], c["v"][l], ks, vs, position, cos,
+                                                sin, compute_dtype)
+            news[s][0].append(k_new)
+            news[s][1].append(v_new)
+            return out
+
+        attn_out = tp.reduce("lm_attn", attn, h, position, cos, sin)
+        lp = lps[0][l]
+        h = h + rms_norm(lp["post_attn_norm"], attn_out[:, 0], eps)
+        mlp = tp.reduce("lm_mlp", lambda s, tree, h: gemma2_mod._mlp_block(
+            lps[s][l]["mlp"], h[:, None, :], lps[s][l]["pre_ffn_norm"], eps), h)
+        h = h + rms_norm(lp["post_ffn_norm"], mlp[:, 0], eps)
+    hidden = rms_norm(tp.trees[0]["lm"]["final_norm"], h, eps)
+    return (hidden.to(torch.bfloat16), [torch.stack(k) for k, _ in news],
+            [torch.stack(v) for _, v in news])
 
 
 def decode_steps_serving(params: Params, cfg, state: Dict[str, torch.Tensor], *, n_steps: int,
@@ -1008,13 +1141,20 @@ def decode_steps_serving(params: Params, cfg, state: Dict[str, torch.Tensor], *,
     ``fused_decode_step`` (``buffers``: its ``step_buffers``) or, with
     use_fused=False, ``xla_decode_step``; the argmax over ``token_range``'s
     head rows; the new K / V rows (quantized, with their scales, for an int8
-    cache) written at each row's position. Returns ``state``."""
+    cache) written at each row's position. Over the model shards (a
+    ``ShardGroup`` and a state cut by ``TensorShards.cut_state``) the step
+    is ``xla_decode_step_tp``, each shard's rows written into its own K / V.
+    Returns ``state``."""
     from ..ops.decode_step import fused_decode_step
     from ..ops.quant import quantize_kv
 
     tcfg = cfg.text
-    B, S = state["tok"].shape[0], state["k"].shape[3]
-    offset, head = _greedy_head(params["lm"], token_range)
+    tp = params if isinstance(params, ShardGroup) else None
+    if tp is not None and use_fused:
+        raise ValueError("over the model axis the decode step is xla_decode_step "
+                         "(use_fused=False), as in JAX")
+    kv = state["shards"] if tp is not None else [state]
+    B, S = state["tok"].shape[0], kv[0]["k"].shape[3]
     tok, pos, steps, out = (state[n] for n in ("tok", "pos", "steps", "out"))
     # sqrt(H) rounded to the compute dtype (JAX's jnp.asarray(.., compute_dtype)),
     # as a number: a tensor made from it would be a host-to-card copy, which
@@ -1026,22 +1166,29 @@ def decode_steps_serving(params: Params, cfg, state: Dict[str, torch.Tensor], *,
                                         dtype=compute_dtype)
         x = embeds[:, 0] * normalizer
         kw = dict(cache_k_scale=state.get("k_scale"), cache_v_scale=state.get("v_scale"))
-        if use_fused:
+        if tp is not None:
+            hidden, k_news, v_news = xla_decode_step_tp(tp, tcfg, x, kv, pos, pos + 1,
+                                                        compute_dtype=compute_dtype)
+        elif use_fused:
             hidden, k_new, v_new = fused_decode_step(params["lm"], tcfg, x, state["k"],
                                                      state["v"], pos, pos + 1, buffers=buffers,
                                                      **kw)
+            k_news, v_news = [k_new], [v_new]
         else:
             hidden, k_new, v_new = xla_decode_step(params["lm"], tcfg, x, state["k"], state["v"],
                                                    pos, pos + 1, compute_dtype=compute_dtype, **kw)
-        nxt = (torch.argmax(qmatmul(hidden.to(compute_dtype), head), dim=-1)
-               + offset).to(torch.int32)
-        if "k_scale" in state:
-            k_new, ks_new = quantize_kv(k_new)
-            v_new, vs_new = quantize_kv(v_new)
-            _scatter_scale(state["k_scale"], ks_new, pos, S)
-            _scatter_scale(state["v_scale"], vs_new, pos, S)
-        _scatter_rows(state["k"], k_new, pos)
-        _scatter_rows(state["v"], v_new, pos)
+            k_news, v_news = [k_new], [v_new]
+        offset, logits = _head_logits(params, cfg, hidden.to(compute_dtype), token_range)
+        nxt = (torch.argmax(logits, dim=-1) + offset).to(torch.int32)
+        for c, k_new, v_new in zip(kv, k_news, v_news):
+            slots = pos.to(c["k"].device)
+            if "k_scale" in c:
+                k_new, ks_new = quantize_kv(k_new)
+                v_new, vs_new = quantize_kv(v_new)
+                _scatter_scale(c["k_scale"], ks_new, slots, S)
+                _scatter_scale(c["v_scale"], vs_new, slots, S)
+            _scatter_rows(c["k"], k_new, slots)
+            _scatter_rows(c["v"], v_new, slots)
         # the token's write, masked for free and finished slots (a retired
         # row's last token must stay)
         idx = steps.clamp(0, n_tokens - 1).long()
@@ -1067,7 +1214,12 @@ class ServingLoop:
     counts credited per replay in ``credits``); the shape never changes, so
     one capture serves the engine's life. Capture it before the first
     admission: the warm-up run advances every slot. Without a graph (the
-    CPU) ``step`` runs the steps eagerly."""
+    CPU) ``step`` runs the steps eagerly.
+
+    Over the model shards (``params`` a ``ShardGroup``) the state's K / V
+    are cut over the attention's kv heads (``TensorShards.cut_state``), the
+    steps are ``xla_decode_step_tp``, and they run eagerly: capturing them
+    as a CUDA graph is later work (ROADMAP.md)."""
 
     def __init__(self, params, cfg, *, n_slots, cache_len, n_tokens, decode_block, kv_bits,
                  token_range, compute_dtype, device):
@@ -1076,15 +1228,21 @@ class ServingLoop:
         self.params, self.cfg = params, cfg
         self.n_tokens, self.decode_block = n_tokens, decode_block
         self.token_range, self.compute_dtype = token_range, compute_dtype
+        self.tp = isinstance(params, ShardGroup)
         self.state = init_serving_state(cfg, n_slots, cache_len, n_tokens, kv_bits=kv_bits,
                                         device=device)
-        self.buffers = step_buffers(cfg.text, n_slots, cache_len, device)
+        self.buffers = None
+        if self.tp:
+            self.state = params.cut.cut_state(self.state, params.devices)
+        else:
+            self.buffers = step_buffers(cfg.text, n_slots, cache_len, device)
         self.graph, self.credits, self.capture_ms = None, {}, None
 
     def run(self):
         decode_steps_serving(self.params, self.cfg, self.state, n_steps=self.decode_block,
                              n_tokens=self.n_tokens, token_range=self.token_range,
-                             compute_dtype=self.compute_dtype, buffers=self.buffers)
+                             compute_dtype=self.compute_dtype, use_fused=not self.tp,
+                             buffers=self.buffers)
 
     def capture(self):
         self.graph, _, self.credits, self.capture_ms = _capture_graph(self.run)

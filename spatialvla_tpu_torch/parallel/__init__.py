@@ -1,11 +1,13 @@
-"""Training parallelism for the port (port of spatialvla_tpu/parallel): the
-named mesh and the multi-process bootstrap, the partitioning rules and the
-fsdp cut they drive, ring attention over ``sp`` and the GPipe pipeline over
-``pipe``. Imports torch and torch.distributed, no jax."""
+"""Parallelism for the port (port of spatialvla_tpu/parallel): the named mesh
+and the multi-process bootstrap, the partitioning rules with the fsdp cut
+(training) and the model cut (tensor-parallel serving) they drive, ring
+attention over ``sp`` and the GPipe pipeline over ``pipe``. Imports torch
+and torch.distributed, no jax."""
 from .mesh import (AXES, LocalMesh, Mesh, MeshConfig, batch_sharding, form_global_batch,
                    initialize_distributed, local_rows, make_mesh, mesh_shape, process_count,
-                   process_index, replicated)
-from .partitioning import DEFAULT_RULES, FsdpShards, param_pspecs, shard_params, spec_for
+                   process_index, replicated, sum_shards)
+from .partitioning import (DEFAULT_RULES, FsdpShards, TensorShards, param_pspecs, shard_params,
+                           spec_for)
 from .pipeline import pipeline_apply
 from .ring_attention import ring_flash_attention
 
@@ -16,6 +18,7 @@ __all__ = [
     "LocalMesh",
     "Mesh",
     "MeshConfig",
+    "TensorShards",
     "batch_sharding",
     "form_global_batch",
     "initialize_distributed",
@@ -30,4 +33,5 @@ __all__ = [
     "ring_flash_attention",
     "shard_params",
     "spec_for",
+    "sum_shards",
 ]

@@ -13,23 +13,29 @@ Axes (as in JAX):
   fsdp   ZeRO-3: the fp32 masters and AdamW moments cut by the rules
          (parallel/partitioning.py), weights gathered for compute, gradients
          reduce-scattered back to the shards; the batch's rows too
-  model  tensor parallelism: not ported yet (ROADMAP.md), a mesh with
-         model > 1 raises
+  model  tensor parallelism (serving): the weight matrices cut by heads and
+         hidden columns (parallel/partitioning.py:TensorShards), the partial
+         products summed by ``sum_shards``; held by one process in a
+         ``LocalMesh`` (a process-group mesh with model > 1 raises: the model
+         axis in training is ROADMAP item 8c)
   sp     sequence parallelism: the ring of parallel/ring_attention.py
   pipe   pipeline parallelism: the GPipe stages of parallel/pipeline.py
 
-``LocalMesh`` holds the sp and pipe axes in one process: a ring of ``sp``
-sequence shards and a pipe of ``pipe`` stages, run in turn by this process
-through the same loops as the process-group transports (the counterpart of
-the JAX tests' virtual CPU devices, and what one card runs). The caller asks
-for it by name; a mesh of several processes never turns into one.
+``LocalMesh`` holds the sp, pipe, data and model axes in one process: a ring
+of ``sp`` sequence shards and a pipe of ``pipe`` stages, run in turn by this
+process through the same loops as the process-group transports, and the
+``data x model`` shards of a sharded serving policy (``SpatialVLAPolicy.shard``,
+as JAX's single controller lays its mesh over the devices it drives). It is
+the counterpart of the JAX tests' virtual CPU devices, and what one card
+runs. The caller asks for it by name; a mesh of several processes never turns
+into one.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 import os
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -60,13 +66,76 @@ class MeshConfig:
 
 @dataclasses.dataclass(frozen=True)
 class LocalMesh:
-    """The sp and pipe axes held by one process (see the module docstring)."""
+    """The sp, pipe, data and model axes held by one process (see the module
+    docstring). ``devices`` places the ``data x model`` shards, data-major
+    (shard s of data group g on ``devices[g * model + s]``), as JAX's
+    ``make_mesh(MeshConfig(data, 1, model), devices)`` lays them out; None
+    puts every shard on the caller's device. Two forms: every shard on one
+    device, or each on a CUDA device of its own (the slice form)."""
     sp: int = 1
     pipe: int = 1
+    data: int = 1
+    model: int = 1
+    devices: Optional[Tuple[torch.device, ...]] = None
+
+    def __post_init__(self):
+        if self.devices is None:
+            return
+        devices = tuple(torch.device(d) for d in self.devices)
+        object.__setattr__(self, "devices", devices)
+        if len(devices) != self.data * self.model:
+            raise ValueError(f"{len(devices)} devices for a data={self.data} x "
+                             f"model={self.model} mesh")
+        for g in range(self.data):
+            group = devices[g * self.model:(g + 1) * self.model]
+            if len(set(group)) not in (1, len(group)):
+                raise ValueError(f"data group {g} on {group}: its model shards share one device "
+                                 "or take one device each")
+            if len(set(group)) > 1:
+                if any(d.type != "cuda" for d in group):
+                    raise ValueError(f"shards on distinct devices are CUDA devices, got {group}")
+                count = torch.cuda.device_count()
+                missing = [d for d in group if (d.index or 0) >= count]
+                if missing:
+                    raise RuntimeError(f"shards on {missing}: this machine has {count} CUDA "
+                                       "device(s)")
 
     @property
     def shape(self) -> Dict[str, int]:
-        return {"data": 1, "fsdp": 1, "model": 1, "sp": self.sp, "pipe": self.pipe}
+        return {"data": self.data, "fsdp": 1, "model": self.model, "sp": self.sp,
+                "pipe": self.pipe}
+
+    def group_devices(self, g: int, default) -> List[torch.device]:
+        """The devices of data group ``g``'s model shards, in shard order."""
+        if self.devices is None:
+            return [torch.device(default)] * self.model
+        return list(self.devices[g * self.model:(g + 1) * self.model])
+
+
+def sum_shards(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """The sum of the model shards' partial results, handed back to each
+    shard: summed in fp32, in shard order, and returned in the parts' dtype.
+    Parts on one device: a plain sum, one tensor returned for every shard.
+    Parts on distinct CUDA devices: one ``torch.cuda.nccl.all_reduce`` over
+    the list (single-process NCCL), each shard's sum on its own device."""
+    dtype = parts[0].dtype
+    if len({p.device for p in parts}) == 1:
+        total = parts[0].float()
+        for p in parts[1:]:
+            total = total + p.float()
+        return [total.to(dtype)] * len(parts)
+    import torch.cuda.nccl as nccl
+
+    bufs = [p.float().contiguous() for p in parts]
+    nccl.all_reduce(bufs)
+    return [b.to(dtype) for b in bufs]
+
+
+def gather_shards(parts: Sequence[torch.Tensor], dim: int = -1) -> torch.Tensor:
+    """The model shards' column blocks joined in shard order along ``dim``, on
+    the first shard's device."""
+    home = parts[0].device
+    return torch.cat([p.to(home) for p in parts], dim)
 
 
 class Mesh:
@@ -150,8 +219,8 @@ def make_mesh(cfg: MeshConfig = MeshConfig(), device_type: str = "cuda") -> Mesh
     if math.prod(shape) != world:
         raise ValueError(f"mesh {shape} leaves processes out of the {world} started")
     if shape[AXES.index("model")] > 1:
-        raise not_ported(f"--mesh_model {shape[AXES.index('model')]} (tensor parallelism)",
-                         "parallel")
+        raise not_ported(f"--mesh_model {shape[AXES.index('model')]} (the model axis in "
+                         "training)", "parallel")
     from torch.distributed.device_mesh import init_device_mesh
 
     return Mesh(init_device_mesh(device_type, shape, mesh_dim_names=AXES))

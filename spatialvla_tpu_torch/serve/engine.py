@@ -14,7 +14,10 @@ requests onto one card.
   its decode loop replays the CUDA graph of its (batch, cache-slot bucket)
   shape, kept by ``policy.decode_graphs``. ``warmup_buckets`` captures every
   such graph an instruction set can produce before the engine takes
-  traffic, as JAX compiles every (T, B) program.
+  traffic, as JAX compiles every (T, B) program. Over a mesh-sharded
+  policy (``SpatialVLAPolicy.shard``) a batch runs the policy's sharded
+  path (rows over the data groups when they divide them, the unfused
+  decode loop over the model shards), and no decode graph is captured.
 - Pipelined dispatch (``pipeline_depth`` > 1, the default): kernel launches
   are asynchronous, so the dispatch thread enqueues batch N+1 while a
   completion thread waits for batch N's ids (copied to pinned host memory
@@ -38,8 +41,6 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-
-from ..errors import not_ported
 
 DEFAULT_BATCH_BUCKETS = (1, 2, 4, 8, 16)
 
@@ -230,8 +231,6 @@ class ServingEngine:
         pipeline_depth: int = 3,
         max_queue: Optional[int] = None,
     ):
-        if getattr(policy, "mesh", None) is not None:
-            raise not_ported("ServingEngine over a mesh-sharded policy")
         if max_batch_size > max(batch_buckets):
             raise ValueError("max_batch_size exceeds the largest batch bucket")
         if pipeline_depth < 1:

@@ -34,6 +34,15 @@ are in flight, the host waits for the oldest.
 Clients copy their pixels to the card themselves (``_put_pixels``), as
 uint8 where the processor's pixels sit on the u8/255 grid; the prefill
 divides by 255 on the card.
+
+Over a mesh-sharded policy (``SpatialVLAPolicy.shard``) the engine runs the
+model shards of data group 0 (JAX's engine cuts its state over the model
+axis only, the data groups computing the same rows): the prefill over the
+shards, the persistent KV cut over the kv heads of the attention, and the
+decode step ``xla_decode_step`` over each shard's heads (JAX's
+``use_fused = mesh is None``), replayed eagerly rather than as a CUDA graph.
+``kv_bits=8`` is the engine's knob there (the policy's is None), and the
+tree may be bf16.
 """
 from __future__ import annotations
 
@@ -47,7 +56,6 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..errors import not_ported
 from .engine import (
     EngineOverloaded,
     RequestExpired,
@@ -86,11 +94,21 @@ def _to_device(a: np.ndarray, device) -> torch.Tensor:
     return host.to(device, copy=True)
 
 
+def _first_rows(rows, n: int):
+    """The first n rows of ``prefill_for_serving``'s output (the real
+    requests of a group; its K / V rows, of every shard, along dim 1)."""
+    if isinstance(rows, list):
+        return [_first_rows(r, n) for r in rows]
+    return {k: (v[:n] if k in ("tok", "valid") else
+                _first_rows(v, n) if k == "shards" else v[:, :n]) for k, v in rows.items()}
+
+
 class _Programs:
     """The engine's three steps over one policy: the eager prefill of an
     arrival group, the admission scatter, and the persistent decode batch
     (``ServingLoop``), whose CUDA graph is captured here on the card,
-    before the engine's threads start."""
+    before the engine's threads start (under a mesh: over data group 0's
+    model shards, on its home device, eagerly)."""
 
     def __init__(self, policy, *, n_slots, cache_len, n_tokens, decode_block, kv_bits):
         from ..models import spatialvla as model
@@ -99,21 +117,24 @@ class _Programs:
         self.cache_len, self.kv_bits = cache_len, kv_bits
         cfg = policy.config
         self.token_range = (cfg.action_token_begin_idx, cfg.spatial_token_num)
+        meshed = getattr(policy, "mesh", None) is not None
+        self.params = policy.params.groups[0] if meshed else policy.params
+        self.device = self.params.home if meshed else policy.device
         with torch.inference_mode():
             self.loop = model.ServingLoop(
-                policy.params, cfg, n_slots=n_slots, cache_len=cache_len, n_tokens=n_tokens,
+                self.params, cfg, n_slots=n_slots, cache_len=cache_len, n_tokens=n_tokens,
                 decode_block=decode_block, kv_bits=kv_bits, token_range=self.token_range,
-                compute_dtype=policy.compute_dtype, device=policy.device,
+                compute_dtype=policy.compute_dtype, device=self.device,
             )
-            if policy.device.type == "cuda":
+            if self.device.type == "cuda" and not meshed:
                 self.loop.capture()
 
     def prefill(self, ids, px, intr, attn) -> Dict[str, torch.Tensor]:
         if px.dtype == torch.uint8:  # the client-side u8 transport
             px = px.float() / 255.0
-        dev = self.policy.device
+        dev = self.device
         return self.model.prefill_for_serving(
-            self.policy.params, self.policy.config, _to_device(ids, dev).long(),
+            self.params, self.policy.config, _to_device(ids, dev).long(),
             pixel_values=px, intrinsic=_to_device(intr, dev),
             attention_mask=_to_device(attn, dev), cache_len=self.cache_len,
             compute_dtype=self.policy.compute_dtype, token_range=self.token_range,
@@ -131,10 +152,11 @@ class SplitServingEngine:
     """Continuous-batching engine with a persistent decode batch, on the
     policy's device.
 
-    Needs a fused-quantized LM (policy.quantize(bits=8|4) or a serving
-    checkpoint): the persistent decode program is the fused decode step.
-    ``kv_bits=8`` (or the policy's) decodes from an int8 cache. A
-    mesh-sharded policy is not ported (ROADMAP.md Queue A item 8).
+    Single-device: needs a fused-quantized LM (policy.quantize(bits=8|4) or
+    a serving checkpoint): the persistent decode program is the fused decode
+    step. Mesh-sharded (policy.shard): the decode step is
+    ``xla_decode_step`` over the model shards, and a bf16 tree serves too.
+    ``kv_bits=8`` (or the policy's) decodes from an int8 cache in both.
 
     Usage mirrors ServingEngine:
         engine = SplitServingEngine(policy)
@@ -159,13 +181,14 @@ class SplitServingEngine:
         prefill_quiet_ms: float = 0.0,
         kv_bits: Optional[int] = None,  # None = inherit policy.kv_bits
     ):
-        if getattr(policy, "mesh", None) is not None:
-            raise not_ported("SplitServingEngine over a mesh-sharded policy", "parallel")
-        if "qkv" not in policy.params["lm"]["layers"].get("attn", {}):
+        mesh = getattr(policy, "mesh", None)
+        if mesh is None and "qkv" not in policy.params["lm"]["layers"].get("attn", {}):
             raise ValueError(
                 "SplitServingEngine requires a fused-quantized LM "
                 "(policy.quantize(bits=8) or a serving checkpoint): the "
-                "persistent decode program is the fused decode step"
+                "single-device persistent decode program is the fused decode "
+                "step (mesh-sharded policies may also serve bf16: their decode "
+                "is xla_decode_step)"
             )
         self.kv_bits = (
             getattr(policy, "kv_bits", None) if kv_bits is None else (kv_bits or None)
@@ -304,7 +327,7 @@ class SplitServingEngine:
             intrinsic=np.asarray(inputs["intrinsic"]),
             unnorm_key=unnorm_key,
             deadline_ms=deadline_ms,
-            px_dev=_put_pixels(px, inputs.get("pixel_values_u8"), device=self.policy.device),
+            px_dev=_put_pixels(px, inputs.get("pixel_values_u8"), device=self._programs.device),
         )
         self._queue.put(req)
         if self._stop.is_set():
@@ -394,7 +417,7 @@ class SplitServingEngine:
                     bids[:, : ids.shape[1]] = ids[0]
                     attn[:, : ids.shape[1]] = 1
                     # transported as the runtime path does (u8 where exact)
-                    px_dev = _put_pixels(px, device=self.policy.device)
+                    px_dev = _put_pixels(px, device=self._programs.device)
                     rows = self._programs.prefill(bids, torch.cat([px_dev] * Bp),
                                                   np.concatenate([intr] * Bp), attn)
                     self._programs.admit(rows, list(range(Bp)))
@@ -531,8 +554,7 @@ class SplitServingEngine:
         rows = self._programs.prefill(ids, px, intr, attn)
         t1 = time.monotonic()
         slots = [self._free.pop() for _ in range(n)]
-        self._programs.admit({k: v[:n] if k in ("tok", "valid") else v[:, :n]
-                              for k, v in rows.items()}, slots)
+        self._programs.admit(_first_rows(rows, n), slots)
         t2 = time.monotonic()
         for s, r in zip(slots, group):
             self._slot_req[s] = r
@@ -566,7 +588,7 @@ class SplitServingEngine:
             # admission can rewrite a retired slot's row; the completion
             # thread waits for the copy and resolves the futures
             self._completion.put((_HostCopy(self._programs.loop.state["out"]), retiring))
-        if self.policy.device.type != "cuda":
+        if self._programs.device.type != "cuda":
             return  # the CPU ran the dispatch already
         # bound run-ahead: wait for the oldest dispatch once more than
         # max_ahead are in flight (free when the card has caught up; blocks

@@ -24,8 +24,9 @@ what is left); ``--mesh_sp`` > 1 selects the "ring" backend and
 ``--mesh_pp`` > 1 the "pipeline" one. Each process loads its own rows,
 ``per_device_batch_size`` x ``grad_accum`` a step, so the global batch is
 that times data x fsdp; processes that share a (data, fsdp) place draw the
-same rows. ``--mesh_model`` > 1 (tensor parallelism) is not ported yet
-(ROADMAP.md).
+same rows. ``--mesh_model`` > 1 (the model axis in training) is not ported
+yet (ROADMAP.md Queue A item 8c; serving shards over it with
+``SpatialVLAPolicy.shard``).
 """
 from __future__ import annotations
 
@@ -110,7 +111,7 @@ def training_device(args) -> torch.device:
     """The device of a training CLI's ``args`` (``--device``): raises on
     ``--mesh_model`` > 1 (not ported) and on ``cuda`` without a card."""
     if args.mesh_model > 1:
-        raise not_ported(f"--mesh_model {args.mesh_model} (tensor parallelism)")
+        raise not_ported(f"--mesh_model {args.mesh_model} (the model axis in training)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device is available; pass "

@@ -1454,3 +1454,48 @@ def test_checkpoint_manager_restores_onto_the_card(tmp_path):
             assert t is live[path] and t.device.type == "cuda", path
             assert torch.equal(t, saved[path]), path
     assert all(p.requires_grad for _, p in iter_leaves(restored["trainable"]))
+
+
+def test_sum_shards_on_distinct_cards():
+    """The slice form of the model axis: parts on two cards summed by one
+    single-process NCCL all-reduce, each card holding the fp32 sum in the
+    parts' dtype. Skips below two cards."""
+    from spatialvla_tpu_torch.parallel.mesh import LocalMesh, sum_shards
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: the distinct-device form of sum_shards")
+    LocalMesh(model=2, devices=("cuda:0", "cuda:1"))
+    parts = [_randn(_gen(s), 3, 2304).to(f"cuda:{s}") for s in range(2)]
+    out = sum_shards(parts)
+    want = (parts[0].float() + parts[1].float().to("cuda:0")).to(torch.bfloat16)
+    for s, o in enumerate(out):
+        assert o.device == torch.device(f"cuda:{s}") and o.dtype == torch.bfloat16
+        assert torch.equal(o.to("cuda:0"), want)
+
+
+@pytest.mark.parametrize("n_model", [2, 4])
+def test_sharded_predict_on_the_card(n_model):
+    """shard(n_model) of the tiny int8 tree on one card: each shard's few-row
+    matmuls on the kernels, no decode graph, ids held to the unsharded
+    policy's under the margin rule (first token equal, then equal up to the
+    first step whose margin is below 0.5)."""
+    cfg = spatialvla_tiny(use_vision_zoe=True)
+
+    def policy():
+        p = SpatialVLAPolicy.init_random(cfg, DEV, seed=0)
+        p.params["lm"]["lm_head"] = p.params["lm"]["lm_head"] * 50
+        return p.quantize(bits=8)
+
+    frame = (np.random.RandomState(0).rand(56, 56, 3) * 255).astype(np.uint8)
+    base = policy()
+    inputs = base.processor(frame, "pick up the cup")
+    want, margins = (t.cpu().numpy()[0] for t in base._generate(inputs, return_margins=True))
+    tp = policy().shard(n_model=n_model)
+    before = quant.q8_matvec.launches
+    ids = tp._generate(inputs).cpu().numpy()[0]
+    assert quant.q8_matvec.launches > before and len(tp.decode_graphs) == 0
+    assert ids[0] == want[0]
+    for t in range(1, len(ids)):
+        if margins[t] < 0.5:
+            break
+        assert ids[t] == want[t], (ids.tolist(), want.tolist())

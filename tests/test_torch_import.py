@@ -9,7 +9,8 @@ one with the mixed tree on an int8 KV cache, exports an HF checkpoint, bakes
 it into a serving checkpoint with scripts/quantize_checkpoint_torch.py,
 serves a request from that, imports the pretrain and fine-tuning CLIs and the
 three eval CLIs (the SimplerEnv and LIBERO ones run to their missing-sim
-exit), runs a LoRA step, a ring step and a pipeline step held by one process
+exit), serves a request from the int8 tree sharded over two model shards
+(SpatialVLAPolicy.shard), runs a LoRA step, a ring step and a pipeline step held by one process
 (the parallel package) and one eval episode through the eval driver, and
 reports which jax, optax, safetensors and spatialvla_tpu modules are loaded.
 No ``import`` or ``from`` in the port, chip_smoke.py, or the port's scripts
@@ -47,6 +48,9 @@ policy = SpatialVLAPolicy.init_random(cfg, "cpu", seed=0).quantize(bits=8)
 size = cfg.vision.image_size
 frame = (np.random.RandomState(0).rand(size, size, 3) * 255).astype(np.uint8)
 out = policy.predict(frame, "pick up the cup")
+# tensor-parallel serving: the int8 tree over two model shards of this process
+out_tp = SpatialVLAPolicy.init_random(cfg, "cpu", seed=0).quantize(bits=8).shard(
+    n_model=2).predict(frame, "pick up the cup")
 # an HF checkpoint, baked by the script into a serving checkpoint, served
 import importlib.util, os, tempfile
 from spatialvla_tpu_torch.convert import export_hf_checkpoint
@@ -124,9 +128,11 @@ print(json.dumps({
     "safetensors": sorted(m for m in sys.modules
                           if (m == "safetensors" or m.startswith("safetensors."))
                           and sys.modules[m] is not None),
-    "actions_shape": [list(np.asarray(o["actions"]).shape) for o in (out, out_kv8, out_served)],
-    "finite": bool(all(np.isfinite(o["actions"]).all() for o in (out, out_kv8, out_served))),
-    "ids": [np.asarray(o["action_ids"]).tolist() for o in (out, out_kv8, out_served)],
+    "actions_shape": [list(np.asarray(o["actions"]).shape)
+                      for o in (out, out_kv8, out_served, out_tp)],
+    "finite": bool(all(np.isfinite(o["actions"]).all()
+                       for o in (out, out_kv8, out_served, out_tp))),
+    "ids": [np.asarray(o["action_ids"]).tolist() for o in (out, out_kv8, out_served, out_tp)],
     "served_quant": served.quant_desc,
     "resized_shape": list(resized["pixel_values"].shape),
     "resized_finite": bool(np.isfinite(resized["pixel_values"]).all()),
@@ -194,7 +200,7 @@ def test_tiny_predict_without_pil(child):
     from spatialvla_tpu.config import spatialvla_tiny
 
     cfg = spatialvla_tiny(use_vision_zoe=True)
-    assert child["actions_shape"] == [[4, 7]] * 3 and child["finite"]
+    assert child["actions_shape"] == [[4, 7]] * 4 and child["finite"]
     assert child["served_quant"] == {"bits": 8, "vision_bits": 8, "mlp_bits": None,
                                      "group_size": None}
     ids = np.asarray(child["ids"])

@@ -256,52 +256,38 @@ def test_policy_predict_int4_and_kv8_margin_rule(params, qkw, request):
         assert a["actions"].shape == (4, 7) and np.isfinite(a["actions"]).all()
 
 
-def _engine_over_a_mesh(policy):
-    from spatialvla_tpu_torch.serve import ServingEngine
-
-    policy.mesh = object()  # a policy sharded over a mesh, as shard() would leave it
-    ServingEngine(policy)
-
-
-@pytest.mark.parametrize("call, item", [
-    (lambda p: p.shard(), "item 8b"),
-    (lambda p: p.quantize(bits=4), None),
-    (lambda p: p.quantize(mlp_bits=4), None),
-    (lambda p: p.quantize(bits=4, group_size=128, vision_bits=4), None),
-    (_engine_over_a_mesh, "item 8b"),
+@pytest.mark.parametrize("call", [
+    lambda p: p.quantize(bits=4),
+    lambda p: p.quantize(mlp_bits=4),
+    lambda p: p.quantize(bits=4, group_size=128, vision_bits=4),
 ])
-def test_unported_surfaces_name_their_roadmap_item(call, item, params):
-    """Each surface still to port names its ROADMAP item (the loaders and
-    save_serving, ported since, are tested in test_torch_checkpoints.py); the
-    quantize options ported since (item None) give the trees of JAX's
-    quantize functions bit for bit (run eagerly: under jit XLA may turn the scale
-    divisions into reciprocal products, one ulp away) and JAX's quant_desc."""
-    if item is None:
-        class Record:
-            def quantize(self, bits=8, **kw):
-                self.kw = dict(bits=bits, **kw)
+def test_unported_surfaces_name_their_roadmap_item(call, params):
+    """The quantize options give the trees of JAX's
+    quantize functions bit for bit (run eagerly: under jit XLA may turn the
+    scale divisions into reciprocal products, one ulp away) and JAX's
+    quant_desc. (shard() and the engines over a sharded policy, ported since,
+    are tested against JAX in test_torch_tensor_parallel.py.)"""
+    class Record:
+        def quantize(self, bits=8, **kw):
+            self.kw = dict(bits=bits, **kw)
 
-        call(rec := Record())
-        jp, tp = _policies(params, quantize=False)
-        call(jp)
-        call(tp)
-        assert tp.quant_desc == jp.quant_desc
-        kw = rec.kw
-        want = j_qvis(dict(params), bits=kw.get("vision_bits", 8))
-        want["lm"] = j_qlm(params["lm"], fuse=True, bits=kw["bits"], mlp_bits=kw.get("mlp_bits"),
-                           group_size=kw.get("group_size"))
-        for key in ("lm", "vision", "projector"):
-            flat_j, def_j = jax.tree_util.tree_flatten(
-                jax.tree_util.tree_map(np.asarray, want[key]))
-            flat_t, def_t = jax.tree_util.tree_flatten(to_numpy_tree(tp.params[key]))
-            assert def_j == def_t
-            for a, b in zip(flat_t, flat_j):
-                assert a.dtype == b.dtype
-                np.testing.assert_array_equal(a, b)
-        return
-    policy = SpatialVLAPolicy({}, CFG, default_processor(CFG), device="cpu")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, Queue A {item}"):
-        call(policy)
+    call(rec := Record())
+    jp, tp = _policies(params, quantize=False)
+    call(jp)
+    call(tp)
+    assert tp.quant_desc == jp.quant_desc
+    kw = rec.kw
+    want = j_qvis(dict(params), bits=kw.get("vision_bits", 8))
+    want["lm"] = j_qlm(params["lm"], fuse=True, bits=kw["bits"], mlp_bits=kw.get("mlp_bits"),
+                       group_size=kw.get("group_size"))
+    for key in ("lm", "vision", "projector"):
+        flat_j, def_j = jax.tree_util.tree_flatten(
+            jax.tree_util.tree_map(np.asarray, want[key]))
+        flat_t, def_t = jax.tree_util.tree_flatten(to_numpy_tree(tp.params[key]))
+        assert def_j == def_t
+        for a, b in zip(flat_t, flat_j):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
 
 
 def test_flash_prefill_matches_jax_and_the_masked_prefill(params, serving):
