@@ -144,11 +144,13 @@
    1, the decode-graph captures during each run counted.
 10. Tensor-parallel serving (tensor_parallel_path), after (9): the int8 and
    the int4-g128 (vision_bits=4) trees sharded over n_model = 2 and 4 with
-   every shard on this card (SpatialVLAPolicy.shard): the main path's three
-   requests held to the unsharded policy's (fused path) under the margin
-   rule from the first token on, one request's launches of kernels #1 and #2 exact and no other
-   kernel launched (the unfused loop, no decode graph), n_model=2 x
-   n_data=2 over a 2-row batch, both engines over shard(n_model=2) (the
+   every shard on this card (SpatialVLAPolicy.shard), the lm_head times 8:
+   the main path's three requests held to the unsharded policy's (the
+   first step's action logits within 1/32 of their largest, the fused
+   path's ids under the margin rule from the first token, a tie within
+   that difference apart), each request's launches of kernels #1 and #2
+   exact and no other kernel launched (the unfused loop, no decode graph),
+   n_model=2 x n_data=2 over a 2-row batch held the same way, both engines over shard(n_model=2) (the
    split one with kv_bits=8) serving 8 requests from 4 clients, kernels #1
    and #2 at every new shard shape against their plain versions, and warm
    predict ms at n_model = 1 (unfused), 2 and 4.
@@ -498,7 +500,8 @@ def launch_counts(torch, fn) -> dict:
 
     before = {(f, a): getattr(f, a) for f, names in _lib.COUNTED for a in names}
     fn()
-    torch.cuda.synchronize()
+    if torch.cuda.is_available():  # off the card the wrappers launch nothing
+        torch.cuda.synchronize()
     return {f.__name__ + ("" if a == "launches" else f".{a}"): getattr(f, a) - n
             for (f, a), n in before.items() if getattr(f, a) != n}
 
@@ -2605,6 +2608,17 @@ TP_FORMATS = (("int8", dict(bits=8)), ("int4_g128", dict(bits=4, group_size=128,
 # prefill, SigLIP and the projector): each at the shard shapes has a kernels
 # entry of its own, "<name>_tp"
 TP_KERNELS = ("q8_matvec", "q8_rmsnorm_matvec", "q4_matvec", "q4_rmsnorm_matvec")
+# The phase's lm_head is seed 0's times this power of two before quantize():
+# every action logit is exactly 8 times the seed's, so the ids are the
+# seed's and the margins 8 times theirs. Seed 0's margins at full width run
+# 0.016-0.66 (a few bf16 steps of logits near 2-4), all but a few below
+# MARGIN_BOUND, which would leave the margin rule nothing to hold after the
+# first token; times 8 MARGIN_BOUND is 4 bf16 steps of the largest logits.
+TP_HEAD_SCALE = 8
+# The sharded first-step action logits may differ from the unsharded by this
+# fraction of their largest magnitude (4-8 bf16 steps there): the shards'
+# partial products round and sum in another order from the prefill on.
+TP_LOGIT_TOL = 1 / 32
 
 
 def tp_launches_want(cfg, cut, n, fmt) -> dict:
@@ -2697,41 +2711,91 @@ def tp_kernel_checks(torch, timer, results, notes, tree, fmt, n):
         record_kernel(results, "q4_matvec_tp", f"n{n}_vision_fc2_M256", d, None, None)
 
 
-def tp_counts(torch, fn):
-    """(fn(), the launches it made by wrapper) on the card; (fn(), {}) off it."""
-    from spatialvla_tpu_torch.ops import _lib
+def head_trace(fn):
+    """(fn(), the logits of every greedy head that fn computed, fp32 on the
+    host, in order): a spy on ``spatialvla._head_logits``, which the unfused
+    decode loop calls once a token (a sharded batch's data groups in turn)."""
+    from spatialvla_tpu_torch.models import spatialvla as sv
 
-    if not torch.cuda.is_available():
-        return fn(), {}
-    before = {(f, a): getattr(f, a) for f, names in _lib.COUNTED for a in names}
-    out = fn()
-    torch.cuda.synchronize()
-    return out, {f.__name__ + ("" if a == "launches" else f".{a}"): getattr(f, a) - c
-                 for (f, a), c in before.items() if getattr(f, a) != c}
+    real, seen = sv._head_logits, []
+
+    def spy(*args, **kw):
+        offset, logits = real(*args, **kw)
+        seen.append(logits.float().cpu())
+        return offset, logits
+
+    sv._head_logits = spy
+    try:
+        return fn(), seen
+    finally:
+        sv._head_logits = real
+
+
+def tp_rule_ok(ids, ref_ids, ref_margins, d0) -> bool:
+    """The sharded path against the unsharded one: ``margin_rule_ok``, but
+    the first token may differ where the unsharded first margin is at most
+    2 * d0, the largest difference of the two first-step logit vectors
+    (held under TP_LOGIT_TOL apart): the shards sum in another order from
+    the prefill on, so a tie that close may fall either way, and then the
+    tokens after it may differ too."""
+    if ids[0] != ref_ids[0]:
+        return bool(ref_margins[0] <= 2 * d0)
+    return margin_rule_ok(ids, ref_ids, ref_margins)
+
+
+def tp_compare(label, ids, margins, logits, ref, unfused):
+    """One sharded row against the unsharded: its first-step action logits
+    within TP_LOGIT_TOL of the largest unsharded |logit| (the whole 8194-id
+    vector: a wrong cut of heads, columns, vocabulary or sums moves them by
+    about their own size), its first margin within twice that, and its ids
+    under ``tp_rule_ok``. ``ref`` holds the unsharded fused path's ids and
+    margins, ``unfused`` the unsharded unfused loop's ids and logits a step,
+    whose first step is the fused path's (checked). Returns the first-step
+    difference and its bound, the differences of the later steps while the
+    ids equal the unfused loop's (recorded, unbounded), and whether the ids
+    equal the fused path's."""
+    ids, margins, ref_ids, ref_m = (np.asarray(v) for v in (ids, margins, ref["action_ids"],
+                                                            ref["margins"]))
+    diffs = [float((a - b).abs().max()) for a, b in zip(logits, unfused["logits"])]
+    d0, tol = diffs[0], TP_LOGIT_TOL * float(unfused["logits"][0].abs().max())
+    if not d0 <= tol:
+        fail(f"{label}: first-step action logits differ from the unsharded by up to {d0:.4g}, "
+             f"beyond {tol:.4g} (TP_LOGIT_TOL of their largest magnitude)")
+    if not abs(margins[0] - ref_m[0]) <= 2 * tol:
+        fail(f"{label}: first margin {margins[0]:.4g} against the unsharded {ref_m[0]:.4g}")
+    if not tp_rule_ok(ids, ref_ids, ref_m, d0):
+        fail(f"{label}: ids {ids.tolist()} vs the unsharded {ref_ids.tolist()} (margins "
+             f"{np.round(ref_m, 3).tolist()}, first-step logit difference {d0:.4g}): beyond the "
+             "margin rule")
+    u_ids = unfused["ids"]
+    agree = next((t for t in range(len(ids)) if ids[t] != u_ids[t]), len(ids))
+    return {"first_step_diff": d0, "bound": tol, "diffs_while_equal": diffs[:agree],
+            "exact": bool(np.array_equal(ids, ref_ids)), "first_margin": float(ref_m[0])}
 
 
 def tensor_parallel_path(torch, timer, results, notes, *, cfg=None, device="cuda"):
     """Tensor-parallel serving (SpatialVLAPolicy.shard) at full width: the
     int8 tree (quantize(bits=8)) and the int4-g128 tree with an int4 vision
-    front, on seed 0's weights, each sharded over n_model = 2 and 4 with
-    every shard on this card. The unsharded policy's ids and margins (its
-    fused path through the decode graph) on the main path's three requests
-    are taken before shard(); each sharded policy's must follow them under
-    the margin rule from the first token on (engine_rule_ok: the shards sum
-    their partial products in another order from the prefill on, so a near
-    tie may round the other way at the first token too), its actions equal
-    theirs wherever the chunk step's three ids agree. One request's launches of kernels #1 and #2 must be exactly
-    tp_launches_want's, and no other kernel may launch (the path is the
-    unfused loop: no decode graph, no decode attention). The int8 tree also
-    runs n_model=2 x n_data=2 over a 2-row predict_batch of two instruction
-    lengths (each data group a row: twice one request's launches), held to
-    the unsharded batch, and serves 8 requests from 4 closed-loop clients
-    through ServingEngine and SplitServingEngine(kv_bits=8) over
-    shard(n_model=2), each result held to the sharded predict under
-    engine_rule_ok. Kernels #1 and #2 at every new shard shape at one row
-    (tp_kernel_checks). Warm predict ms at n_model = 1 (the unfused loop), 2
-    and 4: slower than the fused path, and one card gives the shards no
-    more bandwidth; recorded, no claim."""
+    front, on seed 0's weights with the lm_head times TP_HEAD_SCALE, each
+    sharded over n_model = 2 and 4 with every shard on this card. The
+    unsharded policy's ids and margins (its fused path through the decode
+    graph) and the logits of its unfused loop on the main path's three
+    requests are taken before shard(); each sharded request is held to them
+    by ``tp_compare`` (first-step logits within TP_LOGIT_TOL, ids under the
+    margin rule from the first token, a first-token tie apart), its actions
+    equal theirs wherever the chunk step's three ids agree. Each request's
+    launches of kernels #1 and #2 must be exactly tp_launches_want's, and
+    no other kernel may launch (the path is the unfused loop: no decode
+    graph, no decode attention). The int8 tree also runs n_model=2 x
+    n_data=2 over a 2-row predict_batch of two instruction lengths (each
+    data group a row: twice one request's launches), each row held the same
+    way to the unsharded policy on that padded row alone, and serves 8
+    requests from 4 closed-loop clients through ServingEngine and
+    SplitServingEngine(kv_bits=8) over shard(n_model=2), each result held
+    to the sharded predict under engine_rule_ok. Kernels #1 and #2 at every
+    new shard shape at one row (tp_kernel_checks). Warm predict ms at
+    n_model = 1 (the unfused loop), 2 and 4: slower than the fused path,
+    and one card gives the shards no more bandwidth; recorded, no claim."""
     from spatialvla_tpu_torch import SpatialVLAPolicy, spatialvla_4b
     from spatialvla_tpu_torch.models import spatialvla as sv
     from spatialvla_tpu_torch.serve import ServingEngine, SplitServingEngine
@@ -2745,21 +2809,18 @@ def tensor_parallel_path(torch, timer, results, notes, *, cfg=None, device="cuda
     requests = list(zip(images, instructions))
     batch_texts = ["pick up the cup", "open the top drawer of the desk"]
     begin, n_act = cfg.action_token_begin_idx, cfg.spatial_token_num
-    out = {"formats": {}, "launches": collections.Counter()}
+    out = {"formats": {}, "launches": collections.Counter(), "head_scale": TP_HEAD_SCALE,
+           "logit_tol": TP_LOGIT_TOL}
 
-    def check_request(label, o, ref):
+    def check_actions(label, o, ref):
         ids, a = np.asarray(o["action_ids"]), np.asarray(o["actions"])
         if a.shape != (4, 7) or not np.isfinite(a).all():
             fail(f"{label}: actions {a.shape}, finite={np.isfinite(a).all()}")
         if not ((ids >= begin) & (ids < begin + n_act)).all():
             fail(f"{label}: ids outside the action block: {ids}")
-        if not engine_rule_ok(ids, ref["action_ids"], ref["margins"]):
-            fail(f"{label}: ids {ids.tolist()} vs the unsharded {ref['action_ids'].tolist()} "
-                 f"(margins {np.round(ref['margins'], 3).tolist()}): beyond the margin rule")
         same = (ids.reshape(4, 3) == np.asarray(ref["action_ids"]).reshape(4, 3)).all(1)
         if not np.array_equal(a[same], np.asarray(ref["actions"])[same]):
             fail(f"{label}: actions differ on chunk steps whose ids agree")
-        return bool(np.array_equal(ids, ref["action_ids"]))
 
     def warm_ms(fn):
         times = []
@@ -2771,84 +2832,120 @@ def tensor_parallel_path(torch, timer, results, notes, *, cfg=None, device="cuda
 
     for fmt, qkw in TP_FORMATS:
         t0 = time.perf_counter()
-        base = SpatialVLAPolicy.init_random(cfg, device, seed=0).quantize(**qkw)
+        base = SpatialVLAPolicy.init_random(cfg, device, seed=0)
+        with torch.inference_mode():  # exact: a power of two, far from bf16's range
+            base.params["lm"]["lm_head"].mul_(TP_HEAD_SCALE)
+        base.quantize(**qkw)
         tree, proc = base.params, base.processor
         refs = [base.predict(img, instr, return_margins=True) for img, instr in requests]
         rec = {"setup_s": time.perf_counter() - t0, "fused_ms": warm_ms(base.predict)[0]}
 
-        def unfused(img, instr):
-            inputs = base.processor(img, instr)
+        def unfused(inputs, mask=None, margins=False):
             with torch.inference_mode():
-                ids = sv.predict_action(
+                return sv.predict_action(
                     base.params, cfg,
                     torch.as_tensor(inputs["input_ids"], dtype=torch.long, device=device),
                     pixel_values=torch.as_tensor(inputs["pixel_values"], device=device),
                     intrinsic=torch.as_tensor(inputs["intrinsic"], device=device),
-                    use_fused_decode=False)
-            return base.processor.decode_actions(ids.cpu().numpy())
+                    attention_mask=mask, action_chunk_size=proc.action_chunk_size,
+                    compute_dtype=base.compute_dtype, depth_image_size=base.depth_image_size,
+                    use_fused_decode=False, return_margins=margins)
 
-        unfused(*requests[0])
-        rec["n1_unfused_ms"], rec["n1_unfused_ms_all"] = warm_ms(unfused)
+        def unfused_logits(inputs, ref, label, mask=None):
+            """The unsharded unfused loop's ids and logits a step; its first
+            token and margin are the fused path's (one prefill, one head)."""
+            (ids, margins), logits = head_trace(lambda: unfused(inputs, mask, True))
+            if (int(ids[0, 0]) != int(ref["action_ids"][0])
+                    or float(margins[0, 0]) != float(ref["margins"][0])):
+                fail(f"{label}: the unfused loop's first token {int(ids[0, 0])} (margin "
+                     f"{float(margins[0, 0])}) is not the fused path's {ref['action_ids'][0]} "
+                     f"({ref['margins'][0]})")
+            return {"ids": ids[0].cpu().numpy(), "logits": logits}
+
+        ref_logits = [unfused_logits(proc(img, instr), r, f"tensor parallel {fmt} '{instr}'")
+                      for (img, instr), r in zip(requests, refs)]
+        rec["n1_unfused_ms"], rec["n1_unfused_ms_all"] = warm_ms(
+            lambda img, instr: unfused(proc(img, instr)))
         if fmt == "int8":
+            # the 2 x 2 mesh's reference: each padded row alone through the
+            # unsharded policy, as each data group runs it
             binputs = proc(images[:2], batch_texts)
             bmask = torch.as_tensor(np.asarray(binputs["attention_mask"]), device=device)
-            with torch.inference_mode():
-                bref_ids, bref_m = base._generate(binputs, attention_mask=bmask,
-                                                  return_margins=True)
+            rows = [{k: np.asarray(binputs[k])[i:i + 1]
+                     for k in ("input_ids", "pixel_values", "intrinsic")} for i in range(2)]
+            brefs, blogits = [], []
+            for i, row in enumerate(rows):
+                with torch.inference_mode():
+                    ids, m = base._generate(row, attention_mask=bmask[i:i + 1],
+                                            return_margins=True)
+                brefs.append({"action_ids": ids[0].cpu().numpy(), "margins": m[0].cpu().numpy()})
+                blogits.append(unfused_logits(row, brefs[-1], f"tensor parallel batch row {i}",
+                                              bmask[i:i + 1]))
         base.decode_graphs.clear()
         for n in (2, 4):
             tp = SpatialVLAPolicy(tree, cfg, proc, device=device).shard(n_model=n)
             cut = tp.params.cut
             whole = sorted(b for b, c in cut.blocks.items() if not c)
-            tp.predict(*requests[0])  # the first launches (cuBLAS plans, the kernels' loads)
-            _, counts = tp_counts(torch, lambda: tp.predict(*requests[0]))
             want = tp_launches_want(cfg, cut, n, fmt)
-            got = {k: v for k, v in counts.items() if "." not in k}
-            if on_card and got != want:
-                fail(f"tensor parallel {fmt} n={n}: one request launched {counts}, want {want} "
-                     f"(blocks kept whole: {whole})")
-            out["launches"].update(got)
-            outs = []
-            t_req = []
-            for img, instr in requests:
-                t1 = time.perf_counter()
-                outs.append(tp.predict(img, instr, return_margins=True))
-                t_req.append((time.perf_counter() - t1) * 1e3)
-            exact = [check_request(f"tensor parallel {fmt} n={n} '{instr}'", o, r)
-                     for o, r, instr in zip(outs, refs, instructions)]
-            rec[f"n{n}"] = {"warm_ms": statistics.median(t_req), "warm_ms_all": t_req,
-                            "blocks_whole": whole, "launches_per_request": counts,
-                            "exact_ids": exact, "graphs": len(tp.decode_graphs)}
+            outs, checks, held = [], [], {}
+            for (img, instr), r, rl in zip(requests, refs, ref_logits):
+                label = f"tensor parallel {fmt} n={n} '{instr}'"
+                counts = launch_counts(torch, lambda: held.__setitem__("out", head_trace(
+                    lambda: tp.predict(img, instr, return_margins=True))))
+                got = {k: v for k, v in counts.items() if "." not in k}
+                if on_card and got != want:
+                    fail(f"{label}: launched {counts}, want {want} (blocks kept whole: {whole})")
+                out["launches"].update(got)
+                o, logits = held["out"]
+                check_actions(label, o, r)
+                checks.append(tp_compare(label, o["action_ids"], o["margins"], logits, r, rl))
+                outs.append(o)
+            rec[f"n{n}"] = {"blocks_whole": whole, "launches_per_request": counts,
+                            "checks": checks, "graphs": len(tp.decode_graphs)}
+            rec[f"n{n}"]["warm_ms"], rec[f"n{n}"]["warm_ms_all"] = warm_ms(tp.predict)
             if len(tp.decode_graphs):
                 fail(f"tensor parallel {fmt} n={n}: a decode graph was captured under a mesh")
             print(f"tensor parallel {fmt} n_model={n}: blocks kept whole {whole}; one request's "
-                  f"launches {counts} (want {want}); ids equal to the unsharded fused path "
-                  f"{exact}, all within the margin rule; warm predict median "
-                  f"{rec[f'n{n}']['warm_ms']:.1f} ms | {card}", flush=True)
+                  f"launches {counts} (want {want}); against the unsharded: first-step logit "
+                  f"differences {[round(c['first_step_diff'], 4) for c in checks]} (bounds "
+                  f"{[round(c['bound'], 4) for c in checks]}), first margins "
+                  f"{[round(c['first_margin'], 4) for c in checks]}, ids equal "
+                  f"{[c['exact'] for c in checks]}, later steps' differences while equal "
+                  f"{[[round(d, 4) for d in c['diffs_while_equal'][1:]] for c in checks]}; "
+                  f"warm predict median {rec[f'n{n}']['warm_ms']:.1f} ms | {card}", flush=True)
             if on_card:
                 tp_kernel_checks(torch, timer, results, notes, tp.params.groups[0].trees[0],
                                  fmt, n)
             if fmt == "int8" and n == 2:
                 # n_model=2 x n_data=2: each data group one row of the batch
                 dp = SpatialVLAPolicy(tree, cfg, proc, device=device).shard(n_model=2, n_data=2)
-                with torch.inference_mode():
-                    bids, bcounts = tp_counts(torch, lambda: dp._generate(binputs,
-                                                                          attention_mask=bmask))
+                held = {}
+
+                def batch():
+                    with torch.inference_mode():
+                        held["out"] = head_trace(lambda: dp._generate(
+                            binputs, attention_mask=bmask, return_margins=True))
+
+                bcounts = launch_counts(torch, batch)
+                (bids, bm), blog = held["out"]
                 bgot = {k: v for k, v in bcounts.items() if "." not in k}
                 if on_card and bgot != {k: 2 * v for k, v in want.items()}:
                     fail(f"tensor parallel int8 n_model=2 x n_data=2: the 2-row batch launched "
                          f"{bcounts}, want twice {want}")
                 out["launches"].update(bgot)
-                rows_ok = [engine_rule_ok(bids[i].cpu().numpy(), bref_ids[i].cpu().numpy(),
-                                          bref_m[i].cpu().numpy()) for i in range(2)]
+                steps = len(blog) // 2  # the groups ran in turn, one row each
+                bchecks = [tp_compare(f"tensor parallel n_model=2 x n_data=2 row {i}",
+                                      bids[i].cpu().numpy(), bm[i].cpu().numpy(),
+                                      blog[i * steps:(i + 1) * steps], brefs[i], blogits[i])
+                           for i in range(2)]
                 print(f"tensor parallel int8 n_model=2 x n_data=2, 2 rows of prompt lengths "
                       f"{[int(v) for v in binputs['attention_mask'].sum(1)]}: ids "
-                      f"{bids.tolist()} vs the unsharded {bref_ids.tolist()} -> {rows_ok}; "
-                      f"launches {bcounts}", flush=True)
-                if not all(rows_ok):
-                    fail("tensor parallel n_model=2 x n_data=2: a row beyond the margin rule")
-                rec["n2_data2"] = {"launches": bcounts, "ids": bids.tolist(),
-                                   "unsharded_ids": bref_ids.tolist()}
+                      f"{bids.tolist()} vs the unsharded rows {[r['action_ids'].tolist() for r in brefs]}; "
+                      f"first-step logit differences "
+                      f"{[round(c['first_step_diff'], 4) for c in bchecks]}, ids equal "
+                      f"{[c['exact'] for c in bchecks]}; launches {bcounts}", flush=True)
+                rec["n2_data2"] = {"launches": bcounts, "ids": bids.tolist(), "checks": bchecks,
+                                   "unsharded_ids": [r["action_ids"].tolist() for r in brefs]}
                 del dp
                 rec["engines"] = tp_engines(torch, tp, requests, outs, cfg, card,
                                             ServingEngine, SplitServingEngine)
@@ -2860,7 +2957,7 @@ def tensor_parallel_path(torch, timer, results, notes, *, cfg=None, device="cuda
               f"{rec['n2']['warm_ms']:.1f} ms, n_model=4 {rec['n4']['warm_ms']:.1f} ms | {card}",
               flush=True)
         out["formats"][fmt] = rec
-        del base, tree, refs
+        del base, tree, refs, ref_logits
         if on_card:
             torch.cuda.empty_cache()
     if on_card:
@@ -2893,9 +2990,10 @@ def tp_engines(torch, tp, requests, refs, cfg, card, ServingEngine, SplitServing
             if label.startswith("split"):
                 engine.warmup(requests[0][0], [r[1] for r in requests])
                 engine.reset_stats()
-            (results, lat, wall), counts = tp_counts(
-                torch, lambda: engine_clients(engine, requests, 4, 2, f"{label} engine over "
-                                              "shard(n_model=2)"))
+            held = {}
+            counts = launch_counts(torch, lambda: held.__setitem__("out", engine_clients(
+                engine, requests, 4, 2, f"{label} engine over shard(n_model=2)")))
+            results, lat, wall = held["out"]
             stats = engine.stats()
         exact, first = check_engine_results(results, requests, refs, cfg,
                                             f"{label} engine over shard(n_model=2)")
@@ -3937,7 +4035,7 @@ def main() -> int:
     # kernels #1 and #2 at the shard shapes of the tensor-parallel phase: one
     # entry a wrapper, its first shape (n = 2, o or qkv) in front and every
     # shard shape under "shard_shapes"; launches those of the phase's counted
-    # requests (one a format and n, and the 2-row batch over data x model)
+    # requests (three a format and n, and the 2-row batch over data x model)
     for name in TP_KERNELS:
         source, replaces = KERNEL_SOURCES[name]
         r = results[name + "_tp"]
@@ -3950,7 +4048,7 @@ def main() -> int:
             "replaces": replaces, "launches": tensor["launches"][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"][first], "plain_ms": r["plain_ms"][first],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": r["library_ms"][first],
-            "shape": first, "launches_on": "tensor_parallel (one request a format and n_model, "
+            "shape": first, "launches_on": "tensor_parallel (three requests a format and n_model, "
             "and the n_model=2 x n_data=2 batch)", "library_note": notes.get(name + "_tp"),
             "tolerance": "max|kernel - plain| / max|plain| < "
             + ("2e-2 (bf16 out)" if name.startswith("q4") else "1e-2"),

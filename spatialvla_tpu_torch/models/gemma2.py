@@ -9,7 +9,10 @@ same dict (the JAX version returns a new cache). Sandwich RMSNorm, attention
 softcap, query_pre_attn_scalar scaling, sqrt(hidden) embedding scale in the
 activation dtype and fp32 RoPE follow the JAX module. Quantized serving trees
 (fused ``qkv`` / ``gate_up``) take the same branches (gemma2.py:111-116,
-:143-146).
+:143-146). ``forward``, ``embed_tokens`` and ``head_logits`` also take one
+data group of a model-sharded serving tree (``parallel/partitioning.py``
+ShardGroup, ``SpatialVLAPolicy.shard``): a whole tree runs as a group of
+one, through the same loop.
 
 ``forward_flash`` (training) and ``prefill_flash`` (serving prefill) run
 attention through the flash-attention kernels (ops/flash_attention.py).
@@ -28,6 +31,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.flash_attention import flash_attention
 from ..ops.quant import qmatmul, qnorm_matmul
+from ..parallel.partitioning import as_group
 from .attention import multi_head_attention
 from .layers import gelu_tanh, normal_init, rms_norm, softcap, zeros
 from .rope import apply_rope, rope_cos_sin
@@ -66,12 +70,6 @@ def init_cache(cfg, batch: int, max_len: int, *, device, dtype=torch.bfloat16) -
     shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
-
-
-def embed_tokens(params: Params, input_ids: torch.Tensor, dtype=None) -> torch.Tensor:
-    # gather first, then cast: the same values as casting the table first
-    emb = params["embed"][input_ids]
-    return emb if dtype is None else emb.to(dtype)
 
 
 def layer_slice(tree, l: int):
@@ -145,13 +143,29 @@ def _mlp_block(lp, h, norm_w, eps):
     return qmatmul(gate * up, lp["down"])
 
 
-def _decoder_layer(cfg, h, lp, mask, cos, sin, cache_kv, cache_position):
-    attn_out = _attention_block(
-        lp["attn"], cfg, h, lp["input_norm"], cos, sin, mask, cache_kv, cache_position
-    )
-    h = h + rms_norm(lp["post_attn_norm"], attn_out, cfg.rms_norm_eps)
-    mlp_out = _mlp_block(lp["mlp"], h, lp["pre_ffn_norm"], cfg.rms_norm_eps)
-    return h + rms_norm(lp["post_ffn_norm"], mlp_out, cfg.rms_norm_eps)
+def decoder_layer(tp, l: int, cfg, h, mask, cos, sin, caches, cache_position):
+    """Layer l over the model shards of ``tp`` (``parallel/partitioning.py``
+    ShardGroup; a whole tree's is a group of one): each shard of the
+    attention runs ``_attention_block`` over its q and kv heads
+    (``tp.text_cfg``) and its cache (``caches``: one a shard of the
+    attention, or None), each shard of the MLP ``_mlp_block`` over its
+    hidden columns, and their partial ``o`` / ``down`` products are summed
+    (``sum_shards``). The residual stream and the norms stay on the group's
+    home device."""
+    lps = tp.layers("lm", cfg.num_layers)
+    lp = lps[0][l]
+    tcfg, eps = tp.text_cfg(cfg), cfg.rms_norm_eps
+
+    def attn(s, tree, h, mask, cos, sin):
+        cache_kv = None if caches is None else (caches[s]["k"][l], caches[s]["v"][l])
+        return _attention_block(lps[s][l]["attn"], tcfg, h, lps[s][l]["input_norm"], cos, sin,
+                                mask, cache_kv, cache_position)
+
+    attn_out = tp.reduce("lm_attn", attn, h, mask, cos, sin)
+    h = h + rms_norm(lp["post_attn_norm"], attn_out, eps)
+    mlp_out = tp.reduce("lm_mlp", lambda s, tree, h: _mlp_block(lps[s][l]["mlp"], h,
+                                                               lps[s][l]["pre_ffn_norm"], eps), h)
+    return h + rms_norm(lp["post_ffn_norm"], mlp_out, eps)
 
 
 def make_masks(cfg, base_mask, q_positions, k_positions):
@@ -182,107 +196,77 @@ def _prepare(cfg, inputs_embeds, position_ids, base_mask, cache_len, cache_posit
 
 
 def forward(
-    params: Params,
+    params,  # the LM tree, or a ShardGroup of model shards
     cfg,
     inputs_embeds: torch.Tensor,  # (B, T, H), unscaled
     position_ids: torch.Tensor,  # (B, T) 1-indexed RoPE positions
     base_mask: torch.Tensor,  # (B, 1, T, S) bool
     *,
-    cache: Optional[Params] = None,
+    cache=None,  # a whole tree's cache dict, or a list of one a shard (init_caches)
     cache_position: Optional[int] = None,  # first cache slot to write
     window_positions: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     use_remat: bool = False,
-) -> Tuple[torch.Tensor, Optional[Params]]:
+):
     """Runs the decoder stack; returns (final_norm(h), cache). With a cache,
-    the rows are written into it in place and the same dict is returned.
-    use_remat recomputes each layer in the backward pass (training, no
-    cache)."""
+    the rows are written into it in place and the same cache is returned.
+    ``params`` is the LM tree or one data group of a sharded serving tree
+    (``decoder_layer``), whose caches ``init_caches`` makes. use_remat
+    recomputes each layer in the backward pass (training, no cache)."""
+    tp = as_group(params, "lm")
+    caches = [cache] if isinstance(cache, dict) else cache
+    if use_remat and caches is not None:
+        raise ValueError("use_remat is for training; it takes no cache")
     T = inputs_embeds.shape[1]
     start = cache_position if cache_position is not None else 0
-    S = cache["k"].shape[2] if cache is not None else T
+    S = caches[0]["k"].shape[2] if caches is not None else T
     h, cos, sin, mask_global, mask_sliding = _prepare(
         cfg, inputs_embeds, position_ids, base_mask, S, cache_position, window_positions)
 
-    if use_remat and cache is not None:
-        raise ValueError("use_remat is for training; it takes no cache")
-    layer = remat(lambda h, lp, mask: _decoder_layer(cfg, h, lp, mask, cos, sin, None, start),
+    tp.layers("lm", cfg.num_layers)  # the per-layer views, outside any recomputation
+    layer = remat(lambda h, l, mask: decoder_layer(tp, l, cfg, h, mask, cos, sin, caches, start),
                   use_remat)
-    for l, lp in enumerate(unstack_layers(params["layers"], cfg.num_layers)):
-        mask = mask_sliding if l % 2 == 0 else mask_global  # even layers slide
-        if cache is None:
-            h = layer(h, lp, mask)
-        else:
-            h = _decoder_layer(cfg, h, lp, mask, cos, sin, (cache["k"][l], cache["v"][l]), start)
-
-    return rms_norm(params["final_norm"], h, cfg.rms_norm_eps), cache
+    for l in range(cfg.num_layers):
+        h = layer(h, l, mask_sliding if l % 2 == 0 else mask_global)  # even layers slide
+    return rms_norm(tp.trees[0]["lm"]["final_norm"], h, cfg.rms_norm_eps), cache
 
 
 # ---------------------------------------------------------------------------
-# over the model axis (tensor parallelism, SpatialVLAPolicy.shard)
+# the caches, the embedding and the greedy head over the model shards
 # ---------------------------------------------------------------------------
-# ``tp`` is one data group of a sharded tree (parallel/partitioning.py
-# ShardGroup): each shard of the attention runs the block above over its q
-# and kv heads (``tp.text_cfg()``) and its own cache, each shard of the MLP
-# over its hidden columns; their partial ``o`` / ``down`` products are summed
-# (``sum_shards``). The residual stream, the norms and a whole block run on
-# the group's home device.
 
-def init_cache_tp(tp, cfg, batch: int, max_len: int, *, dtype=torch.bfloat16) -> List[Params]:
-    """One cache a shard of the attention, over its kv heads, on its device."""
-    tcfg = tp.text_cfg()
-    return [init_cache(tcfg, batch, max_len, device=tp.devices[s], dtype=dtype)
+def init_caches(params, cfg, batch: int, max_len: int, *, device=None,
+                dtype=torch.bfloat16) -> List[Params]:
+    """One cache a shard of the attention of ``params`` (the LM tree: one
+    cache, on ``device``; a ShardGroup: over each shard's kv heads, on its
+    device)."""
+    tp = as_group(params, "lm")
+    tcfg = tp.text_cfg(cfg)
+    return [init_cache(tcfg, batch, max_len, dtype=dtype,
+                       device=device if tp.devices[s] is None else tp.devices[s])
             for s in tp.shards("lm_attn")]
 
 
-def decoder_layer_tp(tp, l: int, cfg, h, mask, cos, sin, caches, cache_position):
-    """Layer l of the stack over the model shards (``_decoder_layer``);
-    ``caches`` one cache a shard of the attention (None: no cache)."""
-    lps = tp.layers("lm")
-    lp = lps[0][l]
-    tcfg, eps = tp.text_cfg(), cfg.rms_norm_eps
-
-    def attn(s, tree, h, mask, cos, sin):
-        cache_kv = None if caches is None else (caches[s]["k"][l], caches[s]["v"][l])
-        return _attention_block(lps[s][l]["attn"], tcfg, h, lps[s][l]["input_norm"], cos, sin,
-                                mask, cache_kv, cache_position)
-
-    attn_out = tp.reduce("lm_attn", attn, h, mask, cos, sin)
-    h = h + rms_norm(lp["post_attn_norm"], attn_out, eps)
-    mlp_out = tp.reduce("lm_mlp", lambda s, tree, h: _mlp_block(lps[s][l]["mlp"], h,
-                                                               lps[s][l]["pre_ffn_norm"], eps), h)
-    return h + rms_norm(lp["post_ffn_norm"], mlp_out, eps)
+def _embed_rows(s, tree, ids):
+    """Shard s's rows of a vocabulary cut for ``ids``, the ids outside them zero."""
+    table = tree["lm"]["embed"]
+    rows = table.shape[0]
+    local = ids - s * rows
+    ok = (local >= 0) & (local < rows)
+    emb = table[local.clamp(0, rows - 1)]
+    return torch.where(ok[..., None], emb, torch.zeros_like(emb))
 
 
-def forward_tp(tp, cfg, inputs_embeds, position_ids, base_mask, *, caches: List[Params],
-               cache_position: int = 0, window_positions=None) -> torch.Tensor:
-    """``forward`` with a cache over the model shards of ``tp``: the rows are
-    written in place into ``caches`` (``init_cache_tp``); returns
-    final_norm(h) on the home device."""
-    S = caches[0]["k"].shape[2]
-    h, cos, sin, mask_global, mask_sliding = _prepare(
-        cfg, inputs_embeds, position_ids, base_mask, S, cache_position, window_positions)
-    for l in range(cfg.num_layers):
-        mask = mask_sliding if l % 2 == 0 else mask_global  # even layers slide
-        h = decoder_layer_tp(tp, l, cfg, h, mask, cos, sin, caches, cache_position)
-    return rms_norm(tp.trees[0]["lm"]["final_norm"], h, cfg.rms_norm_eps)
-
-
-def embed_tokens_tp(tp, input_ids: torch.Tensor, dtype=None) -> torch.Tensor:
-    """``embed_tokens`` over a vocabulary cut: each shard looks up the ids
-    of its rows (the others masked to zero) and ``sum_shards`` adds them, so
-    every row is the table's own."""
-    if not tp.is_cut("vocab"):
-        return embed_tokens(tp.trees[0]["lm"], input_ids, dtype)
-
-    def one(s, tree, ids):
-        table = tree["lm"]["embed"]
-        rows = table.shape[0]
-        local = ids - s * rows
-        ok = (local >= 0) & (local < rows)
-        emb = table[local.clamp(0, rows - 1)]
-        return torch.where(ok[..., None], emb, torch.zeros_like(emb))
-
-    emb = tp.reduce("vocab", one, input_ids)
+def embed_tokens(params, input_ids: torch.Tensor, dtype=None) -> torch.Tensor:
+    """The embedding rows of ``input_ids`` from the LM tree or a ShardGroup.
+    Over a vocabulary cut each shard looks up the ids of its rows (the others
+    masked to zero) and ``sum_shards`` adds them, so every row is the
+    table's own. Gathered first, then cast: the same values as casting the
+    table first."""
+    tp = as_group(params, "lm")
+    if tp.is_cut("vocab"):
+        emb = tp.reduce("vocab", _embed_rows, input_ids)
+    else:
+        emb = tp.trees[0]["lm"]["embed"][input_ids]
     return emb if dtype is None else emb.to(dtype)
 
 
@@ -290,17 +274,18 @@ def _head_of(lm: Params):
     return lm["lm_head"] if "lm_head" in lm else lm["embed"].t()
 
 
-def head_logits_tp(tp, cfg, hidden: torch.Tensor, token_range=None, *,
-                   full_logits: bool = False) -> torch.Tensor:
-    """The logits of the greedy head over a vocabulary cut, in id order on the
-    home device: the head's rows [begin, begin + size) of ``token_range``
-    (None: every id) as ``qmatmul`` gives them, or with ``full_logits``
-    ``compute_logits``' softcapped fp32 ones. Each shard computes the rows
-    it holds inside the range (a shard holding none computes nothing), and
-    the blocks are joined in order, so argmax and margins over them are
-    those of the whole vector."""
+def head_logits(params, cfg, hidden: torch.Tensor, token_range=None, *,
+                full_logits: bool = False) -> torch.Tensor:
+    """The logits of the greedy head of the LM tree or a ShardGroup, in id
+    order: the head's rows [begin, begin + size) of ``token_range`` (None:
+    every id) as ``qmatmul`` gives them, or with ``full_logits``
+    ``compute_logits``' softcapped fp32 ones. Over a vocabulary cut each
+    shard computes the rows it holds inside the range (a shard holding none
+    computes nothing) and the blocks are joined in order on the home device,
+    so argmax and margins over them are those of the whole vector."""
     from ..ops.quant import is_quantized
 
+    tp = as_group(params, "lm")
     V = cfg.vocab_size
     lo, hi = (0, V) if token_range is None else (token_range[0], token_range[0] + token_range[1])
     width = V // tp.n if tp.is_cut("vocab") else V
@@ -313,12 +298,13 @@ def head_logits_tp(tp, cfg, hidden: torch.Tensor, token_range=None, *,
         i, j = a - s * width, b - s * width
         head = ({"qt": head["qt"][i:j], "scale": head["scale"][i:j]} if is_quantized(head)
                 else head[:, i:j])
-        x = hidden.to(tp.devices[s])
+        x = hidden if tp.devices[s] is None else hidden.to(tp.devices[s])
         if full_logits:
             parts.append(compute_logits({"lm_head": head}, cfg, x))
         else:
             parts.append(qmatmul(x, head))
-    return torch.cat([p.to(tp.home) for p in parts], dim=-1)
+    parts = [tp.to_home(p) for p in parts]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -11,8 +11,9 @@ from typing import Any, Dict
 import torch
 
 from ..ops.quant import qmatmul
+from ..parallel.partitioning import as_group
 from .attention import multi_head_attention
-from .gemma2 import remat, unstack_layers
+from .gemma2 import remat
 from .layers import gelu_tanh, layer_norm, layer_norm_init, normal_init, ones, zeros
 
 Params = Dict[str, Any]
@@ -78,44 +79,35 @@ def _mlp(x: torch.Tensor, p: Params) -> torch.Tensor:
     return qmatmul(gelu_tanh(_linear(x, p["fc1"])), p["fc2"]["w"])
 
 
-def _encoder_layer(cfg, h: torch.Tensor, lp: Params) -> torch.Tensor:
-    x = layer_norm(lp["ln1"], h, cfg.layer_norm_eps)
-    h = h + _bias(_attention(cfg, x, lp["attn"], cfg.num_heads), lp["attn"]["o"])
-    x2 = layer_norm(lp["ln2"], h, cfg.layer_norm_eps)
-    return h + _bias(_mlp(x2, lp["mlp"]), lp["mlp"]["fc2"])
-
-
-def forward(params: Params, cfg, pixel_values: torch.Tensor, *,
-            use_remat: bool = False) -> torch.Tensor:
-    """(B, H, W, 3) NHWC, already SigLIP-normalized -> (B, N, hidden)."""
-    h = _patchify(params, cfg, pixel_values)
-    h = h + params["pos_embed"].to(h.dtype)[None]
-    layer = remat(lambda h, lp: _encoder_layer(cfg, h, lp), use_remat)
-    for lp in unstack_layers(params["layers"], cfg.num_layers):
-        h = layer(h, lp)
-    return layer_norm(params["post_ln"], h, cfg.layer_norm_eps)
-
-
-def forward_tp(tp, cfg, pixel_values: torch.Tensor) -> torch.Tensor:
-    """``forward`` over the model shards of ``tp`` (parallel/partitioning.py
-    ShardGroup): the patch conv's output channels per shard, joined in order
-    before pos_embed; each layer's attention over a shard's heads and MLP
-    over its hidden columns, the partial o / fc2 products summed
+def _encoder_layer(tp, l: int, cfg, h: torch.Tensor) -> torch.Tensor:
+    """Layer l over the model shards of ``tp`` (a whole tree's group of one,
+    or a ShardGroup): the attention over each shard's heads and the MLP over
+    its hidden columns, their partial o / fc2 products summed
     (``sum_shards``) before their bias, which is added once. The residual
     stream and the LayerNorms run on the group's home device."""
+    lps = tp.layers("vision", cfg.num_layers)
+    lp = lps[0][l]
+    nh = cfg.num_heads // tp.n if tp.is_cut("vision_attn") else cfg.num_heads
+    eps = cfg.layer_norm_eps
+    x = layer_norm(lp["ln1"], h, eps)
+    attn = tp.reduce("vision_attn", lambda s, tree, x: _attention(cfg, x, lps[s][l]["attn"], nh), x)
+    h = h + _bias(attn, lp["attn"]["o"])
+    x2 = layer_norm(lp["ln2"], h, eps)
+    mlp = tp.reduce("vision_mlp", lambda s, tree, x: _mlp(x, lps[s][l]["mlp"]), x2)
+    return h + _bias(mlp, lp["mlp"]["fc2"])
+
+
+def forward(params, cfg, pixel_values: torch.Tensor, *, use_remat: bool = False) -> torch.Tensor:
+    """(B, H, W, 3) NHWC, already SigLIP-normalized -> (B, N, hidden), from
+    the vision tree or over the model shards of a ShardGroup
+    (parallel/partitioning.py), the patch conv's output channels joined in
+    order before pos_embed."""
+    tp = as_group(params, "vision")
     h = tp.gather("patch", lambda s, tree, px: _patchify(tree["vision"], cfg, px), pixel_values)
     home = tp.trees[0]["vision"]
     h = h + home["pos_embed"].to(h.dtype)[None]
-    lps = tp.layers("vision")
-    nh = cfg.num_heads // tp.n if tp.is_cut("vision_attn") else cfg.num_heads
-    eps = cfg.layer_norm_eps
+    tp.layers("vision", cfg.num_layers)  # the per-layer views, outside any recomputation
+    layer = remat(lambda h, l: _encoder_layer(tp, l, cfg, h), use_remat)
     for l in range(cfg.num_layers):
-        lp = lps[0][l]
-        x = layer_norm(lp["ln1"], h, eps)
-        attn = tp.reduce("vision_attn",
-                         lambda s, tree, x: _attention(cfg, x, lps[s][l]["attn"], nh), x)
-        h = h + _bias(attn, lp["attn"]["o"])
-        x2 = layer_norm(lp["ln2"], h, eps)
-        h = h + _bias(tp.reduce("vision_mlp", lambda s, tree, x: _mlp(x, lps[s][l]["mlp"]), x2),
-                      lp["mlp"]["fc2"])
-    return layer_norm(home["post_ln"], h, eps)
+        h = layer(h, l)
+    return layer_norm(home["post_ln"], h, cfg.layer_norm_eps)

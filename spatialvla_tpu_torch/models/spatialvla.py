@@ -29,11 +29,11 @@ written in place, replayed as one CUDA graph by ``ServingLoop``.
 Over the model axis (``SpatialVLAPolicy.shard``) the serving functions take
 one data group of the sharded tree (``parallel/partitioning.py:ShardGroup``)
 in place of ``params``: SigLIP, the projector, the LM's attention and MLP,
-the embedding and the greedy head run over the model shards (the models'
-``*_tp`` functions), ZoeDepth and Ego3D once on the group's home device. As
-in JAX, the decode loop there is the unfused one (``use_fused_decode`` is
-refused) and the split-phase decode is ``xla_decode_step`` over each
-shard's kv heads.
+the embedding and the greedy head run over the model shards, ZoeDepth and
+Ego3D once on the group's home device. A whole tree runs through the same
+code as a group of one (``as_group``). As in JAX, the decode loop over a
+mesh is the unfused one (``use_fused_decode`` is refused) and the
+split-phase decode is ``xla_decode_step`` over each shard's kv heads.
 """
 from __future__ import annotations
 
@@ -49,7 +49,7 @@ from . import siglip as siglip_mod
 from . import zoe as zoe_mod
 from .layers import normal_init, zeros
 from ..parallel.mesh import LocalMesh
-from ..parallel.partitioning import ShardGroup
+from ..parallel.partitioning import as_group
 from ..ops.quant import is_quantized, qmatmul
 
 Params = Dict[str, Any]
@@ -116,12 +116,10 @@ def get_image_features(params: Params, cfg, pixel_values: torch.Tensor,
             intrinsic = intrinsic.repeat_interleave(k, dim=0)
         if depth is not None:
             depth = depth.reshape((B * k,) + tuple(depth.shape[2:]))
-    tp = params if isinstance(params, ShardGroup) else None
-    if tp is not None:  # the replicated leaves, on the group's home device
-        params = tp.trees[0]
+    tp = as_group(params)
+    params = tp.trees[0]  # the replicated leaves, on the group's home device
     normed = (pixel_values - SIGLIP_MEAN) / SIGLIP_STD
-    feats = (siglip_mod.forward(params["vision"], cfg.vision, normed, use_remat=use_remat)
-             if tp is None else siglip_mod.forward_tp(tp, cfg.vision, normed))
+    feats = siglip_mod.forward(tp, cfg.vision, normed, use_remat=use_remat)
     if cfg.use_vision_zoe:
         with torch.no_grad():  # frozen depth branch (stop_gradient, spatialvla.py:139)
             if depth is None:
@@ -134,10 +132,8 @@ def get_image_features(params: Params, cfg, pixel_values: torch.Tensor,
             patch_size=cfg.vision.patch_size, reso=cfg.ego3d.patch_reso,
         )
         feats = feats + ego3d_mod.forward(params["ego3d"], cfg.ego3d, xyz, dtype=feats.dtype)
-    if tp is None:
-        feats = _project(params["projector"], feats)
-    else:  # output columns over the model shards, joined before the scale
-        feats = tp.gather("projector", lambda s, tree, f: _project(tree["projector"], f), feats)
+    # the output columns over the model shards, joined before the scale
+    feats = tp.gather("projector", lambda s, tree, f: _project(tree["projector"], f), feats)
     feats = feats / (cfg.text.hidden_size ** 0.5)
     if multi_obs:
         feats = feats.reshape(B, -1, feats.shape[-1])
@@ -152,11 +148,9 @@ def merge_input_embeddings(params: Params, cfg, input_ids: torch.Tensor,
                            image_features: Optional[torch.Tensor], dtype=None):
     """Token embeddings with the spatial-token table overriding the action
     ids, and image features scattered into the <image> positions."""
-    if isinstance(params, ShardGroup):  # the embedding over a vocabulary cut
-        embeds = gemma2_mod.embed_tokens_tp(params, input_ids, dtype=dtype)
-        params = params.trees[0]
-    else:
-        embeds = gemma2_mod.embed_tokens(params["lm"], input_ids, dtype=dtype)
+    tp = as_group(params)
+    embeds = gemma2_mod.embed_tokens(tp, input_ids, dtype=dtype)
+    params = tp.trees[0]
     if cfg.use_spatial_token and "spatial_embed" in params:
         begin = cfg.action_token_begin_idx
         is_spatial = (input_ids >= begin) & (input_ids < begin + cfg.spatial_token_num)
@@ -299,38 +293,13 @@ def _greedy_head(lm_params: Params, token_range: Optional[Tuple[int, int]]):
 
 
 def _head_logits(params, cfg, h: torch.Tensor, token_range, *, full_logits: bool = False):
-    """(id offset, logits) of the greedy head for h (..., H): the rows of
-    ``token_range`` (None: the whole head) through ``qmatmul``, or with
-    ``full_logits`` (and token_range None) ``gemma2.compute_logits``'s
-    softcapped fp32 logits; over the model shards for a ``ShardGroup``."""
-    full_logits = full_logits and token_range is None
-    if isinstance(params, ShardGroup):
-        offset = 0 if token_range is None else token_range[0]
-        return offset, gemma2_mod.head_logits_tp(params, cfg.text, h, token_range,
-                                                 full_logits=full_logits)
-    if full_logits:
-        return 0, gemma2_mod.compute_logits(params["lm"], cfg.text, h)
-    offset, head = _greedy_head(params["lm"], token_range)
-    return offset, qmatmul(h, head)
-
-
-def _lm_forward(params, cfg, embeds, position_ids, mask, cache, cache_position,
-                window_positions=None):
-    """The masked LM forward with a cache (written in place): ``gemma2.forward``,
-    or over the model shards of a ``ShardGroup`` (``cache`` one a shard of the
-    attention, ``gemma2.init_cache_tp``)."""
-    if isinstance(params, ShardGroup):
-        return gemma2_mod.forward_tp(params, cfg.text, embeds, position_ids, mask, caches=cache,
-                                     cache_position=cache_position,
-                                     window_positions=window_positions), cache
-    return gemma2_mod.forward(params["lm"], cfg.text, embeds, position_ids, mask, cache=cache,
-                              cache_position=cache_position, window_positions=window_positions)
-
-
-def _init_cache(params, cfg, B: int, S: int, *, device, dtype):
-    if isinstance(params, ShardGroup):
-        return gemma2_mod.init_cache_tp(params, cfg.text, B, S, dtype=dtype)
-    return gemma2_mod.init_cache(cfg.text, B, S, device=device, dtype=dtype)
+    """(id offset, logits) of the greedy head for h (..., H), from a tree or
+    over the model shards of a ShardGroup (``gemma2.head_logits``): the rows
+    of ``token_range`` (None: the whole head) as ``qmatmul`` gives them, or
+    with ``full_logits`` (and token_range None) the softcapped fp32 logits."""
+    offset = 0 if token_range is None else token_range[0]
+    return offset, gemma2_mod.head_logits(params, cfg.text, h, token_range,
+                                          full_logits=full_logits and token_range is None)
 
 
 def _argmax_margin(logits: torch.Tensor) -> torch.Tensor:
@@ -383,7 +352,8 @@ def generate_greedy(
     graph_kw = dict(use_cuda_graph=use_cuda_graph, decode_graphs=decode_graphs)
     if use_flash_prefill and attention_mask is not None:
         raise ValueError("use_flash_prefill assumes unpadded rows (attention_mask=None)")
-    if isinstance(params, ShardGroup) and (use_flash_prefill or use_fused_decode or kv_bits):
+    tp = as_group(params)
+    if tp.sharded and (use_flash_prefill or use_fused_decode or kv_bits):
         raise ValueError("over the model axis the prefill is the masked one and the decode loop "
                          "the unfused one (use_flash_prefill, use_fused_decode and kv_bits off), "
                          "as in JAX")
@@ -394,21 +364,21 @@ def generate_greedy(
     image_features = None
     if pixel_values is not None:
         image_features = get_image_features(
-            params, cfg, pixel_values, intrinsic, depth=depth,
+            tp, cfg, pixel_values, intrinsic, depth=depth,
             compute_dtype=compute_dtype, depth_image_size=depth_image_size,
         )
-    embeds = merge_input_embeddings(params, cfg, input_ids, image_features, dtype=compute_dtype)
+    embeds = merge_input_embeddings(tp, cfg, input_ids, image_features, dtype=compute_dtype)
 
     if use_flash_prefill:
         position_ids = torch.arange(1, P + 1, device=dev)[None].expand(B, P)
-        hidden, cache = gemma2_mod.prefill_flash(params["lm"], cfg.text, embeds, position_ids, S,
-                                                 cache_dtype=cache_dtype)
+        hidden, cache = gemma2_mod.prefill_flash(tp.trees[0]["lm"], cfg.text, embeds,
+                                                 position_ids, S, cache_dtype=cache_dtype)
         return _decode_after_prefill(
-            params, cfg, cache, hidden, P, S, max_new_tokens, token_range, use_fused_decode,
+            tp, cfg, [cache], hidden, P, S, max_new_tokens, token_range, use_fused_decode,
             compute_dtype, valid=None, key_valid=None, k_pos_true=None, kv_bits=kv_bits,
             return_margins=return_margins, **graph_kw,
         )
-    cache = _init_cache(params, cfg, B, S, device=dev, dtype=cache_dtype)
+    caches = gemma2_mod.init_caches(tp, cfg.text, B, S, device=dev, dtype=cache_dtype)
     if attention_mask is None:
         position_ids = torch.arange(1, P + 1, device=dev)[None].expand(B, P)
         mask = bidirectional_prefill_mask(P, S, B, device=dev)
@@ -422,10 +392,12 @@ def generate_greedy(
         k_pos_true = torch.cat(
             [position_ids, valid[:, None] + torch.arange(1, S - P + 1, device=dev)[None]], dim=-1
         )
-    hidden, cache = _lm_forward(params, cfg, embeds, position_ids, mask, cache, 0,
-                                None if valid is None else (position_ids, k_pos_true))
+    hidden, _ = gemma2_mod.forward(tp, cfg.text, embeds, position_ids, mask, cache=caches,
+                                   cache_position=0,
+                                   window_positions=None if valid is None
+                                   else (position_ids, k_pos_true))
     return _decode_after_prefill(
-        params, cfg, cache, hidden, P, S, max_new_tokens, token_range, use_fused_decode,
+        tp, cfg, caches, hidden, P, S, max_new_tokens, token_range, use_fused_decode,
         compute_dtype, valid=valid, key_valid=key_valid, k_pos_true=k_pos_true, kv_bits=kv_bits,
         return_margins=return_margins, **graph_kw,
     )
@@ -436,15 +408,17 @@ def _stack_steps(toks, margs, return_margins):
     return (out, torch.stack(margs, dim=1)) if return_margins else out
 
 
-def _decode_after_prefill(params, cfg, cache, hidden, P, S, max_new_tokens, token_range,
+def _decode_after_prefill(tp, cfg, caches, hidden, P, S, max_new_tokens, token_range,
                           use_fused_decode, compute_dtype, *, valid, key_valid, k_pos_true,
                           kv_bits=None, return_margins=False, use_cuda_graph=None,
                           decode_graphs=None):
-    """The greedy decode loop after the prefill (spatialvla.py:439)."""
+    """The greedy decode loop after the prefill (spatialvla.py:439), over
+    ``tp`` (a whole tree's group of one or a ShardGroup) and its caches
+    (``gemma2.init_caches``)."""
     B = hidden.shape[0]
     use_fused = (
-        not isinstance(params, ShardGroup)
-        and "qkv" in params["lm"]["layers"]["attn"]
+        not tp.sharded
+        and "qkv" in tp.trees[0]["lm"]["layers"]["attn"]
         and B <= 16
         and S <= cfg.text.sliding_window
         and hidden.is_cuda
@@ -453,7 +427,7 @@ def _decode_after_prefill(params, cfg, cache, hidden, P, S, max_new_tokens, toke
     )
     if use_fused:
         return _generate_greedy_fused(
-            params, cfg, cache, hidden, P, max_new_tokens, token_range,
+            tp.trees[0], cfg, caches[0], hidden, P, max_new_tokens, token_range,
             compute_dtype=compute_dtype, valid=valid, kv_bits=kv_bits,
             return_margins=return_margins, use_cuda_graph=use_cuda_graph,
             decode_graphs=decode_graphs,
@@ -464,7 +438,7 @@ def _decode_after_prefill(params, cfg, cache, hidden, P, S, max_new_tokens, toke
     def next_from(hidden_last):
         # the action block's rows as qmatmul gives them, or the whole
         # vocabulary's softcapped logits
-        begin, logits = _head_logits(params, cfg, hidden_last[:, 0], token_range,
+        begin, logits = _head_logits(tp, cfg, hidden_last[:, 0], token_range,
                                      full_logits=True)
         return torch.argmax(logits, dim=-1) + begin, _argmax_margin(logits)
 
@@ -479,7 +453,7 @@ def _decode_after_prefill(params, cfg, cache, hidden, P, S, max_new_tokens, toke
     toks, margs = [tok], [marg]
     k_idx = torch.arange(S, device=dev)
     for t in range(max_new_tokens - 1):
-        embeds = merge_input_embeddings(params, cfg, tok[:, None], None, dtype=compute_dtype)
+        embeds = merge_input_embeddings(tp, cfg, tok[:, None], None, dtype=compute_dtype)
         if valid is None:
             pos = torch.full((B, 1), P + t + 1, dtype=torch.int32, device=dev)
             step_mask = (k_idx <= P + t).expand(B, 1, 1, S)
@@ -489,7 +463,8 @@ def _decode_after_prefill(params, cfg, cache, hidden, P, S, max_new_tokens, toke
             gen = (k_idx >= P) & (k_idx <= P + t)
             step_mask = (key_valid | gen[None, :])[:, None, None, :]
             wpos = (pos, k_pos_true)
-        hidden, cache = _lm_forward(params, cfg, embeds, pos, step_mask, cache, P + t, wpos)
+        hidden, _ = gemma2_mod.forward(tp, cfg.text, embeds, pos, step_mask, cache=caches,
+                                       cache_position=P + t, window_positions=wpos)
         tok, marg = next_from(hidden)
         toks.append(tok)
         margs.append(marg)
@@ -871,19 +846,21 @@ def prefill_for_serving(
     if kv_bits not in (None, 8):
         raise ValueError(f"kv_bits={kv_bits}: only 8 (or None) is supported")
     dev = input_ids.device
-    image_features = get_image_features(params, cfg, pixel_values, intrinsic,
+    tp = as_group(params)
+    image_features = get_image_features(tp, cfg, pixel_values, intrinsic,
                                         compute_dtype=compute_dtype,
                                         depth_image_size=depth_image_size)
-    embeds = merge_input_embeddings(params, cfg, input_ids, image_features, dtype=compute_dtype)
-    cache = _init_cache(params, cfg, B, P, device=dev, dtype=cache_dtype)
+    embeds = merge_input_embeddings(tp, cfg, input_ids, image_features, dtype=compute_dtype)
+    caches = gemma2_mod.init_caches(tp, cfg.text, B, P, device=dev, dtype=cache_dtype)
     am = attention_mask.to(device=dev, dtype=torch.int32)
     valid = am.sum(dim=-1)  # each row's prefix length
     position_ids = torch.cumsum(am, dim=-1) * am  # 1-indexed at the valid slots
     mask = am.bool()[:, None, None, :].expand(B, 1, P, P)
-    hidden, cache = _lm_forward(params, cfg, embeds, position_ids, mask, cache, 0,
-                                (position_ids, position_ids))  # each slot's true position
+    hidden, _ = gemma2_mod.forward(tp, cfg.text, embeds, position_ids, mask, cache=caches,
+                                   cache_position=0,
+                                   window_positions=(position_ids, position_ids))  # true slots
     last = torch.gather(hidden, 1, (valid - 1).long()[:, None, None].expand(B, 1, hidden.shape[-1]))
-    offset, logits = _head_logits(params, cfg, last[:, 0].to(compute_dtype or hidden.dtype),
+    offset, logits = _head_logits(tp, cfg, last[:, 0].to(compute_dtype or hidden.dtype),
                                   token_range)
     tok = torch.argmax(logits, dim=-1) + offset
 
@@ -895,10 +872,11 @@ def prefill_for_serving(
         return {"k": ck, "v": cv}
 
     out = {"tok": tok.to(torch.int32), "valid": valid.to(torch.int32)}
-    if isinstance(params, ShardGroup):
-        out["shards"] = [kv_rows(c) for c in cache]
+    rows = [kv_rows(c) for c in caches]
+    if tp.sharded:
+        out["shards"] = rows
     else:
-        out.update(kv_rows(cache))
+        out.update(rows[0])
     return out
 
 
@@ -1062,52 +1040,38 @@ def xla_decode_step(lm_params: Params, tcfg, x: torch.Tensor, cache_k: torch.Ten
     probabilities before p @ V, and the current token attends unquantized
     through a separate self term, as the kernel does; k_new / v_new come back
     bf16 for the caller to quantize. ``decode_steps_serving(use_fused=False)``
-    runs it."""
+    runs it (``_decode_step``, over the model shards too)."""
+    kv = {"k": cache_k, "v": cache_v}
+    if cache_k_scale is not None or cache_v_scale is not None:
+        kv.update(k_scale=cache_k_scale, v_scale=cache_v_scale)
+    hidden, k_news, v_news = _decode_step(as_group(lm_params, "lm"), tcfg, x, [kv], position,
+                                          rope_position, compute_dtype=compute_dtype)
+    return hidden, k_news[0], v_news[0]
+
+
+def _decode_step(tp, tcfg, x: torch.Tensor, kv: list, position, rope_position, *,
+                 compute_dtype=torch.bfloat16):
+    """``xla_decode_step`` over the model shards of ``tp`` (a whole tree's
+    group of one, or a ShardGroup): each shard of the attention attends over
+    its kv heads in ``kv`` (one dict a shard: "k" / "v" (L, M, Nkv_s, S, D)
+    [, "k_scale" / "v_scale" flat]), each shard of the MLP over its hidden
+    columns, their partial products summed (``sum_shards``). Returns
+    (hidden bf16, [k_new a shard], [v_new a shard])."""
     from .layers import rms_norm
 
-    layers = lm_params["layers"]
-    L, eps = cache_k.shape[0], tcfg.rms_norm_eps
-    _check_step_cache(tcfg, cache_k, cache_k_scale, cache_v_scale)
-    position, cos, sin = _step_positions(tcfg, x, position, rope_position)
-    h = x.to(compute_dtype)
-    k_news, v_news = [], []
-    for l in range(L):
-        lp = gemma2_mod.layer_slice(layers, l)
-        ks, vs = ((None, None) if cache_k_scale is None
-                  else (cache_k_scale[l], cache_v_scale[l]))
-        attn, k_new, v_new = _step_attention(lp["attn"], lp["input_norm"], tcfg, h, cache_k[l],
-                                             cache_v[l], ks, vs, position, cos, sin,
-                                             compute_dtype)
-        h = h + rms_norm(lp["post_attn_norm"], attn[:, 0], eps)
-        mlp = gemma2_mod._mlp_block(lp["mlp"], h[:, None, :], lp["pre_ffn_norm"], eps)
-        h = h + rms_norm(lp["post_ffn_norm"], mlp[:, 0], eps)
-        k_news.append(k_new)
-        v_news.append(v_new)
-    hidden = rms_norm(lm_params["final_norm"], h, eps)
-    return hidden.to(torch.bfloat16), torch.stack(k_news), torch.stack(v_news)
-
-
-def xla_decode_step_tp(tp: ShardGroup, tcfg, x: torch.Tensor, kv: list, position,
-                       rope_position, *, compute_dtype=torch.bfloat16):
-    """``xla_decode_step`` over the model shards of ``tp``: each shard of the
-    attention attends over its kv heads in ``kv`` (one dict a shard:
-    "k" / "v" (L, M, Nkv_s, S, D) [, "k_scale" / "v_scale" flat]), each
-    shard of the MLP over its hidden columns, their partial products summed
-    (``sum_shards``). Returns (hidden bf16, [k_new a shard], [v_new a
-    shard])."""
-    from .layers import rms_norm
-
-    scfg, eps = tp.text_cfg(), tcfg.rms_norm_eps
+    scfg, eps = tp.text_cfg(tcfg), tcfg.rms_norm_eps
     for c in kv:
         _check_step_cache(scfg, c["k"], c.get("k_scale"), c.get("v_scale"))
     position, cos, sin = _step_positions(tcfg, x, position, rope_position)
-    lps = tp.layers("lm")
+    L = kv[0]["k"].shape[0]
+    lps = tp.layers("lm", L)
     h = x.to(compute_dtype)
     news = [([], []) for _ in kv]
-    for l in range(tcfg.num_layers):
+    for l in range(L):
         def attn(s, tree, h, position, cos, sin):
             c = kv[s]
-            ks, vs = ((None, None) if "k_scale" not in c else (c["k_scale"][l], c["v_scale"][l]))
+            ks, vs = (None, None) if c.get("k_scale") is None else (c["k_scale"][l],
+                                                                      c["v_scale"][l])
             out, k_new, v_new = _step_attention(lps[s][l]["attn"], lps[s][l]["input_norm"], scfg,
                                                 h, c["k"][l], c["v"][l], ks, vs, position, cos,
                                                 sin, compute_dtype)
@@ -1143,17 +1107,18 @@ def decode_steps_serving(params: Params, cfg, state: Dict[str, torch.Tensor], *,
     head rows; the new K / V rows (quantized, with their scales, for an int8
     cache) written at each row's position. Over the model shards (a
     ``ShardGroup`` and a state cut by ``TensorShards.cut_state``) the step
-    is ``xla_decode_step_tp``, each shard's rows written into its own K / V.
+    is ``xla_decode_step`` over each shard's heads, each shard's rows written
+    into its own K / V.
     Returns ``state``."""
     from ..ops.decode_step import fused_decode_step
     from ..ops.quant import quantize_kv
 
     tcfg = cfg.text
-    tp = params if isinstance(params, ShardGroup) else None
-    if tp is not None and use_fused:
+    tp = as_group(params)
+    if tp.sharded and use_fused:
         raise ValueError("over the model axis the decode step is xla_decode_step "
                          "(use_fused=False), as in JAX")
-    kv = state["shards"] if tp is not None else [state]
+    kv = state["shards"] if "shards" in state else [state]
     B, S = state["tok"].shape[0], kv[0]["k"].shape[3]
     tok, pos, steps, out = (state[n] for n in ("tok", "pos", "steps", "out"))
     # sqrt(H) rounded to the compute dtype (JAX's jnp.asarray(.., compute_dtype)),
@@ -1162,23 +1127,19 @@ def decode_steps_serving(params: Params, cfg, state: Dict[str, torch.Tensor], *,
     normalizer = float(torch.tensor(tcfg.hidden_size ** 0.5, dtype=compute_dtype))
     rows = torch.arange(B, device=tok.device)
     for _ in range(n_steps):
-        embeds = merge_input_embeddings(params, cfg, tok[:, None].long(), None,
+        embeds = merge_input_embeddings(tp, cfg, tok[:, None].long(), None,
                                         dtype=compute_dtype)
         x = embeds[:, 0] * normalizer
-        kw = dict(cache_k_scale=state.get("k_scale"), cache_v_scale=state.get("v_scale"))
-        if tp is not None:
-            hidden, k_news, v_news = xla_decode_step_tp(tp, tcfg, x, kv, pos, pos + 1,
-                                                        compute_dtype=compute_dtype)
-        elif use_fused:
-            hidden, k_new, v_new = fused_decode_step(params["lm"], tcfg, x, state["k"],
-                                                     state["v"], pos, pos + 1, buffers=buffers,
-                                                     **kw)
+        if use_fused:
+            hidden, k_new, v_new = fused_decode_step(
+                tp.trees[0]["lm"], tcfg, x, state["k"], state["v"], pos, pos + 1,
+                buffers=buffers, cache_k_scale=state.get("k_scale"),
+                cache_v_scale=state.get("v_scale"))
             k_news, v_news = [k_new], [v_new]
         else:
-            hidden, k_new, v_new = xla_decode_step(params["lm"], tcfg, x, state["k"], state["v"],
-                                                   pos, pos + 1, compute_dtype=compute_dtype, **kw)
-            k_news, v_news = [k_new], [v_new]
-        offset, logits = _head_logits(params, cfg, hidden.to(compute_dtype), token_range)
+            hidden, k_news, v_news = _decode_step(tp, tcfg, x, kv, pos, pos + 1,
+                                                  compute_dtype=compute_dtype)
+        offset, logits = _head_logits(tp, cfg, hidden.to(compute_dtype), token_range)
         nxt = (torch.argmax(logits, dim=-1) + offset).to(torch.int32)
         for c, k_new, v_new in zip(kv, k_news, v_news):
             slots = pos.to(c["k"].device)
@@ -1218,7 +1179,7 @@ class ServingLoop:
 
     Over the model shards (``params`` a ``ShardGroup``) the state's K / V
     are cut over the attention's kv heads (``TensorShards.cut_state``), the
-    steps are ``xla_decode_step_tp``, and they run eagerly: capturing them
+    steps are ``xla_decode_step`` over the shards, and they run eagerly: capturing them
     as a CUDA graph is later work (ROADMAP.md)."""
 
     def __init__(self, params, cfg, *, n_slots, cache_len, n_tokens, decode_block, kv_bits,
@@ -1228,11 +1189,11 @@ class ServingLoop:
         self.params, self.cfg = params, cfg
         self.n_tokens, self.decode_block = n_tokens, decode_block
         self.token_range, self.compute_dtype = token_range, compute_dtype
-        self.tp = isinstance(params, ShardGroup)
+        self.sharded = as_group(params).sharded
         self.state = init_serving_state(cfg, n_slots, cache_len, n_tokens, kv_bits=kv_bits,
                                         device=device)
         self.buffers = None
-        if self.tp:
+        if self.sharded:
             self.state = params.cut.cut_state(self.state, params.devices)
         else:
             self.buffers = step_buffers(cfg.text, n_slots, cache_len, device)
@@ -1241,7 +1202,7 @@ class ServingLoop:
     def run(self):
         decode_steps_serving(self.params, self.cfg, self.state, n_steps=self.decode_block,
                              n_tokens=self.n_tokens, token_range=self.token_range,
-                             compute_dtype=self.compute_dtype, use_fused=not self.tp,
+                             compute_dtype=self.compute_dtype, use_fused=not self.sharded,
                              buffers=self.buffers)
 
     def capture(self):

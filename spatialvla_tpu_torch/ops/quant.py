@@ -78,6 +78,39 @@ def _qkernel_max_m(qt) -> int:
     return QKERNEL_MAX_M_INT4 if qt.dtype == torch.uint8 else QKERNEL_MAX_M
 
 
+def matvec_refusal(qt_dtype, K: int, G: int, rows: int) -> Optional[str]:
+    """Why the matvec kernels refuse a weight over K inputs (qt of
+    ``qt_dtype``: int8, or uint8 for packed int4; G scale groups, 0 per
+    channel) at ``rows`` rows, or None where they take it: int8 up to
+    ``QKERNEL_MAX_M`` rows with K a multiple of 16; packed int4 up to
+    ``QKERNEL_MAX_M_INT4`` rows, its G groups tiling both halves of K. The
+    shape rule of ``_check_matvec`` and ``_check_q4`` (the operands'
+    addresses apart)."""
+    if qt_dtype == torch.uint8:
+        if G and (G < 2 or G % 2 or K % G):
+            return (f"{G} groups over K={K}; both halves of K must hold whole groups (an "
+                    "even G that divides K, as quantize_int4 makes)")
+        if not 1 <= rows <= QKERNEL_MAX_M_INT4:
+            return f"{rows} rows; the kernel takes 1..{QKERNEL_MAX_M_INT4}"
+        return None
+    if not 1 <= rows <= QKERNEL_MAX_M:
+        return f"{rows} rows; the kernel takes 1..{QKERNEL_MAX_M}"
+    if K % 16:
+        return f"K={K} must be a multiple of 16"
+    return None
+
+
+def qmatmul_refusal(qt_dtype, K: int, G: int, rows: int) -> Optional[str]:
+    """``matvec_refusal`` for a call that ``qmatmul`` / ``qnorm_matmul``
+    send to the kernels (CUDA operands of at most the format's kernel rows);
+    None for a call of more rows, which they dequantize. The model cut
+    (``parallel/partitioning.py:TensorShards``) keeps a block whole where
+    this refuses a shard's weight at the fewest rows its calls have."""
+    if rows > (QKERNEL_MAX_M_INT4 if qt_dtype == torch.uint8 else QKERNEL_MAX_M):
+        return None
+    return matvec_refusal(qt_dtype, K, G, rows)
+
+
 # ---------------------------------------------------------------------------
 # formats (quant.py:34-146)
 # ---------------------------------------------------------------------------
@@ -232,10 +265,11 @@ def _check_matvec(name, x, qt, scale, out, gelu=False):
     if tuple(out.shape) != (M, N // 2 if gelu else N):
         raise ValueError(f"{name}: out must be ({M}, {N // 2 if gelu else N}), got "
                          f"{tuple(out.shape)}")
-    if not 1 <= M <= QKERNEL_MAX_M:
-        raise ValueError(f"{name}: {M} rows; the kernel takes 1..{QKERNEL_MAX_M}")
-    if K % 16 or x.data_ptr() % 16 or qt.data_ptr() % 16:
-        raise ValueError(f"{name}: K={K} and the x/qt addresses must be multiples of 16")
+    why = matvec_refusal(qt.dtype, K, 0, M)
+    if why:
+        raise ValueError(f"{name}: {why}")
+    if x.data_ptr() % 16 or qt.data_ptr() % 16:
+        raise ValueError(f"{name}: the x/qt addresses must be multiples of 16")
     return M, N, K
 
 
@@ -354,9 +388,9 @@ def _check_q4(name, x, qt, scale, out, gelu=False):
     if scale.dtype != torch.float32 or tuple(scale.shape) != ((N, G) if grouped else (N,)):
         raise ValueError(f"{name}: scale must be float32 ({N},) or ({N}, G), got "
                          f"{scale.dtype} {tuple(scale.shape)}")
-    if grouped and (G < 2 or G % 2 or K % G):
-        raise ValueError(f"{name}: {G} groups over K={K}; both halves of K must hold "
-                         "whole groups (an even G that divides K, as quantize_int4 makes)")
+    why = matvec_refusal(qt.dtype, K, G, M)
+    if why:
+        raise ValueError(f"{name}: {why}")
     if gelu:
         _check_gelu(name, out.dtype, N)
         if not _rows_route(x, qt, G):
@@ -365,8 +399,6 @@ def _check_q4(name, x, qt, scale, out, gelu=False):
     if tuple(out.shape) != (M, N // 2 if gelu else N):
         raise ValueError(f"{name}: out must be ({M}, {N // 2 if gelu else N}), got "
                          f"{tuple(out.shape)}")
-    if not 1 <= M <= QKERNEL_MAX_M_INT4:
-        raise ValueError(f"{name}: {M} rows; the kernel takes 1..{QKERNEL_MAX_M_INT4}")
     return M, N, K, G
 
 

@@ -19,7 +19,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from ..ops.quant import is_grouped, is_int4, is_quantized
+from ..ops.quant import is_grouped, is_int4, is_quantized, qmatmul_refusal
 from ..utils.tree import children, iter_leaves, map_with_paths
 from .mesh import Mesh, gather_along, gather_shards, mesh_shape, sum_shards
 
@@ -233,14 +233,10 @@ TP_BLOCKS: Dict[str, List[Tuple[str, str]]] = {
 }
 
 
-def _few_row_calls(block: str, cfg) -> bool:
-    """Whether the matmuls of ``block`` can have at most 16 rows, which the
-    few-row kernels take (an int8 shard's K must then be a multiple of 16):
-    the LM's at every decode step, SigLIP's when an image has at most 16
-    patches."""
-    from ..ops.quant import QKERNEL_MAX_M
-
-    return block.startswith("lm") or cfg.vision.num_patches <= QKERNEL_MAX_M
+def _fewest_rows(block: str, cfg) -> int:
+    """The fewest rows a matmul of ``block`` has: one at a decode step for the
+    LM's, one image's patches for SigLIP's."""
+    return 1 if block.startswith("lm") else cfg.vision.num_patches
 
 
 def _node(params, path: str):
@@ -294,11 +290,10 @@ class TensorShards:
     grouped scales cut along G, per-channel scales and the bias whole); of the
     vocabulary the ids [s V / n, (s + 1) V / n). A block whose widths n does
     not divide stays whole, as JAX's ``_divisible`` leaves such leaves
-    replicated, and so does one whose shard shape a kernel would refuse (an
-    int8 row-parallel leaf's K not a multiple of 16 where its calls can have
-    16 rows or fewer), a grouped int4 leaf
-    whose shard would split a group or its halves, and a LoRA-factored leaf,
-    which no rule names. ``blocks`` maps each block of the tree to whether it
+    replicated, and so does one whose row-parallel shard would split a byte
+    of packed int4 or a scale group, or that the kernels would refuse at the
+    fewest rows the block's calls have (``ops/quant.py:qmatmul_refusal``),
+    and a LoRA-factored leaf, which no rule names. ``blocks`` maps each block of the tree to whether it
     is cut. Every shard of a leaf is a contiguous copy; ``join_tree`` gives
     the tree back bit for bit."""
 
@@ -384,12 +379,11 @@ class TensorShards:
             idx = self._ranges(K)
             if is_quantized(w):
                 grouped = is_grouped(w)
-                gs = K // w["scale"].shape[-1] if grouped else None
-                if is_int4(w) and (ks % 2 or (grouped and (ks % gs or (ks // 2) % gs))):
+                G = w["scale"].shape[-1] if grouped else 0
+                if (is_int4(w) and ks % 2) or G % self.n:  # whole bytes, whole groups
                     return None
-                if not is_int4(w) and ks % 16 and _few_row_calls(block, self.cfg):
-                    return None
-                if grouped and ks % gs:
+                if qmatmul_refusal(w["qt"].dtype, ks, G // self.n,
+                                   _fewest_rows(block, self.cfg)):
                     return None
                 out[f"{wpath}/qt"] = (-1, idx, "nibbles" if is_int4(w) else "plain")
                 if grouped:
@@ -470,49 +464,58 @@ class ShardGroup:
     shards (``TensorShards.cut_tree``) and their devices, shard 0's the
     group's home, where the replicated activations live and the whole blocks
     run (once, not once a shard). ``run`` / ``reduce`` / ``gather`` apply a
-    block's computation to each shard that holds it."""
+    block's computation to each shard that holds it. A whole tree is a group
+    of one (``as_group``: no cut, no device of its own), whose ``reduce`` and
+    ``gather`` hand back its one result, so the layers run one loop for a
+    whole tree and for its model shards."""
 
-    def __init__(self, cut: TensorShards, trees, devices):
+    def __init__(self, cut: Optional[TensorShards], trees, devices):
         self.cut, self.trees = cut, list(trees)
-        self.devices = [torch.device(d) for d in devices]
+        self.devices = [None if d is None else torch.device(d) for d in devices]
         self.n, self.home = len(self.trees), self.devices[0]
         self._layers: Dict[str, list] = {}
 
+    @property
+    def sharded(self) -> bool:
+        """Whether this is a data group of a mesh, not a whole tree's group of one."""
+        return self.cut is not None
+
     def is_cut(self, block: str) -> bool:
-        return self.cut.blocks.get(block, False)
+        return self.cut is not None and self.cut.blocks.get(block, False)
 
     def shards(self, block: str) -> range:
         """The shards that compute ``block``: all of them where it is cut,
         shard 0 alone where it is whole."""
         return range(self.n) if self.is_cut(block) else range(1)
 
-    def layers(self, part: str) -> List[list]:
-        """Each shard's per-layer views of ``part``'s stacked layers ("lm" or
-        "vision"), made once."""
+    def layers(self, part: str, L: int) -> List[list]:
+        """Each shard's per-layer views of ``part``'s L stacked layers ("lm"
+        or "vision"), made once."""
         if part not in self._layers:
             from ..models.gemma2 import unstack_layers
 
-            L = (self.cut.cfg.text if part == "lm" else self.cut.cfg.vision).num_layers
             self._layers[part] = [unstack_layers(t[part]["layers"], L) for t in self.trees]
         return self._layers[part]
 
-    def text_cfg(self):
-        """The LM config of one shard of the attention (its q and kv heads)."""
+    def text_cfg(self, tcfg):
+        """The LM config ``tcfg`` of one shard of the attention (its q and kv heads)."""
         import dataclasses
 
-        t = self.cut.cfg.text
         if not self.is_cut("lm_attn"):
-            return t
-        return dataclasses.replace(t, num_heads=t.num_heads // self.n,
+            return tcfg
+        return dataclasses.replace(tcfg, num_heads=tcfg.num_heads // self.n,
                                    num_kv_heads=self.cut.kv_heads)
+
+    def to_home(self, t: torch.Tensor) -> torch.Tensor:
+        return t if self.home is None else t.to(self.home)
 
     def run(self, block: str, fn, *args) -> List:
         """[fn(s, tree_s, *args on shard s's device) for each shard of ``block``]."""
         out = []
         for s in self.shards(block):
             dev = self.devices[s]
-            out.append(fn(s, self.trees[s], *(a.to(dev) if torch.is_tensor(a) else a
-                                               for a in args)))
+            out.append(fn(s, self.trees[s], *(a.to(dev) if dev is not None and torch.is_tensor(a)
+                                               else a for a in args)))
         return out
 
     def reduce(self, block: str, fn, *args) -> torch.Tensor:
@@ -526,6 +529,15 @@ class ShardGroup:
         device."""
         parts = self.run(block, fn, *args)
         return gather_shards(parts, dim) if len(parts) > 1 else parts[0]
+
+
+def as_group(params, part: Optional[str] = None) -> ShardGroup:
+    """``params`` itself where it is a ``ShardGroup``, else the group of one
+    of the whole tree ``params`` (``{part: params}`` where ``params`` is the
+    subtree ``part``, as "lm" for the Gemma2 stack's own tree)."""
+    if isinstance(params, ShardGroup):
+        return params
+    return ShardGroup(None, [params if part is None else {part: params}], [None])
 
 
 class ShardedParams:

@@ -12,7 +12,9 @@ branch on:
   the tiny config's 2 kv heads are fewer than the shards), gate|up is cut in
   pairs, grouped scales along their groups, biases with their columns or
   whole; the vocabulary (9218 ids) stays whole at n = 4; a KV state cuts
-  over its kv heads and joins back;
+  over its kv heads and joins back; a block stays whole where the kernels'
+  one shape rule (qmatmul_refusal) refuses its shard; one model shard
+  computes bit for bit what the whole tree does;
 * predict parity: ids identical to JAX's shard() and actions within 1e-5
   (the bf16 tree at n_model=4, the int8 tree at n_model=2, a padded batch of
   mixed lengths at n_model=2 x n_data=2, the depth branch at n_model=2);
@@ -45,7 +47,7 @@ from spatialvla_tpu_torch.config import spatialvla_tiny
 from spatialvla_tpu_torch.convert import from_numpy_tree, to_numpy_tree
 from spatialvla_tpu_torch.inference import default_processor
 from spatialvla_tpu_torch.models import spatialvla as tsv
-from spatialvla_tpu_torch.ops.quant import unpack_int4
+from spatialvla_tpu_torch.ops.quant import matvec_refusal, qmatmul_refusal, unpack_int4
 from spatialvla_tpu_torch.parallel import LocalMesh, param_pspecs
 from spatialvla_tpu_torch.parallel.mesh import sum_shards
 from spatialvla_tpu_torch.parallel.partitioning import TensorShards
@@ -232,6 +234,42 @@ def test_whole_blocks():
     lora["lm"]["layers"]["mlp"] = mlp
     cut = TensorShards(lora, CFG, 2)
     assert cut.blocks["lm_attn"] and not cut.blocks["lm_mlp"]
+
+
+@pytest.mark.parametrize("qt_dtype, K, G, rows, refused", [
+    (torch.int8, 1024, 0, 1, False),  # the int8 o shard at n = 2, full width
+    (torch.int8, 1076, 0, 1, True),  # SigLIP fc2's 4304 / 4: not a multiple of 16
+    (torch.int8, 8, 0, 16, True),  # the tiny o shard at n = 4, 16 patches
+    (torch.int8, 8, 0, 17, False),  # more rows than the kernel's: dequantized
+    (torch.uint8, 1076, 0, 256, False),  # the int4 fc2 shard, per channel
+    (torch.uint8, 1152, 9, 1, True),  # an odd group count splits K's halves
+    (torch.uint8, 1152, 18, 1, False),
+    (torch.uint8, 1152, 18, 513, False),  # above 512 rows: dequantized
+])
+def test_qmatmul_refusal_is_the_kernels_rule(qt_dtype, K, G, rows, refused):
+    """The one shape rule of the few-row kernels (ops/quant.py), which the
+    cut asks of a shard at the fewest rows its block's calls have."""
+    assert bool(qmatmul_refusal(qt_dtype, K, G, rows)) == refused
+    if rows <= (512 if qt_dtype == torch.uint8 else 16):
+        assert matvec_refusal(qt_dtype, K, G, rows) == qmatmul_refusal(qt_dtype, K, G, rows)
+    else:
+        assert "rows" in matvec_refusal(qt_dtype, K, G, rows)
+
+
+@pytest.mark.parametrize("fmt", ["bf16", "int8"])
+def test_one_model_shard_is_the_whole_tree(fmt):
+    """shard(n_model=1) runs the layers' one loop over a group of one shard,
+    as the whole tree does: ids and margins bit for bit (the CPU's unfused
+    loop both ways)."""
+    frame = (np.random.RandomState(3).rand(56, 56, 3) * 255).astype(np.uint8)
+    whole = SpatialVLAPolicy.init_random(CFG, "cpu", seed=0)
+    if FORMATS[fmt]:
+        whole.quantize(**FORMATS[fmt])
+    tp = SpatialVLAPolicy(whole.params, CFG, whole.processor, device="cpu").shard(n_model=1)
+    inputs = whole.processor(frame, "pick up the cup")
+    ids, margins = whole._generate(inputs, return_margins=True)
+    tids, tmargins = tp._generate(inputs, return_margins=True)
+    assert torch.equal(ids, tids) and torch.equal(margins, tmargins)
 
 
 @pytest.mark.parametrize("kv_bits", [None, 8])
