@@ -118,7 +118,16 @@
    L m for the pipe); a one-rank NCCL process group (initialize_distributed,
    make_mesh) and the sharded step over its sp group, whose loss and
    grad_norm must equal the flash step's bit for bit; three timed steps of
-   each through train_loop with their peak memory.
+   each through train_loop with their peak memory. After it, the model-axis
+   phase (model_parallel_training) on the same weights and batches:
+   LocalMesh(model=2) and (model=4), every shard on this card, the state cut
+   over model in place; the first sharded step's loss and grad_norm within
+   LOSS_BOUND / GRAD_NORM_BOUND of the flash step's on the same weights,
+   exactly 2 L n and L n flash launches a step, three timed steps through
+   train_loop with the peak memory, the state joined back; then two LoRA
+   steps at n = 2 against two unsharded ones from the same factors
+   (LOSS_BOUND), launches exact, timed with the peak memory. The flash
+   kernels are held to plain at those shards' heads in (4).
 8. LoRA fine-tuning as train/finetune.py runs it (finetune_path): the
    seed's fp32 spatialvla_4b() tree written as a pretrained directory
    (save_params, config.json, the processor) and read back with
@@ -156,8 +165,9 @@
    predict ms at n_model = 1 (unfused), 2 and 4.
 11. Prints the card, the kernels' JSON line (with each decode kernel's
    launches in one replay of the graphs checked, traced and credited, the
-   launches of the LoRA and eval runs, and an entry "<name>_tp" for each of
-   kernels #1 and #2 at the shard shapes), and last {"ok": true, ...}.
+   launches of the LoRA, eval and model-axis runs, and an entry
+   "<name>_tp" for each of kernels #1 and #2 at the shard shapes), and last
+   {"ok": true, ...}.
 
 Needs CUDA; there is no CPU path. Imports nothing of jax.
 """
@@ -944,7 +954,9 @@ def flash_phases(torch, timer, results, notes):
     4096, timed; the flash prefill's (B=1, 277 tokens, all of them prefix,
     window 4096), timed; and a ring visit of the training batch at sp=4 and
     sp=2 (Tq = Tk = 80 and 160, q_offset 160 and the prefix and lengths in
-    the visiting shard's frame), timed. Each call's route and launch plan is
+    the visiting shard's frame), timed; and the training shapes at the heads
+    of one shard of the model axis (model_parallel_training: 4/2 heads at
+    n = 2, 2/1 at n = 4), windowed and global, timed. Each call's route and launch plan is
     printed (the forward's with its registers and spills); a bf16 call must
     take the tensor-core route and give identical bits when launched twice,
     and is timed beside the FMA kernels in bf16 (the route it took before,
@@ -956,8 +968,8 @@ def flash_phases(torch, timer, results, notes):
     from spatialvla_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device="cuda").manual_seed(3)
-    Nq, Nkv, D = 8, 4, 256
-    cases = (  # tag, B, T, window, prefix, valid, dtype, timed, q_offset
+    D = 256
+    cases = (  # tag, B, T, window, prefix, valid, dtype, timed, q_offset[, (Nq, Nkv)]
         ("T320_window4096", 2, 320, 4096, [277, 277], [320, 301], torch.bfloat16, True, 0),
         ("T320_global", 2, 320, None, [277, 277], [320, 301], torch.bfloat16, True, 0),
         ("T320_window4096_fp32", 2, 320, 4096, [277, 277], [320, 301], torch.float32, False, 0),
@@ -968,9 +980,14 @@ def flash_phases(torch, timer, results, notes):
         # k_start 80); sp=2, q shard 1 over K/V shard 0 (160, k_start 0)
         ("ring4_T80_visit", 2, 80, 4096, [197, 197], [240, 221], torch.bfloat16, True, 160),
         ("ring2_T160_visit", 2, 160, 4096, [277, 277], [320, 301], torch.bfloat16, True, 160),
+        # one model shard's heads of the training batch: n = 2 and n = 4
+        *((f"T320_{w}_h{nq}x{nkv}", 2, 320, window, [277, 277], [320, 301], torch.bfloat16, True,
+           0, (nq, nkv)) for nq, nkv in ((4, 2), (2, 1))
+          for w, window in (("window4096", 4096), ("global", None))),
     )
     flex_notes = {}  # tag: what library_flex found
-    for tag, B, T, window, prefix, valid, dtype, timed, qoff in cases:
+    for tag, B, T, window, prefix, valid, dtype, timed, qoff, *heads in cases:
+        Nq, Nkv = heads[0] if heads else (8, 4)
         def randn(*shape):
             return torch.randn(shape, generator=g, device="cuda").to(dtype)
 
@@ -1063,6 +1080,7 @@ def flash_phases(torch, timer, results, notes):
                                                                       errs["dv"][0]))):
             ms, pms = times.get(key, (None, None))
             shape = (f"B{B}_T{T}_D{D}_" + (f"window{window}" if window else "global")
+                     + (f"_h{Nq}x{Nkv}" if heads else "")
                      + ("_fp32" if dtype == torch.float32 else "")
                      + (f"_qoff{qoff}_prefix{prefix[0]}" if qoff else ""))
             record_kernel(results, name, shape, err, ms, pms, nbytes=io[key][0], ops=io[key][1],
@@ -2682,20 +2700,26 @@ def tp_kernel_checks(torch, timer, results, notes, tree, fmt, n):
             fail(f"{name} n={n} M=1 {K}->{N}: took the {quant.q4_route(x, qt, scale)} kernel, "
                  "not the few-row kernel")
         ms, pms = timer(lambda: kern(*args)), timer(lambda: plain(*args))
-        lib = None
+        library = library_int4pack if int4 else library_int8pack
+        lib = alone = None
         if norm is None:
-            lib, note = (library_int4pack if int4 else library_int8pack)(torch, timer, x, qt,
-                                                                          scale)
+            lib, note = library(torch, timer, x, qt, scale)
             notes.setdefault(name + "_tp", note)
+        else:  # the library's matmul alone on the plain normed x (not the same function)
+            alone, _ = library(torch, timer, quant._rms_bf16(x, norm[0], 1e-6), qt, scale)
         shape = f"n{n}_{fmt}_M1_{K}x{N}"
         print(f"{name} shard n={n} ({fmt}) M=1 {K}->{N}: max|d|={d:.3e} rel={r:.3e} kernel "
-              f"{ms:.4f} ms plain {pms:.4f} ms library {lib} ms", flush=True)
+              f"{ms:.4f} ms plain {pms:.4f} ms library {lib} ms"
+              + (f", library matmul alone {alone} ms" if norm is not None else ""), flush=True)
         record_kernel(results, name + "_tp", shape, d, ms, pms,
                       nbytes=nbytes_of(*args, y),
                       ops=2 * N * K + (4 * K if norm is not None else 0),
                       library_ms=lib)
+        if norm is not None:
+            results[name + "_tp"].setdefault("library_matmul_alone_ms", {})[shape] = alone
     notes.setdefault("q8_rmsnorm_matvec_tp", "no single PyTorch call fuses the RMSNorm with "
-                                             "the matmul")
+                                             "the matmul (library_matmul_alone_ms: the "
+                                             "library's matmul alone)")
     notes.setdefault("q4_rmsnorm_matvec_tp", notes["q8_rmsnorm_matvec_tp"])
     if int4 and "fc2" in tree["vision"]["layers"]["mlp"]:
         w = tree["vision"]["layers"]["mlp"]["fc2"]["w"]
@@ -3360,6 +3384,198 @@ def parallel_path(torch, counters, reuse, *, device="cuda", n_steps=3):
     return result, state
 
 
+# ---------------------------------------------------------------------------
+# the model axis in training on one card: n tensor-parallel shards held by
+# one process (LocalMesh(model=n)), full-parameter and LoRA
+# ---------------------------------------------------------------------------
+
+MP_LORA_OPT = dict(learning_rate=5e-4, schedule="constant")  # the factors move from step 1
+
+
+def mp_timed_steps(torch, counters, step, state, batches, *, device, step_args=()):
+    """The steps of ``batches`` through train_loop: (state, their ms, the
+    peak GiB, the metrics, the flash launches)."""
+    from spatialvla_tpu_torch.train.trainer import TrainerConfig, train_loop
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    times, logged = [], []
+
+    def timed_step(state, *args):
+        sync()
+        t0 = time.perf_counter()
+        out = step(state, *args)
+        sync()
+        times.append(time.perf_counter() - t0)
+        return out
+
+    zero_counts(counters)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    start = int(state["step"])
+    with tempfile.TemporaryDirectory() as out_dir:
+        state = train_loop(state=state, train_step=timed_step, batches=iter(batches),
+                           config=TrainerConfig(output_dir=out_dir, max_steps=start + len(batches),
+                                                log_every=1, tensorboard=False),
+                           step_args=step_args, on_metrics=lambda s, m: logged.append(m))
+    peak = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else float("nan")
+    launches = {c.__name__: c.launches for c in counters}
+    if len(logged) != len(batches) or not all(np.isfinite(v) for m in logged for v in m.values()):
+        fail(f"model parallel: steps {logged}")
+    return state, [t * 1e3 for t in times], peak, logged, launches
+
+
+def model_parallel_training(torch, counters, reuse, *, device="cuda", n_steps=3, lora_steps=2,
+                            sizes=(2, 4)):
+    """The model axis in training (parallel/partitioning.py:TrainShards) on
+    the training path's full-width weights and batches (train_path's
+    ``reuse``, B=2, T=320, bf16, remat, flash), every shard on this card:
+
+    1. for n in ``sizes``: the flash step's loss and grad_norm of batch 0 on
+       the whole weights (no update); the state cut over model IN PLACE
+       (each whole leaf freed as it is cut); the first sharded step on batch
+       0, whose loss and grad_norm (of the weights before its update) must
+       be within LOSS_BOUND / GRAD_NORM_BOUND of those, with exactly 2 L n
+       forward and L n of each backward flash launch; n_steps timed steps
+       through train_loop with the peak memory; the state joined back IN
+       PLACE;
+    2. the moments freed, LoRA (rank 32, "linear", factors b drawn non-zero)
+       on the weights as base: lora_steps unsharded steps, then the same
+       from the same factors at n = 2 (the base cut in place) through
+       train_loop, each step's loss within LOSS_BOUND of the unsharded
+       one's, with exact launches and the peak memory.
+    Frees the state. Returns what it measured."""
+    from spatialvla_tpu_torch.parallel import LocalMesh
+    from spatialvla_tpu_torch.train import (OptimizerConfig, init_lora_train_state, make_loss_fn,
+                                            make_lora_train_step, make_optimizer, make_train_step,
+                                            shard_lora_train_step, shard_train_step)
+    from spatialvla_tpu_torch.train.lora import TARGET_PRESETS
+    from spatialvla_tpu_torch.train.optimizer import iter_leaves
+    from spatialvla_tpu_torch.train.train_step import batch_to_tensors
+
+    cfg, state, batches = reuse["cfg"], reuse["state"], reuse["batches"]
+    luts, step_cfg, tx = reuse["luts"], reuse["step_cfg"], reuse["tx"]
+    L = cfg.text.num_layers
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    t_phase = time.perf_counter()
+    result = {}
+
+    def want(n, steps=1):
+        return {"flash_attention_fwd": 2 * L * n * steps, "flash_attention_bwd_dq": L * n * steps,
+                "flash_attention_bwd_dkv": L * n * steps}
+
+    def check_launches(label, got, wanted):
+        print(f"model parallel: {label} launches {got} (want {wanted})", flush=True)
+        if device == "cuda" and got != wanted:
+            fail(f"model parallel: {label} launches {got}, want {wanted}")
+
+    for n in sizes:
+        params = state["params"]
+        for _, p in iter_leaves(params):  # the joined leaves are new tensors
+            if p.is_floating_point():
+                p.requires_grad_(True)
+        loss_fn = make_loss_fn(cfg, step_cfg, luts=luts)
+        loss, _ = loss_fn(params, batch_to_tensors(batches[0], device))
+        loss.backward()
+        ref_gn = float(torch.sqrt(torch.stack([p.grad.float().pow(2).sum()
+                                               for _, p in iter_leaves(params)
+                                               if p.grad is not None]).sum()))
+        ref_loss = float(loss.detach())
+        del loss
+        for _, p in iter_leaves(params):
+            p.grad = None
+        mesh = LocalMesh(model=n)
+        t0 = time.perf_counter()
+        step, state = shard_train_step(make_train_step(cfg, tx, step_cfg, luts=luts, mesh=mesh),
+                                       mesh, state)
+        sync()
+        cut_s = time.perf_counter() - t0
+        blocks = {k: v for k, v in step.shards.cut.blocks.items()}
+        zero_counts(counters)
+        t0 = time.perf_counter()
+        state, metrics = step(state, batches[0])
+        sync()
+        first_s = time.perf_counter() - t0
+        first = {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"])}
+        first_launches = {c.__name__: c.launches for c in counters}
+        check_launches(f"n={n} first step", first_launches, want(n))
+        d_loss = abs(first["loss"] - ref_loss) / abs(ref_loss)
+        d_gn = abs(first["grad_norm"] - ref_gn) / ref_gn
+        print(f"model parallel: n={n} (blocks cut {blocks}): the first step's loss "
+              f"{first['loss']:.6f} vs the flash step's {ref_loss:.6f} (rel {d_loss:.3e}, bound "
+              f"{LOSS_BOUND}), grad_norm {first['grad_norm']:.6f} vs {ref_gn:.6f} (rel "
+              f"{d_gn:.3e}, bound {GRAD_NORM_BOUND}); the cut {cut_s:.2f} s, the step "
+              f"{first_s:.2f} s", flush=True)
+        if not (d_loss < LOSS_BOUND and d_gn < GRAD_NORM_BOUND):
+            fail(f"model parallel: n={n} against flash: loss rel {d_loss}, grad_norm rel {d_gn}")
+        state, ms, peak, logged, launches = mp_timed_steps(
+            torch, counters, step, state, batches[:n_steps], device=device)
+        check_launches(f"n={n} {n_steps} timed steps", launches, want(n, n_steps))
+        print(f"model parallel: n={n}: {n_steps} steps of train_loop "
+              f"{[round(t, 2) for t in ms]} ms, peak {peak:.2f} GiB, losses "
+              f"{[round(m['loss'], 4) for m in logged]}", flush=True)
+        t0 = time.perf_counter()
+        state = step.shards.gather_state(state, in_place=True)
+        sync()
+        result[f"n{n}"] = {"ref": {"loss": ref_loss, "grad_norm": ref_gn}, "first": first,
+                           "loss_rel": d_loss, "grad_norm_rel": d_gn, "blocks": blocks,
+                           "first_launches": first_launches, "launches": launches, "step_ms": ms,
+                           "peak_gib": peak, "losses": [m["loss"] for m in logged],
+                           "cut_s": cut_s, "join_s": time.perf_counter() - t0}
+        del step
+
+    # LoRA on the trained weights as the base: unsharded, then at n = 2
+    base = state["params"]
+    del state, reuse["state"]
+    for _, p in iter_leaves(base):
+        p.requires_grad_(False)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    n = 2
+    lora_kw = dict(alpha=LORA["alpha"], rank=LORA["rank"], luts=luts)
+
+    def lora_state():
+        ltx = make_optimizer(OptimizerConfig(**MP_LORA_OPT), None, None)
+        gen = torch.Generator(device=device).manual_seed(1)
+        lstate = init_lora_train_state(gen, base, ltx, target_patterns=TARGET_PRESETS[
+            LORA["target"]], rank=LORA["rank"])
+        draw = torch.Generator(device=device).manual_seed(2)
+        with torch.no_grad():
+            for f in lstate["trainable"]["lora"].values():
+                f["b"].copy_(torch.randn(f["b"].shape, generator=draw, device=device) * 0.01)
+        return ltx, lstate
+
+    ltx, lstate = lora_state()
+    step = make_lora_train_step(cfg, ltx, step_cfg, **lora_kw)
+    _, ms_ref, peak_ref, ref_logged, _ = mp_timed_steps(
+        torch, counters, step, lstate, batches[:lora_steps], device=device, step_args=(base,))
+    del lstate, step
+    ltx, lstate = lora_state()
+    mesh = LocalMesh(model=n)
+    step, base = shard_lora_train_step(make_lora_train_step(cfg, ltx, step_cfg, mesh=mesh,
+                                                            **lora_kw), mesh, base)
+    lstate, ms, peak, logged, launches = mp_timed_steps(
+        torch, counters, step, lstate, batches[:lora_steps], device=device, step_args=(base,))
+    check_launches(f"LoRA n={n} {lora_steps} steps", launches, want(n, lora_steps))
+    rels = [abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(logged, ref_logged)]
+    print(f"model parallel: LoRA n={n}: {lora_steps} steps of train_loop "
+          f"{[round(t, 2) for t in ms]} ms (unsharded {[round(t, 2) for t in ms_ref]} ms), peak "
+          f"{peak:.2f} GiB (unsharded {peak_ref:.2f}), losses {[m['loss'] for m in logged]} vs "
+          f"unsharded {[m['loss'] for m in ref_logged]} (rel {rels}, bound {LOSS_BOUND})",
+          flush=True)
+    if not all(r < LOSS_BOUND for r in rels):
+        fail(f"model parallel: LoRA n={n} losses {logged} against unsharded {ref_logged}")
+    result[f"lora_n{n}"] = {"step_ms": ms, "peak_gib": peak, "losses": [m["loss"] for m in logged],
+                            "unsharded_step_ms": ms_ref, "unsharded_peak_gib": peak_ref,
+                            "unsharded_losses": [m["loss"] for m in ref_logged],
+                            "loss_rel": rels, "launches": launches}
+    del base, lstate, step
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    result["phase_s"] = time.perf_counter() - t_phase
+    print(f"model parallel: the phase took {result['phase_s']:.1f} s", flush=True)
+    return result
+
+
 def tiny_overfit(torch, counters, device="cuda"):
     """spatialvla_tiny(use_vision_zoe=True) overfits one batch through the
     flash kernels, as tests/test_train.py:67-87 asks of the JAX package."""
@@ -3886,7 +4102,11 @@ def main() -> int:
 
     flash = [fa.flash_attention_fwd, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv]
     train = train_path(torch, flash)
-    par, _ = parallel_path(torch, flash, train.pop("reuse"))
+    reuse = train.pop("reuse")
+    par, reuse["state"] = parallel_path(torch, flash, reuse)
+    torch.cuda.empty_cache()
+    model_par = model_parallel_training(torch, flash, reuse)
+    del reuse
     torch.cuda.empty_cache()
     overfit = tiny_overfit(torch, flash)
     print(f"train path: median step {train['step_ms_median']:.2f} ms, "
@@ -3896,6 +4116,10 @@ def main() -> int:
         f"{k} {statistics.median(v['step_ms']):.2f} (peak {v['peak_gib']:.2f} GiB)"
         for k, v in par["steps"].items()) + f"; the phase {par['phase_s']:.1f} s | {card}",
         flush=True)
+    print("model parallel training: median step ms " + ", ".join(
+        f"{k} {statistics.median(v['step_ms']):.2f} (peak {v['peak_gib']:.2f} GiB)"
+        for k, v in model_par.items() if isinstance(v, dict))
+        + f"; the phase {model_par['phase_s']:.1f} s | {card}", flush=True)
     torch.cuda.empty_cache()
     t_earlier = time.perf_counter() - t_start  # the build and every phase before LoRA
     lora, tuned = finetune_path(torch, flash)
@@ -3918,7 +4142,8 @@ def main() -> int:
           f"{evals['parallel']['episodes_per_s']:.3f} with 4 envs through the engine (mean batch "
           f"{evals['parallel']['engine']['mean_batch_occupancy']:.2f}) | {card}", flush=True)
     wall = {"before_finetune_s": t_earlier, "finetune_path_s": t_lora, "eval_path_s": t_eval,
-            "tensor_parallel_s": tensor["phase_s"]}
+            "tensor_parallel_s": tensor["phase_s"],
+            "model_parallel_training_s": model_par["phase_s"]}
     print(f"wall time: {t_earlier:.1f} s to the end of the training phase (build included), "
           f"finetune path {t_lora:.1f} s, eval path {t_eval:.1f} s, tensor parallel "
           f"{tensor['phase_s']:.1f} s", flush=True)
@@ -3929,6 +4154,7 @@ def main() -> int:
                                    "serving_configs": serving, "tensor_parallel": tensor,
                                    "train_path": train,
                                    "parallel_path": par,
+                                   "model_parallel_training": model_par,
                                    "tiny_overfit": overfit, "finetune_path": lora,
                                    "eval_path": evals, "wall_s": wall,
                                    "kernel_times": results, "card": card}), flush=True)
@@ -4014,6 +4240,13 @@ def main() -> int:
             extra["parallel_path_launches"] = {
                 **{run: v["launches"][name] for run, v in par["loss_and_grad"].items()},
                 "process_group_ring_step": par["process_group"]["launches"][name]}
+            # the model-axis phase: its first step at n = 2 and 4, then its
+            # three timed steps, and the LoRA steps at n = 2
+            runs = {run: v for run, v in model_par.items() if isinstance(v, dict)}
+            extra["model_parallel_training_launches"] = {
+                **{f"{run}_first_step": v["first_launches"][name]
+                   for run, v in runs.items() if "first_launches" in v},
+                **{f"{run}_timed_steps": v["launches"][name] for run, v in runs.items()}}
         kernels.append({
             "name": label, "route": "cuda", "source": f"spatialvla_tpu_torch/csrc/{source}",
             "kernel_sources": [f"spatialvla_tpu_torch/csrc/{s}" for s in sources],
@@ -4054,7 +4287,11 @@ def main() -> int:
             + ("2e-2 (bf16 out)" if name.startswith("q4") else "1e-2"),
             "shard_shapes": {sh: {"ms": r["ms"][sh], "plain_ms": r["plain_ms"][sh],
                                   "bound_ms": r["bound"][sh][0], "bound_by": r["bound"][sh][1],
-                                  "library_ms": r["library_ms"][sh]} for sh in r["ms"]},
+                                  "library_ms": r["library_ms"][sh],
+                                  **({"library_matmul_alone_ms":
+                                      r["library_matmul_alone_ms"][sh]}
+                                     if "library_matmul_alone_ms" in r else {})}
+                             for sh in r["ms"]},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

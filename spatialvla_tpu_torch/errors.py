@@ -2,12 +2,12 @@
 
 # ROADMAP.md items that hold what is still to port
 ROADMAP_ITEMS = {
-    "parallel": ("Queue A item 8c, the model axis in training: --mesh_model in the pretrain and "
-                 "fine-tune CLIs and make_mesh with model > 1"),
+    "model_sp_pipe": ("Queue A item 8d, the model axis with sp or pipe: --mesh_model with "
+                      "--mesh_sp / --mesh_pp, or with the ring and pipeline backends"),
 }
 
 
-def not_ported(what: str, item: str = "parallel") -> NotImplementedError:
+def not_ported(what: str, item: str = "model_sp_pipe") -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to spatialvla_tpu_torch yet "
         f"(see ROADMAP.md, {ROADMAP_ITEMS[item]})"

@@ -9,10 +9,12 @@ same dict (the JAX version returns a new cache). Sandwich RMSNorm, attention
 softcap, query_pre_attn_scalar scaling, sqrt(hidden) embedding scale in the
 activation dtype and fp32 RoPE follow the JAX module. Quantized serving trees
 (fused ``qkv`` / ``gate_up``) take the same branches (gemma2.py:111-116,
-:143-146). ``forward``, ``embed_tokens`` and ``head_logits`` also take one
-data group of a model-sharded serving tree (``parallel/partitioning.py``
-ShardGroup, ``SpatialVLAPolicy.shard``): a whole tree runs as a group of
-one, through the same loop.
+:143-146). ``forward``, ``forward_flash``, ``embed_tokens`` and
+``head_logits`` also take one data group of a model-sharded tree
+(``parallel/partitioning.py`` ShardGroup: ``SpatialVLAPolicy.shard`` for
+serving, ``TrainShards.group`` for training, where gradients flow through
+the model axis' collectives): a whole tree runs as a group of one, through
+the same loop (``decoder_layer``).
 
 ``forward_flash`` (training) and ``prefill_flash`` (serving prefill) run
 attention through the flash-attention kernels (ops/flash_attention.py).
@@ -102,14 +104,15 @@ def remat(fn, use_remat: bool):
 
 def _qkv(lp, cfg, h, norm_w):
     """q (B, T, Nq, D), k and v (B, T, Nkv, D), before RoPE, from the
-    pre-norm residual, for the plain and the fused-quantized trees."""
+    pre-norm residual, for the plain and the fused-quantized trees (from
+    the normed residual where ``norm_w`` is None)."""
     B, T, H = h.shape
     Nq, Nkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     if "qkv" in lp:  # fused quantized serving tree (norm fused into the kernel)
         qkv = qnorm_matmul(h, norm_w, lp["qkv"], eps=cfg.rms_norm_eps)
         q, k, v = torch.split(qkv, [Nq * D, Nkv * D, Nkv * D], dim=-1)
     else:
-        x = rms_norm(norm_w, h, cfg.rms_norm_eps)
+        x = h if norm_w is None else rms_norm(norm_w, h, cfg.rms_norm_eps)
         q, k, v = qmatmul(x, lp["q"]), qmatmul(x, lp["k"]), qmatmul(x, lp["v"])
     return q.reshape(B, T, Nq, D), k.reshape(B, T, Nkv, D), v.reshape(B, T, Nkv, D)
 
@@ -133,39 +136,50 @@ def _attention_block(lp, cfg, h, norm_w, cos, sin, mask, cache_kv, cache_positio
 
 
 def _mlp_block(lp, h, norm_w, eps):
+    """The MLP from the pre-norm residual (from the normed residual where
+    ``norm_w`` is None, the plain tree only)."""
     if "gate_up" in lp:  # fused quantized serving tree (norm fused)
         gu = qnorm_matmul(h, norm_w, lp["gate_up"], eps=eps)
         gate, up = torch.chunk(gu, 2, dim=-1)
         return qmatmul(gelu_tanh(gate) * up, lp["down"])
-    x = rms_norm(norm_w, h, eps)
+    x = h if norm_w is None else rms_norm(norm_w, h, eps)
     gate = gelu_tanh(qmatmul(x, lp["gate"]))
     up = qmatmul(x, lp["up"])
     return qmatmul(gate * up, lp["down"])
 
 
-def decoder_layer(tp, l: int, cfg, h, mask, cos, sin, caches, cache_position):
+def decoder_layer(tp, l: int, cfg, h, attend, *aux):
     """Layer l over the model shards of ``tp`` (``parallel/partitioning.py``
     ShardGroup; a whole tree's is a group of one): each shard of the
-    attention runs ``_attention_block`` over its q and kv heads
-    (``tp.text_cfg``) and its cache (``caches``: one a shard of the
-    attention, or None), each shard of the MLP ``_mlp_block`` over its
-    hidden columns, and their partial ``o`` / ``down`` products are summed
-    (``sum_shards``). The residual stream and the norms stay on the group's
-    home device."""
+    attention runs ``attend(s, l, lp, tcfg, h, *aux)`` (shard s's attention
+    output before the ``o`` sum, from its layer tree ``lp`` and its q and kv
+    heads ``tcfg``; ``input_norm_of(lp)`` is the norm it applies, None
+    where it is given the normed residual), each shard of the MLP ``_mlp_block``
+    over its hidden columns, and their partial ``o`` / ``down`` products are
+    summed (``ShardSum``). The residual stream and the norms stay on the
+    group's home device, where the plain tree's pre-norms run once, before
+    the shards (so a norm's gradient is whole on every shard); the fused
+    quantized tree's run in each shard's kernel. ``aux`` goes to each
+    shard's device."""
     lps = tp.layers("lm", cfg.num_layers)
     lp = lps[0][l]
     tcfg, eps = tp.text_cfg(cfg), cfg.rms_norm_eps
-
-    def attn(s, tree, h, mask, cos, sin):
-        cache_kv = None if caches is None else (caches[s]["k"][l], caches[s]["v"][l])
-        return _attention_block(lps[s][l]["attn"], tcfg, h, lps[s][l]["input_norm"], cos, sin,
-                                mask, cache_kv, cache_position)
-
-    attn_out = tp.reduce("lm_attn", attn, h, mask, cos, sin)
+    x = h if "qkv" in lp["attn"] else rms_norm(lp["input_norm"], h, eps)
+    attn_out = tp.reduce("lm_attn", lambda s, tree, x, *aux: attend(s, l, lps[s][l], tcfg, x, *aux),
+                         x, *aux)
     h = h + rms_norm(lp["post_attn_norm"], attn_out, eps)
-    mlp_out = tp.reduce("lm_mlp", lambda s, tree, h: _mlp_block(lps[s][l]["mlp"], h,
-                                                               lps[s][l]["pre_ffn_norm"], eps), h)
+    fused = "gate_up" in lp["mlp"]
+    x = h if fused else rms_norm(lp["pre_ffn_norm"], h, eps)
+    mlp_out = tp.reduce("lm_mlp", lambda s, tree, x: _mlp_block(
+        lps[s][l]["mlp"], x, lps[s][l]["pre_ffn_norm"] if fused else None, eps), x)
     return h + rms_norm(lp["post_ffn_norm"], mlp_out, eps)
+
+
+def input_norm_of(lp):
+    """The input norm weight a shard's attention applies: the fused
+    quantized tree's (inside its kernel), None for the plain tree, whose
+    norm ``decoder_layer`` applies before the shards."""
+    return lp["input_norm"] if "qkv" in lp["attn"] else None
 
 
 def make_masks(cfg, base_mask, q_positions, k_positions):
@@ -222,8 +236,13 @@ def forward(
     h, cos, sin, mask_global, mask_sliding = _prepare(
         cfg, inputs_embeds, position_ids, base_mask, S, cache_position, window_positions)
 
+    def attend(s, l, lp, tcfg, h, mask, cos, sin):
+        cache_kv = None if caches is None else (caches[s]["k"][l], caches[s]["v"][l])
+        return _attention_block(lp["attn"], tcfg, h, input_norm_of(lp), cos, sin, mask, cache_kv,
+                                start)
+
     tp.layers("lm", cfg.num_layers)  # the per-layer views, outside any recomputation
-    layer = remat(lambda h, l, mask: decoder_layer(tp, l, cfg, h, mask, cos, sin, caches, start),
+    layer = remat(lambda h, l, mask: decoder_layer(tp, l, cfg, h, attend, mask, cos, sin),
                   use_remat)
     for l in range(cfg.num_layers):
         h = layer(h, l, mask_sliding if l % 2 == 0 else mask_global)  # even layers slide
@@ -260,11 +279,12 @@ def embed_tokens(params, input_ids: torch.Tensor, dtype=None) -> torch.Tensor:
     """The embedding rows of ``input_ids`` from the LM tree or a ShardGroup.
     Over a vocabulary cut each shard looks up the ids of its rows (the others
     masked to zero) and ``sum_shards`` adds them, so every row is the
-    table's own. Gathered first, then cast: the same values as casting the
-    table first."""
+    table's own (the gradient reaches each row's shard). Gathered first,
+    then cast: the same values as casting the table first."""
     tp = as_group(params, "lm")
     if tp.is_cut("vocab"):
-        emb = tp.reduce("vocab", _embed_rows, input_ids)
+        emb = tp.reduce("vocab", lambda s, tree, ids: _embed_rows(tp.ids[s], tree, ids),
+                        input_ids)
     else:
         emb = tp.trees[0]["lm"]["embed"][input_ids]
     return emb if dtype is None else emb.to(dtype)
@@ -291,11 +311,12 @@ def head_logits(params, cfg, hidden: torch.Tensor, token_range=None, *,
     width = V // tp.n if tp.is_cut("vocab") else V
     parts = []
     for s in tp.shards("vocab"):
-        a, b = max(lo, s * width), min(hi, (s + 1) * width)
+        first = tp.ids[s] * width
+        a, b = max(lo, first), min(hi, first + width)
         if a >= b:
             continue
         head = _head_of(tp.trees[s]["lm"])
-        i, j = a - s * width, b - s * width
+        i, j = a - first, b - first
         head = ({"qt": head["qt"][i:j], "scale": head["scale"][i:j]} if is_quantized(head)
                 else head[:, i:j])
         x = hidden if tp.devices[s] is None else hidden.to(tp.devices[s])
@@ -332,13 +353,16 @@ def _decoder_layer_flash(cfg, h, lp, cos, sin, prefix_lens, valid_lens, window):
     return h + rms_norm(lp["post_ffn_norm"], mlp_out, cfg.rms_norm_eps), k, v
 
 
-def forward_flash(params: Params, cfg, inputs_embeds: torch.Tensor, position_ids: torch.Tensor,
+def forward_flash(params, cfg, inputs_embeds: torch.Tensor, position_ids: torch.Tensor,
                   prefix_lens: torch.Tensor, valid_lens: torch.Tensor, *,
                   use_remat: bool = False) -> torch.Tensor:
-    """Full-sequence forward through the flash kernels (gemma2.py:247):
-    layer pairs (even layer windowed, odd global), each pair one checkpoint
-    under use_remat. prefix_lens (B,) is the bidirectional-prefix boundary
-    (0 = causal), valid_lens (B,) the right-pad boundary."""
+    """Full-sequence forward through the flash kernels (gemma2.py:247), from
+    the LM tree or over the model shards of a ShardGroup (``decoder_layer``:
+    each shard's attention calls the kernels over its own heads): layer
+    pairs (even layer windowed, odd global), each pair one checkpoint under
+    use_remat. prefix_lens (B,) is the bidirectional-prefix boundary (0 =
+    causal), valid_lens (B,) the right-pad boundary."""
+    tp = as_group(params, "lm")
     L = cfg.num_layers
     if L % 2:
         raise ValueError("forward_flash runs window/global layer pairs: num_layers must be even")
@@ -346,19 +370,23 @@ def forward_flash(params: Params, cfg, inputs_embeds: torch.Tensor, position_ids
                               device=inputs_embeds.device)
     h = inputs_embeds * normalizer
     cos, sin = rope_cos_sin(position_ids, cfg.head_dim, cfg.rope_theta)
-    prefix_lens = prefix_lens.to(torch.int32)
-    valid_lens = valid_lens.to(torch.int32)
+    lens = (prefix_lens.to(torch.int32), valid_lens.to(torch.int32))
 
-    def pair(h, lp0, lp1):
-        h = _decoder_layer_flash(cfg, h, lp0, cos, sin, prefix_lens, valid_lens,
-                                 cfg.sliding_window)[0]
-        return _decoder_layer_flash(cfg, h, lp1, cos, sin, prefix_lens, valid_lens, None)[0]
+    def attend(s, l, lp, tcfg, h, cos, sin, prefix_lens, valid_lens):
+        window = cfg.sliding_window if l % 2 == 0 else None  # even layers slide
+        return _attention_block_flash(lp["attn"], tcfg, h, input_norm_of(lp), cos, sin,
+                                      prefix_lens,
+                                      valid_lens, window)[0]
 
+    def pair(h, l):
+        h = decoder_layer(tp, l, cfg, h, attend, cos, sin, *lens)
+        return decoder_layer(tp, l + 1, cfg, h, attend, cos, sin, *lens)
+
+    tp.layers("lm", L)  # the per-layer views, outside any recomputation
     pair = remat(pair, use_remat)
-    layers = unstack_layers(params["layers"], L)
-    for i in range(0, L, 2):
-        h = pair(h, layers[i], layers[i + 1])
-    return rms_norm(params["final_norm"], h, cfg.rms_norm_eps)
+    for l in range(0, L, 2):
+        h = pair(h, l)
+    return rms_norm(tp.trees[0]["lm"]["final_norm"], h, cfg.rms_norm_eps)
 
 
 def forward_ring(params: Params, cfg, inputs_embeds: torch.Tensor, position_ids: torch.Tensor,

@@ -26,9 +26,10 @@ Split-phase serving (``serve/split_engine.py``): ``prefill_for_serving``,
 (the fused step, or ``xla_decode_step`` in plain torch ops) on a state
 written in place, replayed as one CUDA graph by ``ServingLoop``.
 
-Over the model axis (``SpatialVLAPolicy.shard``) the serving functions take
-one data group of the sharded tree (``parallel/partitioning.py:ShardGroup``)
-in place of ``params``: SigLIP, the projector, the LM's attention and MLP,
+Over the model axis the serving functions (``SpatialVLAPolicy.shard``) and
+``forward`` (training, "xla" and "flash": ``parallel.TrainShards.group``)
+take one data group of the sharded tree (``parallel/partitioning.py:
+ShardGroup``) in place of ``params``: SigLIP, the projector, the LM's attention and MLP,
 the embedding and the greedy head run over the model shards, ZoeDepth and
 Ego3D once on the group's home device. A whole tree runs through the same
 code as a group of one (``as_group``). As in JAX, the decode loop over a
@@ -48,6 +49,7 @@ from . import gemma2 as gemma2_mod
 from . import siglip as siglip_mod
 from . import zoe as zoe_mod
 from .layers import normal_init, zeros
+from ..errors import not_ported
 from ..parallel.mesh import LocalMesh
 from ..parallel.partitioning import as_group
 from ..ops.quant import is_quantized, qmatmul
@@ -199,7 +201,9 @@ def forward(
     process-group ``Mesh`` 'hidden' (and 'logits') hold this rank's
     sequence shard only, and labels are refused (the train step takes each
     rank's part of the loss); "pipeline" runs ``gemma2.forward_pipeline``
-    over its pipe axis, every stage ending with the whole hidden."""
+    over its pipe axis, every stage ending with the whole hidden. ``params``
+    may be a ShardGroup of model shards ("xla" / "flash", with_logits=False:
+    the train step's loss reduces over the vocabulary cut)."""
     if attn_backend not in ("xla", "flash", "ring", "pipeline"):
         raise ValueError(f"unknown attn_backend {attn_backend!r}")
     if attn_backend == "ring" and mesh is None:
@@ -209,6 +213,14 @@ def forward(
     if attn_backend == "ring" and labels is not None and not isinstance(mesh, LocalMesh):
         raise ValueError("attn_backend='ring' on a process-group mesh returns this rank's "
                          "sequence shard: pass labels=None and take the loss per shard")
+    tp = as_group(params)
+    if tp.sharded and attn_backend in ("ring", "pipeline"):
+        raise not_ported(f"attn_backend={attn_backend!r} over model shards (the model axis "
+                         "with sp or pipe)")
+    if tp.sharded and with_logits:
+        raise ValueError("over model shards no shard holds the whole logits: pass "
+                         "with_logits=False and take the loss from the hidden states "
+                         "(train.loss.position_loss, which reduces over the vocabulary cut)")
     B, T = input_ids.shape
     if attention_mask is None:
         attention_mask = torch.ones((B, T), dtype=torch.int32, device=input_ids.device)
@@ -216,10 +228,10 @@ def forward(
     image_features = None
     if pixel_values is not None:
         image_features = get_image_features(
-            params, cfg, pixel_values, intrinsic, depth=depth, use_remat=use_remat,
+            tp, cfg, pixel_values, intrinsic, depth=depth, use_remat=use_remat,
             compute_dtype=compute_dtype,
         )
-    embeds = merge_input_embeddings(params, cfg, input_ids, image_features, dtype=compute_dtype)
+    embeds = merge_input_embeddings(tp, cfg, input_ids, image_features, dtype=compute_dtype)
     position_ids = torch.cumsum(attention_mask, dim=1)  # 1-indexed (PaliGemma)
 
     if attn_backend in ("flash", "ring", "pipeline"):
@@ -230,24 +242,26 @@ def forward(
             prefix_lens = torch.where(is_suffix.any(dim=1), first_suffix, valid_lens)
         else:
             prefix_lens = torch.zeros((B,), dtype=torch.int32, device=input_ids.device)
-        args = (params["lm"], cfg.text, embeds, position_ids, prefix_lens, valid_lens)
+        args = (cfg.text, embeds, position_ids, prefix_lens, valid_lens)
         if attn_backend == "ring":
-            hidden = gemma2_mod.forward_ring(*args, mesh=mesh, use_remat=use_remat)
+            hidden = gemma2_mod.forward_ring(tp.trees[0]["lm"], *args, mesh=mesh,
+                                             use_remat=use_remat)
         elif attn_backend == "pipeline":
-            hidden = gemma2_mod.forward_pipeline(*args, mesh=mesh, n_microbatches=pp_microbatches,
+            hidden = gemma2_mod.forward_pipeline(tp.trees[0]["lm"], *args, mesh=mesh,
+                                                 n_microbatches=pp_microbatches,
                                                  use_remat=use_remat)
         else:
-            hidden = gemma2_mod.forward_flash(*args, use_remat=use_remat)
+            hidden = gemma2_mod.forward_flash(tp, *args, use_remat=use_remat)
     else:
         if token_type_ids is not None:
             base_mask = prefix_lm_mask(attention_mask, token_type_ids)
         else:
             base_mask = gemma2_mod.causal_base_mask(attention_mask)
-        hidden, _ = gemma2_mod.forward(params["lm"], cfg.text, embeds, position_ids, base_mask,
+        hidden, _ = gemma2_mod.forward(tp, cfg.text, embeds, position_ids, base_mask,
                                        use_remat=use_remat)
     out = {"hidden": hidden}
     if with_logits:
-        logits = gemma2_mod.compute_logits(params["lm"], cfg.text, hidden)
+        logits = gemma2_mod.compute_logits(tp.trees[0]["lm"], cfg.text, hidden)
         out["logits"] = logits
         if labels is not None:
             out["loss"] = cross_entropy_loss(logits, labels, attention_mask,

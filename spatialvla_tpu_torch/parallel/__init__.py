@@ -1,13 +1,15 @@
 """Parallelism for the port (port of spatialvla_tpu/parallel): the named mesh
-and the multi-process bootstrap, the partitioning rules with the fsdp cut
-(training) and the model cut (tensor-parallel serving) they drive, ring
+and the multi-process bootstrap, the partitioning rules with the fsdp cut and
+the model cut they drive (``TrainShards`` for training, ``TensorShards``
+for tensor-parallel serving), the model axis' autograd collectives, ring
 attention over ``sp`` and the GPipe pipeline over ``pipe``. Imports torch
 and torch.distributed, no jax."""
-from .mesh import (AXES, LocalMesh, Mesh, MeshConfig, batch_sharding, form_global_batch,
-                   initialize_distributed, local_rows, make_mesh, mesh_shape, process_count,
-                   process_index, replicated, sum_shards)
-from .partitioning import (DEFAULT_RULES, FsdpShards, TensorShards, param_pspecs, shard_params,
-                           spec_for)
+from .mesh import (AXES, LocalMesh, Mesh, MeshConfig, ShardCopy, ShardGather, ShardSum,
+                   batch_sharding, form_global_batch, initialize_distributed, local_rows,
+                   make_mesh, mesh_shape, model_group_batches, process_count, process_index,
+                   replicated, sum_shards)
+from .partitioning import (DEFAULT_RULES, FsdpShards, TensorShards, TrainShards, param_pspecs,
+                           shard_params, spec_for)
 from .pipeline import pipeline_apply
 from .ring_attention import ring_flash_attention
 
@@ -18,13 +20,18 @@ __all__ = [
     "LocalMesh",
     "Mesh",
     "MeshConfig",
+    "ShardCopy",
+    "ShardGather",
+    "ShardSum",
     "TensorShards",
+    "TrainShards",
     "batch_sharding",
     "form_global_batch",
     "initialize_distributed",
     "local_rows",
     "make_mesh",
     "mesh_shape",
+    "model_group_batches",
     "param_pspecs",
     "pipeline_apply",
     "process_count",

@@ -13,11 +13,14 @@ Axes (as in JAX):
   fsdp   ZeRO-3: the fp32 masters and AdamW moments cut by the rules
          (parallel/partitioning.py), weights gathered for compute, gradients
          reduce-scattered back to the shards; the batch's rows too
-  model  tensor parallelism (serving): the weight matrices cut by heads and
-         hidden columns (parallel/partitioning.py:TensorShards), the partial
-         products summed by ``sum_shards``; held by one process in a
-         ``LocalMesh`` (a process-group mesh with model > 1 raises: the model
-         axis in training is ROADMAP item 8c)
+  model  tensor parallelism: the weight matrices cut by heads and hidden
+         columns (parallel/partitioning.py:TensorShards), the partial
+         products summed by ``ShardSum``, a column-parallel block's input
+         handed to the shards by ``ShardCopy`` and column blocks joined by
+         ``ShardGather`` (autograd functions: the collectives of training);
+         held by one process in a ``LocalMesh`` (serving, and training on
+         one card) or one shard a rank of a process-group ``Mesh``
+         (training); combined with sp or pipe it raises (ROADMAP item 8d)
   sp     sequence parallelism: the ring of parallel/ring_attention.py
   pipe   pipeline parallelism: the GPipe stages of parallel/pipeline.py
 
@@ -25,10 +28,11 @@ Axes (as in JAX):
 of ``sp`` sequence shards and a pipe of ``pipe`` stages, run in turn by this
 process through the same loops as the process-group transports, and the
 ``data x model`` shards of a sharded serving policy (``SpatialVLAPolicy.shard``,
-as JAX's single controller lays its mesh over the devices it drives). It is
-the counterpart of the JAX tests' virtual CPU devices, and what one card
-runs. The caller asks for it by name; a mesh of several processes never turns
-into one.
+as JAX's single controller lays its mesh over the devices it drives) or the
+``model`` shards of a training step (``LocalMesh(model=n)``, every shard on
+the caller's device). It is the counterpart of the JAX tests' virtual CPU
+devices, and what one card runs. The caller asks for it by name; a mesh of
+several processes never turns into one.
 """
 from __future__ import annotations
 
@@ -115,15 +119,11 @@ class LocalMesh:
 def sum_shards(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """The sum of the model shards' partial results, handed back to each
     shard: summed in fp32, in shard order, and returned in the parts' dtype.
-    Parts on one device: a plain sum, one tensor returned for every shard.
+    Parts on one device: ``ShardSum``, one tensor returned for every shard.
     Parts on distinct CUDA devices: one ``torch.cuda.nccl.all_reduce`` over
     the list (single-process NCCL), each shard's sum on its own device."""
-    dtype = parts[0].dtype
     if len({p.device for p in parts}) == 1:
-        total = parts[0].float()
-        for p in parts[1:]:
-            total = total + p.float()
-        return [total.to(dtype)] * len(parts)
+        return [ShardSum.apply(None, *parts)] * len(parts)
     import torch.cuda.nccl as nccl
 
     bufs = [p.float().contiguous() for p in parts]
@@ -138,13 +138,111 @@ def gather_shards(parts: Sequence[torch.Tensor], dim: int = -1) -> torch.Tensor:
     return torch.cat([p.to(home) for p in parts], dim)
 
 
+# ---------------------------------------------------------------------------
+# the model axis' collectives, with their gradients: one implementation for
+# this process's shards (a LocalMesh: ``group`` None) and one for a process
+# group (one shard a rank). Every model rank computes the same loss, so the
+# gradient of a replicated tensor is the same on every rank.
+# ---------------------------------------------------------------------------
+
+def _fp32_sum(parts) -> torch.Tensor:
+    """The parts summed in fp32 in order, in a tensor of its own."""
+    total = parts[0].to(torch.float32, copy=True)
+    for p in parts[1:]:
+        total += p.float()
+    return total
+
+
+class ShardSum(torch.autograd.Function):
+    """``ShardSum.apply(group, *parts)``: the sum of the model shards'
+    partial results (a row-parallel block's products, the masked rows of a
+    vocabulary cut): this process's parts summed in fp32 in shard order,
+    all-reduced over ``group`` where one is given, in the parts' dtype.
+    Backward: the sum's gradient is each part's."""
+
+    @staticmethod
+    def forward(ctx, group, *parts):
+        ctx.dtypes = [p.dtype for p in parts]
+        total = _fp32_sum(parts)
+        if group is not None:
+            torch.distributed.all_reduce(total, group=group)
+        return total.to(parts[0].dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None,) + tuple(g.to(d) for d in ctx.dtypes)
+
+
+class ShardCopy(torch.autograd.Function):
+    """``ShardCopy.apply(group, n, x)``: the input of a column-parallel block
+    handed to this process's ``n`` shards, the same values each (ShardSum's
+    dual). Backward: the shards' input gradients summed in fp32 in shard
+    order, all-reduced over ``group`` where one is given."""
+
+    @staticmethod
+    def forward(ctx, group, n, x):
+        ctx.group, ctx.dtype = group, x.dtype
+        return tuple(x.view_as(x) for _ in range(n))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        total = _fp32_sum(grads)
+        if ctx.group is not None:
+            torch.distributed.all_reduce(total, group=ctx.group)
+        return None, None, total.to(ctx.dtype)
+
+
+class ShardGather(torch.autograd.Function):
+    """``ShardGather.apply(group, dim, *parts)``: the model shards' column
+    blocks joined in shard order along ``dim``: this process's parts, or
+    over ``group`` every rank's one part (all-gathered). Backward: each
+    part's slice of the gradient."""
+
+    @staticmethod
+    def forward(ctx, group, dim, *parts):
+        ctx.group, ctx.dim = group, dim
+        ctx.widths = [p.shape[dim] for p in parts]
+        if group is None:
+            return torch.cat(parts, dim)
+        if len(parts) != 1:
+            raise ValueError("a rank of a process group holds one model shard")
+        ctx.rank = torch.distributed.get_rank(group)
+        return gather_along(parts[0], group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.group is None:
+            return (None, None) + tuple(g.split(ctx.widths, ctx.dim))
+        w = ctx.widths[0]
+        return None, None, g.narrow(ctx.dim, ctx.rank * w, w).contiguous()
+
+
+def shard_max(parts: Sequence[torch.Tensor], group=None) -> torch.Tensor:
+    """The elementwise max of the shards' parts (no gradient): this
+    process's, all-reduced over ``group`` where one is given."""
+    out = torch.stack([p.detach() for p in parts]).amax(0)
+    if group is not None:
+        torch.distributed.all_reduce(out, op=torch.distributed.ReduceOp.MAX, group=group)
+    return out
+
+
+def shard_stack(parts: Sequence[torch.Tensor], group=None) -> torch.Tensor:
+    """Every model shard's part stacked along a new last dim in shard order
+    (no gradient): this process's, or over ``group`` every rank's one."""
+    out = torch.stack([p.detach() for p in parts], -1)
+    return out if group is None else gather_along(out, group, -1)
+
+
 class Mesh:
     """A ``DeviceMesh`` over ``AXES`` (``device_mesh``) and the process
     groups of the axes and of the axis sets the training layer reduces over.
     ``shape`` maps an axis to its size, as JAX's ``mesh.shape`` does."""
 
-    # the axis sets the train step reduces over (besides single axes)
-    GROUPS = (("data", "fsdp"), ("data", "sp", "pipe"), AXES)
+    # the axis sets the train step reduces over (besides single axes): the
+    # batch axes; a fsdp-cut gradient's other axes; a whole leaf's gradient
+    # (every axis but model); the squares of grad_norm; the LoRA factors
+    GROUPS = (("data", "fsdp"), ("data", "sp", "pipe"), ("data", "fsdp", "sp", "pipe"),
+              ("fsdp", "model"), AXES)
 
     def __init__(self, device_mesh):
         self.device_mesh = device_mesh
@@ -218,9 +316,11 @@ def make_mesh(cfg: MeshConfig = MeshConfig(), device_type: str = "cuda") -> Mesh
     shape = cfg.resolve(world)
     if math.prod(shape) != world:
         raise ValueError(f"mesh {shape} leaves processes out of the {world} started")
-    if shape[AXES.index("model")] > 1:
-        raise not_ported(f"--mesh_model {shape[AXES.index('model')]} (the model axis in "
-                         "training)", "parallel")
+    sizes = dict(zip(AXES, shape))
+    if sizes["model"] > 1 and (sizes["sp"] > 1 or sizes["pipe"] > 1):
+        raise not_ported(f"--mesh_model {sizes['model']} with --mesh_sp {sizes['sp']} / "
+                         f"--mesh_pp {sizes['pipe']} (the model axis with sp or pipe)",
+                         "model_sp_pipe")
     from torch.distributed.device_mesh import init_device_mesh
 
     return Mesh(init_device_mesh(device_type, shape, mesh_dim_names=AXES))
@@ -320,6 +420,27 @@ def form_global_batch(mesh, batch: dict, dim: int = 0) -> dict:
     placements = batch_sharding(mesh, dim)
     return {k: DTensor.from_local(torch.as_tensor(np.asarray(v)), mesh.device_mesh, placements,
                                   run_check=False) for k, v in batch.items()}
+
+
+def model_group_batches(mesh, batches):
+    """``batches`` as the model ranks of one batch rank must see them: the
+    same rows on each. On a ``Mesh`` with a model axis model rank 0 draws
+    them and broadcasts each over the model axis, the other ranks drawing
+    nothing (the data layer's threaded reader hands records over in the
+    order its threads finish, so two processes' own draws may differ);
+    elsewhere ``batches`` itself."""
+    if not isinstance(mesh, Mesh) or mesh.shape["model"] == 1:
+        yield from batches
+        return
+    group = mesh.group("model")
+    src = torch.distributed.get_global_rank(group, 0)
+    it = iter(batches) if mesh.index("model") == 0 else None
+    while True:
+        box = [None if it is None else next(it, None)]
+        torch.distributed.broadcast_object_list(box, src=src, group=group)
+        if box[0] is None:
+            return
+        yield box[0]
 
 
 def local_rows(mesh, n_rows: int) -> slice:

@@ -8,9 +8,9 @@ weights cut their input feature dim over "fsdp" and their output dim over
 Rules match the '/'-joined tree path with ``re.search``, first hit wins.
 
 The port acts on the "fsdp" entries (``FsdpShards``, ZeRO-3 for the train
-state) and, for serving, on the "model" entries (``TensorShards``: the cut of
-a serving tree into the trees of the model shards that ``SpatialVLAPolicy.shard``
-runs; the model axis in training is ROADMAP item 8c).
+state) and on the "model" entries (``TensorShards``: the cut of a tree into
+the trees of the model shards, which ``SpatialVLAPolicy.shard`` serves and
+``TrainShards`` trains, the fsdp cut taken inside each shard).
 """
 from __future__ import annotations
 
@@ -21,7 +21,8 @@ import torch
 
 from ..ops.quant import is_grouped, is_int4, is_quantized, qmatmul_refusal
 from ..utils.tree import children, iter_leaves, map_with_paths
-from .mesh import Mesh, gather_along, gather_shards, mesh_shape, sum_shards
+from .mesh import (Mesh, ShardCopy, ShardGather, ShardSum, gather_along, gather_shards,
+                   mesh_shape, shard_max, shard_stack, sum_shards)
 
 Spec = Tuple[Optional[str], ...]
 Rules = List[Tuple[str, Spec]]
@@ -134,11 +135,8 @@ def param_pspecs(params, rules: Rules = None, mesh=None):
 class FsdpShards:
     """The fsdp cut of a parameter tree on a ``Mesh``: each leaf whose spec
     names "fsdp" is cut along that dim into ``n`` equal shards, one a rank of
-    the fsdp axis; the rest are whole on every rank. Also cuts, gathers and
-    reduces a train state's leaves (``params/<path>`` and the AdamW moments
-    ``opt_state/mu/<path>``, ``opt_state/nu/<path>``)."""
-
-    STATE_ROOTS = ("params/", "opt_state/mu/", "opt_state/nu/")
+    the fsdp axis; the rest are whole on every rank. ``TrainShards`` takes it
+    inside each model shard of a train state."""
 
     def __init__(self, mesh: Mesh, params, rules: Rules = None):
         self.mesh = mesh
@@ -155,12 +153,6 @@ class FsdpShards:
     def dim(self, path: str) -> Optional[int]:
         """The dim a parameter path is cut along (None: whole)."""
         return self.dims.get(path)
-
-    def state_dim(self, state_path: str) -> Optional[int]:
-        for root in self.STATE_ROOTS:
-            if state_path.startswith(root):
-                return self.dims.get(state_path[len(root):])
-        return None
 
     def cut(self, t: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
         """This rank's shard of a whole tensor (a contiguous copy)."""
@@ -185,22 +177,6 @@ class FsdpShards:
 
     def cut_tree(self, params):
         return map_with_paths(lambda p, t: self.cut(t, self.dim(p)), params)
-
-    def gather_tree(self, params):
-        """The whole parameter tree from every rank's shards (a collective)."""
-        return map_with_paths(lambda p, t: self.gather(t.detach(), self.dim(p)), params)
-
-    def cut_state(self, state):
-        """A train state (``init_train_state``) with its parameters and
-        moments cut to this rank's shards."""
-        return map_with_paths(
-            lambda p, t: self.cut(t, self.state_dim(p)) if torch.is_tensor(t) else t, state)
-
-    def gather_state(self, state):
-        """The whole train state from every rank's shards (a collective)."""
-        return map_with_paths(
-            lambda p, t: self.gather(t.detach(), self.state_dim(p)) if torch.is_tensor(t) else t,
-            state)
 
 
 def shard_params(mesh: Mesh, params, rules: Rules = None):
@@ -460,19 +436,26 @@ class TensorShards:
 
 
 class ShardGroup:
-    """One data group of a sharded serving tree: the trees of its ``n`` model
-    shards (``TensorShards.cut_tree``) and their devices, shard 0's the
-    group's home, where the replicated activations live and the whole blocks
-    run (once, not once a shard). ``run`` / ``reduce`` / ``gather`` apply a
-    block's computation to each shard that holds it. A whole tree is a group
-    of one (``as_group``: no cut, no device of its own), whose ``reduce`` and
-    ``gather`` hand back its one result, so the layers run one loop for a
-    whole tree and for its model shards."""
+    """One data group of a model-sharded tree: the trees of the model shards
+    this process holds (``TensorShards.cut_tree``; ``ids`` their model
+    indices, all ``n`` of them in one process) and their devices, shard 0's
+    the group's home, where the replicated activations live and the whole
+    blocks run (once, not once a shard). ``run`` / ``reduce`` / ``gather``
+    apply a block's computation to each shard that holds it, through the
+    model axis' collectives (``parallel/mesh.py``: ShardCopy, ShardSum,
+    ShardGather; over ``comm``, the model axis' process group, where each
+    rank holds one shard), so gradients flow through them. A whole tree is a
+    group of one (``as_group``: no cut, no device of its own), whose
+    ``reduce`` and ``gather`` hand back its one result, so the layers run
+    one loop for a whole tree and for its model shards."""
 
-    def __init__(self, cut: Optional[TensorShards], trees, devices):
+    def __init__(self, cut: Optional[TensorShards], trees, devices, *, ids=None, comm=None):
         self.cut, self.trees = cut, list(trees)
         self.devices = [None if d is None else torch.device(d) for d in devices]
-        self.n, self.home = len(self.trees), self.devices[0]
+        self.ids = list(range(len(self.trees))) if ids is None else list(ids)
+        self.comm = comm
+        self.n, self.home = (1 if cut is None else cut.n), self.devices[0]
+        self.distinct = len(set(self.devices)) > 1
         self._layers: Dict[str, list] = {}
 
     @property
@@ -484,9 +467,9 @@ class ShardGroup:
         return self.cut is not None and self.cut.blocks.get(block, False)
 
     def shards(self, block: str) -> range:
-        """The shards that compute ``block``: all of them where it is cut,
-        shard 0 alone where it is whole."""
-        return range(self.n) if self.is_cut(block) else range(1)
+        """The positions in ``trees`` of the shards that compute ``block``:
+        all of them where it is cut, the first alone where it is whole."""
+        return range(len(self.trees)) if self.is_cut(block) else range(1)
 
     def layers(self, part: str, L: int) -> List[list]:
         """Each shard's per-layer views of ``part``'s L stacked layers ("lm"
@@ -510,25 +493,51 @@ class ShardGroup:
         return t if self.home is None else t.to(self.home)
 
     def run(self, block: str, fn, *args) -> List:
-        """[fn(s, tree_s, *args on shard s's device) for each shard of ``block``]."""
+        """[fn(s, tree_s, *args on shard s's device) for each position s of
+        ``block``'s shards]. Over a cut block a float argument that takes a
+        gradient goes to the shards through ``ShardCopy``."""
+        shards = self.shards(block)
+        cut = self.is_cut(block) and not self.distinct
+        per_arg = [ShardCopy.apply(self.comm, len(shards), a)
+                   if cut and torch.is_tensor(a) and a.requires_grad else (a,) * len(shards)
+                   for a in args]
         out = []
-        for s in self.shards(block):
+        for i, s in enumerate(shards):
             dev = self.devices[s]
-            out.append(fn(s, self.trees[s], *(a.to(dev) if dev is not None and torch.is_tensor(a)
-                                               else a for a in args)))
+            out.append(fn(s, self.trees[s], *(a[i].to(dev) if dev is not None
+                                               and torch.is_tensor(a[i]) else a[i]
+                                               for a in per_arg)))
         return out
 
     def reduce(self, block: str, fn, *args) -> torch.Tensor:
-        """The shards' partial results of ``block`` summed (``sum_shards``), on
-        the home device."""
+        """The shards' partial results of ``block`` summed (``ShardSum``;
+        ``sum_shards`` across distinct devices), on the home device."""
         parts = self.run(block, fn, *args)
-        return sum_shards(parts)[0] if len(parts) > 1 else parts[0]
+        return self.sum_parts(parts) if self.is_cut(block) else parts[0]
 
     def gather(self, block: str, fn, *args, dim: int = -1) -> torch.Tensor:
         """The shards' column blocks of ``block`` joined in order, on the home
         device."""
         parts = self.run(block, fn, *args)
-        return gather_shards(parts, dim) if len(parts) > 1 else parts[0]
+        if not self.is_cut(block):
+            return parts[0]
+        if self.distinct:
+            return gather_shards(parts, dim)
+        return ShardGather.apply(self.comm, dim, *parts)
+
+    def sum_parts(self, parts: List[torch.Tensor]) -> torch.Tensor:
+        """Every model shard's part summed (this process's parts, and over
+        ``comm`` every rank's)."""
+        if self.distinct:
+            return sum_shards(parts)[0]
+        return ShardSum.apply(self.comm, *parts)
+
+    def max_parts(self, parts: List[torch.Tensor]) -> torch.Tensor:
+        return shard_max(parts, self.comm)
+
+    def stack_parts(self, parts: List[torch.Tensor]) -> torch.Tensor:
+        """Every model shard's part stacked along a new last dim, in shard order."""
+        return shard_stack(parts, self.comm)
 
 
 def as_group(params, part: Optional[str] = None) -> ShardGroup:
@@ -562,3 +571,243 @@ class ShardedParams:
                     devices)
             groups.append(made[devices])
         return cls(cut, groups)
+
+
+# ---------------------------------------------------------------------------
+# the cut of a train state over the model and fsdp axes (training)
+# ---------------------------------------------------------------------------
+
+def _replace_leaves(tree, fn, path: str = ""):
+    """Every tensor leaf of nested dicts and lists replaced IN PLACE by
+    ``fn(path, leaf)``, each whole tensor let go as soon as its replacement
+    is made."""
+    for k in list(tree) if isinstance(tree, dict) else range(len(tree)):
+        p = f"{path}/{k}" if path else str(k)
+        if isinstance(tree[k], (dict, list)):
+            _replace_leaves(tree[k], fn, p)
+        elif torch.is_tensor(tree[k]):
+            tree[k] = fn(p, tree[k])
+    return tree
+
+
+class TrainShards:
+    """The cut of a train state over a mesh's model and fsdp axes, and the
+    gradient reductions of the sharded step (``train.make_train_step``).
+
+    The model cut is ``TensorShards``' (heads, hidden columns, the
+    vocabulary; a block stays whole where n does not divide its widths, as
+    JAX's ``_divisible`` replicates), taken alike of the fp32 masters and
+    both AdamW moments. A leaf cut over model holds the shards of this
+    process stacked along a new leading dim: ``ids`` are their model indices,
+    all ``n`` on a ``LocalMesh`` (this process runs them in turn) and this
+    rank's one on a ``Mesh``. A whole leaf is one tensor, the one master that
+    every shard reads. On a ``Mesh`` the fsdp cut (``FsdpShards``) is taken
+    inside each model shard (``fsdp=False``: none, as for a LoRA base).
+    ``group`` makes the step's ``ShardGroup``; ``gather_state`` joins a state
+    back into the unsharded tree bit for bit (checkpoints, the export) and
+    ``cut_state_leaf`` cuts a stored whole leaf again (restore).
+
+    Gradients (``reduce_grad``): a leaf cut over model keeps its shard's; a
+    whole leaf has the same full gradient on every model shard and is not
+    summed over them; a kv head held by n / Nkv shards (n > Nkv) takes the
+    sum of its copies' gradients, so the copies stay equal. ``grad_square``
+    counts each parameter once for ``grad_norm``."""
+
+    STATE_ROOTS = ("params/", "opt_state/mu/", "opt_state/nu/")
+    KV = ("lm/layers/attn/k", "lm/layers/attn/v")
+
+    def __init__(self, mesh, params, cfg=None, rules: Rules = None, *, fsdp: bool = True):
+        self.mesh, self.n = mesh, mesh_shape(mesh)["model"]
+        self.process = isinstance(mesh, Mesh)
+        if self.n > 1 and cfg is None:
+            raise ValueError("the model cut follows the model's heads: pass its config (cfg=)")
+        self.cut = TensorShards(params, cfg, self.n, rules) if self.n > 1 else None
+        self.ids = [mesh.index("model")] if self.process else list(range(self.n))
+        self.comm = mesh.group("model") if self.process and self.n > 1 else None
+        self.copies = 1
+        if self.cut is not None and self.cut.blocks.get("lm_attn"):
+            self.copies = max(self.n // cfg.text.num_kv_heads, 1)
+        shard = map_with_paths(self._shard_like, params)
+        self.fsdp = FsdpShards(mesh, shard, rules) if self.process and fsdp else None
+
+    def _shard_like(self, path: str, t: torch.Tensor) -> torch.Tensor:
+        """A meta tensor of one model shard's shape of the leaf at ``path``."""
+        shape = list(t.shape)
+        if self.stacked(path):
+            dim, idx, _ = self.cut.cuts[path]
+            shape[dim] = len(idx[0])
+        return torch.empty(shape, dtype=t.dtype, device="meta")
+
+    def stacked(self, path: str) -> bool:
+        """Whether the leaf at ``path`` is cut over model (its shards stacked)."""
+        return self.cut is not None and path in self.cut.cuts
+
+    def fsdp_dim(self, path: str) -> Optional[int]:
+        """The dim of this process's leaf at ``path`` that the fsdp cut takes."""
+        dim = None if self.fsdp is None or self.fsdp.n == 1 else self.fsdp.dim(path)
+        return None if dim is None else dim + self.stacked(path)
+
+    def param_path(self, state_path: str) -> Optional[str]:
+        """The parameter a train state's leaf (a master or a moment) is of."""
+        for root in self.STATE_ROOTS:
+            if state_path.startswith(root):
+                return state_path[len(root):]
+        return None
+
+    # -- cut and join ----------------------------------------------------------
+    def cut_leaf(self, path: str, t: torch.Tensor) -> torch.Tensor:
+        """This process's leaf of the whole tensor of parameter ``path`` (a
+        copy where it is cut; the tensor itself where it is whole)."""
+        if not self.stacked(path) and self.fsdp_dim(path) is None:
+            return t
+        t = t.detach()
+        if self.stacked(path):
+            dim, idx, _ = self.cut.cuts[path]
+            out = t.new_empty([len(self.ids)] + list(self._shard_like(path, t).shape))
+            for i, s in enumerate(self.ids):
+                torch.index_select(t, dim, idx[s].to(t.device), out=out[i])
+            t = out
+        dim = self.fsdp_dim(path)
+        return t if dim is None else self.fsdp.cut(t, dim)
+
+    def join_leaf(self, path: str, t: torch.Tensor) -> torch.Tensor:
+        """The whole tensor of parameter ``path`` from this process's leaf (a
+        collective on a ``Mesh``; detached)."""
+        t = t.detach()
+        dim = self.fsdp_dim(path)
+        if dim is not None:
+            t = self.fsdp.gather(t, dim)
+        if not self.stacked(path):
+            return t
+        if self.comm is not None:
+            t = gather_along(t, self.comm, 0)
+        return self.cut.join_leaf(path, list(t.unbind(0)))
+
+    def cut_tree(self, params):
+        """``params`` cut IN PLACE (each whole leaf let go as it is cut)."""
+        return _replace_leaves(params, self.cut_leaf)
+
+    def cut_state(self, state):
+        """A train state (``init_train_state``) with its masters and moments
+        cut IN PLACE, each whole leaf let go as it is cut."""
+        def one(p, t):
+            param = self.param_path(p)
+            return t if param is None else self.cut_leaf(param, t)
+        return _replace_leaves(state, one)
+
+    def cut_state_leaf(self, state_path: str, t: torch.Tensor) -> torch.Tensor:
+        """This process's leaf of a state leaf stored whole (a restore)."""
+        param = self.param_path(state_path)
+        return t if param is None else self.cut_leaf(param, t)
+
+    def gather_tree(self, params):
+        """The whole parameter tree (a collective on a ``Mesh``)."""
+        return map_with_paths(self.join_leaf, params)
+
+    def gather_state(self, state, *, in_place: bool = False):
+        """The whole train state (a collective on a ``Mesh``); ``in_place``
+        rewrites ``state`` itself, each cut leaf let go as it is joined."""
+        def one(p, t):
+            param = self.param_path(p) if torch.is_tensor(t) else None
+            return t if param is None else self.join_leaf(param, t)
+        return _replace_leaves(state, one) if in_place else map_with_paths(one, state)
+
+    # -- the step --------------------------------------------------------------
+    def compute_tree(self, masters):
+        """The tree the step computes with: each fsdp-cut leaf gathered (a
+        leaf of its own), every other float leaf the master itself; every
+        float leaf takes a gradient."""
+        def one(path, t):
+            if not (torch.is_tensor(t) and t.is_floating_point()):
+                return t
+            dim = self.fsdp_dim(path)
+            if dim is None:
+                return t.requires_grad_(True)
+            return self.fsdp.gather(t.detach(), dim).requires_grad_(True)
+        return map_with_paths(one, masters)
+
+    def group(self, tree, *, lora=None, alpha: float = 32.0, rank: int = 32):
+        """This process's model shards of ``tree`` (a compute tree, or a LoRA
+        base with its saved leaves) as a ``ShardGroup``: each stacked leaf
+        unbound into its shards, the whole leaves shared. With ``lora`` (a
+        factor tree) each shard's adapted leaves take the factors' matching
+        block (``lora_apply_tree``): the columns of ``b`` of a
+        column-parallel leaf, the rows of ``a`` of a row-parallel one. The
+        tree itself without a model cut."""
+        if self.cut is None:
+            return tree
+        views = {p: t.unbind(0) for p, t in iter_leaves(tree) if self.stacked(p)}
+        trees = [map_with_paths(lambda p, t, i=i: views[p][i] if p in views else t, tree)
+                 for i in range(len(self.ids))]
+        if lora is not None:
+            from ..train.lora import lora_apply_tree
+
+            trees = [lora_apply_tree(t, self.factor_blocks(lora, s), alpha=alpha, rank=rank)
+                     for t, s in zip(trees, self.ids)]
+        return ShardGroup(self.cut, trees, [None] * len(trees), ids=self.ids, comm=self.comm)
+
+    def factor_blocks(self, lora, s: int):
+        """Model shard s's blocks of a LoRA factor tree (path -> {"a", "b"})."""
+        out = {}
+        for path, f in lora.items():
+            a, b = f["a"], f["b"]
+            if self.stacked(path):
+                dim, idx, _ = self.cut.cuts[path]
+                i = idx[s].to(a.device)
+                if dim % b.dim() == b.dim() - 1:
+                    b = b.index_select(-1, i)
+                else:
+                    a = a.index_select(-2, i)
+            out[path] = {"a": a, "b": b}
+        return out
+
+    def reduce_grad(self, path: str, g: torch.Tensor) -> torch.Tensor:
+        """This process's gradient of the leaf at ``path`` from the compute
+        tree's: the copies of a duplicated kv head summed; on a ``Mesh``
+        reduce-scattered over fsdp where the leaf is fsdp-cut and summed over
+        the batch, sp and pipe axes (never over model)."""
+        if self.copies > 1 and path in self.KV and self.stacked(path):
+            g = self._sum_copies(g)
+        if not self.process:
+            return g
+        dim = self.fsdp_dim(path)
+        if dim is not None:
+            g = self.fsdp.reduce_scatter(g, dim)
+            torch.distributed.all_reduce(g, group=self.mesh.group("data", "sp", "pipe"))
+        else:
+            torch.distributed.all_reduce(g, group=self.mesh.group("data", "fsdp", "sp", "pipe"))
+        return g
+
+    def _sum_copies(self, g: torch.Tensor) -> torch.Tensor:
+        """Each shard's gradient of a kv head replaced by the sum, in shard
+        order, over the shards that hold that head."""
+        every = g if self.comm is None else gather_along(g, self.comm, 0)
+        out = torch.empty_like(g)
+        for i, s in enumerate(self.ids):
+            first = s - s % self.copies
+            total = every[first].clone()
+            for c in range(first + 1, first + self.copies):
+                total += every[c]
+            out[i] = total
+        return out
+
+    def grad_square(self, path: str, g: torch.Tensor) -> torch.Tensor:
+        """The squared sum of this process's gradient of ``path`` as far as
+        it counts it: a leaf whole over fsdp on fsdp rank 0 alone, a leaf
+        whole over model on model shard 0 alone, a duplicated kv head on its
+        first copy alone; summed over the ranks of (fsdp, model), each
+        parameter counts once."""
+        g = g.float()
+        if self.stacked(path) and self.copies > 1 and path in self.KV:
+            g = g[[i for i, s in enumerate(self.ids) if s % self.copies == 0]]
+        skip = ((not self.stacked(path) and self.ids[0] != 0)
+                    or (self.fsdp_dim(path) is None and self.fsdp is not None
+                        and self.fsdp.index != 0))
+        return g.new_zeros(()) if skip else g.pow(2).sum()
+
+    def sum_squares(self, sq: torch.Tensor) -> torch.Tensor:
+        """The squares of ``grad_square`` summed over (fsdp, model) (a
+        collective on a ``Mesh``)."""
+        if self.process:
+            torch.distributed.all_reduce(sq, group=self.mesh.group("fsdp", "model"))
+        return sq

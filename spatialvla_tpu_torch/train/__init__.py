@@ -7,7 +7,8 @@ CLIs, on one device or sharded over a mesh of processes
 from .metrics import action_metrics, build_decode_luts
 from .optimizer import OptimizerConfig, make_optimizer, make_schedule, trainable_mask
 from .train_step import (TrainStepConfig, init_lora_train_state, init_train_state, make_loss_fn,
-                         make_lora_train_step, make_train_step, shard_train_step)
+                         make_lora_train_step, make_train_step, shard_lora_train_step,
+                         shard_train_step)
 
 __all__ = [
     "OptimizerConfig",
@@ -21,6 +22,7 @@ __all__ = [
     "make_optimizer",
     "make_schedule",
     "make_train_step",
+    "shard_lora_train_step",
     "shard_train_step",
     "trainable_mask",
 ]

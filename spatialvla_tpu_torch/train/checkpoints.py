@@ -27,10 +27,10 @@ save interval and retention and the JAX manager's JSON sidecars. Writes are
 synchronous: ``save`` returns once the step is on disk, and ``wait`` has
 nothing to wait for (Orbax writes in the background). In a run of several
 processes every process calls ``save`` and process 0 writes (the JAX
-manager's sidecars, checkpoints.py:41, 50); a state cut over fsdp
-(``shards``, ``parallel.FsdpShards``) is gathered whole first, so the file
-is the one an unsharded run writes, and a restore gives each rank its
-shards of it: a checkpoint of a 2-rank run restores in one process.
+manager's sidecars, checkpoints.py:41, 50); a state cut over model and fsdp
+(``shards``, ``parallel.TrainShards``) is joined whole first, so the file
+is the one an unsharded run writes, and a restore cuts each process's
+shards of it again: a checkpoint of a 4-rank run restores in one process.
 """
 from __future__ import annotations
 
@@ -306,8 +306,7 @@ class CheckpointManager:
         step = step if step is not None else self.latest_step()
         if step is None:
             return None
-        shards = self.shards
-        cut = None if shards is None else (lambda p, t: shards.cut(t, shards.state_dim(p)))
+        cut = None if self.shards is None else self.shards.cut_state_leaf
         return restore_params(self._step_dir(step), state_like, cut=cut)
 
     def wait(self):

@@ -9,7 +9,9 @@ model or LoRA adapters (target presets 'linear' / 'linear+emb' /
 'linear+emb+h' with the spatial embedding in modules_to_save, reference
 :262-302), on one device or over a mesh of processes (the mesh and
 multi-host flags as in ``train.pretrain``; the full model's step is sharded,
-the LoRA step holds its base whole on every rank). New-mixture statistics
+the LoRA step holds its factors whole on every rank and its base whole but
+over ``--mesh_model``, whose shards take the factors' matching blocks).
+New-mixture statistics
 are merged into the processor so old unnorm keys survive (reference
 :315-327). Checkpoints go to ``<output_dir>/checkpoints`` and a restart
 resumes from the latest.
@@ -103,10 +105,10 @@ def build_everything(args):
     from ..processor import load_text_tokenizer
     from . import (OptimizerConfig, TrainStepConfig, build_decode_luts, init_lora_train_state,
                    init_train_state, make_lora_train_step, make_optimizer, make_train_step,
-                   shard_train_step, trainable_mask)
+                   shard_lora_train_step, shard_train_step, trainable_mask)
     from .checkpoints import CheckpointManager
     from .lora import TARGET_PRESETS
-    from ..parallel import form_global_batch, process_index
+    from ..parallel import form_global_batch, model_group_batches, process_index
     from .pretrain import setup_parallel, training_device
 
     device = training_device(args)
@@ -156,6 +158,7 @@ def build_everything(args):
                                       rank=args.lora_rank)
         step = make_lora_train_step(cfg, tx, scfg, alpha=args.lora_alpha, rank=args.lora_rank,
                                     luts=luts, mesh=mesh)
+        step, params = shard_lora_train_step(step, mesh, params)
         step_args = (params,)
     else:
         mask = trainable_mask(params, freeze_llm_embed=cfg.use_spatial_token)
@@ -168,7 +171,7 @@ def build_everything(args):
                          prompt_template=args.prompt_template)
 
     def batches():
-        for batch in batcher.batches(ds.frames()):
+        for batch in model_group_batches(mesh, batcher.batches(ds.frames())):
             batch.pop("actions", None)
             yield form_global_batch(mesh, batch)
 

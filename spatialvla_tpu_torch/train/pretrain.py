@@ -24,9 +24,13 @@ what is left); ``--mesh_sp`` > 1 selects the "ring" backend and
 ``--mesh_pp`` > 1 the "pipeline" one. Each process loads its own rows,
 ``per_device_batch_size`` x ``grad_accum`` a step, so the global batch is
 that times data x fsdp; processes that share a (data, fsdp) place draw the
-same rows. ``--mesh_model`` > 1 (the model axis in training) is not ported
-yet (ROADMAP.md Queue A item 8c; serving shards over it with
-``SpatialVLAPolicy.shard``).
+same rows (the model ranks of one place take model rank 0's, broadcast:
+``parallel.model_group_batches``). ``--mesh_model n``
+cuts the weight matrices over n tensor-parallel shards: in one process a
+``LocalMesh(model=n)`` runs them in turn on its device (one card), over a
+process group each rank holds one (gloo on the CPU, NCCL with one process
+a card). With ``--mesh_sp`` / ``--mesh_pp`` or the ring and pipeline
+backends it is not ported yet (ROADMAP.md Queue A item 8d).
 """
 from __future__ import annotations
 
@@ -109,9 +113,13 @@ def build_argparser():
 
 def training_device(args) -> torch.device:
     """The device of a training CLI's ``args`` (``--device``): raises on
-    ``--mesh_model`` > 1 (not ported) and on ``cuda`` without a card."""
-    if args.mesh_model > 1:
-        raise not_ported(f"--mesh_model {args.mesh_model} (the model axis in training)")
+    ``--mesh_model`` > 1 with sp, pipe or their backends (not ported) and on
+    ``cuda`` without a card."""
+    if args.mesh_model > 1 and (args.mesh_sp > 1 or args.mesh_pp > 1
+                                or args.attn_backend in ("ring", "pipeline")):
+        raise not_ported(f"--mesh_model {args.mesh_model} with --mesh_sp {args.mesh_sp}, "
+                         f"--mesh_pp {args.mesh_pp}, attn_backend {args.attn_backend} (the "
+                         "model axis with sp or pipe)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device is available; pass "
@@ -123,11 +131,13 @@ def setup_parallel(args, device: torch.device, *, explain: bool):
     """(device, mesh, batch rank, batch ranks) of a training CLI: the
     process group from the multi-host flags or a launcher
     (``initialize_distributed``; NCCL on cuda, gloo on cpu), the mesh of the
-    mesh flags over its processes (None in one process, or a one-process
-    ``LocalMesh`` for an explicit "ring" / "pipeline"), and this process's
-    place on the batch axes (data x fsdp), which picks its rows and data
-    seed. ``--mesh_sp`` / ``--mesh_pp`` > 1 select their backend with the
-    JAX CLIs' message (``explain``: pretrain's, which says what it is)."""
+    mesh flags over its processes (in one process None, a
+    ``LocalMesh(model=n)`` for ``--mesh_model n``, or a ``LocalMesh`` for an
+    explicit "ring" / "pipeline"), and this process's place on the batch
+    axes (data x fsdp), which picks its rows and data seed: the model ranks
+    of one batch rank share it. ``--mesh_sp`` / ``--mesh_pp`` > 1 select
+    their backend with the JAX CLIs' message (``explain``: pretrain's, which
+    says what it is)."""
     from ..parallel import LocalMesh, MeshConfig, initialize_distributed, make_mesh
 
     rank, nproc = initialize_distributed(args.coordinator_address, args.num_processes,
@@ -143,7 +153,11 @@ def setup_parallel(args, device: torch.device, *, explain: bool):
             args.attn_backend = backend
     cfg = MeshConfig(args.mesh_data, args.mesh_fsdp, args.mesh_model, args.mesh_sp, args.mesh_pp)
     if nproc == 1:
-        cfg.resolve(1)  # a mesh larger than one process raises here
+        # a mesh larger than one process raises here; this process holds the
+        # model axis
+        dataclasses.replace(cfg, model=1).resolve(1)
+        if args.mesh_model > 1:
+            return device, LocalMesh(model=args.mesh_model), 0, 1
         local = args.attn_backend in ("ring", "pipeline")
         return device, (LocalMesh() if local else None), 0, 1
     mesh = make_mesh(cfg, device.type)
@@ -157,7 +171,7 @@ def build_everything(args):
     from ..data import FrameTransformConfig, InterleavedRLDSDataset, TrajTransformConfig, VLABatcher
     from ..data.statistics import save_dataset_statistics
     from ..models import spatialvla
-    from ..parallel import form_global_batch, process_index
+    from ..parallel import form_global_batch, model_group_batches, process_index
     from ..processor import SpatialVLAProcessor, load_text_tokenizer
     from . import (OptimizerConfig, TrainStepConfig, build_decode_luts, init_train_state,
                    make_optimizer, make_train_step, shard_train_step, trainable_mask)
@@ -248,7 +262,7 @@ def build_everything(args):
             ), num_workers=args.loader_workers).frames()
         else:
             frames = ds.frames()
-        for batch in batcher.batches(frames):
+        for batch in model_group_batches(mesh, batcher.batches(frames)):
             batch.pop("actions", None)
             if args.grad_accum > 1:
                 batch = {k: v.reshape((args.grad_accum, -1) + v.shape[1:])

@@ -18,34 +18,48 @@ base tree passed beside it that is detached every step: the base takes no
 gradient and no update.
 
 ``mesh=`` takes the "ring" / "pipeline" backends (a ``LocalMesh`` runs them
-in this process) and, on a process-group ``Mesh``, makes the sharded step,
-the counterpart of ``jit_train_step`` (train_step.py:210-245), set up by
-``shard_train_step``. Each process holds its own rows of the batch (its
-block on data x fsdp; the same rows on every sp and pipe rank). Its fp32
-masters and AdamW moments are cut over fsdp by the partitioning rules
-(ZeRO-3: ``parallel.FsdpShards``): the weights are gathered for the
-compute, and the gradients reduce-scattered back to the shards and summed
-over data, sp and pipe. Each rank's loss is its part of the global mean:
-its positions' NLL over the global count of valid targets, divided by the
-ranks that compute the same positions (the pipe ranks, and the sp ranks
-but under "ring"), so that every contribution enters the summed gradient
-once. Every rank reports the same metrics: the loss summed across ranks,
-the rest from the gathered predictions; ``grad_norm`` and the clip take
-the norm of the whole sharded gradient, one all-reduce of the squared sums.
-The LoRA step under a ``Mesh`` holds the base and its small trainable state
-whole on every rank and sums the gradients over the mesh.
+in this process), a ``LocalMesh(model=n)`` (the model axis held by this
+process: n tensor-parallel shards run in turn on its device) and a
+process-group ``Mesh``: the sharded step, the counterpart of
+``jit_train_step`` (train_step.py:210-245), set up by ``shard_train_step``
+and bound to the state's cut (``parallel.TrainShards``). Each process holds
+its own rows of the batch (its block on data x fsdp; the same rows on every
+model, sp and pipe rank). The fp32 masters and AdamW moments are cut over
+model by heads, hidden columns and the vocabulary (``TensorShards``), and
+inside each model shard over fsdp by the partitioning rules (ZeRO-3): the
+fsdp-cut weights are gathered for the compute, and the gradients
+reduce-scattered back to the shards and summed over data, sp and pipe.
+A leaf cut over model keeps its shard's gradient; a whole leaf has the same
+full gradient on every model shard and is not summed over them; a kv head
+held by several shards takes the sum of its copies'. Each rank's loss is
+its part of the global mean: its positions' NLL over the global count of
+valid targets, divided by the ranks that compute the same positions (the
+pipe ranks, and the sp ranks but under "ring"), so that every contribution
+enters the summed gradient once; the model ranks compute the same loss
+(the vocabulary cut's cross-entropy reduces over them: ``train/loss.py``).
+Every rank reports the same metrics: the loss summed across ranks, the rest
+from the gathered predictions; ``grad_norm`` and the clip take the norm of
+the whole sharded gradient, each parameter counted once, one all-reduce of
+the squared sums. The LoRA step under a mesh holds its small trainable
+state whole on every rank; its base is cut over model
+(``shard_lora_train_step``), each shard's adapted leaves taking the
+factors' matching block, and the gradients are summed over the mesh, those
+of the factors of a cut leaf (partial over the model shards) over model
+too.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Dict
 
 import numpy as np
 import torch
 
 from ..models import spatialvla
-from ..parallel.mesh import AXES, Mesh, gather_along
-from ..parallel.partitioning import FsdpShards
+from ..errors import not_ported
+from ..parallel.mesh import AXES, Mesh, gather_along, mesh_shape
+from ..parallel.partitioning import ShardGroup, TrainShards
 from ..utils.tree import iter_leaves, map_with_paths
 from .lora import DEFAULT_SAVED, extract_saved, insert_saved, lora_apply_tree, lora_init
 from .loss import chunked_loss_and_metrics, position_loss
@@ -90,22 +104,25 @@ def batch_to_tensors(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
 
 
 def make_loss_fn(cfg, step_cfg: TrainStepConfig, luts=None, mesh=None) -> Callable:
-    """loss_fn(params, batch) -> (loss, metrics) (train_step.py:42). On a
-    process-group ``Mesh``, the loss is this rank's part of the global one
-    (``_sharded_loss_fn``)."""
+    """loss_fn(params, batch) -> (loss, metrics) (train_step.py:42), params
+    the tree or, over a model axis, a ShardGroup of this process's shards
+    (``TrainShards.group``). On a process-group ``Mesh``, the loss is this
+    rank's part of the global one (``_sharded_loss_fn``)."""
     if step_cfg.attn_backend in ("ring", "pipeline") and mesh is None:
         raise ValueError(f"attn_backend={step_cfg.attn_backend!r} requires "
                          "make_*_train_step(mesh=...)")
+    _check_model_axis(mesh, step_cfg)
     if isinstance(mesh, Mesh):
         return _sharded_loss_fn(cfg, step_cfg, luts, mesh)
 
-    def loss_fn(params: Params, batch: Dict[str, torch.Tensor]):
+    def loss_fn(params, batch: Dict[str, torch.Tensor]):
         attn = _attention_mask(batch)
-        chunked = step_cfg.loss_chunk_size > 0
+        # over model shards the loss takes the vocabulary-parallel route
+        chunked = step_cfg.loss_chunk_size > 0 or isinstance(params, ShardGroup)
         out = _forward(params, cfg, step_cfg, batch, attn, mesh, labels=not chunked)
         if chunked:
             return chunked_loss_and_metrics(
-                params["lm"], cfg.text, out["hidden"], batch["labels"], attn,
+                _lm(params), cfg.text, out["hidden"], batch["labels"], attn,
                 begin_idx=cfg.action_token_begin_idx, luts=luts,
                 chunk_size=step_cfg.loss_chunk_size,
             )
@@ -115,6 +132,26 @@ def make_loss_fn(cfg, step_cfg: TrainStepConfig, luts=None, mesh=None) -> Callab
         return out["loss"], metrics
 
     return loss_fn
+
+
+def _lm(params):
+    """What the loss projects with: a ShardGroup, or the LM tree."""
+    return params if isinstance(params, ShardGroup) else params["lm"]
+
+
+def _check_model_axis(mesh, step_cfg):
+    """Raises where the model axis meets what it is not ported with: sp,
+    pipe, the ring and pipeline backends, shards on distinct cards."""
+    shape = mesh_shape(mesh)
+    if shape["model"] == 1:
+        return
+    if shape["sp"] > 1 or shape["pipe"] > 1 or step_cfg.attn_backend in ("ring", "pipeline"):
+        raise not_ported(f"the model axis ({shape['model']} shards) with sp={shape['sp']}, "
+                         f"pipe={shape['pipe']}, attn_backend={step_cfg.attn_backend!r}")
+    if not isinstance(mesh, Mesh) and (mesh.devices is not None or mesh.data > 1):
+        raise ValueError("a LocalMesh trains its model shards on the caller's device "
+                         "(devices=None, data=1): training across cards is one process per "
+                         "card (make_mesh over a process group)")
 
 
 def _attention_mask(batch):
@@ -158,7 +195,7 @@ def _sharded_loss_fn(cfg, step_cfg: TrainStepConfig, luts, mesh: Mesh) -> Callab
         stop_t = min(stop, T - 1)  # the last position has no next token
         targets = batch["labels"][:, start + 1:stop_t + 1]
         valid = (targets != ignore) & (attn[:, start + 1:stop_t + 1] != 0)
-        loss_sum, preds = position_loss(params["lm"], cfg.text, out["hidden"][:, :stop_t - start],
+        loss_sum, preds = position_loss(_lm(params), cfg.text, out["hidden"][:, :stop_t - start],
                                         targets, valid, chunk_size=step_cfg.loss_chunk_size)
         count = valid.sum()
         torch.distributed.all_reduce(count, group=rows)
@@ -195,14 +232,15 @@ def make_train_step(cfg, tx: AdamW, step_cfg: TrainStepConfig = TrainStepConfig(
     state = {'params', 'opt_state', 'step'} (from ``init_train_state``);
     batch leaves are (B, ...) or (M, B, ...) with step_cfg.micro_steps = M.
     Gradients of the M micro-batches are summed in fp32 and divided by M;
-    the metrics are their means. On a process-group ``Mesh`` the step is
-    train_step(state, batch, shards) on a state cut by ``shard_train_step``,
-    which binds the shards."""
+    the metrics are their means. On a process-group ``Mesh`` or a
+    ``LocalMesh`` with a model axis the step is train_step(state, batch,
+    shards) on a state cut by ``shard_train_step``, which binds the shards."""
     loss_fn = make_loss_fn(cfg, step_cfg, luts=luts, mesh=mesh)
     M = step_cfg.micro_steps
 
-    def grads_and_metrics(params, batch, device):
-        """(path -> gradient of the compute tree, metrics) of one step."""
+    def grads_and_metrics(params, batch, device, compute=None):
+        """(path -> gradient of ``params``' leaves, metrics) of one step, the
+        loss taken of ``compute`` (a ShardGroup over them) or of ``params``."""
         leaves = _grad_leaves(params)
         for _, p in leaves:
             p.grad = None
@@ -210,7 +248,7 @@ def make_train_step(cfg, tx: AdamW, step_cfg: TrainStepConfig = TrainStepConfig(
         micro = [batch] if M == 1 else [{k: v[m] for k, v in batch.items()} for m in range(M)]
         per_micro = []
         for mb in micro:
-            loss, metrics = loss_fn(params, mb)
+            loss, metrics = loss_fn(params if compute is None else compute, mb)
             loss.backward()
             per_micro.append({k: v.detach() for k, v in metrics.items()})
         metrics = {k: torch.stack([m[k] for m in per_micro]).float().mean()
@@ -233,31 +271,22 @@ def make_train_step(cfg, tx: AdamW, step_cfg: TrainStepConfig = TrainStepConfig(
         state["step"] += 1
         return state, metrics
 
-    def sharded_step(state, batch, shards: FsdpShards):
+    def sharded_step(state, batch, shards: TrainShards):
         masters = state["params"]
-        # the compute tree: each cut leaf gathered whole (a leaf of its own),
-        # the rest the masters themselves
-        full = map_with_paths(lambda p, t: _compute_leaf(shards, p, t), masters)
+        # the compute tree: each fsdp-cut leaf gathered whole (a leaf of its
+        # own), the rest the masters themselves; over model, their shards
+        full = shards.compute_tree(masters)
         device = _grad_leaves(full)[0][1].device
-        grads, metrics = grads_and_metrics(full, batch, device)
+        grads, metrics = grads_and_metrics(full, batch, device, shards.group(full))
         local, sq, trainable = {}, [], []
         for path, g in grads.items():
             if g is None:
                 local[path] = None
                 continue
-            dim = shards.dim(path)
-            if dim is not None and shards.n > 1:
-                g = shards.reduce_scatter(g, dim)
-                torch.distributed.all_reduce(g, group=mesh.group("data", "sp", "pipe"))
-            else:
-                torch.distributed.all_reduce(g, group=mesh.group(*AXES))
-            local[path] = g
-            # a whole leaf's square counts once across the fsdp axis
-            part = g.float().pow(2).sum()
-            sq.append(part if dim is not None or shards.index == 0 else torch.zeros_like(part))
+            local[path] = g = shards.reduce_grad(path, g)
+            sq.append(shards.grad_square(path, g))
             trainable.append(tx.is_trainable(path))
-        sq = torch.stack(sq)
-        torch.distributed.all_reduce(sq, group=shards.group)
+        sq = shards.sum_squares(torch.stack(sq))
         metrics["grad_norm"] = torch.sqrt(sq.sum())
         keep = torch.tensor(trainable, device=sq.device)
         norm = torch.sqrt(sq[keep].sum()) if bool(keep.any()) else None
@@ -265,24 +294,22 @@ def make_train_step(cfg, tx: AdamW, step_cfg: TrainStepConfig = TrainStepConfig(
         state["step"] += 1
         return state, metrics
 
-    return sharded_step if isinstance(mesh, Mesh) else train_step
+    sharded_step.cfg = cfg
+    return sharded_step if _sharded(mesh) else train_step
 
 
-def _compute_leaf(shards: FsdpShards, path: str, t):
-    if not (torch.is_tensor(t) and t.is_floating_point()):
-        return t
-    dim = shards.dim(path)
-    if dim is None or shards.n == 1:
-        return t.requires_grad_(True)
-    return shards.gather(t.detach(), dim).requires_grad_(True)
+def _sharded(mesh) -> bool:
+    """Whether a step over ``mesh`` runs on a cut state: a process group, or
+    a model axis held by this process."""
+    return isinstance(mesh, Mesh) or mesh_shape(mesh)["model"] > 1
 
 
 class ShardedStep:
-    """A sharded train step bound to its state's fsdp cut: ``step(state,
-    batch)``, as ``train_loop`` calls it; ``shards`` is what a
-    ``CheckpointManager`` gathers and cuts by."""
+    """A sharded train step bound to its state's cut: ``step(state, batch)``,
+    as ``train_loop`` calls it; ``shards`` is what a ``CheckpointManager``
+    gathers and cuts by."""
 
-    def __init__(self, step: Callable, shards: FsdpShards):
+    def __init__(self, step: Callable, shards: TrainShards):
         self.step, self.shards = step, shards
 
     def __call__(self, state, batch):
@@ -292,13 +319,14 @@ class ShardedStep:
 def shard_train_step(train_step: Callable, mesh, state, *, rules=None):
     """(step, state) for the step of ``make_train_step(mesh=mesh)``: the
     counterpart of ``jit_train_step`` (train_step.py:210-245). On a
-    process-group ``Mesh`` the state's parameters and AdamW moments are cut
-    to this rank's fsdp shards by the partitioning rules (the whole tensors
-    are freed) and the step is bound to that cut; elsewhere both come back
-    as they are."""
-    if not isinstance(mesh, Mesh):
+    process-group ``Mesh`` or a model axis the state's parameters and AdamW
+    moments are cut IN PLACE to this process's shards (``TrainShards``:
+    over model by the heads and widths, inside each shard over fsdp by the
+    partitioning rules; each whole tensor let go as it is cut) and the step
+    is bound to that cut; elsewhere both come back as they are."""
+    if not _sharded(mesh):
         return train_step, state
-    shards = FsdpShards(mesh, state["params"], rules)
+    shards = TrainShards(mesh, state["params"], train_step.cfg, rules)
     return ShardedStep(train_step, shards), shards.cut_state(state)
 
 
@@ -310,31 +338,53 @@ def make_lora_train_step(cfg, tx: AdamW, step_cfg: TrainStepConfig = TrainStepCo
     tree a separate argument (no optimizer state for it). The metrics are
     the loss function's; JAX's LoRA step adds no grad_norm. One batch a
     step, as in JAX (no micro-batches). On a process-group ``Mesh`` the
-    gradients are summed over the mesh before the update."""
+    gradients are summed over the mesh before the update. With a model axis
+    the step is bound to its base's cut by ``shard_lora_train_step``."""
     if step_cfg.micro_steps != 1:
         raise ValueError("the LoRA step takes one batch a step (micro_steps=1), as JAX's does")
     loss_inner = make_loss_fn(cfg, step_cfg, luts=luts, mesh=mesh)
 
-    def train_step(state, base_params, batch):
+    def train_step(state, base_params, batch, shards: TrainShards = None):
         trainable = state["trainable"]
         leaves = _grad_leaves(trainable)
         for _, p in leaves:
             p.grad = None
         base = map_with_paths(lambda _, t: t.detach(), base_params)
         params = insert_saved(base, trainable["saved"])
-        params = lora_apply_tree(params, trainable["lora"], alpha=alpha, rank=rank)
+        if shards is not None:  # each model shard's base block and factor blocks
+            params = shards.group(params, lora=trainable["lora"], alpha=alpha, rank=rank)
+        else:
+            params = lora_apply_tree(params, trainable["lora"], alpha=alpha, rank=rank)
         loss, metrics = loss_inner(params, batch_to_tensors(batch, leaves[0][1].device))
         loss.backward()
         if isinstance(mesh, Mesh):
-            for _, p in leaves:
-                torch.distributed.all_reduce(p.grad, group=mesh.group(*AXES))
+            # a factor of a leaf cut over model has partial gradients on the
+            # model shards; every other leaf its whole gradient on each
+            for path, p in leaves:
+                factor = path.startswith("lora/") and shards is not None and shards.stacked(
+                    path[len("lora/"):].rsplit("/", 1)[0])
+                axes = AXES if factor else ("data", "fsdp", "sp", "pipe")
+                torch.distributed.all_reduce(p.grad, group=mesh.group(*axes))
         tx.update(trainable, {path: p.grad for path, p in leaves}, state["opt_state"])
         for _, p in leaves:
             p.grad = None
         state["step"] += 1
         return state, {k: v.detach() for k, v in metrics.items()}
 
+    train_step.cfg = cfg
     return train_step
+
+
+def shard_lora_train_step(train_step: Callable, mesh, base_params, *, rules=None):
+    """(step, base) for the step of ``make_lora_train_step(mesh=mesh)``: with
+    a model axis the frozen base is cut IN PLACE over model (``TrainShards``,
+    no fsdp cut: the base stays whole on the batch axes, as the LoRA state
+    does) and the step is bound to that cut; elsewhere both come back as
+    they are."""
+    if mesh_shape(mesh)["model"] == 1:
+        return train_step, base_params
+    shards = TrainShards(mesh, base_params, train_step.cfg, rules, fsdp=False)
+    return functools.partial(train_step, shards=shards), shards.cut_tree(base_params)
 
 
 def init_lora_train_state(generator: torch.Generator, base_params: Params, tx: AdamW, *,

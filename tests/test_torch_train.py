@@ -283,9 +283,8 @@ def test_pretrain_without_a_card_raises_unless_asked_for_the_cpu(data_dir, tmp_p
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["--mesh_model", "2"], "item 8c"),
-    (["--mesh_model", "2", "--attn_backend", "ring"], "item 8c"),
-    (["--mesh_model", "2", "--num_processes", "2"], "item 8c"),
+    (["--mesh_model", "2", "--attn_backend", "ring"], "item 8d"),
+    (["--mesh_model", "2", "--mesh_sp", "2"], "item 8d"),
 ])
 def test_pretrain_unported_flags_name_their_roadmap_item(argv, item):
     from spatialvla_tpu_torch.train import pretrain

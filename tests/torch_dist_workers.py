@@ -1,6 +1,7 @@
 """Worker processes of tests/test_torch_distributed.py: each runs one rank of
 a gloo process group on the CPU. Imports torch and the port only (no jax),
 so a spawned rank starts in a few seconds; results go to pickle files."""
+import hashlib
 import os
 import pickle
 import socket
@@ -18,19 +19,30 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def spawn(fn, world: int, *args):
-    """Runs fn(rank, world, port, *args) in ``world`` processes; raises if
-    one fails or they outlast SPAWN_TIMEOUT_S."""
+def start(fn, world: int, *args):
+    """Starts fn(rank, world, port, *args) in ``world`` processes; ``join``
+    waits for them."""
     import torch.multiprocessing as mp
 
     ctx = mp.spawn(fn, args=(world, free_port(), *args), nprocs=world, join=False)
-    deadline = time.monotonic() + SPAWN_TIMEOUT_S
+    ctx.deadline, ctx.what = time.monotonic() + SPAWN_TIMEOUT_S, f"{world} ranks of {fn.__name__}"
+    return ctx
+
+
+def join(ctx):
+    """Waits for the processes ``start`` began; raises if one fails or they
+    outlast SPAWN_TIMEOUT_S from their start."""
     while not ctx.join(timeout=5):
-        if time.monotonic() > deadline:
+        if time.monotonic() > ctx.deadline:
             for p in ctx.processes:
                 p.kill()
-            raise TimeoutError(f"{world} ranks of {fn.__name__} did not finish in "
-                               f"{SPAWN_TIMEOUT_S} s")
+            raise TimeoutError(f"{ctx.what} did not finish in {SPAWN_TIMEOUT_S} s")
+
+
+def spawn(fn, world: int, *args):
+    """Runs fn(rank, world, port, *args) in ``world`` processes; raises if
+    one fails or they outlast SPAWN_TIMEOUT_S."""
+    join(start(fn, world, *args))
 
 
 def _init(rank, world, port, shape):
@@ -115,7 +127,10 @@ def transports(rank, world, port, shape, out_dir):
 def train_steps(rank, world, port, shape, backend, inputs, out_dir):
     """Two sharded train steps of the tiny model on this rank's rows; rank 0
     writes the metrics and the gathered parameters. Under fsdp every rank
-    also saves the state through a sharded CheckpointManager."""
+    also saves the state through a sharded CheckpointManager. Where the
+    inputs hold LoRA factors, two LoRA steps follow ("lora"); with a model
+    axis, the autograd collectives are checked over its group first
+    ("collectives")."""
     from spatialvla_tpu_torch.action import SpatialActionTokenizer
     from spatialvla_tpu_torch.config import spatialvla_tiny
     from spatialvla_tpu_torch.convert import from_numpy_tree
@@ -128,7 +143,10 @@ def train_steps(rank, world, port, shape, backend, inputs, out_dir):
 
     mesh = _init(rank, world, port, shape)
     with open(inputs, "rb") as f:
-        np_params, batches, ocfg = pickle.load(f)
+        np_params, batches, ocfg, *lora = pickle.load(f)
+    result = {}
+    if mesh.shape["model"] > 1:
+        result["collectives"] = collectives_errors(mesh)
     cfg = spatialvla_tiny(use_vision_zoe=True)
     params = from_numpy_tree(np_params)
     tx = make_optimizer(OptimizerConfig(**ocfg), params, trainable_mask(params))
@@ -144,9 +162,8 @@ def train_steps(rank, world, port, shape, backend, inputs, out_dir):
         state, m = step(state, local)
         metrics.append({k: float(v) for k, v in m.items()})
     full = step.shards.gather_tree(state["params"])
-    result = {"metrics": metrics,
-              "global_rows": tuple(form_global_batch(mesh, {"x": batches[0]["input_ids"][rows]})
-                                   ["x"].shape)}
+    result.update(metrics=metrics, global_rows=tuple(
+        form_global_batch(mesh, {"x": batches[0]["input_ids"][rows]})["x"].shape))
     if shape[1] > 1:
         CheckpointManager(os.path.join(out_dir, "ckpt"), shards=step.shards).save(
             state["step"], state, force=True)
@@ -155,7 +172,69 @@ def train_steps(rank, world, port, shape, backend, inputs, out_dir):
         result["shard_numel"] = sum(t.numel() for _, t in iter_leaves(state["params"]))
     if rank == 0:
         result["params"] = {p: t.detach().numpy() for p, t in iter_leaves(full)}
+    if lora:
+        result["lora"] = lora_steps(mesh, cfg, np_params, batches, luts, backend, *lora)
     _done(out_dir, rank, result)
+
+
+def lora_steps(mesh, cfg, np_params, batches, luts, backend, factors, ocfg, alpha, rank,
+               patterns):
+    """Two LoRA steps of the tiny model from the given factors on this
+    rank's rows (its base cut over the model axis): the metrics and the
+    trainable tree as numpy."""
+    from spatialvla_tpu_torch.convert import from_numpy_tree, to_numpy_tree
+    from spatialvla_tpu_torch.parallel import form_global_batch, local_rows
+    from spatialvla_tpu_torch.train import (OptimizerConfig, TrainStepConfig,
+                                            init_lora_train_state, make_lora_train_step,
+                                            make_optimizer, shard_lora_train_step)
+
+    base = from_numpy_tree(np_params)
+    tx = make_optimizer(OptimizerConfig(**ocfg), None, None)
+    state = init_lora_train_state(torch.Generator().manual_seed(1), base, tx,
+                                  target_patterns=patterns, rank=rank)
+    with torch.no_grad():
+        for p, f in factors.items():
+            for k in ("a", "b"):
+                state["trainable"]["lora"][p][k].copy_(torch.from_numpy(np.array(f[k])))
+    step = make_lora_train_step(cfg, tx, TrainStepConfig(
+        use_remat=True, compute_dtype=torch.float32, attn_backend=backend, loss_chunk_size=7),
+        alpha=alpha, rank=rank, luts=luts, mesh=mesh)
+    step, base = shard_lora_train_step(step, mesh, base)
+    metrics = []
+    for batch in batches:
+        rows = local_rows(mesh, batch["input_ids"].shape[0])
+        state, m = step(state, base, form_global_batch(mesh, {k: v[rows]
+                                                              for k, v in batch.items()}))
+        metrics.append({k: float(v) for k, v in m.items()})
+    return {"metrics": metrics, "trainable": to_numpy_tree(state["trainable"])}
+
+
+def collectives_errors(mesh):
+    """The model axis' autograd collectives over its process group against
+    their single-tensor definitions: max|difference| of each output and
+    input gradient."""
+    from spatialvla_tpu_torch.parallel import ShardCopy, ShardGather, ShardSum
+
+    group, n, r = mesh.group("model"), mesh.shape["model"], mesh.index("model")
+    rng = np.random.RandomState(0)
+    parts = [torch.from_numpy(rng.randn(3, 5).astype(np.float32)) for _ in range(n)]
+    ups = [torch.from_numpy(rng.randn(3, 5).astype(np.float32)) for _ in range(n)]
+    wide = torch.from_numpy(rng.randn(3, 5 * n).astype(np.float32))
+    errs = {}
+    x = parts[r].clone().requires_grad_()
+    y = ShardSum.apply(group, x)
+    y.backward(ups[0])
+    errs["sum"] = [float((y - sum(parts)).abs().max()), float((x.grad - ups[0]).abs().max())]
+    x = parts[0].clone().requires_grad_()
+    (y,) = ShardCopy.apply(group, 1, x)
+    y.backward(ups[r])
+    errs["copy"] = [float((y - parts[0]).abs().max()), float((x.grad - sum(ups)).abs().max())]
+    x = parts[r].clone().requires_grad_()
+    y = ShardGather.apply(group, -1, x)
+    y.backward(wide)
+    errs["gather"] = [float((y - torch.cat(parts, -1)).abs().max()),
+                      float((x.grad - wide[:, 5 * r:5 * (r + 1)]).abs().max())]
+    return errs
 
 
 # ---------------------------------------------------------------------------
@@ -164,7 +243,8 @@ def train_steps(rank, world, port, shape, backend, inputs, out_dir):
 
 def pretrain_cli(rank, world, port, argv, out_dir):
     """pretrain.main on this rank with the multi-host flags; records each
-    logged step's metrics and a digest of each step's batch rows."""
+    logged step's metrics and a digest of each step's batch rows (sha1: the
+    same rows give the same digest in every process)."""
     from spatialvla_tpu_torch.train import pretrain, trainer
 
     torch.set_num_threads(1)
@@ -178,7 +258,7 @@ def pretrain_cli(rank, world, port, argv, out_dir):
             for batch in batches:
                 ids = batch["input_ids"]
                 ids = ids.to_local() if hasattr(ids, "to_local") else ids
-                digests.append(hash(np.asarray(ids).tobytes()))
+                digests.append(hashlib.sha1(np.asarray(ids).tobytes()).hexdigest())
                 yield batch
 
         return loop(batches=rows(), on_metrics=lambda s, m: seen.append(m), **kw)
