@@ -121,13 +121,17 @@
    each through train_loop with their peak memory. After it, the model-axis
    phase (model_parallel_training) on the same weights and batches:
    LocalMesh(model=2) and (model=4), every shard on this card, the state cut
-   over model in place; the first sharded step's loss and grad_norm within
-   LOSS_BOUND / GRAD_NORM_BOUND of the flash step's on the same weights,
-   exactly 2 L n and L n flash launches a step, three timed steps through
-   train_loop with the peak memory, the state joined back; then two LoRA
-   steps at n = 2 against two unsharded ones from the same factors
-   (LOSS_BOUND), launches exact, timed with the peak memory. The flash
-   kernels are held to plain at those shards' heads in (4).
+   over model in place, then the model axis with the ring (model=2, sp=2)
+   and with the pipe (model=2, pipe=2: 7+6 layer pairs, 2 microbatches);
+   the first sharded step's loss and grad_norm within LOSS_BOUND /
+   GRAD_NORM_BOUND of the flash step's on the same weights, exact flash
+   launches a step (2 L v forward, L v of each backward, v = n, 8 and 4
+   calls a layer: 416 / 208 / 208 over the ring, 208 / 104 / 104 over the
+   pipe), three timed steps through train_loop with the peak memory, the
+   state joined back; then two LoRA steps at n = 2 and at (model=2, sp=2)
+   against two unsharded ones from the same factors (LOSS_BOUND), launches
+   exact, timed with the peak memory. The flash kernels are held to plain
+   at those shards' heads, and at a ring visit over them, in (2).
 8. LoRA fine-tuning as train/finetune.py runs it (finetune_path): the
    seed's fp32 spatialvla_4b() tree written as a pretrained directory
    (save_params, config.json, the processor) and read back with
@@ -956,7 +960,8 @@ def flash_phases(torch, timer, results, notes):
     sp=2 (Tq = Tk = 80 and 160, q_offset 160 and the prefix and lengths in
     the visiting shard's frame), timed; and the training shapes at the heads
     of one shard of the model axis (model_parallel_training: 4/2 heads at
-    n = 2, 2/1 at n = 4), windowed and global, timed. Each call's route and launch plan is
+    n = 2, 2/1 at n = 4), windowed and global, and the sp=2 ring visit at
+    the 4/2 heads of one of 2 model shards, timed. Each call's route and launch plan is
     printed (the forward's with its registers and spills); a bf16 call must
     take the tensor-core route and give identical bits when launched twice,
     and is timed beside the FMA kernels in bf16 (the route it took before,
@@ -984,6 +989,9 @@ def flash_phases(torch, timer, results, notes):
         *((f"T320_{w}_h{nq}x{nkv}", 2, 320, window, [277, 277], [320, 301], torch.bfloat16, True,
            0, (nq, nkv)) for nq, nkv in ((4, 2), (2, 1))
           for w, window in (("window4096", 4096), ("global", None))),
+        # a ring visit over one model shard's heads (model 2 x sp 2)
+        ("ring2_T160_visit_h4x2", 2, 160, 4096, [277, 277], [320, 301], torch.bfloat16, True, 160,
+         (4, 2)),
     )
     flex_notes = {}  # tag: what library_flex found
     for tag, B, T, window, prefix, valid, dtype, timed, qoff, *heads in cases:
@@ -3424,25 +3432,29 @@ def mp_timed_steps(torch, counters, step, state, batches, *, device, step_args=(
     return state, [t * 1e3 for t in times], peak, logged, launches
 
 
-def model_parallel_training(torch, counters, reuse, *, device="cuda", n_steps=3, lora_steps=2,
-                            sizes=(2, 4)):
+def model_parallel_training(torch, counters, reuse, *, device="cuda", n_steps=3, lora_steps=2):
     """The model axis in training (parallel/partitioning.py:TrainShards) on
     the training path's full-width weights and batches (train_path's
     ``reuse``, B=2, T=320, bf16, remat, flash), every shard on this card:
 
-    1. for n in ``sizes``: the flash step's loss and grad_norm of batch 0 on
-       the whole weights (no update); the state cut over model IN PLACE
-       (each whole leaf freed as it is cut); the first sharded step on batch
-       0, whose loss and grad_norm (of the weights before its update) must
-       be within LOSS_BOUND / GRAD_NORM_BOUND of those, with exactly 2 L n
-       forward and L n of each backward flash launch; n_steps timed steps
-       through train_loop with the peak memory; the state joined back IN
-       PLACE;
+    1. for each mesh, LocalMesh(model=2), (model=4), then the model axis
+       with the ring, (model=2, sp=2), and with the pipe, (model=2, pipe=2:
+       7+6 layer pairs, 2 microbatches): the flash step's loss and grad_norm
+       of batch 0 on the whole weights (no update); the state cut over
+       model IN PLACE (each whole leaf freed as it is cut); the first
+       sharded step on batch 0, whose loss and grad_norm (of the weights
+       before its update) must be within LOSS_BOUND / GRAD_NORM_BOUND of
+       those, with exact flash launches: 2 L v forward and L v of each
+       backward kernel, v the flash calls a layer takes (n model shards, n
+       k^2 ring visits over k sequence shards, n m pipeline microbatches);
+       n_steps timed steps through train_loop with the peak memory; the
+       state joined back IN PLACE;
     2. the moments freed, LoRA (rank 32, "linear", factors b drawn non-zero)
        on the weights as base: lora_steps unsharded steps, then the same
-       from the same factors at n = 2 (the base cut in place) through
-       train_loop, each step's loss within LOSS_BOUND of the unsharded
-       one's, with exact launches and the peak memory.
+       from the same factors at (model=2) and at (model=2, sp=2) (the base
+       cut in place, then joined back) through train_loop, each step's loss
+       within LOSS_BOUND of the unsharded one's, with exact launches and the
+       peak memory.
     Frees the state. Returns what it measured."""
     from spatialvla_tpu_torch.parallel import LocalMesh
     from spatialvla_tpu_torch.train import (OptimizerConfig, init_lora_train_state, make_loss_fn,
@@ -3458,17 +3470,22 @@ def model_parallel_training(torch, counters, reuse, *, device="cuda", n_steps=3,
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     t_phase = time.perf_counter()
     result = {}
+    ring_cfg = dataclasses.replace(step_cfg, attn_backend="ring")
+    pipe_cfg = dataclasses.replace(step_cfg, attn_backend="pipeline", pp_microbatches=2)
 
-    def want(n, steps=1):
-        return {"flash_attention_fwd": 2 * L * n * steps, "flash_attention_bwd_dq": L * n * steps,
-                "flash_attention_bwd_dkv": L * n * steps}
+    def want(visits, steps=1):
+        """Exact flash launches of ``steps`` steps that call the kernels
+        ``visits`` times a layer (twice the forward under remat)."""
+        return {"flash_attention_fwd": 2 * L * visits * steps,
+                "flash_attention_bwd_dq": L * visits * steps,
+                "flash_attention_bwd_dkv": L * visits * steps}
 
     def check_launches(label, got, wanted):
         print(f"model parallel: {label} launches {got} (want {wanted})", flush=True)
         if device == "cuda" and got != wanted:
             fail(f"model parallel: {label} launches {got}, want {wanted}")
 
-    for n in sizes:
+    def sharded_run(state, label, mesh, run_cfg, visits):
         params = state["params"]
         for _, p in iter_leaves(params):  # the joined leaves are new tensors
             if p.is_floating_point():
@@ -3483,9 +3500,8 @@ def model_parallel_training(torch, counters, reuse, *, device="cuda", n_steps=3,
         del loss
         for _, p in iter_leaves(params):
             p.grad = None
-        mesh = LocalMesh(model=n)
         t0 = time.perf_counter()
-        step, state = shard_train_step(make_train_step(cfg, tx, step_cfg, luts=luts, mesh=mesh),
+        step, state = shard_train_step(make_train_step(cfg, tx, run_cfg, luts=luts, mesh=mesh),
                                        mesh, state)
         sync()
         cut_s = time.perf_counter() - t0
@@ -3497,40 +3513,49 @@ def model_parallel_training(torch, counters, reuse, *, device="cuda", n_steps=3,
         first_s = time.perf_counter() - t0
         first = {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"])}
         first_launches = {c.__name__: c.launches for c in counters}
-        check_launches(f"n={n} first step", first_launches, want(n))
+        check_launches(f"{label} first step", first_launches, want(visits))
         d_loss = abs(first["loss"] - ref_loss) / abs(ref_loss)
         d_gn = abs(first["grad_norm"] - ref_gn) / ref_gn
-        print(f"model parallel: n={n} (blocks cut {blocks}): the first step's loss "
-              f"{first['loss']:.6f} vs the flash step's {ref_loss:.6f} (rel {d_loss:.3e}, bound "
-              f"{LOSS_BOUND}), grad_norm {first['grad_norm']:.6f} vs {ref_gn:.6f} (rel "
-              f"{d_gn:.3e}, bound {GRAD_NORM_BOUND}); the cut {cut_s:.2f} s, the step "
-              f"{first_s:.2f} s", flush=True)
+        print(f"model parallel: {label} {mesh} {run_cfg.attn_backend} (blocks cut {blocks}): "
+              f"the first step's loss {first['loss']:.6f} vs the flash step's {ref_loss:.6f} "
+              f"(rel {d_loss:.3e}, bound {LOSS_BOUND}), grad_norm {first['grad_norm']:.6f} vs "
+              f"{ref_gn:.6f} (rel {d_gn:.3e}, bound {GRAD_NORM_BOUND}); the cut {cut_s:.2f} s, "
+              f"the step {first_s:.2f} s", flush=True)
         if not (d_loss < LOSS_BOUND and d_gn < GRAD_NORM_BOUND):
-            fail(f"model parallel: n={n} against flash: loss rel {d_loss}, grad_norm rel {d_gn}")
+            fail(f"model parallel: {label} against flash: loss rel {d_loss}, grad_norm rel {d_gn}")
         state, ms, peak, logged, launches = mp_timed_steps(
             torch, counters, step, state, batches[:n_steps], device=device)
-        check_launches(f"n={n} {n_steps} timed steps", launches, want(n, n_steps))
-        print(f"model parallel: n={n}: {n_steps} steps of train_loop "
+        check_launches(f"{label} {n_steps} timed steps", launches, want(visits, n_steps))
+        print(f"model parallel: {label}: {n_steps} steps of train_loop "
               f"{[round(t, 2) for t in ms]} ms, peak {peak:.2f} GiB, losses "
               f"{[round(m['loss'], 4) for m in logged]}", flush=True)
         t0 = time.perf_counter()
         state = step.shards.gather_state(state, in_place=True)
         sync()
-        result[f"n{n}"] = {"ref": {"loss": ref_loss, "grad_norm": ref_gn}, "first": first,
-                           "loss_rel": d_loss, "grad_norm_rel": d_gn, "blocks": blocks,
-                           "first_launches": first_launches, "launches": launches, "step_ms": ms,
-                           "peak_gib": peak, "losses": [m["loss"] for m in logged],
-                           "cut_s": cut_s, "join_s": time.perf_counter() - t0}
-        del step
+        result[label] = {"mesh": mesh.shape, "backend": run_cfg.attn_backend,
+                         "ref": {"loss": ref_loss, "grad_norm": ref_gn}, "first": first,
+                         "loss_rel": d_loss, "grad_norm_rel": d_gn, "blocks": blocks,
+                         "first_launches": first_launches, "launches": launches, "step_ms": ms,
+                         "peak_gib": peak, "losses": [m["loss"] for m in logged],
+                         "cut_s": cut_s, "join_s": time.perf_counter() - t0}
+        return state
 
-    # LoRA on the trained weights as the base: unsharded, then at n = 2
+    runs = (("n2", LocalMesh(model=2), step_cfg, 2), ("n4", LocalMesh(model=4), step_cfg, 4),
+            ("model2_sp2", LocalMesh(model=2, sp=2), ring_cfg, 2 * 2 * 2),
+            ("model2_pipe2", LocalMesh(model=2, pipe=2), pipe_cfg, 2 * 2))
+    for label, mesh, run_cfg, visits in runs:
+        state = sharded_run(state, label, mesh, run_cfg, visits)
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
+    # LoRA on the trained weights as the base: unsharded, then over model
+    # shards, alone and with the ring
     base = state["params"]
     del state, reuse["state"]
     for _, p in iter_leaves(base):
         p.requires_grad_(False)
     if device == "cuda":
         torch.cuda.empty_cache()
-    n = 2
     lora_kw = dict(alpha=LORA["alpha"], rank=LORA["rank"], luts=luts)
 
     def lora_state():
@@ -3549,26 +3574,33 @@ def model_parallel_training(torch, counters, reuse, *, device="cuda", n_steps=3,
     _, ms_ref, peak_ref, ref_logged, _ = mp_timed_steps(
         torch, counters, step, lstate, batches[:lora_steps], device=device, step_args=(base,))
     del lstate, step
-    ltx, lstate = lora_state()
-    mesh = LocalMesh(model=n)
-    step, base = shard_lora_train_step(make_lora_train_step(cfg, ltx, step_cfg, mesh=mesh,
-                                                            **lora_kw), mesh, base)
-    lstate, ms, peak, logged, launches = mp_timed_steps(
-        torch, counters, step, lstate, batches[:lora_steps], device=device, step_args=(base,))
-    check_launches(f"LoRA n={n} {lora_steps} steps", launches, want(n, lora_steps))
-    rels = [abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(logged, ref_logged)]
-    print(f"model parallel: LoRA n={n}: {lora_steps} steps of train_loop "
-          f"{[round(t, 2) for t in ms]} ms (unsharded {[round(t, 2) for t in ms_ref]} ms), peak "
-          f"{peak:.2f} GiB (unsharded {peak_ref:.2f}), losses {[m['loss'] for m in logged]} vs "
-          f"unsharded {[m['loss'] for m in ref_logged]} (rel {rels}, bound {LOSS_BOUND})",
-          flush=True)
-    if not all(r < LOSS_BOUND for r in rels):
-        fail(f"model parallel: LoRA n={n} losses {logged} against unsharded {ref_logged}")
-    result[f"lora_n{n}"] = {"step_ms": ms, "peak_gib": peak, "losses": [m["loss"] for m in logged],
-                            "unsharded_step_ms": ms_ref, "unsharded_peak_gib": peak_ref,
-                            "unsharded_losses": [m["loss"] for m in ref_logged],
-                            "loss_rel": rels, "launches": launches}
-    del base, lstate, step
+    for label, mesh, run_cfg, visits in (("lora_n2", LocalMesh(model=2), step_cfg, 2),
+                                         ("lora_model2_sp2", LocalMesh(model=2, sp=2), ring_cfg,
+                                          2 * 2 * 2)):
+        ltx, lstate = lora_state()
+        step, base = shard_lora_train_step(make_lora_train_step(cfg, ltx, run_cfg, mesh=mesh,
+                                                                **lora_kw), mesh, base)
+        lstate, ms, peak, logged, launches = mp_timed_steps(
+            torch, counters, step, lstate, batches[:lora_steps], device=device, step_args=(base,))
+        check_launches(f"{label} {lora_steps} steps", launches, want(visits, lora_steps))
+        rels = [abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(logged, ref_logged)]
+        print(f"model parallel: {label} {mesh} {run_cfg.attn_backend}: {lora_steps} steps of "
+              f"train_loop {[round(t, 2) for t in ms]} ms (unsharded "
+              f"{[round(t, 2) for t in ms_ref]} ms), peak {peak:.2f} GiB (unsharded "
+              f"{peak_ref:.2f}), losses "
+              f"{[m['loss'] for m in logged]} vs unsharded {[m['loss'] for m in ref_logged]} (rel "
+              f"{rels}, bound {LOSS_BOUND})", flush=True)
+        if not all(r < LOSS_BOUND for r in rels):
+            fail(f"model parallel: {label} losses {logged} against unsharded {ref_logged}")
+        result[label] = {"mesh": mesh.shape, "backend": run_cfg.attn_backend, "step_ms": ms,
+                         "peak_gib": peak, "losses": [m["loss"] for m in logged],
+                         "unsharded_step_ms": ms_ref, "unsharded_peak_gib": peak_ref,
+                         "unsharded_losses": [m["loss"] for m in ref_logged],
+                         "loss_rel": rels, "launches": launches}
+        shards = step.keywords["shards"]
+        del lstate, step
+        base = shards.gather_state({"params": base}, in_place=True)["params"]  # whole again
+    del base
     if device == "cuda":
         torch.cuda.empty_cache()
     result["phase_s"] = time.perf_counter() - t_phase
@@ -4240,8 +4272,9 @@ def main() -> int:
             extra["parallel_path_launches"] = {
                 **{run: v["launches"][name] for run, v in par["loss_and_grad"].items()},
                 "process_group_ring_step": par["process_group"]["launches"][name]}
-            # the model-axis phase: its first step at n = 2 and 4, then its
-            # three timed steps, and the LoRA steps at n = 2
+            # the model-axis phase: the first step of each mesh (n = 2, 4,
+            # model 2 x sp 2, model 2 x pipe 2), then its three timed steps,
+            # and the LoRA steps at n = 2 and model 2 x sp 2
             runs = {run: v for run, v in model_par.items() if isinstance(v, dict)}
             extra["model_parallel_training_launches"] = {
                 **{f"{run}_first_step": v["first_launches"][name]

@@ -9,8 +9,9 @@ same dict (the JAX version returns a new cache). Sandwich RMSNorm, attention
 softcap, query_pre_attn_scalar scaling, sqrt(hidden) embedding scale in the
 activation dtype and fp32 RoPE follow the JAX module. Quantized serving trees
 (fused ``qkv`` / ``gate_up``) take the same branches (gemma2.py:111-116,
-:143-146). ``forward``, ``forward_flash``, ``embed_tokens`` and
-``head_logits`` also take one data group of a model-sharded tree
+:143-146). ``forward``, ``forward_flash``, ``forward_ring``,
+``forward_pipeline``, ``embed_tokens`` and ``head_logits`` also take one
+data group of a model-sharded tree
 (``parallel/partitioning.py`` ShardGroup: ``SpatialVLAPolicy.shard`` for
 serving, ``TrainShards.group`` for training, where gradients flow through
 the model axis' collectives): a whole tree runs as a group of one, through
@@ -21,8 +22,9 @@ attention through the flash-attention kernels (ops/flash_attention.py).
 With ``use_remat`` each window/global layer pair is recomputed in the
 backward pass (``torch.utils.checkpoint``), as ``jax.checkpoint`` wraps the
 JAX package's pair step. ``forward_ring`` (sequence parallelism) and
-``forward_pipeline`` (GPipe stages) run the same pairs over a mesh's ``sp``
-and ``pipe`` axes (spatialvla_tpu_torch/parallel).
+``forward_pipeline`` (GPipe stages) run the same pairs, through the same
+``decoder_layer``, over a mesh's ``sp`` and ``pipe`` axes
+(spatialvla_tpu_torch/parallel).
 """
 from __future__ import annotations
 
@@ -182,6 +184,13 @@ def input_norm_of(lp):
     return lp["input_norm"] if "qkv" in lp["attn"] else None
 
 
+def _scaled(cfg, inputs_embeds):
+    """The embeddings times sqrt(hidden), in their dtype."""
+    normalizer = torch.tensor(cfg.hidden_size ** 0.5, dtype=inputs_embeds.dtype,
+                              device=inputs_embeds.device)
+    return inputs_embeds * normalizer
+
+
 def make_masks(cfg, base_mask, q_positions, k_positions):
     """(global_mask, sliding_mask): the sliding mask additionally requires
     q_pos - k_pos < window. k_positions is (S,) or per-row (B, S)."""
@@ -198,8 +207,7 @@ def _prepare(cfg, inputs_embeds, position_ids, base_mask, cache_len, cache_posit
     masked forward over ``cache_len`` key slots."""
     B, T, H = inputs_embeds.shape
     dev = inputs_embeds.device
-    normalizer = torch.tensor(cfg.hidden_size ** 0.5, dtype=inputs_embeds.dtype, device=dev)
-    h = inputs_embeds * normalizer
+    h = _scaled(cfg, inputs_embeds)
     cos, sin = rope_cos_sin(position_ids, cfg.head_dim, cfg.rope_theta)
     start = cache_position if cache_position is not None else 0
     k_positions = torch.arange(cache_len, device=dev)
@@ -332,15 +340,22 @@ def head_logits(params, cfg, hidden: torch.Tensor, token_range=None, *,
 # flash-attention forward (training) and serving prefill
 # ---------------------------------------------------------------------------
 
-def _attention_block_flash(lp, cfg, h, norm_w, cos, sin, prefix_lens, valid_lens, window):
+def _flash(q, k, v, prefix_lens, valid_lens, cfg, window):
+    """Unsharded flash attention over q's whole sequence (q_offset 0)."""
+    return flash_attention(q, k, v, prefix_lens, valid_lens, torch.zeros_like(prefix_lens),
+                           cfg.query_pre_attn_scalar ** -0.5, cfg.attn_logit_softcap, window, True)
+
+
+def _attention_block_flash(lp, cfg, h, norm_w, cos, sin, prefix_lens, valid_lens, window,
+                           attention=_flash):
     """Attention through the flash kernels from the pre-norm residual, for
     the plain (training, gemma2.py:202) and the fused-quantized (serving
-    prefill, :291) trees; returns (attn_out, k, v), k roped."""
+    prefill, :291) trees; returns (attn_out, k, v), k roped. ``attention``
+    is ``_flash`` or a ring's (``forward_ring``)."""
     B, T, H = h.shape
     q, k, v = _qkv(lp, cfg, h, norm_w)
     q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-    out = flash_attention(q, k, v, prefix_lens, valid_lens, torch.zeros_like(prefix_lens),
-                          cfg.query_pre_attn_scalar ** -0.5, cfg.attn_logit_softcap, window, True)
+    out = attention(q, k, v, prefix_lens, valid_lens, cfg, window)
     return qmatmul(out.reshape(B, T, -1).to(h.dtype), lp["o"]), k, v
 
 
@@ -353,6 +368,33 @@ def _decoder_layer_flash(cfg, h, lp, cos, sin, prefix_lens, valid_lens, window):
     return h + rms_norm(lp["post_ffn_norm"], mlp_out, cfg.rms_norm_eps), k, v
 
 
+def _flash_pairs(tp, cfg, h, cos, sin, prefix_lens, valid_lens, pairs, *, use_remat: bool,
+                 attention=_flash):
+    """The window/global layer pairs ``pairs`` (pair i: layers 2i, 2i + 1)
+    of the ShardGroup ``tp`` through ``decoder_layer``, each shard's
+    attention through ``attention`` over its own heads; each pair one
+    checkpoint under use_remat."""
+    def attend(s, l, lp, tcfg, h, cos, sin, prefix_lens, valid_lens):
+        window = cfg.sliding_window if l % 2 == 0 else None  # even layers slide
+        return _attention_block_flash(lp["attn"], tcfg, h, input_norm_of(lp), cos, sin,
+                                      prefix_lens, valid_lens, window, attention)[0]
+
+    def pair(h, l):
+        h = decoder_layer(tp, l, cfg, h, attend, cos, sin, prefix_lens, valid_lens)
+        return decoder_layer(tp, l + 1, cfg, h, attend, cos, sin, prefix_lens, valid_lens)
+
+    tp.layers("lm", cfg.num_layers)  # the per-layer views, outside any recomputation
+    pair = remat(pair, use_remat)
+    for i in pairs:
+        h = pair(h, 2 * i)
+    return h
+
+
+def _even_layers(cfg, what: str):
+    if cfg.num_layers % 2:
+        raise ValueError(f"{what} runs window/global layer pairs: num_layers must be even")
+
+
 def forward_flash(params, cfg, inputs_embeds: torch.Tensor, position_ids: torch.Tensor,
                   prefix_lens: torch.Tensor, valid_lens: torch.Tensor, *,
                   use_remat: bool = False) -> torch.Tensor:
@@ -363,73 +405,42 @@ def forward_flash(params, cfg, inputs_embeds: torch.Tensor, position_ids: torch.
     use_remat. prefix_lens (B,) is the bidirectional-prefix boundary (0 =
     causal), valid_lens (B,) the right-pad boundary."""
     tp = as_group(params, "lm")
-    L = cfg.num_layers
-    if L % 2:
-        raise ValueError("forward_flash runs window/global layer pairs: num_layers must be even")
-    normalizer = torch.tensor(cfg.hidden_size ** 0.5, dtype=inputs_embeds.dtype,
-                              device=inputs_embeds.device)
-    h = inputs_embeds * normalizer
+    _even_layers(cfg, "forward_flash")
     cos, sin = rope_cos_sin(position_ids, cfg.head_dim, cfg.rope_theta)
-    lens = (prefix_lens.to(torch.int32), valid_lens.to(torch.int32))
-
-    def attend(s, l, lp, tcfg, h, cos, sin, prefix_lens, valid_lens):
-        window = cfg.sliding_window if l % 2 == 0 else None  # even layers slide
-        return _attention_block_flash(lp["attn"], tcfg, h, input_norm_of(lp), cos, sin,
-                                      prefix_lens,
-                                      valid_lens, window)[0]
-
-    def pair(h, l):
-        h = decoder_layer(tp, l, cfg, h, attend, cos, sin, *lens)
-        return decoder_layer(tp, l + 1, cfg, h, attend, cos, sin, *lens)
-
-    tp.layers("lm", L)  # the per-layer views, outside any recomputation
-    pair = remat(pair, use_remat)
-    for l in range(0, L, 2):
-        h = pair(h, l)
+    h = _flash_pairs(tp, cfg, _scaled(cfg, inputs_embeds), cos, sin, prefix_lens.to(torch.int32),
+                     valid_lens.to(torch.int32), range(cfg.num_layers // 2),
+                     use_remat=use_remat)
     return rms_norm(tp.trees[0]["lm"]["final_norm"], h, cfg.rms_norm_eps)
 
 
-def forward_ring(params: Params, cfg, inputs_embeds: torch.Tensor, position_ids: torch.Tensor,
+def forward_ring(params, cfg, inputs_embeds: torch.Tensor, position_ids: torch.Tensor,
                  prefix_lens: torch.Tensor, valid_lens: torch.Tensor, *, mesh,
                  axis_name: str = "sp", use_remat: bool = False) -> torch.Tensor:
     """Sequence-parallel forward (gemma2.py:390-458): forward_flash's layer
     pairs with attention through ring attention over ``axis_name``
-    (parallel/ring_attention.py). ``inputs_embeds`` / ``position_ids`` span
-    the whole sequence; the QKV and MLP matmuls run on the positions this
-    process holds (``seq_shard``: all of them on a ``LocalMesh``, this rank's
-    1/n on a ``Mesh``), and so does the result. ``prefix_lens`` /
-    ``valid_lens`` (B,) are global."""
+    (parallel/ring_attention.py), from the LM tree or over the model shards
+    of a ShardGroup, each shard running its own ring over its own q and kv
+    heads (on a ``Mesh`` over the sp group of its model rank).
+    ``inputs_embeds`` / ``position_ids`` span the whole sequence; the QKV and
+    MLP matmuls run on the positions this process holds (``seq_shard``: all
+    of them on a ``LocalMesh``, this rank's 1/n on a ``Mesh``), and so does
+    the result. ``prefix_lens`` / ``valid_lens`` (B,) are global."""
     from ..parallel.ring_attention import ring_flash_attention, seq_shard
 
-    L = cfg.num_layers
-    if L % 2:
-        raise ValueError("forward_ring runs window/global layer pairs: num_layers must be even")
+    tp = as_group(params, "lm")
+    _even_layers(cfg, "forward_ring")
     start, stop = seq_shard(mesh, inputs_embeds.shape[1], axis_name)
-    x = inputs_embeds[:, start:stop]
-    normalizer = torch.tensor(cfg.hidden_size ** 0.5, dtype=x.dtype, device=x.device)
-    h = x * normalizer
     cos, sin = rope_cos_sin(position_ids[:, start:stop], cfg.head_dim, cfg.rope_theta)
-    prefix_lens, valid_lens = prefix_lens.to(torch.int32), valid_lens.to(torch.int32)
-    Nq, Nkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
-    def layer(h, lp, window):
-        B, T, _ = h.shape
-        q, k, v = _qkv(lp["attn"], cfg, h, lp["input_norm"])
-        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-        out = ring_flash_attention(q, k, v, prefix_lens, valid_lens, mesh=mesh,
-                                   axis_name=axis_name, scale=cfg.query_pre_attn_scalar ** -0.5,
-                                   logit_softcap=cfg.attn_logit_softcap, window=window)
-        attn = qmatmul(out.reshape(B, T, Nq * D).to(h.dtype), lp["attn"]["o"])
-        h = h + rms_norm(lp["post_attn_norm"], attn, cfg.rms_norm_eps)
-        mlp_out = _mlp_block(lp["mlp"], h, lp["pre_ffn_norm"], cfg.rms_norm_eps)
-        return h + rms_norm(lp["post_ffn_norm"], mlp_out, cfg.rms_norm_eps)
+    def ring(q, k, v, prefix_lens, valid_lens, tcfg, window):
+        return ring_flash_attention(q, k, v, prefix_lens, valid_lens, mesh=mesh,
+                                    axis_name=axis_name, scale=tcfg.query_pre_attn_scalar ** -0.5,
+                                    logit_softcap=tcfg.attn_logit_softcap, window=window)
 
-    pair = remat(lambda h, lp0, lp1: layer(layer(h, lp0, cfg.sliding_window), lp1, None),
-                 use_remat)
-    layers = unstack_layers(params["layers"], L)
-    for i in range(0, L, 2):
-        h = pair(h, layers[i], layers[i + 1])
-    return rms_norm(params["final_norm"], h, cfg.rms_norm_eps)
+    h = _flash_pairs(tp, cfg, _scaled(cfg, inputs_embeds[:, start:stop]), cos, sin,
+                     prefix_lens.to(torch.int32), valid_lens.to(torch.int32),
+                     range(cfg.num_layers // 2), use_remat=use_remat, attention=ring)
+    return rms_norm(tp.trees[0]["lm"]["final_norm"], h, cfg.rms_norm_eps)
 
 
 def stage_pairs(n_pairs: int, S: int) -> List[Tuple[int, int]]:
@@ -441,53 +452,47 @@ def stage_pairs(n_pairs: int, S: int) -> List[Tuple[int, int]]:
     return [(a, a + c) for a, c in zip(starts, counts)]
 
 
-def forward_pipeline(params: Params, cfg, inputs_embeds: torch.Tensor,
+def forward_pipeline(params, cfg, inputs_embeds: torch.Tensor,
                      position_ids: torch.Tensor, prefix_lens: torch.Tensor,
                      valid_lens: torch.Tensor, *, mesh, axis_name: str = "pipe",
                      n_microbatches: int = 0, use_remat: bool = False) -> torch.Tensor:
     """Pipeline-parallel forward (gemma2.py:461-555): the layer pairs split
     into S = ``mesh.shape[axis_name]`` stages by ``stage_pairs`` under GPipe
     microbatching (parallel/pipeline.py); each stage runs forward_flash's
-    pairs, each pair one checkpoint under ``use_remat``. The stages are lists
-    of layers, not a stacked tensor, so a short stage runs its own pairs and
-    none padded (JAX pads to the longest stage and masks the padded pairs
-    to identity). The default microbatch count is the largest divisor of B
-    that is at most S."""
+    pairs, from the LM tree or over the model shards of a ShardGroup, each
+    pair one checkpoint under ``use_remat``. A stage's weights are its
+    layers' views in every shard this process holds ({layer: tree} a
+    shard), which the pipeline hands to ``stage_fn`` as leaves of their own
+    graph and ``ShardGroup.with_layers`` makes a group of again. A short
+    stage runs its own pairs and none padded (JAX pads to the longest stage
+    and masks the padded pairs to identity). The default microbatch count is
+    the largest divisor of B that is at most S."""
     from ..parallel.pipeline import pipeline_apply
 
+    tp = as_group(params, "lm")
     L = cfg.num_layers
-    if L % 2:
-        raise ValueError(f"{L} layers do not form window/global pairs")
+    _even_layers(cfg, "forward_pipeline")
     S = mesh.shape[axis_name]
     if S > L // 2:
         raise ValueError(f"{S} stages exceed the {L // 2} layer pairs")
     B = inputs_embeds.shape[0]
     m = n_microbatches or max(d for d in range(1, min(S, B) + 1) if B % d == 0)
-    normalizer = torch.tensor(cfg.hidden_size ** 0.5, dtype=inputs_embeds.dtype,
-                              device=inputs_embeds.device)
-    h = inputs_embeds * normalizer
-    layers = unstack_layers(params["layers"], L)
-    stages = [layers[2 * a:2 * b] for a, b in stage_pairs(L // 2, S)]
+    views = tp.layers("lm", L)
+    stages = [[{l: shard[l] for l in range(2 * a, 2 * b)} for shard in views]
+              for a, b in stage_pairs(L // 2, S)]
 
-    def stage_fn(stage_layers, x, aux):
+    def stage_fn(stage, x, aux):
+        layers = sorted(stage[0])
         cos, sin = rope_cos_sin(aux["position_ids"], cfg.head_dim, cfg.rope_theta)
-
-        def pair(h, lp0, lp1):
-            h = _decoder_layer_flash(cfg, h, lp0, cos, sin, aux["prefix_lens"],
-                                     aux["valid_lens"], cfg.sliding_window)[0]
-            return _decoder_layer_flash(cfg, h, lp1, cos, sin, aux["prefix_lens"],
-                                        aux["valid_lens"], None)[0]
-
-        pair = remat(pair, use_remat)
-        for i in range(0, len(stage_layers), 2):
-            x = pair(x, stage_layers[i], stage_layers[i + 1])
-        return x
+        return _flash_pairs(tp.with_layers("lm", stage), cfg, x, cos, sin, aux["prefix_lens"],
+                            aux["valid_lens"], range(layers[0] // 2, layers[-1] // 2 + 1),
+                            use_remat=use_remat)
 
     aux = {"position_ids": position_ids, "prefix_lens": prefix_lens.to(torch.int32),
            "valid_lens": valid_lens.to(torch.int32)}
-    out = pipeline_apply(stage_fn, stages, h, aux, mesh=mesh, n_microbatches=m,
-                         axis_name=axis_name)
-    return rms_norm(params["final_norm"], out, cfg.rms_norm_eps)
+    out = pipeline_apply(stage_fn, stages, _scaled(cfg, inputs_embeds), aux, mesh=mesh,
+                         n_microbatches=m, axis_name=axis_name)
+    return rms_norm(tp.trees[0]["lm"]["final_norm"], out, cfg.rms_norm_eps)
 
 
 def prefill_flash(params: Params, cfg, inputs_embeds: torch.Tensor, position_ids: torch.Tensor,
@@ -498,8 +503,7 @@ def prefill_flash(params: Params, cfg, inputs_embeds: torch.Tensor, position_ids
     [0, P) and zeros after."""
     B, P, H = inputs_embeds.shape
     dev = inputs_embeds.device
-    normalizer = torch.tensor(cfg.hidden_size ** 0.5, dtype=inputs_embeds.dtype, device=dev)
-    h = inputs_embeds * normalizer
+    h = _scaled(cfg, inputs_embeds)
     cos, sin = rope_cos_sin(position_ids, cfg.head_dim, cfg.rope_theta)
     lens = torch.full((B,), P, dtype=torch.int32, device=dev)
     cache = init_cache(cfg, B, cache_len, device=dev, dtype=cache_dtype)

@@ -49,7 +49,6 @@ from . import gemma2 as gemma2_mod
 from . import siglip as siglip_mod
 from . import zoe as zoe_mod
 from .layers import normal_init, zeros
-from ..errors import not_ported
 from ..parallel.mesh import LocalMesh
 from ..parallel.partitioning import as_group
 from ..ops.quant import is_quantized, qmatmul
@@ -202,7 +201,7 @@ def forward(
     sequence shard only, and labels are refused (the train step takes each
     rank's part of the loss); "pipeline" runs ``gemma2.forward_pipeline``
     over its pipe axis, every stage ending with the whole hidden. ``params``
-    may be a ShardGroup of model shards ("xla" / "flash", with_logits=False:
+    may be a ShardGroup of model shards, with any backend (with_logits=False:
     the train step's loss reduces over the vocabulary cut)."""
     if attn_backend not in ("xla", "flash", "ring", "pipeline"):
         raise ValueError(f"unknown attn_backend {attn_backend!r}")
@@ -214,9 +213,6 @@ def forward(
         raise ValueError("attn_backend='ring' on a process-group mesh returns this rank's "
                          "sequence shard: pass labels=None and take the loss per shard")
     tp = as_group(params)
-    if tp.sharded and attn_backend in ("ring", "pipeline"):
-        raise not_ported(f"attn_backend={attn_backend!r} over model shards (the model axis "
-                         "with sp or pipe)")
     if tp.sharded and with_logits:
         raise ValueError("over model shards no shard holds the whole logits: pass "
                          "with_logits=False and take the loss from the hidden states "
@@ -244,10 +240,9 @@ def forward(
             prefix_lens = torch.zeros((B,), dtype=torch.int32, device=input_ids.device)
         args = (cfg.text, embeds, position_ids, prefix_lens, valid_lens)
         if attn_backend == "ring":
-            hidden = gemma2_mod.forward_ring(tp.trees[0]["lm"], *args, mesh=mesh,
-                                             use_remat=use_remat)
+            hidden = gemma2_mod.forward_ring(tp, *args, mesh=mesh, use_remat=use_remat)
         elif attn_backend == "pipeline":
-            hidden = gemma2_mod.forward_pipeline(tp.trees[0]["lm"], *args, mesh=mesh,
+            hidden = gemma2_mod.forward_pipeline(tp, *args, mesh=mesh,
                                                  n_microbatches=pp_microbatches,
                                                  use_remat=use_remat)
         else:

@@ -20,19 +20,21 @@ Axes (as in JAX):
          ``ShardGather`` (autograd functions: the collectives of training);
          held by one process in a ``LocalMesh`` (serving, and training on
          one card) or one shard a rank of a process-group ``Mesh``
-         (training); combined with sp or pipe it raises (ROADMAP item 8d)
+         (training); with sp or pipe each model shard runs its own ring
+         over its heads, or its part of every pipeline stage
   sp     sequence parallelism: the ring of parallel/ring_attention.py
   pipe   pipeline parallelism: the GPipe stages of parallel/pipeline.py
 
 ``LocalMesh`` holds the sp, pipe, data and model axes in one process: a ring
 of ``sp`` sequence shards and a pipe of ``pipe`` stages, run in turn by this
 process through the same loops as the process-group transports, and the
-``data x model`` shards of a sharded serving policy (``SpatialVLAPolicy.shard``,
-as JAX's single controller lays its mesh over the devices it drives) or the
-``model`` shards of a training step (``LocalMesh(model=n)``, every shard on
-the caller's device). It is the counterpart of the JAX tests' virtual CPU
-devices, and what one card runs. The caller asks for it by name; a mesh of
-several processes never turns into one.
+``data x model`` shards of a sharded serving policy
+(``SpatialVLAPolicy.shard``, as JAX's single controller lays its mesh over
+the devices it drives) or the ``model`` shards of a training step
+(``LocalMesh(model=n)``, with sp or pipe too, every shard on the caller's
+device). It is the counterpart of the JAX tests' virtual CPU devices, and
+what one card runs. The caller asks for it by name; a mesh of several
+processes never turns into one.
 """
 from __future__ import annotations
 
@@ -42,8 +44,6 @@ import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
-
-from ..errors import not_ported
 
 AXES = ("data", "fsdp", "model", "sp", "pipe")
 
@@ -85,6 +85,9 @@ class LocalMesh:
     def __post_init__(self):
         if self.devices is None:
             return
+        if self.sp > 1 or self.pipe > 1:
+            raise ValueError("a ring or a pipe held by one process runs on the caller's device "
+                             f"(devices=None), got sp={self.sp}, pipe={self.pipe} on devices")
         devices = tuple(torch.device(d) for d in self.devices)
         object.__setattr__(self, "devices", devices)
         if len(devices) != self.data * self.model:
@@ -239,10 +242,11 @@ class Mesh:
     ``shape`` maps an axis to its size, as JAX's ``mesh.shape`` does."""
 
     # the axis sets the train step reduces over (besides single axes): the
-    # batch axes; a fsdp-cut gradient's other axes; a whole leaf's gradient
-    # (every axis but model); the squares of grad_norm; the LoRA factors
-    GROUPS = (("data", "fsdp"), ("data", "sp", "pipe"), ("data", "fsdp", "sp", "pipe"),
-              ("fsdp", "model"), AXES)
+    # batch axes; the batch and sequence axes (the ring's loss); a fsdp-cut
+    # gradient's other axes; a whole leaf's gradient (every axis but model);
+    # the squares of grad_norm; the LoRA factors
+    GROUPS = (("data", "fsdp"), ("data", "fsdp", "sp"), ("data", "sp", "pipe"),
+              ("data", "fsdp", "sp", "pipe"), ("fsdp", "model"), AXES)
 
     def __init__(self, device_mesh):
         self.device_mesh = device_mesh
@@ -316,11 +320,6 @@ def make_mesh(cfg: MeshConfig = MeshConfig(), device_type: str = "cuda") -> Mesh
     shape = cfg.resolve(world)
     if math.prod(shape) != world:
         raise ValueError(f"mesh {shape} leaves processes out of the {world} started")
-    sizes = dict(zip(AXES, shape))
-    if sizes["model"] > 1 and (sizes["sp"] > 1 or sizes["pipe"] > 1):
-        raise not_ported(f"--mesh_model {sizes['model']} with --mesh_sp {sizes['sp']} / "
-                         f"--mesh_pp {sizes['pipe']} (the model axis with sp or pipe)",
-                         "model_sp_pipe")
     from torch.distributed.device_mesh import init_device_mesh
 
     return Mesh(init_device_mesh(device_type, shape, mesh_dim_names=AXES))

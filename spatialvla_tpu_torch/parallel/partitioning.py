@@ -480,6 +480,15 @@ class ShardGroup:
             self._layers[part] = [unstack_layers(t[part]["layers"], L) for t in self.trees]
         return self._layers[part]
 
+    def with_layers(self, part: str, views: List[dict]) -> "ShardGroup":
+        """A group of the same shards whose per-layer views of ``part`` are
+        ``views`` (one {layer: tree} a shard; a pipeline stage's, rebuilt
+        from leaves of their own graph), so its layers compute with those
+        and their gradients reach them; ``self`` and its views untouched."""
+        group = ShardGroup(self.cut, self.trees, self.devices, ids=self.ids, comm=self.comm)
+        group._layers[part] = list(views)
+        return group
+
     def text_cfg(self, tcfg):
         """The LM config ``tcfg`` of one shard of the attention (its q and kv heads)."""
         import dataclasses

@@ -26,11 +26,12 @@ what is left); ``--mesh_sp`` > 1 selects the "ring" backend and
 that times data x fsdp; processes that share a (data, fsdp) place draw the
 same rows (the model ranks of one place take model rank 0's, broadcast:
 ``parallel.model_group_batches``). ``--mesh_model n``
-cuts the weight matrices over n tensor-parallel shards: in one process a
-``LocalMesh(model=n)`` runs them in turn on its device (one card), over a
-process group each rank holds one (gloo on the CPU, NCCL with one process
-a card). With ``--mesh_sp`` / ``--mesh_pp`` or the ring and pipeline
-backends it is not ported yet (ROADMAP.md Queue A item 8d).
+cuts the weight matrices over n tensor-parallel shards, with or without
+``--mesh_sp`` / ``--mesh_pp`` (each shard runs its own ring over its
+heads, or its part of each pipeline stage). In one process a ``LocalMesh``
+holds the model, sp and pipe axes and runs their shards in turn on its
+device (one card); over a process group each rank holds one shard of each
+(gloo on the CPU, NCCL with one process a card).
 """
 from __future__ import annotations
 
@@ -39,8 +40,6 @@ import json
 import os
 
 import torch
-
-from ..errors import not_ported
 
 
 def build_argparser():
@@ -113,13 +112,7 @@ def build_argparser():
 
 def training_device(args) -> torch.device:
     """The device of a training CLI's ``args`` (``--device``): raises on
-    ``--mesh_model`` > 1 with sp, pipe or their backends (not ported) and on
     ``cuda`` without a card."""
-    if args.mesh_model > 1 and (args.mesh_sp > 1 or args.mesh_pp > 1
-                                or args.attn_backend in ("ring", "pipeline")):
-        raise not_ported(f"--mesh_model {args.mesh_model} with --mesh_sp {args.mesh_sp}, "
-                         f"--mesh_pp {args.mesh_pp}, attn_backend {args.attn_backend} (the "
-                         "model axis with sp or pipe)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device is available; pass "
@@ -131,9 +124,9 @@ def setup_parallel(args, device: torch.device, *, explain: bool):
     """(device, mesh, batch rank, batch ranks) of a training CLI: the
     process group from the multi-host flags or a launcher
     (``initialize_distributed``; NCCL on cuda, gloo on cpu), the mesh of the
-    mesh flags over its processes (in one process None, a
-    ``LocalMesh(model=n)`` for ``--mesh_model n``, or a ``LocalMesh`` for an
-    explicit "ring" / "pipeline"), and this process's place on the batch
+    mesh flags over its processes (in one process a ``LocalMesh`` of the
+    model, sp and pipe sizes where one is above 1 or the backend is "ring" /
+    "pipeline", else None), and this process's place on the batch
     axes (data x fsdp), which picks its rows and data seed: the model ranks
     of one batch rank share it. ``--mesh_sp`` / ``--mesh_pp`` > 1 select
     their backend with the JAX CLIs' message (``explain``: pretrain's, which
@@ -153,13 +146,14 @@ def setup_parallel(args, device: torch.device, *, explain: bool):
             args.attn_backend = backend
     cfg = MeshConfig(args.mesh_data, args.mesh_fsdp, args.mesh_model, args.mesh_sp, args.mesh_pp)
     if nproc == 1:
-        # a mesh larger than one process raises here; this process holds the
-        # model axis
-        dataclasses.replace(cfg, model=1).resolve(1)
-        if args.mesh_model > 1:
-            return device, LocalMesh(model=args.mesh_model), 0, 1
-        local = args.attn_backend in ("ring", "pipeline")
-        return device, (LocalMesh() if local else None), 0, 1
+        # data x fsdp larger than one process raises here; this process
+        # holds the model, sp and pipe axes
+        dataclasses.replace(cfg, model=1, sp=1, pipe=1).resolve(1)
+        local = (max(args.mesh_model, args.mesh_sp, args.mesh_pp) > 1
+                 or args.attn_backend in ("ring", "pipeline"))
+        if not local:
+            return device, None, 0, 1
+        return device, LocalMesh(sp=args.mesh_sp, pipe=args.mesh_pp, model=args.mesh_model), 0, 1
     mesh = make_mesh(cfg, device.type)
     n_batch = mesh.shape["data"] * mesh.shape["fsdp"]
     return device, mesh, mesh.index("data") * mesh.shape["fsdp"] + mesh.index("fsdp"), n_batch

@@ -19,33 +19,34 @@ gradient and no update.
 
 ``mesh=`` takes the "ring" / "pipeline" backends (a ``LocalMesh`` runs them
 in this process), a ``LocalMesh(model=n)`` (the model axis held by this
-process: n tensor-parallel shards run in turn on its device) and a
-process-group ``Mesh``: the sharded step, the counterpart of
-``jit_train_step`` (train_step.py:210-245), set up by ``shard_train_step``
-and bound to the state's cut (``parallel.TrainShards``). Each process holds
-its own rows of the batch (its block on data x fsdp; the same rows on every
-model, sp and pipe rank). The fp32 masters and AdamW moments are cut over
-model by heads, hidden columns and the vocabulary (``TensorShards``), and
-inside each model shard over fsdp by the partitioning rules (ZeRO-3): the
-fsdp-cut weights are gathered for the compute, and the gradients
-reduce-scattered back to the shards and summed over data, sp and pipe.
-A leaf cut over model keeps its shard's gradient; a whole leaf has the same
-full gradient on every model shard and is not summed over them; a kv head
-held by several shards takes the sum of its copies'. Each rank's loss is
-its part of the global mean: its positions' NLL over the global count of
-valid targets, divided by the ranks that compute the same positions (the
-pipe ranks, and the sp ranks but under "ring"), so that every contribution
-enters the summed gradient once; the model ranks compute the same loss
-(the vocabulary cut's cross-entropy reduces over them: ``train/loss.py``).
-Every rank reports the same metrics: the loss summed across ranks, the rest
-from the gathered predictions; ``grad_norm`` and the clip take the norm of
-the whole sharded gradient, each parameter counted once, one all-reduce of
-the squared sums. The LoRA step under a mesh holds its small trainable
-state whole on every rank; its base is cut over model
-(``shard_lora_train_step``), each shard's adapted leaves taking the
-factors' matching block, and the gradients are summed over the mesh, those
-of the factors of a cut leaf (partial over the model shards) over model
-too.
+process: n tensor-parallel shards run in turn on its device; with sp or pipe
+too, each shard running its own ring over its heads, or its part of each
+pipeline stage) and a process-group ``Mesh``: the sharded step, the
+counterpart of ``jit_train_step`` (train_step.py:210-245), set up by
+``shard_train_step`` and bound to the state's cut
+(``parallel.TrainShards``). Each process holds its own rows of the batch
+(its block on data x fsdp; the same rows on every model, sp and pipe rank).
+The fp32 masters and AdamW moments are cut over model by heads, hidden
+columns and the vocabulary (``TensorShards``), and inside each model shard
+over fsdp by the partitioning rules (ZeRO-3): the fsdp-cut weights are
+gathered for the compute, and the gradients reduce-scattered back to the
+shards and summed over data, sp and pipe. A leaf cut over model keeps its
+shard's gradient; a whole leaf has the same full gradient on every model
+shard and is not summed over them; a kv head held by several shards takes
+the sum of its copies'. Each rank's loss is its part of the global mean: its
+positions' NLL over the global count of valid targets, divided by the ranks
+that compute the same positions (the pipe ranks, and the sp ranks but under
+"ring"), so that every contribution enters the summed gradient once; the
+model ranks compute the same loss (the vocabulary cut's cross-entropy
+reduces over them: ``train/loss.py``). Every rank reports the same metrics:
+the loss summed across ranks, the rest from the gathered predictions;
+``grad_norm`` and the clip take the norm of the whole sharded gradient, each
+parameter counted once, one all-reduce of the squared sums. The LoRA step
+under a mesh holds its small trainable state whole on every rank; its base
+is cut over model (``shard_lora_train_step``), each shard's adapted leaves
+taking the factors' matching block, and the gradients are summed over the
+mesh, those of the factors of a cut leaf (partial over the model shards)
+over model too.
 """
 from __future__ import annotations
 
@@ -57,7 +58,6 @@ import numpy as np
 import torch
 
 from ..models import spatialvla
-from ..errors import not_ported
 from ..parallel.mesh import AXES, Mesh, gather_along, mesh_shape
 from ..parallel.partitioning import ShardGroup, TrainShards
 from ..utils.tree import iter_leaves, map_with_paths
@@ -111,7 +111,7 @@ def make_loss_fn(cfg, step_cfg: TrainStepConfig, luts=None, mesh=None) -> Callab
     if step_cfg.attn_backend in ("ring", "pipeline") and mesh is None:
         raise ValueError(f"attn_backend={step_cfg.attn_backend!r} requires "
                          "make_*_train_step(mesh=...)")
-    _check_model_axis(mesh, step_cfg)
+    _check_model_axis(mesh)
     if isinstance(mesh, Mesh):
         return _sharded_loss_fn(cfg, step_cfg, luts, mesh)
 
@@ -139,15 +139,11 @@ def _lm(params):
     return params if isinstance(params, ShardGroup) else params["lm"]
 
 
-def _check_model_axis(mesh, step_cfg):
-    """Raises where the model axis meets what it is not ported with: sp,
-    pipe, the ring and pipeline backends, shards on distinct cards."""
-    shape = mesh_shape(mesh)
-    if shape["model"] == 1:
+def _check_model_axis(mesh):
+    """Raises where a LocalMesh would train its model shards across cards or
+    data groups."""
+    if mesh_shape(mesh)["model"] == 1:
         return
-    if shape["sp"] > 1 or shape["pipe"] > 1 or step_cfg.attn_backend in ("ring", "pipeline"):
-        raise not_ported(f"the model axis ({shape['model']} shards) with sp={shape['sp']}, "
-                         f"pipe={shape['pipe']}, attn_backend={step_cfg.attn_backend!r}")
     if not isinstance(mesh, Mesh) and (mesh.devices is not None or mesh.data > 1):
         raise ValueError("a LocalMesh trains its model shards on the caller's device "
                          "(devices=None, data=1): training across cards is one process per "
@@ -185,6 +181,7 @@ def _sharded_loss_fn(cfg, step_cfg: TrainStepConfig, luts, mesh: Mesh) -> Callab
     ring = step_cfg.attn_backend == "ring"
     replicas = mesh.shape["pipe"] * (1 if ring else mesh.shape["sp"])
     rows, seq = mesh.group("data", "fsdp"), mesh.group("sp")
+    positions = mesh.group("data", "fsdp", "sp") if ring else rows  # each target once
     ignore = cfg.ignore_index
 
     def loss_fn(params: Params, batch: Dict[str, torch.Tensor]):
@@ -198,14 +195,11 @@ def _sharded_loss_fn(cfg, step_cfg: TrainStepConfig, luts, mesh: Mesh) -> Callab
         loss_sum, preds = position_loss(_lm(params), cfg.text, out["hidden"][:, :stop_t - start],
                                         targets, valid, chunk_size=step_cfg.loss_chunk_size)
         count = valid.sum()
-        torch.distributed.all_reduce(count, group=rows)
-        if ring:
-            torch.distributed.all_reduce(count, group=seq)
+        torch.distributed.all_reduce(count, group=positions)
         loss = loss_sum / count.clamp_min(1)
         reported = loss.detach().clone()
-        torch.distributed.all_reduce(reported, group=rows)
+        torch.distributed.all_reduce(reported, group=positions)
         if ring:
-            torch.distributed.all_reduce(reported, group=seq)
             width = stop - start  # every shard's pieces padded to one width
             pad = lambda t, v: torch.nn.functional.pad(t, (0, width - t.shape[1]), value=v)  # noqa: E731
             preds, targets, valid = (gather_along(pad(t, v), seq, 1)[:, :T - 1]

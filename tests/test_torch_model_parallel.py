@@ -258,13 +258,10 @@ def _assert_lora(got_metrics, got_tree, reference):
     _assert_params(got, reference["lora_flat"])
 
 
-@pytest.mark.parametrize("n, backend, chunk", [(2, "flash", 7), (4, "flash", 7), (2, "xla", 0),
-                                               (4, "xla", 0)])
-def test_local_mesh_steps_match_jax_unsharded(n, backend, chunk, reference):
-    """Two full-parameter and two LoRA steps over LocalMesh(model=n)."""
-    mesh = LocalMesh(model=n)
-    step_cfg = TrainStepConfig(use_remat=True, compute_dtype=torch.float32, attn_backend=backend,
-                               loss_chunk_size=chunk)
+def local_mesh_steps(mesh, step_cfg, reference):
+    """Two full-parameter and two LoRA steps over ``mesh``, a LocalMesh with
+    a model axis, from the reference's weights, factors and batches, held to
+    JAX's unsharded steps; returns the full step's state."""
     luts = build_decode_luts(SpatialActionTokenizer(token_begin_idx=CFG.action_token_begin_idx))
     params = from_numpy_tree(reference["params"])
     tx = make_optimizer(OptimizerConfig(**OCFG), params, trainable_mask(params))
@@ -277,9 +274,6 @@ def test_local_mesh_steps_match_jax_unsharded(n, backend, chunk, reference):
     _assert_metrics(metrics, reference["metrics"])
     full = step.shards.gather_tree(state["params"])
     _assert_params({p: t.numpy() for p, t in ttree.iter_leaves(full)}, reference["flat"])
-    if n == 4:  # the copies of a kv head stay equal
-        k = state["params"]["lm"]["layers"]["attn"]["k"]
-        assert torch.equal(k[0], k[1]) and torch.equal(k[2], k[3])
 
     base = from_numpy_tree(reference["params"])
     ltx = make_optimizer(OptimizerConfig(**LORA_OCFG), None, None)
@@ -298,6 +292,19 @@ def test_local_mesh_steps_match_jax_unsharded(n, backend, chunk, reference):
     _assert_lora(lmetrics, ttree.map_with_paths(lambda _, t: t.detach().numpy(),
                                                 lstate["trainable"]), reference)
     assert all(not t.requires_grad for _, t in ttree.iter_leaves(base))
+    return state
+
+
+@pytest.mark.parametrize("n, backend, chunk", [(2, "flash", 7), (4, "flash", 7), (2, "xla", 0),
+                                               (4, "xla", 0)])
+def test_local_mesh_steps_match_jax_unsharded(n, backend, chunk, reference):
+    """Two full-parameter and two LoRA steps over LocalMesh(model=n)."""
+    state = local_mesh_steps(LocalMesh(model=n), TrainStepConfig(
+        use_remat=True, compute_dtype=torch.float32, attn_backend=backend,
+        loss_chunk_size=chunk), reference)
+    if n == 4:  # the copies of a kv head stay equal
+        k = state["params"]["lm"]["layers"]["attn"]["k"]
+        assert torch.equal(k[0], k[1]) and torch.equal(k[2], k[3])
 
 
 STEP_MESHES = {  # name: (data, fsdp, model, sp, pipe), processes

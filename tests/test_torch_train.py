@@ -282,17 +282,34 @@ def test_pretrain_without_a_card_raises_unless_asked_for_the_cpu(data_dir, tmp_p
     assert not (tmp_path / "o").exists()
 
 
-@pytest.mark.parametrize("argv, item", [
-    (["--mesh_model", "2", "--attn_backend", "ring"], "item 8d"),
-    (["--mesh_model", "2", "--mesh_sp", "2"], "item 8d"),
-])
-def test_pretrain_unported_flags_name_their_roadmap_item(argv, item):
+@pytest.mark.parametrize("argv, axes, backend", [
+    (["--mesh_model", "2", "--attn_backend", "ring"], dict(model=2), "ring"),
+    (["--mesh_model", "2", "--mesh_sp", "2"], dict(model=2, sp=2), "ring"),
+    (["--mesh_model", "2", "--mesh_pp", "2"], dict(model=2, pipe=2), "pipeline"),
+], ids=["model2-ring", "model2-sp2", "model2-pp2"])
+def test_pretrain_model_axis_with_sp_or_pipe_in_one_process(data_dir, tmp_path, argv, axes,
+                                                            backend):
+    """The model axis with the ring or pipeline backend, and with --mesh_sp
+    / --mesh_pp (which select them), held by one process: a LocalMesh of
+    those sizes; two steps, a step checkpoint and finite metrics."""
+    from spatialvla_tpu_torch.parallel import LocalMesh
     from spatialvla_tpu_torch.train import pretrain
+    from spatialvla_tpu_torch.train.checkpoints import CheckpointManager
 
-    args = pretrain.build_argparser().parse_args(
-        ["--data_root_dir", "d", "--output_dir", "o"] + argv)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, Queue A {item}"):
-        pretrain.build_everything(args)
+    out = str(tmp_path / "pretrain")
+    argv = ["--data_root_dir", data_dir, "--mixture", "bridge", "--output_dir", out,
+            "--model_preset", "spatialvla_tiny", "--image_size", "56", "--seq_len", "80",
+            "--max_steps", "2", "--per_device_batch_size", "2", "--shuffle_buffer_size", "4",
+            "--logging_steps", "1", "--learning_rate", "1e-3", "--device", "cpu"] + argv
+    args = pretrain.build_argparser().parse_args(argv)
+    _, mesh, _, _ = pretrain.setup_parallel(args, torch.device("cpu"), explain=False)
+    assert mesh == LocalMesh(**axes) and args.attn_backend == backend
+    state = pretrain.main(argv)
+    assert state["step"] == 2 and state["params"]["lm"]["layers"]["attn"]["q"].shape[0] == 2
+    assert CheckpointManager(os.path.join(out, "checkpoints")).all_steps() == [2]
+    rows = [json.loads(line) for line in open(os.path.join(out, "metrics.jsonl"))]
+    assert [r["step"] for r in rows] == [1, 2]
+    assert all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in rows)
 
 
 def test_train_loop_passes_step_args_and_saves_through_the_manager(tmp_path):

@@ -385,16 +385,23 @@ def test_finetune_adapt_emb_matches_jax(pretrained, data_dir, tmp_path):
     assert parts["processor"].action_tokenizer.gs_params == gs
 
 
-@pytest.mark.parametrize("argv, item", [
-    (["--mesh_model", "2", "--attn_backend", "pipeline"], "item 8d"),
-])
-def test_finetune_unported_flags_name_their_roadmap_item(argv, item):
+@pytest.mark.parametrize("argv", [["--attn_backend", "pipeline"], ["--mesh_sp", "2"]],
+                         ids=["model2-pipeline", "model2-sp2"])
+def test_finetune_lora_over_the_model_axis_with_sp_or_pipe(pretrained, data_dir, tmp_path, argv):
+    """--use_lora --mesh_model 2 with the pipeline backend (a pipe of one
+    stage) and with --mesh_sp 2 (the ring), in one process: two steps, a
+    step checkpoint and finite losses."""
     from spatialvla_tpu_torch.train import finetune
 
-    args = finetune.build_argparser().parse_args(
-        ["--pretrained_dir", "p", "--data_root_dir", "d", "--output_dir", "o"] + argv)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, Queue A {item}"):
-        finetune.build_everything(args)
+    out = str(tmp_path / "ft")
+    state = finetune.main(["--pretrained_dir", pretrained[0], "--data_root_dir", data_dir,
+                           "--output_dir", out, "--use_lora", "--lora_rank", "4",
+                           "--save_steps", "2", "--max_steps", "2", "--mesh_model", "2"]
+                          + argv + COMMON)
+    assert state["step"] == 2 and set(state["trainable"]) == {"lora", "saved"}
+    assert tck.CheckpointManager(os.path.join(out, "checkpoints")).all_steps() == [2]
+    rows = [json.loads(line) for line in open(os.path.join(out, "metrics.jsonl"))]
+    assert [r["step"] for r in rows] == [1, 2] and all(np.isfinite(r["loss"]) for r in rows)
 
 
 def test_finetune_without_a_card_raises_unless_asked_for_the_cpu(pretrained, tmp_path,

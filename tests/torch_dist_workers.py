@@ -126,8 +126,9 @@ def transports(rank, world, port, shape, out_dir):
 
 def train_steps(rank, world, port, shape, backend, inputs, out_dir):
     """Two sharded train steps of the tiny model on this rank's rows; rank 0
-    writes the metrics and the gathered parameters. Under fsdp every rank
-    also saves the state through a sharded CheckpointManager. Where the
+    writes the metrics and the gathered parameters; every rank the ranks of
+    its model, sp and pipe groups ("groups"). Under fsdp every rank also
+    saves the state through a sharded CheckpointManager. Where the
     inputs hold LoRA factors, two LoRA steps follow ("lora"); with a model
     axis, the autograd collectives are checked over its group first
     ("collectives")."""
@@ -144,7 +145,8 @@ def train_steps(rank, world, port, shape, backend, inputs, out_dir):
     mesh = _init(rank, world, port, shape)
     with open(inputs, "rb") as f:
         np_params, batches, ocfg, *lora = pickle.load(f)
-    result = {}
+    result = {"groups": {axis: torch.distributed.get_process_group_ranks(mesh.group(axis))
+                         for axis in ("model", "sp", "pipe")}}
     if mesh.shape["model"] > 1:
         result["collectives"] = collectives_errors(mesh)
     cfg = spatialvla_tiny(use_vision_zoe=True)
