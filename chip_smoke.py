@@ -155,7 +155,28 @@
    batches; equal rows, every episode counted, finite actions, the int8
    kernels and the decode kernels launched in both runs, a mean batch above
    1, the decode-graph captures during each run counted.
-10. Tensor-parallel serving (tensor_parallel_path), after (9): the int8 and
+10. The training CLIs over RLDS records from disk (data_cli_path), after
+   (9): the port's native RLDS reader built (its nvJPEG route where the
+   machine has no libjpeg; the phase fails, printing the compiler's error,
+   when it did not build) and named; the committed fixture
+   (tests/fixtures_rlds, bridge_orig at 256 x 256) through the source layer,
+   its trajectories' actions and statistics equal to golden.npz (the JAX
+   package's) and their first and last primary frames decoded at 224 x 224
+   within GOLDEN_MAX_ABS / GOLDEN_MEAN_ABS of it; then pretrain.main in this
+   process at full width with the LM cut to 6 layers (--per_device_batch_size
+   2 --seq_len 320 --no_augment --loader_workers 1 --freeze_vision_tower,
+   3 steps, a step checkpoint every 2, kept 1) and finetune.main with LoRA
+   (scripts/finetune_lora.sh's rank, alpha, targets and lr) from its export,
+   3 steps, a save every step, the runs' directories in /dev/shm (the
+   machine takes at most 45 GiB of disk writes a call; CHIP_SMOKE_WORK_ROOT
+   names another directory): finite losses, exact flash
+   launches (2 L / L / L a step), at least one step run while a background
+   checkpoint write was in flight, and each run's last step checkpoint
+   restored bit-identical to the state main returned; each save's seconds
+   blocked and written and its bytes, the steps during and without a write
+   with the stepping thread's user and system CPU time, the peak device
+   memory, host RSS and the host memory left after the phase printed.
+11. Tensor-parallel serving (tensor_parallel_path), after (10): the int8 and
    the int4-g128 (vision_bits=4) trees sharded over n_model = 2 and 4 with
    every shard on this card (SpatialVLAPolicy.shard), the lm_head times 8:
    the main path's three requests held to the unsharded policy's (the
@@ -167,9 +188,9 @@
    split one with kv_bits=8) serving 8 requests from 4 clients, kernels #1
    and #2 at every new shard shape against their plain versions, and warm
    predict ms at n_model = 1 (unfused), 2 and 4.
-11. Prints the card, the kernels' JSON line (with each decode kernel's
+12. Prints the card, the kernels' JSON line (with each decode kernel's
    launches in one replay of the graphs checked, traced and credited, the
-   launches of the LoRA, eval and model-axis runs, and an entry
+   launches of the LoRA, eval, model-axis and data CLI runs, and an entry
    "<name>_tp" for each of kernels #1 and #2 at the shard shapes), and last
    {"ok": true, ...}.
 
@@ -181,6 +202,7 @@ import collections
 import contextlib
 import dataclasses
 import functools
+import gc
 import json
 import os
 import re
@@ -1961,6 +1983,15 @@ def serving_engines(torch, counters, *, cfg=None, device="cuda"):
 # ---------------------------------------------------------------------------
 # checkpoints: an HF checkpoint in and out, a serving checkpoint in and out
 # ---------------------------------------------------------------------------
+
+def host_available() -> int:
+    """The host memory the kernel can still give (MemAvailable), bytes."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("/proc/meminfo has no MemAvailable")
+
 
 def host_rss() -> int:
     """This process's resident host memory (VmRSS), bytes."""
@@ -3786,12 +3817,12 @@ def finetune_path(torch, counters, *, cfg=None, device="cuda", n_steps=6, save_e
             return out
 
         class Manager(CheckpointManager):
-            """Times each write and keeps a copy of the state it wrote."""
+            """Keeps a copy of the state each save wrote (the seconds each save
+            blocked, and each write's seconds and bytes, are in ``writes``)."""
 
             def save(self, step, state, **kw):
-                done, sec = timed(lambda: super(Manager, self).save(step, state, **kw))
+                done = super(Manager, self).save(step, state, **kw)
                 if done:
-                    saves[step] = {"s": sec, "bytes": dir_bytes(self._step_dir(step))}
                     snapshots[step] = clone(state) | {
                         "step": state["step"], "count": state["opt_state"]["count"]}
                 return done
@@ -3809,6 +3840,9 @@ def finetune_path(torch, counters, *, cfg=None, device="cuda", n_steps=6, save_e
                            on_metrics=lambda s, m: logged.append(m))
         launches = {c.__name__: c.launches for c in counters}
         peak_gib = torch.cuda.max_memory_allocated() / 2**30 if on_card else float("nan")
+        # the loop's last wait joined the writer: every write's record is whole
+        saves.update({w["step"]: {"s": w["write_s"], "blocked_s": w["blocked_s"],
+                                  "bytes": w["bytes"]} for w in mgr.writes})
         L = cfg.text.num_layers
         want = ({"flash_attention_fwd": 2 * L * n_steps, "flash_attention_bwd_dq": L * n_steps,
                  "flash_attention_bwd_dkv": L * n_steps} if on_card
@@ -3842,8 +3876,9 @@ def finetune_path(torch, counters, *, cfg=None, device="cuda", n_steps=6, save_e
         print(f"finetune: step times {[round(t * 1e3, 2) for t in times]} ms; median after 2 "
               f"warm-up steps {step_s * 1e3:.2f} ms, {tokens / step_s:.1f} tokens/s, peak "
               f"{peak_gib:.2f} GiB; losses {[round(m['loss'], 4) for m in logged]}; checkpoint "
-              f"writes {[(s, round(v['s'], 3), v['bytes']) for s, v in sorted(saves.items())]} "
-              f"(step, s, bytes), kept {mgr.all_steps()} | "
+              f"writes {[(s, round(v['blocked_s'], 3), round(v['s'], 3), v['bytes']) for s, v in sorted(saves.items())]} "
+              f"(step, s save blocked, s written in the background, bytes), kept "
+              f"{mgr.all_steps()} | "
               f"{card_line() if on_card else 'cpu'}", flush=True)
 
         # resume: a fresh state restored from the middle checkpoint, bit for
@@ -4045,6 +4080,358 @@ def eval_path(torch, counters, policy, *, episodes=8, parallel_envs=4):
     return res
 
 
+# ---------------------------------------------------------------------------
+# the training CLIs over RLDS records from disk (data_cli_path)
+# ---------------------------------------------------------------------------
+
+FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures_rlds")
+# the card's decoded frames against golden.npz (libjpeg's decode, in the JAX
+# package's frame transform): the nvJPEG route upsamples and converts the
+# chroma as libjpeg does and resizes with the same code, so only the IDCT
+# differs (max 3, mean 0.0218 on an H100); nvJPEG's own RGB output, which
+# upsamples the chroma otherwise, read max 95, mean 0.8776, outside both
+GOLDEN_MAX_ABS, GOLDEN_MEAN_ABS = 6, 0.1
+# where data_cli_path puts its runs on the card unless CHIP_SMOKE_WORK_ROOT
+# names a directory (see data_cli_work_root)
+DATA_CLI_WORK_ROOT = "/dev/shm"
+
+
+def flat_statistics(stats, prefix="statistics") -> dict:
+    """Dataset statistics as golden.npz stores them: one array a leaf, keys
+    joined with "/"."""
+    out = {}
+    for k, v in stats.items():
+        if isinstance(v, dict):
+            out.update(flat_statistics(v, f"{prefix}/{k}"))
+        else:
+            out[f"{prefix}/{k}"] = np.asarray(v)
+    return out
+
+
+def golden_frames(root, *, size=224):
+    """The fixture's trajectories through the port's source layer, in a
+    fixed order (by their actions: the shard reader runs on threads), and
+    the primary frame of each one's first and last step decoded at
+    size x size by the frame transform's decode. Returns (trajectories,
+    first frames, last frames, decode seconds)."""
+    from spatialvla_tpu_torch.data import native
+    from spatialvla_tpu_torch.data.pipeline import RLDSDataSource
+
+    src = RLDSDataSource("bridge_orig/1.0.0", root, seed=0)
+    trajs = sorted(src.iter_canonical(), key=lambda t: t["action"].tobytes())
+    native.decode_jpeg_resize(trajs[0]["observation"]["image_primary"][0], size, size)  # warm
+    t0 = time.perf_counter()
+    first = np.stack([native.decode_jpeg_resize(t["observation"]["image_primary"][0], size, size)
+                      for t in trajs])
+    last = np.stack([native.decode_jpeg_resize(t["observation"]["image_primary"][-1], size, size)
+                     for t in trajs])
+    return src, trajs, first, last, time.perf_counter() - t0
+
+
+class CliSpy:
+    """Wraps train/trainer.train_loop while a training CLI runs: times each
+    step (synchronized), notes whether a checkpoint write was in flight when
+    it began, reads the stepping thread's user and system CPU time, context
+    switches and page faults over it (getrusage of the thread), and keeps
+    the loop's CheckpointManager. With ``trace_dir``, the steps numbered in
+    ``trace_steps`` (0 the first) run under ``utils.profiling.trace``, each
+    written to ``<trace_dir>/step<i>/trace.json`` and summed up in its
+    record's "trace"."""
+
+    def __init__(self, torch, trainer, *, trace_dir=None, trace_steps=()):
+        self.torch, self.trainer, self.loop = torch, trainer, trainer.train_loop
+        self.steps, self.manager = [], None
+        self.trace_dir, self.trace_steps = trace_dir, set(trace_steps)
+
+    def __enter__(self):
+        spy = self
+
+        def train_loop(*, train_step, checkpoint_manager=None, **kw):
+            spy.manager = checkpoint_manager
+
+            def step(*args):
+                import resource
+
+                from spatialvla_tpu_torch.utils import profiling
+
+                writing = checkpoint_manager is not None and checkpoint_manager.writing()
+                n = len(spy.steps)
+                traced = spy.trace_dir is not None and n in spy.trace_steps
+                tracer = (profiling.trace(os.path.join(spy.trace_dir, f"step{n}")) if traced
+                          else contextlib.nullcontext())
+                if spy.torch.cuda.is_available():
+                    spy.torch.cuda.synchronize()
+                with tracer as prof:
+                    ru0 = resource.getrusage(resource.RUSAGE_THREAD)
+                    t0 = time.perf_counter()
+                    out = train_step(*args)
+                    if spy.torch.cuda.is_available():
+                        spy.torch.cuda.synchronize()
+                    ms = (time.perf_counter() - t0) * 1e3
+                    ru1 = resource.getrusage(resource.RUSAGE_THREAD)
+                record = {"t0": t0, "ms": ms, "during_write": writing,
+                          "user_ms": (ru1.ru_utime - ru0.ru_utime) * 1e3,
+                          "sys_ms": (ru1.ru_stime - ru0.ru_stime) * 1e3,
+                          "minflt": ru1.ru_minflt - ru0.ru_minflt,
+                          "nvcsw": ru1.ru_nvcsw - ru0.ru_nvcsw,
+                          "nivcsw": ru1.ru_nivcsw - ru0.ru_nivcsw}
+                if traced:
+                    record["trace"] = trace_summary(prof)
+                spy.steps.append(record)
+                return out
+
+            return spy.loop(train_step=step, checkpoint_manager=checkpoint_manager, **kw)
+
+        self.trainer.train_loop = train_loop
+        return self
+
+    def __exit__(self, *exc):
+        self.trainer.train_loop = self.loop
+
+
+def trace_summary(prof, top=12) -> dict:
+    """A traced step in numbers: the kernels' count and summed device ms, the
+    CPU ms of the ops the step ran from Python (their outermost events), and
+    the ``top`` ops by their own CPU time (ms, calls)."""
+    events = prof.events()
+    kernels = [e for e in events if e.device_type.name == "CUDA"]
+    outer = [e for e in events if e.device_type.name == "CPU" and e.cpu_parent is None]
+    ops = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)[:top]
+    return {"kernels": len(kernels),
+            "kernel_ms": sum(e.device_time_total for e in kernels) / 1e3,
+            "outer_ops": len(outer),
+            "outer_cpu_ms": sum(e.cpu_time_total for e in outer) / 1e3,
+            "top_self_cpu": [[a.key, a.self_cpu_time_total / 1e3, a.count] for a in ops]}
+
+
+def restored_bit_identical(torch, ckpt_dir, state, label) -> dict:
+    """Restore the latest step of ``ckpt_dir`` into fresh CPU tensors and
+    hold every leaf to ``state``'s, bit for bit; (seconds, tensors, step)."""
+    from spatialvla_tpu_torch.train.checkpoints import CheckpointManager
+    from spatialvla_tpu_torch.utils.tree import iter_leaves, map_with_paths
+
+    like = map_with_paths(lambda _, t: torch.empty(t.shape, dtype=t.dtype)
+                          if torch.is_tensor(t) else t, state)
+    mgr = CheckpointManager(ckpt_dir)
+    t0 = time.perf_counter()
+    restored = mgr.restore(like)
+    sec = time.perf_counter() - t0
+    live = dict(iter_leaves(state))
+    n = 0
+    for path, t in iter_leaves(restored):
+        want = live[path]
+        if torch.is_tensor(t):
+            n += 1
+            got, ref = t.reshape(-1), want.detach().cpu().reshape(-1)
+            if got.dtype != ref.dtype or not torch.equal(got.view(torch.uint8),
+                                                         ref.view(torch.uint8)):
+                fail(f"{label}: the restored {path} differs from the state main returned")
+        elif t != want:
+            fail(f"{label}: the restored {path} is {t!r}, the state's {want!r}")
+    return {"s": sec, "tensors": n, "step": mgr.latest_step()}
+
+
+def data_cli_work_root():
+    """The directory data_cli_path puts its runs under on the card:
+    CHIP_SMOKE_WORK_ROOT where set (empty: TMPDIR), else DATA_CLI_WORK_ROOT
+    (/dev/shm). The card's machine ends a call past 45 GiB of disk writes,
+    the earlier phases write about 30 of them (into TMPDIR), and the phase's
+    two step checkpoints pass 37 GB even with the LM cut to 6 layers, so
+    they go to memory. The phase makes a directory of its own there
+    (mkdtemp), checks the room for both checkpoints and the host memory for
+    them beside the host copy a save takes, and removes it at the end, also
+    when it fails."""
+    root = os.environ.get("CHIP_SMOKE_WORK_ROOT", DATA_CLI_WORK_ROOT)
+    return root or None
+
+
+def data_cli_path(torch, counters, *, device="cuda", preset="spatialvla_4b", text_layers=6,
+                  image_size=224, seq_len=320, root=FIXTURE, work_root=None, steps=3,
+                  trace_dir=None):
+    """Both training CLIs over the committed RLDS fixture, in this process
+    (see the module docstring): the native reader built (its build error
+    printed and failed on otherwise) and its frames held to golden.npz,
+    pretrain.main at full width for ``steps`` steps with a step checkpoint
+    every 2 (step 3 runs while step 2's is written), its last checkpoint
+    restored bit for bit, then finetune.main with LoRA from its export for
+    3 steps, a save every step.
+
+    The preset runs at full width with its LM cut to ``text_layers`` layers
+    (``None`` keeps them all), and the runs' directories live under
+    ``work_root`` (``None``: TMPDIR; main passes data_cli_work_root()): two
+    full-width step checkpoints (the kept one and the one being written,
+    each the fp32 masters and the moments, which the untied 265,346-row head
+    and the embedding alone make about 13 GB) take more than the disk
+    writes the card's machine allows a call after the earlier phases.
+    ``trace_dir`` traces the pretrain run's second step, its third (beside
+    the step-2 checkpoint's write, into host buffers that save made) and
+    its fifth (beside the next write, into the same buffers) with
+    ``torch.profiler``.
+    ``device="cpu"`` with ``preset="spatialvla_tiny"`` rehearses it on the
+    CPU (the wrappers count nothing there)."""
+    import shutil
+
+    from spatialvla_tpu_torch.data import native
+    from spatialvla_tpu_torch.models import spatialvla as sv
+    from spatialvla_tpu_torch.train import finetune, pretrain, trainable_mask
+    from spatialvla_tpu_torch.train import trainer as trainer_mod
+    from spatialvla_tpu_torch import config as config_mod
+    from spatialvla_tpu_torch.utils.tree import iter_leaves
+
+    on_card = device != "cpu"
+    card = card_line() if on_card else "cpu"
+    res = {}
+    t0 = time.perf_counter()
+    route = native.decode_path()
+    res["reader"] = {"decode_path": route, "build_s": time.perf_counter() - t0,
+                     "build_error": native.build_error()}
+    print(f"data cli path: native reader {route} (built and loaded in "
+          f"{res['reader']['build_s']:.2f} s) | {card}", flush=True)
+    if route == "python" and on_card:
+        fail(f"data cli path: the native RLDS reader did not build, so the pure-Python reader "
+             f"and PIL would run: {native.build_error()}")
+
+    # the source layer and the frames' decode against the JAX package's golden
+    golden = np.load(os.path.join(root, "bridge_orig", "1.0.0", "golden.npz"))
+    src, trajs, first, last, dec_s = golden_frames(root)
+    actions = np.stack([t["action"] for t in trajs])
+    if not np.array_equal(actions, golden["actions"]):
+        fail("data cli path: the trajectories' actions differ from golden.npz")
+    with tempfile.TemporaryDirectory() as cache:
+        stats = flat_statistics(src.statistics(force=True, cache_dir=cache))
+    keys = sorted(k for k in golden.files if k.startswith("statistics/"))
+    if sorted(stats) != keys or not all(np.allclose(stats[k], golden[k], rtol=1e-6, atol=1e-9)
+                                        for k in keys):
+        fail(f"data cli path: the dataset statistics differ from golden.npz ({sorted(stats)})")
+    diffs = [np.abs(a.astype(np.int16) - golden[k].astype(np.int16))
+             for a, k in ((first, "first_frames"), (last, "last_frames"))]
+    max_abs, mean_abs = max(int(d.max()) for d in diffs), float(np.mean(np.stack(diffs)))
+    exact = max_abs == 0
+    res["golden"] = {"trajectories": len(trajs), "max_abs": max_abs, "mean_abs": mean_abs,
+                     "exact": exact, "decode_s": dec_s,
+                     "frames_per_s": 2 * len(trajs) / dec_s}
+    print(f"data cli path: {len(trajs)} trajectories, actions and statistics equal to "
+          f"golden.npz; {2 * len(trajs)} frames decoded at 224 x 224 by {route}: max |diff| "
+          f"{max_abs}, mean {mean_abs:.4f} uint8 steps (bound {GOLDEN_MAX_ABS} / "
+          f"{GOLDEN_MEAN_ABS}), {2 * len(trajs) / dec_s:.1f} frames/s one at a time | {card}",
+          flush=True)
+    if not (max_abs <= GOLDEN_MAX_ABS and mean_abs <= GOLDEN_MEAN_ABS):
+        fail(f"data cli path: decoded frames differ from golden.npz by {max_abs} at most, "
+             f"{mean_abs} on average")
+
+    full = getattr(config_mod, preset)
+    cfg = full()
+    if text_layers is not None:
+        cfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, num_layers=text_layers))
+    if work_root is not None and not os.path.isdir(work_root):
+        fail(f"data cli path: {work_root} is not a directory")
+    work = tempfile.mkdtemp(prefix="chip_smoke_data_cli_", dir=work_root)
+    setattr(config_mod, preset, lambda: cfg)  # what the CLIs build for --model_preset
+    try:
+        # room: the step checkpoint kept, the one being written and the host
+        # copy of the state a save takes, each the fp32 masters and the AdamW
+        # moments of the trainable leaves (the vision tower frozen, as
+        # --freeze_vision_tower does)
+        meta = sv.init_params(cfg, generator=None, device="meta")
+        mask = dict(iter_leaves(trainable_mask(meta, freeze_llm_embed=cfg.use_spatial_token,
+                                               freeze_vision=True, freeze_zoe=True)))
+        n_all = sum(t.numel() for _, t in iter_leaves(meta))
+        n_train = sum(t.numel() for p, t in iter_leaves(meta) if mask[p])
+        state_bytes = 4 * n_all + 8 * n_train
+        free = shutil.disk_usage(work).free
+        avail = host_available()
+        res["room"] = {"dir": work, "free": free, "host_available": avail,
+                       "state_bytes": state_bytes, "text_layers": cfg.text.num_layers}
+        print(f"data cli path: {preset} with {cfg.text.num_layers} of "
+              f"{full().text.num_layers} LM layers; a step checkpoint is {state_bytes} bytes "
+              f"({n_all} parameters, {n_train} trainable); {free} bytes free in {work}, "
+              f"{avail} bytes of host memory available", flush=True)
+        need = 3 * state_bytes + (8 << 30)
+        if free < 2 * state_bytes or (on_card and avail < need):
+            fail(f"data cli path: {free} bytes free in {work} and {avail} of host memory; two "
+                 f"step checkpoints need {2 * state_bytes}, and with the host copy and the "
+                 f"process {need} of host memory")
+        common = ["--data_root_dir", root, "--mixture", "bridge", "--model_preset", preset,
+                  "--per_device_batch_size", "2", "--seq_len", str(seq_len), "--image_size",
+                  str(image_size), "--logging_steps", "1", "--device", device]
+        pre_dir, ft_dir = os.path.join(work, "pretrain"), os.path.join(work, "finetune")
+        runs = {}
+        for label, main, argv in (
+                ("pretrain", pretrain.main,
+                 ["--output_dir", pre_dir, "--max_steps", str(steps), "--save_steps", "2",
+                  "--save_total_limit", "1", "--no_augment", "--loader_workers", "1",
+                  "--freeze_vision_tower", "--shuffle_buffer_size", "16"]),
+                ("finetune", finetune.main,
+                 ["--pretrained_dir", pre_dir, "--output_dir", ft_dir, "--use_lora",
+                  "--lora_rank", str(LORA["rank"]), "--lora_alpha", str(LORA["alpha"]),
+                  "--lora_target", LORA["target"], "--learning_rate", "5e-4",
+                  "--max_steps", "3", "--save_steps", "1", "--shuffle_buffer_size", "16"])):
+            out_dir = pre_dir if label == "pretrain" else ft_dir
+            zero_counts(counters)
+            if on_card:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            rss = {}
+            t0 = time.perf_counter()
+            traced = trace_dir is not None and label == "pretrain"
+            with rss_peak(rss), CliSpy(torch, trainer_mod,
+                                       trace_dir=trace_dir if traced else None,
+                                       trace_steps=(1, 2, 4)) as spy:
+                state = main(argv + common)
+            wall = time.perf_counter() - t0
+            launches = {c.__name__: c.launches for c in counters}
+            peak_gib = torch.cuda.max_memory_allocated() / 2**30 if on_card else float("nan")
+            rows = [json.loads(line) for line in open(os.path.join(out_dir, "metrics.jsonl"))]
+            writes = spy.manager.writes
+            restore = restored_bit_identical(torch, os.path.join(out_dir, "checkpoints"), state,
+                                             f"data cli path, {label}")
+            L = cfg.text.num_layers
+            n = steps if label == "pretrain" else 3
+            want = ({"flash_attention_fwd": 2 * L * n, "flash_attention_bwd_dq": L * n,
+                     "flash_attention_bwd_dkv": L * n} if on_card
+                    else {c.__name__: 0 for c in counters})
+            during = [s["ms"] for s in spy.steps if s["during_write"]]
+            alone = [s["ms"] for s in spy.steps if not s["during_write"]]
+            runs[label] = {
+                "wall_s": wall, "step_ms": [s["ms"] for s in spy.steps], "steps": spy.steps,
+                "step_ms_during_write": during, "step_ms_no_write": alone,
+                "losses": [r["loss"] for r in rows], "launches": launches,
+                "writes": writes, "restore": restore, "peak_mem_gib": peak_gib,
+                "host_rss_peak_gib": rss["rss_peak"] / 2**30, "state_step": int(state["step"])}
+            print(f"data cli path, {label}.main: {len(spy.steps)} steps in {wall:.1f} s; step ms "
+                  f"{[round(s['ms'], 2) for s in spy.steps]} ({len(during)} during a checkpoint "
+                  f"write; the stepping thread's user / system CPU ms "
+                  f"{[(round(s['user_ms'], 1), round(s['sys_ms'], 1)) for s in spy.steps]}, "
+                  f"page faults {[s['minflt'] for s in spy.steps]}); losses {[round(r['loss'], 4) for r in rows]}; saves "
+                  f"{[(w['step'], round(w['blocked_s'], 3), round(w['write_s'], 3), w['bytes']) for w in writes]} "
+                  f"(step, s save blocked, s written in the background, bytes); last step "
+                  f"{restore['step']} restored in {restore['s']:.2f} s, {restore['tensors']} "
+                  f"tensors bit-identical; flash launches {launches} (want {want}); peak "
+                  f"{peak_gib:.2f} GiB, host RSS peak {rss['rss_peak'] / 2**30:.2f} GiB | {card}",
+                  flush=True)
+            if launches != want:
+                fail(f"data cli path, {label}: flash launches {launches}, want {want}")
+            if len(rows) != n or not all(np.isfinite(r["loss"]) for r in rows):
+                fail(f"data cli path, {label}: metrics {rows}")
+            if on_card and not during:  # (a tiny state on the CPU is written at once)
+                fail(f"data cli path, {label}: no step ran while a checkpoint was written")
+            if restore["step"] != n or int(state["step"]) != n:
+                fail(f"data cli path, {label}: last checkpoint {restore['step']}, state step "
+                     f"{state['step']}")
+            del state
+            gc.collect()
+            if label == "pretrain":  # room for the fine-tuning run
+                shutil.rmtree(os.path.join(pre_dir, "checkpoints"))
+        res.update(runs)
+    finally:
+        setattr(config_mod, preset, full)
+        shutil.rmtree(work, ignore_errors=True)
+    res["host_available_after"] = host_available()
+    print(f"data cli path: {res['host_available_after']} bytes of host memory available after "
+          f"the phase ({res['room']['host_available']} before)", flush=True)
+    return res
+
+
 KERNEL_SOURCES = {  # name: (source of its C entry point, the TPU kernel it replaces)
     "q8_matvec": ("q8_matvec.cu", "spatialvla_tpu/ops/quant.py:297"),
     "q8_rmsnorm_matvec": ("q8_matvec.cu", "spatialvla_tpu/ops/quant.py:336"),
@@ -4163,6 +4550,10 @@ def main() -> int:
     del tuned
     t_eval = time.perf_counter() - t_start - t_earlier - t_lora
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    data_cli = data_cli_path(torch, flash, work_root=data_cli_work_root())
+    t_data_cli = time.perf_counter() - t0
+    torch.cuda.empty_cache()
     tensor = tensor_parallel_path(torch, timer, results, notes)
     print(f"finetune path: LoRA step median {lora['step_ms_median']:.2f} ms, "
           f"{lora['tokens_per_s']:.1f} tokens/s, peak {lora['peak_mem_gib']:.2f} GiB; checkpoint "
@@ -4170,15 +4561,30 @@ def main() -> int:
           f"{lora['restore']['s']:.3f} s ({lora['restore']['bytes']} bytes); resume "
           f"{'bit-exact' if lora['resume']['bit_exact'] else 'not bit-exact'} | {card}",
           flush=True)
+    pre, ft = data_cli["pretrain"], data_cli["finetune"]
+    print(f"data cli path: reader {data_cli['reader']['decode_path']} (build "
+          f"{data_cli['reader']['build_s']:.2f} s), golden max |diff| "
+          f"{data_cli['golden']['max_abs']} / mean {data_cli['golden']['mean_abs']:.4f}; pretrain "
+          f"({data_cli['room']['text_layers']} LM layers) steps {[round(t, 1) for t in pre['step_ms']]} "
+          f"ms ({len(pre['step_ms_during_write'])} during a write), saves blocked "
+          f"{[round(w['blocked_s'], 2) for w in pre['writes']]} s, written "
+          f"{[round(w['write_s'], 2) for w in pre['writes']]} s, "
+          f"{[w['bytes'] for w in pre['writes']]} bytes, peak {pre['peak_mem_gib']:.2f} GiB, host "
+          f"RSS {pre['host_rss_peak_gib']:.2f} GiB; LoRA steps "
+          f"{[round(t, 1) for t in ft['step_ms']]} ms, saves blocked "
+          f"{[round(w['blocked_s'], 3) for w in ft['writes']]} s, written "
+          f"{[round(w['write_s'], 3) for w in ft['writes']]} s; the phase {t_data_cli:.1f} s | "
+          f"{card}", flush=True)
     print(f"eval path: {evals['serial']['episodes_per_s']:.3f} episodes/s serially, "
           f"{evals['parallel']['episodes_per_s']:.3f} with 4 envs through the engine (mean batch "
           f"{evals['parallel']['engine']['mean_batch_occupancy']:.2f}) | {card}", flush=True)
     wall = {"before_finetune_s": t_earlier, "finetune_path_s": t_lora, "eval_path_s": t_eval,
-            "tensor_parallel_s": tensor["phase_s"],
+            "data_cli_path_s": t_data_cli, "tensor_parallel_s": tensor["phase_s"],
             "model_parallel_training_s": model_par["phase_s"]}
     print(f"wall time: {t_earlier:.1f} s to the end of the training phase (build included), "
-          f"finetune path {t_lora:.1f} s, eval path {t_eval:.1f} s, tensor parallel "
-          f"{tensor['phase_s']:.1f} s", flush=True)
+          f"finetune path {t_lora:.1f} s, eval path {t_eval:.1f} s, data cli path "
+          f"{t_data_cli:.1f} s, tensor parallel {tensor['phase_s']:.1f} s; in all "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print("detail: " + json.dumps({"build_s": build_s, "decode_step_2_layers": steps,
                                    "decode_step_matrix": matrix, "refused_shape_step": refused,
                                    "main_path": path, "serving_engines": engines,
@@ -4188,7 +4594,8 @@ def main() -> int:
                                    "parallel_path": par,
                                    "model_parallel_training": model_par,
                                    "tiny_overfit": overfit, "finetune_path": lora,
-                                   "eval_path": evals, "wall_s": wall,
+                                   "eval_path": evals, "data_cli_path": data_cli,
+                                   "wall_s": wall,
                                    "kernel_times": results, "card": card}), flush=True)
 
     # launches on each kernel's path: the int8 serving path (q8, bf16-cache
@@ -4280,6 +4687,9 @@ def main() -> int:
                 **{f"{run}_first_step": v["first_launches"][name]
                    for run, v in runs.items() if "first_launches" in v},
                 **{f"{run}_timed_steps": v["launches"][name] for run, v in runs.items()}}
+            # both training CLIs over the RLDS fixture (3 steps each)
+            extra["data_cli_path_launches"] = {run: data_cli[run]["launches"][name]
+                                               for run in ("pretrain", "finetune")}
         kernels.append({
             "name": label, "route": "cuda", "source": f"spatialvla_tpu_torch/csrc/{source}",
             "kernel_sources": [f"spatialvla_tpu_torch/csrc/{s}" for s in sources],

@@ -19,7 +19,9 @@ the process's resident set, even after ``madvise(MADV_DONTNEED)``, so
 loading the 8 GB checkpoint that way raised the RSS by the whole file.)
 ``LazySafetensorsDict`` gives a read-only Mapping over a directory of such
 files, unsharded or sharded with ``model.safetensors.index.json``. Writes go
-to a temporary file that is renamed into place.
+to a temporary file that is renamed into place, ``WRITE_CHUNK_BYTES`` a
+system call, so that a write on a background thread does not hold the
+process's address space for a whole tensor's copy at a time.
 """
 from __future__ import annotations
 
@@ -31,6 +33,12 @@ from collections.abc import Mapping
 from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
+
+# the most bytes one write() system call of save_file copies (0: a tensor a
+# call). On the H100's machine a training step beside a background write of
+# 18.7 GB took 2.8-4.6 s at a tensor a call, 0.69-1.40 s at 64 MiB and
+# 0.49-0.75 s at 8 MiB, against 0.34-0.68 s alone, the write no longer.
+WRITE_CHUNK_BYTES = 8 << 20
 
 # dtype name -> torch dtype, in the package's order (narrowest first): a
 # file's tensors are laid out by this rank, widest first
@@ -144,9 +152,11 @@ def save_file(tensors: Mapping, path: str, metadata: Optional[Dict[str, str]] = 
             for k in names:
                 t = tensors[k].detach()
                 if t.numel():
-                    data = t.contiguous().cpu().reshape(-1).view(torch.uint8).numpy()
-                    f.write(memoryview(data))
-                    total += data.nbytes
+                    data = memoryview(t.contiguous().cpu().reshape(-1).view(torch.uint8).numpy())
+                    step = WRITE_CHUNK_BYTES or len(data)
+                    for i in range(0, len(data), step):
+                        f.write(data[i:i + step])
+                    total += len(data)
         os.replace(tmp, path)
     except BaseException:
         os.unlink(tmp)

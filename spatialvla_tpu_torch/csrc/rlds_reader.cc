@@ -3,11 +3,15 @@
 //   - TFRecord record framing with crc32c (SSE4.2 hardware CRC when
 //     available, table fallback)
 //   - a minimal tf.train.Example wire parser (bytes/float/int64 lists)
-//   - JPEG decode (libjpeg) fused with area resize to the model input size
+//   - JPEG decode fused with area resize to the model input size: through
+//     libjpeg (with its DCT scaling), or, built with -DRLDS_NVJPEG where
+//     the host has no libjpeg, through nvJPEG on the GPU (the CUDA
+//     toolkit's; a full-size decode, then the same area resize on the host)
 //   - a multithreaded prefetching record pipeline over a list of shards
 // Exposed as a C ABI for ctypes (no pybind11 dependency).
 //
-// Build: make -C csrc   ->  libspatialvla_data.so
+// Built by data/native.py (g++, into the package's _build/); the decode
+// route in use is rlds_decode_path().
 
 #include <atomic>
 #include <condition_variable>
@@ -22,8 +26,14 @@
 #include <vector>
 
 #include <cmath>
-#include <jpeglib.h>
 #include <setjmp.h>
+
+#ifdef RLDS_NVJPEG
+#include <cuda_runtime.h>
+#include <nvjpeg.h>
+#else
+#include <jpeglib.h>
+#endif
 
 // ---------------------------------------------------------------------------
 // crc32c
@@ -487,6 +497,315 @@ int rlds_feature_bytes_concat(ParsedExample* pe, const char* key,
 
 // -- jpeg decode + resize ---------------------------------------------------
 
+// area (box) resize of an RGB uint8 image (H, W) to (out_h, out_w)
+static void box_resize(const uint8_t* src, int H, int W, int out_h, int out_w,
+                       uint8_t* out_rgb) {
+  for (int oy = 0; oy < out_h; oy++) {
+    int y0 = (int)((int64_t)oy * H / out_h);
+    int y1 = (int)((int64_t)(oy + 1) * H / out_h);
+    if (y1 <= y0) y1 = y0 + 1;
+    for (int ox = 0; ox < out_w; ox++) {
+      int x0 = (int)((int64_t)ox * W / out_w);
+      int x1 = (int)((int64_t)(ox + 1) * W / out_w);
+      if (x1 <= x0) x1 = x0 + 1;
+      uint32_t acc[3] = {0, 0, 0};
+      for (int y = y0; y < y1; y++)
+        for (int x = x0; x < x1; x++) {
+          const uint8_t* px = src + ((size_t)y * W + x) * 3;
+          acc[0] += px[0];
+          acc[1] += px[1];
+          acc[2] += px[2];
+        }
+      uint32_t cnt = (uint32_t)((y1 - y0) * (x1 - x0));
+      uint8_t* dst = out_rgb + ((size_t)oy * out_w + ox) * 3;
+      dst[0] = (uint8_t)(acc[0] / cnt);
+      dst[1] = (uint8_t)(acc[1] / cnt);
+      dst[2] = (uint8_t)(acc[2] / cnt);
+    }
+  }
+}
+
+// libjpeg's YCbCr -> RGB conversion (jdcolor.c: build_ycc_rgb_table and
+// ycc_rgb_convert, 16-bit fixed point), for decoders that return planes
+struct YccTables {
+  int cr_r[256], cb_b[256];
+  int32_t cr_g[256], cb_g[256];
+};
+
+[[maybe_unused]] static const YccTables& ycc_tables() {
+  static const YccTables t = [] {
+    YccTables t;
+    auto fix = [](double x) { return (int32_t)(x * 65536.0 + 0.5); };
+    for (int i = 0; i < 256; i++) {
+      int32_t x = i - 128;
+      t.cr_r[i] = (int)((fix(1.40200) * x + 32768) >> 16);
+      t.cb_b[i] = (int)((fix(1.77200) * x + 32768) >> 16);
+      t.cr_g[i] = -fix(0.71414) * x;
+      t.cb_g[i] = -fix(0.34414) * x + 32768;
+    }
+    return t;
+  }();
+  return t;
+}
+
+static inline uint8_t clamp_u8(int v) { return (uint8_t)(v < 0 ? 0 : (v > 255 ? 255 : v)); }
+
+// One chroma plane upsampled to (W, H) as libjpeg-turbo's jdsample.c does it
+// with its default fancy upsampling: the triangle filters h2v1_fancy_upsample
+// and h2v2_fancy_upsample (for planes wider than 2 samples), and
+// h1v2_fancy_upsample, the plane's first and last rows repeated beyond its
+// edges as libjpeg's context rows are; every other integer factor up to 4
+// (4:1:1, 4:1:0, and 2x at 2 samples wide) repeats each sample (int_upsample).
+// Returns false for other factors, and for a plane that, upsampled, would
+// not cover (W, H).
+[[maybe_unused]] static bool upsample_plane(const uint8_t* in, size_t pitch, int cw, int ch,
+                                            int hs, int vs, int W, int H, uint8_t* out) {
+  if (hs < 1 || hs > 4 || vs < 1 || vs > 4 || (long)cw * hs < W || (long)ch * vs < H)
+    return false;
+  std::vector<uint8_t> row((size_t)cw * hs);
+  for (int y = 0; y < H; y++) {
+    uint8_t* o = row.data();
+    int r = y / vs;
+    if (vs == 2 && (hs == 1 || (hs == 2 && cw > 2))) {
+      // the nearer input row and the next nearest (clamped at the edges)
+      int far = (y % 2 == 0) ? r - 1 : r + 1;
+      if (far < 0) far = 0;
+      if (far > ch - 1) far = ch - 1;
+      const uint8_t* p0 = in + (size_t)r * pitch;
+      const uint8_t* p1 = in + (size_t)far * pitch;
+      if (hs == 1) {
+        int bias = (y % 2 == 0) ? 1 : 2;
+        for (int c = 0; c < cw; c++) *o++ = (uint8_t)((p0[c] * 3 + p1[c] + bias) >> 2);
+      } else {
+        int this_sum = p0[0] * 3 + p1[0], next_sum = p0[1] * 3 + p1[1], last_sum;
+        *o++ = (uint8_t)((this_sum * 4 + 8) >> 4);
+        *o++ = (uint8_t)((this_sum * 3 + next_sum + 7) >> 4);
+        last_sum = this_sum;
+        this_sum = next_sum;
+        for (int c = 2; c < cw; c++) {
+          next_sum = p0[c] * 3 + p1[c];
+          *o++ = (uint8_t)((this_sum * 3 + last_sum + 8) >> 4);
+          *o++ = (uint8_t)((this_sum * 3 + next_sum + 7) >> 4);
+          last_sum = this_sum;
+          this_sum = next_sum;
+        }
+        *o++ = (uint8_t)((this_sum * 3 + last_sum + 8) >> 4);
+        *o++ = (uint8_t)((this_sum * 4 + 7) >> 4);
+      }
+    } else if (hs == 2 && vs == 1 && cw > 2) {
+      const uint8_t* p = in + (size_t)r * pitch;
+      int v = p[0];
+      *o++ = (uint8_t)v;
+      *o++ = (uint8_t)((v * 3 + p[1] + 2) >> 2);
+      for (int c = 1; c < cw - 1; c++) {
+        v = p[c] * 3;
+        *o++ = (uint8_t)((v + p[c - 1] + 1) >> 2);
+        *o++ = (uint8_t)((v + p[c + 1] + 2) >> 2);
+      }
+      v = p[cw - 1];
+      *o++ = (uint8_t)((v * 3 + p[cw - 2] + 1) >> 2);
+      *o++ = (uint8_t)v;
+    } else {
+      const uint8_t* p = in + (size_t)r * pitch;
+      for (int c = 0; c < cw; c++)
+        for (int k = 0; k < hs; k++) *o++ = p[c];
+    }
+    memcpy(out + (size_t)y * W, row.data(), W);
+  }
+  return true;
+}
+
+// Planar Y (W x H) and Cb, Cr (cw x ch, subsampled hs x vs) -> interleaved
+// RGB as libjpeg gives it; a null Cb means grayscale. False for factors that
+// upsample_plane does not take.
+[[maybe_unused]] static bool ycc_planes_to_rgb(const uint8_t* y, size_t y_pitch,
+                                               const uint8_t* cb, const uint8_t* cr,
+                                               size_t c_pitch, int cw, int ch, int hs, int vs,
+                                               int W, int H, uint8_t* rgb) {
+  if (!cb) {
+    for (int r = 0; r < H; r++)
+      for (int c = 0; c < W; c++) {
+        uint8_t v = y[(size_t)r * y_pitch + c];
+        uint8_t* px = rgb + ((size_t)r * W + c) * 3;
+        px[0] = px[1] = px[2] = v;
+      }
+    return true;
+  }
+  std::vector<uint8_t> up_cb((size_t)W * H), up_cr((size_t)W * H);
+  if (!upsample_plane(cb, c_pitch, cw, ch, hs, vs, W, H, up_cb.data()) ||
+      !upsample_plane(cr, c_pitch, cw, ch, hs, vs, W, H, up_cr.data()))
+    return false;
+  const YccTables& t = ycc_tables();
+  for (int r = 0; r < H; r++)
+    for (int c = 0; c < W; c++) {
+      size_t i = (size_t)r * W + c;
+      int Y = y[(size_t)r * y_pitch + c], b = up_cb[i], q = up_cr[i];
+      uint8_t* px = rgb + i * 3;
+      px[0] = clamp_u8(Y + t.cr_r[q]);
+      px[1] = clamp_u8(Y + (int)((t.cb_g[b] + t.cr_g[q]) >> 16));
+      px[2] = clamp_u8(Y + t.cb_b[b]);
+    }
+  return true;
+}
+
+#ifdef RLDS_NVJPEG
+
+// One decoder per concurrent caller: nvJPEG's handle is shared, but a JPEG
+// state, its stream and its buffers serve one decode at a time. Decoders are
+// taken from a free list and returned after the decode; they live as long
+// as the process.
+struct NvDecoder {
+  nvjpegJpegState_t state = nullptr;
+  cudaStream_t stream = nullptr;
+  uint8_t* dev = nullptr;   // the decoded planes (or interleaved RGB)
+  uint8_t* host = nullptr;  // their pinned copy
+  size_t cap = 0;
+  std::vector<uint8_t> rgb;  // the full-size RGB image of a planar decode
+};
+
+static std::mutex g_nv_mu;
+static nvjpegHandle_t g_nv_handle = nullptr;
+static int g_nv_device = 0;
+static std::vector<NvDecoder*> g_nv_free;
+
+static NvDecoder* nv_take() {
+  std::lock_guard<std::mutex> lk(g_nv_mu);
+  if (cudaSetDevice(g_nv_device) != cudaSuccess) return nullptr;
+  if (!g_nv_handle && nvjpegCreateSimple(&g_nv_handle) != NVJPEG_STATUS_SUCCESS) {
+    g_nv_handle = nullptr;
+    return nullptr;
+  }
+  if (!g_nv_free.empty()) {
+    NvDecoder* d = g_nv_free.back();
+    g_nv_free.pop_back();
+    return d;
+  }
+  NvDecoder* d = new NvDecoder();
+  if (nvjpegJpegStateCreate(g_nv_handle, &d->state) != NVJPEG_STATUS_SUCCESS ||
+      cudaStreamCreateWithFlags(&d->stream, cudaStreamNonBlocking) != cudaSuccess) {
+    delete d;  // (a state made before a failed stream is left to the process)
+    return nullptr;
+  }
+  return d;
+}
+
+static void nv_give(NvDecoder* d) {
+  std::lock_guard<std::mutex> lk(g_nv_mu);
+  g_nv_free.push_back(d);
+}
+
+static bool nv_reserve(NvDecoder* d, size_t need) {
+  if (need <= d->cap) return true;
+  if (d->dev) cudaFree(d->dev);
+  if (d->host) cudaFreeHost(d->host);
+  d->dev = nullptr;
+  d->host = nullptr;
+  d->cap = 0;
+  if (cudaMalloc((void**)&d->dev, need) != cudaSuccess) return false;
+  if (cudaMallocHost((void**)&d->host, need) != cudaSuccess) return false;
+  d->cap = need;
+  return true;
+}
+
+// Decode on the GPU and copy back to d->host; returns the RGB image (H, W)
+// or null. Grayscale, 4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1 and 4:1:0 images come
+// back as planes and are upsampled and converted to RGB on the host as
+// libjpeg does it; other subsamplings take nvJPEG's own RGB output.
+static const uint8_t* nv_decode(NvDecoder* d, const uint8_t* jpeg, long len, int* H,
+                                int* W) {
+  if (cudaSetDevice(g_nv_device) != cudaSuccess) return nullptr;
+  int n_comp = 0;
+  nvjpegChromaSubsampling_t sub;
+  int widths[NVJPEG_MAX_COMPONENT], heights[NVJPEG_MAX_COMPONENT];
+  if (nvjpegGetImageInfo(g_nv_handle, jpeg, (size_t)len, &n_comp, &sub, widths,
+                         heights) != NVJPEG_STATUS_SUCCESS)
+    return nullptr;
+  *W = widths[0];
+  *H = heights[0];
+  if (*W <= 0 || *H <= 0) return nullptr;
+  // the chroma factors from the subsampling nvJPEG reports; the planes'
+  // sizes must be what they give, else nvJPEG's own RGB output is taken
+  int hs = 0, vs = 0;
+  switch (sub) {
+    case NVJPEG_CSS_444: hs = 1; vs = 1; break;
+    case NVJPEG_CSS_422: hs = 2; vs = 1; break;
+    case NVJPEG_CSS_420: hs = 2; vs = 2; break;
+    case NVJPEG_CSS_440: hs = 1; vs = 2; break;
+    case NVJPEG_CSS_411: hs = 4; vs = 1; break;
+    case NVJPEG_CSS_410: hs = 4; vs = 2; break;
+    default: break;
+  }
+  bool planar = n_comp == 1 && sub == NVJPEG_CSS_GRAY;
+  if (n_comp == 3 && hs > 0)
+    planar = widths[1] == widths[2] && heights[1] == heights[2] &&
+             widths[1] == (*W + hs - 1) / hs && heights[1] == (*H + vs - 1) / vs;
+  size_t y_bytes = (size_t)(*W) * (*H);
+  size_t c_bytes = n_comp == 3 ? (size_t)widths[1] * heights[1] : 0;
+  size_t need = planar ? y_bytes + 2 * c_bytes : y_bytes * 3;
+  if (!nv_reserve(d, need)) return nullptr;
+  nvjpegImage_t img;
+  memset(&img, 0, sizeof(img));
+  img.channel[0] = d->dev;
+  if (planar) {
+    img.pitch[0] = (size_t)(*W);
+    if (n_comp == 3) {
+      for (int c = 1; c < 3; c++) {
+        img.channel[c] = d->dev + y_bytes + (c - 1) * c_bytes;
+        img.pitch[c] = (size_t)widths[1];
+      }
+    }
+  } else {
+    img.pitch[0] = (size_t)(*W) * 3;
+  }
+  nvjpegOutputFormat_t fmt = !planar ? NVJPEG_OUTPUT_RGBI
+                             : (n_comp == 1 ? NVJPEG_OUTPUT_Y : NVJPEG_OUTPUT_YUV);
+  if (nvjpegDecode(g_nv_handle, d->state, jpeg, (size_t)len, fmt, &img, d->stream) !=
+      NVJPEG_STATUS_SUCCESS)
+    return nullptr;
+  if (cudaMemcpyAsync(d->host, d->dev, need, cudaMemcpyDeviceToHost, d->stream) !=
+          cudaSuccess ||
+      cudaStreamSynchronize(d->stream) != cudaSuccess)
+    return nullptr;
+  if (!planar) return d->host;
+  d->rgb.resize(y_bytes * 3);
+  const uint8_t* cb = n_comp == 3 ? d->host + y_bytes : nullptr;
+  if (!ycc_planes_to_rgb(d->host, (size_t)(*W), cb, cb ? cb + c_bytes : nullptr,
+                         (size_t)widths[1], widths[1], heights[1], hs, vs, *W, *H,
+                         d->rgb.data()))
+    return nullptr;
+  return d->rgb.data();
+}
+
+const char* rlds_decode_path() { return "nvjpeg"; }
+
+// The GPU that nvJPEG decodes on (default 0); set before the first decode.
+void rlds_set_decode_device(int device) {
+  std::lock_guard<std::mutex> lk(g_nv_mu);
+  g_nv_device = device;
+}
+
+// Decode JPEG on the GPU (nvJPEG, full size: no DCT scaling; the chroma
+// upsampled and converted to RGB on the host as libjpeg does it) and
+// area-resize to (out_h, out_w) RGB uint8 on the host. Returns 0 on success.
+int rlds_decode_jpeg_resize(const uint8_t* jpeg, long len, int out_h,
+                            int out_w, uint8_t* out_rgb) {
+  NvDecoder* d = nv_take();
+  if (!d) return -1;
+  int H = 0, W = 0;
+  const uint8_t* rgb = nv_decode(d, jpeg, len, &H, &W);
+  if (rgb) box_resize(rgb, H, W, out_h, out_w, out_rgb);
+  nv_give(d);
+  return rgb ? 0 : -1;
+}
+
+// The decode above: nvJPEG's planes are upsampled and converted on the host.
+int rlds_decode_jpeg_resize_planar(const uint8_t* jpeg, long len, int out_h, int out_w,
+                                   uint8_t* out_rgb) {
+  return rlds_decode_jpeg_resize(jpeg, len, out_h, out_w, out_rgb);
+}
+
+#else  // libjpeg
+
 struct JpegErr {
   struct jpeg_error_mgr pub;
   jmp_buf jb;
@@ -496,6 +815,11 @@ static void jpeg_err_exit(j_common_ptr cinfo) {
   auto* e = (JpegErr*)cinfo->err;
   longjmp(e->jb, 1);
 }
+
+const char* rlds_decode_path() { return "libjpeg"; }
+
+// libjpeg decodes on the calling thread: there is no device to choose.
+void rlds_set_decode_device(int) {}
 
 // Decode JPEG and area-resize to (out_h, out_w) RGB uint8. Uses libjpeg's
 // fractional DCT scaling to get close to the target cheaply, then a box
@@ -542,33 +866,80 @@ int rlds_decode_jpeg_resize(const uint8_t* jpeg, long len, int out_h,
   }
   jpeg_finish_decompress(&cinfo);
   jpeg_destroy_decompress(&cinfo);
-
-  // box-filter resize to (out_h, out_w)
-  for (int oy = 0; oy < out_h; oy++) {
-    int y0 = (int)((int64_t)oy * H / out_h);
-    int y1 = (int)((int64_t)(oy + 1) * H / out_h);
-    if (y1 <= y0) y1 = y0 + 1;
-    for (int ox = 0; ox < out_w; ox++) {
-      int x0 = (int)((int64_t)ox * W / out_w);
-      int x1 = (int)((int64_t)(ox + 1) * W / out_w);
-      if (x1 <= x0) x1 = x0 + 1;
-      uint32_t acc[3] = {0, 0, 0};
-      for (int y = y0; y < y1; y++)
-        for (int x = x0; x < x1; x++) {
-          const uint8_t* px = buf.data() + ((size_t)y * W + x) * 3;
-          acc[0] += px[0];
-          acc[1] += px[1];
-          acc[2] += px[2];
-        }
-      uint32_t cnt = (uint32_t)((y1 - y0) * (x1 - x0));
-      uint8_t* dst = out_rgb + ((size_t)oy * out_w + ox) * 3;
-      dst[0] = (uint8_t)(acc[0] / cnt);
-      dst[1] = (uint8_t)(acc[1] / cnt);
-      dst[2] = (uint8_t)(acc[2] / cnt);
-    }
-  }
+  box_resize(buf.data(), H, W, out_h, out_w, out_rgb);
   return 0;
 }
+
+// The nvJPEG route's host half over libjpeg's planes, so that a host
+// without a GPU checks it: a full-size decode to the planes (raw data,
+// chroma at its stored subsampling), upsampled and converted by
+// ycc_planes_to_rgb, then the area resize. Returns 0 on success, 1 for a
+// subsampling the planar path does not take, -1 on a decode error.
+int rlds_decode_jpeg_resize_planar(const uint8_t* jpeg, long len, int out_h, int out_w,
+                                   uint8_t* out_rgb) {
+  jpeg_decompress_struct cinfo;
+  JpegErr jerr;
+  cinfo.err = jpeg_std_error(&jerr.pub);
+  jerr.pub.error_exit = jpeg_err_exit;
+  if (setjmp(jerr.jb)) {
+    jpeg_destroy_decompress(&cinfo);
+    return -1;
+  }
+  jpeg_create_decompress(&cinfo);
+  jpeg_mem_src(&cinfo, const_cast<uint8_t*>(jpeg), (unsigned long)len);
+  if (jpeg_read_header(&cinfo, TRUE) != JPEG_HEADER_OK ||
+      (cinfo.num_components != 1 && cinfo.num_components != 3)) {
+    jpeg_destroy_decompress(&cinfo);
+    return -1;
+  }
+  cinfo.raw_data_out = TRUE;
+  jpeg_start_decompress(&cinfo);
+  int W = cinfo.output_width, H = cinfo.output_height, nc = cinfo.num_components;
+  int vmax = cinfo.max_v_samp_factor;
+  std::vector<std::vector<uint8_t>> planes(nc);
+  std::vector<size_t> pitch(nc);
+  for (int c = 0; c < nc; c++) {
+    const jpeg_component_info* ci = &cinfo.comp_info[c];
+    pitch[c] = (size_t)ci->width_in_blocks * DCTSIZE;
+    planes[c].assign(pitch[c] * (ci->height_in_blocks + ci->v_samp_factor) * DCTSIZE, 0);
+  }
+  std::vector<JSAMPROW> rows[3];
+  JSAMPARRAY arrays[3];
+  while (cinfo.output_scanline < cinfo.output_height) {
+    int y = cinfo.output_scanline;  // a multiple of vmax * DCTSIZE
+    for (int c = 0; c < nc; c++) {
+      int v = cinfo.comp_info[c].v_samp_factor, n = v * DCTSIZE, base = y / vmax * v;
+      rows[c].resize(n);
+      for (int i = 0; i < n; i++) rows[c][i] = planes[c].data() + (size_t)(base + i) * pitch[c];
+      arrays[c] = rows[c].data();
+    }
+    jpeg_read_raw_data(&cinfo, arrays, (JDIMENSION)(vmax * DCTSIZE));
+  }
+  int cw = 0, ch = 0, hs = 1, vs = 1;
+  if (nc == 3) {
+    cw = cinfo.comp_info[1].downsampled_width;
+    ch = cinfo.comp_info[1].downsampled_height;
+    hs = cinfo.max_h_samp_factor / cinfo.comp_info[1].h_samp_factor;
+    vs = cinfo.max_v_samp_factor / cinfo.comp_info[1].v_samp_factor;
+    for (int c = 1; c < 3; c++)  // both chroma planes at one integer factor
+      if (cinfo.comp_info[c].h_samp_factor * hs != cinfo.max_h_samp_factor ||
+          cinfo.comp_info[c].v_samp_factor * vs != cinfo.max_v_samp_factor ||
+          cinfo.comp_info[0].h_samp_factor != cinfo.max_h_samp_factor ||
+          cinfo.comp_info[0].v_samp_factor != cinfo.max_v_samp_factor)
+        hs = 0;
+  }
+  jpeg_finish_decompress(&cinfo);
+  jpeg_destroy_decompress(&cinfo);
+  std::vector<uint8_t> rgb((size_t)W * H * 3);
+  const uint8_t* cb = nc == 3 ? planes[1].data() : nullptr;
+  if (!ycc_planes_to_rgb(planes[0].data(), pitch[0], cb, nc == 3 ? planes[2].data() : nullptr,
+                         nc == 3 ? pitch[1] : 0, cw, ch, hs, vs, W, H, rgb.data()))
+    return 1;
+  box_resize(rgb.data(), H, W, out_h, out_w, out_rgb);
+  return 0;
+}
+
+#endif  // RLDS_NVJPEG
 
 uint32_t rlds_crc32c(const uint8_t* data, long len) {
   return crc32c(data, (size_t)len);

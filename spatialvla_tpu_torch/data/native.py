@@ -1,64 +1,120 @@
 """ctypes bindings for the native data loader (the package's own
 csrc/rlds_reader.cc).
 
-Auto-builds the shared library into the package's _build/ on first use if a
-host C++ compiler is present; falls back to the pure-Python implementations
-(tfrecord.py / example_proto.py / PIL decode) otherwise. All public helpers
-keep the same interface either way so the pipeline is oblivious to which
-path is active.
+Builds the shared library into the package's _build/ on first use, with
+the host's C++ compiler, under a file name keyed by a hash of the source,
+the flags and the decode route, so a changed source rebuilds and an
+unchanged one loads at once. The JPEG decode route is libjpeg where its
+header is found, else nvJPEG from the CUDA toolkit (a GPU decode, then the
+same area resize on the host), else none: then no library is built and the
+pure-Python implementations run (tfrecord.py / example_proto.py / PIL
+decode). ``decode_path()`` names the route in use and ``build_error()``
+keeps the compiler's message of a failed build. All public helpers keep the
+same interface either way so the pipeline is oblivious to which path is
+active.
 """
 from __future__ import annotations
 
 import ctypes
+import hashlib
+import logging
 import os
 import subprocess
 from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
+logger = logging.getLogger(__name__)
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_PKG, "csrc", "rlds_reader.cc")
-_LIB_PATH = os.path.join(_PKG, "_build", "libspatialvla_data.so")
+_BUILD = os.path.join(_PKG, "_build")
 # the flags of the reader's build: -march=native because the library is
 # built on the host that runs it (crc32c needs >= SSE4.2); -ffast-math
 # vectorizes the photometric augment (outputs within 1 u8 LSB of strict math)
 _CXXFLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-pthread", "-march=native",
              "-funroll-loops", "-ffast-math", "-shared")
 _lib = None
-
-
 _load_failed = False
+_build_error: Optional[str] = None
 
 
-def _build() -> None:
-    """Compile the reader into _build/ (atomic rename, so concurrent
-    processes never load a partial file)."""
-    os.makedirs(os.path.dirname(_LIB_PATH), exist_ok=True)
-    tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
-    subprocess.run(
-        [os.environ.get("CXX", "g++"), *_CXXFLAGS, _SRC, "-ljpeg", "-o", tmp],
-        check=True, capture_output=True, timeout=120,
-    )
-    os.replace(tmp, _LIB_PATH)
+def _cxx() -> str:
+    return os.environ.get("CXX", "g++")
+
+
+def _has_libjpeg() -> bool:
+    """Whether the compiler finds jpeglib.h (a preprocessor run)."""
+    try:
+        out = subprocess.run([_cxx(), "-E", "-x", "c++", "-", "-o", os.devnull],
+                             input="#include <cstdio>\n#include <jpeglib.h>\n",
+                             capture_output=True, text=True, timeout=60)
+    except (OSError, subprocess.TimeoutExpired):
+        return False
+    return out.returncode == 0
+
+
+def _cuda_home() -> str:
+    return os.environ.get("CUDA_HOME", "/usr/local/cuda")
+
+
+def _route():
+    """(decode route, extra compiler flags) of this host's build, or
+    (None, why) when it has neither libjpeg nor nvJPEG."""
+    if _has_libjpeg():
+        return "libjpeg", ("-ljpeg",)
+    cuda = _cuda_home()
+    if os.path.exists(os.path.join(cuda, "include", "nvjpeg.h")):
+        lib = os.path.join(cuda, "lib64")
+        return "nvjpeg", ("-DRLDS_NVJPEG", f"-I{os.path.join(cuda, 'include')}", f"-L{lib}",
+                          f"-Wl,-rpath,{lib}", "-lnvjpeg", "-lcudart_static", "-ldl", "-lrt")
+    return None, (f"no JPEG decoder to build the reader with: {_cxx()} finds no jpeglib.h "
+                  f"and {cuda}/include has no nvjpeg.h")
+
+
+def _library_path(route: str, flags) -> str:
+    """The library's file, keyed by a hash of the source, flags and route."""
+    h = hashlib.sha256(" ".join((_cxx(), route) + _CXXFLAGS + tuple(flags)).encode())
+    with open(_SRC, "rb") as f:
+        h.update(f.read())
+    return os.path.join(_BUILD, f"libspatialvla_data-{route}-{h.hexdigest()[:16]}.so")
+
+
+def _build(path: str, flags) -> None:
+    """Compile the reader into ``path`` (atomic rename, so concurrent
+    processes never load a partial file); raises with the compiler's stderr."""
+    os.makedirs(_BUILD, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    out = subprocess.run([_cxx(), *_CXXFLAGS, _SRC, *flags, "-o", tmp],
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        raise RuntimeError(f"building {os.path.basename(path)} failed ({_cxx()}, exit "
+                           f"{out.returncode}):\n{out.stderr.strip()}")
+    os.replace(tmp, path)
 
 
 def _load() -> Optional[ctypes.CDLL]:
-    global _lib, _load_failed
+    global _lib, _load_failed, _build_error
     if _lib is not None:
         return _lib
     if _load_failed:  # don't re-spawn the compiler per frame on toolchain-less hosts
         return None
-    if not os.path.exists(_LIB_PATH):
-        try:
-            _build()
-        except Exception:
-            _load_failed = True
-            return None
+    route, flags = _route()
     try:
-        lib = ctypes.CDLL(_LIB_PATH)
-    except OSError:
+        if route is None:
+            raise RuntimeError(flags)
+        path = _library_path(route, flags)
+        if not os.path.exists(path):
+            _build(path, flags)
+        lib = ctypes.CDLL(path)
+    except (OSError, RuntimeError, subprocess.TimeoutExpired) as e:
+        _build_error = str(e)
         _load_failed = True
+        logger.warning("the native RLDS reader is not built; the pure-Python reader and PIL "
+                       "run instead: %s", _build_error)
         return None
+    lib.rlds_decode_path.restype = ctypes.c_char_p
+    lib.rlds_decode_path.argtypes = []
+    lib.rlds_set_decode_device.argtypes = [ctypes.c_int]
     lib.rlds_reader_open.restype = ctypes.c_void_p
     lib.rlds_reader_open.argtypes = [
         ctypes.POINTER(ctypes.c_char_p), ctypes.c_int, ctypes.c_int,
@@ -73,45 +129,62 @@ def _load() -> Optional[ctypes.CDLL]:
     lib.rlds_feature_info.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.POINTER(ctypes.c_long)]
     lib.rlds_feature_floats.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.POINTER(ctypes.c_float)]
     lib.rlds_feature_ints.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.POINTER(ctypes.c_longlong)]
-    lib.rlds_feature_bytes_len.restype = ctypes.c_long
-    lib.rlds_feature_bytes_len.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int]
-    lib.rlds_feature_bytes.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int, ctypes.POINTER(ctypes.c_uint8)]
     lib.rlds_parsed_free.argtypes = [ctypes.c_void_p]
     lib.rlds_decode_jpeg_resize.argtypes = [
         ctypes.POINTER(ctypes.c_uint8), ctypes.c_long, ctypes.c_int,
         ctypes.c_int, ctypes.POINTER(ctypes.c_uint8),
     ]
-    if hasattr(lib, "rlds_augment"):
-        lib.rlds_augment.argtypes = [
-            ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,
-            ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-            ctypes.c_float, ctypes.c_float,
-        ]
-    # fused read+parse / batched-extraction entry points (guarded so a stale
-    # prebuilt library still loads with the slow path)
-    if hasattr(lib, "rlds_reader_next_parsed"):
-        lib.rlds_reader_next_parsed.restype = ctypes.c_void_p
-        lib.rlds_reader_next_parsed.argtypes = [ctypes.c_void_p]
-        lib.rlds_reader_open_parsed.restype = ctypes.c_void_p
-        lib.rlds_reader_open_parsed.argtypes = lib.rlds_reader_open.argtypes
-        lib.rlds_keys.restype = ctypes.c_long
-        lib.rlds_keys.argtypes = [
-            ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint8), ctypes.c_long,
-        ]
-        lib.rlds_feature_bytes_lens.restype = ctypes.c_long
-        lib.rlds_feature_bytes_lens.argtypes = [
-            ctypes.c_void_p, ctypes.c_char_p, ctypes.POINTER(ctypes.c_longlong),
-        ]
-        lib.rlds_feature_bytes_concat.argtypes = [
-            ctypes.c_void_p, ctypes.c_char_p, ctypes.POINTER(ctypes.c_uint8),
-        ]
+    lib.rlds_decode_jpeg_resize_planar.argtypes = lib.rlds_decode_jpeg_resize.argtypes
+    lib.rlds_augment.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+        ctypes.c_float, ctypes.c_float,
+    ]
+    # fused read+parse / batched-extraction entry points
+    lib.rlds_reader_next_parsed.restype = ctypes.c_void_p
+    lib.rlds_reader_next_parsed.argtypes = [ctypes.c_void_p]
+    lib.rlds_reader_open_parsed.restype = ctypes.c_void_p
+    lib.rlds_reader_open_parsed.argtypes = lib.rlds_reader_open.argtypes
+    lib.rlds_keys.restype = ctypes.c_long
+    lib.rlds_keys.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint8), ctypes.c_long,
+    ]
+    lib.rlds_feature_bytes_lens.restype = ctypes.c_long
+    lib.rlds_feature_bytes_lens.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.POINTER(ctypes.c_longlong),
+    ]
+    lib.rlds_feature_bytes_concat.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.POINTER(ctypes.c_uint8),
+    ]
     _lib = lib
     return lib
 
 
 def available() -> bool:
     return _load() is not None
+
+
+def decode_path() -> str:
+    """The JPEG decode route in use: "libjpeg" or "nvjpeg" (the native
+    library's), or "python" (PIL, without the library)."""
+    lib = _load()
+    return "python" if lib is None else lib.rlds_decode_path().decode()
+
+
+def build_error() -> Optional[str]:
+    """Why the native library is not loaded (the compiler's stderr of a
+    failed build, or the missing decoder), or None."""
+    _load()
+    return _build_error
+
+
+def set_decode_device(index: int) -> None:
+    """The GPU that the nvJPEG route decodes on (default 0); a no-op on the
+    other routes. Call it before the first decode of a process."""
+    lib = _load()
+    if lib is not None:
+        lib.rlds_set_decode_device(int(index))
 
 
 # ---------------------------------------------------------------------------
@@ -162,17 +235,13 @@ def _native_keys(lib, pe) -> List[str]:
 
 
 def _extract_all(lib, pe) -> Dict:
-    if hasattr(lib, "rlds_keys"):
-        keys = _native_keys(lib, pe)
-    else:  # stale prebuilt library: python proto walk for the key list only
-        raise RuntimeError(f"rebuild {_LIB_PATH} (delete it; the next load rebuilds it)")
-    return {key: _extract(lib, pe, key) for key in keys}
+    return {key: _extract(lib, pe, key) for key in _native_keys(lib, pe)}
 
 
 def parse_example(payload: bytes) -> Dict:
     """Parse a serialized tf.Example into {key: list | np.ndarray}."""
     lib = _load()
-    if lib is None or not hasattr(lib, "rlds_keys"):
+    if lib is None:
         from .example_proto import parse_example as py_parse
 
         return py_parse(payload)
@@ -202,30 +271,22 @@ def _extract(lib, pe, key: str):
         lib.rlds_feature_ints(pe, kb, arr.ctypes.data_as(ctypes.POINTER(ctypes.c_longlong)))
         return arr
     if t == 1:
-        if hasattr(lib, "rlds_feature_bytes_lens"):
-            # two crossings for the whole list (lens + concat payload); one
-            # C->Python copy total, then a bytes() slice per value
-            lens = np.empty(n, dtype=np.int64)
-            total = lib.rlds_feature_bytes_lens(
-                pe, kb, lens.ctypes.data_as(ctypes.POINTER(ctypes.c_longlong))
-            )
-            flat = bytearray(int(total))
-            lib.rlds_feature_bytes_concat(
-                pe, kb, (ctypes.c_uint8 * len(flat)).from_buffer(flat)
-            )
-            view = memoryview(flat)
-            out, off = [], 0
-            for ln in lens.tolist():
-                out.append(bytes(view[off : off + ln]))
-                off += ln
-            return out
-        vals = []
-        for i in range(n):
-            ln = lib.rlds_feature_bytes_len(pe, kb, i)
-            b = (ctypes.c_uint8 * ln)()
-            lib.rlds_feature_bytes(pe, kb, i, b)
-            vals.append(bytes(b))
-        return vals
+        # two crossings for the whole list (lens + concat payload); one
+        # C->Python copy total, then a bytes() slice per value
+        lens = np.empty(n, dtype=np.int64)
+        total = lib.rlds_feature_bytes_lens(
+            pe, kb, lens.ctypes.data_as(ctypes.POINTER(ctypes.c_longlong))
+        )
+        flat = bytearray(int(total))
+        lib.rlds_feature_bytes_concat(
+            pe, kb, (ctypes.c_uint8 * len(flat)).from_buffer(flat)
+        )
+        view = memoryview(flat)
+        out, off = [], 0
+        for ln in lens.tolist():
+            out.append(bytes(view[off : off + ln]))
+            off += ln
+        return out
     return None
 
 
@@ -236,9 +297,9 @@ def iter_parsed(
     """Fused native read+parse stream: one crossing pops-and-parses each
     TFRecord (the payload bytes never round-trip through Python), then
     batched feature extraction. Falls back to iter_records + parse_example
-    when the native library (or the fused entry point) is unavailable."""
+    when the native library is unavailable."""
     lib = _load()
-    if lib is None or not hasattr(lib, "rlds_reader_next_parsed"):
+    if lib is None:
         for payload in iter_records(
             paths, n_threads=n_threads, queue_capacity=queue_capacity,
             verify_crc=verify_crc,
@@ -247,8 +308,7 @@ def iter_parsed(
         return
 
     arr = (ctypes.c_char_p * len(paths))(*[p.encode() for p in paths])
-    opener = getattr(lib, "rlds_reader_open_parsed", lib.rlds_reader_open)
-    handle = opener(arr, len(paths), n_threads, queue_capacity, int(verify_crc))
+    handle = lib.rlds_reader_open_parsed(arr, len(paths), n_threads, queue_capacity, int(verify_crc))
     try:
         while True:
             pe = lib.rlds_reader_next_parsed(handle)
@@ -299,6 +359,8 @@ def decode_jpeg_resize(jpeg_bytes: bytes, out_h: int, out_w: int) -> np.ndarray:
         )
         if rc == 0:
             return out
+        logger.warning("the %s route could not decode a JPEG of %d bytes; PIL decodes it",
+                       decode_path(), len(jpeg_bytes))
     import io
 
     from PIL import Image
@@ -308,6 +370,25 @@ def decode_jpeg_resize(jpeg_bytes: bytes, out_h: int, out_w: int) -> np.ndarray:
     return np.asarray(img)
 
 
+def decode_jpeg_resize_planar(jpeg_bytes: bytes, out_h: int, out_w: int) -> np.ndarray:
+    """``decode_jpeg_resize`` through the nvJPEG route's host half: the
+    decoder's planes (libjpeg's raw data on the libjpeg route, nvJPEG's on
+    the nvJPEG route) upsampled and converted to RGB as libjpeg does it, then
+    the area resize. Raises without the native library or for a JPEG that
+    path does not take."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError(f"the native reader is not built: {_build_error}")
+    src = np.frombuffer(jpeg_bytes, dtype=np.uint8)
+    out = np.empty((out_h, out_w, 3), dtype=np.uint8)
+    rc = lib.rlds_decode_jpeg_resize_planar(
+        src.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), len(jpeg_bytes), out_h, out_w,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+    if rc != 0:
+        raise ValueError(f"the planar decode of a JPEG of {len(jpeg_bytes)} bytes failed ({rc})")
+    return out
+
+
 def augment_native(
     img: np.ndarray, crop_yxhw, b_delta: float, c_factor: float,
     s_factor: float, h_delta: float,
@@ -315,7 +396,7 @@ def augment_native(
     """Fused crop-resize + photometric augmentation in C++ (single pass);
     returns None when the native lib is unavailable."""
     lib = _load()
-    if lib is None or not hasattr(lib, "rlds_augment"):
+    if lib is None:
         return None
     img = np.ascontiguousarray(img, dtype=np.uint8)
     H, W = img.shape[:2]

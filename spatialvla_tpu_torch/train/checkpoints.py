@@ -23,13 +23,19 @@ keyed by flat paths); version 1 files, which have neither, still load. A JAX
 ``CheckpointManager`` keeps ``<directory>/<step>/params.safetensors`` per
 saved step, each written into a temporary directory and renamed into place
 (a crash mid-save leaves the last good step, as Orbax's do), with Orbax's
-save interval and retention and the JAX manager's JSON sidecars. Writes are
-synchronous: ``save`` returns once the step is on disk, and ``wait`` has
-nothing to wait for (Orbax writes in the background). In a run of several
-processes every process calls ``save`` and process 0 writes (the JAX
-manager's sidecars, checkpoints.py:41, 50); a state cut over model and fsdp
-(``shards``, ``parallel.TrainShards``) is joined whole first, so the file
-is the one an unsharded run writes, and a restore cuts each process's
+save interval and retention and the JAX manager's JSON sidecars. Writes run
+in the background, as Orbax's do with ``enable_async_checkpointing``:
+``save`` copies the state into host buffers (kept and reused from one save
+to the next) and returns, and a writer thread writes the step, renames it
+into place, writes the sidecars and applies retention. One write is in
+flight at a time (a ``save`` first waits for the one before), a step in
+flight counts as saved, ``wait`` joins the writer, and an error of the
+writer is raised at the next ``save``, ``wait`` or ``close``.
+``save_params`` (a one-shot export) writes synchronously. In a run of
+several processes every process calls ``save`` and process 0 writes (the
+JAX manager's sidecars, checkpoints.py:41, 50); a state cut over model and
+fsdp (``shards``, ``parallel.TrainShards``) is joined whole first, so the
+file is the one an unsharded run writes, and a restore cuts each process's
 shards of it again: a checkpoint of a 4-rank run restores in one process.
 """
 from __future__ import annotations
@@ -38,6 +44,8 @@ import json
 import os
 import shutil
 import tempfile
+import threading
+import time
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -183,14 +191,23 @@ def _barrier():
 class CheckpointManager:
     """Step-numbered checkpoints of a whole train state plus sidecar JSON
     artifacts (model config, processor state): the interface of the JAX
-    package's Orbax manager (train/checkpoints.py:15).
+    package's Orbax manager (train/checkpoints.py:15), written in the
+    background.
 
     A step is saved when it is forced, or when no step is kept yet, or when
     it is past the latest and a multiple of ``save_interval_steps`` (Orbax's
     decision); after each save only the ``max_to_keep`` newest steps stay
-    (None keeps all)."""
+    (None keeps all). ``all_steps`` counts a step in flight and the
+    retention its write will apply. ``writes`` records each save: the
+    seconds ``save`` blocked the caller (``blocked_s``: the gather and the
+    copy to host memory), then, once written, the seconds of the write
+    (``write_s``) and its bytes."""
 
     _TMP = ".tmp-"
+    # the writer threads of this process by directory, so that another
+    # manager of the same directory waits for them before it cleans up
+    _writers: Dict[str, threading.Thread] = {}
+    _writers_lock = threading.Lock()
 
     def __init__(self, directory: str, *, save_interval_steps: int = 1,
                  max_to_keep: Optional[int] = 3, shards=None):
@@ -198,6 +215,15 @@ class CheckpointManager:
         self.save_interval_steps = save_interval_steps
         self.max_to_keep = max_to_keep
         self.shards = shards
+        self.writes: List[Dict[str, Any]] = []
+        self._pending: Optional[int] = None  # the step in flight (every process)
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+        self._host: Dict[tuple, torch.Tensor] = {}  # the host buffers, by leaf path
+        with self._writers_lock:
+            other = self._writers.get(self.directory)
+        if other is not None:
+            other.join()
         if process_index() == 0:
             os.makedirs(self.directory, exist_ok=True)
             for name in os.listdir(self.directory):  # steps an earlier run left half-written
@@ -208,13 +234,22 @@ class CheckpointManager:
     def _step_dir(self, step: int) -> str:
         return os.path.join(self.directory, str(step))
 
-    def all_steps(self) -> List[int]:
-        """The saved steps, oldest first (directories that hold a whole step)."""
+    def _disk_steps(self) -> List[int]:
+        """The steps on disk, oldest first (directories that hold a whole step)."""
         if not os.path.isdir(self.directory):
             return []
         return sorted(int(name) for name in os.listdir(self.directory)
                       if name.isdigit() and os.path.isfile(
                           os.path.join(self.directory, name, PARAMS_FILE)))
+
+    def all_steps(self) -> List[int]:
+        """The saved steps, oldest first: those on disk and the one in
+        flight, less those that its retention removes."""
+        steps = self._disk_steps()
+        if self._pending is None:
+            return steps
+        steps = sorted(set(steps) | {self._pending})
+        return steps if self.max_to_keep is None else steps[-self.max_to_keep:]
 
     def latest_step(self) -> Optional[int]:
         steps = self.all_steps()
@@ -226,39 +261,94 @@ class CheckpointManager:
 
     def save(self, step: int, state: Dict[str, Any], *, sidecar: Optional[Dict] = None,
              force: bool = False) -> bool:
-        """Write ``state`` as ``step``; False when the step is already saved
-        (e.g. the final save of a run that ended on an interval) or, without
-        ``force``, not due."""
+        """Start writing ``state`` as ``step``; False when the step is already
+        saved or in flight (e.g. the final save of a run that ended on an
+        interval) or, without ``force``, not due. Returns once the state is
+        copied to host memory: the caller may update its tensors in place."""
         if step in self.all_steps() or not (force or self.should_save(step)):
             return False
+        t0 = time.perf_counter()
+        self._join()  # one write in flight; raises the last write's error
         if self.shards is not None:  # every rank takes part in the gather
             state = self.shards.gather_state(state)
-        if process_index() == 0:
-            self._write(step, state, sidecar)
-        _barrier()
+        self._pending = step
+        writer = process_index() == 0
+        snapshot = self._snapshot(state, ()) if writer else None
+        record = {"step": step, "blocked_s": time.perf_counter() - t0}
+        self.writes.append(record)
+        if writer:
+            self._thread = threading.Thread(target=self._write, name=f"checkpoint-{step}",
+                                            args=(step, snapshot, sidecar, record))
+            with self._writers_lock:
+                self._writers[self.directory] = self._thread
+            self._thread.start()
         return True
 
-    def _write(self, step: int, state, sidecar):
-        tmp = tempfile.mkdtemp(dir=self.directory, prefix=f"{step}{self._TMP}")
+    def _snapshot(self, tree, path: tuple):
+        """``tree`` with each tensor copied into this manager's host buffer
+        for its path (made on the first save, reused after)."""
+        if isinstance(tree, dict):
+            return {k: self._snapshot(v, path + (k,)) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [self._snapshot(v, path + (i,)) for i, v in enumerate(tree)]
+        if not isinstance(tree, torch.Tensor):
+            return tree
+        buf = self._host.get(path)
+        if buf is None or buf.shape != tree.shape or buf.dtype != tree.dtype:
+            buf = self._host[path] = torch.empty(tree.shape, dtype=tree.dtype, device="cpu")
+        with torch.no_grad():
+            buf.copy_(tree.detach())  # from the card: returns once the copy is done
+        return buf
+
+    def _write(self, step: int, state, sidecar, record):
+        """The writer thread: the step into a temporary directory, renamed
+        into place, the sidecars, retention. An error is kept for the next
+        ``save`` / ``wait`` / ``close``."""
         try:
-            save_params(tmp, state)
-            os.rename(tmp, self._step_dir(step))
-        except BaseException:
-            shutil.rmtree(tmp, ignore_errors=True)
-            raise
-        if sidecar:
-            # step-scoped sidecar so restore(step) pairs the state with THAT
-            # step's artifacts (processor state can change mid-run); the
-            # unscoped copy stays as the latest for consumers that just
-            # want the newest
-            for path in (self._sidecar_path(step), os.path.join(self.directory, "artifacts.json")):
-                with open(path, "w") as f:
-                    json.dump(sidecar, f, indent=2)
-        self._apply_retention()
-        self._prune_sidecars(keep_extra={step})
+            t0 = time.perf_counter()
+            tmp = tempfile.mkdtemp(dir=self.directory, prefix=f"{step}{self._TMP}")
+            try:
+                record["bytes"] = save_params(tmp, state)
+                os.rename(tmp, self._step_dir(step))
+            except BaseException:
+                shutil.rmtree(tmp, ignore_errors=True)
+                raise
+            if sidecar:
+                # step-scoped sidecar so restore(step) pairs the state with THAT
+                # step's artifacts (processor state can change mid-run); the
+                # unscoped copy stays as the latest for consumers that just
+                # want the newest
+                for path in (self._sidecar_path(step),
+                             os.path.join(self.directory, "artifacts.json")):
+                    with open(path, "w") as f:
+                        json.dump(sidecar, f, indent=2)
+            self._apply_retention()
+            self._prune_sidecars(keep_extra={step})
+            record["write_s"] = time.perf_counter() - t0
+        except Exception as e:  # raised again in the caller's thread
+            self._error = e
+
+    def writing(self) -> bool:
+        """Whether this process's writer is writing a step now."""
+        thread = self._thread
+        return thread is not None and thread.is_alive()
+
+    def _join(self):
+        """Wait for the write in flight (this process's writer), then raise
+        its error, if any."""
+        if self._thread is not None:
+            self._thread.join()
+            with self._writers_lock:
+                if self._writers.get(self.directory) is self._thread:
+                    del self._writers[self.directory]
+            self._thread = None
+        self._pending = None
+        if self._error is not None:
+            error, self._error = self._error, None
+            raise error
 
     def _apply_retention(self):
-        steps = self.all_steps()
+        steps = self._disk_steps()
         if self.max_to_keep is None or len(steps) <= self.max_to_keep:
             return
         for step in steps[:-self.max_to_keep]:
@@ -271,7 +361,7 @@ class CheckpointManager:
         """Delete artifacts-<step>.json for steps that retention already
         removed, so sidecars never accumulate or pair with a deleted
         checkpoint."""
-        kept = set(self.all_steps()) | set(keep_extra)
+        kept = set(self._disk_steps()) | set(keep_extra)
         for name in os.listdir(self.directory):
             if name.startswith("artifacts-") and name.endswith(".json"):
                 try:
@@ -289,7 +379,8 @@ class CheckpointManager:
 
     def load_sidecar(self, step: Optional[int] = None) -> Optional[Dict]:
         """The sidecar saved WITH the given (default latest) step, falling
-        back to the directory-level latest copy."""
+        back to the directory-level latest copy (after the write in flight)."""
+        self._join()
         step = step if step is not None else self.latest_step()
         for path in ([] if step is None else [self._sidecar_path(step)]) + [
                 os.path.join(self.directory, "artifacts.json")]:
@@ -301,8 +392,9 @@ class CheckpointManager:
     def restore(self, state_like: Dict[str, Any], step: Optional[int] = None):
         """The state saved at ``step`` (default the latest), read into the
         tensors of ``state_like`` in place (``restore_params``; with
-        ``shards``, each rank's shards of the stored tensors); None when no
-        step is saved."""
+        ``shards``, each rank's shards of the stored tensors), after the
+        write in flight; None when no step is saved."""
+        self._join()
         step = step if step is not None else self.latest_step()
         if step is None:
             return None
@@ -310,7 +402,12 @@ class CheckpointManager:
         return restore_params(self._step_dir(step), state_like, cut=cut)
 
     def wait(self):
-        """Nothing to wait for: ``save`` writes synchronously."""
+        """Wait for the write in flight (raising its error), then for every
+        process."""
+        self._join()
+        _barrier()
 
     def close(self):
+        """``wait``, then let go of the host buffers (a state's size)."""
         self.wait()
+        self._host.clear()

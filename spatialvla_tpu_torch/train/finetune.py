@@ -191,9 +191,11 @@ def main(argv=None):
     parts = build_everything(args)
     config = TrainerConfig(output_dir=args.output_dir, max_steps=args.max_steps,
                            log_every=args.logging_steps, save_every=args.save_steps)
-    return train_loop(state=parts["state"], train_step=parts["step"], batches=parts["batches"],
-                      config=config, checkpoint_manager=parts["ckpt"],
-                      step_args=parts["step_args"])
+    state = train_loop(state=parts["state"], train_step=parts["step"], batches=parts["batches"],
+                       config=config, checkpoint_manager=parts["ckpt"],
+                       step_args=parts["step_args"])
+    parts["ckpt"].close()  # lets go of its saves' host buffers
+    return state
 
 
 if __name__ == "__main__":

@@ -130,13 +130,18 @@ def setup_parallel(args, device: torch.device, *, explain: bool):
     axes (data x fsdp), which picks its rows and data seed: the model ranks
     of one batch rank share it. ``--mesh_sp`` / ``--mesh_pp`` > 1 select
     their backend with the JAX CLIs' message (``explain``: pretrain's, which
-    says what it is)."""
+    says what it is). On a card, the data layer's JPEG decode (where it runs
+    on the GPU) is put on this process's card."""
+    from ..data import native
     from ..parallel import LocalMesh, MeshConfig, initialize_distributed, make_mesh
 
     rank, nproc = initialize_distributed(args.coordinator_address, args.num_processes,
                                          args.process_id, device_type=device.type)
     if device.type == "cuda" and nproc > 1:
         device = torch.device("cuda", torch.cuda.current_device())
+    if device.type == "cuda":  # the nvJPEG route decodes on this process's card
+        native.set_decode_device(torch.cuda.current_device() if device.index is None
+                                 else device.index)
     selections = (("mesh_sp", args.mesh_sp, "ring", "sequence-parallel ring flash attention"),
                   ("mesh_pp", args.mesh_pp, "pipeline", "GPipe decoder stages"))
     for axis, n, backend, what in selections:
@@ -291,6 +296,7 @@ def main(argv=None):
     )
     state = train_loop(state=parts["state"], train_step=parts["step"], batches=parts["batches"],
                        config=config, checkpoint_manager=parts["ckpt"], sidecar=parts["sidecar"])
+    parts["ckpt"].close()  # lets go of its saves' host buffers before the export
     # bare-params export for inference / finetune-from (beside the processor),
     # gathered from every rank's shards and written by process 0
     shards = parts["shards"]

@@ -1,4 +1,6 @@
-"""Tree utilities of the port (``utils/tree.py``)."""
+"""Tree utilities (``utils/tree.py``) and profiling helpers
+(``utils/profiling.py``) of the port."""
+from .profiling import sync, timeit, trace
 from .tree import (children, count_params, iter_leaves, leaves_with_paths, map_with_paths,
                    param_summary, path_str)
 
@@ -10,4 +12,7 @@ __all__ = [
     "map_with_paths",
     "param_summary",
     "path_str",
+    "sync",
+    "timeit",
+    "trace",
 ]

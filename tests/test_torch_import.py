@@ -9,14 +9,19 @@ one with the mixed tree on an int8 KV cache, exports an HF checkpoint, bakes
 it into a serving checkpoint with scripts/quantize_checkpoint_torch.py,
 serves a request from that, imports the pretrain and fine-tuning CLIs and the
 three eval CLIs (the SimplerEnv and LIBERO ones run to their missing-sim
-exit), serves a request from the int8 tree sharded over two model shards
+exit), runs the pretrain CLI for a step over the committed RLDS fixture
+(tests/fixtures_rlds: its JPEGs decoded by the native reader), imports the
+training and data front ends (bench_train_torch, bench_data_torch,
+fit_gaussian_torch, convert_checkpoint_torch, export_hf_torch,
+make_rlds_fixture_torch, trace_data_cli_torch) and utils.profiling,
+serves a request from the int8 tree sharded over two model shards
 (SpatialVLAPolicy.shard), runs a LoRA step, a ring step and a pipeline step held by one process
 (the parallel package) and one eval episode through the eval driver, and
 reports which jax, optax, safetensors and spatialvla_tpu modules are loaded.
 No ``import`` or ``from`` in the port, chip_smoke.py, or the port's scripts
 (quantize_checkpoint_torch, serve_torch, bench_serve_torch,
-run_simpler_eval_torch, run_libero_eval_torch, eval_quant_torch) names the
-JAX package or safetensors."""
+run_simpler_eval_torch, run_libero_eval_torch, eval_quant_torch and the
+seven front ends above) names the JAX package or safetensors."""
 import ast
 import json
 import os
@@ -119,6 +124,25 @@ wide = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, sliding_windo
 kv8 = SpatialVLAPolicy.init_random(wide, "cpu", seed=0).quantize(bits=8, mlp_bits=4, kv_bits=8)
 out_kv8 = kv8.predict(frame, "pick up the cup")
 resized = policy.processor(frame[:-1], "a frame that needs resizing")
+# the pretrain CLI over the committed RLDS fixture: the native reader decodes
+# its JPEGs (PIL is blocked here); the new front ends import without jax
+from spatialvla_tpu_torch.data import native, statistics as data_stats
+from spatialvla_tpu_torch.utils import profiling
+data_stats._CACHE_DIR = os.path.join(work, "stats")
+cli = pretrain.main(["--data_root_dir", os.path.join("tests", "fixtures_rlds"), "--mixture",
+                     "bridge", "--model_preset", "spatialvla_tiny", "--image_size", "56",
+                     "--seq_len", "80", "--max_steps", "1", "--save_steps", "1",
+                     "--per_device_batch_size", "2", "--shuffle_buffer_size", "4",
+                     "--logging_steps", "1", "--device", "cpu",
+                     "--output_dir", os.path.join(work, "pretrain")])
+front_ends = []
+for name in ("bench_train_torch", "bench_data_torch", "fit_gaussian_torch",
+             "convert_checkpoint_torch", "export_hf_torch", "make_rlds_fixture_torch",
+             "trace_data_cli_torch"):
+    spec = importlib.util.spec_from_file_location(name, os.path.join("scripts", name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    front_ends.append(callable(mod.main))
 print(json.dumps({
     "modules": mods,
     "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))),
@@ -142,6 +166,10 @@ print(json.dumps({
     "parallel_losses": par_losses,
     "eval_row": row,
     "missing_sim_rcs": rcs,
+    "decode_path": native.decode_path(),
+    "cli_step": cli["step"],
+    "front_ends": front_ends,
+    "profiling": [profiling.timeit.__name__, profiling.sync.__name__, profiling.trace.__name__],
 }))
 """
 
@@ -163,7 +191,7 @@ def test_port_imports_no_jax(child):
               "train.checkpoints", "serve.gating", "serve.engine", "serve.split_engine",
               "train.lora", "train.finetune", "eval.adapters", "eval.driver", "utils.tree",
               "parallel", "parallel.mesh", "parallel.partitioning", "parallel.ring_attention",
-              "parallel.pipeline"):
+              "parallel.pipeline", "utils.profiling"):
         assert f"spatialvla_tpu_torch.{m}" in child["modules"]
     assert child["jax"] == []
     assert child["optax"] == []
@@ -172,6 +200,9 @@ def test_port_imports_no_jax(child):
     assert child["lora_loss_finite"] and child["missing_sim_rcs"] == [2, 2]
     assert len(child["parallel_losses"]) == 2 and np.isfinite(child["parallel_losses"]).all()
     assert child["eval_row"]["episodes"] == 1 and child["eval_row"]["success_rate"] == 1.0
+    # the RLDS fixture through the pretrain CLI without PIL, by the native reader
+    assert child["decode_path"] in ("libjpeg", "nvjpeg") and child["cli_step"] == 1
+    assert child["front_ends"] == [True] * 7 and len(child["profiling"]) == 3
 
 
 def _imported_names(path):
@@ -186,7 +217,9 @@ def test_no_import_names_the_jax_package():
     files = sorted(Path(ROOT, "spatialvla_tpu_torch").rglob("*.py")) + [
         Path(ROOT, "chip_smoke.py")] + [Path(ROOT, "scripts", f"{name}.py") for name in (
         "quantize_checkpoint_torch", "serve_torch", "bench_serve_torch", "run_simpler_eval_torch",
-        "run_libero_eval_torch", "eval_quant_torch")]
+        "run_libero_eval_torch", "eval_quant_torch", "bench_train_torch", "bench_data_torch",
+        "fit_gaussian_torch", "convert_checkpoint_torch", "export_hf_torch",
+        "make_rlds_fixture_torch", "trace_data_cli_torch")]
     assert len(files) > 40
     assert {f.name for f in files if f.parent.name == "parallel"} == {
         "__init__.py", "mesh.py", "partitioning.py", "ring_attention.py", "pipeline.py"}

@@ -164,6 +164,7 @@ def test_save_decisions_retention_and_sidecars_match_orbax(tmp_path):
         b = ref.save(step, {"x": jnp.full((2,), float(step)), "step": jnp.int32(step)},
                      sidecar={"step": step}, force=force)
         ref.wait()
+        port.wait()
         assert a == bool(b), (step, force)
         assert port.all_steps() == sorted(ref._mgr.all_steps()), step
     assert port.all_steps() == [8, 10]
@@ -179,6 +180,7 @@ def test_a_half_written_step_is_ignored(tmp_path, monkeypatch):
     d = tmp_path / "ck"
     mgr = tck.CheckpointManager(str(d), save_interval_steps=1)
     mgr.save(2, {"w": torch.full((4,), 2.0), "step": 2})
+    mgr.wait()  # step 2 on disk before the writes fail
 
     def crash(tensors, path, metadata=None):  # dies after a partial write
         with open(path, "wb") as f:
@@ -186,8 +188,9 @@ def test_a_half_written_step_is_ignored(tmp_path, monkeypatch):
         raise OSError("disk gone")
 
     monkeypatch.setattr(tck, "save_file", crash)
-    with pytest.raises(OSError, match="disk gone"):
+    with pytest.raises(OSError, match="disk gone"):  # the writer's error, at the wait
         mgr.save(4, {"w": torch.full((4,), 4.0), "step": 4})
+        mgr.wait()
     monkeypatch.undo()
     assert mgr.latest_step() == 2 and sorted(os.listdir(d)) == ["2"]
     # what a killed process leaves: a temporary directory and a bare step name
