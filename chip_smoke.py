@@ -87,8 +87,11 @@
    fused tree. The seconds and bytes of each write and load, each load's
    peak host RSS and the free disk are printed; too little disk fails.
 6. The same entry point after quantize(bits=4), quantize(bits=8, mlp_bits=4,
-   kv_bits=8) (plus a 16-row predict_batch) and quantize(bits=4,
-   group_size=128, vision_bits=4): warm-up requests (the captures) and five
+   kv_bits=8) (plus a 16-row predict_batch), quantize(bits=4,
+   group_size=128, vision_bits=4), and bench.py's two serving forms:
+   quantize(bits=8, vision_bits=None) (its headline, the vision front bf16)
+   and quantize(bits=8, depth_image_size=256) (ZoeDepth at 256): warm-up
+   requests (the captures) and five
    timed requests each through the decode graph and five eagerly, the
    decode loop both ways with identical ids and margins,
    the launches of one request (the int4 kernels in the prefill and every
@@ -97,7 +100,15 @@
    vision front and the prefill (CUDA events) with the tensor-core kernel
    and with the FMA tiles in its place, and two requests' ids under the
    margin rule against the unfused path and the served path with the q4
-   wrappers' plain versions, or the bf16 cache.
+   wrappers' plain versions, or the bf16 cache (the int8 forms: the int8
+   kernels' exact launches, none of int4, and the unfused path).
+   Then the entry surfaces (entry_surfaces): graft_entry_torch.entry() at
+   full width (a finite loss within LOSS_BOUND of an fp32 forward of the
+   same weights, logits of JAX's entry() shape), dryrun_multichip's serving
+   half on the card (int8 tensor-parallel and split-phase serving over
+   data=2 x model=2, ids (2, 6) in the action block), and
+   scripts/profile_front_torch.py's stages of the headline (wall ms, device
+   busy ms and idle share from a torch.profiler trace, top kernels).
 7. Drives the training path: full-parameter training of full-width
    spatialvla_4b() (fp32 masters, bf16 compute, remat, flash attention,
    256-token loss chunks, AdamW with clipping, batch 2 x 320 built by the
@@ -190,7 +201,8 @@
    predict ms at n_model = 1 (unfused), 2 and 4.
 12. Prints the card, the kernels' JSON line (with each decode kernel's
    launches in one replay of the graphs checked, traced and credited, the
-   launches of the LoRA, eval, model-axis and data CLI runs, and an entry
+   launches of the LoRA, eval, model-axis and data CLI runs and of the
+   entry surfaces, and an entry
    "<name>_tp" for each of kernels #1 and #2 at the shard shapes), and last
    {"ok": true, ...}.
 
@@ -1183,7 +1195,8 @@ def request_stages(torch, policy, cfg, image, instruction):
     P = ids.shape[1]
 
     def vision():
-        return sv.get_image_features(policy.params, cfg, px, K, compute_dtype=torch.bfloat16)
+        return sv.get_image_features(policy.params, cfg, px, K, compute_dtype=torch.bfloat16,
+                                     depth_image_size=policy.depth_image_size)
 
     embeds = sv.merge_input_embeddings(policy.params, cfg, ids, vision(), dtype=torch.bfloat16)
 
@@ -2415,6 +2428,10 @@ SERVING_CONFIGS = (  # name, quantize options, references
     ("b:int8+mlp4+kv8", dict(bits=8, mlp_bits=4, kv_bits=8),
      (("bf16 KV cache", dict(kv_bits=None), False),)),
     ("c:int4-g128+vision4", dict(bits=4, group_size=128, vision_bits=4), (UNFUSED, PLAIN_Q4)),
+    # bench.py's headline: the int8 LM, the vision front kept bf16 (VISION_BITS = 0)
+    ("h:int8-bf16front", dict(bits=8, vision_bits=None), (UNFUSED,)),
+    # its reduced-resolution ZoeDepth (SPATIALVLA_BENCH_DEPTH_RES, int8_depth256)
+    ("d:int8-depth256", dict(bits=8, depth_image_size=256), (UNFUSED,)),
 )
 
 
@@ -2482,7 +2499,10 @@ def serving_configs(torch, counters):
     requests' ids are held to references on the same tree under the margin
     rule: for (a) and (c) the unfused decode path (which also runs the int4
     kernels) and the served path with the q4 wrappers' plain versions (which
-    runs none), for (b) the bf16 KV cache. Each decode graph's traced replay
+    runs none), for (b) the bf16 KV cache, for (h) and (d) the unfused
+    path. (h) and (d) are int8 trees: their launches those of the main
+    path's request (the int8 decode kernels, none of int4), and no FMA-tile
+    comparison. Each decode graph's traced replay
     is held to its credited launch counts (``graph_launches``). Each policy
     is freed before the next starts."""
     from spatialvla_tpu_torch import SpatialVLAPolicy, spatialvla_4b
@@ -2559,25 +2579,38 @@ def serving_configs(torch, counters):
             ba = np.asarray(batch["actions"])
             if ba.shape != (16, 4, 7) or not np.isfinite(ba).all() or not ids_ok(batch["action_ids"]):
                 fail(f"serving {name}: predict_batch actions {ba.shape}")
-        # int4 norm + projections a layer: the prefill's all take
-        # q4_rmsnorm_matvec; a decode step's take the residual kernel but
-        # layer 0's input norm (qkv in int4 unless mlp_bits=4)
-        qkv4 = qkw.get("mlp_bits") != 4
-        want = {"q4_rmsnorm_matvec": (1 + qkv4) * L + qkv4 * steps,
-                "q4_residual_rmsnorm_matvec": (L + qkv4 * (L - 1)) * steps,
-                "norm_residual": steps, "gelu_mul": 0}
+        int4 = 4 in (qkw.get("bits"), qkw.get("mlp_bits"))
+        if int4:
+            # int4 norm + projections a layer: the prefill's all take
+            # q4_rmsnorm_matvec; a decode step's take the residual kernel but
+            # layer 0's input norm (qkv in int4 unless mlp_bits=4)
+            qkv4 = qkw.get("mlp_bits") != 4
+            want = {"q4_rmsnorm_matvec": (1 + qkv4) * L + qkv4 * steps,
+                    "q4_residual_rmsnorm_matvec": (L + qkv4 * (L - 1)) * steps,
+                    "norm_residual": steps, "gelu_mul": 0}
+            if not qkv4:
+                want.update(q8_rmsnorm_matvec=steps, q8_residual_rmsnorm_matvec=(L - 1) * steps)
+            ran = ["q4_matvec", "q4_rmsnorm_matvec", "q4_residual_rmsnorm_matvec",
+                   "norm_residual"]
+        else:
+            # the int8 tree (h, d) as the main path's request: its prefill
+            # and the front above 16 rows take no kernel; each decode step
+            # layer 0's input norm, 2 L - 1 residual kernels, one norm_residual
+            want = {"q8_rmsnorm_matvec": steps, "q8_residual_rmsnorm_matvec": (2 * L - 1) * steps,
+                    "norm_residual": steps, "gelu_mul": 0, "q4_matvec": 0,
+                    "q4_rmsnorm_matvec": 0, "q4_residual_rmsnorm_matvec": 0}
+            ran = ["norm_residual"]
         if qkw.get("kv_bits"):
             want.update(decode_attention_kv8=L * steps, decode_attention=0)
-        if not qkv4:
-            want.update(q8_rmsnorm_matvec=steps, q8_residual_rmsnorm_matvec=(L - 1) * steps)
-        ran = ["q4_matvec", "q4_rmsnorm_matvec", "q4_residual_rmsnorm_matvec", "norm_residual",
-               "decode_attention_kv8" if qkw.get("kv_bits") else "decode_attention"]
+        else:
+            want.update(decode_attention=L * steps)
+        ran.append("decode_attention_kv8" if qkw.get("kv_bits") else "decode_attention")
         if qkw.get("bits") == 8:
             ran += ["q8_matvec", "q8_rmsnorm_matvec", "q8_residual_rmsnorm_matvec"]
-        # gate|up (int4 in every configuration) with gelu(gate) * up in the
+        # gate|up (int4 wherever int4 runs) with gelu(gate) * up in the
         # residual kernel's epilogue in every decode step, never in the prefill
-        want_gelu = {k: (L * steps if k == "q4_residual_rmsnorm_matvec" else 0)
-                     for k in gelu_per_request}
+        gelu_kernel = "q4_residual_rmsnorm_matvec" if int4 else "q8_residual_rmsnorm_matvec"
+        want_gelu = {k: (L * steps if k == gelu_kernel else 0) for k in gelu_per_request}
         if (any(per_request[k] != v for k, v in want.items())
                 or any(per_request[k] <= 0 for k in ran) or gelu_per_request != want_gelu):
             fail(f"serving {name}: launches per request {per_request}, gelu epilogues "
@@ -2585,33 +2618,38 @@ def serving_configs(torch, counters):
         # the tensor-core route in one request: the int4 projections of the
         # 277-row prefill (4 a layer, 2 with mlp_bits=4), and with
         # vision_bits=4 SigLIP's six a layer at 256 rows and the projector
-        want_tiled = (4 if qkw.get("bits") == 4 else 2) * L + (
+        want_tiled = ((4 if qkw.get("bits") == 4 else 2) * L if int4 else 0) + (
             6 * cfg.vision.num_layers + 1 if qkw.get("vision_bits") == 4 else 0)
         print(f"serving {name}: {tiled} launches of the tensor-core int4 kernel per request "
               f"(expected {want_tiled})", flush=True)
-        if tiled == 0:
-            fail(f"serving {name}: no launch of the tensor-core int4 kernel in a request")
+        if (tiled == 0) != (want_tiled == 0):
+            fail(f"serving {name}: {tiled} launches of the tensor-core int4 kernel in a request, "
+                 f"expected {want_tiled}")
         # device time of the vision front and the prefill (CUDA events), and
-        # the same with the FMA tiles in place of the tensor-core kernel: 5
-        # runs of each in turn after a warm-up, medians (the host's speed
-        # moves these, so the two are taken side by side)
-        runs = {k: [] for k in ("vision_front_ms", "prefill_ms", "vision_front_fma_tiles_ms",
-                                "prefill_fma_tiles_ms")}
+        # where int4 runs the same with the FMA tiles in place of the
+        # tensor-core kernel: 5 runs of each in turn after a warm-up, medians
+        # (the host's speed moves these, so the two are taken side by side)
+        ways = (("", contextlib.nullcontext),) + (
+            (("_fma_tiles", lambda: fma_tiles(torch)),) if want_tiled else ())
+        runs = {f"{stage}{tag}_ms": [] for tag, _ in ways for stage in ("vision_front", "prefill")}
         with torch.inference_mode():
             vision, prefill, _, P = request_stages(torch, policy, cfg, images[0],
                                                    instructions[0])
             for i in range(6):
-                for tag, ctx in (("", contextlib.nullcontext()), ("_fma_tiles", fma_tiles(torch))):
-                    with ctx:
+                for tag, ctx in ways:
+                    with ctx():
                         tv, tp = event_ms(torch, vision), event_ms(torch, prefill)
                     if i:  # the first round warms up
                         runs["vision_front" + tag + "_ms"].append(tv)
                         runs["prefill" + tag + "_ms"].append(tp)
         stages = {k: statistics.median(v) for k, v in runs.items()}
+
+        def fma(stage):
+            return f" (FMA tiles {stages[stage + '_fma_tiles_ms']:.2f})" if want_tiled else ""
+
         print(f"serving {name} (P={P}, CUDA events, median of 5): vision front "
-              f"{stages['vision_front_ms']:.2f} ms (FMA tiles "
-              f"{stages['vision_front_fma_tiles_ms']:.2f}), prefill {stages['prefill_ms']:.2f} ms "
-              f"(FMA tiles {stages['prefill_fma_tiles_ms']:.2f}) | {card_line()}", flush=True)
+              f"{stages['vision_front_ms']:.2f} ms{fma('vision_front')}, prefill "
+              f"{stages['prefill_ms']:.2f} ms{fma('prefill')} | {card_line()}", flush=True)
 
         agree = []
         for label, ref_kw, plain in refs:
@@ -2624,7 +2662,7 @@ def serving_configs(torch, counters):
                         torch.as_tensor(inputs["input_ids"], dtype=torch.long, device="cuda"),
                         pixel_values=torch.as_tensor(inputs["pixel_values"], device="cuda"),
                         intrinsic=torch.as_tensor(inputs["intrinsic"], device="cuda"),
-                        return_margins=True, **ref_kw)
+                        depth_image_size=policy.depth_image_size, return_margins=True, **ref_kw)
                 ok = margin_rule_ok(o["action_ids"], ref_ids[0].cpu().numpy(),
                                     ref_m[0].cpu().numpy())
                 print(f"serving {name} vs {label} '{instr}': ids {o['action_ids'].tolist()} vs "
@@ -2653,6 +2691,134 @@ def serving_configs(torch, counters):
                      "tiled_launches": tiled_run, **stages, "stage_runs_ms": runs}
         del policy, first, outs, batch
         torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the entry points (graft_entry_torch.py) and the front profiler
+# ---------------------------------------------------------------------------
+
+PROFILE_FRONT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                             "profile_front_torch.py")
+
+
+def profile_front_module():
+    """scripts/profile_front_torch.py as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("profile_front_torch", PROFILE_FRONT)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def entry_surfaces(torch, counters, *, cfg=None, device="cuda", profile_iters=10):
+    """The entry points of graft_entry_torch.py and the front
+    profiler, each with the wrappers' counts set to 0 just before it and read
+    just after:
+
+    1. entry(): the flagship's forward step at full width (bf16 weights from
+       the seed, bf16 compute, the default attention, which runs no kernel
+       of csrc/): a finite loss, logits of (1, T, vocabulary) as the JAX
+       entry() step gives them, and the loss within LOSS_BOUND of an fp32
+       forward of the same weights (their fp32 copy); its warm ms.
+    2. dryrun_multichip's serving half on ``device``: int8 tensor-parallel
+       and split-phase tensor-parallel serving over (data=2, model=2) of the
+       tiny model (SpatialVLAPolicy.shard, SplitServingEngine), ids (2, 6) in
+       the action block; on the card through kernels #1 and #2.
+    3. scripts/profile_front_torch.py's stages for bench.py's headline
+       (quantize_lm_params(bits=8), the vision front bf16): each stage's
+       wall ms and, on the card, its device busy ms, idle share and top
+       kernels; the full predict through the int8 and decode kernels.
+
+    ``cfg`` (default spatialvla_4b()) and ``device`` let the phase be
+    rehearsed on the CPU at a tiny size. Frees its state before it returns."""
+    import graft_entry_torch as ge
+
+    from spatialvla_tpu_torch.convert.bridge import map_tree
+
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    t_phase = time.perf_counter()
+    out = {}
+
+    # 1. entry() at full width, against its weights in fp32
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    fn, (params, batch) = ge.entry(device) if cfg is None else ge.entry_for(cfg, device=device)
+    cfg = cfg or ge._flagship_cfg()
+    sync()
+    t_init = time.perf_counter() - t0
+    times = []
+    with torch.inference_mode():
+        for _ in range(2):  # the second call is warm
+            t0 = time.perf_counter()
+            loss, logits = fn(params, batch)
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        loss, shape = float(loss), tuple(logits.shape)
+        del logits
+        p32 = map_tree(lambda t: t.float(), params)
+        t0 = time.perf_counter()
+        loss32 = float(ge.forward_step(cfg, torch.float32)(p32, batch)[0])
+        sync()
+        t32 = (time.perf_counter() - t0) * 1e3
+        del p32
+    entry_launches = {c.__name__: c.launches for c in counters}
+    T = cfg.num_image_tokens + 10 + 12
+    want = (1, T, cfg.text.vocab_size)
+    rel = abs(loss - loss32) / abs(loss32)
+    peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else None
+    print(f"entry surfaces: entry() init {t_init:.2f} s; forward step (bf16) first "
+          f"{times[0]:.1f} ms, warm {times[1]:.1f} ms; loss {loss:.6f}, fp32 forward of the same "
+          f"weights {loss32:.6f} ({t32:.1f} ms), rel {rel:.3e} (bound {LOSS_BOUND}); logits "
+          f"{shape} (want {want}); launches {entry_launches}"
+          + (f"; peak {peak:.2f} GiB | {card_line()}" if cuda else ""), flush=True)
+    if not np.isfinite(loss) or shape != want or not rel < LOSS_BOUND:
+        fail(f"entry(): loss {loss} (fp32 {loss32}, rel {rel}), logits {shape}, want {want}")
+    out["entry"] = {"init_s": t_init, "forward_ms": times, "loss": loss, "loss_fp32": loss32,
+                    "fp32_forward_ms": t32, "rel": rel, "logits_shape": list(shape),
+                    "launches": entry_launches, "peak_gib": peak}
+    del fn, params, batch
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # 2. the dry run's serving half
+    for name, run in (("tp_serving", ge.run_tiny_tp_serving),
+                      ("split_tp_serving", ge.run_tiny_split_tp_serving)):
+        zero_counts(counters)
+        t0 = time.perf_counter()
+        ids = run(device)
+        sync()
+        launches = {c.__name__: c.launches for c in counters}
+        print(f"entry surfaces: dryrun_multichip {name} on {device}: ids {ids.tolist()}, "
+              f"{time.perf_counter() - t0:.2f} s, launches {launches}", flush=True)
+        if cuda and not (launches["q8_matvec"] > 0 and launches["q8_rmsnorm_matvec"] > 0):
+            fail(f"dryrun_multichip {name}: the int8 kernels were not launched: {launches}")
+        out[name] = {"ids": ids.tolist(), "launches": launches}
+
+    # 3. the front profiler for the headline
+    prof = profile_front_module()
+    zero_counts(counters)
+    params = prof.build_params(cfg, bits=8, vision_bits=0, depth_res=None, device=device)
+    ids, px, intr = prof.request(cfg, batch=1, device=device)
+    report = prof.profile(params, cfg, ids, px, intr, iters=profile_iters)
+    launches = {c.__name__: c.launches for c in counters}
+    print(f"entry surfaces: profile_front headline (int8 LM, bf16 front), launches {launches}"
+          + (f" | {card_line()}" if cuda else ""), flush=True)
+    if cuda:
+        ran = ("q8_matvec", "q8_rmsnorm_matvec", "q8_residual_rmsnorm_matvec", "decode_attention",
+               "norm_residual")
+        if any(launches[k] <= 0 for k in ran):
+            fail(f"profile_front: a decode kernel of the full predict was not launched: "
+                 f"{launches}")
+    report["launches"] = launches
+    out["profile_front"] = report
+    del params, ids, px, intr
+    if cuda:
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"entry surfaces: the phase {out['phase_s']:.1f} s", flush=True)
     return out
 
 
@@ -4518,6 +4684,9 @@ def main() -> int:
           f"GiB | {card}", flush=True)
     torch.cuda.empty_cache()
     serving = serving_configs(torch, serving_counters)
+    torch.cuda.empty_cache()
+    surfaces = entry_surfaces(torch, serving_counters)
+    torch.cuda.empty_cache()
 
     flash = [fa.flash_attention_fwd, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv]
     train = train_path(torch, flash)
@@ -4578,9 +4747,17 @@ def main() -> int:
     print(f"eval path: {evals['serial']['episodes_per_s']:.3f} episodes/s serially, "
           f"{evals['parallel']['episodes_per_s']:.3f} with 4 envs through the engine (mean batch "
           f"{evals['parallel']['engine']['mean_batch_occupancy']:.2f}) | {card}", flush=True)
+    front = surfaces["profile_front"]["stages"]
+    print("entry surfaces: entry() loss {:.6f} (fp32 {:.6f}), warm forward {:.1f} ms; headline "
+          "profile_front wall ms / device busy ms: {} | {}".format(
+              surfaces["entry"]["loss"], surfaces["entry"]["loss_fp32"],
+              surfaces["entry"]["forward_ms"][1],
+              ", ".join(f"{k} {v['wall_ms']:.2f} / {v['busy_ms']:.2f}" for k, v in front.items()),
+              card), flush=True)
     wall = {"before_finetune_s": t_earlier, "finetune_path_s": t_lora, "eval_path_s": t_eval,
             "data_cli_path_s": t_data_cli, "tensor_parallel_s": tensor["phase_s"],
-            "model_parallel_training_s": model_par["phase_s"]}
+            "model_parallel_training_s": model_par["phase_s"],
+            "entry_surfaces_s": surfaces["phase_s"]}
     print(f"wall time: {t_earlier:.1f} s to the end of the training phase (build included), "
           f"finetune path {t_lora:.1f} s, eval path {t_eval:.1f} s, data cli path "
           f"{t_data_cli:.1f} s, tensor parallel {tensor['phase_s']:.1f} s; in all "
@@ -4589,7 +4766,8 @@ def main() -> int:
                                    "decode_step_matrix": matrix, "refused_shape_step": refused,
                                    "main_path": path, "serving_engines": engines,
                                    "checkpoint_path": ckpt,
-                                   "serving_configs": serving, "tensor_parallel": tensor,
+                                   "serving_configs": serving, "entry_surfaces": surfaces,
+                                   "tensor_parallel": tensor,
                                    "train_path": train,
                                    "parallel_path": par,
                                    "model_parallel_training": model_par,
@@ -4612,8 +4790,8 @@ def main() -> int:
         if name.startswith("q4") or name.endswith("kv8"):
             key = "tiled_launches" if tiled else "launches"
             return (sum(c[key][name] for c in serving.values()),
-                    "serving_configs (a), (b), (c): 6 requests each, + a 16-row batch in (b)"
-                    + (", on the tensor-core route" if tiled else ""))
+                    "serving_configs (a), (b), (c) (none in (h), (d)): 6 requests each, + a "
+                    "16-row batch in (b)" + (", on the tensor-core route" if tiled else ""))
         return path["launches"][name], "main_path (3 requests + a 2-row batch)"
 
     # the q4 wrappers' tensor-core route above 16 rows gets an entry of its
@@ -4706,6 +4884,11 @@ def main() -> int:
             "finetune_path_launches": None if tiled else lora["launches"].get(name),
             "eval_path_launches": None if tiled or name not in evals["serial"]["launches"]
             else {run: evals[run]["launches"][name] for run in ("serial", "parallel")},
+            # the entry surfaces: entry() (no kernel), the dry run's serving
+            # half, the headline's profiled stages
+            "entry_surfaces_launches": None if tiled or name not in surfaces["entry"]["launches"]
+            else {part: surfaces[part]["launches"][name]
+                  for part in ("entry", "tp_serving", "split_tp_serving", "profile_front")},
             **extra,
         })
     # kernels #1 and #2 at the shard shapes of the tensor-parallel phase: one

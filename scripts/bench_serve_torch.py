@@ -45,9 +45,7 @@ import contextlib
 import dataclasses
 import json
 import os
-import subprocess
 import sys
-import tempfile
 import threading
 import time
 
@@ -70,17 +68,6 @@ def bucket_ladder(max_batch: int):
     """Batch buckets up to and INCLUDING max_batch: the engine rounds full
     batches up to the next bucket."""
     return tuple(sorted({b for b in (1, 2, 4, 8, 16) if b < max_batch} | {max_batch}))
-
-
-def card_line():
-    """nvidia-smi's name and power limit of the card, or None."""
-    try:
-        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                              "--format=csv,noheader"], capture_output=True, text=True,
-                             timeout=30)
-    except (OSError, subprocess.SubprocessError):
-        return None
-    return out.stdout.strip().splitlines()[0] if out.returncode == 0 and out.stdout else None
 
 
 def build_policy(args):
@@ -168,37 +155,22 @@ HOST_WAITS = ("cudaStreamSynchronize", "cudaEventSynchronize", "cudaDeviceSynchr
 def trace_summary(prof):
     """The card's busy time (the union of its kernels' intervals) and idle
     share over the traced window (first kernel start to last kernel end),
-    the kernels' ms by name (the 8 largest), and the host's calls in
-    HOST_WAITS (count, ms) over all threads. Without kernels in the trace
-    (the CPU) the card's numbers are None."""
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
-    kernels = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
-                     if e.get("cat") == "kernel")
+    the kernels' ms by name (the 8 largest; utils/profiling.kernel_busy),
+    and the host's calls in HOST_WAITS (count, ms) over all threads.
+    Without kernels in the trace (the CPU) the card's numbers are None."""
+    from spatialvla_tpu_torch.utils.profiling import kernel_busy, trace_events
+
+    events = trace_events(prof)
     waits = collections.defaultdict(lambda: [0, 0.0])
     for e in events:
         if e.get("cat") == "cuda_runtime" and e["name"] in HOST_WAITS:
             waits[e["name"]][0] += 1
             waits[e["name"]][1] += e["dur"] / 1e3
-    out = {"kernels": len(kernels), "device_busy_ms": None, "window_ms": None,
-           "device_idle_share": None, "kernel_ms_top": {},
-           "host_waits": {k: {"calls": n, "ms": ms} for k, (n, ms) in sorted(waits.items())}}
-    if not kernels:
-        return out
-    busy, end = 0.0, kernels[0][0]
-    by_name = collections.Counter()
-    for t0, t1, name in kernels:
-        busy += max(0.0, t1 - max(t0, end))
-        end = max(end, t1)
-        by_name[name[:80]] += (t1 - t0) / 1e3
-    window = end - kernels[0][0]
-    out.update(device_busy_ms=busy / 1e3, window_ms=window / 1e3,
-               device_idle_share=1.0 - busy / window,
-               kernel_ms_top=dict(by_name.most_common(8)))
-    return out
+    busy = kernel_busy(events, top=8)
+    return {"kernels": busy["kernels"], "device_busy_ms": busy["busy_ms"],
+            "window_ms": busy["window_ms"], "device_idle_share": busy["idle_share"],
+            "kernel_ms_top": {k["name"]: k["ms"] for k in busy["top"]},
+            "host_waits": {k: {"calls": n, "ms": ms} for k, (n, ms) in sorted(waits.items())}}
 
 
 def run_clients(policy, args, images, unnorm_key):
@@ -314,6 +286,8 @@ def main(argv=None):
     tag += ", split-phase" if args.split else ", monolithic"
     if _meshed(args):
         tag += f", mesh model={args.mesh_model} data={args.mesh_data}"
+    from spatialvla_tpu_torch.utils.profiling import card_line
+
     cuda = policy.device.type == "cuda"
     result = {
         "metric": f"serving load, {args.clients} closed-loop clients ({tag})",

@@ -9,8 +9,9 @@ seed, a 2048-row vocabulary) in each weight format, captures one
 ``fused_decode_step`` (M rows at position 277 of a 289-slot bf16 cache) into
 a CUDA graph, and replays it under ``torch.profiler``: the device time of
 every kernel of one replay, summed by kernel name from the chrome trace
-(operator rows are not counted), with the replay's span, the busy share and
-the launches. ``--root`` imports ``spatialvla_tpu_torch`` from another
+(operator rows are not counted; utils/profiling.kernel_busy), with the
+replay's span, the busy share (the union of the kernels' intervals over the
+span) and the launches. ``--root`` imports ``spatialvla_tpu_torch`` from another
 checkout (a parent commit unpacked with ``git archive``), so that two
 versions can be traced in one call. Writes the traces under
 ``chiprun_out/profile_decode_step/``. ``--residual-max-m`` sets
@@ -21,10 +22,7 @@ matvec), to trace the step's two routes side by side.
 from __future__ import annotations
 
 import argparse
-import collections
 import dataclasses
-import json
-import subprocess
 import sys
 from pathlib import Path
 
@@ -49,12 +47,12 @@ def main() -> int:
     from spatialvla_tpu_torch.models import gemma2
     from spatialvla_tpu_torch.ops import decode_step as ds
     from spatialvla_tpu_torch.ops import quant
+    from spatialvla_tpu_torch.utils.profiling import card_line, kernel_busy, trace_events
 
     if args.residual_max_m is not None:
         quant.RESIDUAL_MAX_M = args.residual_max_m
 
-    card = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
+    card = card_line()
     out_dir = Path("chiprun_out/profile_decode_step")
     out_dir.mkdir(parents=True, exist_ok=True)
     tcfg = dataclasses.replace(spatialvla_4b().text, vocab_size=2048)
@@ -89,26 +87,17 @@ def main() -> int:
                 graph.replay()
                 torch.cuda.synchronize()
             path = out_dir / f"{name}{args.tag}_M{M}.json"
-            prof.export_chrome_trace(str(path))
-            events = json.loads(path.read_text())["traceEvents"]
-            kernels = [e for e in events if e.get("cat") == "kernel" and e.get("ph") == "X"]
-            if not kernels:
+            trace = kernel_busy(trace_events(prof, path), top=None)
+            if not trace["kernels"]:
                 print(f"{name}: the trace holds no kernel events", flush=True)
                 continue
-            by = collections.defaultdict(lambda: [0.0, 0])
-            for e in kernels:
-                short = (e["name"].replace("(anonymous namespace)::", "")
-                         .replace("void ", "").split("(")[0])
-                by[short][0] += e["dur"] / 1e3
-                by[short][1] += 1
-            busy = sum(v[0] for v in by.values())
-            span = (max(e["ts"] + e["dur"] for e in kernels) - min(e["ts"] for e in kernels)) / 1e3
-            print(f"{name}{args.tag} M={M} S={S} ({args.root}): one graph replay, {len(kernels)} "
-                  f"kernels, busy {busy:.4f} ms of a {span:.4f} ms span (busy share "
-                  f"{busy / span:.3f}) | {card}", flush=True)
-            for k, (ms, n) in sorted(by.items(), key=lambda kv: -kv[1][0]):
-                print(f"    {k[:72]:72s} {n:4d} launches {ms:8.4f} ms ({ms / busy:6.1%})",
-                      flush=True)
+            busy, span = trace["busy_ms"], trace["window_ms"]
+            print(f"{name}{args.tag} M={M} S={S} ({args.root}): one graph replay, "
+                  f"{trace['kernels']} kernels, busy {busy:.4f} ms of a {span:.4f} ms span (busy "
+                  f"share {busy / span:.3f}) | {card}", flush=True)
+            for k in trace["top"]:
+                print(f"    {k['name'][:72]:72s} {k['launches']:4d} launches {k['ms']:8.4f} ms "
+                      f"({k['ms'] / busy:6.1%})", flush=True)
             del lm, graph
     return 0
 

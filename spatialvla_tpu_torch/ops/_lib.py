@@ -212,7 +212,7 @@ def dtype_code(t: torch.Tensor) -> int:
 def check_cuda(name: str, *tensors: torch.Tensor) -> None:
     """Every operand on one CUDA device and contiguous; a tensor on another
     kind of device raises (the wrappers use the plain version only for CPU
-    tensors)."""
+    tensors, the flash wrappers also for meta ones)."""
     dev = tensors[0].device
     if dev.type != "cuda":
         raise RuntimeError(f"{name}: no kernel for device {dev}")

@@ -242,6 +242,13 @@ def dead_tiles(prefix_lens, valid_lens, q_offset, Tq: int, Tk: int, block_q: int
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
+# the devices whose tensors the wrappers below hand to the plain versions:
+# the CPU, and "meta", whose tensors carry shapes without data (a training
+# step's shapes at full width with no card); the other kernels' wrappers
+# raise on meta
+PLAIN_DEVICES = ("cpu", "meta")
+
+
 def _geometry(name, q, k, v, prefix_lens, valid_lens, q_offset, window):
     B, Tq, Nq, D = q.shape
     _, Tk, Nkv, Dk = k.shape
@@ -268,7 +275,7 @@ def _tail(dims, scale, logit_softcap, window, causal):
 def flash_attention_fwd(q, k, v, prefix_lens, valid_lens, q_offset, *,
                         scale, logit_softcap=None, window=None, causal=True):
     """Kernel wrapper; see flash_attention_fwd_plain for the contract."""
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return flash_attention_fwd_plain(q, k, v, prefix_lens, valid_lens, q_offset, scale=scale,
                                          logit_softcap=logit_softcap, window=window, causal=causal)
     out, lse = _launch_fwd("flash_attention_fwd", "flash_fwd", q, k, v, prefix_lens, valid_lens,
@@ -329,7 +336,7 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, prefix_lens, valid_lens, q
                            scale, logit_softcap=None, window=None, causal=True):
     """dq kernel: (B, Tq, Nq, D) in q's dtype, from the LSE and delta; bf16
     on tensor cores, fp32 on the FMA units (``bwd_route``)."""
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return flash_attention_bwd_dq_plain(q, k, v, dout, lse, delta, prefix_lens, valid_lens,
                                             q_offset, scale=scale, logit_softcap=logit_softcap,
                                             window=window, causal=causal)
@@ -354,7 +361,7 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, prefix_lens, valid_lens, 
                             scale, logit_softcap=None, window=None, causal=True):
     """dk / dv kernel: (B, Tk, Nkv, D) each in k's dtype, summed over the
     q-head group inside the kernel."""
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return flash_attention_bwd_dkv_plain(q, k, v, dout, lse, delta, prefix_lens, valid_lens,
                                              q_offset, scale=scale, logit_softcap=logit_softcap,
                                              window=window, causal=causal)

@@ -5,9 +5,9 @@ for tensor-parallel serving), the model axis' autograd collectives, ring
 attention over ``sp`` and the GPipe pipeline over ``pipe``. Imports torch
 and torch.distributed, no jax."""
 from .mesh import (AXES, LocalMesh, Mesh, MeshConfig, ShardCopy, ShardGather, ShardSum,
-                   batch_sharding, form_global_batch, initialize_distributed, local_rows,
-                   make_mesh, mesh_shape, model_group_batches, process_count, process_index,
-                   replicated, sum_shards)
+                   batch_sharding, form_global_batch, initialize_distributed, join_ranks,
+                   local_rows, make_mesh, mesh_shape, model_group_batches, process_count,
+                   process_index, replicated, spawn_ranks, start_ranks, sum_shards)
 from .partitioning import (DEFAULT_RULES, FsdpShards, TensorShards, TrainShards, param_pspecs,
                            shard_params, spec_for)
 from .pipeline import pipeline_apply
@@ -28,6 +28,7 @@ __all__ = [
     "batch_sharding",
     "form_global_batch",
     "initialize_distributed",
+    "join_ranks",
     "local_rows",
     "make_mesh",
     "mesh_shape",
@@ -39,6 +40,8 @@ __all__ = [
     "replicated",
     "ring_flash_attention",
     "shard_params",
+    "spawn_ranks",
     "spec_for",
+    "start_ranks",
     "sum_shards",
 ]

@@ -39,8 +39,11 @@ processes never turns into one.
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import math
 import os
+import socket
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -346,7 +349,8 @@ def _launcher_env() -> Optional[Tuple[int, int, str]]:
 def initialize_distributed(coordinator_address: Optional[str] = None,
                            num_processes: Optional[int] = None,
                            process_id: Optional[int] = None, *,
-                           device_type: str = "cuda") -> tuple:
+                           device_type: str = "cuda",
+                           timeout_s: Optional[float] = None) -> tuple:
     """The multi-process bootstrap (mesh.py:67-113), in JAX's order:
 
       1. explicit arguments (or SPATIALVLA_COORDINATOR / _NUM_PROCESSES /
@@ -356,8 +360,9 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
 
     The process group's backend is NCCL for ``cuda`` (each process takes the
     card LOCAL_RANK names, or its rank modulo the cards) and gloo for
-    ``cpu``; ``cuda`` without a card raises. Returns (process_index,
-    process_count)."""
+    ``cpu``; ``cuda`` without a card raises. ``timeout_s`` bounds the
+    rendezvous and every collective of the group (None: torch's default).
+    Returns (process_index, process_count)."""
     env = os.environ
     coordinator_address = coordinator_address or env.get("SPATIALVLA_COORDINATOR")
     if num_processes is None and env.get("SPATIALVLA_NUM_PROCESSES"):
@@ -387,8 +392,43 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
         backend = "gloo"
     else:
         raise ValueError(f"device_type {device_type!r}: 'cuda' or 'cpu'")
-    dist.init_process_group(backend, init_method=f"tcp://{address}", rank=rank, world_size=world)
+    extra = {} if timeout_s is None else {"timeout": datetime.timedelta(seconds=timeout_s)}
+    dist.init_process_group(backend, init_method=f"tcp://{address}", rank=rank, world_size=world,
+                            **extra)
     return rank, world
+
+
+def start_ranks(fn, world: int, *args, timeout_s: float = 300.0):
+    """Starts ``fn(rank, world, port, *args)`` in ``world`` fresh processes
+    (``torch.multiprocessing``, start method "spawn"), ``port`` a free one
+    on localhost for ``initialize_distributed``'s rendezvous; ``fn`` is a
+    module-level function. Returns their context for ``join_ranks``, which
+    gives them ``timeout_s`` from now."""
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:  # a port the OS has just handed out
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = mp.spawn(fn, args=(world, port, *args), nprocs=world, join=False)
+    ctx.deadline, ctx.timeout_s = time.monotonic() + timeout_s, timeout_s
+    ctx.what = f"{world} ranks of {fn.__name__}"
+    return ctx
+
+
+def join_ranks(ctx) -> None:
+    """Waits for the processes ``start_ranks`` began; raises when one fails,
+    or kills them all and raises when they outlast their timeout."""
+    while not ctx.join(timeout=1):
+        if time.monotonic() > ctx.deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise TimeoutError(f"{ctx.what} did not finish in {ctx.timeout_s} s")
+
+
+def spawn_ranks(fn, world: int, *args, timeout_s: float = 300.0) -> None:
+    """``start_ranks`` and ``join_ranks``: runs ``fn(rank, world, port,
+    *args)`` in ``world`` processes to their end."""
+    join_ranks(start_ranks(fn, world, *args, timeout_s=timeout_s))
 
 
 def batch_sharding(mesh, dim: int = 0) -> tuple:

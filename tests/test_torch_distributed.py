@@ -1,6 +1,7 @@
 """The port's parallel training over process groups: 2 or 4 processes on
 the CPU with torch.distributed's gloo backend (workers in
-tests/torch_dist_workers.py, each spawn with a timeout, ports from the OS).
+tests/torch_dist_workers.py, each spawn by parallel.spawn_ranks with a
+timeout, ports from the OS).
 
 * ring attention over an sp group and the pipeline over a pipe group equal
   the one-process transports on the same numbers (atol 1e-6);
@@ -33,6 +34,7 @@ from spatialvla_tpu.train import train_step as jts
 from spatialvla_tpu.train.metrics import build_decode_luts as j_luts
 from spatialvla_tpu.utils.tree import path_str
 from spatialvla_tpu_torch.convert import from_numpy_tree
+from spatialvla_tpu_torch.parallel import spawn_ranks
 from spatialvla_tpu_torch.train import (OptimizerConfig, init_train_state, make_optimizer,
                                         trainable_mask)
 from spatialvla_tpu_torch.train.checkpoints import CheckpointManager
@@ -53,7 +55,7 @@ TRANSPORTS = [((1, 1, 1, 2, 1), 2), ((1, 1, 1, 1, 2), 2), ((2, 1, 1, 2, 1), 4)]
 
 @pytest.mark.parametrize("shape, world", TRANSPORTS, ids=["sp2", "pipe2", "data2-sp2"])
 def test_process_group_transports_match_one_process(shape, world, tmp_path):
-    workers.spawn(workers.transports, world, shape, str(tmp_path))
+    spawn_ranks(workers.transports, world, shape, str(tmp_path))
     for r in _read(tmp_path, world):
         for key, diffs in r.items():
             assert max(diffs) <= 1e-6, (key, diffs)
@@ -119,7 +121,7 @@ def _run(name, reference, tmp_path_factory):
         inputs = os.path.join(out, "inputs.pkl")
         with open(inputs, "wb") as f:
             pickle.dump((reference[0], reference[1], OCFG), f)
-        workers.spawn(workers.train_steps, world, shape, backend, inputs, str(out))
+        spawn_ranks(workers.train_steps, world, shape, backend, inputs, str(out))
         _RUNS[name] = (out, _read(out, world))
     return _RUNS[name]
 
@@ -179,7 +181,7 @@ def test_pretrain_cli_on_two_processes(tmp_path):
             "--model_preset", "spatialvla_tiny", "--image_size", "56", "--seq_len", "80",
             "--max_steps", "2", "--per_device_batch_size", "2", "--shuffle_buffer_size", "4",
             "--logging_steps", "1", "--learning_rate", "1e-3", "--device", "cpu"]
-    workers.spawn(workers.pretrain_cli, 2, argv, str(tmp_path))
+    spawn_ranks(workers.pretrain_cli, 2, argv, str(tmp_path))
     ranks = _read(tmp_path, 2)
     assert [r["step"] for r in ranks] == [2, 2]
     logged = [[{k: v for k, v in m.items() if k != "steps_per_sec"} for m in r["metrics"]]

@@ -21,7 +21,9 @@ reports which jax, optax, safetensors and spatialvla_tpu modules are loaded.
 No ``import`` or ``from`` in the port, chip_smoke.py, or the port's scripts
 (quantize_checkpoint_torch, serve_torch, bench_serve_torch,
 run_simpler_eval_torch, run_libero_eval_torch, eval_quant_torch and the
-seven front ends above) names the JAX package or safetensors."""
+seven front ends above), the entry points (graft_entry_torch.py) or the front
+profiler (profile_front_torch), which the child also loads, names the JAX
+package or safetensors."""
 import ast
 import json
 import os
@@ -143,6 +145,14 @@ for name in ("bench_train_torch", "bench_data_torch", "fit_gaussian_torch",
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     front_ends.append(callable(mod.main))
+# the entry points and the front profiler
+import graft_entry_torch
+spec = importlib.util.spec_from_file_location("profile_front_torch",
+                                              os.path.join("scripts", "profile_front_torch.py"))
+profile_front = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(profile_front)
+entry_surfaces = [callable(graft_entry_torch.entry), callable(graft_entry_torch.dryrun_multichip),
+                   callable(profile_front.main)]
 print(json.dumps({
     "modules": mods,
     "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))),
@@ -169,6 +179,7 @@ print(json.dumps({
     "decode_path": native.decode_path(),
     "cli_step": cli["step"],
     "front_ends": front_ends,
+    "entry_surfaces": entry_surfaces,
     "profiling": [profiling.timeit.__name__, profiling.sync.__name__, profiling.trace.__name__],
 }))
 """
@@ -203,6 +214,8 @@ def test_port_imports_no_jax(child):
     # the RLDS fixture through the pretrain CLI without PIL, by the native reader
     assert child["decode_path"] in ("libjpeg", "nvjpeg") and child["cli_step"] == 1
     assert child["front_ends"] == [True] * 7 and len(child["profiling"]) == 3
+    # graft_entry_torch.py and scripts/profile_front_torch.py load without jax
+    assert child["entry_surfaces"] == [True] * 3
 
 
 def _imported_names(path):
@@ -219,7 +232,8 @@ def test_no_import_names_the_jax_package():
         "quantize_checkpoint_torch", "serve_torch", "bench_serve_torch", "run_simpler_eval_torch",
         "run_libero_eval_torch", "eval_quant_torch", "bench_train_torch", "bench_data_torch",
         "fit_gaussian_torch", "convert_checkpoint_torch", "export_hf_torch",
-        "make_rlds_fixture_torch", "trace_data_cli_torch")]
+        "make_rlds_fixture_torch", "trace_data_cli_torch", "profile_front_torch")] + [
+        Path(ROOT, "graft_entry_torch.py")]
     assert len(files) > 40
     assert {f.name for f in files if f.parent.name == "parallel"} == {
         "__init__.py", "mesh.py", "partitioning.py", "ring_attention.py", "pipeline.py"}

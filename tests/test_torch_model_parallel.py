@@ -52,7 +52,8 @@ from spatialvla_tpu.utils.tree import path_str
 from spatialvla_tpu_torch.convert import from_numpy_tree, to_numpy_tree
 from spatialvla_tpu_torch.models import spatialvla as tsv
 from spatialvla_tpu_torch.parallel import (LocalMesh, ShardCopy, ShardGather, ShardSum,
-                                           TensorShards, TrainShards)
+                                           TensorShards, TrainShards, join_ranks, spawn_ranks,
+                                           start_ranks)
 from spatialvla_tpu_torch.parallel.partitioning import ShardGroup
 from spatialvla_tpu_torch.train import (OptimizerConfig, TrainStepConfig, init_lora_train_state,
                                         init_train_state, make_lora_train_step, make_optimizer,
@@ -326,11 +327,11 @@ def _run(name, reference, tmp_path_factory):
             inputs = os.path.join(out, "inputs.pkl")
             with open(inputs, "wb") as f:
                 pickle.dump((reference["params"], reference["batches"], OCFG, *lora), f)
-            _RUNS[key] = (out, world, workers.start(workers.train_steps, world, shape, "flash",
-                                                    inputs, str(out)))
+            _RUNS[key] = (out, world, start_ranks(workers.train_steps, world, shape, "flash",
+                                                  inputs, str(out)))
     out, world, ctx = _RUNS[name]
     if ctx is not None:
-        workers.join(ctx)
+        join_ranks(ctx)
         _RUNS[name] = (out, world, None)
     return out, _read(out, world)
 
@@ -415,8 +416,8 @@ def test_model_axis_clis_in_one_process_and_on_two(tmp_path):
     assert CheckpointManager(os.path.join(one, "checkpoints")).all_steps() == [2]
 
     two = str(tmp_path / "two")
-    workers.spawn(workers.pretrain_cli, 2, ["--data_root_dir", data_dir, "--output_dir", two]
-                  + CLI, str(tmp_path))
+    spawn_ranks(workers.pretrain_cli, 2, ["--data_root_dir", data_dir, "--output_dir", two]
+                + CLI, str(tmp_path))
     ranks = _read(tmp_path, 2)
     assert [r["step"] for r in ranks] == [2, 2]
     assert ranks[0]["digests"] == ranks[1]["digests"]  # the same rows on both model ranks

@@ -36,7 +36,7 @@ import torch
 from spatialvla_tpu.train import lora as jlora
 from spatialvla_tpu_torch.convert import from_numpy_tree
 from spatialvla_tpu_torch.models import gemma2 as tg2
-from spatialvla_tpu_torch.parallel import LocalMesh, TensorShards
+from spatialvla_tpu_torch.parallel import LocalMesh, TensorShards, join_ranks, start_ranks
 from spatialvla_tpu_torch.parallel.partitioning import ShardGroup
 from spatialvla_tpu_torch.train import TrainStepConfig
 from tests import torch_dist_workers as workers
@@ -145,11 +145,11 @@ def _run(name, reference, tmp_path_factory):
             inputs = os.path.join(out, "inputs.pkl")
             with open(inputs, "wb") as f:
                 pickle.dump((reference["params"], reference["batches"], OCFG, *lora), f)
-            _RUNS[key] = (out, world, workers.start(workers.train_steps, world, shape, backend,
-                                                    inputs, str(out)))
+            _RUNS[key] = (out, world, start_ranks(workers.train_steps, world, shape, backend,
+                                                  inputs, str(out)))
     out, world, ctx = _RUNS[name]
     if ctx is not None:
-        workers.join(ctx)
+        join_ranks(ctx)
         _RUNS[name] = (out, world, None)
     return _read(out, world)
 

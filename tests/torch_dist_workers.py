@@ -4,46 +4,9 @@ so a spawned rank starts in a few seconds; results go to pickle files."""
 import hashlib
 import os
 import pickle
-import socket
-import time
 
 import numpy as np
 import torch
-
-SPAWN_TIMEOUT_S = 300  # a rendezvous that hangs fails the test instead of the run
-
-
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
-def start(fn, world: int, *args):
-    """Starts fn(rank, world, port, *args) in ``world`` processes; ``join``
-    waits for them."""
-    import torch.multiprocessing as mp
-
-    ctx = mp.spawn(fn, args=(world, free_port(), *args), nprocs=world, join=False)
-    ctx.deadline, ctx.what = time.monotonic() + SPAWN_TIMEOUT_S, f"{world} ranks of {fn.__name__}"
-    return ctx
-
-
-def join(ctx):
-    """Waits for the processes ``start`` began; raises if one fails or they
-    outlast SPAWN_TIMEOUT_S from their start."""
-    while not ctx.join(timeout=5):
-        if time.monotonic() > ctx.deadline:
-            for p in ctx.processes:
-                p.kill()
-            raise TimeoutError(f"{ctx.what} did not finish in {SPAWN_TIMEOUT_S} s")
-
-
-def spawn(fn, world: int, *args):
-    """Runs fn(rank, world, port, *args) in ``world`` processes; raises if
-    one fails or they outlast SPAWN_TIMEOUT_S."""
-    join(start(fn, world, *args))
-
 
 def _init(rank, world, port, shape):
     from spatialvla_tpu_torch.parallel import MeshConfig, initialize_distributed, make_mesh
